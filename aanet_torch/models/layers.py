@@ -1,0 +1,224 @@
+"""Shared building blocks (aanet_tpu/models/layers.py) as NCHW ``nn.Module``s.
+
+Submodules carry the names of the flax modules' path segments (``Conv_0``,
+``Norm_1``, ``ZeroNorm_0``, ``DeformConv2dLayer_0``, ``offset_conv``, ...),
+and the ``Conv`` and ``Norm`` wrappers hold their layer under the name the
+flax wrapper gives its inner module (``Conv_0``, ``BatchNorm_0``). A flax
+parameter path then maps onto a state_dict key segment for segment
+(``aanet_torch/convert.py``).
+
+Inference runs BatchNorm in eval mode (``model.eval()``): running
+statistics, eps 1e-5; momentum 0.1 is flax's 0.9.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from aanet_torch.ops import deform as deform_ops
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    return F.leaky_relu(x, negative_slope=0.2)
+
+
+class Conv(nn.Module):
+    """A Conv2d with torch padding arithmetic, no bias by default."""
+
+    def __init__(self, cin, cout, kernel_size=3, stride=1, padding=0, dilation=1,
+                 groups=1, bias=False):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(cin, cout, kernel_size, stride, padding, dilation,
+                                groups, bias=bias)
+        nn.init.kaiming_normal_(self.Conv_0.weight, mode="fan_out", nonlinearity="relu")
+
+    def forward(self, x):
+        return self.Conv_0(x)
+
+
+class Norm(nn.Module):
+    """BatchNorm2d with torch defaults (eps 1e-5, momentum 0.1)."""
+
+    def __init__(self, channels, zero_init=False):
+        super().__init__()
+        self.BatchNorm_0 = nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+        if zero_init:  # ZeroNorm: zero-init residual branch (nets/resnet.py:146-151)
+            nn.init.zeros_(self.BatchNorm_0.weight)
+
+    def forward(self, x):
+        return self.BatchNorm_0(x)
+
+
+class DeformConv2dLayer(nn.Module):
+    """A (modulated) deformable conv with its grouped offset head
+    (``layers.py:247-325``; reference nets/deform.py:17-97).
+
+    ``offset_conv`` yields G*3*K^2 channels: offsets ``[:, :2*G*K^2]`` in the
+    (g, k, (dy, dx)) order, then mask logits in the (g, k) order; the mask is
+    sigmoid, times 2 under ``double_mask``. ``offset_conv`` starts at zero,
+    so a fresh layer is a plain dilated conv.
+    """
+
+    def __init__(self, cin, cout, kernel_size=3, stride=1, dilation=2,
+                 deformable_groups=2, modulation=True, double_mask=True, bias=False):
+        super().__init__()
+        k2 = kernel_size * kernel_size
+        self.stride, self.dilation = stride, dilation
+        self.groups, self.modulation, self.double_mask = deformable_groups, modulation, double_mask
+        self.n_offset = deformable_groups * 2 * k2
+        per = 3 if modulation else 2
+        self.offset_conv = nn.Conv2d(
+            cin, deformable_groups * per * k2, kernel_size, stride, padding=dilation,
+            dilation=dilation, groups=deformable_groups, bias=True,
+        )
+        nn.init.zeros_(self.offset_conv.weight)
+        nn.init.zeros_(self.offset_conv.bias)
+        self.weight = nn.Parameter(torch.empty(cout, cin, kernel_size, kernel_size))
+        nn.init.kaiming_normal_(self.weight, mode="fan_out", nonlinearity="relu")
+        self.bias: Optional[nn.Parameter] = nn.Parameter(torch.zeros(cout)) if bias else None
+
+    def forward(self, x):
+        offset_mask = self.offset_conv(x)
+        mask = None
+        if self.modulation:
+            mask = torch.sigmoid(offset_mask[:, self.n_offset:])
+            if self.double_mask:
+                mask = mask * 2.0
+            offset_mask = offset_mask[:, : self.n_offset]
+        return deform_ops.modulated_deform_conv2d(
+            x, offset_mask, mask, self.weight, self.bias, stride=self.stride,
+            padding=self.dilation, dilation=self.dilation, deformable_groups=self.groups,
+        )
+
+
+class BasicBlock(nn.Module):
+    """Two-conv residual block (reference nets/feature.py:42-76), dense
+    layout. The JAX package's space-to-depth execution of it is the same
+    math and the same parameters."""
+
+    def __init__(self, cin, features, stride=1, dilation=1, leaky=True, downsample=False):
+        super().__init__()
+        self.act = leaky_relu if leaky else F.relu
+        self.Conv_0 = Conv(cin, features, 3, stride, dilation, dilation)
+        self.Norm_0 = Norm(features)
+        self.Conv_1 = Conv(features, features, 3, 1, dilation, dilation)
+        self.Norm_1 = Norm(features)
+        self.has_identity = downsample or stride != 1 or cin != features
+        if self.has_identity:
+            self.Conv_2 = Conv(cin, features, 1, stride)
+            self.Norm_2 = Norm(features)
+
+    def forward(self, x):
+        out = self.act(self.Norm_0(self.Conv_0(x)))
+        out = self.Norm_1(self.Conv_1(out))
+        identity = self.Norm_2(self.Conv_2(x)) if self.has_identity else x
+        return self.act(out + identity)
+
+
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 -> 1x1 (x4) residual bottleneck with zero-init last BN
+    (reference nets/resnet.py:58-99)."""
+
+    def __init__(self, cin, planes, stride=1, dilation=1, downsample=False, expansion=4):
+        super().__init__()
+        out_ch = planes * expansion
+        self.Conv_0 = Conv(cin, planes, 1)
+        self.Norm_0 = Norm(planes)
+        self.Conv_1 = Conv(planes, planes, 3, stride, dilation, dilation)
+        self.Norm_1 = Norm(planes)
+        self.Conv_2 = Conv(planes, out_ch, 1)
+        self.ZeroNorm_0 = Norm(out_ch, zero_init=True)
+        self.has_identity = downsample or stride != 1 or cin != out_ch
+        if self.has_identity:
+            self.Conv_3 = Conv(cin, out_ch, 1, stride)
+            self.Norm_2 = Norm(out_ch)
+
+    def forward(self, x):
+        out = F.relu(self.Norm_0(self.Conv_0(x)))
+        out = F.relu(self.Norm_1(self.Conv_1(out)))
+        out = self.ZeroNorm_0(self.Conv_2(out))
+        identity = self.Norm_2(self.Conv_3(x)) if self.has_identity else x
+        return F.relu(out + identity)
+
+
+class DeformBottleneck(nn.Module):
+    """Bottleneck whose 3x3 is a modulated deformable conv (dilation 2,
+    reference nets/deform.py:100-141)."""
+
+    def __init__(self, cin, planes, stride=1, downsample=False, expansion=4):
+        super().__init__()
+        out_ch = planes * expansion
+        self.Conv_0 = Conv(cin, planes, 1)
+        self.Norm_0 = Norm(planes)
+        self.DeformConv2dLayer_0 = DeformConv2dLayer(planes, planes, stride=stride)
+        self.Norm_1 = Norm(planes)
+        self.Conv_1 = Conv(planes, out_ch, 1)
+        self.ZeroNorm_0 = Norm(out_ch, zero_init=True)
+        self.has_identity = downsample or stride != 1 or cin != out_ch
+        if self.has_identity:
+            self.Conv_2 = Conv(cin, out_ch, 1, stride)
+            self.Norm_2 = Norm(out_ch)
+
+    def forward(self, x):
+        out = F.relu(self.Norm_0(self.Conv_0(x)))
+        out = F.relu(self.Norm_1(self.DeformConv2dLayer_0(out)))
+        out = self.ZeroNorm_0(self.Conv_1(out))
+        identity = self.Norm_2(self.Conv_2(x)) if self.has_identity else x
+        return F.relu(out + identity)
+
+
+class SimpleBottleneck(nn.Module):
+    """Bottleneck without channel expansion (reference nets/deform.py:144)."""
+
+    def __init__(self, cin, planes, stride=1):
+        super().__init__()
+        self.Conv_0 = Conv(cin, planes, 1)
+        self.Norm_0 = Norm(planes)
+        self.Conv_1 = Conv(planes, planes, 3, stride, 1)
+        self.Norm_1 = Norm(planes)
+        self.Conv_2 = Conv(planes, planes, 1)
+        self.Norm_2 = Norm(planes)
+        self.has_identity = stride != 1 or cin != planes
+        if self.has_identity:
+            self.Conv_3 = Conv(cin, planes, 1, stride)
+            self.Norm_3 = Norm(planes)
+
+    def forward(self, x):
+        out = F.relu(self.Norm_0(self.Conv_0(x)))
+        out = F.relu(self.Norm_1(self.Conv_1(out)))
+        out = self.Norm_2(self.Conv_2(out))
+        identity = self.Norm_3(self.Conv_3(x)) if self.has_identity else x
+        return F.relu(out + identity)
+
+
+class DeformSimpleBottleneck(nn.Module):
+    """Simple bottleneck with a modulated deformable 3x3: the ISA block
+    (reference nets/deform.py:187-236)."""
+
+    def __init__(self, cin, planes, stride=1, mdconv_dilation=2, deformable_groups=2,
+                 modulation=True, double_mask=True):
+        super().__init__()
+        self.Conv_0 = Conv(cin, planes, 1)
+        self.Norm_0 = Norm(planes)
+        self.DeformConv2dLayer_0 = DeformConv2dLayer(
+            planes, planes, stride=stride, dilation=mdconv_dilation,
+            deformable_groups=deformable_groups, modulation=modulation,
+            double_mask=double_mask,
+        )
+        self.Norm_1 = Norm(planes)
+        self.Conv_1 = Conv(planes, planes, 1)
+        self.Norm_2 = Norm(planes)
+        self.has_identity = stride != 1 or cin != planes
+        if self.has_identity:
+            self.Conv_2 = Conv(cin, planes, 1, stride)
+            self.Norm_3 = Norm(planes)
+
+    def forward(self, x):
+        out = F.relu(self.Norm_0(self.Conv_0(x)))
+        out = F.relu(self.Norm_1(self.DeformConv2dLayer_0(out)))
+        out = self.Norm_2(self.Conv_1(out))
+        identity = self.Norm_3(self.Conv_2(x)) if self.has_identity else x
+        return F.relu(out + identity)

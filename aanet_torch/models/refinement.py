@@ -1,0 +1,56 @@
+"""StereoDRNet disparity refinement (aanet_tpu/models/refinement.py:98-147).
+
+Upsamples the incoming low-resolution disparity to the image resolution
+(values rescaled by the width ratio), warps the right image by it, and
+predicts a residual from the photometric error, the left image and the
+disparity; the result is clamped at zero. The convs run dense; the JAX
+package's space-to-depth execution of the same head is the same math with
+the same parameters.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from aanet_torch.models.layers import BasicBlock, Conv, Norm, leaky_relu
+from aanet_torch.ops import warp as warp_ops
+from aanet_torch.ops.resize import resize_bilinear
+
+_DILATIONS = (1, 2, 4, 8, 1, 1)
+
+
+def _upsample_to_img(low_disp: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
+    """[B, h, w] -> [B, 1, H, W] scaled by W / w (``refinement.py:57-64``)."""
+    h, w = img.shape[2:]
+    scale = w / low_disp.shape[2]
+    disp = low_disp.unsqueeze(1)
+    if scale != 1.0:
+        disp = resize_bilinear(disp, (h, w)) * scale
+    return disp
+
+
+class StereoDRNetRefinement(nn.Module):
+    """Warp-error-driven refinement (reference nets/refinement.py:60-106)."""
+
+    def __init__(self):
+        super().__init__()
+        self.Conv_0 = Conv(6, 16, 3, 1, 1)
+        self.Norm_0 = Norm(16)
+        self.Conv_1 = Conv(1, 16, 3, 1, 1)
+        self.Norm_1 = Norm(16)
+        for k, d in enumerate(_DILATIONS):
+            self.add_module(f"BasicBlock_{k}", BasicBlock(32, 32, dilation=d, leaky=True))
+        self.Conv_2 = Conv(32, 1, 3, 1, 1, bias=True)
+        nn.init.normal_(self.Conv_2.Conv_0.weight, std=(1.0 / (32 * 9)) ** 0.5)  # lecun normal
+
+    def forward(self, low_disp, left_img, right_img):
+        disp = _upsample_to_img(low_disp, left_img)
+        warped_right = warp_ops.disp_warp(right_img, disp[:, 0])[0]
+        error = warped_right - left_img
+        conv1 = leaky_relu(self.Norm_0(self.Conv_0(torch.cat([error, left_img], 1))))
+        conv2 = leaky_relu(self.Norm_1(self.Conv_1(disp)))
+        x = torch.cat([conv1, conv2], 1)
+        for k in range(len(_DILATIONS)):
+            x = getattr(self, f"BasicBlock_{k}")(x)
+        return F.relu(disp + self.Conv_2(x))[:, 0]
