@@ -1,11 +1,19 @@
-"""Command-line entry point of the PyTorch port:
+"""Command-line entry points of the PyTorch port:
 
+  python -m aanet_torch.cli train --preset aanet --data_dir data/SceneFlow \\
+      --checkpoint_dir runs/aanet [--recipe aanet_sceneflow] [--device cuda|cpu]
   python -m aanet_torch.cli predict --preset aanet --data_dir pairs/ \\
       [--pretrained weights.pt] [--device cuda|cpu]
 
-``pairs/`` holds ``left/*.png`` and ``right/`` with the same names. The
-weights are a torch state_dict file (``aanet_torch.convert`` maps a flax
-checkpoint's trees onto one). Float32 convolutions and matmuls run in full
+``train`` takes the JAX CLI's flags (aanet_tpu/cli.py:94-203) for what the
+port runs: the ``aanet`` preset's model flags, the data flags, and the
+training flags without resume, periodic checkpoints and summaries. It
+writes ``aanet_latest.pt`` after every epoch and ``aanet_best.pt`` on the
+best validation. ``predict`` reads ``left/*.png`` and ``right/`` with the
+same names under ``--data_dir``; the weights are a torch state_dict file
+or a training checkpoint (``aanet_torch.convert`` maps a flax
+checkpoint's trees onto a state_dict). Both default to ``--device cuda``
+and raise without a GPU. Float32 convolutions and matmuls run in full
 float32 (TF32 off), as the JAX package's float32 mode does.
 """
 from __future__ import annotations
@@ -13,10 +21,106 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import logging
+import os
+import sys
 
 import torch
 
-from aanet_torch.config import preset
+from aanet_torch.config import Config, DataConfig, TrainConfig, preset, recipe
+
+_MODEL_FLAGS = {
+    "max_disp": int, "num_fusions": int, "num_stage_blocks": int, "num_deform_blocks": int,
+    "mdconv_dilation": int, "deformable_groups": int,
+}
+_DATA_FLAGS = {
+    "data_dir": str, "dataset_name": str, "mode": str, "split_preset": str, "filename_root": str,
+    "batch_size": int, "val_batch_size": int, "img_height": int, "img_width": int,
+    "val_img_height": int, "val_img_width": int, "num_workers": int,
+}
+_TRAIN_FLAGS = {
+    "checkpoint_dir": str, "seed": int, "learning_rate": float, "weight_decay": float,
+    "lr_decay_gamma": float, "milestones": str, "max_epoch": int, "accumulation_steps": int,
+    "val_metric": str, "print_freq": int, "pretrained": str,
+}
+_TRAIN_SWITCHES = ("freeze_bn", "highest_loss_only", "no_validate", "load_pseudo_gt", "strict")
+
+
+def _add_device(p):
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (default; raises without a GPU) or 'cpu'")
+
+
+def build_config(args) -> Config:
+    """Recipe or preset defaults, then every flag given on the command line
+    (aanet_tpu/cli.py:170-203)."""
+    if args.recipe:
+        cfg = recipe(args.recipe)
+        if args.preset:
+            cfg.model = preset(args.preset)
+    else:
+        cfg = Config(model=preset(args.preset or "aanet"), data=DataConfig(), train=TrainConfig())
+    for section, flags in ((cfg.model, _MODEL_FLAGS), (cfg.data, _DATA_FLAGS), (cfg.train, _TRAIN_FLAGS)):
+        for name in flags:
+            if getattr(args, name) is not None:
+                setattr(section, name, getattr(args, name))
+    if args.no_feature_mdconv is not None:
+        cfg.model.no_feature_mdconv = args.no_feature_mdconv
+    if args.no_remat:
+        cfg.model.remat = False
+    for name in _TRAIN_SWITCHES:
+        value = getattr(args, name)
+        if value is None:
+            continue
+        if name == "load_pseudo_gt":
+            cfg.data.load_pseudo_gt = value
+        else:
+            setattr(cfg.train, "strict_load" if name == "strict" else name, value)
+    if isinstance(cfg.train.milestones, str):
+        cfg.train.milestones = tuple(int(m) for m in cfg.train.milestones.split(","))
+    return cfg
+
+
+def cmd_train(args):
+    from aanet_torch.data.datasets import StereoDataset
+    from aanet_torch.data.pipeline import make_train_loader, make_val_loader
+    from aanet_torch.data.transforms import train_transform, val_transform
+    from aanet_torch.train.trainer import Trainer, get_logger
+
+    cfg = build_config(args)
+    os.makedirs(cfg.train.checkpoint_dir, exist_ok=True)
+    with open(os.path.join(cfg.train.checkpoint_dir, "args.json"), "w") as f:
+        f.write(cfg.to_json())
+    with open(os.path.join(cfg.train.checkpoint_dir, "command_train.txt"), "a") as f:
+        f.write(" ".join(sys.argv) + "\n")
+    logger = get_logger(os.path.join(cfg.train.checkpoint_dir, "trainLog.txt"))
+    logger.info("config:\n" + cfg.to_json())
+
+    d, t = cfg.data, cfg.train
+    train_ds = StereoDataset(
+        d.data_dir, d.dataset_name, mode="train_all" if d.mode == "train_all" else "train",
+        split_preset=d.split_preset, filename_root=d.filename_root,
+        load_pseudo_gt=d.load_pseudo_gt, save_filename=False,
+        transform=train_transform(d.img_height, d.img_width, center_crop=d.split_preset == "overfit"),
+    )
+    val_ds = None
+    if not t.no_validate:
+        val_ds = StereoDataset(
+            d.data_dir, d.dataset_name, mode="val", split_preset=d.split_preset,
+            filename_root=d.filename_root, save_filename=False,
+            transform=val_transform(d.val_img_height, d.val_img_width),
+        )
+    logger.info(f"{len(train_ds)} train / {len(val_ds) if val_ds else 0} val samples")
+
+    global_batch = d.batch_size * max(1, t.accumulation_steps)
+    trainer = Trainer(cfg, len(train_ds) // global_batch, logger=logger, device=args.device)
+    for epoch in range(trainer.epoch, t.max_epoch):
+        means = trainer.train_epoch(
+            make_train_loader(train_ds, global_batch, epoch, seed=t.seed, num_workers=d.num_workers)
+        )
+        logger.info(f"epoch {trainer.epoch} train means: {means}")
+        if val_ds is not None:
+            trainer.validate(make_val_loader(val_ds, d.val_batch_size, d.num_workers))
+    logger.info("training done")
 
 
 def cmd_predict(args):
@@ -34,17 +138,32 @@ def cmd_predict(args):
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="aanet_torch")
     sub = parser.add_subparsers(dest="command", required=True)
+
+    t = sub.add_parser("train", help="train the network on a filename-list dataset")
+    t.add_argument("--preset", default=None, help="model preset (the port runs 'aanet')")
+    t.add_argument("--recipe", default=None,
+                   help="a training stage of config.RUN_RECIPES, e.g. aanet_sceneflow")
+    bool_flag = dict(action=argparse.BooleanOptionalAction, default=None)
+    for name, kind in {**_MODEL_FLAGS, **_DATA_FLAGS, **_TRAIN_FLAGS}.items():
+        t.add_argument(f"--{name}", type=kind, default=None)
+    t.add_argument("--no_feature_mdconv", **bool_flag)
+    for name in _TRAIN_SWITCHES:
+        t.add_argument(f"--{name}", **bool_flag)
+    t.add_argument("--no_remat", action="store_true",
+                   help="keep every training activation (more memory, no recomputation)")
+    _add_device(t)
+    t.set_defaults(fn=cmd_train)
+
     p = sub.add_parser("predict", help="predict disparities of rectified pairs")
     p.add_argument("--preset", default="aanet")
     p.add_argument("--max_disp", type=int, default=None,
                    help="override the preset's max_disp (as the weights were trained)")
     p.add_argument("--data_dir", required=True)
     p.add_argument("--output_dir", default=None)
-    p.add_argument("--pretrained", default=None, help="torch state_dict file")
+    p.add_argument("--pretrained", default=None, help="torch state_dict or training checkpoint")
     p.add_argument("--save_type", default="png", choices=["png", "pfm", "npy"])
     p.add_argument("--visualize", action="store_true")
-    p.add_argument("--device", default="cuda",
-                   help="'cuda' (default; raises without a GPU) or 'cpu'")
+    _add_device(p)
     p.set_defaults(fn=cmd_predict)
     args = parser.parse_args(argv)
 

@@ -1,15 +1,17 @@
-"""Model configuration: the ``ModelConfig`` dataclass and its named presets.
+"""Run configuration: ``ModelConfig`` and its named presets, ``DataConfig``,
+``TrainConfig``, ``Config`` and the training recipes.
 
-An own copy of ``aanet_tpu/config.py:15-153`` (the port imports nothing of
-the JAX package). ``ModelConfig.build`` constructs the port's network and
+An own copy of ``aanet_tpu/config.py`` (the port imports nothing of the
+JAX package). ``ModelConfig.build`` constructs the port's network and
 raises ``NotImplementedError`` for every preset or flag the port does not
-run yet: it runs the ``aanet`` preset's inference forward in float32.
+run yet: it runs the ``aanet`` preset in float32, inference and training.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
-from typing import Optional
+import json
+from dataclasses import dataclass, field
+from typing import Optional, Sequence
 
 
 @dataclass
@@ -34,7 +36,8 @@ class ModelConfig:
     deformable_groups: int = 2
     # compute dtype ('float32' | 'bfloat16'); None is float32
     dtype: Optional[str] = None
-    # training-time activation rematerialisation; inference ignores it
+    # training-time activation checkpointing (torch.utils.checkpoint per
+    # feature pass, per AAModule and per refinement); inference ignores it
     remat: bool = True
 
     def build(self):
@@ -71,6 +74,7 @@ class ModelConfig:
             mdconv_dilation=self.mdconv_dilation,
             deformable_groups=self.deformable_groups,
             feature_mdconv=not self.no_feature_mdconv,
+            remat=self.remat,
         )
 
 
@@ -111,3 +115,110 @@ def preset(name: str) -> ModelConfig:
     if name not in MODEL_PRESETS:
         raise KeyError(f"unknown preset {name!r}; have {sorted(MODEL_PRESETS)}")
     return dataclasses.replace(MODEL_PRESETS[name])
+
+
+@dataclass
+class DataConfig:
+    data_dir: str = "data/SceneFlow"
+    dataset_name: str = "SceneFlow"  # SceneFlow | KITTI2012 | KITTI2015 | KITTI_mix
+    mode: str = "val"  # train | train_all | val | test
+    split_preset: str = "full"  # debug | overfit | subset_{N} | full
+    filename_root: Optional[str] = None  # dir holding the filename lists
+    batch_size: int = 64
+    val_batch_size: int = 64
+    img_height: int = 288
+    img_width: int = 576
+    val_img_height: int = 576
+    val_img_width: int = 960
+    num_workers: int = 8
+    load_pseudo_gt: bool = False
+
+
+@dataclass
+class TrainConfig:
+    checkpoint_dir: str = "checkpoints/run"
+    seed: int = 326
+    learning_rate: float = 1e-3
+    weight_decay: float = 1e-4
+    offset_lr_mult: float = 0.1  # offset_conv params x0.1 (train.py:209)
+    lr_decay_gamma: float = 0.5
+    milestones: Sequence[int] = (20, 30, 40, 50, 60)  # epochs
+    max_epoch: int = 64
+    accumulation_steps: int = 1
+    freeze_bn: bool = False
+    highest_loss_only: bool = False
+    val_metric: str = "epe"  # epe | d1
+    print_freq: int = 50
+    no_validate: bool = False
+    # non-strict pretrained loading by default, like the reference
+    strict_load: bool = False
+    pretrained: Optional[str] = None
+
+
+@dataclass
+class Config:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+
+def _recipe(stage: str) -> Config:
+    """The reference's staged training pipeline for AANet
+    (scripts/aanet_train.sh; aanet_tpu/config.py:164-225)."""
+    model = preset("aanet")
+    if stage == "sceneflow":
+        data = DataConfig(
+            dataset_name="SceneFlow", mode="val", batch_size=64, val_batch_size=64,
+            img_height=288, img_width=576, val_img_height=576, val_img_width=960,
+        )
+        train = TrainConfig(
+            checkpoint_dir="checkpoints/aanet_sceneflow",
+            learning_rate=1e-3, milestones=(20, 30, 40, 50, 60), max_epoch=64,
+        )
+    elif stage == "kittimix":
+        data = DataConfig(
+            data_dir="data/KITTI", dataset_name="KITTI_mix", mode="train",
+            batch_size=6, val_batch_size=8, img_height=336, img_width=960,
+            val_img_height=384, val_img_width=1248, load_pseudo_gt=True,
+        )
+        train = TrainConfig(
+            checkpoint_dir="checkpoints/aanet_kittimix",
+            pretrained="checkpoints/aanet_sceneflow/aanet_best.pt",
+            learning_rate=1e-3, milestones=(400, 600, 800, 900),
+            max_epoch=1000, no_validate=True,
+        )
+    elif stage in ("kitti15", "kitti12"):
+        k15 = stage == "kitti15"
+        data = DataConfig(
+            data_dir=(
+                "data/KITTI/kitti_2015/data_scene_flow"
+                if k15 else "data/KITTI/kitti_2012/data_stereo_flow"
+            ),
+            dataset_name="KITTI2015" if k15 else "KITTI2012",
+            mode="train_all", batch_size=6, val_batch_size=8,
+            img_height=384, img_width=1248, val_img_height=384, val_img_width=1248,
+            load_pseudo_gt=True,
+        )
+        train = TrainConfig(
+            checkpoint_dir=f"checkpoints/aanet_{stage}",
+            pretrained="checkpoints/aanet_kittimix/aanet_latest.pt",
+            learning_rate=1e-4, milestones=(400, 600, 800, 900),
+            max_epoch=1000, no_validate=True, highest_loss_only=True,
+        )
+    else:
+        raise KeyError(stage)
+    return Config(model=model, data=data, train=train)
+
+
+# the aanet+ stages of the JAX package wait for the AANet+ slice
+RUN_RECIPES = {f"aanet_{s}": s for s in ("sceneflow", "kittimix", "kitti15", "kitti12")}
+
+
+def recipe(name: str) -> Config:
+    """Full Config for a named training recipe (e.g. 'aanet_sceneflow')."""
+    if name not in RUN_RECIPES:
+        raise KeyError(f"unknown recipe {name!r}; have {sorted(RUN_RECIPES)}")
+    return _recipe(RUN_RECIPES[name])

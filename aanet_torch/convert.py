@@ -1,4 +1,4 @@
-"""Flax parameter trees -> a state_dict of the port's ``AANet``.
+"""Flax parameter trees <-> a state_dict of the port's ``AANet``.
 
 The port names its submodules after the flax path segments, so a flax
 leaf ``a/b/c/kernel`` is the state_dict entry ``a.b.c.weight``:
@@ -11,7 +11,9 @@ leaf ``a/b/c/kernel`` is the state_dict entry ``a.b.c.weight``:
 * biases unchanged.
 
 The inputs are nested dicts of numpy arrays, as ``jax.device_get`` gives
-them; the port reads no flax file itself.
+them; the port reads no flax file itself. ``flax_from_state_dict`` is the
+inverse map, for the port's trained state (writing a flax msgpack file
+from it is not ported yet).
 """
 from __future__ import annotations
 
@@ -52,3 +54,31 @@ def state_dict_from_flax(params, batch_stats) -> dict[str, torch.Tensor]:
         )
         state[".".join(mods + ["num_batches_tracked"])] = torch.tensor(0, dtype=torch.long)
     return state
+
+
+def flax_from_state_dict(state) -> tuple[dict, dict]:
+    """The inverse of ``state_dict_from_flax``: (params, batch_stats) as
+    nested dicts of numpy arrays. A 4-D ``weight`` is a conv kernel (OIHW
+    -> HWIO), a 1-D ``weight`` a BatchNorm scale; ``num_batches_tracked``
+    has no flax counterpart and is dropped."""
+    params: dict = {}
+    batch_stats: dict = {}
+    for key, value in state.items():
+        *mods, name = key.split(".")
+        arr = value.detach().cpu().numpy().astype(np.float32)
+        if name == "num_batches_tracked":
+            continue
+        if name in ("running_mean", "running_var"):
+            tree, leaf = batch_stats, "mean" if name == "running_mean" else "var"
+        elif name == "weight":
+            tree, leaf = params, "kernel" if arr.ndim == 4 else "scale"
+            if arr.ndim == 4:
+                arr = np.ascontiguousarray(arr.transpose(2, 3, 1, 0))
+        elif name == "bias":
+            tree, leaf = params, "bias"
+        else:
+            raise KeyError(f"unexpected state_dict entry {key}")
+        for m in mods:
+            tree = tree.setdefault(m, {})
+        tree[leaf] = arr
+    return params, batch_stats

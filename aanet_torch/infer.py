@@ -51,15 +51,25 @@ def _pad_top_right(arr: np.ndarray, h: int, w: int) -> np.ndarray:
     return np.pad(arr, pads)
 
 
+def load_weights(path: str) -> dict:
+    """The model state_dict of a torch file: a state_dict itself, or a
+    training checkpoint (``aanet_torch.train.trainer``) holding it under
+    ``model``."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(state.get("model"), dict):
+        state = state["model"]
+    return state
+
+
 def load_model(cfg: ModelConfig, pretrained: Optional[str] = None, device="cuda"):
     """Build ``cfg``'s model in eval mode on ``device``; load a state_dict
     file (as written by ``torch.save`` of ``convert.state_dict_from_flax``
-    or of ``model.state_dict()``) when ``pretrained`` is given."""
+    or of ``model.state_dict()``), or a training checkpoint (its ``model``
+    entry), when ``pretrained`` is given."""
     dev = resolve_device(device)
     model = cfg.build()
     if pretrained:
-        state = torch.load(pretrained, map_location="cpu", weights_only=True)
-        model.load_state_dict(state, strict=True)
+        model.load_state_dict(load_weights(pretrained), strict=True)
     return model.to(dev).eval()
 
 

@@ -14,6 +14,7 @@ from aanet_torch.models.layers import (
     Norm,
     SimpleBottleneck,
     leaky_relu,
+    remat,
 )
 from aanet_torch.ops.resize import resize_bilinear
 
@@ -84,12 +85,13 @@ class AdaptiveAggregation(nn.Module):
     """``num_fusions`` AAModules, the last ``num_deform_blocks`` of them with
     deformable ISA, then per-scale final 1x1 convs (reference
     nets/aggregation.py:406-464). Returns the similarity volumes
-    [H/3, H/6, H/12], each [B, D_s, H_s, W_s]."""
+    [H/3, H/6, H/12], each [B, D_s, H_s, W_s]. With ``remat`` each AAModule
+    is checkpointed on its own in training (aggregation.py:134-137)."""
 
     def __init__(self, max_disp, num_scales=3, num_fusions=6, num_stage_blocks=1,
-                 num_deform_blocks=3, deformable_groups=2, mdconv_dilation=2):
+                 num_deform_blocks=3, deformable_groups=2, mdconv_dilation=2, remat=False):
         super().__init__()
-        self.num_fusions, self.num_scales = num_fusions, num_scales
+        self.num_fusions, self.num_scales, self.remat = num_fusions, num_scales, remat
         for i in range(num_fusions):
             self.add_module(f"fusion_{i}", AdaptiveAggregationModule(
                 num_scales=num_scales,
@@ -107,5 +109,6 @@ class AdaptiveAggregation(nn.Module):
     def forward(self, cost_volumes):
         x = list(cost_volumes)
         for i in range(self.num_fusions):
-            x = getattr(self, f"fusion_{i}")(x)
+            module = getattr(self, f"fusion_{i}")
+            x = remat(module, x) if self.remat and self.training else module(x)
         return [getattr(self, f"final_conv_{i}")(x[i]) for i in range(self.num_scales)]

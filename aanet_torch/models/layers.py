@@ -7,8 +7,17 @@ flax wrapper gives its inner module (``Conv_0``, ``BatchNorm_0``). A flax
 parameter path then maps onto a state_dict key segment for segment
 (``aanet_torch/convert.py``).
 
-Inference runs BatchNorm in eval mode (``model.eval()``): running
-statistics, eps 1e-5; momentum 0.1 is flax's 0.9.
+BatchNorm (``Norm``) follows flax's ``nn.BatchNorm`` (layers.py:168-206):
+eps 1e-5; in training the batch statistics normalise and the running
+statistics move by momentum 0.1 (flax's 0.9) towards the batch mean and
+the *biased* batch variance (torch's own BatchNorm would store the
+unbiased one). In eval mode, or when ``freeze_bn`` has put the BatchNorms
+in eval mode while the rest of the network trains (the reference's
+fine-tune protocol, layers.py:30-47), the running statistics normalise.
+
+``remat`` is the port's activation rematerialisation (flax ``nn.remat``):
+``torch.utils.checkpoint`` with the BatchNorm statistics updated only on
+the first, saved forward, never again when backward recomputes the block.
 """
 from __future__ import annotations
 
@@ -17,8 +26,44 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from aanet_torch.ops import deform as deform_ops
+
+BN_MOMENTUM = 0.1  # torch convention; flax's momentum 0.9
+# False while torch.utils.checkpoint recomputes a block in backward: the
+# block's BatchNorms then normalise as before but leave their statistics.
+_UPDATE_STATS = True
+
+
+def remat(fn, *args):
+    """``fn(*args)`` under activation checkpointing: only ``args`` are saved
+    and ``fn`` runs again in backward. Nested calls compose; BatchNorm
+    statistics update on the first forward only."""
+    calls = []
+
+    def run(*inner):
+        global _UPDATE_STATS
+        outer = _UPDATE_STATS
+        _UPDATE_STATS = outer and not calls
+        calls.append(None)
+        try:
+            return fn(*inner)
+        finally:
+            _UPDATE_STATS = outer
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def set_train_mode(model: nn.Module, freeze_bn: bool = False) -> nn.Module:
+    """``model.train()``, with every BatchNorm left in eval mode under
+    ``freeze_bn`` (running statistics, no updates)."""
+    model.train()
+    if freeze_bn:
+        for m in model.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                m.eval()
+    return model
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
@@ -40,16 +85,25 @@ class Conv(nn.Module):
 
 
 class Norm(nn.Module):
-    """BatchNorm2d with torch defaults (eps 1e-5, momentum 0.1)."""
+    """BatchNorm with flax's training semantics (module docstring)."""
 
     def __init__(self, channels, zero_init=False):
         super().__init__()
-        self.BatchNorm_0 = nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+        self.BatchNorm_0 = nn.BatchNorm2d(channels, eps=1e-5, momentum=BN_MOMENTUM)
         if zero_init:  # ZeroNorm: zero-init residual branch (nets/resnet.py:146-151)
             nn.init.zeros_(self.BatchNorm_0.weight)
 
     def forward(self, x):
-        return self.BatchNorm_0(x)
+        bn = self.BatchNorm_0
+        if not bn.training:
+            return bn(x)
+        if _UPDATE_STATS:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+                bn.running_mean.lerp_(mean, BN_MOMENTUM)
+                bn.running_var.lerp_(var, BN_MOMENTUM)
+                bn.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
 
 
 class DeformConv2dLayer(nn.Module):

@@ -5,7 +5,8 @@ Upsamples the incoming low-resolution disparity to the image resolution
 predicts a residual from the photometric error, the left image and the
 disparity; the result is clamped at zero. The convs run dense; the JAX
 package's space-to-depth execution of the same head is the same math with
-the same parameters.
+the same parameters. With ``remat`` each BasicBlock is checkpointed on its
+own in training (refinement.py:39-54).
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from aanet_torch.models.layers import BasicBlock, Conv, Norm, leaky_relu
+from aanet_torch.models.layers import BasicBlock, Conv, Norm, leaky_relu, remat
 from aanet_torch.ops import warp as warp_ops
 from aanet_torch.ops.resize import resize_bilinear
 
@@ -33,8 +34,9 @@ def _upsample_to_img(low_disp: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
 class StereoDRNetRefinement(nn.Module):
     """Warp-error-driven refinement (reference nets/refinement.py:60-106)."""
 
-    def __init__(self):
+    def __init__(self, remat=False):
         super().__init__()
+        self.remat = remat
         self.Conv_0 = Conv(6, 16, 3, 1, 1)
         self.Norm_0 = Norm(16)
         self.Conv_1 = Conv(1, 16, 3, 1, 1)
@@ -52,5 +54,6 @@ class StereoDRNetRefinement(nn.Module):
         conv2 = leaky_relu(self.Norm_1(self.Conv_1(disp)))
         x = torch.cat([conv1, conv2], 1)
         for k in range(len(_DILATIONS)):
-            x = getattr(self, f"BasicBlock_{k}")(x)
+            block = getattr(self, f"BasicBlock_{k}")
+            x = remat(block, x) if self.remat and self.training else block(x)
         return F.relu(disp + self.Conv_2(x))[:, 0]

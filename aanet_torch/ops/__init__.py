@@ -1,17 +1,28 @@
-"""Core ops. Each kernel op has a plain PyTorch twin (``*_plain``) in its
-module; the op runs the twin for CPU tensors and its CUDA kernel for CUDA
-tensors, and counts its kernel launches in ``<op>.launches``.
+"""Core ops. Each kernel op is a ``torch.autograd.Function`` whose forward
+and backward each have a plain PyTorch twin (``*_plain``) in its module;
+the op runs the twins for CPU tensors and its CUDA kernels for CUDA
+tensors. Every wrapper that launches a kernel counts its launches in
+``<wrapper>.launches``.
 
 Callers reach the ops through their modules (``deform.modulated_deform_conv2d``
 and so on), so a check can swap an op module's function for its twin.
 """
 from aanet_torch.ops import cost_volume, deform, resize, softargmin, warp
 
+# the differentiable ops the model calls (each launches its forward kernel)
 KERNEL_OPS = (
     deform.modulated_deform_conv2d,
     cost_volume.correlation_cost_volume,
     softargmin.soft_argmin,
     warp.disp_warp,
 )
+# the wrappers of the backward kernels, called by the ops' backward
+BACKWARD_OPS = (
+    deform.modulated_deform_conv2d_backward_data,
+    deform.modulated_deform_conv2d_backward_weight,
+    cost_volume.correlation_cost_volume_backward,
+    softargmin.soft_argmin_backward,
+    warp.disp_warp_backward,
+)
 
-__all__ = ["cost_volume", "deform", "resize", "softargmin", "warp", "KERNEL_OPS"]
+__all__ = ["cost_volume", "deform", "resize", "softargmin", "warp", "KERNEL_OPS", "BACKWARD_OPS"]

@@ -10,7 +10,15 @@ dilated convolution.
 Layouts follow the JAX package's channel orders in NCHW: x [B, Cin, H, W];
 offset [B, G*K*2, Ho, Wo] in the (g, k, (dy, dx)) order; mask
 [B, G*K, Ho, Wo] in the (g, k) order; weight [Cout, Cin, kh, kw] (OIHW).
-The CUDA kernel is ``csrc/deform_conv.cu``.
+
+The op is a ``torch.autograd.Function`` whose gradients for x, offset,
+mask, weight and bias match ``jax.grad`` of the JAX op. That includes one
+quirk of the JAX formulation: the fractional part of a sample position is
+``jnp.clip``-ed to [0, 1], and ``jax.grad`` of a clip at an exact tie is
+one half, so at an integer sample position (every position, at zero
+offsets) the offset gradient is half the one-sided derivative. The CUDA
+kernels are ``csrc/deform_conv.cu``: the forward, the input/offset/mask
+gradient and the weight gradient.
 """
 from __future__ import annotations
 
@@ -21,16 +29,65 @@ import torch
 
 from aanet_torch import _build
 
-MAX_GROUPS = 8  # deformable groups the kernel stages (csrc/deform_conv.cu)
+MAX_GROUPS = 8  # deformable groups the kernels stage (csrc/deform_conv.cu)
 
+_SHAPE_ARGS = [ctypes.c_int] * 14 + [ctypes.c_void_p]  # batch .. groups, device, stream
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
     ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-] + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+] + _SHAPE_ARGS
+_BWD_DATA_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p,
+] + _SHAPE_ARGS
+_BWD_WEIGHT_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+] + _SHAPE_ARGS
 
 
 def _out_size(size: int, k: int, stride: int, pad: int, dil: int) -> int:
     return (size + 2 * pad - (dil * (k - 1) + 1)) // stride + 1
+
+
+def _sampling(x, offset, mask, kh, kw, stride, padding, dilation, g):
+    """Bilinear sampling of every (batch, group, tap, output pixel): the
+    four corners' flat indices, in-image flags and weights, and the
+    derivatives of the weights by the sample position, with jnp.clip's
+    half gradient at an integer position."""
+    b, cin, h, w = x.shape
+    k2 = kh * kw
+    ho = _out_size(h, kh, stride, padding, dilation)
+    wo = _out_size(w, kw, stride, padding, dilation)
+    f = dict(dtype=torch.promote_types(x.dtype, torch.float32), device=x.device)
+    off = offset.reshape(b, g, k2, 2, ho, wo).to(f["dtype"])
+    ky = (torch.arange(kh, **f) * dilation).repeat_interleave(kw).view(1, 1, k2, 1, 1)
+    kx = (torch.arange(kw, **f) * dilation).repeat(kh).view(1, 1, k2, 1, 1)
+    py = (torch.arange(ho, **f) * stride - padding).view(1, 1, 1, ho, 1) + ky + off[:, :, :, 0]
+    px = (torch.arange(wo, **f) * stride - padding).view(1, 1, 1, 1, wo) + kx + off[:, :, :, 1]
+    y0, x0 = py.floor(), px.floor()
+    ly, lx = py - y0, px - x0
+    sy = torch.where(ly == 0, 0.5, 1.0).to(f["dtype"])
+    sx = torch.where(lx == 0, 0.5, 1.0).to(f["dtype"])
+    m = None if mask is None else mask.reshape(b, g, k2, ho, wo).to(f["dtype"])
+    corners = []
+    for cy, wy, dwy in ((0, 1.0 - ly, -sy), (1, ly, sy)):
+        for cx, wx, dwx in ((0, 1.0 - lx, -sx), (1, lx, sx)):
+            yy, xx = y0 + cy, x0 + cx
+            inside = (yy >= 0) & (yy <= h - 1) & (xx >= 0) & (xx <= w - 1)
+            idx = (yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)).long()
+            # weight, d weight / d py, d weight / d px
+            corners.append((idx, inside, wy * wx, dwy * wx, wy * dwx))
+    return corners, m, (ho, wo)
+
+
+def _gather(xg, idx, inside):
+    """x at the corner indices [b, g, cg, k2*ho*wo], zero outside."""
+    b, g, cg, _ = xg.shape
+    flat = idx.reshape(b, g, 1, -1)
+    vals = xg.gather(3, flat.expand(b, g, cg, flat.shape[-1]))
+    return vals * inside.reshape(b, g, 1, -1).to(vals.dtype)
 
 
 def modulated_deform_conv2d_plain(
@@ -50,37 +107,217 @@ def modulated_deform_conv2d_plain(
     b, cin, h, w = x.shape
     cout, _, kh, kw = weight.shape
     g = deformable_groups
-    k2 = kh * kw
-    ho = _out_size(h, kh, stride, padding, dilation)
-    wo = _out_size(w, kw, stride, padding, dilation)
-    f32 = dict(dtype=torch.float32, device=x.device)
-
-    off = offset.reshape(b, g, k2, 2, ho, wo).float()
-    ky = (torch.arange(kh, **f32) * dilation).repeat_interleave(kw).view(1, 1, k2, 1, 1)
-    kx = (torch.arange(kw, **f32) * dilation).repeat(kh).view(1, 1, k2, 1, 1)
-    py = (torch.arange(ho, **f32) * stride - padding).view(1, 1, 1, ho, 1) + ky + off[:, :, :, 0]
-    px = (torch.arange(wo, **f32) * stride - padding).view(1, 1, 1, 1, wo) + kx + off[:, :, :, 1]
-    y0, x0 = py.floor(), px.floor()
-    ly, lx = py - y0, px - x0
-    m = None if mask is None else mask.reshape(b, g, k2, ho, wo).float()
-
+    corners, m, (ho, wo) = _sampling(x, offset, mask, kh, kw, stride, padding, dilation, g)
     xg = x.reshape(b, g, cin // g, h * w)
-    zero = torch.zeros((), **f32)
     cols = 0.0
-    for dy, wy in ((0, 1.0 - ly), (1, ly)):
-        for dx, wx in ((0, 1.0 - lx), (1, lx)):
-            yy, xx = y0 + dy, x0 + dx
-            inside = (yy >= 0) & (yy <= h - 1) & (xx >= 0) & (xx <= w - 1)
-            wt = wy * wx if m is None else wy * wx * m
-            wt = torch.where(inside, wt, zero).view(b, g, 1, -1)
-            idx = (yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)).long()
-            idx = idx.view(b, g, 1, -1).expand(b, g, cin // g, -1)
-            cols = cols + xg.gather(3, idx) * wt
-    cols = cols.view(b, cin * k2, ho * wo)
-    out = torch.matmul(weight.reshape(cout, cin * k2), cols).view(b, cout, ho, wo)
+    for idx, inside, wt, _, _ in corners:
+        if m is not None:
+            wt = wt * m
+        cols = cols + _gather(xg, idx, inside) * wt.reshape(b, g, 1, -1)
+    cols = cols.view(b, cin * kh * kw, ho * wo)
+    out = torch.matmul(weight.reshape(cout, cin * kh * kw), cols).view(b, cout, ho, wo)
     if bias is not None:
         out = out + bias.view(1, -1, 1, 1)
     return out
+
+
+def _column_grad(gout, weight, g):
+    """W^T . gout: the gradient of the modulated columns,
+    [b, g, cg, k2*ho*wo]."""
+    b, cout, ho, wo = gout.shape
+    _, cin, kh, kw = weight.shape
+    gcol = torch.matmul(weight.reshape(cout, cin * kh * kw).t(), gout.reshape(b, cout, ho * wo))
+    return gcol.view(b, g, cin // g, kh * kw * ho * wo)
+
+
+def modulated_deform_conv2d_backward_data_plain(
+    gout, x, offset, mask, weight, *, stride=1, padding=0, dilation=1, deformable_groups=1
+):
+    """Plain PyTorch gradients of the deformable conv for x, offset and mask
+    (None for a unit mask), by the explicit formula: the column gradient
+    W^T.gout scattered to the four corners for x; for the offset, the
+    column gradient times the mask times the derivative of the bilinear
+    sample by its position, summed over the group's channels; for the
+    mask, the column gradient times the sample."""
+    b, cin, h, w = x.shape
+    _, _, kh, kw = weight.shape
+    g = deformable_groups
+    k2 = kh * kw
+    corners, m, (ho, wo) = _sampling(x, offset, mask, kh, kw, stride, padding, dilation, g)
+    gcol = _column_grad(gout, weight, g)
+    xg = x.reshape(b, g, cin // g, h * w)
+    mm = 1.0 if m is None else m.reshape(b, g, 1, -1)
+    gmod = gcol * mm
+    grad_x = torch.zeros_like(xg)
+    sample = dpy = dpx = 0.0
+    for idx, inside, wt, dwy, dwx in corners:
+        vals = _gather(xg, idx, inside)
+        flat = idx.reshape(b, g, 1, -1).expand_as(gcol)
+        grad_x.scatter_add_(3, flat, gmod * (wt * inside).reshape(b, g, 1, -1).to(gcol.dtype))
+        sample = sample + vals * wt.reshape(b, g, 1, -1)
+        dpy = dpy + vals * dwy.reshape(b, g, 1, -1)
+        dpx = dpx + vals * dwx.reshape(b, g, 1, -1)
+    grad_off = torch.stack([(gmod * dpy).sum(2), (gmod * dpx).sum(2)], 2)  # [b, g, 2, k2*P]
+    grad_off = grad_off.view(b, g, 2, k2, ho, wo).transpose(2, 3).reshape(b, g * k2 * 2, ho, wo)
+    grad_mask = None
+    if mask is not None:
+        grad_mask = (gcol * sample).sum(2).view(b, g * k2, ho, wo)
+    return grad_x.view(b, cin, h, w), grad_off.to(offset.dtype), grad_mask
+
+
+def modulated_deform_conv2d_backward_weight_plain(
+    gout, x, offset, mask, weight, *, stride=1, padding=0, dilation=1, deformable_groups=1
+):
+    """Plain PyTorch weight gradient: gout . cols^T summed over the batch,
+    with the modulated columns gathered as in the forward."""
+    b, cin, h, w = x.shape
+    cout, _, kh, kw = weight.shape
+    g = deformable_groups
+    corners, m, (ho, wo) = _sampling(x, offset, mask, kh, kw, stride, padding, dilation, g)
+    xg = x.reshape(b, g, cin // g, h * w)
+    cols = 0.0
+    for idx, inside, wt, _, _ in corners:
+        if m is not None:
+            wt = wt * m
+        cols = cols + _gather(xg, idx, inside) * wt.reshape(b, g, 1, -1)
+    cols = cols.view(b, cin * kh * kw, ho * wo)
+    gw = torch.matmul(gout.reshape(b, cout, ho * wo), cols.transpose(1, 2)).sum(0)
+    return gw.view(cout, cin, kh, kw)
+
+
+def _check_shapes(x, offset, mask, weight, stride, padding, dilation, g):
+    b, cin, h, w = x.shape
+    cout, wcin, kh, kw = weight.shape
+    k2 = kh * kw
+    ho = _out_size(h, kh, stride, padding, dilation)
+    wo = _out_size(w, kw, stride, padding, dilation)
+    if wcin != cin or cin % g:
+        raise ValueError(f"deform conv: weight {tuple(weight.shape)} and groups {g} do not fit x {tuple(x.shape)}")
+    if offset.shape != (b, g * k2 * 2, ho, wo):
+        raise ValueError(f"deform conv: offset {tuple(offset.shape)}, expected {(b, g * k2 * 2, ho, wo)}")
+    if mask is not None and mask.shape != (b, g * k2, ho, wo):
+        raise ValueError(f"deform conv: mask {tuple(mask.shape)}, expected {(b, g * k2, ho, wo)}")
+    return ho, wo
+
+
+def _check_kernel_inputs(op, x, offset, mask, g, **dense):
+    """Raise unless the tensors suit the CUDA kernels: x and ``dense``
+    contiguous float32 CUDA tensors, offset and mask contiguous within each
+    batch entry (channel slices allowed)."""
+    if g > MAX_GROUPS:
+        raise ValueError(f"{op}: the kernel takes at most {MAX_GROUPS} groups, got {g}")
+    _build.check_cuda_f32(op, x=x, **{k: v for k, v in dense.items() if v is not None})
+    sliced = dict(offset=offset) if mask is None else dict(offset=offset, mask=mask)
+    _build.check_cuda_f32(op, **{k: v[0] for k, v in sliced.items()})
+
+
+def _shape_args(x, weight, ho, wo, stride, padding, dilation, g):
+    b, cin, h, w = x.shape
+    cout, _, kh, kw = weight.shape
+    return (b, cin, h, w, cout, ho, wo, kh, kw, stride, padding, dilation, g,
+            x.device.index, _build.stream(x))
+
+
+def _forward(x, offset, mask, weight, bias, *, stride, padding, dilation, deformable_groups):
+    g = deformable_groups
+    ho, wo = _check_shapes(x, offset, mask, weight, stride, padding, dilation, g)
+    if x.device.type == "cpu":
+        return modulated_deform_conv2d_plain(
+            x, offset, mask, weight, bias, stride=stride, padding=padding,
+            dilation=dilation, deformable_groups=g,
+        )
+    _check_kernel_inputs("deform conv", x, offset, mask, g, weight=weight, bias=bias)
+    out = torch.empty((x.shape[0], weight.shape[0], ho, wo), dtype=torch.float32, device=x.device)
+    _build.launch(
+        "deform_conv", "aanet_deform_conv_f32", _ARGTYPES,
+        _build.ptr(x), _build.ptr(offset), offset.stride(0),
+        _build.ptr(mask), 0 if mask is None else mask.stride(0),
+        _build.ptr(weight), _build.ptr(bias), _build.ptr(out),
+        *_shape_args(x, weight, ho, wo, stride, padding, dilation, g),
+    )
+    modulated_deform_conv2d.launches += 1
+    return out
+
+
+def modulated_deform_conv2d_backward_data(
+    gout, x, offset, mask, weight, *, stride=1, padding=0, dilation=1, deformable_groups=1
+):
+    """Gradients for x, offset and mask (None for a unit mask) given the
+    output gradient ``gout``. A CPU tensor takes the plain version; a CUDA
+    tensor launches ``aanet_deform_conv_backward_data_f32``."""
+    g = deformable_groups
+    ho, wo = _check_shapes(x, offset, mask, weight, stride, padding, dilation, g)
+    if x.device.type == "cpu":
+        return modulated_deform_conv2d_backward_data_plain(
+            gout, x, offset, mask, weight, stride=stride, padding=padding,
+            dilation=dilation, deformable_groups=g,
+        )
+    _check_kernel_inputs("deform conv backward", x, offset, mask, g, gout=gout, weight=weight)
+    grad_x = torch.zeros_like(x)  # the kernel scatters into it with atomics
+    grad_off = torch.empty(offset.shape, dtype=torch.float32, device=x.device)
+    grad_mask = None if mask is None else torch.empty(mask.shape, dtype=torch.float32, device=x.device)
+    _build.launch(
+        "deform_conv", "aanet_deform_conv_backward_data_f32", _BWD_DATA_ARGTYPES,
+        _build.ptr(gout), _build.ptr(x), _build.ptr(offset), offset.stride(0),
+        _build.ptr(mask), 0 if mask is None else mask.stride(0), _build.ptr(weight),
+        _build.ptr(grad_x), _build.ptr(grad_off), _build.ptr(grad_mask),
+        *_shape_args(x, weight, ho, wo, stride, padding, dilation, g),
+    )
+    modulated_deform_conv2d_backward_data.launches += 1
+    return grad_x, grad_off, grad_mask
+
+
+def modulated_deform_conv2d_backward_weight(
+    gout, x, offset, mask, weight, *, stride=1, padding=0, dilation=1, deformable_groups=1
+):
+    """Gradient for the weight given the output gradient ``gout``. A CPU
+    tensor takes the plain version; a CUDA tensor launches
+    ``aanet_deform_conv_backward_weight_f32``."""
+    g = deformable_groups
+    ho, wo = _check_shapes(x, offset, mask, weight, stride, padding, dilation, g)
+    if x.device.type == "cpu":
+        return modulated_deform_conv2d_backward_weight_plain(
+            gout, x, offset, mask, weight, stride=stride, padding=padding,
+            dilation=dilation, deformable_groups=g,
+        )
+    _check_kernel_inputs("deform conv weight gradient", x, offset, mask, g, gout=gout, weight=weight)
+    grad_w = torch.zeros_like(weight)  # blocks add their pixel ranges' sums with atomics
+    _build.launch(
+        "deform_conv", "aanet_deform_conv_backward_weight_f32", _BWD_WEIGHT_ARGTYPES,
+        _build.ptr(gout), _build.ptr(x), _build.ptr(offset), offset.stride(0),
+        _build.ptr(mask), 0 if mask is None else mask.stride(0), _build.ptr(grad_w),
+        *_shape_args(x, weight, ho, wo, stride, padding, dilation, g),
+    )
+    modulated_deform_conv2d_backward_weight.launches += 1
+    return grad_w
+
+
+class _ModulatedDeformConv(torch.autograd.Function):
+    """Forward and backward of the deformable conv; each half runs its
+    kernels for CUDA tensors and its plain versions for CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, x, offset, mask, weight, bias, conf):
+        ctx.conf = conf
+        ctx.save_for_backward(x, offset, mask, weight)
+        return _forward(x, offset, mask, weight, bias, **conf)
+
+    @staticmethod
+    def backward(ctx, gout):
+        x, offset, mask, weight = ctx.saved_tensors
+        need_x, need_off, need_mask, need_w, need_b, _ = ctx.needs_input_grad
+        gout = gout.contiguous()
+        grad_x = grad_off = grad_mask = grad_w = grad_b = None
+        if need_x or need_off or need_mask:
+            grad_x, grad_off, grad_mask = modulated_deform_conv2d_backward_data(
+                gout, x, offset, mask, weight, **ctx.conf
+            )
+        if need_w:
+            grad_w = modulated_deform_conv2d_backward_weight(gout, x, offset, mask, weight, **ctx.conf)
+        if need_b:
+            grad_b = gout.sum((0, 2, 3))
+        return (grad_x if need_x else None, grad_off if need_off else None,
+                grad_mask if need_mask else None, grad_w, grad_b, None)
 
 
 def modulated_deform_conv2d(
@@ -104,50 +341,16 @@ def modulated_deform_conv2d(
       weight: [Cout, Cin, kh, kw].
       bias: [Cout] or None.
     Returns:
-      [B, Cout, Ho, Wo].
+      [B, Cout, Ho, Wo], differentiable in every tensor argument.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
-    ``offset`` and ``mask`` may be channel slices of a larger tensor: only
-    each batch entry must be contiguous.
+    A CPU tensor takes the plain versions; a CUDA tensor launches the
+    kernels. ``offset`` and ``mask`` may be channel slices of a larger
+    tensor: only each batch entry must be contiguous.
     """
-    b, cin, h, w = x.shape
-    cout, wcin, kh, kw = weight.shape
-    g = deformable_groups
-    k2 = kh * kw
-    ho = _out_size(h, kh, stride, padding, dilation)
-    wo = _out_size(w, kw, stride, padding, dilation)
-    if wcin != cin or cin % g:
-        raise ValueError(f"deform conv: weight {tuple(weight.shape)} and groups {g} do not fit x {tuple(x.shape)}")
-    if offset.shape != (b, g * k2 * 2, ho, wo):
-        raise ValueError(f"deform conv: offset {tuple(offset.shape)}, expected {(b, g * k2 * 2, ho, wo)}")
-    if mask is not None and mask.shape != (b, g * k2, ho, wo):
-        raise ValueError(f"deform conv: mask {tuple(mask.shape)}, expected {(b, g * k2, ho, wo)}")
-    if x.device.type == "cpu":
-        return modulated_deform_conv2d_plain(
-            x, offset, mask, weight, bias, stride=stride, padding=padding,
-            dilation=dilation, deformable_groups=g,
-        )
-    if g > MAX_GROUPS:
-        raise ValueError(f"deform conv: the kernel takes at most {MAX_GROUPS} groups, got {g}")
-    tensors = dict(x=x, weight=weight)
-    if bias is not None:
-        tensors["bias"] = bias
-    _build.check_cuda_f32("deform conv", **tensors)
-    # offset / mask: each batch entry contiguous (channel slices allowed)
-    sliced = dict(offset=offset) if mask is None else dict(offset=offset, mask=mask)
-    _build.check_cuda_f32("deform conv", **{k: v[0] for k, v in sliced.items()})
-    out = torch.empty((b, cout, ho, wo), dtype=torch.float32, device=x.device)
-    _build.launch(
-        "deform_conv", "aanet_deform_conv_f32", _ARGTYPES,
-        _build.ptr(x), _build.ptr(offset), offset.stride(0),
-        _build.ptr(mask), 0 if mask is None else mask.stride(0),
-        _build.ptr(weight), _build.ptr(bias), _build.ptr(out),
-        b, cin, h, w, cout, ho, wo, kh, kw, stride, padding, dilation, g,
-        x.device.index, _build.stream(x),
-    )
-    modulated_deform_conv2d.launches += 1
-    return out
+    conf = dict(stride=stride, padding=padding, dilation=dilation, deformable_groups=deformable_groups)
+    return _ModulatedDeformConv.apply(x, offset, mask, weight, bias, conf)
 
 
 modulated_deform_conv2d.launches = 0
-
+modulated_deform_conv2d_backward_data.launches = 0
+modulated_deform_conv2d_backward_weight.launches = 0

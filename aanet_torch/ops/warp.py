@@ -2,7 +2,12 @@
 
 A horizontal bilinear warp at ``x - disp`` with border padding, and the
 validity mask of the reference (the zero-padded coverage of the sample,
->= 0.9999). The CUDA kernel is ``csrc/warp.cu``.
+>= 0.9999). The op is a ``torch.autograd.Function`` differentiable in the
+disparity only, matching ``jax.grad`` of the JAX op (including jnp.clip's
+half gradient where ``x - disp`` hits the border exactly); the mask
+carries no gradient. The image is the network's input wherever the model
+warps, so its gradient is not computed: an image that requires one is
+refused. The CUDA kernels (forward and backward) are ``csrc/warp.cu``.
 """
 from __future__ import annotations
 
@@ -19,15 +24,21 @@ _ARGTYPES = [
 ]
 
 
-def disp_warp_plain(img: torch.Tensor, disp: torch.Tensor):
-    """Plain PyTorch warp: img [B, C, H, W], disp [B, H, W] ->
-    (warped [B, C, H, W], valid [B, 1, H, W])."""
-    b, c, h, w = img.shape
+def _sample(img, disp):
+    """Position x = w - disp, its border-clamped left tap x0 and fraction t."""
+    w = img.shape[3]
     x = torch.arange(w, dtype=torch.float32, device=img.device).view(1, 1, w) - disp
     xc = x.clamp(0.0, w - 1.0)
     x0 = xc.floor().clamp(0.0, w - 2.0)
-    t = (xc - x0).unsqueeze(1)
-    idx = x0.long().unsqueeze(1).expand(b, c, h, w)
+    return x, xc - x0, x0.long().unsqueeze(1).expand(img.shape)
+
+
+def disp_warp_plain(img: torch.Tensor, disp: torch.Tensor):
+    """Plain PyTorch warp: img [B, C, H, W], disp [B, H, W] ->
+    (warped [B, C, H, W], valid [B, 1, H, W])."""
+    w = img.shape[3]
+    x, t, idx = _sample(img, disp)
+    t = t.unsqueeze(1)
     warped = img.gather(3, idx) * (1.0 - t) + img.gather(3, idx + 1) * t
 
     xf = x.floor()
@@ -40,25 +51,31 @@ def disp_warp_plain(img: torch.Tensor, disp: torch.Tensor):
     return warped, valid
 
 
-def disp_warp(img: torch.Tensor, disp: torch.Tensor):
-    """Warp ``img`` (the right view) to the left view by ``disp``.
+def disp_warp_backward_plain(grad, img, disp):
+    """Plain PyTorch gradient for the disparity: -clip'(x) * sum_c g_c *
+    (img[x0+1] - img[x0]), where clip' is 1 inside (0, W-1), 1/2 at either
+    end and 0 outside."""
+    w = img.shape[3]
+    x, _, idx = _sample(img, disp)
+    slope = img.gather(3, idx + 1) - img.gather(3, idx)
+    inside = ((x > 0) & (x < w - 1)).to(x.dtype)
+    tie = ((x == 0) | (x == w - 1)).to(x.dtype)
+    return -(inside + 0.5 * tie) * (grad * slope).sum(1)
 
-    Args:
-      img: [B, C, H, W].
-      disp: [B, H, W] disparity in pixels.
-    Returns:
-      (warped [B, C, H, W], valid [B, 1, H, W] in {0, 1}).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
-    """
+def _check(img, disp):
     b, c, h, w = img.shape
     if disp.shape != (b, h, w):
         raise ValueError(f"disp_warp: disp {tuple(disp.shape)} does not match img {tuple(img.shape)}")
     if w < 2:
         raise ValueError("disp_warp: the image needs at least two columns")
+
+
+def _forward(img, disp):
     if img.device.type == "cpu":
         return disp_warp_plain(img, disp)
     _build.check_cuda_f32("disp_warp", img=img, disp=disp)
+    b, c, h, w = img.shape
     warped = torch.empty_like(img)
     valid = torch.empty((b, 1, h, w), dtype=torch.float32, device=img.device)
     _build.launch(
@@ -70,4 +87,61 @@ def disp_warp(img: torch.Tensor, disp: torch.Tensor):
     return warped, valid
 
 
+def disp_warp_backward(grad: torch.Tensor, img: torch.Tensor, disp: torch.Tensor):
+    """Gradient for ``disp`` [B, H, W] given the warped image's gradient
+    ``grad`` [B, C, H, W]. A CPU tensor takes the plain version; a CUDA
+    tensor launches ``aanet_warp_backward_f32``."""
+    _check(img, disp)
+    if img.device.type == "cpu":
+        return disp_warp_backward_plain(grad, img, disp)
+    _build.check_cuda_f32("disp_warp backward", grad=grad, img=img, disp=disp)
+    if grad.shape != img.shape:
+        raise ValueError(f"disp_warp backward: grad {tuple(grad.shape)}, expected {tuple(img.shape)}")
+    b, c, h, w = img.shape
+    grad_disp = torch.empty_like(disp)
+    _build.launch(
+        "warp", "aanet_warp_backward_f32", _ARGTYPES,
+        _build.ptr(grad), _build.ptr(img), _build.ptr(disp), _build.ptr(grad_disp),
+        b, c, h, w, img.device.index, _build.stream(img),
+    )
+    disp_warp_backward.launches += 1
+    return grad_disp
+
+
+class _DispWarp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, img, disp):
+        warped, valid = _forward(img, disp)
+        ctx.mark_non_differentiable(valid)
+        ctx.save_for_backward(img, disp)
+        return warped, valid
+
+    @staticmethod
+    def backward(ctx, grad_warped, grad_valid):
+        img, disp = ctx.saved_tensors
+        return None, disp_warp_backward(grad_warped.contiguous(), img, disp)
+
+
+def disp_warp(img: torch.Tensor, disp: torch.Tensor):
+    """Warp ``img`` (the right view) to the left view by ``disp``.
+
+    Args:
+      img: [B, C, H, W]; must not require a gradient.
+      disp: [B, H, W] disparity in pixels.
+    Returns:
+      (warped [B, C, H, W], valid [B, 1, H, W] in {0, 1}); ``warped`` is
+      differentiable in ``disp``.
+
+    A CPU tensor takes the plain versions; a CUDA tensor launches the kernels.
+    """
+    _check(img, disp)
+    if img.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "disp_warp: the gradient for the image is not computed; "
+            "pass an image that does not require grad (detach it)"
+        )
+    return _DispWarp.apply(img, disp)
+
+
 disp_warp.launches = 0
+disp_warp_backward.launches = 0

@@ -17,7 +17,23 @@
    plain run's; times the forward and reads its peak memory;
 5. runs the ``predict`` CLI on the card on two 375x1242 PNG pairs (pad to
    a multiple of 48, crop back) with the seeded weights;
-6. prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
+6. times each backward kernel (and each forward kernel again) against its
+   plain version at the shapes that one plain train step of the ``aanet``
+   preset at batch 16, 288x576 records, with the bound and, for warp,
+   F.grid_sample's forward plus backward as the library yardstick;
+7. runs one train step through the kernels and the same step through the
+   plain twins (seeded weights, batch 2, 288x576) and compares the loss,
+   every parameter's gradient and the BatchNorm statistics; every
+   parameter must get a non-zero gradient, and three steps on the batch
+   must lower the loss;
+8. the full-width train step: batch 16, 288x576, float32, remat on; the
+   launch counts of one step, then the median step time over 10 steps
+   after 3 warm-ups, samples/s, peak memory and the device idle share;
+9. runs ``python -m aanet_torch.cli train`` for 3 steps at batch 16 on a
+   synthetic SceneFlow-layout dataset that it writes itself (48 pairs of
+   540x960 PNGs with PFM disparities and filename lists), checks the
+   losses and the checkpoint, and predicts with the written weights;
+10. prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
 
 Any failure raises, so the exit code is non-zero and the last line is not
 printed. Without CUDA, or without the aanet_torch package beside it, the
@@ -27,8 +43,10 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -47,6 +65,21 @@ PREDICT_HW = (375, 1242)  # a KITTI image size that is not a multiple of 48
 # one forward of the aanet preset: 6 layer3 + 9 ISA deformable convs, 3
 # scales of correlation and soft-argmin, refinements at H/2 and H
 EXPECTED_LAUNCHES = {"deform_conv": 15, "correlation": 3, "soft_argmin": 3, "disp_warp": 2}
+# the training slice: the SceneFlow crop (aanet_tpu/config.py:59-60,174) at
+# the reference's per-card batch (64 over 4 cards, BASELINE.md:27)
+TRAIN_HW = (288, 576)
+TRAIN_BATCH = 16
+COMPARE_BATCH = 2  # the kernel-vs-plain train step
+# one train step with remat: the 21 deformable convs (12 of layer3 over two
+# feature passes, 9 ISA) and the 2 warps run again when backward recomputes
+# their checkpointed block
+EXPECTED_TRAIN_LAUNCHES = {
+    "deform_conv": 42, "deform_conv_backward_data": 21, "deform_conv_backward_weight": 21,
+    "correlation": 3, "correlation_backward": 3, "soft_argmin": 3, "soft_argmin_backward": 3,
+    "disp_warp": 4, "disp_warp_backward": 2,
+}
+CLI_PAIRS, CLI_HW = 48, (540, 960)  # SceneFlow's image size
+VAL_HW = (576, 960)  # the SceneFlow recipe's validation crop (pads 540 to 576)
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s, float32 FLOP/s
 # outside the tensor cores (the kernels run float32 FMA on the CUDA cores)
 PEAK_BYTES_S = 3.35e12
@@ -161,47 +194,151 @@ def kernel_specs():
         return lambda: F.grid_sample(img, grid, mode="bilinear", padding_mode="border",
                                      align_corners=True)
 
-    def max_err(got, want):
-        if isinstance(got, tuple):
-            return max(max_err(g, w) for g, w in zip(got, want))
-        return float((got - want).abs().max())
+    def rel(scale):
+        return lambda ref: scale * float(ref.abs().max())
 
-    return [
+    fwd = [
         dict(name="deform_conv", module=deform, attr="modulated_deform_conv2d",
              plain=deform.modulated_deform_conv2d_plain, sig=deform_sig,
              inputs=deform_inputs, cost=deform_cost, library=None,
-             tol=lambda ref: 2e-4 * float(ref.abs().max()), tol_text="2e-4 * max|ref|",
-             source="aanet_torch/csrc/deform_conv.cu", replaces="aanet_tpu/ops/deform.py:112",
-             max_err=max_err),
+             tol=rel(2e-4), tol_text="2e-4 * max|ref|",
+             source="aanet_torch/csrc/deform_conv.cu", replaces="aanet_tpu/ops/deform.py:112"),
         dict(name="correlation", module=cost_volume, attr="correlation_cost_volume",
              plain=cost_volume.correlation_cost_volume_plain,
              sig=lambda left, right, d: (tuple(left.shape), d),
              inputs=corr_inputs, cost=corr_cost, library=None,
              tol=lambda ref: 1e-4, tol_text="1e-4",
              source="aanet_torch/csrc/correlation.cu",
-             replaces="aanet_tpu/ops/cost_volume.py:72", max_err=max_err),
+             replaces="aanet_tpu/ops/cost_volume.py:72"),
         dict(name="soft_argmin", module=softargmin, attr="soft_argmin",
              plain=softargmin.soft_argmin_plain,
              sig=lambda cost, match_similarity=True: (tuple(cost.shape), match_similarity),
              inputs=sa_inputs, cost=sa_cost, library=None,
              tol=lambda ref: 1e-4, tol_text="1e-4",
              source="aanet_torch/csrc/softargmin.cu",
-             replaces="aanet_tpu/ops/softargmin.py:16", max_err=max_err),
+             replaces="aanet_tpu/ops/softargmin.py:16"),
         dict(name="disp_warp", module=warp, attr="disp_warp", plain=warp.disp_warp_plain,
              sig=lambda img, disp: (tuple(img.shape),), inputs=warp_inputs, cost=warp_cost,
              library=warp_library, tol=lambda ref: 1e-5, tol_text="1e-5",
-             source="aanet_torch/csrc/warp.cu", replaces="aanet_tpu/ops/warp.py:17",
-             max_err=max_err),
+             source="aanet_torch/csrc/warp.cu", replaces="aanet_tpu/ops/warp.py:17"),
     ]
+
+    # The backward kernels: inputs made from the forward's signature plus a
+    # seeded output gradient; bounds count every input read once and every
+    # gradient written once.
+    def deform_bwd_inputs(sig, gen, dev):
+        (x, offset, mask, weight, _), kwargs = deform_inputs(sig, gen, dev)
+        b, _, ho, wo = offset.shape
+        gout = torch.randn((b, weight.shape[0], ho, wo), generator=gen, device=dev)
+        return (gout, x, offset, mask, weight), kwargs
+
+    def deform_bwd_cost(sig, weight_grad):
+        (b, cin, h, w), (cout, _, kh, kw), has_mask, _, stride, pad, dil, g = sig
+        ho = (h + 2 * pad - dil * (kh - 1) - 1) // stride + 1
+        wo = (w + 2 * pad - dil * (kw - 1) - 1) // stride + 1
+        k2, pix = kh * kw, b * ho * wo
+        sampling = pix * g * k2 * (3 if has_mask else 2)
+        reads = pix * cout + b * cin * h * w + sampling
+        if weight_grad:  # reads + grad_w; contraction FMAs + the sampling
+            return 4 * (reads + cout * cin * k2), pix * cin * k2 * (2 * cout + 8)
+        # reads incl. the weight + grad_x, grad_offset, grad_mask; the gcol
+        # FMAs, then per (c, k, p) the sample, its two derivatives and the
+        # four scattered adds (28 operations)
+        writes = b * cin * h * w + sampling
+        return 4 * (reads + cout * cin * k2 + writes), pix * cin * k2 * (2 * cout + 28)
+
+    def corr_bwd_inputs(sig, gen, dev):
+        shape, d = sig
+        left, right = (torch.randn(shape, generator=gen, device=dev) for _ in range(2))
+        b, _, h, w = shape
+        return (torch.randn((b, d, h, w), generator=gen, device=dev), left, right), {}
+
+    def corr_bwd_cost(sig):
+        (b, c, h, w), d = sig
+        band = sum(max(w - i, 0) for i in range(d))
+        return 4 * (b * d * h * w + 4 * b * c * h * w), 4 * b * c * h * band
+
+    def sa_bwd_inputs(sig, gen, dev):
+        (b, d, h, w), match = sig
+        cost = torch.randn((b, d, h, w), generator=gen, device=dev) * 3
+        return (torch.randn((b, h, w), generator=gen, device=dev), cost, match), {}
+
+    def sa_bwd_cost(sig):
+        (b, d, h, w), _ = sig
+        # two passes over the volume: compare, exp, sums; then exp, products
+        return 4 * (b * h * w + 2 * b * d * h * w), 10 * b * d * h * w
+
+    def warp_bwd_inputs(sig, gen, dev):
+        (img, disp), _ = warp_inputs(sig, gen, dev)
+        return (torch.randn(img.shape, generator=gen, device=dev), img, disp), {}
+
+    def warp_bwd_cost(sig):
+        ((b, c, h, w),) = sig
+        return 4 * (2 * b * c * h * w + 2 * b * h * w), b * h * w * (3 * c + 10)
+
+    def warp_bwd_library(grad, img, disp):
+        """F.grid_sample forward plus its backward for the grid."""
+        b, c, h, w = img.shape
+        xs = torch.arange(w, device=img.device, dtype=torch.float32).view(1, 1, w) - disp
+        ys = torch.arange(h, device=img.device, dtype=torch.float32).view(1, h, 1).expand(b, h, w)
+        grid = torch.stack((2 * xs / (w - 1) - 1, 2 * ys / (h - 1) - 1), dim=-1)
+
+        def run():
+            with torch.enable_grad():
+                g = grid.detach().requires_grad_(True)
+                F.grid_sample(img, g, mode="bilinear", padding_mode="border",
+                              align_corners=True).backward(grad)
+        return run
+
+    by_name = {f["name"]: f for f in fwd}
+    bwd = [
+        dict(name="deform_conv_backward_data", forward="deform_conv", module=deform,
+             attr="modulated_deform_conv2d_backward_data",
+             plain=deform.modulated_deform_conv2d_backward_data_plain,
+             inputs=deform_bwd_inputs, cost=lambda sig: deform_bwd_cost(sig, False),
+             library=None, tol=rel(1e-4), tol_text="1e-4 * max|ref| per gradient",
+             source="aanet_torch/csrc/deform_conv.cu", replaces="aanet_tpu/ops/deform.py:112"),
+        dict(name="deform_conv_backward_weight", forward="deform_conv", module=deform,
+             attr="modulated_deform_conv2d_backward_weight",
+             plain=deform.modulated_deform_conv2d_backward_weight_plain,
+             inputs=deform_bwd_inputs, cost=lambda sig: deform_bwd_cost(sig, True),
+             library=None, tol=rel(1e-4), tol_text="1e-4 * max|ref|",
+             source="aanet_torch/csrc/deform_conv.cu", replaces="aanet_tpu/ops/deform.py:112"),
+        dict(name="correlation_backward", forward="correlation", module=cost_volume,
+             attr="correlation_cost_volume_backward",
+             plain=cost_volume.correlation_cost_volume_backward_plain,
+             inputs=corr_bwd_inputs, cost=corr_bwd_cost, library=None, tol=rel(1e-5),
+             tol_text="1e-5 * max|ref| per gradient", source="aanet_torch/csrc/correlation.cu",
+             replaces="aanet_tpu/ops/cost_volume.py:72"),
+        dict(name="soft_argmin_backward", forward="soft_argmin", module=softargmin,
+             attr="soft_argmin_backward", plain=softargmin.soft_argmin_backward_plain,
+             inputs=sa_bwd_inputs, cost=sa_bwd_cost, library=None, tol=rel(1e-5),
+             tol_text="1e-5 * max|ref|", source="aanet_torch/csrc/softargmin.cu",
+             replaces="aanet_tpu/ops/softargmin.py:16"),
+        dict(name="disp_warp_backward", forward="disp_warp", module=warp,
+             attr="disp_warp_backward", plain=warp.disp_warp_backward_plain,
+             inputs=warp_bwd_inputs, cost=warp_bwd_cost, library=warp_bwd_library,
+             tol=rel(1e-5), tol_text="1e-5 * max|ref|", source="aanet_torch/csrc/warp.cu",
+             replaces="aanet_tpu/ops/warp.py:17"),
+    ]
+    for b in bwd:
+        b["sig"] = by_name[b["forward"]]["sig"]
+    return fwd, bwd
 
 
 @contextlib.contextmanager
-def plain_ops(specs, calls=None):
-    """Swap each kernel op for its plain twin; count calls by signature."""
+def plain_ops(specs, calls=None, recomputed=None):
+    """Swap each kernel op for its plain twin; count calls by signature,
+    the forwards that backward recomputes (in a checkpointed block) apart
+    in ``recomputed``."""
+    from aanet_torch.models import layers
+
     def recording(spec):
         def op(*args, **kwargs):
             if calls is not None:
-                calls[spec["name"]][spec["sig"](*args, **kwargs)] += 1
+                first = layers._UPDATE_STATS or recomputed is None
+                counter = calls if first else recomputed
+                counter[spec["name"]][spec["sig"](*args, **kwargs)] += 1
             return spec["plain"](*args, **kwargs)
         return op
 
@@ -249,23 +386,42 @@ def stage_breakdown(model, left, right, iters=10):
                     peak_memory_bytes=peaks[n]) for n in names}
 
 
-def device_breakdown(model, left, right, iters=3, top=12):
-    """Device time per forward by kernel name (torch.profiler), summed over
-    every kernel of the forward and listed for the ``top`` largest."""
+def device_breakdown(run, iters=3, top=12):
+    """``run`` under torch.profiler, ``iters`` times: per call, the window
+    (CUDA events around the calls), the device busy time (the union of the
+    kernels' intervals, so overlap is not counted twice), the idle share,
+    and device time by kernel name for the ``top`` largest."""
     from torch.profiler import ProfilerActivity, profile
 
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
         for _ in range(iters):
-            model(left, right)
+            run()
+        end.record()
         torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == cuda and e.time_range.end > e.time_range.start)
+    check(spans, "the profiler recorded no device activity")
+    busy_us, cur_start, cur_end = 0.0, spans[0][0], spans[0][1]
+    for a, b in spans[1:]:
+        if a > cur_end:
+            busy_us += cur_end - cur_start
+            cur_start, cur_end = a, b
+        else:
+            cur_end = max(cur_end, b)
+    busy_us += cur_end - cur_start
+    window_ms = start.elapsed_time(end) / iters
+    busy_ms = busy_us / 1e3 / iters
     rows = sorted(
         ((e.key, e.self_device_time_total / 1e3 / iters, e.count / iters)
-         for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA),
+         for e in prof.key_averages() if e.device_type == cuda),
         key=lambda r: -r[1],
     )
-    return sum(r[1] for r in rows), [
-        dict(kernel=name[:90], ms=ms, calls=calls) for name, ms, calls in rows[:top]
-    ]
+    return dict(window_ms=window_ms, busy_ms=busy_ms, idle_share=1.0 - busy_ms / window_ms,
+                kernel_sum_ms=sum(r[1] for r in rows),
+                top=[dict(kernel=name[:90], ms=ms, calls=calls) for name, ms, calls in rows[:top]])
 
 
 def launches(specs):
@@ -352,6 +508,268 @@ def write_pngs(root, n, hw, seed):
         Image.fromarray(base[:, :w]).save(os.path.join(root, "right", f"{i:06d}.png"))
 
 
+def measure(spec, sig, n, gen, dev, timer, iters=20):
+    """Hold ``spec``'s kernel against its plain version on seeded inputs of
+    signature ``sig`` (``n`` launches per run of the path), output by
+    output; time kernel, plain version and the library yardstick."""
+    args, kwargs = spec["inputs"](sig, gen, dev)
+    op = getattr(spec["module"], spec["attr"])
+    got, want = op(*args, **kwargs), spec["plain"](*args, **kwargs)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    errs = [(float((g - w).abs().max()), spec["tol"](w)) for g, w in zip(got, want) if w is not None]
+    for err, tol in errs:
+        check(err <= tol, f"{spec['name']} {sig}: max error {err} > {tol}")
+    err, tol = max(errs, key=lambda e: e[0] / e[1] if e[1] > 0 else e[0])
+    nbytes, flops = spec["cost"](sig)
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOP_S * 1e3
+    lib = spec["library"](*args) if spec["library"] else None
+    row = dict(
+        shape=str(sig), launches=n, max_err=err, tolerance=tol,
+        kernel_ms=timer.ms(lambda: op(*args, **kwargs), iters=iters),
+        plain_ms=timer.ms(lambda: spec["plain"](*args, **kwargs), iters=iters),
+        library_ms=timer.ms(lib, iters=iters) if lib else None,
+        bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms,
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+    )
+    print(f"{spec['name']} {sig} x{n}: err {err:.3g} (tol {tol:.3g}) kernel {row['kernel_ms']:.4f} ms "
+          f"plain {row['plain_ms']:.4f} ms bound {row['bound_ms']:.4f} ms"
+          + (f" library {row['library_ms']:.4f} ms" if lib else ""), flush=True)
+    return row
+
+
+def totals(rows, has_library):
+    """A kernel's totals over one run of its path: each shape's time times
+    that shape's launches, summed."""
+    total = lambda key: sum(r[key] * r["launches"] for r in rows)  # noqa: E731
+    return dict(
+        ms=total("kernel_ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
+        bound_by="bytes" if total("bytes_ms") >= total("ops_ms") else "operations",
+        library_ms=total("library_ms") if has_library else None,
+        max_abs_err=max(r["max_err"] for r in rows),
+    )
+
+
+def train_batch(gen, dev, n, hw, max_shift=40):
+    """``n`` normalised smoothed-noise pairs with a known constant disparity
+    each (left[x] = right[x - d], d in [3, max_shift)) and its ground truth."""
+    from aanet_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+
+    h, w = hw
+    mean = torch.tensor(IMAGENET_MEAN, device=dev).view(1, 3, 1, 1)
+    std = torch.tensor(IMAGENET_STD, device=dev).view(1, 3, 1, 1)
+    shifts = torch.randint(3, max_shift, (n,), generator=gen, device=dev)
+    base = torch.rand((n, 3, h, w + max_shift), generator=gen, device=dev)
+    base = F.avg_pool2d(base, 3, stride=1, padding=1, count_include_pad=False)
+    left = base[..., :w]
+    right = torch.stack([base[i, :, :, int(d): int(d) + w] for i, d in enumerate(shifts)])
+    disp = shifts.view(n, 1, 1).float().expand(n, h, w).contiguous()
+    return dict(left=((left - mean) / std).contiguous(), right=((right - mean) / std).contiguous(),
+                disp=disp)
+
+
+def write_sceneflow(root, n, hw, seed, n_val=4):
+    """A SceneFlow-layout dataset: ``n`` PNG pairs with a constant disparity
+    each and its PFM, and the train (all pairs) and val (the first
+    ``n_val``) filename lists. Returns (data_dir, filename_root)."""
+    from PIL import Image
+
+    from aanet_torch.data.file_io import write_pfm
+
+    rs = np.random.RandomState(seed)
+    h, w = hw
+    data, lists = os.path.join(root, "data"), os.path.join(root, "lists")
+    for sub in ("left", "right", "disp"):
+        os.makedirs(os.path.join(data, sub))
+    os.makedirs(os.path.join(lists, "filenames"))
+    lines = []
+    for i in range(n):
+        d = int(rs.randint(3, 40))
+        base = rs.randint(0, 256, (h, w + d, 3), dtype=np.uint8)
+        Image.fromarray(base[:, :w]).save(os.path.join(data, "left", f"{i}.png"))
+        Image.fromarray(base[:, d: d + w]).save(os.path.join(data, "right", f"{i}.png"))
+        write_pfm(os.path.join(data, "disp", f"{i}.pfm"), np.full((h, w), float(d), np.float32))
+        lines.append(f"left/{i}.png right/{i}.png disp/{i}.pfm")
+    for split, chosen in (("train", lines), ("val", lines[:n_val])):
+        with open(os.path.join(lists, "filenames", f"SceneFlow_finalpass_{split}.txt"), "w") as f:
+            f.write("\n".join(chosen) + "\n")
+    return data, lists
+
+
+def seeded_model(cfg, dev):
+    model = cfg.build()
+    seed_weights_(model, SEED)
+    return model.to(dev)
+
+def train_phases(specs, bwd_specs, gen, dev, timer, smi):
+    """Phases 6-9: the training slice. Returns each kernel's rows at the
+    train step's shapes and its launches in one full-width train step."""
+    from aanet_torch.config import preset
+    from aanet_torch.models.layers import set_train_mode
+    from aanet_torch.train.optimizer import make_optimizer
+    from aanet_torch.train.trainer import make_loss_fn, make_train_step
+
+    torch.set_grad_enabled(True)
+    cfg = preset("aanet")
+    all_specs = specs + bwd_specs
+    model = seeded_model(cfg, dev)
+    batch = train_batch(gen, dev, TRAIN_BATCH, TRAIN_HW)
+
+    # 6. the shapes of one plain train step, and every kernel against its
+    # plain version at them
+    first = {s["name"]: collections.Counter() for s in specs}
+    again = {s["name"]: collections.Counter() for s in specs}
+    scratch = copy.deepcopy(model)
+    with plain_ops(specs, first, again):
+        make_train_step(scratch, make_optimizer(scratch, 1e-3), cfg.max_disp)(batch)
+    torch.cuda.synchronize()
+    del scratch
+    made = {n: sum(first[n].values()) + sum(again[n].values()) for n in first}
+    made.update({b["name"]: sum(first[b["forward"]].values()) for b in bwd_specs})
+    print(f"plain train step: first forwards {dict(first)}, recomputed {dict(again)}", flush=True)
+    check(made == EXPECTED_TRAIN_LAUNCHES, f"plain train step made {made}, expected {EXPECTED_TRAIN_LAUNCHES}")
+    rows = {}
+    for spec in specs:
+        rows[spec["name"]] = [
+            measure(spec, sig, n + again[spec["name"]][sig], gen, dev, timer, iters=10)
+            for sig, n in first[spec["name"]].items()
+        ]
+    for spec in bwd_specs:
+        rows[spec["name"]] = [measure(spec, sig, n, gen, dev, timer, iters=10)
+                              for sig, n in first[spec["forward"]].items()]
+
+    # 7. one train step through the kernels against the same step through
+    # the plain twins: same weights, same batch (batch 2)
+    small = train_batch(gen, dev, COMPARE_BATCH, TRAIN_HW)
+    m_kernel = seeded_model(cfg, dev)
+    m_plain, m_floor = copy.deepcopy(m_kernel), copy.deepcopy(m_kernel)
+    step_kernel = make_train_step(m_kernel, make_optimizer(m_kernel, 1e-3), cfg.max_disp)
+    step_plain = make_train_step(m_plain, make_optimizer(m_plain, 1e-3), cfg.max_disp)
+    met_kernel = step_kernel(small)
+    with plain_ops(specs):
+        met_plain = step_plain(small)
+        # the plain step's own spread: its gradients at a 1e-6 relative
+        # change of the left image (some gradients are sums that nearly
+        # cancel, and move by far more than 1e-6 under it)
+        set_train_mode(m_floor)
+        noise = torch.randn(small["left"].shape, generator=gen, device=dev)
+        nudged = dict(small, left=small["left"] * (1 + 1e-6 * noise))
+        make_loss_fn(m_floor, cfg.max_disp)(nudged)[0].backward()
+    loss_k, loss_p = float(met_kernel["total_loss"]), float(met_plain["total_loss"])
+    check(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), f"train-step loss kernel {loss_k} plain {loss_p}")
+    plain_params = dict(m_plain.named_parameters())
+    floor_params = dict(m_floor.named_parameters())
+    worst, floored, dk2, df2, dp2 = [], [], 0.0, 0.0, 0.0
+    for name, p in m_kernel.named_parameters():
+        gk, gp, gf = p.grad, plain_params[name].grad, floor_params[name].grad
+        check(gk is not None and float(gk.abs().sum()) > 0, f"{name}: no gradient on the kernel path")
+        scale = float(gp.norm())
+        rel_err, spread = float((gk - gp).norm()) / scale, float((gf - gp).norm()) / scale
+        check(rel_err <= max(1e-3, 2 * spread),
+              f"{name}: gradient relative error {rel_err} (plain spread {spread})")
+        if rel_err > 1e-3:
+            floored.append((name, rel_err, spread))
+        worst.append((rel_err, spread, name))
+        dk2 += float((gk - gp).square().sum())
+        df2 += float((gf - gp).square().sum())
+        dp2 += float(gp.square().sum())
+    worst = sorted(worst)[-8:]
+    grad_rel, grad_spread = (dk2 / dp2) ** 0.5, (df2 / dp2) ** 0.5
+    print(f"gradients: kernel vs plain {grad_rel:.3g}, plain spread {grad_spread:.3g}; "
+          f"worst (error, spread, parameter): {worst}", flush=True)
+    check(grad_rel <= max(1e-3, 2 * grad_spread),
+          f"all gradients: relative error {grad_rel} (plain spread {grad_spread})")
+    plain_bufs = dict(m_plain.named_buffers())
+    stats_err = max(float(((b - plain_bufs[n]).abs() / (plain_bufs[n].abs() + 1)).max())
+                    for n, b in m_kernel.named_buffers() if b.is_floating_point())
+    check(stats_err <= 1e-4, f"BatchNorm statistics differ by {stats_err}")
+    losses = [loss_k] + [float(step_kernel(small)["total_loss"]) for _ in range(2)]
+    check(losses[-1] < losses[0], f"three steps did not lower the loss: {losses}")
+    compare = dict(batch=COMPARE_BATCH, loss_kernel=loss_k, loss_plain=loss_p,
+                   grad_rel_err=grad_rel, grad_plain_spread=grad_spread, worst_params=worst,
+                   params_within_plain_spread_only=floored, bn_stats_rel_err=stats_err,
+                   losses_three_steps=losses)
+    print(json.dumps({"train_step_compare": compare}), flush=True)
+    del m_kernel, m_plain, m_floor, step_kernel, step_plain
+
+    # 8. the full-width step: the launches of one step, then the timing
+    optimizer = make_optimizer(model, 1e-3)
+    step = make_train_step(model, optimizer, cfg.max_disp)
+    reset_launches(all_specs)
+    metrics = step(batch)
+    torch.cuda.synchronize()
+    counts = launches(all_specs)
+    print(f"train-step launches: {counts}", flush=True)
+    check(counts == EXPECTED_TRAIN_LAUNCHES, f"train-step launches {counts}, expected {EXPECTED_TRAIN_LAUNCHES}")
+    step_losses = [float(metrics["total_loss"])]
+    for _ in range(2):  # warm-ups 2 and 3
+        step_losses.append(float(step(batch)["total_loss"]))
+    times = []
+    for _ in range(10):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = step(batch)
+        end.record()
+        times.append((start, end))
+        step_losses.append(metrics["total_loss"])
+    torch.cuda.synchronize()
+    step_ms = statistics.median(s.elapsed_time(e) for s, e in times)
+    step_losses = [float(x) for x in step_losses]
+    check(all(np.isfinite(step_losses)), f"non-finite losses {step_losses}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    step(batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    device = device_breakdown(lambda: step(batch), iters=2, top=25)
+    full = dict(
+        preset="aanet", batch=TRAIN_BATCH, height=TRAIN_HW[0], width=TRAIN_HW[1], dtype="float32",
+        remat=cfg.remat, step_ms=step_ms, samples_per_s=TRAIN_BATCH / step_ms * 1e3,
+        step_ms_all=[s.elapsed_time(e) for s, e in times], peak_memory_bytes=peak,
+        device_ms=device["busy_ms"], profiled_window_ms=device["window_ms"],
+        device_idle_share=device["idle_share"], launches=counts,
+        losses=step_losses, top_kernels=device["top"], card=smi,
+    )
+    print(json.dumps({"train_step": full}), flush=True)
+    del optimizer, step
+
+    # 9. the train entry point on the card, then predict with its weights
+    with tempfile.TemporaryDirectory() as tmp:
+        data, lists = write_sceneflow(tmp, CLI_PAIRS, CLI_HW, SEED)
+        ckpt = os.path.join(tmp, "run")
+        cmd = [sys.executable, "-m", "aanet_torch.cli", "train", "--preset", "aanet",
+               "--data_dir", data, "--filename_root", lists, "--checkpoint_dir", ckpt,
+               "--img_height", str(TRAIN_HW[0]), "--img_width", str(TRAIN_HW[1]),
+               "--val_img_height", str(VAL_HW[0]), "--val_img_width", str(VAL_HW[1]),
+               "--batch_size", str(TRAIN_BATCH), "--val_batch_size", "4", "--max_epoch", "1",
+               "--print_freq", "1", "--num_workers", "8", "--milestones", "10", "--device", DEVICE]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"cli train exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+        records = [json.loads(line) for line in open(os.path.join(ckpt, "metrics.jsonl"))]
+        cli_losses = [r["total_loss"] for r in records if r["kind"] == "train"]
+        check(len(cli_losses) == CLI_PAIRS // TRAIN_BATCH and all(np.isfinite(cli_losses)),
+              f"cli train losses {cli_losses}")
+        val = [r for r in records if r["kind"] == "val"]
+        latest = os.path.join(ckpt, "aanet_latest.pt")
+        check(os.path.exists(latest) and len(val) == 1, f"cli train wrote {os.listdir(ckpt)}")
+        pairs = os.path.join(tmp, "pairs")
+        for sub in ("left", "right"):
+            os.makedirs(os.path.join(pairs, sub))
+            shutil.copy(os.path.join(data, sub, "0.png"), os.path.join(pairs, sub, "0.png"))
+        from aanet_torch import cli
+
+        cli.main(["predict", "--preset", "aanet", "--data_dir", pairs, "--pretrained", latest,
+                  "--save_type", "npy", "--device", DEVICE])
+        pred = np.load(os.path.join(pairs, "pred", "0.npy"))
+        check(pred.shape == CLI_HW and np.isfinite(pred).all(), f"prediction {pred.shape}")
+    print(json.dumps({"cli_train": dict(seconds=cli_s, losses=cli_losses, val=val[0],
+                                        predict_shape=list(pred.shape))}), flush=True)
+    return dict(rows=rows, launches=counts)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -375,7 +793,7 @@ def main() -> int:
     _build.build()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    specs = kernel_specs()
+    specs, bwd_specs = kernel_specs()
     timer = Timer(dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     torch.set_grad_enabled(False)
@@ -396,35 +814,8 @@ def main() -> int:
           f"plain forward made {calls}, expected {EXPECTED_LAUNCHES} kernel calls")
 
     # 3b. each kernel against its plain version at each shape of the path
-    report = []
-    for spec in specs:
-        op = getattr(spec["module"], spec["attr"])
-        shapes = []
-        for sig, mult in calls[spec["name"]].items():
-            args, kwargs = spec["inputs"](sig, gen, dev)
-            got = op(*args, **kwargs)
-            want = spec["plain"](*args, **kwargs)
-            torch.cuda.synchronize()
-            err = spec["max_err"](got, want)
-            ref = want[0] if isinstance(want, tuple) else want
-            tol = spec["tol"](ref)
-            check(err <= tol, f"{spec['name']} {sig}: max error {err} > {tol}")
-            nbytes, flops = spec["cost"](sig)
-            bytes_ms, ops_ms = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOP_S * 1e3
-            bound = max(bytes_ms, ops_ms)
-            lib = spec["library"](*args) if spec["library"] else None
-            shapes.append(dict(
-                shape=str(sig), launches=mult, max_err=err, tolerance=tol,
-                kernel_ms=timer.ms(lambda: op(*args, **kwargs)),
-                plain_ms=timer.ms(lambda: spec["plain"](*args, **kwargs)),
-                library_ms=timer.ms(lib) if lib else None,
-                bound_ms=bound, bytes_ms=bytes_ms, ops_ms=ops_ms,
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            ))
-            print(f"{spec['name']} {sig} x{mult}: err {err:.3g} (tol {tol:.3g}) "
-                  f"kernel {shapes[-1]['kernel_ms']:.4f} ms plain {shapes[-1]['plain_ms']:.4f} ms "
-                  f"bound {bound:.4f} ms", flush=True)
-        report.append((spec, shapes))
+    report = [(spec, [measure(spec, sig, n, gen, dev, timer) for sig, n in calls[spec["name"]].items()])
+              for spec in specs]
 
     # 4. the main path through the kernels
     reset_launches(specs)
@@ -453,7 +844,7 @@ def main() -> int:
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(dev)
     stages = stage_breakdown(model, left, right)
-    device_ms, top_kernels = device_breakdown(model, left, right)
+    device = device_breakdown(lambda: model(left, right))
     final = pyramid[-1]
     forward = dict(
         preset="aanet", batch=1, height=HEIGHT, width=WIDTH, dtype="float32",
@@ -464,9 +855,8 @@ def main() -> int:
         final_disp_std=float(final.std()), stages=stages,
         # cost volumes, soft-argmin, image downscaling and concatenations
         other_stage_ms=fwd_ms - sum(s["ms"] for s in stages.values()),
-        # kernels run on one stream, so their summed time is the busy time
-        device_ms=device_ms, device_idle_share=1.0 - device_ms / fwd_ms,
-        top_kernels=top_kernels,
+        device_ms=device["busy_ms"], profiled_window_ms=device["window_ms"],
+        device_idle_share=device["idle_share"], top_kernels=device["top"],
     )
     print(json.dumps({"forward": forward}), flush=True)
 
@@ -492,21 +882,22 @@ def main() -> int:
     print(f"predict: 2 pairs of {PREDICT_HW[0]}x{PREDICT_HW[1]} in {predict_s:.2f} s, "
           f"launches {counts}", flush=True)
 
-    # 6. the record
+    train = train_phases(specs, bwd_specs, gen, dev, timer, smi)
+
+    # 10. the record: every kernel with its totals over one train step (the
+    # slice's main path); the forward kernels also over one inference forward
     kernels = []
-    for spec, shapes in report:
-        # every time is the kernel's total over one forward: per-shape times
-        # weighted by that shape's launches
-        total = lambda key: sum(s[key] * s["launches"] for s in shapes)  # noqa: E731
-        kernels.append(dict(
-            name=spec["name"], route="cuda", source=spec["source"], replaces=spec["replaces"],
-            launches=counts_main[spec["name"]],
-            max_abs_err=max(s["max_err"] for s in shapes), tolerance=spec["tol_text"],
-            ms=total("kernel_ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
-            bound_by="bytes" if total("bytes_ms") >= total("ops_ms") else "operations",
-            library_ms=total("library_ms") if spec["library"] else None,
-            shapes=shapes,
-        ))
+    for spec in specs + bwd_specs:
+        rows = train["rows"][spec["name"]]
+        entry = dict(name=spec["name"], route="cuda", source=spec["source"],
+                     replaces=spec["replaces"], launches=train["launches"][spec["name"]],
+                     tolerance=spec["tol_text"], **totals(rows, bool(spec["library"])))
+        inference = {sp["name"]: r for sp, r in report}.get(spec["name"])
+        if inference is not None:
+            entry["inference"] = dict(launches=counts_main[spec["name"]],
+                                      **totals(inference, bool(spec["library"])), shapes=inference)
+        entry["shapes"] = rows
+        kernels.append(entry)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,7 @@ import jax
 import jax.numpy as jnp
 
 from aanet_tpu.config import preset as jax_preset
-from aanet_torch import cli, infer
+from aanet_torch import cli, infer, ops
 from aanet_torch.config import MODEL_PRESETS, ModelConfig, preset
 from aanet_torch.convert import state_dict_from_flax
 from aanet_torch.ops import KERNEL_OPS
@@ -77,11 +77,39 @@ def test_build_refuses_what_the_port_does_not_run(overrides):
         dataclasses.replace(ModelConfig(feature_pyramid_network=True), **overrides).build()
 
 
-def test_forward_refuses_training_mode():
+def test_training_forward_updates_batchnorm_once_per_view():
+    """Training mode runs two feature passes, left then right, so each
+    feature BatchNorm moves twice per forward and every other once, also
+    under checkpointing (remat on, as the preset has it)."""
     model = dataclasses.replace(preset("aanet"), **CUT).build()
-    img = torch.zeros(1, 3, 48, 96)
-    with pytest.raises(NotImplementedError, match="eval"):
-        model(img, img)
+    assert model.training and model.remat
+    rs = np.random.RandomState(0)
+    left, right = (torch.from_numpy(rs.randn(1, 3, 48, 96).astype(np.float32)) for _ in range(2))
+    pyramid = model(left, right)
+    sum(p.sum() for p in pyramid).backward()
+    counts = {name: int(buf) for name, buf in model.named_buffers() if name.endswith("num_batches_tracked")}
+    assert counts and all(
+        n == (2 if name.startswith(("feature_extractor.", "fpn.")) else 1) for name, n in counts.items()
+    ), counts
+    assert [tuple(p.shape) for p in pyramid][-1] == (1, 48, 96)
+
+
+def test_kernel_ops_are_autograd_functions():
+    """Each kernel op returns a result whose gradient node is the op's own
+    autograd Function (whose backward has a kernel), on the CPU as on the card."""
+    rs = np.random.RandomState(1)
+    t = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32)).requires_grad_(True)  # noqa: E731
+    outputs = [
+        ops.deform.modulated_deform_conv2d(t(1, 4, 5, 6), t(1, 36, 5, 6), t(1, 18, 5, 6), t(3, 4, 3, 3),
+                                           t(3), padding=2, dilation=2, deformable_groups=2),
+        ops.cost_volume.correlation_cost_volume(t(1, 3, 4, 9), t(1, 3, 4, 9), 4),
+        ops.softargmin.soft_argmin(t(1, 5, 2, 3)),
+        ops.warp.disp_warp(torch.zeros(1, 2, 3, 8), t(1, 3, 8))[0],
+    ]
+    for op, out in zip(KERNEL_OPS, outputs):
+        node = out.grad_fn
+        assert isinstance(node, torch.autograd.function.BackwardCFunction), (op.__name__, node)
+        assert node._forward_cls.__module__ == op.__module__, (op.__name__, node)
 
 
 def _write_pairs(root, h, w, n=2):
