@@ -1,10 +1,10 @@
 """PyTorch/CUDA port of the AANet stereo network for NVIDIA Hopper.
 
 Mirrors ``aanet_tpu/`` module for module (``config``, ``ops``, ``models``,
-``infer``, ``cli``). Tensors are NCHW. The four irregular ops of the
-``aanet`` preset's forward (deformable conv, correlation volume,
-soft-argmin, disparity warp) are hand-written CUDA kernels under
-``csrc/``; every other op is a dense PyTorch call. Each kernel's wrapper
-runs the kernel for a CUDA tensor and its plain PyTorch twin for a CPU
-tensor.
+``infer``, ``cli``). Tensors are NCHW (NCDHW for the 4-D cost volumes).
+The irregular ops (deformable conv, the correlation, difference and
+concat volumes, soft-argmin, disparity warp) are hand-written CUDA
+kernels under ``csrc/``; every other op is a dense PyTorch call. Each
+kernel's wrapper runs the kernel for a CUDA tensor and its plain PyTorch
+twin for a CPU tensor.
 """

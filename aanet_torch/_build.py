@@ -24,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build_out"
-KERNELS = ("softargmin", "warp", "correlation", "deform_conv")
+KERNELS = ("softargmin", "warp", "correlation", "deform_conv", "volume4d")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"  # the CUDA toolkit's default prefix
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

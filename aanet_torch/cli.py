@@ -4,9 +4,13 @@
       --checkpoint_dir runs/aanet [--recipe aanet_sceneflow] [--device cuda|cpu]
   python -m aanet_torch.cli predict --preset aanet --data_dir pairs/ \\
       [--pretrained weights.pt] [--device cuda|cpu]
+  python -m aanet_torch.cli predict --feature_type psmnet \\
+      --feature_similarity concat --aggregation_type psmnet_hourglass \\
+      --refinement_type None --data_dir pairs/
 
-``train`` takes the JAX CLI's flags (aanet_tpu/cli.py:94-203) for what the
-port runs: the ``aanet`` preset's model flags, the data flags, and the
+Both take the JAX CLI's model flags (aanet_tpu/cli.py:94-122) on top of
+``--preset``: the PSMNet and StereoNet baselines are reached through them,
+as in the JAX package. ``train`` also takes the data flags and the
 training flags without resume, periodic checkpoints and summaries. It
 writes ``aanet_latest.pt`` after every epoch and ``aanet_best.pt`` on the
 best validation. ``predict`` reads ``left/*.png`` and ``right/`` with the
@@ -19,19 +23,23 @@ float32 (TF32 off), as the JAX package's float32 mode does.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import logging
 import os
 import sys
 
 import torch
 
-from aanet_torch.config import Config, DataConfig, TrainConfig, preset, recipe
+from aanet_torch.config import Config, DataConfig, ModelConfig, TrainConfig, preset, recipe
 
 _MODEL_FLAGS = {
-    "max_disp": int, "num_fusions": int, "num_stage_blocks": int, "num_deform_blocks": int,
-    "mdconv_dilation": int, "deformable_groups": int,
+    "max_disp": int, "feature_type": str, "feature_similarity": str, "num_downsample": int,
+    "aggregation_type": str, "num_scales": int, "num_fusions": int, "num_stage_blocks": int,
+    "num_deform_blocks": int, "refinement_type": str, "mdconv_dilation": int,
+    "deformable_groups": int,
 }
+# tri-state: None keeps the preset's value, --flag / --no-flag set it
+_MODEL_SWITCHES = ("no_feature_mdconv", "feature_pyramid", "feature_pyramid_network",
+                   "no_intermediate_supervision")
 _DATA_FLAGS = {
     "data_dir": str, "dataset_name": str, "mode": str, "split_preset": str, "filename_root": str,
     "batch_size": int, "val_batch_size": int, "img_height": int, "img_width": int,
@@ -50,21 +58,48 @@ def _add_device(p):
                    help="'cuda' (default; raises without a GPU) or 'cpu'")
 
 
+def _add_model_args(p):
+    p.add_argument("--preset", default=None,
+                   help="model preset; the port runs 'aanet' (the default) and 'stereonet-aa'")
+    for name, kind in _MODEL_FLAGS.items():
+        p.add_argument(f"--{name}", type=kind, default=None)
+    for name in _MODEL_SWITCHES:
+        p.add_argument(f"--{name}", action=argparse.BooleanOptionalAction, default=None)
+
+
+def _apply_model_flags(model, args):
+    for name in (*_MODEL_FLAGS, *_MODEL_SWITCHES):
+        if getattr(args, name) is not None:
+            setattr(model, name, getattr(args, name))
+    return model
+
+
+def model_config(args) -> ModelConfig:
+    """``--preset``'s model with the model flags given on top. Without
+    ``--preset`` the base is the JAX CLI's, ``ModelConfig()``, with the FPN
+    on exactly when the extractor is AANet's (the FPN runs only on its
+    three levels): no flags give the ``aanet`` preset, and the baselines'
+    flags a network without FPN."""
+    if args.preset:
+        return _apply_model_flags(preset(args.preset), args)
+    model = _apply_model_flags(ModelConfig(), args)
+    if args.feature_pyramid_network is None:
+        model.feature_pyramid_network = model.feature_type == "aanet"
+    return model
+
+
 def build_config(args) -> Config:
     """Recipe or preset defaults, then every flag given on the command line
     (aanet_tpu/cli.py:170-203)."""
     if args.recipe:
         cfg = recipe(args.recipe)
-        if args.preset:
-            cfg.model = preset(args.preset)
+        cfg.model = _apply_model_flags(preset(args.preset) if args.preset else cfg.model, args)
     else:
-        cfg = Config(model=preset(args.preset or "aanet"), data=DataConfig(), train=TrainConfig())
-    for section, flags in ((cfg.model, _MODEL_FLAGS), (cfg.data, _DATA_FLAGS), (cfg.train, _TRAIN_FLAGS)):
+        cfg = Config(model=model_config(args), data=DataConfig(), train=TrainConfig())
+    for section, flags in ((cfg.data, _DATA_FLAGS), (cfg.train, _TRAIN_FLAGS)):
         for name in flags:
             if getattr(args, name) is not None:
                 setattr(section, name, getattr(args, name))
-    if args.no_feature_mdconv is not None:
-        cfg.model.no_feature_mdconv = args.no_feature_mdconv
     if args.no_remat:
         cfg.model.remat = False
     for name in _TRAIN_SWITCHES:
@@ -126,9 +161,7 @@ def cmd_train(args):
 def cmd_predict(args):
     from aanet_torch.infer import predict_pairs
 
-    cfg = preset(args.preset)
-    if args.max_disp is not None:
-        cfg = dataclasses.replace(cfg, max_disp=args.max_disp)
+    cfg = model_config(args)
     predict_pairs(
         cfg, args.data_dir, output_dir=args.output_dir, save_type=args.save_type,
         visualize=args.visualize, pretrained=args.pretrained, device=args.device,
@@ -140,13 +173,12 @@ def main(argv=None):
     sub = parser.add_subparsers(dest="command", required=True)
 
     t = sub.add_parser("train", help="train the network on a filename-list dataset")
-    t.add_argument("--preset", default=None, help="model preset (the port runs 'aanet')")
+    _add_model_args(t)
     t.add_argument("--recipe", default=None,
                    help="a training stage of config.RUN_RECIPES, e.g. aanet_sceneflow")
     bool_flag = dict(action=argparse.BooleanOptionalAction, default=None)
-    for name, kind in {**_MODEL_FLAGS, **_DATA_FLAGS, **_TRAIN_FLAGS}.items():
+    for name, kind in {**_DATA_FLAGS, **_TRAIN_FLAGS}.items():
         t.add_argument(f"--{name}", type=kind, default=None)
-    t.add_argument("--no_feature_mdconv", **bool_flag)
     for name in _TRAIN_SWITCHES:
         t.add_argument(f"--{name}", **bool_flag)
     t.add_argument("--no_remat", action="store_true",
@@ -155,9 +187,7 @@ def main(argv=None):
     t.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("predict", help="predict disparities of rectified pairs")
-    p.add_argument("--preset", default="aanet")
-    p.add_argument("--max_disp", type=int, default=None,
-                   help="override the preset's max_disp (as the weights were trained)")
+    _add_model_args(p)
     p.add_argument("--data_dir", required=True)
     p.add_argument("--output_dir", default=None)
     p.add_argument("--pretrained", default=None, help="torch state_dict or training checkpoint")

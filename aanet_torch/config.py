@@ -4,7 +4,14 @@
 An own copy of ``aanet_tpu/config.py`` (the port imports nothing of the
 JAX package). ``ModelConfig.build`` constructs the port's network and
 raises ``NotImplementedError`` for every preset or flag the port does not
-run yet: it runs the ``aanet`` preset in float32, inference and training.
+run yet. It runs, in float32, the ``aanet`` preset (inference and
+training), the ``stereonet-aa`` preset, and the two 3-D-aggregation
+baselines reached through the model flags:
+
+* PSMNet: ``feature_type="psmnet", feature_similarity="concat",
+  aggregation_type="psmnet_hourglass", refinement_type="None"``;
+* StereoNet: ``feature_type="stereonet", feature_similarity="difference",
+  aggregation_type="stereonet", refinement_type="stereonet"``.
 """
 from __future__ import annotations
 
@@ -42,35 +49,71 @@ class ModelConfig:
 
     def build(self):
         """The port's ``AANet`` for this configuration (in training mode,
-        as ``nn.Module``s start; call ``.eval()`` for inference)."""
-        unsupported = {
-            "feature_type": (self.feature_type, "aanet"),
-            "feature_pyramid_network": (self.feature_pyramid_network, True),
-            "feature_pyramid": (self.feature_pyramid, False),
-            "feature_similarity": (self.feature_similarity, "correlation"),
-            "aggregation_type": (self.aggregation_type, "adaptive"),
-            "refinement_type": (self.refinement_type, "stereodrnet"),
-            "num_scales": (self.num_scales, 3),
-            "num_downsample": (self.num_downsample, 2),
-            "no_intermediate_supervision": (self.no_intermediate_supervision, False),
-        }
-        for flag, (value, supported) in unsupported.items():
-            if value != supported:
-                raise NotImplementedError(
-                    f"{flag}={value!r}: the PyTorch port runs only {flag}={supported!r} "
-                    "(the 'aanet' preset) so far"
-                )
-        if self.dtype not in (None, "float32"):
-            raise NotImplementedError(
-                f"dtype={self.dtype!r}: the PyTorch port runs float32 only so far"
-            )
+        as ``nn.Module``s start; call ``.eval()`` for inference).
+
+        Raises ``NotImplementedError`` for what the port does not run: the
+        modules not ported yet, and the combinations of flags whose cost
+        volume and aggregation do not fit each other (the JAX composer
+        fails on them too)."""
+        refused = [
+            (self.feature_type in ("ganet", "gcnet"),
+             f"feature_type={self.feature_type!r}: the GANet and GC-Net extractors are not ported yet"),
+            (self.feature_type not in ("aanet", "stereonet", "psmnet", "ganet", "gcnet"),
+             f"feature_type={self.feature_type!r}: unknown extractor"),
+            (self.feature_pyramid, "feature_pyramid=True: FeaturePyramid is not ported yet"),
+            (self.aggregation_type in ("psmnet_basic", "gcnet"),
+             f"aggregation_type={self.aggregation_type!r}: PSMNetBasicAggregation and "
+             "GCNetAggregation are not ported yet"),
+            (self.aggregation_type not in ("adaptive", "stereonet", "psmnet_hourglass",
+                                           "psmnet_basic", "gcnet"),
+             f"aggregation_type={self.aggregation_type!r}: unknown aggregation"),
+            (self.refinement_type == "hourglass",
+             "refinement_type='hourglass': HourglassRefinement is not ported yet"),
+            (self.refinement_type not in (None, "None", "stereonet", "stereodrnet", "hourglass"),
+             f"refinement_type={self.refinement_type!r}: unknown refinement"),
+            (self.no_intermediate_supervision,
+             "no_intermediate_supervision=True: the single-output adaptive aggregation "
+             "is not ported yet"),
+            (self.dtype not in (None, "float32"),
+             f"dtype={self.dtype!r}: the PyTorch port runs float32 only so far"),
+        ]
+        multi_scale = self.feature_type == "aanet"
+        volume_4d = self.feature_similarity in ("difference", "concat")
+        refused += [
+            (self.feature_similarity not in ("correlation", "difference", "concat"),
+             f"feature_similarity={self.feature_similarity!r}: unknown cost volume"),
+            (self.feature_pyramid_network != multi_scale,
+             "the FPN runs on the AANet extractor's three levels, and only there "
+             f"(feature_type={self.feature_type!r}, "
+             f"feature_pyramid_network={self.feature_pyramid_network})"),
+            ((self.aggregation_type == "adaptive") == volume_4d,
+             f"feature_similarity={self.feature_similarity!r} with "
+             f"aggregation_type={self.aggregation_type!r}: the adaptive aggregation takes "
+             "correlation volumes, the 3-D aggregations difference or concat volumes"),
+            (multi_scale and self.aggregation_type != "adaptive",
+             "the 3-D aggregations take one volume of single-scale features"),
+            (self.aggregation_type == "adaptive"
+             and self.num_scales != (3 if multi_scale else 1),
+             f"num_scales={self.num_scales} with feature_type={self.feature_type!r}: the "
+             "port runs the adaptive aggregation at the extractor's own scales"),
+        ]
+        for refuse, message in refused:
+            if refuse:
+                raise NotImplementedError(message)
         from aanet_torch.models.aanet import AANet
 
         return AANet(
             max_disp=self.max_disp,
+            num_downsample=self.num_downsample,
+            feature_type=self.feature_type,
+            feature_pyramid_network=self.feature_pyramid_network,
+            feature_similarity=self.feature_similarity,
+            aggregation_type=self.aggregation_type,
+            num_scales=self.num_scales,
             num_fusions=self.num_fusions,
             num_stage_blocks=self.num_stage_blocks,
             num_deform_blocks=self.num_deform_blocks,
+            refinement_type=self.refinement_type,
             mdconv_dilation=self.mdconv_dilation,
             deformable_groups=self.deformable_groups,
             feature_mdconv=not self.no_feature_mdconv,

@@ -5,7 +5,9 @@ leaf ``a/b/c/kernel`` is the state_dict entry ``a.b.c.weight``:
 
 * conv ``kernel`` HWIO -> ``weight`` OIHW (a grouped ``offset_conv``
   kernel (3, 3, Cin/G, Cout) becomes (Cout, Cin/G, 3, 3), output channels
-  in the same order, as torch and flax both split them into G blocks);
+  in the same order, as torch and flax both split them into G blocks), and
+  a 3-D kernel DHWIO -> OIDHW (a ``ConvTranspose`` kernel too: the port's
+  layer holds the JAX orientation, ``models/layers.py``);
 * BatchNorm ``scale``/``bias`` -> ``weight``/``bias``, ``mean``/``var`` ->
   ``running_mean``/``running_var``, plus torch's ``num_batches_tracked``;
 * biases unchanged.
@@ -41,9 +43,10 @@ def state_dict_from_flax(params, batch_stats) -> dict[str, torch.Tensor]:
             raise KeyError(f"unexpected flax parameter {'/'.join(path)}")
         arr = np.array(leaf, dtype=np.float32)  # a writable copy
         if name == "kernel":
-            if arr.ndim != 4:
-                raise NotImplementedError(f"{'/'.join(path)}: only 2-D conv kernels are ported")
-            arr = np.ascontiguousarray(arr.transpose(3, 2, 0, 1))
+            if arr.ndim not in (4, 5):
+                raise ValueError(f"{'/'.join(path)}: a conv kernel of rank {arr.ndim}")
+            spatial = tuple(range(arr.ndim - 2))
+            arr = np.ascontiguousarray(arr.transpose(arr.ndim - 1, arr.ndim - 2, *spatial))
         state[".".join(mods + [_PARAM[name]])] = torch.from_numpy(arr)
     for path, leaf in _flatten(batch_stats):
         *mods, name = path
@@ -58,9 +61,9 @@ def state_dict_from_flax(params, batch_stats) -> dict[str, torch.Tensor]:
 
 def flax_from_state_dict(state) -> tuple[dict, dict]:
     """The inverse of ``state_dict_from_flax``: (params, batch_stats) as
-    nested dicts of numpy arrays. A 4-D ``weight`` is a conv kernel (OIHW
-    -> HWIO), a 1-D ``weight`` a BatchNorm scale; ``num_batches_tracked``
-    has no flax counterpart and is dropped."""
+    nested dicts of numpy arrays. A 4-D or 5-D ``weight`` is a conv kernel
+    (OIHW -> HWIO, OIDHW -> DHWIO), a 1-D ``weight`` a BatchNorm scale;
+    ``num_batches_tracked`` has no flax counterpart and is dropped."""
     params: dict = {}
     batch_stats: dict = {}
     for key, value in state.items():
@@ -70,10 +73,11 @@ def flax_from_state_dict(state) -> tuple[dict, dict]:
             continue
         if name in ("running_mean", "running_var"):
             tree, leaf = batch_stats, "mean" if name == "running_mean" else "var"
-        elif name == "weight":
-            tree, leaf = params, "kernel" if arr.ndim == 4 else "scale"
-            if arr.ndim == 4:
-                arr = np.ascontiguousarray(arr.transpose(2, 3, 1, 0))
+        elif name == "weight" and arr.ndim == 1:
+            tree, leaf = params, "scale"
+        elif name == "weight" and arr.ndim in (4, 5):
+            tree, leaf = params, "kernel"
+            arr = np.ascontiguousarray(arr.transpose(*range(2, arr.ndim), 1, 0))
         elif name == "bias":
             tree, leaf = params, "bias"
         else:

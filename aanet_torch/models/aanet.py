@@ -1,70 +1,142 @@
-"""AANet composer for the ``aanet`` preset (aanet_tpu/models/aanet.py).
+"""The stereo composer (aanet_tpu/models/aanet.py): feature extraction ->
+cost volume -> aggregation -> soft-argmin -> hierarchical refinement,
+assembled from the model flags.
 
-feature extraction (ResNet-40 + FPN) -> correlation cost-volume pyramid ->
-adaptive aggregation -> soft-argmin at three scales -> two StereoDRNet
-refinements at H/2 and H. The output is the disparity pyramid, coarse to
-fine: [H/12, H/6, H/3, H/2, H], each a float32 [B, h, w] map, the same
-list the JAX model returns.
+The configurations it runs (``aanet_torch.config.ModelConfig.build``
+refuses the rest):
+* ``aanet``: ResNet-40 + FPN, the correlation pyramid at H/3, H/6, H/12,
+  adaptive aggregation, soft-argmin at three scales, two StereoDRNet
+  refinements: the pyramid [H/12, H/6, H/3, H/2, H];
+* ``stereonet-aa``: StereoNet features at H/4, one correlation volume,
+  adaptive aggregation at one scale, two StereoNet refinements:
+  [H/4, H/2, H];
+* the StereoNet baseline: StereoNet features, the difference volume, four
+  3-D convs, a negated soft-argmin (a matching cost), two StereoNet
+  refinements: [H/4, H/2, H];
+* the PSMNet baseline: SPP features at H/4, the concat volume, three 3-D
+  hourglasses upsampled x4, soft-argmin, no refinement: [H] in eval and,
+  in training, the three heads in the JAX package's order
+  [cost3, cost2, cost1] (its composer reverses the aggregation's list).
 
-In eval mode one feature pass runs over both views stacked on the batch
-axis (exact: shared weights, running BatchNorm statistics). In training
-mode the views take two separate feature passes, left then right, so each
-BatchNorm updates its statistics once per view, as the reference and the
-JAX model do (aanet_tpu/models/aanet.py:242-244). With ``remat`` the
-training forward is checkpointed as the JAX model rematerialises it
-(aanet.py:206-213): each view's feature pass and each refinement stage as
-a whole, each AAModule and each refinement BasicBlock on its own.
+Every map is a float32 [B, h, w] disparity. In eval mode one feature pass
+runs over both views stacked on the batch axis (exact: shared weights,
+running BatchNorm statistics). In training mode the views take two
+separate feature passes, left then right, so each BatchNorm updates its
+statistics once per view, as the reference and the JAX model do
+(aanet_tpu/models/aanet.py:242-244). With ``remat`` the training forward
+is checkpointed as the JAX model rematerialises it (aanet.py:206-213):
+each view's feature pass and each refinement stage as a whole, the 3-D
+aggregations as a whole, each AAModule and each refinement BasicBlock on
+its own.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 
-from aanet_torch.models.aggregation import AdaptiveAggregation
-from aanet_torch.models.feature import AANetFeature, FeaturePyramidNetwork
+from aanet_torch.models.aggregation import (
+    AdaptiveAggregation,
+    PSMNetHGAggregation,
+    StereoNetAggregation,
+)
+from aanet_torch.models.feature import (
+    AANetFeature,
+    FeaturePyramidNetwork,
+    PSMNetFeature,
+    StereoNetFeature,
+)
 from aanet_torch.models.layers import remat
-from aanet_torch.models.refinement import StereoDRNetRefinement
+from aanet_torch.models.refinement import StereoDRNetRefinement, StereoNetRefinement
 from aanet_torch.ops import cost_volume as cost_ops
 from aanet_torch.ops import softargmin as softargmin_ops
 from aanet_torch.ops.resize import resize_bilinear
 
-NUM_DOWNSAMPLE = 2  # refinements at H/2 and H
+FEATURE_CHANNELS = 32  # the StereoNet and PSMNet extractors' output
+REFINEMENTS = {"stereonet": StereoNetRefinement, "stereodrnet": StereoDRNetRefinement}
 
 
 class AANet(nn.Module):
-    """The five-stage adaptive-aggregation stereo network.
+    """The five-stage stereo network of the model flags.
 
-    Build it through ``aanet_torch.config.ModelConfig.build``. Parameter
-    names follow the flax model's paths (``aanet_torch/convert.py``).
+    Build it through ``aanet_torch.config.ModelConfig.build``, which checks
+    the flags. Parameter names follow the flax model's paths
+    (``aanet_torch/convert.py``).
     """
 
-    def __init__(self, max_disp=192, num_fusions=6, num_stage_blocks=1,
-                 num_deform_blocks=3, mdconv_dilation=2, deformable_groups=2,
-                 feature_mdconv=True, remat=True):
+    def __init__(self, max_disp=192, num_downsample=2, feature_type="aanet",
+                 feature_pyramid_network=True, feature_similarity="correlation",
+                 aggregation_type="adaptive", num_scales=3, num_fusions=6,
+                 num_stage_blocks=1, num_deform_blocks=3, refinement_type="stereodrnet",
+                 mdconv_dilation=2, deformable_groups=2, feature_mdconv=True, remat=True):
         super().__init__()
         self.remat = remat
-        # the ResNet-40 features start at H/3 (nets/aanet.py:43-61)
-        self.max_disp = max_disp // 3
-        self.feature_extractor = AANetFeature(feature_mdconv=feature_mdconv)
-        self.fpn = FeaturePyramidNetwork(out_channels=128)
-        self.aggregation = AdaptiveAggregation(
-            self.max_disp, num_scales=3, num_fusions=num_fusions,
-            num_stage_blocks=num_stage_blocks, num_deform_blocks=num_deform_blocks,
-            deformable_groups=deformable_groups, mdconv_dilation=mdconv_dilation,
-            remat=remat,
-        )
-        self.refinement_0 = StereoDRNetRefinement(remat=remat)
-        self.refinement_1 = StereoDRNetRefinement(remat=remat)
+        self.num_downsample = num_downsample
+        self.feature_similarity = feature_similarity
+        self.aggregation_type = aggregation_type
+        self.num_scales = num_scales
+        # per-extractor max_disp division (nets/aanet.py:43-61)
+        self.max_disp = max_disp // (3 if feature_type == "aanet" else 2**num_downsample)
+        if feature_type == "aanet":
+            self.feature_extractor = AANetFeature(feature_mdconv=feature_mdconv)
+        elif feature_type == "stereonet":
+            self.feature_extractor = StereoNetFeature(num_downsample)
+        elif feature_type == "psmnet":
+            self.feature_extractor = PSMNetFeature()
+        else:
+            raise NotImplementedError(feature_type)
+        self.fpn = FeaturePyramidNetwork(out_channels=128) if feature_pyramid_network else None
+
+        if aggregation_type == "adaptive":
+            self.aggregation = AdaptiveAggregation(
+                self.max_disp, num_scales=num_scales, num_fusions=num_fusions,
+                num_stage_blocks=num_stage_blocks, num_deform_blocks=num_deform_blocks,
+                deformable_groups=deformable_groups, mdconv_dilation=mdconv_dilation,
+                remat=remat,
+            )
+        else:
+            channels = FEATURE_CHANNELS * (2 if feature_similarity == "concat" else 1)
+            if aggregation_type == "stereonet":
+                self.aggregation = StereoNetAggregation(channels)
+            elif aggregation_type == "psmnet_hourglass":
+                self.aggregation = PSMNetHGAggregation(channels)
+            else:
+                raise NotImplementedError(aggregation_type)
+
+        self.refinement_type = None if refinement_type in (None, "None") else refinement_type
+        if self.refinement_type is not None:
+            for i in range(num_downsample):
+                self.add_module(f"refinement_{i}", REFINEMENTS[self.refinement_type](remat=remat))
 
     def _features(self, img):
-        return self.fpn(self.feature_extractor(img))
+        feats = self.feature_extractor(img)
+        return self.fpn(feats) if self.fpn is not None else feats
+
+    def _cost_volumes(self, left, right):
+        """The correlation pyramid of multi-scale features, else one volume
+        (in a list for the adaptive aggregation) (aanet.py:147-164)."""
+        if isinstance(left, list):
+            vols = [cost_ops.cost_volume(lf, rf, self.max_disp // 2**s, self.feature_similarity)
+                    for s, (lf, rf) in enumerate(zip(left, right))]
+            return vols[:1] if self.num_scales == 1 else vols
+        vol = cost_ops.cost_volume(left, right, self.max_disp, self.feature_similarity)
+        return [vol] if self.aggregation_type == "adaptive" else vol
+
+    def _disparities(self, aggregation):
+        """Soft-argmin of each aggregated volume, coarse to fine
+        (aanet.py:166-175); a difference volume is a matching cost."""
+        match_similarity = self.feature_similarity not in ("difference", "concat")
+        if "psmnet" in self.aggregation_type:
+            match_similarity = True  # PSMNet learns a similarity from the concat volume
+        if isinstance(aggregation, list):
+            return [softargmin_ops.soft_argmin(v, match_similarity) for v in aggregation[::-1]]
+        return [softargmin_ops.soft_argmin(aggregation, match_similarity)]
 
     def _refine(self, left_img, right_img, disparity):
-        """The two refinements at H/2 and H: [disp at H/2, disp at H]."""
+        """The refinements at H/2^(k-1), ..., H/2, H."""
         out = []
         h, w = left_img.shape[2:]
-        for i in range(NUM_DOWNSAMPLE):
-            scale = 1.0 / 2 ** (NUM_DOWNSAMPLE - i - 1)
+        for i in range(self.num_downsample):
+            scale = 1.0 / 2 ** (self.num_downsample - i - 1)
             if scale == 1.0:
                 curr_left, curr_right = left_img, right_img
             else:
@@ -77,7 +149,7 @@ class AANet(nn.Module):
 
     def forward(self, left_img: torch.Tensor, right_img: torch.Tensor):
         """left_img, right_img: [B, 3, H, W] normalised images -> the
-        disparity pyramid [H/12, H/6, H/3, H/2, H]."""
+        disparity pyramid, coarse to fine."""
         n = left_img.shape[0]
         checkpointed = self.training and self.remat
         if self.training:
@@ -85,16 +157,19 @@ class AANet(nn.Module):
             left_feats, right_feats = features(left_img), features(right_img)
         else:
             feats = self._features(torch.cat([left_img, right_img], 0))
-            left_feats, right_feats = [f[:n] for f in feats], [f[n:] for f in feats]
-        vols = [
-            cost_ops.correlation_cost_volume(lf, rf, self.max_disp // 2**s)
-            for s, (lf, rf) in enumerate(zip(left_feats, right_feats))
-        ]
-        aggregation = self.aggregation(vols)
-        # coarse to fine: [H/3, H/6, H/12] -> [H/12, H/6, H/3]
-        pyramid = [softargmin_ops.soft_argmin(v) for v in aggregation[::-1]]
-        if checkpointed:
-            pyramid += remat(self._refine, left_img, right_img, pyramid[-1])
+            if isinstance(feats, list):
+                left_feats, right_feats = [f[:n] for f in feats], [f[n:] for f in feats]
+            else:
+                left_feats, right_feats = feats[:n], feats[n:]
+        vols = self._cost_volumes(left_feats, right_feats)
+        if checkpointed and self.aggregation_type != "adaptive":
+            aggregation = remat(self.aggregation, vols)
         else:
-            pyramid += self._refine(left_img, right_img, pyramid[-1])
+            aggregation = self.aggregation(vols)
+        pyramid = self._disparities(aggregation)
+        if self.refinement_type is not None:
+            if checkpointed:
+                pyramid += remat(self._refine, left_img, right_img, pyramid[-1])
+            else:
+                pyramid += self._refine(left_img, right_img, pyramid[-1])
         return [d.float() for d in pyramid]

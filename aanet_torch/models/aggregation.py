@@ -1,22 +1,31 @@
-"""Adaptive cost aggregation (aanet_tpu/models/aggregation.py:32-153).
+"""Cost aggregation (aanet_tpu/models/aggregation.py).
 
-Correlation volumes are [B, D_s, H_s, W_s]: the disparity axis is the
-channel axis, so the intra-scale (ISA) bottlenecks and the cross-scale
-(CSA) fusions are plain 2-D convs.
+Adaptive aggregation (``:32-153``): correlation volumes are
+[B, D_s, H_s, W_s], the disparity axis is the channel axis, so the
+intra-scale (ISA) bottlenecks and the cross-scale (CSA) fusions are plain
+2-D convs.
+
+The 3-D aggregations of the StereoNet and PSMNet baselines (``:156-271``)
+take a 4-D volume [B, C, D, H, W] and return volumes [B, D', H', W'] for
+soft-argmin (the JAX package's [B, H, W, D] with D moved to dim 1).
 """
 from __future__ import annotations
 
 import torch.nn as nn
+import torch.nn.functional as F
 
 from aanet_torch.models.layers import (
     Conv,
+    ConvTranspose,
     DeformSimpleBottleneck,
     Norm,
     SimpleBottleneck,
     leaky_relu,
     remat,
 )
-from aanet_torch.ops.resize import resize_bilinear
+from aanet_torch.ops.resize import resize_bilinear, resize_trilinear
+
+K3 = (3, 3, 3)
 
 
 class AdaptiveAggregationModule(nn.Module):
@@ -112,3 +121,106 @@ class AdaptiveAggregation(nn.Module):
             module = getattr(self, f"fusion_{i}")
             x = remat(module, x) if self.remat and self.training else module(x)
         return [getattr(self, f"final_conv_{i}")(x[i]) for i in range(self.num_scales)]
+
+
+class StereoNetAggregation(nn.Module):
+    """Four 3x3x3 conv + BatchNorm + leaky ReLU layers and a final 1-channel
+    3x3x3 conv (``aggregation.py:162-175``): [B, C, D, H, W] -> [B, D, H, W]."""
+
+    def __init__(self, channels=32):
+        super().__init__()
+        for i in range(4):
+            self.add_module(f"Conv_{i}", Conv(channels, channels, K3, 1, 1))
+            self.add_module(f"Norm_{i}", Norm(channels, dims=3))
+        self.Conv_4 = Conv(channels, 1, K3, 1, 1, bias=True)
+
+    def forward(self, cost_volume):
+        x = cost_volume
+        for i in range(4):
+            x = leaky_relu(getattr(self, f"Norm_{i}")(getattr(self, f"Conv_{i}")(x)))
+        return self.Conv_4(x)[:, 0]
+
+
+def _add_convbn(module, name, cin, cout, stride=1):
+    module.add_module(f"{name}_conv", Conv(cin, cout, K3, stride, 1))
+    module.add_module(f"{name}_bn", Norm(cout, dims=3))
+
+
+def _convbn(module, name, x):
+    return getattr(module, f"{name}_bn")(getattr(module, f"{name}_conv")(x))
+
+
+class PSMNetHourglass(nn.Module):
+    """One PSMNet 3-D hourglass (``aggregation.py:204-231``): down twice by
+    stride-2 convs, up twice by transposed convs, with the previous
+    hourglass's skips."""
+
+    def __init__(self, inplanes):
+        super().__init__()
+        p = inplanes
+        _add_convbn(self, "conv1", p, 2 * p, 2)  # 1/8
+        _add_convbn(self, "conv2", 2 * p, 2 * p)
+        _add_convbn(self, "conv3", 2 * p, 2 * p, 2)  # 1/16
+        _add_convbn(self, "conv4", 2 * p, 2 * p)
+        self.conv5 = ConvTranspose(2 * p, 2 * p, K3, 2, 1, 1)
+        self.conv5_bn = Norm(2 * p, dims=3)
+        self.conv6 = ConvTranspose(2 * p, p, K3, 2, 1, 1)
+        self.conv6_bn = Norm(p, dims=3)
+
+    def forward(self, x, presqu, postsqu):
+        out = F.relu(_convbn(self, "conv1", x))
+        pre = _convbn(self, "conv2", out)
+        pre = F.relu(pre + postsqu) if postsqu is not None else F.relu(pre)
+        out = F.relu(_convbn(self, "conv3", pre))
+        out = F.relu(_convbn(self, "conv4", out))
+        up5 = self.conv5_bn(self.conv5(out))
+        post = F.relu(up5 + (presqu if presqu is not None else pre))
+        return self.conv6_bn(self.conv6(post)), pre, post
+
+
+class PSMNetHGAggregation(nn.Module):
+    """PSMNet's stacked-hourglass aggregation (``aggregation.py:232-271``):
+    four 3-D convs, three hourglasses and three classification heads, each
+    upsampled x4 (trilinear) to full resolution and max_disp candidates.
+    Eval returns [cost3]; training [cost1, cost2, cost3]."""
+
+    def __init__(self, in_channels=64):
+        super().__init__()
+        _add_convbn(self, "dres0a", in_channels, 32)
+        _add_convbn(self, "dres0b", 32, 32)
+        _add_convbn(self, "dres1a", 32, 32)
+        _add_convbn(self, "dres1b", 32, 32)
+        for k in (1, 2, 3):
+            self.add_module(f"hg{k}", PSMNetHourglass(32))
+        for k in (1, 2, 3):
+            _add_convbn(self, f"classif{k}_a", 32, 32)
+            self.add_module(f"classif{k}_final", Conv(32, 1, K3, 1, 1))
+
+    def _classify(self, y, k):
+        y = F.relu(_convbn(self, f"classif{k}_a", y))
+        return getattr(self, f"classif{k}_final")(y)
+
+    def forward(self, cost_volume):
+        x = F.relu(_convbn(self, "dres0a", cost_volume))
+        x = F.relu(_convbn(self, "dres0b", x))
+        cost0 = _convbn(self, "dres1b", F.relu(_convbn(self, "dres1a", x))) + x
+
+        out1, pre1, post1 = self.hg1(cost0, None, None)
+        out1 = out1 + cost0
+        out2, _, post2 = self.hg2(out1, pre1, post1)
+        out2 = out2 + cost0
+        out3, _, _ = self.hg3(out2, pre1, post2)
+        out3 = out3 + cost0
+
+        cost1 = self._classify(out1, 1)
+        cost2 = self._classify(out2, 2) + cost1
+        cost3 = self._classify(out3, 3) + cost2
+
+        d, h, w = cost3.shape[2:]
+
+        def up(c):
+            return resize_trilinear(c, (4 * d, 4 * h, 4 * w))[:, 0]
+
+        if self.training:
+            return [up(cost1), up(cost2), up(cost3)]
+        return [up(cost3)]

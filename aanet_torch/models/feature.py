@@ -1,12 +1,28 @@
-"""Feature extraction for the ``aanet`` preset (aanet_tpu/models/feature.py):
-the ResNet-40 backbone with a deformable layer3, and the top-down FPN."""
+"""Feature extractors (aanet_tpu/models/feature.py): the ResNet-40
+backbone with a deformable layer3 and the top-down FPN (``aanet``), and
+the single-scale StereoNet (H/2^k) and PSMNet (SPP, H/4) extractors."""
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from aanet_torch.models.layers import Bottleneck, Conv, DeformBottleneck, Norm
-from aanet_torch.ops.resize import resize_nearest
+from aanet_torch.models.layers import BasicBlock, Bottleneck, Conv, DeformBottleneck, Norm
+from aanet_torch.ops.resize import resize_bilinear, resize_nearest
+
+
+def _add_numbered(module, blocks):
+    """Add ``blocks`` as ``<class>_<n>``, as flax auto-names them in
+    creation order; return the names in order."""
+    counts: dict = {}
+    names = []
+    for block in blocks:
+        kind = type(block).__name__
+        name = f"{kind}_{counts.get(kind, 0)}"
+        counts[kind] = counts.get(kind, 0) + 1
+        module.add_module(name, block)
+        names.append(name)
+    return names
 
 
 class AANetFeature(nn.Module):
@@ -28,14 +44,7 @@ class AANetFeature(nn.Module):
             blocks += [DeformBottleneck(16 * c, 4 * c) for _ in range(5)]
         else:
             blocks += [Bottleneck(8 * c, 4 * c, stride=2)] + [Bottleneck(16 * c, 4 * c) for _ in range(5)]
-        counts: dict = {}
-        self.block_names = []
-        for block in blocks:
-            kind = type(block).__name__
-            name = f"{kind}_{counts.get(kind, 0)}"
-            counts[kind] = counts.get(kind, 0) + 1
-            self.add_module(name, block)
-            self.block_names.append(name)
+        self.block_names = _add_numbered(self, blocks)
 
     def forward(self, x):
         x = F.relu(self.Norm_0(self.Conv_0(x)))
@@ -74,3 +83,99 @@ class FeaturePyramidNetwork(nn.Module):
             F.relu(getattr(self, f"Norm_{i}")(getattr(self, f"fpn_{i}")(lat)))
             for i, lat in enumerate(laterals)
         ]
+
+
+class StereoNetFeature(nn.Module):
+    """``num_downsample`` stride-2 5x5 convs, six leaky residual blocks and
+    a final 3x3 conv: 32 channels at H/2^k (``feature.py:63-77``)."""
+
+    def __init__(self, num_downsample=3):
+        super().__init__()
+        self.num_downsample = num_downsample
+        for i in range(num_downsample):
+            self.add_module(f"Conv_{i}", Conv(3 if i == 0 else 32, 32, 5, 2, 2))
+            self.add_module(f"Norm_{i}", Norm(32))
+        self.block_names = _add_numbered(self, [BasicBlock(32, 32, leaky=True) for _ in range(6)])
+        self.add_module(f"Conv_{num_downsample}", Conv(32, 32, 3, 1, 1))
+
+    def forward(self, x):
+        for i in range(self.num_downsample):
+            x = F.relu(getattr(self, f"Norm_{i}")(getattr(self, f"Conv_{i}")(x)))
+        for name in self.block_names:
+            x = getattr(self, name)(x)
+        return getattr(self, f"Conv_{self.num_downsample}")(x)
+
+
+class PSMNetBasicBlock(nn.Module):
+    """PSMNet's residual block: no ReLU after the add (``feature.py:80-100``,
+    reference nets/feature.py:123-147)."""
+
+    def __init__(self, cin, planes, stride=1, dilation=1, downsample=False):
+        super().__init__()
+        pad = dilation if dilation > 1 else 1
+        self.Conv_0 = Conv(cin, planes, 3, stride, pad, dilation)
+        self.Norm_0 = Norm(planes)
+        self.Conv_1 = Conv(planes, planes, 3, 1, pad, dilation)
+        self.Norm_1 = Norm(planes)
+        self.has_identity = downsample or stride != 1 or cin != planes
+        if self.has_identity:
+            self.Conv_2 = Conv(cin, planes, 1, stride)
+            self.Norm_2 = Norm(planes)
+
+    def forward(self, x):
+        out = F.relu(self.Norm_0(self.Conv_0(x)))
+        out = self.Norm_1(self.Conv_1(out))
+        identity = self.Norm_2(self.Conv_2(x)) if self.has_identity else x
+        return out + identity
+
+
+SPP_POOLS = (64, 32, 16, 8)  # the SPP branches' average-pool windows at H/4
+
+
+class PSMNetFeature(nn.Module):
+    """PSMNet's extractor with spatial pyramid pooling: 32 channels at H/4
+    (``feature.py:103-149``)."""
+
+    def __init__(self):
+        super().__init__()
+        # Conv_0..2/Norm_0..2 the stem, Conv_3..6/Norm_3..6 the SPP branches,
+        # Conv_7/Norm_7 and Conv_8 the fusion, in flax's creation order
+        for i, (cin, stride) in enumerate(((3, 2), (32, 1), (32, 1))):
+            self.add_module(f"Conv_{i}", Conv(cin, 32, 3, stride, 1))
+            self.add_module(f"Norm_{i}", Norm(32))
+        blocks = [PSMNetBasicBlock(32, 32) for _ in range(3)]
+        blocks += [PSMNetBasicBlock(32 if i == 0 else 64, 64, stride=2 if i == 0 else 1)
+                   for i in range(16)]
+        blocks += [PSMNetBasicBlock(64 if i == 0 else 128, 128, downsample=i == 0) for i in range(3)]
+        blocks += [PSMNetBasicBlock(128, 128, dilation=2) for _ in range(3)]
+        self.block_names = _add_numbered(self, blocks)
+        for i in range(len(SPP_POOLS)):
+            self.add_module(f"Conv_{3 + i}", Conv(128, 32, 1))
+            self.add_module(f"Norm_{3 + i}", Norm(32))
+        self.Conv_7 = Conv(64 + 128 + 32 * len(SPP_POOLS), 128, 3, 1, 1)
+        self.Norm_7 = Norm(128)
+        self.Conv_8 = Conv(128, 32, 1)
+
+    def forward(self, x):
+        for i in range(3):
+            x = F.relu(getattr(self, f"Norm_{i}")(getattr(self, f"Conv_{i}")(x)))
+        for k, name in enumerate(self.block_names):
+            x = getattr(self, name)(x)
+            if k == 18:
+                output_raw = x  # H/4, 64 channels
+        output_skip = x  # H/4, 128 channels
+        h, w = output_skip.shape[2:]
+        if h < 64 or w < 64:
+            raise ValueError(
+                f"PSMNetFeature: H/4 feature map is {h}x{w} but the SPP branches pool "
+                "fixed 64px windows (reference nets/feature.py:250-265): the input image "
+                f"must be at least 256x256 (got {h * 4}x{w * 4})."
+            )
+        branches = []
+        for i, pool in enumerate(SPP_POOLS):
+            b = F.avg_pool2d(output_skip, pool, pool)
+            b = F.relu(getattr(self, f"Norm_{3 + i}")(getattr(self, f"Conv_{3 + i}")(b)))
+            branches.append(resize_bilinear(b, (h, w)))
+        # [raw, skip, b8, b16, b32, b64]
+        cat = torch.cat([output_raw, output_skip] + branches[::-1], 1)
+        return self.Conv_8(F.relu(self.Norm_7(self.Conv_7(cat))))

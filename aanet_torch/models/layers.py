@@ -56,12 +56,12 @@ def remat(fn, *args):
 
 
 def set_train_mode(model: nn.Module, freeze_bn: bool = False) -> nn.Module:
-    """``model.train()``, with every BatchNorm left in eval mode under
-    ``freeze_bn`` (running statistics, no updates)."""
+    """``model.train()``, with every BatchNorm (2-D and 3-D) left in eval
+    mode under ``freeze_bn`` (running statistics, no updates)."""
     model.train()
     if freeze_bn:
         for m in model.modules():
-            if isinstance(m, nn.BatchNorm2d):
+            if isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d)):
                 m.eval()
     return model
 
@@ -71,25 +71,54 @@ def leaky_relu(x: torch.Tensor) -> torch.Tensor:
 
 
 class Conv(nn.Module):
-    """A Conv2d with torch padding arithmetic, no bias by default."""
+    """A Conv2d with torch padding arithmetic, no bias by default; a Conv3d
+    over (D, H, W) when ``kernel_size`` is a 3-tuple, as the flax
+    ``Conv`` (layers.py:77-130)."""
 
     def __init__(self, cin, cout, kernel_size=3, stride=1, padding=0, dilation=1,
                  groups=1, bias=False):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(cin, cout, kernel_size, stride, padding, dilation,
-                                groups, bias=bias)
+        conv = nn.Conv3d if isinstance(kernel_size, (tuple, list)) and len(kernel_size) == 3 else nn.Conv2d
+        self.Conv_0 = conv(cin, cout, kernel_size, stride, padding, dilation, groups, bias=bias)
         nn.init.kaiming_normal_(self.Conv_0.weight, mode="fan_out", nonlinearity="relu")
 
     def forward(self, x):
         return self.Conv_0(x)
 
 
-class Norm(nn.Module):
-    """BatchNorm with flax's training semantics (module docstring)."""
+class ConvTranspose(nn.Module):
+    """A transposed conv with torch's output size, (in - 1) * stride -
+    2 * padding + k + output_padding (layers.py:132-165).
 
-    def __init__(self, channels, zero_init=False):
+    The JAX package runs it as a conv of the input dilated by ``stride``,
+    padded (k - 1 - padding, k - 1 - padding + output_padding), with an
+    unflipped kernel. ``Conv_0.weight`` holds that kernel, [Cout, Cin, k...]
+    after the usual HWIO -> OIHW conversion; the forward hands
+    ``F.conv_transpose{2,3}d`` its spatially flipped, in/out-swapped view,
+    which is the same map.
+    """
+
+    def __init__(self, cin, cout, kernel_size=3, stride=2, padding=1, output_padding=1,
+                 bias=False):
         super().__init__()
-        self.BatchNorm_0 = nn.BatchNorm2d(channels, eps=1e-5, momentum=BN_MOMENTUM)
+        self.Conv_0 = Conv(cin, cout, kernel_size, bias=bias).Conv_0
+        self.stride, self.padding, self.output_padding = stride, padding, output_padding
+
+    def forward(self, x):
+        weight = self.Conv_0.weight
+        flipped = weight.flip(tuple(range(2, weight.ndim))).transpose(0, 1)
+        fn = F.conv_transpose3d if weight.ndim == 5 else F.conv_transpose2d
+        return fn(x, flipped, self.Conv_0.bias, self.stride, self.padding, self.output_padding)
+
+
+class Norm(nn.Module):
+    """BatchNorm with flax's training semantics (module docstring), over
+    [B, C, H, W] or, with ``dims=3``, over [B, C, D, H, W]."""
+
+    def __init__(self, channels, zero_init=False, dims=2):
+        super().__init__()
+        bn = {2: nn.BatchNorm2d, 3: nn.BatchNorm3d}[dims]
+        self.BatchNorm_0 = bn(channels, eps=1e-5, momentum=BN_MOMENTUM)
         if zero_init:  # ZeroNorm: zero-init residual branch (nets/resnet.py:146-151)
             nn.init.zeros_(self.BatchNorm_0.weight)
 
@@ -97,12 +126,20 @@ class Norm(nn.Module):
         bn = self.BatchNorm_0
         if not bn.training:
             return bn(x)
+        dims = (0,) + tuple(range(2, x.ndim))
         if _UPDATE_STATS:
             with torch.no_grad():
-                var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+                var, mean = torch.var_mean(x, dim=dims, correction=0)
                 bn.running_mean.lerp_(mean, BN_MOMENTUM)
                 bn.running_var.lerp_(var, BN_MOMENTUM)
                 bn.num_batches_tracked.add_(1)
+        if x.numel() == x.shape[1]:
+            # one value per channel (PSMNet's 64-px SPP branch on a 256-px
+            # crop at batch 1): torch's batch_norm refuses it, flax
+            # normalises it to the bias
+            var, mean = torch.var_mean(x, dim=dims, correction=0, keepdim=True)
+            shape = (1, -1) + (1,) * (x.ndim - 2)
+            return (x - mean) * torch.rsqrt(var + bn.eps) * bn.weight.view(shape) + bn.bias.view(shape)
         return F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
 
 

@@ -1,12 +1,14 @@
-"""StereoDRNet disparity refinement (aanet_tpu/models/refinement.py:98-147).
+"""Disparity refinement (aanet_tpu/models/refinement.py).
 
-Upsamples the incoming low-resolution disparity to the image resolution
-(values rescaled by the width ratio), warps the right image by it, and
-predicts a residual from the photometric error, the left image and the
-disparity; the result is clamped at zero. The convs run dense; the JAX
-package's space-to-depth execution of the same head is the same math with
-the same parameters. With ``remat`` each BasicBlock is checkpointed on its
-own in training (refinement.py:39-54).
+Both heads upsample the incoming low-resolution disparity to the image
+resolution (values rescaled by the width ratio), predict a residual and
+clamp the result at zero. StereoNet's (``:67-95``) sees the disparity and
+the left image; StereoDRNet's (``:98-147``) warps the right image by the
+disparity and sees the photometric error, the left image and the
+disparity. The convs run dense; the JAX package's space-to-depth execution
+of the same heads is the same math with the same parameters. With
+``remat`` each BasicBlock is checkpointed on its own in training
+(refinement.py:39-54).
 """
 from __future__ import annotations
 
@@ -31,6 +33,33 @@ def _upsample_to_img(low_disp: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
     return disp
 
 
+def _blocks(module, x):
+    for k in range(len(_DILATIONS)):
+        block = getattr(module, f"BasicBlock_{k}")
+        x = remat(block, x) if module.remat and module.training else block(x)
+    return x
+
+
+class StereoNetRefinement(nn.Module):
+    """Edge-aware residual refinement on [disparity, left image] (reference
+    nets/refinement.py:18-57)."""
+
+    def __init__(self, remat=False):
+        super().__init__()
+        self.remat = remat
+        self.Conv_0 = Conv(4, 32, 3, 1, 1)
+        self.Norm_0 = Norm(32)
+        for k, d in enumerate(_DILATIONS):
+            self.add_module(f"BasicBlock_{k}", BasicBlock(32, 32, dilation=d, leaky=True))
+        self.Conv_1 = Conv(32, 1, 3, 1, 1, bias=True)
+        nn.init.normal_(self.Conv_1.Conv_0.weight, std=(1.0 / (32 * 9)) ** 0.5)  # lecun normal
+
+    def forward(self, low_disp, left_img, right_img=None):
+        disp = _upsample_to_img(low_disp, left_img)
+        x = leaky_relu(self.Norm_0(self.Conv_0(torch.cat([disp, left_img], 1))))
+        return F.relu(disp + self.Conv_1(_blocks(self, x)))[:, 0]
+
+
 class StereoDRNetRefinement(nn.Module):
     """Warp-error-driven refinement (reference nets/refinement.py:60-106)."""
 
@@ -52,8 +81,5 @@ class StereoDRNetRefinement(nn.Module):
         error = warped_right - left_img
         conv1 = leaky_relu(self.Norm_0(self.Conv_0(torch.cat([error, left_img], 1))))
         conv2 = leaky_relu(self.Norm_1(self.Conv_1(disp)))
-        x = torch.cat([conv1, conv2], 1)
-        for k in range(len(_DILATIONS)):
-            block = getattr(self, f"BasicBlock_{k}")
-            x = remat(block, x) if self.remat and self.training else block(x)
+        x = _blocks(self, torch.cat([conv1, conv2], 1))
         return F.relu(disp + self.Conv_2(x))[:, 0]

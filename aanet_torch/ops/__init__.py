@@ -15,8 +15,11 @@ KERNEL_OPS = (
     cost_volume.correlation_cost_volume,
     softargmin.soft_argmin,
     warp.disp_warp,
+    cost_volume.difference_cost_volume,
+    cost_volume.concat_cost_volume,
 )
-# the wrappers of the backward kernels, called by the ops' backward
+# the wrappers of the backward kernels, called by the ops' backward (the
+# difference and concat volumes have none yet)
 BACKWARD_OPS = (
     deform.modulated_deform_conv2d_backward_data,
     deform.modulated_deform_conv2d_backward_weight,

@@ -17,6 +17,16 @@
    plain run's; times the forward and reads its peak memory;
 5. runs the ``predict`` CLI on the card on two 375x1242 PNG pairs (pad to
    a multiple of 48, crop back) with the seeded weights;
+5b. the 3-D-aggregation baselines and ``stereonet-aa``: for the PSMNet
+   baseline (concat volume, three 3-D hourglasses), the StereoNet baseline
+   (difference volume, four 3-D convs, two refinements) and the
+   ``stereonet-aa`` preset, each at 384x1248, batch 1, max_disp 192,
+   seeded and calibrated: the forward through the plain twins with every
+   kernel call's shape, each kernel against its twin at those shapes
+   (the difference and concat volumes bit for bit), the forward through
+   the kernels with its launch counts and its pyramid against the plain
+   one, its latency, peak memory, idle share and top device kernels; then
+   ``predict`` with the PSMNet baseline's flags on two 375x1242 pairs;
 6. times each backward kernel (and each forward kernel again) against its
    plain version at the shapes that one plain train step of the ``aanet``
    preset at batch 16, 288x576 records, with the bound and, for warp,
@@ -64,7 +74,8 @@ HEIGHT, WIDTH = 384, 1248  # KITTI, the reference's inference protocol
 PREDICT_HW = (375, 1242)  # a KITTI image size that is not a multiple of 48
 # one forward of the aanet preset: 6 layer3 + 9 ISA deformable convs, 3
 # scales of correlation and soft-argmin, refinements at H/2 and H
-EXPECTED_LAUNCHES = {"deform_conv": 15, "correlation": 3, "soft_argmin": 3, "disp_warp": 2}
+EXPECTED_LAUNCHES = {"deform_conv": 15, "correlation": 3, "soft_argmin": 3, "disp_warp": 2,
+                     "difference_volume": 0, "concat_volume": 0}
 # the training slice: the SceneFlow crop (aanet_tpu/config.py:59-60,174) at
 # the reference's per-card batch (64 over 4 cards, BASELINE.md:27)
 TRAIN_HW = (288, 576)
@@ -76,7 +87,23 @@ COMPARE_BATCH = 2  # the kernel-vs-plain train step
 EXPECTED_TRAIN_LAUNCHES = {
     "deform_conv": 42, "deform_conv_backward_data": 21, "deform_conv_backward_weight": 21,
     "correlation": 3, "correlation_backward": 3, "soft_argmin": 3, "soft_argmin_backward": 3,
-    "disp_warp": 4, "disp_warp_backward": 2,
+    "disp_warp": 4, "disp_warp_backward": 2, "difference_volume": 0, "concat_volume": 0,
+}
+# the 3-D-aggregation baselines (reached through the model flags, as in the
+# JAX CLI) and the stereonet-aa preset, at the inference protocol's size;
+# launches per forward and the pyramid's resolutions as divisors of H, W
+BASELINES = {
+    "psmnet": dict(
+        flags=dict(feature_type="psmnet", feature_similarity="concat",
+                   aggregation_type="psmnet_hourglass", refinement_type="None"),
+        launches={"concat_volume": 1, "soft_argmin": 1}, levels=(1,)),
+    "stereonet": dict(
+        flags=dict(feature_type="stereonet", feature_similarity="difference",
+                   aggregation_type="stereonet", refinement_type="stereonet"),
+        launches={"difference_volume": 1, "soft_argmin": 1}, levels=(4, 2, 1)),
+    "stereonet-aa": dict(
+        preset="stereonet-aa",
+        launches={"correlation": 1, "deform_conv": 4, "soft_argmin": 1}, levels=(4, 2, 1)),
 }
 CLI_PAIRS, CLI_HW = 48, (540, 960)  # SceneFlow's image size
 VAL_HW = (576, 960)  # the SceneFlow recipe's validation crop (pads 540 to 576)
@@ -194,6 +221,17 @@ def kernel_specs():
         return lambda: F.grid_sample(img, grid, mode="bilinear", padding_mode="border",
                                      align_corners=True)
 
+    def vol_inputs(sig, gen, dev):
+        shape, d = sig
+        return (torch.randn(shape, generator=gen, device=dev),
+                torch.randn(shape, generator=gen, device=dev), d), {}
+
+    def vol_cost(sig, concat):
+        (b, c, h, w), d = sig
+        band = sum(max(w - i, 0) for i in range(d))  # one subtraction per w >= d
+        return 4 * (2 * b * c * h * w + (2 if concat else 1) * b * c * d * h * w), (
+            0 if concat else b * c * h * band)
+
     def rel(scale):
         return lambda ref: scale * float(ref.abs().max())
 
@@ -214,13 +252,30 @@ def kernel_specs():
              plain=softargmin.soft_argmin_plain,
              sig=lambda cost, match_similarity=True: (tuple(cost.shape), match_similarity),
              inputs=sa_inputs, cost=sa_cost, library=None,
-             tol=lambda ref: 1e-4, tol_text="1e-4",
+             # float32 sums over up to 192 candidates: relative to the
+             # largest disparity beyond 50 px
+             tol=lambda ref: max(1e-4, 2e-6 * float(ref.abs().max())),
+             tol_text="max(1e-4, 2e-6 * max|ref|)",
              source="aanet_torch/csrc/softargmin.cu",
              replaces="aanet_tpu/ops/softargmin.py:16"),
         dict(name="disp_warp", module=warp, attr="disp_warp", plain=warp.disp_warp_plain,
              sig=lambda img, disp: (tuple(img.shape),), inputs=warp_inputs, cost=warp_cost,
              library=warp_library, tol=lambda ref: 1e-5, tol_text="1e-5",
              source="aanet_torch/csrc/warp.cu", replaces="aanet_tpu/ops/warp.py:17"),
+        dict(name="difference_volume", module=cost_volume, attr="difference_cost_volume",
+             plain=cost_volume.difference_cost_volume_plain,
+             sig=lambda left, right, d: (tuple(left.shape), d), inputs=vol_inputs,
+             cost=lambda sig: vol_cost(sig, False), library=None,
+             tol=lambda ref: 0.0, tol_text="0 (bit for bit)",
+             source="aanet_torch/csrc/volume4d.cu",
+             replaces="aanet_tpu/ops/cost_volume.py:127"),
+        dict(name="concat_volume", module=cost_volume, attr="concat_cost_volume",
+             plain=cost_volume.concat_cost_volume_plain,
+             sig=lambda left, right, d: (tuple(left.shape), d), inputs=vol_inputs,
+             cost=lambda sig: vol_cost(sig, True), library=None,
+             tol=lambda ref: 0.0, tol_text="0 (bit for bit)",
+             source="aanet_torch/csrc/volume4d.cu",
+             replaces="aanet_tpu/ops/cost_volume.py:144"),
     ]
 
     # The backward kernels: inputs made from the forward's signature plus a
@@ -351,7 +406,8 @@ def plain_ops(specs, calls=None, recomputed=None):
 def stage_breakdown(model, left, right, iters=10):
     """Median device time (CUDA events) and peak memory of each top-level
     stage of the forward, over ``iters`` forwards."""
-    names = ["feature_extractor", "fpn", "aggregation", "refinement_0", "refinement_1"]
+    names = [n for n in ("feature_extractor", "fpn", "aggregation", "refinement_0", "refinement_1")
+             if isinstance(getattr(model, n, None), torch.nn.Module)]
     spans = {n: [] for n in names}
     peaks = dict.fromkeys(names, 0)
 
@@ -452,7 +508,7 @@ def seed_weights_(model, seed):
     rs = np.random.RandomState(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if p.ndim == 4:
+            if p.ndim >= 4:  # 2-D and 3-D conv kernels
                 std = (0.3 if "offset_conv" in name else 1.0) / np.sqrt(p[0].numel())
                 val = rs.randn(*p.shape) * std
             elif name.endswith("ZeroNorm_0.BatchNorm_0.weight"):
@@ -469,11 +525,12 @@ def calibrate_bn_(model, specs, left, right):
     this pair, so the random network's activations stay near unit scale."""
     def hook(mod, inputs):
         x = inputs[0]
-        mod.running_mean.copy_(x.mean((0, 2, 3)))
-        mod.running_var.copy_(x.var((0, 2, 3), unbiased=False))
+        dims = (0,) + tuple(range(2, x.ndim))
+        mod.running_mean.copy_(x.mean(dims))
+        mod.running_var.copy_(x.var(dims, unbiased=False))
 
     handles = [m.register_forward_pre_hook(hook) for m in model.modules()
-               if isinstance(m, torch.nn.BatchNorm2d)]
+               if isinstance(m, (torch.nn.BatchNorm2d, torch.nn.BatchNorm3d))]
     try:
         with plain_ops(specs):
             model(left, right)
@@ -601,6 +658,111 @@ def seeded_model(cfg, dev):
     model = cfg.build()
     seed_weights_(model, SEED)
     return model.to(dev)
+
+def forward_record(name, model, left, right, plain_ms, errs, timer, smi):
+    """Latency (median of 20 after 3 warm-ups, L2 flushed), peak memory,
+    stage times, the dense convs' and matmuls' FLOPs (torch's flop
+    counter; the hand-written kernels are not counted) and the device's
+    busy time, idle share and top kernels of ``model``'s forward on
+    (left, right)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    fwd_ms = timer.ms(lambda: model(left, right))
+    with FlopCounterMode(display=False) as counter:
+        model(left, right)
+    dense_flops = counter.get_total_flops()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()  # weights, inputs, the timer's scratch
+    final = model(left, right)[-1]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    stages = stage_breakdown(model, left, right)
+    device = device_breakdown(lambda: model(left, right))
+    return dict(
+        config=name, batch=1, height=left.shape[2], width=left.shape[3], dtype="float32",
+        latency_ms=fwd_ms, plain_latency_ms=plain_ms, dense_flops=dense_flops,
+        dense_tflop_s=dense_flops / fwd_ms / 1e9, peak_memory_bytes=peak,
+        resident_before_bytes=resident, forward_memory_bytes=peak - resident,
+        max_err_px=errs[-1][0], mean_err_px=errs[-1][1], pyramid_err_px=errs,
+        final_disp_mean=float(final.mean()), final_disp_std=float(final.std()), stages=stages,
+        # cost volumes, soft-argmin, image downscaling and concatenations
+        other_stage_ms=fwd_ms - sum(st["ms"] for st in stages.values()),
+        device_ms=device["busy_ms"], profiled_window_ms=device["window_ms"],
+        device_idle_share=device["idle_share"], top_kernels=device["top"], card=smi,
+    )
+
+
+def compare_pyramids(pyramid, plain_pyramid, shapes, what):
+    """Shapes, finiteness, and kernel vs plain within 5e-2 px max and 5e-3
+    px mean per level; returns the (max, mean) errors per level."""
+    check([tuple(p.shape) for p in pyramid] == shapes,
+          f"{what}: pyramid shapes {[tuple(p.shape) for p in pyramid]}, expected {shapes}")
+    errs = []
+    for got, want in zip(pyramid, plain_pyramid):
+        check(bool(torch.isfinite(got).all()), f"{what}: non-finite disparity")
+        diff = (got - want).abs()
+        errs.append((float(diff.max()), float(diff.mean())))
+    check(all(mx <= 5e-2 and mn <= 5e-3 for mx, mn in errs),
+          f"{what}: kernel path vs plain path (max, mean) px per level: {errs}")
+    return errs
+
+
+def baseline_phases(specs, gen, dev, timer, smi, left, right):
+    """Phase 5b: the PSMNet and StereoNet baselines and stereonet-aa at
+    384x1248. Returns, per configuration, each kernel's rows at its shapes
+    and the launches of one forward through the kernels."""
+    from aanet_torch import cli
+    from aanet_torch.config import ModelConfig, preset
+
+    out = {}
+    for name, spec in BASELINES.items():
+        cfg = preset(spec["preset"]) if "preset" in spec else ModelConfig(**spec["flags"])
+        expected = {s["name"]: spec["launches"].get(s["name"], 0) for s in specs}
+        model = seeded_model(cfg, dev).eval()
+        calibrate_bn_(model, specs, left, right)
+        calls = {s["name"]: collections.Counter() for s in specs}
+        with plain_ops(specs, calls):
+            plain_pyramid = model(left, right)
+        with plain_ops(specs):
+            plain_ms = timer.ms(lambda: model(left, right), warmup=1, iters=5)
+        made = {n: sum(c.values()) for n, c in calls.items()}
+        check(made == expected, f"{name}: plain forward made {made}, expected {expected}")
+        rows = {s["name"]: [measure(s, sig, n, gen, dev, timer) for sig, n in calls[s["name"]].items()]
+                for s in specs}
+        reset_launches(specs)
+        pyramid = model(left, right)
+        torch.cuda.synchronize()
+        counts = launches(specs)
+        print(f"{name} launches: {counts}", flush=True)
+        check(counts == expected, f"{name}: launches {counts}, expected {expected}")
+        shapes = [(1, HEIGHT // k, WIDTH // k) for k in spec["levels"]]
+        errs = compare_pyramids(pyramid, plain_pyramid, shapes, name)
+        record = forward_record(name, model, left, right, plain_ms, errs, timer, smi)
+        print(json.dumps({"baseline_forward": record}), flush=True)
+        out[name] = dict(rows=rows, launches=counts)
+        if name == "psmnet":  # the predict entry point with the baseline's flags
+            with tempfile.TemporaryDirectory() as tmp:
+                weights = os.path.join(tmp, "weights.pt")
+                torch.save(model.state_dict(), weights)
+                data, pred_dir = os.path.join(tmp, "pairs"), os.path.join(tmp, "pred")
+                write_pngs(data, 2, PREDICT_HW, SEED)
+                flags = [f"--{k}={v}" for k, v in spec["flags"].items()]
+                reset_launches(specs)
+                cli.main(["predict", *flags, "--data_dir", data, "--output_dir", pred_dir,
+                          "--pretrained", weights, "--device", DEVICE, "--save_type", "npy"])
+                counts = launches(specs)
+                check(counts == {k: 2 * v for k, v in expected.items()}, f"psmnet predict launches {counts}")
+                for i in range(2):
+                    pred = np.load(os.path.join(pred_dir, f"{i:06d}.npy"))
+                    check(pred.shape == PREDICT_HW and np.isfinite(pred).all(),
+                          f"psmnet prediction {i}: shape {pred.shape}")
+            print(f"psmnet predict: 2 pairs of {PREDICT_HW[0]}x{PREDICT_HW[1]}, launches {counts}",
+                  flush=True)
+        del model, plain_pyramid, pyramid
+        torch.cuda.empty_cache()
+    return out
+
 
 def train_phases(specs, bwd_specs, gen, dev, timer, smi):
     """Phases 6-9: the training slice. Returns each kernel's rows at the
@@ -825,39 +987,9 @@ def main() -> int:
     print(f"main-path launches: {counts_main}", flush=True)
     check(counts_main == EXPECTED_LAUNCHES,
           f"launches {counts_main}, expected {EXPECTED_LAUNCHES}")
-    hw = [(HEIGHT // 12, WIDTH // 12), (HEIGHT // 6, WIDTH // 6), (HEIGHT // 3, WIDTH // 3),
-          (HEIGHT // 2, WIDTH // 2), (HEIGHT, WIDTH)]
-    check([tuple(p.shape) for p in pyramid] == [(1, h, w) for h, w in hw],
-          f"pyramid shapes {[tuple(p.shape) for p in pyramid]}")
-    errs = []
-    for got, want in zip(pyramid, plain_pyramid):
-        check(bool(torch.isfinite(got).all()), "non-finite disparity")
-        diff = (got - want).abs()
-        errs.append((float(diff.max()), float(diff.mean())))
-    check(all(mx <= 5e-2 and mn <= 5e-3 for mx, mn in errs),
-          f"kernel path vs plain path (max, mean) px per level: {errs}")
-    fwd_ms = timer.ms(lambda: model(left, right))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    resident = torch.cuda.memory_allocated(dev)  # weights, inputs, the timer's scratch
-    model(left, right)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated(dev)
-    stages = stage_breakdown(model, left, right)
-    device = device_breakdown(lambda: model(left, right))
-    final = pyramid[-1]
-    forward = dict(
-        preset="aanet", batch=1, height=HEIGHT, width=WIDTH, dtype="float32",
-        latency_ms=fwd_ms, plain_latency_ms=plain_fwd_ms, peak_memory_bytes=peak,
-        resident_before_bytes=resident, forward_memory_bytes=peak - resident,
-        max_err_px=errs[-1][0], mean_err_px=errs[-1][1],
-        pyramid_err_px=errs, final_disp_mean=float(final.mean()),
-        final_disp_std=float(final.std()), stages=stages,
-        # cost volumes, soft-argmin, image downscaling and concatenations
-        other_stage_ms=fwd_ms - sum(s["ms"] for s in stages.values()),
-        device_ms=device["busy_ms"], profiled_window_ms=device["window_ms"],
-        device_idle_share=device["idle_share"], top_kernels=device["top"],
-    )
+    shapes = [(1, HEIGHT // k, WIDTH // k) for k in (12, 6, 3, 2, 1)]
+    errs = compare_pyramids(pyramid, plain_pyramid, shapes, "aanet")
+    forward = forward_record("aanet", model, left, right, plain_fwd_ms, errs, timer, smi)
     print(json.dumps({"forward": forward}), flush=True)
 
     # 5. the predict entry point on the card
@@ -882,20 +1014,36 @@ def main() -> int:
     print(f"predict: 2 pairs of {PREDICT_HW[0]}x{PREDICT_HW[1]} in {predict_s:.2f} s, "
           f"launches {counts}", flush=True)
 
+    # 5b. the 3-D-aggregation baselines and stereonet-aa
+    baselines = baseline_phases(specs, gen, dev, timer, smi, left, right)
+    del model
+    torch.cuda.empty_cache()
+
     train = train_phases(specs, bwd_specs, gen, dev, timer, smi)
 
-    # 10. the record: every kernel with its totals over one train step (the
-    # slice's main path); the forward kernels also over one inference forward
+    # 10. the record: every kernel with its totals over the path it serves
+    # first: one train step of aanet (the training slice's main path), or,
+    # for the 4-D volumes, one forward of the baseline that runs it; the
+    # forward kernels also over one aanet inference forward and over one
+    # forward of each baseline that runs them
+    inference = {sp["name"]: r for sp, r in report}
     kernels = []
     for spec in specs + bwd_specs:
-        rows = train["rows"][spec["name"]]
-        entry = dict(name=spec["name"], route="cuda", source=spec["source"],
-                     replaces=spec["replaces"], launches=train["launches"][spec["name"]],
-                     tolerance=spec["tol_text"], **totals(rows, bool(spec["library"])))
-        inference = {sp["name"]: r for sp, r in report}.get(spec["name"])
-        if inference is not None:
-            entry["inference"] = dict(launches=counts_main[spec["name"]],
-                                      **totals(inference, bool(spec["library"])), shapes=inference)
+        name, lib = spec["name"], bool(spec["library"])
+        rows, count = train["rows"][name], train["launches"][name]
+        runs = {cfg: (b["rows"][name], b["launches"][name])
+                for cfg, b in baselines.items() if b["launches"].get(name)}
+        path = "aanet train step"
+        if not count:  # a 4-D volume: its baseline's forward is its main path
+            (path, (rows, count)), = runs.items()
+        entry = dict(name=name, route="cuda", source=spec["source"], replaces=spec["replaces"],
+                     launches=count, tolerance=spec["tol_text"], path=path, **totals(rows, lib))
+        if inference.get(name):
+            entry["inference"] = dict(launches=counts_main[name], **totals(inference[name], lib),
+                                      shapes=inference[name])
+        if path == "aanet train step" and runs:
+            entry["baselines"] = {cfg: dict(launches=n, **totals(r, lib), shapes=r)
+                                  for cfg, (r, n) in runs.items()}
         entry["shapes"] = rows
         kernels.append(entry)
     print(smi)

@@ -28,7 +28,7 @@ def no_launches_on_cpu():
     """The CPU path never counts a kernel launch."""
     before = [op.launches for op in KERNEL_OPS]
     yield
-    assert [op.launches for op in KERNEL_OPS] == before == [0, 0, 0, 0]
+    assert [op.launches for op in KERNEL_OPS] == before == [0] * len(KERNEL_OPS)
 
 
 @pytest.mark.parametrize("w,d", [(37, 8), (64, 16), (20, 24)])

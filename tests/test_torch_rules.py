@@ -69,8 +69,10 @@ def test_converted_flax_tree_loads_strictly():
 
 @pytest.mark.parametrize(
     "overrides",
-    [dict(MODEL_PRESETS[name].__dict__) for name in sorted(MODEL_PRESETS) if name != "aanet"]
-    + [dict(dtype="bfloat16"), dict(feature_similarity="difference")],
+    [dict(MODEL_PRESETS[name].__dict__) for name in sorted(MODEL_PRESETS)
+     if name not in ("aanet", "stereonet-aa")]
+    + [dict(dtype="bfloat16"), dict(feature_similarity="difference"),
+       dict(aggregation_type="gcnet")],
 )
 def test_build_refuses_what_the_port_does_not_run(overrides):
     with pytest.raises(NotImplementedError):
@@ -105,7 +107,10 @@ def test_kernel_ops_are_autograd_functions():
         ops.cost_volume.correlation_cost_volume(t(1, 3, 4, 9), t(1, 3, 4, 9), 4),
         ops.softargmin.soft_argmin(t(1, 5, 2, 3)),
         ops.warp.disp_warp(torch.zeros(1, 2, 3, 8), t(1, 3, 8))[0],
+        ops.cost_volume.difference_cost_volume(t(1, 3, 4, 9), t(1, 3, 4, 9), 4),
+        ops.cost_volume.concat_cost_volume(t(1, 3, 4, 9), t(1, 3, 4, 9), 4),
     ]
+    assert len(outputs) == len(KERNEL_OPS)
     for op, out in zip(KERNEL_OPS, outputs):
         node = out.grad_fn
         assert isinstance(node, torch.autograd.function.BackwardCFunction), (op.__name__, node)
@@ -137,7 +142,7 @@ def test_predict_on_cpu_writes_cropped_outputs(tmp_path):
     assert [os.path.basename(s) for s in saved] == ["0.png", "1.png"]
     for name in saved:
         assert np.asarray(Image.open(name)).shape == (40, 90)
-    assert [op.launches for op in KERNEL_OPS] == [0, 0, 0, 0]
+    assert [op.launches for op in KERNEL_OPS] == [0] * len(KERNEL_OPS)
 
 
 def test_cli_predict_on_cpu_with_weights(tmp_path):
@@ -154,3 +159,28 @@ def test_cli_predict_on_cpu_with_weights(tmp_path):
     ])
     pred = np.load(out / "0.npy")
     assert pred.shape == (50, 100) and np.isfinite(pred).all()
+
+
+BASELINE_FLAGS = {
+    "psmnet": ["--feature_type", "psmnet", "--feature_similarity", "concat",
+               "--aggregation_type", "psmnet_hourglass", "--refinement_type", "None"],
+    "stereonet": ["--feature_type", "stereonet", "--feature_similarity", "difference",
+                  "--aggregation_type", "stereonet", "--refinement_type", "stereonet"],
+    "stereonet-aa": ["--preset", "stereonet-aa"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(BASELINE_FLAGS))
+def test_cli_predict_runs_the_baselines_on_cpu(tmp_path, name):
+    """``predict`` reaches the two 3-D-aggregation baselines through the
+    JAX CLI's model flags, and the stereonet-aa preset, on the CPU; the
+    PSMNet extractor needs a 256-px image at least."""
+    data = tmp_path / "pairs"
+    h, w = (260, 270) if name == "psmnet" else (40, 90)  # padded to 288x288 / 48x96
+    _write_pairs(str(data), h, w, n=1)
+    out = tmp_path / "out"
+    cli.main(["predict", *BASELINE_FLAGS[name], "--max_disp", "48", "--data_dir", str(data),
+              "--output_dir", str(out), "--save_type", "npy", "--device", "cpu"])
+    pred = np.load(out / "0.npy")
+    assert pred.shape == (h, w) and np.isfinite(pred).all()
+    assert all(op.launches == 0 for op in KERNEL_OPS)
