@@ -4,17 +4,23 @@
       --checkpoint_dir runs/aanet [--recipe aanet_sceneflow] [--device cuda|cpu]
   python -m aanet_torch.cli predict --preset aanet --data_dir pairs/ \\
       [--pretrained weights.pt] [--device cuda|cpu]
-  python -m aanet_torch.cli predict --feature_type psmnet \\
+  python -m aanet_torch.cli train --feature_type psmnet \\
       --feature_similarity concat --aggregation_type psmnet_hourglass \\
+      --refinement_type None --data_dir data/SceneFlow --checkpoint_dir runs/psmnet
+  python -m aanet_torch.cli predict --feature_type gcnet \\
+      --feature_similarity concat --aggregation_type gcnet --num_downsample 1 \\
       --refinement_type None --data_dir pairs/
 
 Both take the JAX CLI's model flags (aanet_tpu/cli.py:94-122) on top of
-``--preset``: the PSMNet and StereoNet baselines are reached through them,
-as in the JAX package. ``train`` also takes the data flags and the
+``--preset``: the PSMNet (hourglass or basic aggregation), StereoNet and
+GC-Net baselines are reached through them, as in the JAX package, which
+has no preset or recipe for them. ``train`` also takes the data flags and the
 training flags without resume, periodic checkpoints and summaries. It
 writes ``aanet_latest.pt`` after every epoch and ``aanet_best.pt`` on the
 best validation. ``predict`` reads ``left/*.png`` and ``right/`` with the
-same names under ``--data_dir``; the weights are a torch state_dict file
+same names under ``--data_dir`` (GC-Net's map, one pixel short of the
+padded pair, crops to one row fewer than the image, as the JAX
+``predict`` gives it); the weights are a torch state_dict file
 or a training checkpoint (``aanet_torch.convert`` maps a flax
 checkpoint's trees onto a state_dict). Both default to ``--device cuda``
 and raise without a GPU. Float32 convolutions and matmuls run in full
@@ -60,7 +66,8 @@ def _add_device(p):
 
 def _add_model_args(p):
     p.add_argument("--preset", default=None,
-                   help="model preset; the port runs 'aanet' (the default) and 'stereonet-aa'")
+                   help="model preset; the port runs 'aanet' (the default) and 'stereonet-aa'; "
+                        "the PSMNet, StereoNet and GC-Net baselines take the model flags instead")
     for name, kind in _MODEL_FLAGS.items():
         p.add_argument(f"--{name}", type=kind, default=None)
     for name in _MODEL_SWITCHES:

@@ -4,14 +4,17 @@
 An own copy of ``aanet_tpu/config.py`` (the port imports nothing of the
 JAX package). ``ModelConfig.build`` constructs the port's network and
 raises ``NotImplementedError`` for every preset or flag the port does not
-run yet. It runs, in float32, the ``aanet`` preset (inference and
-training), the ``stereonet-aa`` preset, and the two 3-D-aggregation
-baselines reached through the model flags:
+run yet. It runs, in float32, for inference and training, the ``aanet``
+and ``stereonet-aa`` presets and the 3-D-aggregation baselines reached
+through the model flags:
 
 * PSMNet: ``feature_type="psmnet", feature_similarity="concat",
-  aggregation_type="psmnet_hourglass", refinement_type="None"``;
+  aggregation_type="psmnet_hourglass", refinement_type="None"``, or
+  ``aggregation_type="psmnet_basic"``;
 * StereoNet: ``feature_type="stereonet", feature_similarity="difference",
-  aggregation_type="stereonet", refinement_type="stereonet"``.
+  aggregation_type="stereonet", refinement_type="stereonet"``;
+* GC-Net: ``feature_type="gcnet", feature_similarity="concat",
+  aggregation_type="gcnet", num_downsample=1, refinement_type="None"``.
 """
 from __future__ import annotations
 
@@ -56,14 +59,11 @@ class ModelConfig:
         volume and aggregation do not fit each other (the JAX composer
         fails on them too)."""
         refused = [
-            (self.feature_type in ("ganet", "gcnet"),
-             f"feature_type={self.feature_type!r}: the GANet and GC-Net extractors are not ported yet"),
+            (self.feature_type == "ganet",
+             "feature_type='ganet': the GANet extractor is not ported yet"),
             (self.feature_type not in ("aanet", "stereonet", "psmnet", "ganet", "gcnet"),
              f"feature_type={self.feature_type!r}: unknown extractor"),
             (self.feature_pyramid, "feature_pyramid=True: FeaturePyramid is not ported yet"),
-            (self.aggregation_type in ("psmnet_basic", "gcnet"),
-             f"aggregation_type={self.aggregation_type!r}: PSMNetBasicAggregation and "
-             "GCNetAggregation are not ported yet"),
             (self.aggregation_type not in ("adaptive", "stereonet", "psmnet_hourglass",
                                            "psmnet_basic", "gcnet"),
              f"aggregation_type={self.aggregation_type!r}: unknown aggregation"),

@@ -1,4 +1,5 @@
-// The 4-D cost volumes of the 3-D-aggregation networks (PSMNet, StereoNet):
+// The 4-D cost volumes of the 3-D-aggregation networks (PSMNet, StereoNet,
+// GC-Net):
 //   difference: out[b, c, d, h, w] = L[b, c, h, w] - R[b, c, h, w - d]
 //   concat:     out[b, c, d, h, w] = L[b, c, h, w]          (c <  C)
 //               out[b, c, d, h, w] = R[b, c - C, h, w - d]  (c >= C)
@@ -15,6 +16,20 @@
 // threads on neighbouring w, so every store is coalesced. A copy or one
 // float32 subtraction per output: the result equals the plain version bit
 // for bit.
+//
+// The backward kernels are XLA's transposes of the shifted copies, for
+// grad [B, C', D, H, W]:
+//   dL[b, c, h, w]  =  sum_{d <= w}       g[b, c, d, h, w]
+//   dR[b, c, h, w'] = -sum_{w' + d < W}   g[b, c, d, h, w' + d]  (difference)
+//                   = +sum_{w' + d < W}   g[b, C + c, d, h, w' + d]  (concat)
+// with d < D. Bound: bytes, ``grad`` read once and dL, dR written once.
+// Design: one thread per output (b, c, h, w) walks d upwards once and sums
+// both gradients; neighbouring threads take neighbouring w, so the read of
+// g[d, w] and the shifted read of g[d, w + d] are both coalesced (for the
+// difference volume the second mostly hits L1). No atomics: deterministic.
+// Each sum starts from 0 and adds (or subtracts) in ascending d, as the
+// plain twins accumulate their slices, so the result equals them bit for
+// bit.
 #include "common.cuh"
 
 namespace {
@@ -76,6 +91,61 @@ int launch(const float* left, const float* right, float* out, int batch,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kConcat>
+__global__ void __launch_bounds__(THREADS)
+volume4d_backward_kernel(const float* __restrict__ grad, float* __restrict__ grad_left,
+                         float* __restrict__ grad_right, long long n, int channels,
+                         int height, int width, int max_disp) {
+  const long long i = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  if (i >= n) return;
+  const int w = static_cast<int>(i % width);
+  const long long row = i / width;  // (b, c, h)
+  const int h = static_cast<int>(row % height);
+  const long long bc = row / height;
+  const long long c = bc % channels;
+  const long long b = bc / channels;
+  const long long plane = static_cast<long long>(height) * width;  // one (c, d) plane
+  const int grad_channels = kConcat ? 2 * channels : channels;
+  // g[b, c, 0, h, 0] for dL; for dR the same channel (difference) or C + c
+  const float* gl = grad + (b * grad_channels + c) * max_disp * plane + static_cast<long long>(h) * width;
+  const float* gr = kConcat ? gl + static_cast<long long>(channels) * max_disp * plane : gl;
+  const int left_end = min(max_disp, w + 1);       // d <= w
+  const int right_end = min(max_disp, width - w);  // w + d < W
+  const int end = max(left_end, right_end);
+  float acc_l = 0.f;
+  float acc_r = 0.f;
+  // one pass over d: thread w's shifted read g[d, w + d] is thread
+  // (w + d)'s g[d, w + d] of the same iteration, so for the difference
+  // volume it mostly hits L1
+  for (int d = 0; d < end; ++d) {
+    const float* plane_d = gl + d * plane;
+    if (d < left_end) acc_l += plane_d[w];
+    if (d < right_end) {
+      const float g = (kConcat ? gr + d * plane : plane_d)[w + d];
+      if (kConcat) {
+        acc_r += g;
+      } else {
+        acc_r -= g;
+      }
+    }
+  }
+  grad_left[i] = acc_l;
+  grad_right[i] = acc_r;
+}
+
+template <bool kConcat>
+int launch_backward(const float* grad, float* grad_left, float* grad_right, int batch,
+                    int channels, int height, int width, int max_disp, int device,
+                    void* stream) {
+  cudaSetDevice(device);
+  const long long n = static_cast<long long>(batch) * channels * height * width;
+  if (n == 0) return 0;  // with max_disp 0 the kernel writes zeros
+  volume4d_backward_kernel<kConcat><<<aanet_blocks(n, THREADS), THREADS, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(
+      grad, grad_left, grad_right, n, channels, height, width, max_disp);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // left, right: [batch, channels, height, width] float32;
@@ -95,4 +165,23 @@ extern "C" int aanet_concat_volume_f32(const float* left, const float* right,
                                        int device, void* stream) {
   return launch<true>(left, right, out, batch, channels, height, width, max_disp,
                       device, stream);
+}
+
+// grad: [batch, channels, max_disp, height, width] float32;
+// grad_left, grad_right: [batch, channels, height, width] float32.
+extern "C" int aanet_difference_volume_backward_f32(const float* grad, float* grad_left,
+                                                    float* grad_right, int batch,
+                                                    int channels, int height, int width,
+                                                    int max_disp, int device, void* stream) {
+  return launch_backward<false>(grad, grad_left, grad_right, batch, channels, height, width,
+                                max_disp, device, stream);
+}
+
+// grad: [batch, 2 * channels, max_disp, height, width] float32.
+extern "C" int aanet_concat_volume_backward_f32(const float* grad, float* grad_left,
+                                                float* grad_right, int batch, int channels,
+                                                int height, int width, int max_disp,
+                                                int device, void* stream) {
+  return launch_backward<true>(grad, grad_left, grad_right, batch, channels, height, width,
+                               max_disp, device, stream);
 }

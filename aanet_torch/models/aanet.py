@@ -16,7 +16,12 @@ refuses the rest):
 * the PSMNet baseline: SPP features at H/4, the concat volume, three 3-D
   hourglasses upsampled x4, soft-argmin, no refinement: [H] in eval and,
   in training, the three heads in the JAX package's order
-  [cost3, cost2, cost1] (its composer reverses the aggregation's list).
+  [cost3, cost2, cost1] (its composer reverses the aggregation's list);
+  with the basic aggregation (``psmnet_basic``) one head, [H], in both;
+* GC-Net: features at H/2, the concat volume over max_disp / 2
+  candidates, the 3-D encoder-decoder, a negated soft-argmin (a concat
+  volume without PSMNet's aggregation is a matching cost), no refinement:
+  [(H - 1, W - 1)], one pixel short on each axis as in the reference.
 
 Every map is a float32 [B, h, w] disparity. In eval mode one feature pass
 runs over both views stacked on the batch axis (exact: shared weights,
@@ -36,12 +41,15 @@ import torch.nn as nn
 
 from aanet_torch.models.aggregation import (
     AdaptiveAggregation,
+    GCNetAggregation,
+    PSMNetBasicAggregation,
     PSMNetHGAggregation,
     StereoNetAggregation,
 )
 from aanet_torch.models.feature import (
     AANetFeature,
     FeaturePyramidNetwork,
+    GCNetFeature,
     PSMNetFeature,
     StereoNetFeature,
 )
@@ -51,8 +59,13 @@ from aanet_torch.ops import cost_volume as cost_ops
 from aanet_torch.ops import softargmin as softargmin_ops
 from aanet_torch.ops.resize import resize_bilinear
 
-FEATURE_CHANNELS = 32  # the StereoNet and PSMNet extractors' output
+FEATURE_CHANNELS = 32  # the StereoNet, PSMNet and GC-Net extractors' output
 REFINEMENTS = {"stereonet": StereoNetRefinement, "stereodrnet": StereoDRNetRefinement}
+AGGREGATIONS_3D = {"stereonet": StereoNetAggregation, "psmnet_basic": PSMNetBasicAggregation,
+                   "psmnet_hourglass": PSMNetHGAggregation, "gcnet": GCNetAggregation}
+# the feature scale of each extractor (nets/aanet.py:43-61); StereoNet's
+# and PSMNet's is 2^num_downsample
+FEATURE_SCALE = {"aanet": 3, "gcnet": 2}
 
 
 class AANet(nn.Module):
@@ -74,14 +87,15 @@ class AANet(nn.Module):
         self.feature_similarity = feature_similarity
         self.aggregation_type = aggregation_type
         self.num_scales = num_scales
-        # per-extractor max_disp division (nets/aanet.py:43-61)
-        self.max_disp = max_disp // (3 if feature_type == "aanet" else 2**num_downsample)
+        self.max_disp = max_disp // FEATURE_SCALE.get(feature_type, 2**num_downsample)
         if feature_type == "aanet":
             self.feature_extractor = AANetFeature(feature_mdconv=feature_mdconv)
         elif feature_type == "stereonet":
             self.feature_extractor = StereoNetFeature(num_downsample)
         elif feature_type == "psmnet":
             self.feature_extractor = PSMNetFeature()
+        elif feature_type == "gcnet":
+            self.feature_extractor = GCNetFeature()
         else:
             raise NotImplementedError(feature_type)
         self.fpn = FeaturePyramidNetwork(out_channels=128) if feature_pyramid_network else None
@@ -93,14 +107,11 @@ class AANet(nn.Module):
                 deformable_groups=deformable_groups, mdconv_dilation=mdconv_dilation,
                 remat=remat,
             )
-        else:
+        elif aggregation_type in AGGREGATIONS_3D:
             channels = FEATURE_CHANNELS * (2 if feature_similarity == "concat" else 1)
-            if aggregation_type == "stereonet":
-                self.aggregation = StereoNetAggregation(channels)
-            elif aggregation_type == "psmnet_hourglass":
-                self.aggregation = PSMNetHGAggregation(channels)
-            else:
-                raise NotImplementedError(aggregation_type)
+            self.aggregation = AGGREGATIONS_3D[aggregation_type](channels)
+        else:
+            raise NotImplementedError(aggregation_type)
 
         self.refinement_type = None if refinement_type in (None, "None") else refinement_type
         if self.refinement_type is not None:

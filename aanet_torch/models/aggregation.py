@@ -5,9 +5,10 @@ Adaptive aggregation (``:32-153``): correlation volumes are
 intra-scale (ISA) bottlenecks and the cross-scale (CSA) fusions are plain
 2-D convs.
 
-The 3-D aggregations of the StereoNet and PSMNet baselines (``:156-271``)
-take a 4-D volume [B, C, D, H, W] and return volumes [B, D', H', W'] for
-soft-argmin (the JAX package's [B, H, W, D] with D moved to dim 1).
+The 3-D aggregations of the StereoNet, PSMNet and GC-Net baselines
+(``:156-311``) take a 4-D volume [B, C, D, H, W] and return volumes
+[B, D', H', W'] for soft-argmin (the JAX package's [B, H, W, D] with D
+moved to dim 1).
 """
 from __future__ import annotations
 
@@ -150,6 +151,33 @@ def _convbn(module, name, x):
     return getattr(module, f"{name}_bn")(getattr(module, f"{name}_conv")(x))
 
 
+class PSMNetBasicAggregation(nn.Module):
+    """PSMNet's basic aggregation (``aggregation.py:178-201``): two 3-D
+    convs, four residual pairs ``dres1..4``, a classification head, and the
+    x4 trilinear upsample to full resolution and max_disp candidates. It
+    returns a one-map list in eval and training alike."""
+
+    def __init__(self, in_channels=64):
+        super().__init__()
+        _add_convbn(self, "dres0a", in_channels, 32)
+        _add_convbn(self, "dres0b", 32, 32)
+        for i in range(1, 5):
+            _add_convbn(self, f"dres{i}a", 32, 32)
+            _add_convbn(self, f"dres{i}b", 32, 32)
+        _add_convbn(self, "classify_a", 32, 32)
+        self.classify_final = Conv(32, 1, K3, 1, 1)
+
+    def forward(self, cost_volume):
+        x = F.relu(_convbn(self, "dres0a", cost_volume))
+        cost0 = F.relu(_convbn(self, "dres0b", x))
+        for i in range(1, 5):
+            y = F.relu(_convbn(self, f"dres{i}a", cost0))
+            cost0 = _convbn(self, f"dres{i}b", y) + cost0
+        x = self.classify_final(F.relu(_convbn(self, "classify_a", cost0)))
+        d, h, w = x.shape[2:]
+        return [resize_trilinear(x, (4 * d, 4 * h, 4 * w))[:, 0]]
+
+
 class PSMNetHourglass(nn.Module):
     """One PSMNet 3-D hourglass (``aggregation.py:204-231``): down twice by
     stride-2 convs, up twice by transposed convs, with the previous
@@ -224,3 +252,53 @@ class PSMNetHGAggregation(nn.Module):
         if self.training:
             return [up(cost1), up(cost2), up(cost3)]
         return [up(cost3)]
+
+
+GCNET_LEVELS = 4  # stride-2 convs of the encoder below the input volume
+
+
+class GCNetAggregation(nn.Module):
+    """GC-Net's 3-D encoder-decoder (``aggregation.py:274-311``): 3-D
+    conv + BatchNorm + ReLU pairs down four stride-2 levels, transposed
+    convs back up with the encoder's skips. ``trans5`` has no output
+    padding and no BatchNorm or ReLU, so the result of a [B, C, D, H, W]
+    volume is [B, 2D - 1, 2H - 1, 2W - 1]: the reference's ConvTranspose3d
+    arithmetic, matched and not fixed. D, H and W must be multiples of 16,
+    or the skips do not fit the upsampled maps (the JAX model fails on the
+    shapes there)."""
+
+    def __init__(self, in_channels=64):
+        super().__init__()
+        _add_convbn(self, "conv1a", in_channels, 32)
+        _add_convbn(self, "conv1b", 32, 32)
+        for level, (cin, cout) in enumerate(((in_channels, 64), (64, 64), (64, 64), (64, 128)), 2):
+            _add_convbn(self, f"conv{level}a", cin, cout, 2)
+            _add_convbn(self, f"conv{level}b1", cout, cout)
+            _add_convbn(self, f"conv{level}b2", cout, cout)
+        for k, (cin, cout) in enumerate(((128, 64), (64, 64), (64, 64), (64, 32)), 1):
+            self.add_module(f"trans{k}_conv", ConvTranspose(cin, cout, K3, 2, 1, 1))
+            self.add_module(f"trans{k}_bn", Norm(cout, dims=3))
+        self.trans5_conv = ConvTranspose(32, 1, K3, 2, 1, 0)
+
+    def forward(self, cost_volume):
+        multiple = 2**GCNET_LEVELS
+        if any(s % multiple for s in cost_volume.shape[2:]):
+            raise ValueError(
+                f"GCNetAggregation: the volume's D, H, W {tuple(cost_volume.shape[2:])} must be "
+                f"multiples of {multiple}, or its {GCNET_LEVELS} stride-2 levels do not come "
+                "back to the skips' sizes"
+            )
+
+        def c3(x, name):
+            return F.relu(_convbn(self, name, x))
+
+        skips = [c3(c3(cost_volume, "conv1a"), "conv1b")]
+        down = cost_volume
+        for level in range(2, 6):
+            down = c3(down, f"conv{level}a")
+            skips.append(c3(c3(down, f"conv{level}b1"), f"conv{level}b2"))
+        x = skips.pop()  # conv5b
+        for k in range(1, 5):
+            x = F.relu(getattr(self, f"trans{k}_bn")(getattr(self, f"trans{k}_conv")(x)))
+            x = x + skips.pop()
+        return self.trans5_conv(x)[:, 0]

@@ -1,6 +1,7 @@
 """Feature extractors (aanet_tpu/models/feature.py): the ResNet-40
 backbone with a deformable layer3 and the top-down FPN (``aanet``), and
-the single-scale StereoNet (H/2^k) and PSMNet (SPP, H/4) extractors."""
+the single-scale StereoNet (H/2^k), PSMNet (SPP, H/4) and GC-Net (H/2)
+extractors."""
 from __future__ import annotations
 
 import torch
@@ -179,3 +180,21 @@ class PSMNetFeature(nn.Module):
         # [raw, skip, b8, b16, b32, b64]
         cat = torch.cat([output_raw, output_skip] + branches[::-1], 1)
         return self.Conv_8(F.relu(self.Norm_7(self.Conv_7(cat))))
+
+
+class GCNetFeature(nn.Module):
+    """A 5x5 stride-2 conv, eight PSMNet residual blocks and a 3x3 conv: 32
+    channels at H/2 (``feature.py:205-216``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.Conv_0 = Conv(3, 32, 5, 2, 2)
+        self.Norm_0 = Norm(32)
+        self.block_names = _add_numbered(self, [PSMNetBasicBlock(32, 32) for _ in range(8)])
+        self.Conv_1 = Conv(32, 32, 3, 1, 1)
+
+    def forward(self, x):
+        x = F.relu(self.Norm_0(self.Conv_0(x)))
+        for name in self.block_names:
+            x = getattr(self, name)(x)
+        return self.Conv_1(x)

@@ -18,14 +18,15 @@ KERNEL_OPS = (
     cost_volume.difference_cost_volume,
     cost_volume.concat_cost_volume,
 )
-# the wrappers of the backward kernels, called by the ops' backward (the
-# difference and concat volumes have none yet)
+# the wrappers of the backward kernels, called by the ops' backward
 BACKWARD_OPS = (
     deform.modulated_deform_conv2d_backward_data,
     deform.modulated_deform_conv2d_backward_weight,
     cost_volume.correlation_cost_volume_backward,
     softargmin.soft_argmin_backward,
     warp.disp_warp_backward,
+    cost_volume.difference_cost_volume_backward,
+    cost_volume.concat_cost_volume_backward,
 )
 
 __all__ = ["cost_volume", "deform", "resize", "softargmin", "warp", "KERNEL_OPS", "BACKWARD_OPS"]

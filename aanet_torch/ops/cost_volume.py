@@ -9,9 +9,9 @@
 
 Each is zero where w < d (both channel halves of the concat volume) and is
 a ``torch.autograd.Function`` with gradients for both feature maps. The 4-D
-volumes feed the 3-D convs of the PSMNet and StereoNet aggregations; their
-forward kernels are ``csrc/volume4d.cu``. Their backward has no kernel yet:
-on a CUDA tensor it raises.
+volumes feed the 3-D convs of the PSMNet, StereoNet and GC-Net
+aggregations; their CUDA kernels, forward and backward, are
+``csrc/volume4d.cu``.
 """
 from __future__ import annotations
 
@@ -193,23 +193,39 @@ def concat_cost_volume_backward_plain(grad, left, right):
 
 def difference_cost_volume_backward(grad, left, right):
     """Gradients (d left, d right) given the volume's gradient ``grad``
-    [B, C, D, H, W]: the plain version for a CPU tensor; a CUDA tensor
-    raises ``NotImplementedError`` (no backward kernel yet)."""
+    [B, C, D, H, W]. A CPU tensor takes the plain version; a CUDA tensor
+    launches ``aanet_difference_volume_backward_f32``."""
     return _volume_backward("difference", difference_cost_volume_backward_plain, grad, left, right)
 
 
 def concat_cost_volume_backward(grad, left, right):
-    """As ``difference_cost_volume_backward``, for the concat volume."""
+    """As ``difference_cost_volume_backward``, for the concat volume's
+    ``grad`` [B, 2C, D, H, W] and ``aanet_concat_volume_backward_f32``."""
     return _volume_backward("concat", concat_cost_volume_backward_plain, grad, left, right)
 
 
 def _volume_backward(kind, plain, grad, left, right):
+    _check(left, right, f"{kind} volume backward")
     if left.device.type == "cpu":
         return plain(grad, left, right)
-    raise NotImplementedError(
-        f"the {kind} volume's backward has no CUDA kernel yet: training the "
-        "3-D-aggregation networks is the next slice (ROADMAP.md, 'Still to come' item 1)"
+    _build.check_cuda_f32(f"{kind} volume backward", grad=grad, left=left, right=right)
+    b, c, h, w = left.shape
+    channels = 2 * c if kind == "concat" else c
+    if grad.ndim != 5 or grad.shape[:2] != (b, channels) or grad.shape[3:] != (h, w):
+        raise ValueError(
+            f"{kind} volume backward: grad {tuple(grad.shape)} does not fit {tuple(left.shape)}"
+        )
+    grad_left = torch.empty_like(left)
+    grad_right = torch.empty_like(right)
+    _build.launch(
+        "volume4d", f"aanet_{kind}_volume_backward_f32", _ARGTYPES,
+        _build.ptr(grad), _build.ptr(grad_left), _build.ptr(grad_right),
+        b, c, h, w, grad.shape[2], left.device.index, _build.stream(left),
     )
+    wrapper = {"difference": difference_cost_volume_backward,
+               "concat": concat_cost_volume_backward}[kind]
+    wrapper.launches += 1
+    return grad_left, grad_right
 
 
 class _Volume(torch.autograd.Function):
@@ -280,3 +296,5 @@ def cost_volume(left, right, max_disp: int, feature_similarity: str = "correlati
 
 difference_cost_volume.launches = 0
 concat_cost_volume.launches = 0
+difference_cost_volume_backward.launches = 0
+concat_cost_volume_backward.launches = 0

@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit; pins float32 (TF32 off);
-2. builds the four CUDA kernels from aanet_torch/csrc/ and times the build;
+2. builds the kernel libraries (five sources in aanet_torch/csrc/, one
+   nvcc each, in parallel) and times the build;
 3. drives the ``aanet`` preset's forward (batch 1, 384x1248, float32,
    seeded random weights with non-zero offset heads and ZeroNorm scales,
    BatchNorm statistics calibrated on the input) once through the plain
@@ -18,24 +19,27 @@
 5. runs the ``predict`` CLI on the card on two 375x1242 PNG pairs (pad to
    a multiple of 48, crop back) with the seeded weights;
 5b. the 3-D-aggregation baselines and ``stereonet-aa``: for the PSMNet
-   baseline (concat volume, three 3-D hourglasses), the StereoNet baseline
-   (difference volume, four 3-D convs, two refinements) and the
-   ``stereonet-aa`` preset, each at 384x1248, batch 1, max_disp 192,
-   seeded and calibrated: the forward through the plain twins with every
-   kernel call's shape, each kernel against its twin at those shapes
-   (the difference and concat volumes bit for bit), the forward through
-   the kernels with its launch counts and its pyramid against the plain
-   one, its latency, peak memory, idle share and top device kernels; then
-   ``predict`` with the PSMNet baseline's flags on two 375x1242 pairs;
+   baseline (concat volume, three 3-D hourglasses) and PSMNet with the
+   basic aggregation, the StereoNet baseline (difference volume, four 3-D
+   convs, two refinements), GC-Net (concat volume at H/2, the 3-D
+   encoder-decoder; its map is 383x1247) and the ``stereonet-aa`` preset,
+   each at 384x1248, batch 1, max_disp 192, seeded and calibrated: the
+   forward through the plain twins with every kernel call's shape, each
+   kernel against its twin at those shapes (the difference and concat
+   volumes bit for bit), the forward through the kernels with its launch
+   counts and its pyramid against the plain one, its latency, peak
+   memory, idle share and top device kernels; then ``predict`` with the
+   PSMNet baseline's flags on two 375x1242 pairs;
 6. times each backward kernel (and each forward kernel again) against its
    plain version at the shapes that one plain train step of the ``aanet``
    preset at batch 16, 288x576 records, with the bound and, for warp,
    F.grid_sample's forward plus backward as the library yardstick;
-7. runs one train step through the kernels and the same step through the
-   plain twins (seeded weights, batch 2, 288x576) and compares the loss,
-   every parameter's gradient and the BatchNorm statistics; every
-   parameter must get a non-zero gradient, and three steps on the batch
-   must lower the loss;
+7. on each of three seeded batches (batch 2, 288x576), runs one train
+   step through the kernels and the same step through the plain twins
+   (seeded weights) and compares the loss, every parameter's gradient
+   (against the plain step's largest change under three 1e-6 input
+   changes) and the BatchNorm statistics; every parameter must get a
+   non-zero gradient, and three steps on the batch must lower the loss;
 8. the full-width train step: batch 16, 288x576, float32, remat on; the
    launch counts of one step, then the median step time over 10 steps
    after 3 warm-ups, samples/s, peak memory and the device idle share;
@@ -43,7 +47,19 @@
    synthetic SceneFlow-layout dataset that it writes itself (48 pairs of
    540x960 PNGs with PFM disparities and filename lists), checks the
    losses and the checkpoint, and predicts with the written weights;
-10. prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
+10. the train steps of phase 5b's five configurations (the PSMNet
+   baseline with either aggregation, StereoNet, GC-Net, ``stereonet-aa``)
+   at 288x576, max_disp 192, remat on: a kernel
+   step against a plain step at batch 2, whose plain run records every
+   kernel call's shape; each backward kernel against its twin at those
+   shapes at the full step's batch (the two volume backwards bit for
+   bit); then the full-width step at batch 16, halved until a step fits
+   the card, with its launch counts per step, the median step time over
+   10 steps after 3 warm-ups, samples/s, peak memory, idle share and top
+   device kernels; then ``python -m aanet_torch.cli train`` with the
+   PSMNet baseline's flags for 6 steps at batch 8 on phase 9's dataset,
+   and ``predict`` with the weights it wrote;
+11. prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
 
 Any failure raises, so the exit code is non-zero and the last line is not
 printed. Without CUDA, or without the aanet_torch package beside it, the
@@ -54,6 +70,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import gc
 import json
 import os
 import shutil
@@ -81,6 +98,8 @@ EXPECTED_LAUNCHES = {"deform_conv": 15, "correlation": 3, "soft_argmin": 3, "dis
 TRAIN_HW = (288, 576)
 TRAIN_BATCH = 16
 COMPARE_BATCH = 2  # the kernel-vs-plain train step
+COMPARE_SEEDS = (0, 1, 2)  # phase 7's batches: one generator each
+NUDGES = 3  # 1e-6 input changes that estimate the plain step's spread
 # one train step with remat: the 21 deformable convs (12 of layer3 over two
 # feature passes, 9 ISA) and the 2 warps run again when backward recomputes
 # their checkpointed block
@@ -88,24 +107,54 @@ EXPECTED_TRAIN_LAUNCHES = {
     "deform_conv": 42, "deform_conv_backward_data": 21, "deform_conv_backward_weight": 21,
     "correlation": 3, "correlation_backward": 3, "soft_argmin": 3, "soft_argmin_backward": 3,
     "disp_warp": 4, "disp_warp_backward": 2, "difference_volume": 0, "concat_volume": 0,
+    "difference_volume_backward": 0, "concat_volume_backward": 0,
 }
 # the 3-D-aggregation baselines (reached through the model flags, as in the
-# JAX CLI) and the stereonet-aa preset, at the inference protocol's size;
-# launches per forward and the pyramid's resolutions as divisors of H, W
+# JAX CLI) and the stereonet-aa preset, at the inference protocol's size:
+# launches per forward, the pyramid's shapes at 384x1248, and the launches
+# per train step (remat on: stereonet-aa's deformable convs run again when
+# backward recomputes their AAModule; the 3-D aggregations are
+# checkpointed as a whole, and the volumes and soft-argmin lie outside)
+_FULL, _STEREO = [(1, HEIGHT, WIDTH)], [(1, HEIGHT // k, WIDTH // k) for k in (4, 2, 1)]
 BASELINES = {
     "psmnet": dict(
         flags=dict(feature_type="psmnet", feature_similarity="concat",
                    aggregation_type="psmnet_hourglass", refinement_type="None"),
-        launches={"concat_volume": 1, "soft_argmin": 1}, levels=(1,)),
+        launches={"concat_volume": 1, "soft_argmin": 1}, shapes=_FULL,
+        train_launches={"concat_volume": 1, "concat_volume_backward": 1,
+                        "soft_argmin": 3, "soft_argmin_backward": 3}),
+    "psmnet_basic": dict(
+        flags=dict(feature_type="psmnet", feature_similarity="concat",
+                   aggregation_type="psmnet_basic", refinement_type="None"),
+        launches={"concat_volume": 1, "soft_argmin": 1}, shapes=_FULL,
+        train_launches={"concat_volume": 1, "concat_volume_backward": 1,
+                        "soft_argmin": 1, "soft_argmin_backward": 1}),
     "stereonet": dict(
         flags=dict(feature_type="stereonet", feature_similarity="difference",
                    aggregation_type="stereonet", refinement_type="stereonet"),
-        launches={"difference_volume": 1, "soft_argmin": 1}, levels=(4, 2, 1)),
+        launches={"difference_volume": 1, "soft_argmin": 1}, shapes=_STEREO,
+        train_launches={"difference_volume": 1, "difference_volume_backward": 1,
+                        "soft_argmin": 1, "soft_argmin_backward": 1}),
+    "gcnet": dict(
+        flags=dict(feature_type="gcnet", feature_similarity="concat", aggregation_type="gcnet",
+                   num_downsample=1, refinement_type="None"),
+        # the reference's transposed-conv arithmetic: one pixel short
+        launches={"concat_volume": 1, "soft_argmin": 1}, shapes=[(1, HEIGHT - 1, WIDTH - 1)],
+        train_launches={"concat_volume": 1, "concat_volume_backward": 1,
+                        "soft_argmin": 1, "soft_argmin_backward": 1}),
     "stereonet-aa": dict(
         preset="stereonet-aa",
-        launches={"correlation": 1, "deform_conv": 4, "soft_argmin": 1}, levels=(4, 2, 1)),
+        launches={"correlation": 1, "deform_conv": 4, "soft_argmin": 1}, shapes=_STEREO,
+        train_launches={"correlation": 1, "correlation_backward": 1, "deform_conv": 8,
+                        "deform_conv_backward_data": 4, "deform_conv_backward_weight": 4,
+                        "soft_argmin": 1, "soft_argmin_backward": 1}),
 }
+# parameters whose gradient is zero in exact arithmetic (rounding noise on
+# both paths): the bias of StereoNet's last 3-D conv adds one constant to
+# every candidate of the volume, and soft-argmin is invariant to that
+ZERO_GRADIENT = {"aggregation.Conv_4.Conv_0.bias"}
 CLI_PAIRS, CLI_HW = 48, (540, 960)  # SceneFlow's image size
+CLI_BASELINE, CLI_BASELINE_BATCH = "psmnet", 8  # phase 10's train entry point
 VAL_HW = (576, 960)  # the SceneFlow recipe's validation crop (pads 540 to 576)
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s, float32 FLOP/s
 # outside the tensor cores (the kernels run float32 FMA on the CUDA cores)
@@ -142,7 +191,7 @@ class Timer:
 
 
 # --------------------------------------------------------------------------
-# The four kernel ops: their plain twins, call signatures, seeded inputs,
+# The kernel ops: their plain twins, call signatures, seeded inputs,
 # tolerances, bounds and single-call yardsticks
 # --------------------------------------------------------------------------
 
@@ -231,6 +280,20 @@ def kernel_specs():
         band = sum(max(w - i, 0) for i in range(d))  # one subtraction per w >= d
         return 4 * (2 * b * c * h * w + (2 if concat else 1) * b * c * d * h * w), (
             0 if concat else b * c * h * band)
+
+    def vol_bwd_inputs(sig, gen, dev, concat):
+        shape, d = sig
+        left, right = (torch.randn(shape, generator=gen, device=dev) for _ in range(2))
+        b, c, h, w = shape
+        grad = torch.randn((b, (2 if concat else 1) * c, d, h, w), generator=gen, device=dev)
+        return (grad, left, right), {}
+
+    def vol_bwd_cost(sig, concat):
+        (b, c, h, w), d = sig
+        band = sum(max(w - i, 0) for i in range(d))  # the pairs with w >= d
+        # the band of grad read once (w < d never reaches dL or dR), dL and
+        # dR written once; one addition per pair for each of the two sums
+        return 4 * ((2 if concat else 1) * b * c * h * band + 2 * b * c * h * w), 2 * b * c * h * band
 
     def rel(scale):
         return lambda ref: scale * float(ref.abs().max())
@@ -375,6 +438,20 @@ def kernel_specs():
              inputs=warp_bwd_inputs, cost=warp_bwd_cost, library=warp_bwd_library,
              tol=rel(1e-5), tol_text="1e-5 * max|ref|", source="aanet_torch/csrc/warp.cu",
              replaces="aanet_tpu/ops/warp.py:17"),
+        dict(name="difference_volume_backward", forward="difference_volume", module=cost_volume,
+             attr="difference_cost_volume_backward",
+             plain=cost_volume.difference_cost_volume_backward_plain,
+             inputs=lambda sig, gen, dev: vol_bwd_inputs(sig, gen, dev, False),
+             cost=lambda sig: vol_bwd_cost(sig, False), library=None,
+             tol=lambda ref: 0.0, tol_text="0 (bit for bit)",
+             source="aanet_torch/csrc/volume4d.cu", replaces="aanet_tpu/ops/cost_volume.py:127"),
+        dict(name="concat_volume_backward", forward="concat_volume", module=cost_volume,
+             attr="concat_cost_volume_backward",
+             plain=cost_volume.concat_cost_volume_backward_plain,
+             inputs=lambda sig, gen, dev: vol_bwd_inputs(sig, gen, dev, True),
+             cost=lambda sig: vol_bwd_cost(sig, True), library=None,
+             tol=lambda ref: 0.0, tol_text="0 (bit for bit)",
+             source="aanet_torch/csrc/volume4d.cu", replaces="aanet_tpu/ops/cost_volume.py:144"),
     ]
     for b in bwd:
         b["sig"] = by_name[b["forward"]]["sig"]
@@ -708,16 +785,22 @@ def compare_pyramids(pyramid, plain_pyramid, shapes, what):
     return errs
 
 
-def baseline_phases(specs, gen, dev, timer, smi, left, right):
-    """Phase 5b: the PSMNet and StereoNet baselines and stereonet-aa at
-    384x1248. Returns, per configuration, each kernel's rows at its shapes
-    and the launches of one forward through the kernels."""
-    from aanet_torch import cli
+def baseline_config(name):
     from aanet_torch.config import ModelConfig, preset
+
+    spec = BASELINES[name]
+    return preset(spec["preset"]) if "preset" in spec else ModelConfig(**spec["flags"])
+
+
+def baseline_phases(specs, gen, dev, timer, smi, left, right):
+    """Phase 5b: the 3-D-aggregation baselines and stereonet-aa at
+    384x1248. Returns, per configuration, each kernel's rows at its
+    shapes and the launches of one forward through the kernels."""
+    from aanet_torch import cli
 
     out = {}
     for name, spec in BASELINES.items():
-        cfg = preset(spec["preset"]) if "preset" in spec else ModelConfig(**spec["flags"])
+        cfg = baseline_config(name)
         expected = {s["name"]: spec["launches"].get(s["name"], 0) for s in specs}
         model = seeded_model(cfg, dev).eval()
         calibrate_bn_(model, specs, left, right)
@@ -736,8 +819,7 @@ def baseline_phases(specs, gen, dev, timer, smi, left, right):
         counts = launches(specs)
         print(f"{name} launches: {counts}", flush=True)
         check(counts == expected, f"{name}: launches {counts}, expected {expected}")
-        shapes = [(1, HEIGHT // k, WIDTH // k) for k in spec["levels"]]
-        errs = compare_pyramids(pyramid, plain_pyramid, shapes, name)
+        errs = compare_pyramids(pyramid, plain_pyramid, spec["shapes"], name)
         record = forward_record(name, model, left, right, plain_ms, errs, timer, smi)
         print(json.dumps({"baseline_forward": record}), flush=True)
         out[name] = dict(rows=rows, launches=counts)
@@ -764,13 +846,97 @@ def baseline_phases(specs, gen, dev, timer, smi, left, right):
     return out
 
 
-def train_phases(specs, bwd_specs, gen, dev, timer, smi):
-    """Phases 6-9: the training slice. Returns each kernel's rows at the
-    train step's shapes and its launches in one full-width train step."""
-    from aanet_torch.config import preset
+def compare_train_steps(cfg, specs, small, gen, dev, per_parameter=False, calls=None,
+                        recomputed=None):
+    """One train step through the kernels against the same step through
+    the plain twins (same seeded weights, the batch ``small``), and the
+    plain step's own spread: the largest change of its gradients over
+    ``NUDGES`` 1e-6 relative changes of the left image (some gradients are
+    sums that nearly cancel, and move by far more than 1e-6 under it; one
+    change is too few to tell how far). Checks the loss to rtol 1e-5, a
+    non-zero gradient for every parameter but those of ``ZERO_GRADIENT``,
+    all gradients together (and, with ``per_parameter``, each parameter's)
+    within max(1e-3, 2x the spread) and the BatchNorm statistics to 1e-4;
+    every check is made after the record is printed. The plain step
+    records its kernel calls into ``calls`` and ``recomputed``
+    (``plain_ops``). Returns the record, the kernel step's model and its
+    step."""
     from aanet_torch.models.layers import set_train_mode
     from aanet_torch.train.optimizer import make_optimizer
     from aanet_torch.train.trainer import make_loss_fn, make_train_step
+
+    m_kernel = seeded_model(cfg, dev)
+    m_plain = copy.deepcopy(m_kernel)
+    step_kernel = make_train_step(m_kernel, make_optimizer(m_kernel, 1e-3), cfg.max_disp)
+    step_plain = make_train_step(m_plain, make_optimizer(m_plain, 1e-3), cfg.max_disp)
+    met_kernel = step_kernel(small)
+    with plain_ops(specs, calls, recomputed):
+        met_plain = step_plain(small)
+    plain_params = dict(m_plain.named_parameters())
+    # per parameter, the squared change of its gradient under each nudge
+    moved = {name: [] for name in plain_params}
+    with plain_ops(specs):
+        for _ in range(NUDGES):
+            m_floor = seeded_model(cfg, dev)
+            set_train_mode(m_floor)
+            noise = torch.randn(small["left"].shape, generator=gen, device=dev)
+            nudged = dict(small, left=small["left"] * (1 + 1e-6 * noise))
+            make_loss_fn(m_floor, cfg.max_disp)(nudged)[0].backward()
+            for name, p in m_floor.named_parameters():
+                moved[name].append(float((p.grad - plain_params[name].grad).square().sum()))
+            del m_floor
+    loss_k, loss_p = float(met_kernel["total_loss"]), float(met_plain["total_loss"])
+    failures = []
+    if abs(loss_k - loss_p) > 1e-5 * abs(loss_p):
+        failures.append(f"train-step loss kernel {loss_k} plain {loss_p}")
+    worst, floored, dk2, dp2 = [], [], 0.0, 0.0
+    df2 = [0.0] * NUDGES
+    for name, p in m_kernel.named_parameters():
+        gk, gp = p.grad, plain_params[name].grad
+        check(gk is not None, f"{name}: no gradient on the kernel path")
+        dk2 += float((gk - gp).square().sum())
+        df2 = [a + b for a, b in zip(df2, moved[name])]
+        dp2 += float(gp.square().sum())
+        if name in ZERO_GRADIENT:
+            continue
+        if float(gk.abs().sum()) == 0:
+            failures.append(f"{name}: a zero gradient on the kernel path")
+        scale = float(gp.norm())
+        rel_err, spread = float((gk - gp).norm()) / scale, max(moved[name]) ** 0.5 / scale
+        if per_parameter and rel_err > max(1e-3, 2 * spread):
+            failures.append(f"{name}: gradient relative error {rel_err} (plain spread {spread})")
+        if rel_err > 1e-3:
+            floored.append((name, rel_err, spread))
+        worst.append((rel_err / max(1e-3, 2 * spread), rel_err, spread, name))
+    worst = sorted(worst)[-8:]
+    grad_rel, grad_spread = (dk2 / dp2) ** 0.5, (max(df2) / dp2) ** 0.5
+    print(f"gradients: kernel vs plain {grad_rel:.3g}, plain spread {grad_spread:.3g} (largest of "
+          f"{NUDGES}: {[round((x / dp2) ** 0.5, 6) for x in df2]}); worst (error / allowed, error, "
+          f"spread, parameter): {worst}", flush=True)
+    if grad_rel > max(1e-3, 2 * grad_spread):
+        failures.append(f"all gradients: relative error {grad_rel} (plain spread {grad_spread})")
+    plain_bufs = dict(m_plain.named_buffers())
+    stats_err = max(float(((b - plain_bufs[n]).abs() / (plain_bufs[n].abs() + 1)).max())
+                    for n, b in m_kernel.named_buffers() if b.is_floating_point())
+    if stats_err > 1e-4:
+        failures.append(f"BatchNorm statistics differ by {stats_err}")
+    record = dict(batch=small["left"].shape[0], loss_kernel=loss_k, loss_plain=loss_p,
+                  grad_rel_err=grad_rel, grad_plain_spread=grad_spread,
+                  grad_plain_spread_per_nudge=[(x / dp2) ** 0.5 for x in df2],
+                  per_parameter_margin=worst[-1][0], worst_params=worst,
+                  params_within_plain_spread_only=floored, bn_stats_rel_err=stats_err,
+                  failures=failures)
+    return record, m_kernel, step_kernel
+
+
+def train_phases(specs, bwd_specs, gen, dev, timer, smi, data, lists):
+    """Phases 6-9: the training slice of the ``aanet`` preset; phase 9
+    trains on the synthetic dataset (data, lists). Returns each kernel's
+    rows at the train step's shapes and its launches in one full-width
+    train step."""
+    from aanet_torch.config import preset
+    from aanet_torch.train.optimizer import make_optimizer
+    from aanet_torch.train.trainer import make_train_step
 
     torch.set_grad_enabled(True)
     cfg = preset("aanet")
@@ -802,58 +968,24 @@ def train_phases(specs, bwd_specs, gen, dev, timer, smi):
                               for sig, n in first[spec["forward"]].items()]
 
     # 7. one train step through the kernels against the same step through
-    # the plain twins: same weights, same batch (batch 2)
-    small = train_batch(gen, dev, COMPARE_BATCH, TRAIN_HW)
-    m_kernel = seeded_model(cfg, dev)
-    m_plain, m_floor = copy.deepcopy(m_kernel), copy.deepcopy(m_kernel)
-    step_kernel = make_train_step(m_kernel, make_optimizer(m_kernel, 1e-3), cfg.max_disp)
-    step_plain = make_train_step(m_plain, make_optimizer(m_plain, 1e-3), cfg.max_disp)
-    met_kernel = step_kernel(small)
-    with plain_ops(specs):
-        met_plain = step_plain(small)
-        # the plain step's own spread: its gradients at a 1e-6 relative
-        # change of the left image (some gradients are sums that nearly
-        # cancel, and move by far more than 1e-6 under it)
-        set_train_mode(m_floor)
-        noise = torch.randn(small["left"].shape, generator=gen, device=dev)
-        nudged = dict(small, left=small["left"] * (1 + 1e-6 * noise))
-        make_loss_fn(m_floor, cfg.max_disp)(nudged)[0].backward()
-    loss_k, loss_p = float(met_kernel["total_loss"]), float(met_plain["total_loss"])
-    check(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), f"train-step loss kernel {loss_k} plain {loss_p}")
-    plain_params = dict(m_plain.named_parameters())
-    floor_params = dict(m_floor.named_parameters())
-    worst, floored, dk2, df2, dp2 = [], [], 0.0, 0.0, 0.0
-    for name, p in m_kernel.named_parameters():
-        gk, gp, gf = p.grad, plain_params[name].grad, floor_params[name].grad
-        check(gk is not None and float(gk.abs().sum()) > 0, f"{name}: no gradient on the kernel path")
-        scale = float(gp.norm())
-        rel_err, spread = float((gk - gp).norm()) / scale, float((gf - gp).norm()) / scale
-        check(rel_err <= max(1e-3, 2 * spread),
-              f"{name}: gradient relative error {rel_err} (plain spread {spread})")
-        if rel_err > 1e-3:
-            floored.append((name, rel_err, spread))
-        worst.append((rel_err, spread, name))
-        dk2 += float((gk - gp).square().sum())
-        df2 += float((gf - gp).square().sum())
-        dp2 += float(gp.square().sum())
-    worst = sorted(worst)[-8:]
-    grad_rel, grad_spread = (dk2 / dp2) ** 0.5, (df2 / dp2) ** 0.5
-    print(f"gradients: kernel vs plain {grad_rel:.3g}, plain spread {grad_spread:.3g}; "
-          f"worst (error, spread, parameter): {worst}", flush=True)
-    check(grad_rel <= max(1e-3, 2 * grad_spread),
-          f"all gradients: relative error {grad_rel} (plain spread {grad_spread})")
-    plain_bufs = dict(m_plain.named_buffers())
-    stats_err = max(float(((b - plain_bufs[n]).abs() / (plain_bufs[n].abs() + 1)).max())
-                    for n, b in m_kernel.named_buffers() if b.is_floating_point())
-    check(stats_err <= 1e-4, f"BatchNorm statistics differ by {stats_err}")
-    losses = [loss_k] + [float(step_kernel(small)["total_loss"]) for _ in range(2)]
-    check(losses[-1] < losses[0], f"three steps did not lower the loss: {losses}")
-    compare = dict(batch=COMPARE_BATCH, loss_kernel=loss_k, loss_plain=loss_p,
-                   grad_rel_err=grad_rel, grad_plain_spread=grad_spread, worst_params=worst,
-                   params_within_plain_spread_only=floored, bn_stats_rel_err=stats_err,
-                   losses_three_steps=losses)
-    print(json.dumps({"train_step_compare": compare}), flush=True)
-    del m_kernel, m_plain, m_floor, step_kernel, step_plain
+    # the plain twins: same weights, same batch (batch 2), on each of
+    # COMPARE_SEEDS batches, each with its nudges from a generator of its
+    # own; all are printed before any is checked
+    failures = []
+    for seed in COMPARE_SEEDS:
+        seed_gen = torch.Generator(device=dev).manual_seed(seed)
+        small = train_batch(seed_gen, dev, COMPARE_BATCH, TRAIN_HW)
+        compare, m_kernel, step_kernel = compare_train_steps(cfg, specs, small, seed_gen, dev,
+                                                             per_parameter=True)
+        losses = [compare["loss_kernel"]] + [float(step_kernel(small)["total_loss"]) for _ in range(2)]
+        if losses[-1] >= losses[0]:
+            compare["failures"].append(f"three steps did not lower the loss: {losses}")
+        compare.update(seed=seed, losses_three_steps=losses)
+        print(json.dumps({"train_step_compare": compare}), flush=True)
+        failures += [f"seed {seed}: {f}" for f in compare["failures"]]
+        del m_kernel, step_kernel
+        torch.cuda.empty_cache()
+    check(not failures, "kernel vs plain train step: " + "; ".join(failures))
 
     # 8. the full-width step: the launches of one step, then the timing
     optimizer = make_optimizer(model, 1e-3)
@@ -864,9 +996,25 @@ def train_phases(specs, bwd_specs, gen, dev, timer, smi):
     counts = launches(all_specs)
     print(f"train-step launches: {counts}", flush=True)
     check(counts == EXPECTED_TRAIN_LAUNCHES, f"train-step launches {counts}, expected {EXPECTED_TRAIN_LAUNCHES}")
-    step_losses = [float(metrics["total_loss"])]
-    for _ in range(2):  # warm-ups 2 and 3
-        step_losses.append(float(step(batch)["total_loss"]))
+    timed = time_steps(step, batch, metrics, dev, top=25)
+    full = dict(preset="aanet", batch=TRAIN_BATCH, height=TRAIN_HW[0], width=TRAIN_HW[1],
+                dtype="float32", remat=cfg.remat, launches=counts, card=smi, **timed)
+    print(json.dumps({"train_step": full}), flush=True)
+    del optimizer, step
+
+    # 9. the train entry point on the card, then predict with its weights
+    cli = cli_train_and_predict(data, lists, ["--preset", "aanet"], TRAIN_BATCH)
+    print(json.dumps({"cli_train": cli}), flush=True)
+    return dict(rows=rows, launches=counts)
+
+
+def time_steps(step, batch, metrics, dev, top):
+    """After ``step``'s first run on ``batch`` (its ``metrics``): two more
+    warm-ups, the median step time over 10 steps (CUDA events), samples/s,
+    the losses (all finite), the peak memory of one step and the device
+    breakdown of two."""
+    n = batch["left"].shape[0]
+    step_losses = [metrics["total_loss"]] + [step(batch)["total_loss"] for _ in range(2)]
     times = []
     for _ in range(10):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -883,27 +1031,28 @@ def train_phases(specs, bwd_specs, gen, dev, timer, smi):
     step(batch)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(dev)
-    device = device_breakdown(lambda: step(batch), iters=2, top=25)
-    full = dict(
-        preset="aanet", batch=TRAIN_BATCH, height=TRAIN_HW[0], width=TRAIN_HW[1], dtype="float32",
-        remat=cfg.remat, step_ms=step_ms, samples_per_s=TRAIN_BATCH / step_ms * 1e3,
-        step_ms_all=[s.elapsed_time(e) for s, e in times], peak_memory_bytes=peak,
-        device_ms=device["busy_ms"], profiled_window_ms=device["window_ms"],
-        device_idle_share=device["idle_share"], launches=counts,
-        losses=step_losses, top_kernels=device["top"], card=smi,
-    )
-    print(json.dumps({"train_step": full}), flush=True)
-    del optimizer, step
+    device = device_breakdown(lambda: step(batch), iters=2, top=top)
+    return dict(step_ms=step_ms, samples_per_s=n / step_ms * 1e3,
+                step_ms_all=[s.elapsed_time(e) for s, e in times], peak_memory_bytes=peak,
+                device_ms=device["busy_ms"], profiled_window_ms=device["window_ms"],
+                device_idle_share=device["idle_share"], losses=step_losses,
+                top_kernels=device["top"])
 
-    # 9. the train entry point on the card, then predict with its weights
+
+def cli_train_and_predict(data, lists, model_args, batch):
+    """``python -m aanet_torch.cli train`` with ``model_args`` for one epoch
+    at ``batch`` on the synthetic dataset (data, lists), as a user runs it;
+    checks its losses, its validation and its checkpoint, then predicts
+    the first pair with the weights it wrote."""
+    from aanet_torch import cli
+
     with tempfile.TemporaryDirectory() as tmp:
-        data, lists = write_sceneflow(tmp, CLI_PAIRS, CLI_HW, SEED)
         ckpt = os.path.join(tmp, "run")
-        cmd = [sys.executable, "-m", "aanet_torch.cli", "train", "--preset", "aanet",
+        cmd = [sys.executable, "-m", "aanet_torch.cli", "train", *model_args,
                "--data_dir", data, "--filename_root", lists, "--checkpoint_dir", ckpt,
                "--img_height", str(TRAIN_HW[0]), "--img_width", str(TRAIN_HW[1]),
                "--val_img_height", str(VAL_HW[0]), "--val_img_width", str(VAL_HW[1]),
-               "--batch_size", str(TRAIN_BATCH), "--val_batch_size", "4", "--max_epoch", "1",
+               "--batch_size", str(batch), "--val_batch_size", "4", "--max_epoch", "1",
                "--print_freq", "1", "--num_workers", "8", "--milestones", "10", "--device", DEVICE]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
@@ -912,7 +1061,7 @@ def train_phases(specs, bwd_specs, gen, dev, timer, smi):
         check(proc.returncode == 0, f"cli train exited {proc.returncode}:\n{proc.stderr[-4000:]}")
         records = [json.loads(line) for line in open(os.path.join(ckpt, "metrics.jsonl"))]
         cli_losses = [r["total_loss"] for r in records if r["kind"] == "train"]
-        check(len(cli_losses) == CLI_PAIRS // TRAIN_BATCH and all(np.isfinite(cli_losses)),
+        check(len(cli_losses) == CLI_PAIRS // batch and all(np.isfinite(cli_losses)),
               f"cli train losses {cli_losses}")
         val = [r for r in records if r["kind"] == "val"]
         latest = os.path.join(ckpt, "aanet_latest.pt")
@@ -921,15 +1070,133 @@ def train_phases(specs, bwd_specs, gen, dev, timer, smi):
         for sub in ("left", "right"):
             os.makedirs(os.path.join(pairs, sub))
             shutil.copy(os.path.join(data, sub, "0.png"), os.path.join(pairs, sub, "0.png"))
-        from aanet_torch import cli
-
-        cli.main(["predict", "--preset", "aanet", "--data_dir", pairs, "--pretrained", latest,
+        cli.main(["predict", *model_args, "--data_dir", pairs, "--pretrained", latest,
                   "--save_type", "npy", "--device", DEVICE])
         pred = np.load(os.path.join(pairs, "pred", "0.npy"))
         check(pred.shape == CLI_HW and np.isfinite(pred).all(), f"prediction {pred.shape}")
-    print(json.dumps({"cli_train": dict(seconds=cli_s, losses=cli_losses, val=val[0],
-                                        predict_shape=list(pred.shape))}), flush=True)
-    return dict(rows=rows, launches=counts)
+    return dict(model_args=model_args, batch=batch, seconds=cli_s, losses=cli_losses, val=val[0],
+                predict_shape=list(pred.shape))
+
+
+def rebatch(sig, n):
+    """A kernel call's signature with its batch (the first axis of its
+    first shape) set to ``n``."""
+    return ((n,) + tuple(sig[0][1:]),) + tuple(sig[1:])
+
+
+def fit_batch(cfg, gen, dev, specs):
+    """The per-card batch rule: TRAIN_BATCH, halved until one train step
+    fits the card. Returns the model, its step, the batch, the first
+    step's metrics and launch counts, and the batches that did not fit."""
+    from aanet_torch.train.optimizer import make_optimizer
+    from aanet_torch.train.trainer import make_train_step
+
+    n, refused = TRAIN_BATCH, []
+    while True:
+        model = seeded_model(cfg, dev)
+        step = make_train_step(model, make_optimizer(model, 1e-3), cfg.max_disp)
+        batch = train_batch(gen, dev, n, TRAIN_HW)
+        reset_launches(specs)
+        fits = True
+        try:
+            metrics = step(batch)
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError:
+            fits = False
+        if fits:
+            return model, step, batch, metrics, launches(specs), refused
+        refused.append(n)
+        del model, step, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(n > 1, f"{cfg}: a train step does not fit the card at batch 1")
+        n //= 2
+
+
+def baseline_train_phases(specs, bwd_specs, gen, dev, timer, smi, data, lists):
+    """Phase 10: the train steps of the 3-D-aggregation networks and
+    stereonet-aa at 288x576, max_disp 192. Returns, per network, each
+    backward kernel's rows at the full step's shapes and the launches of
+    one full-width step."""
+    torch.set_grad_enabled(True)
+    all_specs = specs + bwd_specs
+    out = {}
+    for name in BASELINES:
+        cfg = baseline_config(name)
+        print(f"--- {name} train step", flush=True)
+        # a kernel step against a plain step at batch 2; the plain step
+        # records every kernel call's shape
+        first = {s["name"]: collections.Counter() for s in specs}
+        again = {s["name"]: collections.Counter() for s in specs}
+        small = train_batch(gen, dev, COMPARE_BATCH, TRAIN_HW)
+        compare, m_kernel, step_kernel = compare_train_steps(cfg, specs, small, gen, dev,
+                                                             calls=first, recomputed=again)
+        del m_kernel, step_kernel, small
+        made = {n: sum(first[n].values()) + sum(again[n].values()) for n in first}
+        made.update({b["name"]: sum(first[b["forward"]].values()) for b in bwd_specs})
+        expected = {s["name"]: BASELINES[name]["train_launches"].get(s["name"], 0) for s in all_specs}
+        check(made == expected, f"{name}: plain train step made {made}, expected {expected}")
+        torch.cuda.empty_cache()
+
+        # the full-width step at the batch rule, and its launches per step
+        model, step, batch, metrics, counts, refused = fit_batch(cfg, gen, dev, all_specs)
+        n = batch["left"].shape[0]
+        print(f"{name} train-step launches at batch {n}: {counts}", flush=True)
+        check(counts == expected, f"{name}: train-step launches {counts}, expected {expected}")
+        timed = time_steps(step, batch, metrics, dev, top=15)
+        del model, step, batch
+        torch.cuda.empty_cache()
+
+        # each backward kernel against its twin at the full step's shapes
+        rows = {spec["name"]: [measure(spec, rebatch(sig, n), k, gen, dev, timer, iters=10)
+                               for sig, k in first[spec["forward"]].items()]
+                for spec in bwd_specs}
+        record = dict(network=name, batch=n, batches_out_of_memory=refused,
+                      height=TRAIN_HW[0], width=TRAIN_HW[1], max_disp=cfg.max_disp,
+                      dtype="float32", remat=cfg.remat, launches=counts, compare=compare,
+                      card=smi, **timed)
+        print(json.dumps({"baseline_train_step": record}), flush=True)
+        check(not compare["failures"], f"{name} kernel vs plain train step: {compare['failures']}")
+        out[name] = dict(rows=rows, launches=counts)
+        torch.cuda.empty_cache()
+
+    # the train entry point with the PSMNet baseline's flags, then predict
+    flags = [f"--{k}={v}" for k, v in BASELINES[CLI_BASELINE]["flags"].items()]
+    cli = cli_train_and_predict(data, lists, flags, CLI_BASELINE_BATCH)
+    print(json.dumps({"baseline_cli_train": cli}), flush=True)
+    return out
+
+
+def kernels_record(all_specs, report, counts_main, train, baselines, baseline_train):
+    """Every kernel with its totals over the first path that runs it: one
+    train step of aanet (the training slice's main path); for the 4-D
+    volumes' forward, one forward of the first baseline that runs it
+    (PSMNet, StereoNet); for their backward, one train step of the same
+    baseline. The other paths that run a kernel ride along: one aanet
+    inference forward, each baseline forward and each baseline train
+    step."""
+    inference = {sp["name"]: r for sp, r in report}
+    kernels = []
+    for spec in all_specs:
+        name, lib = spec["name"], bool(spec["library"])
+        paths = [("aanet train step", train)]
+        paths += [(f"{cfg} forward", b) for cfg, b in baselines.items()]
+        paths += [(f"{cfg} train step", b) for cfg, b in baseline_train.items()]
+        runs = [(path, run["rows"][name], run["launches"][name]) for path, run in paths
+                if run["launches"].get(name) and name in run["rows"]]
+        check(runs, f"{name}: no path launched it")
+        (path, rows, count), others = runs[0], runs[1:]
+        entry = dict(name=name, route="cuda", source=spec["source"], replaces=spec["replaces"],
+                     launches=count, tolerance=spec["tol_text"], path=path, **totals(rows, lib))
+        if inference.get(name):
+            entry["inference"] = dict(launches=counts_main[name], **totals(inference[name], lib),
+                                      shapes=inference[name])
+        if others:
+            entry["other_paths"] = {p: dict(launches=k, **totals(r, lib), shapes=r)
+                                    for p, r, k in others}
+        entry["shapes"] = rows
+        kernels.append(entry)
+    return kernels
 
 
 def main() -> int:
@@ -1019,33 +1286,15 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
-    train = train_phases(specs, bwd_specs, gen, dev, timer, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        data, lists = write_sceneflow(tmp, CLI_PAIRS, CLI_HW, SEED)
+        train = train_phases(specs, bwd_specs, gen, dev, timer, smi, data, lists)
+        torch.cuda.empty_cache()
+        baseline_train = baseline_train_phases(specs, bwd_specs, gen, dev, timer, smi, data, lists)
 
-    # 10. the record: every kernel with its totals over the path it serves
-    # first: one train step of aanet (the training slice's main path), or,
-    # for the 4-D volumes, one forward of the baseline that runs it; the
-    # forward kernels also over one aanet inference forward and over one
-    # forward of each baseline that runs them
-    inference = {sp["name"]: r for sp, r in report}
-    kernels = []
-    for spec in specs + bwd_specs:
-        name, lib = spec["name"], bool(spec["library"])
-        rows, count = train["rows"][name], train["launches"][name]
-        runs = {cfg: (b["rows"][name], b["launches"][name])
-                for cfg, b in baselines.items() if b["launches"].get(name)}
-        path = "aanet train step"
-        if not count:  # a 4-D volume: its baseline's forward is its main path
-            (path, (rows, count)), = runs.items()
-        entry = dict(name=name, route="cuda", source=spec["source"], replaces=spec["replaces"],
-                     launches=count, tolerance=spec["tol_text"], path=path, **totals(rows, lib))
-        if inference.get(name):
-            entry["inference"] = dict(launches=counts_main[name], **totals(inference[name], lib),
-                                      shapes=inference[name])
-        if path == "aanet train step" and runs:
-            entry["baselines"] = {cfg: dict(launches=n, **totals(r, lib), shapes=r)
-                                  for cfg, (r, n) in runs.items()}
-        entry["shapes"] = rows
-        kernels.append(entry)
+    # 11. the record
+    kernels = kernels_record(specs + bwd_specs, report, counts_main, train, baselines,
+                             baseline_train)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

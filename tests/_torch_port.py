@@ -60,3 +60,103 @@ def nchw(x) -> torch.Tensor:
 
 def nhwc(t: torch.Tensor) -> np.ndarray:
     return t.detach().numpy().transpose(0, 2, 3, 1)
+
+
+def rel_stats_err(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return float((np.abs(a - b) / (np.abs(b) + 1.0)).max())
+
+
+def compare_train_step(jax_cfg, cfg, hw, batch_size, seed=13, lr=1e-3, wd=1e-4):
+    """One train step of the JAX package's ``jax_cfg`` (remat off) and of
+    the port's ``cfg`` (remat as given) from the same randomised variables
+    (carried across with strict loads) on a numpy-seeded batch; asserts
+    the loss and the update norm within rtol 1e-4, every parameter within
+    the per-leaf bounds below, and the BatchNorm statistics within 2e-4.
+    Returns the port's metrics."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from aanet_tpu.train.optimizer import make_optimizer as jax_make_optimizer
+    from aanet_tpu.train.state import TrainState
+    from aanet_tpu.train.trainer import make_train_step as jax_make_train_step
+    from aanet_torch.convert import flax_from_state_dict
+    from aanet_torch.train.optimizer import make_optimizer
+    from aanet_torch.train.trainer import make_train_step
+
+    h, w = hw
+    jmodel = dataclasses.replace(jax_cfg, remat=False).build()
+    zeros = jnp.zeros((1, h, w, 3))
+    variables = jax.jit(lambda k: jmodel.init(k, zeros, zeros, train=False))(jax.random.PRNGKey(0))
+    variables = randomize(variables, seed)
+    rs = np.random.RandomState(seed)
+    batch = dict(
+        left=rs.randn(batch_size, h, w, 3).astype(np.float32),
+        right=rs.randn(batch_size, h, w, 3).astype(np.float32),
+        disp=rs.uniform(0, 0.8 * cfg.max_disp, (batch_size, h, w)).astype(np.float32),
+    )
+    state = TrainState.create(
+        apply_fn=jmodel.apply, params=variables["params"], batch_stats=variables["batch_stats"],
+        tx=jax_make_optimizer(variables["params"], lr, weight_decay=wd),
+    )
+    new_state, want = jax_make_train_step(jmodel, cfg.max_disp)(
+        state, {k: jnp.asarray(v) for k, v in batch.items()})
+
+    port = load_flax(cfg.build(), variables)
+    step = make_train_step(port, make_optimizer(port, lr, weight_decay=wd), cfg.max_disp)
+    got = step(dict(left=nchw(batch["left"]), right=nchw(batch["right"]),
+                    disp=torch.from_numpy(batch["disp"])))
+
+    np.testing.assert_allclose(float(got["total_loss"]), float(want["total_loss"]), rtol=1e-4)
+    params, stats = flax_from_state_dict(port.state_dict())
+    paths = jax.tree_util.tree_flatten_with_path(jax.device_get(new_state.params))[0]
+    p0 = jax.tree.leaves(variables["params"])
+    got_leaves = jax.tree.leaves(params)
+    want_leaves = [np.asarray(v) for _, v in paths]
+    assert len(got_leaves) == len(want_leaves) == len(p0)
+    norm = lambda leaves: float(np.sqrt(sum(((a - b) ** 2).sum() for a, b in zip(leaves, p0))))  # noqa: E731
+    np.testing.assert_allclose(norm(got_leaves), norm(want_leaves), rtol=1e-4)
+    # per leaf, as tests/test_torch_train.py:250-263: a step-1 Adam update
+    # is +-lr for any gradient well above eps, so no entry may differ by
+    # more than two updates. Entries off by more than 1 % of an update are
+    # gradients near their rounding size, whose sign can flip. In these
+    # networks they are many more than in the aanet step (0.1 % there):
+    # the JAX step alone flips 0.075 % (GC-Net) to 0.24 % (PSMNet) of its
+    # entries under a 1e-6 change of its input, in the leaves where the
+    # port's flips lie (the deepest 3-D levels, whose BatchNorms see few
+    # values, and PSMNet's SPP fusion), and the port, which rounds
+    # differently at every layer, flips 0.10 % (StereoNet) to 0.31 %
+    # (PSMNet). They stay under 0.5 % of the model.
+    off = total = 0
+    for (path, _), a, b in zip(paths, got_leaves, want_leaves):
+        diff = np.abs(a - b)
+        assert diff.max() <= 2.2 * lr, "/".join(str(getattr(k, "key", k)) for k in path)
+        off += int((diff > 0.01 * lr).sum())
+        total += diff.size
+    assert off <= 5e-3 * total, (off, total)
+    want_stats = jax.tree_util.tree_flatten_with_path(jax.device_get(new_state.batch_stats))[0]
+    got_stats = jax.tree.leaves(stats)
+    assert len(got_stats) == len(want_stats)
+    for (path, leaf), got_stat in zip(want_stats, got_stats):
+        assert rel_stats_err(got_stat, leaf) < 2e-4, path
+    return got
+
+
+def check_psmnet_train_step(aggregation, maps):
+    """One train step of the PSMNet baseline with ``aggregation`` against
+    the JAX package's (``compare_train_step``) at 256x256 (its SPP pools
+    64-px windows at H/4), max_disp 64, batch 1; the loss must get
+    ``maps`` disparity maps, a length ``PYRAMID_WEIGHTS`` has weights for."""
+    from unittest import mock
+
+    from aanet_tpu.config import ModelConfig as JaxModelConfig
+    from aanet_torch.config import ModelConfig
+    from aanet_torch.train import loss, trainer
+
+    flags = dict(feature_type="psmnet", feature_similarity="concat", refinement_type="None",
+                 aggregation_type=aggregation, max_disp=64)
+    with mock.patch.object(trainer, "pyramid_loss", wraps=loss.pyramid_loss) as spy:
+        metrics = compare_train_step(JaxModelConfig(**flags), ModelConfig(**flags), (256, 256), 1)
+    assert len(spy.call_args.args[0]) == maps
+    assert float(metrics["total_loss"]) > 0

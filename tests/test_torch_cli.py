@@ -76,6 +76,29 @@ def test_cli_train_on_cpu_two_steps_then_predict(tmp_path):
     assert all(op.launches == 0 for op in KERNEL_OPS + BACKWARD_OPS)
 
 
+STEREONET = ["--feature_type", "stereonet", "--feature_similarity", "difference",
+             "--aggregation_type", "stereonet", "--refinement_type", "stereonet"]
+
+
+def test_cli_train_runs_the_stereonet_baseline_on_cpu(tmp_path):
+    """``train`` reaches a 3-D-aggregation baseline through the model flags
+    (the JAX package has no recipe for it): two steps through the
+    difference volume's backward, then a validation, and the checkpoint
+    holds the baseline's weights."""
+    data, lists = write_dataset(str(tmp_path), 4, 48, 96)
+    ckpt = str(tmp_path / "run")
+    args = train_args(data, lists, ckpt)[: -len(CUT)] + ["--max_disp", "48", *STEREONET]
+    cli.main(args + ["--device", "cpu"])
+    records = [json.loads(line) for line in open(os.path.join(ckpt, "metrics.jsonl"))]
+    train = [r for r in records if r["kind"] == "train"]
+    assert [r["step"] for r in train] == [1, 2]
+    assert all(np.isfinite(r["total_loss"]) and r["total_loss"] > 0 for r in train)
+    assert [r["kind"] for r in records].count("val") == 1
+    saved = torch.load(os.path.join(ckpt, "aanet_latest.pt"), weights_only=True)
+    assert any(k.startswith("aggregation.Conv_4.") for k in saved["model"])
+    assert all(op.launches == 0 for op in KERNEL_OPS + BACKWARD_OPS)
+
+
 def test_cli_train_without_device_raises_when_cuda_is_absent(tmp_path, monkeypatch):
     data, lists = write_dataset(str(tmp_path), 2, 48, 96)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

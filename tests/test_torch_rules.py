@@ -117,6 +117,23 @@ def test_kernel_ops_are_autograd_functions():
         assert node._forward_cls.__module__ == op.__module__, (op.__name__, node)
 
 
+def test_every_launch_counter_is_listed():
+    """``ops.KERNEL_OPS`` and ``ops.BACKWARD_OPS`` name every wrapper that
+    counts kernel launches (the forward ops and the backward wrappers), so
+    checks that read them miss none."""
+    counters = {
+        (module.__name__, name)
+        for module in (ops.cost_volume, ops.deform, ops.softargmin, ops.warp)
+        for name, fn in vars(module).items()
+        if callable(fn) and hasattr(fn, "launches")
+    }
+    listed = {(op.__module__, op.__name__) for op in KERNEL_OPS + ops.BACKWARD_OPS}
+    assert counters == listed
+    assert all("backward" in op.__name__ for op in ops.BACKWARD_OPS)
+    names = {op.__name__ for op in ops.BACKWARD_OPS}
+    assert {"difference_cost_volume_backward", "concat_cost_volume_backward"} <= names
+
+
 def _write_pairs(root, h, w, n=2):
     rs = np.random.RandomState(0)
     for sub in ("left", "right"):
@@ -164,23 +181,33 @@ def test_cli_predict_on_cpu_with_weights(tmp_path):
 BASELINE_FLAGS = {
     "psmnet": ["--feature_type", "psmnet", "--feature_similarity", "concat",
                "--aggregation_type", "psmnet_hourglass", "--refinement_type", "None"],
+    "psmnet_basic": ["--feature_type", "psmnet", "--feature_similarity", "concat",
+                     "--aggregation_type", "psmnet_basic", "--refinement_type", "None"],
     "stereonet": ["--feature_type", "stereonet", "--feature_similarity", "difference",
                   "--aggregation_type", "stereonet", "--refinement_type", "stereonet"],
     "stereonet-aa": ["--preset", "stereonet-aa"],
+    "gcnet": ["--feature_type", "gcnet", "--feature_similarity", "concat",
+              "--aggregation_type", "gcnet", "--num_downsample", "1", "--refinement_type", "None"],
 }
+# image size (padded to a multiple of 48) and max_disp per configuration:
+# the PSMNet extractor needs 256 px at least; GC-Net's four stride-2 levels
+# need H/2, W/2 and max_disp/2 to be multiples of 16
+PREDICT_SIZES = {"psmnet": ((260, 270), 48), "psmnet_basic": ((260, 270), 48),
+                 "gcnet": ((90, 90), 32)}
 
 
 @pytest.mark.parametrize("name", sorted(BASELINE_FLAGS))
 def test_cli_predict_runs_the_baselines_on_cpu(tmp_path, name):
-    """``predict`` reaches the two 3-D-aggregation baselines through the
-    JAX CLI's model flags, and the stereonet-aa preset, on the CPU; the
-    PSMNet extractor needs a 256-px image at least."""
+    """``predict`` reaches the 3-D-aggregation baselines through the JAX
+    CLI's model flags, and the stereonet-aa preset, on the CPU. GC-Net's
+    map is one pixel short of the padded pair, so its crop has one row
+    fewer than the image, as the JAX ``predict`` gives it."""
     data = tmp_path / "pairs"
-    h, w = (260, 270) if name == "psmnet" else (40, 90)  # padded to 288x288 / 48x96
+    (h, w), max_disp = PREDICT_SIZES.get(name, ((40, 90), 48))  # padded to 288, 96 or 48x96
     _write_pairs(str(data), h, w, n=1)
     out = tmp_path / "out"
-    cli.main(["predict", *BASELINE_FLAGS[name], "--max_disp", "48", "--data_dir", str(data),
+    cli.main(["predict", *BASELINE_FLAGS[name], "--max_disp", str(max_disp), "--data_dir", str(data),
               "--output_dir", str(out), "--save_type", "npy", "--device", "cpu"])
     pred = np.load(out / "0.npy")
-    assert pred.shape == (h, w) and np.isfinite(pred).all()
-    assert all(op.launches == 0 for op in KERNEL_OPS)
+    assert pred.shape == ((h - 1, w) if name == "gcnet" else (h, w)) and np.isfinite(pred).all()
+    assert all(op.launches == 0 for op in KERNEL_OPS + ops.BACKWARD_OPS)

@@ -33,18 +33,13 @@ from aanet_torch.train import loss, metrics
 from aanet_torch.train.optimizer import make_optimizer, piecewise_constant_schedule, set_learning_rate
 from aanet_torch.train.trainer import make_train_step
 
-from _torch_port import load_flax, nchw
+from _torch_port import load_flax, nchw, rel_stats_err
 
 CUT = dict(max_disp=48, num_fusions=2, num_deform_blocks=1)
 
 
 def rng(*shape, seed=0, scale=1.0):
     return (np.random.RandomState(seed).randn(*shape) * scale).astype(np.float32)
-
-
-def rel_stats_err(a, b):
-    a, b = np.asarray(a), np.asarray(b)
-    return float((np.abs(a - b) / (np.abs(b) + 1.0)).max())
 
 
 # --------------------------------------------------------------------------

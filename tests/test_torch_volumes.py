@@ -25,7 +25,7 @@ from aanet_tpu.ops.resize import resize_trilinear as jax_resize_trilinear
 from aanet_torch.config import ModelConfig
 from aanet_torch.convert import flax_from_state_dict, state_dict_from_flax
 from aanet_torch.models import layers
-from aanet_torch.ops import KERNEL_OPS, cost_volume, resize
+from aanet_torch.ops import BACKWARD_OPS, KERNEL_OPS, cost_volume, resize
 
 from _torch_port import load_flax, nchw, randomize
 
@@ -50,7 +50,7 @@ def ndhwc(t: torch.Tensor) -> np.ndarray:
 @pytest.fixture(autouse=True)
 def no_launches_on_cpu():
     yield
-    assert all(op.launches == 0 for op in KERNEL_OPS)
+    assert all(op.launches == 0 for op in KERNEL_OPS + BACKWARD_OPS)
 
 
 VOLUMES = {
@@ -89,13 +89,15 @@ def test_volume_backward_matches_jax_vjp(kind):
 
 @pytest.mark.parametrize("kind", sorted(VOLUMES))
 def test_volume_backward_raises_off_the_cpu(kind):
-    """Off the CPU the backward has no kernel yet: it raises, and never
-    hands back zeros or ``None`` for the features' gradients."""
+    """Off the CPU the backward takes its CUDA kernel or raises: a tensor
+    that is neither on the CPU nor float32 CUDA is refused by the kernel's
+    checks, and never answered with zeros, ``None`` or the plain twin."""
     backward = getattr(cost_volume, f"{kind}_cost_volume_backward")
     left = torch.empty((1, 4, 3, 9), device="meta")
     grad = torch.empty((1, 4 * (2 if kind == "concat" else 1), 5, 3, 9), device="meta")
-    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+    with pytest.raises(ValueError, match="lies on meta"):
         backward(grad, left, left)
+    assert backward.launches == 0
 
 
 @pytest.mark.parametrize("in_dhw,out_dhw", [((3, 5, 7), (12, 20, 28)), ((4, 6, 9), (7, 10, 13))])
