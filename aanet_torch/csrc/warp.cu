@@ -9,58 +9,139 @@
 // the image (the reference's grid_sample of an all-ones image).
 //
 // Bound: bytes (C+1 floats read, C+1 written per pixel, a few operations
-// each). Design: one thread per (b, h, w); the thread computes the sample
-// position once and loops over the channels, so the disparity is read
-// once and neighbouring threads read and write neighbouring columns.
+// each): tens of microseconds at the main path's shapes, so index
+// arithmetic and memory latency are what a thread can lose them on.
+// Design: a 2-D grid, one (b, h) row per (blockIdx.z, blockIdx.y), with
+// 32-bit index arithmetic inside the row (no 64-bit divisions). Each
+// thread takes 4 neighbouring pixels: one float4 load of disp, then the
+// two gathers of every channel for all 4 pixels in flight before the
+// first store (the channel count is a template parameter for C = 3, the
+// image on every path that warps), then float4 stores of each channel's
+// warped run and of the mask. The image row (at most a few KB a channel)
+// is served from L1. A row whose width is not a multiple of 4 (rows then
+// start unaligned) and the last partial quad take scalar loads and stores.
 #include "common.cuh"
 
 #include <math.h>
+#include <stdint.h>
 
-__global__ void warp_kernel(const float* __restrict__ img,
-                            const float* __restrict__ disp,
-                            float* __restrict__ warped,
-                            float* __restrict__ valid, long long pixels,
-                            int channels, int height, int width) {
-  long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= pixels) return;
-  int w = static_cast<int>(i % width);
-  long long bh = i / width;
-  int h = static_cast<int>(bh % height);
-  long long b = bh / height;
+namespace {
 
-  float x = static_cast<float>(w) - disp[i];
-  float xc = fminf(fmaxf(x, 0.f), static_cast<float>(width - 1));
-  int x0 = min(static_cast<int>(floorf(xc)), width - 2);
-  float t = xc - static_cast<float>(x0);
+constexpr int WARP_MAX_THREADS = 256;
 
-  long long plane = static_cast<long long>(height) * width;
-  long long row = b * channels * plane + static_cast<long long>(h) * width;
-  for (int c = 0; c < channels; ++c) {
-    const float* src = img + row + c * plane;
-    warped[row + c * plane + w] = src[x0] * (1.f - t) + src[x0 + 1] * t;
-  }
-
-  float xf = floorf(x);
-  float tf = x - xf;
-  float last = static_cast<float>(width - 1);
-  float cover = ((xf >= 0.f && xf <= last) ? 1.f - tf : 0.f) +
-                ((xf + 1.f >= 0.f && xf + 1.f <= last) ? tf : 0.f);
-  valid[i] = cover >= 0.9999f ? 1.f : 0.f;
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+template <int C>  // C > 0: that many channels; C == 0: `channels`
+__global__ void __launch_bounds__(WARP_MAX_THREADS)
+warp_kernel(const float* __restrict__ img, const float* __restrict__ disp,
+            float* __restrict__ warped, float* __restrict__ valid, int channels, int height,
+            int width) {
+  const int w0 = (blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (w0 >= width) return;
+  const int nch = C > 0 ? C : channels;
+  const int h = blockIdx.y;
+  const size_t b = blockIdx.z;
+  const size_t plane = static_cast<size_t>(height) * width;
+  const float* drow = disp + (b * height + h) * width;
+  float* vrow = valid + (b * height + h) * width;
+  const float* irow = img + b * nch * plane + static_cast<size_t>(h) * width;
+  float* orow = warped + b * nch * plane + static_cast<size_t>(h) * width;
+  const bool vec = (width & 3) == 0 && aligned16(disp) && aligned16(valid) && aligned16(img) &&
+                   aligned16(warped);
+  const int n = min(4, width - w0);
+
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  if (vec) {
+    const float4 q = *reinterpret_cast<const float4*>(drow + w0);
+    d[0] = q.x; d[1] = q.y; d[2] = q.z; d[3] = q.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (i < n) d[i] = drow[w0 + i];
+  }
+  int x0[4];
+  float t[4], ok[4];
+  const float last = static_cast<float>(width - 1);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float x = static_cast<float>(w0 + i) - d[i];
+    const float xc = fminf(fmaxf(x, 0.f), last);
+    x0[i] = min(static_cast<int>(floorf(xc)), width - 2);
+    t[i] = xc - static_cast<float>(x0[i]);
+    const float xf = floorf(x);
+    const float tf = x - xf;
+    const float cover = ((xf >= 0.f && xf <= last) ? 1.f - tf : 0.f) +
+                        ((xf + 1.f >= 0.f && xf + 1.f <= last) ? tf : 0.f);
+    ok[i] = cover >= 0.9999f ? 1.f : 0.f;
+  }
+
+  auto store = [&](float* dst, const float (&v)[4]) {
+    if (vec) {
+      *reinterpret_cast<float4*>(dst + w0) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (i < n) dst[w0 + i] = v[i];
+    }
+  };
+  if constexpr (C > 0) {
+    float lo[C][4], hi[C][4];
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        lo[c][i] = irow[c * plane + x0[i]];
+        hi[c][i] = irow[c * plane + x0[i] + 1];
+      }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      float v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] = lo[c][i] * (1.f - t[i]) + hi[c][i] * t[i];
+      store(orow + c * plane, v);
+    }
+  } else {
+    for (int c = 0; c < nch; ++c) {
+      const float* src = irow + c * plane;
+      float lo[4], hi[4], v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        lo[i] = src[x0[i]];
+        hi[i] = src[x0[i] + 1];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] = lo[i] * (1.f - t[i]) + hi[i] * t[i];
+      store(orow + c * plane, v);
+    }
+  }
+  store(vrow, ok);
+}
+
+}  // namespace
+
 // img, warped: [batch, channels, height, width]; disp, valid:
-// [batch, height, width]; all float32, width >= 2.
+// [batch, height, width]; all float32, width >= 2; batch and height at
+// most 65535 (the grid's y and z).
 extern "C" int aanet_warp_f32(const float* img, const float* disp,
                               float* warped, float* valid, int batch,
                               int channels, int height, int width, int device,
                               void* stream) {
   cudaSetDevice(device);
-  long long pixels = static_cast<long long>(batch) * height * width;
-  if (pixels == 0) return 0;
-  const int threads = 256;
-  warp_kernel<<<aanet_blocks(pixels, threads), threads, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-      img, disp, warped, valid, pixels, channels, height, width);
+  if (batch > 65535 || height > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0 || height == 0 || width == 0) return 0;
+  // quads of a row over as few blocks as fit, each a multiple of 32 threads
+  const int quads = (width + 3) / 4;
+  const int blocks = (quads + WARP_MAX_THREADS - 1) / WARP_MAX_THREADS;
+  const int threads = ((quads + blocks - 1) / blocks + 31) / 32 * 32;
+  const dim3 grid(blocks, height, batch);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (channels == 3) {
+    warp_kernel<3><<<grid, threads, 0, s>>>(img, disp, warped, valid, channels, height, width);
+  } else {
+    warp_kernel<0><<<grid, threads, 0, s>>>(img, disp, warped, valid, channels, height, width);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,18 +18,27 @@ quirk of the JAX formulation: the fractional part of a sample position is
 one half, so at an integer sample position (every position, at zero
 offsets) the offset gradient is half the one-sided derivative. The CUDA
 kernels are ``csrc/deform_conv.cu``: the forward, the input/offset/mask
-gradient and the weight gradient.
+gradient and the weight gradient. The input/offset/mask gradient's tiling
+is chosen here, per shape (``backward_data_plan``), and its weight is laid
+out tap-major (``weight_taps_major``).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from aanet_torch import _build
 
 MAX_GROUPS = 8  # deformable groups the kernels stage (csrc/deform_conv.cu)
+SMEM_BYTES = 232448  # shared memory one block may use on Hopper (227 KB)
+SM_SMEM_BYTES = 233472  # shared memory of one SM (228 KB), 1 KB of it reserved per block
+MAX_BLOCKS = 3  # blocks per SM the backward-data kernel's registers are budgeted for (2 or 3)
+HALO = 3  # pixels of the backward-data window beyond the zero-offset footprint
+TILE_W = 16  # output columns of a backward-data tile (BD_TILE_W)
+TILINGS = ((8, 4), (8, 8), (16, 4))  # the backward-data kernel's builds: (channels, rows)
 
 _SHAPE_ARGS = [ctypes.c_int] * 14 + [ctypes.c_void_p]  # batch .. groups, device, stream
 _ARGTYPES = [
@@ -40,7 +49,7 @@ _BWD_DATA_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p,
-] + _SHAPE_ARGS
+] + [ctypes.c_int] * 17 + [ctypes.c_void_p]  # batch .. groups, chunk, tile_h, blocks, smem, device, stream
 _BWD_WEIGHT_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
@@ -185,6 +194,86 @@ def modulated_deform_conv2d_backward_weight_plain(
     return gw.view(cout, cin, kh, kw)
 
 
+class BackwardDataPlan(NamedTuple):
+    """How ``aanet_deform_conv_backward_data_f32`` cuts one conv: blocks of
+    ``chunk`` input channels of one group (``chunks`` per group) by a tile
+    of ``tile_h`` x ``TILE_W`` output pixels, each staging an input window of
+    ``win_h`` x ``win_w`` (the zero-offset footprint of the tile's taps plus
+    ``HALO`` pixels and the bilinear corner) in ``smem_bytes`` of shared
+    memory, built for ``blocks`` blocks per SM (its registers: 128 or 80 a
+    thread for 2 or 3)."""
+
+    chunk: int
+    chunks: int
+    tile_h: int
+    blocks: int
+    win_h: int
+    win_w: int
+    smem_bytes: int
+
+
+def _ceil_div(a, b):
+    return -(-a // b)
+
+
+def _bwd_data_smem(cout, chunk, tile_h, win_h, win_w):
+    """Bytes of the kernel's shared memory: the gout tile, two taps'
+    weights, the x and grad_x windows (each channel's window padded to an
+    odd number of words) and the offset and mask sums of two taps and two
+    halves of the block. The kernel refuses a plan whose ``smem_bytes``
+    differ."""
+    pixels = tile_h * TILE_W
+    win_stride = win_h * win_w | 1
+    return 4 * (cout * pixels + 2 * cout * chunk + 2 * chunk * win_stride + 12 * pixels)
+
+
+@functools.lru_cache(maxsize=None)
+def backward_data_plan(cin: int, cout: int, kh: int, kw: int, stride: int, dilation: int,
+                       groups: int) -> BackwardDataPlan:
+    """The backward-data kernel's tiling for a conv of these channels and
+    geometry (it does not depend on the batch or the image size).
+
+    Among the kernel's ``TILINGS`` that fit ``SMEM_BYTES``: the fewest idle
+    channels (16, 32, 48, 64 and 128 channels in 2 groups leave none),
+    then the most blocks per SM that the shared memory lets in, up to
+    ``MAX_BLOCKS`` (more warps hide more of the scatter's latency), then
+    the larger chunk (the gout tile serves more channels), then the taller
+    tile (less halo per pixel). The kernel's registers are budgeted for
+    that many blocks (``blocks``), and for two where only one fits. On an
+    H100 this picked the fastest tiling at every train-step shape. Raises
+    if nothing fits."""
+    if cin % groups:
+        raise ValueError(f"deform conv backward: {groups} groups do not divide {cin} channels")
+    cg = cin // groups
+    best = None
+    for chunk, tile_h in TILINGS:
+        chunks = _ceil_div(cg, chunk)
+        win_h = (tile_h - 1) * stride + (kh - 1) * dilation + 2 * HALO + 2
+        win_w = (TILE_W - 1) * stride + (kw - 1) * dilation + 2 * HALO + 2
+        smem = _bwd_data_smem(cout, chunk, tile_h, win_h, win_w)
+        if smem > SMEM_BYTES:
+            continue
+        resident = min(MAX_BLOCKS, SM_SMEM_BYTES // (smem + 1024))
+        key = (chunk * chunks - cg, -resident, -chunk, -tile_h)
+        plan = BackwardDataPlan(chunk, chunks, tile_h, max(2, resident), win_h, win_w, smem)
+        if best is None or key < best[0]:
+            best = (key, plan)
+    if best is None:
+        raise ValueError(
+            f"deform conv backward: no tiling of {cin} -> {cout} channels (stride {stride}, "
+            f"dilation {dilation}, {groups} groups) fits {SMEM_BYTES} bytes of shared memory")
+    return best[1]
+
+
+def weight_taps_major(weight: torch.Tensor) -> torch.Tensor:
+    """The weight [cout, cin, kh, kw] laid out [kh*kw, cout, cin], as the
+    backward-data kernel stages it: ``wt[k, co, c] = weight[co, c, k // kw,
+    k % kw]``, so a tap's slice for a chunk of channels is ``cout`` runs of
+    contiguous channels."""
+    cout, cin, kh, kw = weight.shape
+    return weight.permute(2, 3, 0, 1).reshape(kh * kw, cout, cin).contiguous()
+
+
 def _check_shapes(x, offset, mask, weight, stride, padding, dilation, g):
     b, cin, h, w = x.shape
     cout, wcin, kh, kw = weight.shape
@@ -253,15 +342,22 @@ def modulated_deform_conv2d_backward_data(
             dilation=dilation, deformable_groups=g,
         )
     _check_kernel_inputs("deform conv backward", x, offset, mask, g, gout=gout, weight=weight)
-    grad_x = torch.zeros_like(x)  # the kernel scatters into it with atomics
-    grad_off = torch.empty(offset.shape, dtype=torch.float32, device=x.device)
-    grad_mask = None if mask is None else torch.empty(mask.shape, dtype=torch.float32, device=x.device)
+    cout, cin, kh, kw = weight.shape
+    plan = backward_data_plan(cin, cout, kh, kw, stride, dilation, g)
+    grad_x = torch.zeros_like(x)  # the kernel adds its windows into it with atomics
+    # a group split over several chunks: each block adds its part
+    new = torch.zeros if plan.chunks > 1 else torch.empty
+    grad_off = new(offset.shape, dtype=torch.float32, device=x.device)
+    grad_mask = None if mask is None else new(mask.shape, dtype=torch.float32, device=x.device)
+    wt = weight_taps_major(weight)
+    *shape, device, stream = _shape_args(x, weight, ho, wo, stride, padding, dilation, g)
     _build.launch(
         "deform_conv", "aanet_deform_conv_backward_data_f32", _BWD_DATA_ARGTYPES,
         _build.ptr(gout), _build.ptr(x), _build.ptr(offset), offset.stride(0),
-        _build.ptr(mask), 0 if mask is None else mask.stride(0), _build.ptr(weight),
-        _build.ptr(grad_x), _build.ptr(grad_off), _build.ptr(grad_mask),
-        *_shape_args(x, weight, ho, wo, stride, padding, dilation, g),
+        _build.ptr(mask), 0 if mask is None else mask.stride(0),
+        _build.ptr(wt), _build.ptr(grad_x), _build.ptr(grad_off),
+        _build.ptr(grad_mask), *shape, plan.chunk, plan.tile_h, plan.blocks, plan.smem_bytes, device,
+        stream,
     )
     modulated_deform_conv2d_backward_data.launches += 1
     return grad_x, grad_off, grad_mask

@@ -34,6 +34,11 @@
    plain version at the shapes that one plain train step of the ``aanet``
    preset at batch 16, 288x576 records, with the bound and, for warp,
    F.grid_sample's forward plus backward as the library yardstick;
+6b. holds the deformable conv's input/offset/mask gradient against its
+   twin beyond the path's inputs (offsets in (-16, 16) px, integer
+   offsets, mask-less with one group, a stride-2 shape of odd sizes) and
+   times it with the wide offsets at the step's largest shape; the warp
+   forward at widths that are not a multiple of 4;
 7. on each of three seeded batches (batch 2, 288x576), runs one train
    step through the kernels and the same step through the plain twins
    (seeded weights) and compares the loss, every parameter's gradient
@@ -70,6 +75,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import functools
 import gc
 import json
 import os
@@ -170,7 +176,15 @@ def check(cond, msg):
 class Timer:
     """Median over CUDA events of ``iters`` runs after ``warmup`` runs; the
     L2 cache (50 MB) is flushed before each timed run, so every run reads
-    its inputs from device memory as a layer of the forward mostly does."""
+    its inputs from device memory as a layer of the forward mostly does.
+
+    After the flush the device spins for ``SPIN_CYCLES`` clock cycles
+    before the start event, while the host enqueues the run: without it,
+    the device idled from the end of the flush until the run's first
+    kernel arrived (the op's Python path: autograd, checks, allocations,
+    the ctypes call), and that idle time was counted as the run's."""
+
+    SPIN_CYCLES = 1_000_000  # about 0.5 ms at the H100's clocks
 
     def __init__(self, device):
         self.scratch = torch.empty(64 * 2**20, dtype=torch.float32, device=device)
@@ -181,6 +195,7 @@ class Timer:
         events = []
         for _ in range(iters):
             self.scratch.zero_()
+            torch.cuda._sleep(self.SPIN_CYCLES)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             fn()
@@ -204,7 +219,10 @@ def kernel_specs():
         return (tuple(x.shape), tuple(weight.shape), mask is not None, bias is not None,
                 stride, padding, dilation, deformable_groups)
 
-    def deform_inputs(sig, gen, dev):
+    def deform_inputs(sig, gen, dev, offsets="narrow"):
+        """Seeded inputs; ``offsets``: "narrow" fractional in (-3, 3) px,
+        "wide" fractional in (-16, 16) px (beyond the backward-data
+        kernel's window halo), "integer" in {-3, ..., 3} (jnp.clip's tie)."""
         xs, ws, has_mask, has_bias, stride, pad, dil, g = sig
         b, cin, h, w = xs
         cout, _, kh, kw = ws
@@ -212,9 +230,14 @@ def kernel_specs():
         wo = (w + 2 * pad - dil * (kw - 1) - 1) // stride + 1
         k2 = kh * kw
         rand = lambda *s: torch.rand(s, generator=gen, device=dev)  # noqa: E731
+        if offsets == "integer":
+            offset = torch.randint(-3, 4, (b, g * k2 * 2, ho, wo), generator=gen, device=dev).float()
+        else:
+            reach = {"narrow": 3.0, "wide": 16.0}[offsets]
+            offset = (rand(b, g * k2 * 2, ho, wo) * 2 - 1) * reach
         args = (
             torch.randn(xs, generator=gen, device=dev),
-            rand(b, g * k2 * 2, ho, wo) * 6 - 3,  # fractional offsets in (-3, 3) px
+            offset,
             rand(b, g * k2, ho, wo) * 2 if has_mask else None,  # masks in (0, 2)
             torch.randn(ws, generator=gen, device=dev) / (cin * k2) ** 0.5,
             torch.randn(cout, generator=gen, device=dev) if has_bias else None,
@@ -344,8 +367,8 @@ def kernel_specs():
     # The backward kernels: inputs made from the forward's signature plus a
     # seeded output gradient; bounds count every input read once and every
     # gradient written once.
-    def deform_bwd_inputs(sig, gen, dev):
-        (x, offset, mask, weight, _), kwargs = deform_inputs(sig, gen, dev)
+    def deform_bwd_inputs(sig, gen, dev, offsets="narrow"):
+        (x, offset, mask, weight, _), kwargs = deform_inputs(sig, gen, dev, offsets)
         b, _, ho, wo = offset.shape
         gout = torch.randn((b, weight.shape[0], ho, wo), generator=gen, device=dev)
         return (gout, x, offset, mask, weight), kwargs
@@ -642,10 +665,11 @@ def write_pngs(root, n, hw, seed):
         Image.fromarray(base[:, :w]).save(os.path.join(root, "right", f"{i:06d}.png"))
 
 
-def measure(spec, sig, n, gen, dev, timer, iters=20):
+def measure(spec, sig, n, gen, dev, timer, iters=20, timed=True):
     """Hold ``spec``'s kernel against its plain version on seeded inputs of
     signature ``sig`` (``n`` launches per run of the path), output by
-    output; time kernel, plain version and the library yardstick."""
+    output; unless not ``timed``, time kernel, plain version and the
+    library yardstick."""
     args, kwargs = spec["inputs"](sig, gen, dev)
     op = getattr(spec["module"], spec["attr"])
     got, want = op(*args, **kwargs), spec["plain"](*args, **kwargs)
@@ -656,6 +680,9 @@ def measure(spec, sig, n, gen, dev, timer, iters=20):
     for err, tol in errs:
         check(err <= tol, f"{spec['name']} {sig}: max error {err} > {tol}")
     err, tol = max(errs, key=lambda e: e[0] / e[1] if e[1] > 0 else e[0])
+    if not timed:
+        print(f"{spec['name']} {sig}: err {err:.3g} (tol {tol:.3g})", flush=True)
+        return dict(shape=str(sig), max_err=err, tolerance=tol)
     nbytes, flops = spec["cost"](sig)
     bytes_ms, ops_ms = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOP_S * 1e3
     lib = spec["library"](*args) if spec["library"] else None
@@ -929,6 +956,48 @@ def compare_train_steps(cfg, specs, small, gen, dev, per_parameter=False, calls=
     return record, m_kernel, step_kernel
 
 
+def edge_cases(specs, bwd_specs, deform_sigs, rows, gen, dev, timer):
+    """Phase 6b: the two redesigned kernels against their twins where the
+    main path's inputs do not reach, with the path's tolerances. The
+    deformable conv's input/offset/mask gradient at every shape of the
+    step ``deform_sigs`` with offsets in (-16, 16) px (corners beyond the
+    kernel's window halo take its device-memory path) and with integer
+    offsets (jnp.clip's half gradient), the mask-less single-group case,
+    and a stride-2 shape of odd sizes; timed with the wide offsets at the
+    step's largest shape, beside that shape's time with the path's narrow
+    offsets (``rows``). The warp forward at widths that are not a
+    multiple of 4, timed beside F.grid_sample."""
+    by_name = {s["name"]: s for s in specs + bwd_specs}
+    data = by_name["deform_conv_backward_data"]
+
+    def with_offsets(offsets):
+        return dict(data, inputs=functools.partial(data["inputs"], offsets=offsets))
+
+    records = []
+    largest = max(deform_sigs, key=lambda sig: np.prod(sig[0]))
+    narrow = next(r for r in rows["deform_conv_backward_data"] if r["shape"] == str(largest))
+    wide = measure(with_offsets("wide"), largest, 1, gen, dev, timer, iters=10)
+    print(f"deform_conv_backward_data {largest}: offsets in (-3, 3) px {narrow['kernel_ms']:.4f} ms, "
+          f"in (-16, 16) px {wide['kernel_ms']:.4f} ms", flush=True)
+    records.append(dict(wide, case="wide offsets, timed", narrow_kernel_ms=narrow["kernel_ms"]))
+    for sig in deform_sigs:
+        for offsets in ("wide", "integer"):
+            if (sig, offsets) != (largest, "wide"):
+                records.append(dict(measure(with_offsets(offsets), sig, 1, gen, dev, timer, timed=False),
+                                    case=f"{offsets} offsets"))
+    odd = ((2, 24, 37, 53), (24, 24, 3, 3), True, False, 2, 2, 2, 2)
+    for sig, case in ((odd, "stride 2, odd sizes"),
+                      (odd[:2] + (False, False) + odd[4:7] + (1,), "stride 2, odd sizes, mask-less, G=1"),
+                      (largest[:2] + (False, False) + largest[4:7] + (1,), "mask-less, G=1")):
+        for offsets in ("narrow", "wide"):
+            records.append(dict(measure(with_offsets(offsets), sig, 1, gen, dev, timer, timed=False),
+                                case=f"{case}, {offsets} offsets"))
+    for shape in ((2, 3, 37, 61), (1, 3, 375, 1242)):
+        records.append(dict(measure(by_name["disp_warp"], (shape,), 1, gen, dev, timer),
+                            case="width not a multiple of 4"))
+    return records
+
+
 def train_phases(specs, bwd_specs, gen, dev, timer, smi, data, lists):
     """Phases 6-9: the training slice of the ``aanet`` preset; phase 9
     trains on the synthetic dataset (data, lists). Returns each kernel's
@@ -966,6 +1035,9 @@ def train_phases(specs, bwd_specs, gen, dev, timer, smi, data, lists):
     for spec in bwd_specs:
         rows[spec["name"]] = [measure(spec, sig, n, gen, dev, timer, iters=10)
                               for sig, n in first[spec["forward"]].items()]
+    # 6b. the redesigned kernels beyond the path's inputs
+    edges = edge_cases(specs, bwd_specs, list(first["deform_conv"]), rows, gen, dev, timer)
+    print(json.dumps({"edge_cases": edges}), flush=True)
 
     # 7. one train step through the kernels against the same step through
     # the plain twins: same weights, same batch (batch 2), on each of

@@ -99,7 +99,7 @@ def _deform_torch_grads(fn, x, offset, mask, weight, bias, cot, kw):
 @pytest.mark.parametrize(
     "stride,groups,modulated,offsets",
     [(1, 2, True, "fractional"), (2, 2, True, "fractional"), (1, 1, False, "fractional"),
-     (2, 2, False, "far"), (1, 2, True, "integer")],
+     (2, 2, False, "far"), (1, 2, True, "far"), (1, 2, True, "integer")],
 )
 def test_deform_backward_matches_jax(stride, groups, modulated, offsets):
     case = _deform_case(stride, groups, modulated, offsets)
