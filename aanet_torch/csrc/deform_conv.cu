@@ -12,77 +12,211 @@
 //       + sum_{c, k} weight[co, c, k] * m[b, g(c), k] * x~[b, c, y, x].
 // Offsets are [B, G*K*2, Ho, Wo] in the (g, k, (dy, dx)) channel order and
 // the mask [B, G*K, Ho, Wo] in the (g, k) order, as the JAX package has it.
-//
-// Bound: operations. At the main path's largest shape (64 -> 64 channels
-// at 128x416) the contraction is 3.9 GFLOP against 39 MB of inputs and
-// output. Design: implicit GEMM on the CUDA cores in float32 -- no TF32,
-// as the JAX side pins Precision.HIGHEST for this contraction. A block
-// owns TP output pixels x TCO output channels. For each tap it first
-// computes, for each pixel and group, the four corner offsets and the
-// four corner weights (mask folded in) into shared memory; then, per chunk
-// of CK input channels, it samples the modulated im2col tile [CK][TP] into
-// shared memory, stages the weight slice [CK][TCO], and each thread
-// accumulates a 4x4 register tile with FMAs. The gathered columns (490 MB
-// at the largest shape if written out) never reach device memory.
 #include "common.cuh"
 
 #include <math.h>
 
 namespace {
 
-constexpr int TP = 64;        // output pixels per block
-constexpr int TCO = 64;       // output channels per block
-constexpr int CK = 16;        // input channels staged per step
-constexpr int THREADS = 256;  // 16 x 16 threads, each a 4 x 4 tile
-constexpr int MAX_G = 8;      // deformable groups a block can stage
+constexpr int TILE_W = 16;  // output columns of a tile (forward and backward-data)
+constexpr int HALO = 3;     // pixels of a staged window beyond the zero-offset footprint
 
-__global__ void __launch_bounds__(THREADS)
-deform_conv_kernel(const float* __restrict__ x, const float* __restrict__ offset,
-                   long long offset_bstride, const float* __restrict__ mask,
-                   long long mask_bstride, const float* __restrict__ weight,
-                   const float* __restrict__ bias, float* __restrict__ out,
-                   int cin, int height, int width, int cout, int out_h,
-                   int out_w, int kh, int kw, int stride, int pad, int dil,
-                   int groups) {
-  __shared__ float s_col[CK][TP];
-  __shared__ float s_w[CK][TCO];
-  __shared__ int s_idx[MAX_G][4][TP];
-  __shared__ float s_wt[MAX_G][4][TP];
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src, bool valid) {
+  // 4 bytes from src, or zeros without reading it when !valid
+  const unsigned int s = static_cast<unsigned int>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0));
+}
 
-  const int npix = out_h * out_w;
-  const int p0 = blockIdx.x * TP;
-  const int co0 = blockIdx.y * TCO;
-  const long long b = blockIdx.z;
+__device__ __forceinline__ void cp_async_f32x4(float* dst, const float* src) {
+  // 16 bytes, both ends 16-byte aligned
+  const unsigned int s = static_cast<unsigned int>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
+
+bool aligned16(const void* p) { return (reinterpret_cast<unsigned long long>(p) & 15) == 0; }
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// Forward.
+//
+// Bound: operations. At the main path's largest shape (64 -> 64 channels
+// at 16 x 96x192) the contraction is 21.7 GFLOP against 215 MB of inputs
+// and output. The contraction runs on the CUDA cores in float32 FMA
+// (route (b): the JAX side pins Precision.HIGHEST, which TF32's one
+// product fails). What the first, simpler kernel spent beyond it
+// (ablations: PERF.md section 6) was its skeleton -- a corner table
+// rebuilt per tap, a weight read 36 bytes apart per tap and 16-channel
+// step, two syncs per step with nothing in flight -- then its gathers
+// from device memory, then a contraction that read 8 shared words per 16
+// FMAs. Design:
+// - A block owns a tile of tile_h rows x TILE_W columns of output pixels
+//   of one batch entry, and co_tile output channels: all of them up to
+//   128 (the wrapper's plan: deform.forward_plan), so each sampled column
+//   serves every output channel.
+// - It walks chunks of FWD_CHUNK = 4 input channels of one group, with
+//   all taps inside a chunk. The next chunk's input window (the tile's
+//   taps' footprint at zero offset, widened by HALO pixels and the
+//   bilinear corner) and weights ([tap][channel][co_tile], laid out [tap,
+//   cin, cout] by the wrapper: 16-byte runs) are copied with cp.async,
+//   zero-filled outside the image, into the second of two buffers while
+//   the block samples and contracts the current one. The window is
+//   channel-minor: a corner's four channels are one 16-byte load.
+// - Per (tap, pixel) of a group, the window index of the bilinear quad
+//   and its fractions and mask are tabulated once per block (a quad
+//   beyond the window keeps its corner in the image instead: its corners
+//   read device memory, exactly). Each chunk's modulated columns [tap x
+//   FWD_CHUNK][pixels] are sampled from the window into shared memory,
+//   two table entries in flight per thread.
+// - Each thread accumulates an 8 x 8 register tile (8 pixels x 8 output
+//   channels, each as two 16-byte runs half a tile apart; a warp spans 8
+//   pixel quads by 4 channel quads where the tile allows it, so that a
+//   row's four loads are one wavefront each): 64 FMAs for 16 shared
+//   words. Where a tile's threads are fewer than 128, ksplit groups of
+//   them take alternate rows of the chunk and sum through shared memory
+//   at the end.
+// - Where the tiles are short of two waves of resident blocks, the plan
+//   splits the chunks over `splits` blocks (whole groups each, a few
+//   chunks at least); they add their sums into the zeroed output with
+//   16-byte atomicAdd, and split 0 adds the bias. The order of those adds
+//   varies from launch to launch, so wherever the plan splits, the output
+//   is not bit-reproducible (a recomputed forward under checkpointing may
+//   differ in its last bits); where splits == 1 it is.
+// Designs that lost on the card (PERF.md section 6): chunks of 8 (less
+// occupancy), and the next chunk sampled while this one is contracted
+// from a second column tile (more shared memory, fewer resident blocks).
+// The columns (490 MB at the largest shape if written out) never reach
+// device memory.
+// ---------------------------------------------------------------------------
+namespace {
+
+// The launch bounds: the largest block, and the blocks of it an SM holds
+// (FWD_MAX_THREADS, FWD_MIN_BLOCKS and FWD_REGISTERS in ops/deform.py).
+constexpr int FWD_MAX_THREADS = 256;
+constexpr int FWD_MIN_BLOCKS = 2;
+constexpr int FWD_CHUNK = 4;  // input channels of a chunk: one float4 per window position
+
+// Words of the forward's shared memory: the (tap, pixel) table (a float4
+// each), two x windows, the column tile and two chunks' weights; the
+// ksplit - 1 partial tiles of the final sum reuse the same space.
+__host__ __device__ inline long long fwd_smem_words(int taps, int pixels, int co_tile,
+                                                    int win_size, int ksplit) {
+  const long long main = 4LL * taps * pixels + 2LL * FWD_CHUNK * win_size +
+                         static_cast<long long>(taps) * FWD_CHUNK * pixels +
+                         2LL * taps * FWD_CHUNK * co_tile;
+  const long long partial = static_cast<long long>(ksplit - 1) * co_tile * pixels;
+  return main > partial ? main : partial;
+}
+
+__global__ void __launch_bounds__(FWD_MAX_THREADS, FWD_MIN_BLOCKS)
+deform_fwd_kernel(const float* __restrict__ x, const float* __restrict__ offset,
+                  long long offset_bstride, const float* __restrict__ mask,
+                  long long mask_bstride, const float* __restrict__ wt,
+                  const float* __restrict__ bias, float* __restrict__ out, int cin, int height,
+                  int width, int cout, int out_h, int out_w, int kh, int kw, int stride, int pad,
+                  int dil, int groups, int tile_h, int co_tile, int ksplit, int splits, int win_h,
+                  int win_w, int win_size, int tiles_x, bool out_vec) {
+  extern __shared__ float4 s_raw[];
+  const int P = tile_h * TILE_W;
   const int taps = kh * kw;
-  const int cg = cin / groups;
-  const int t = threadIdx.x;
-  const int tp = t % 16;  // pixels tp, tp+16, tp+32, tp+48
-  const int tc = t / 16;  // channels tc, tc+16, tc+32, tc+48
+  const int rows = taps * FWD_CHUNK;                        // contraction rows of a chunk
+  float4* s_tab = s_raw;                                    // [taps][P]: (quad, ly, lx, m)
+  float* s_x = reinterpret_cast<float*>(s_raw + taps * P);  // [2][win_h * win_w][FWD_CHUNK]
+  float* s_col = s_x + 2 * FWD_CHUNK * win_size;          // [rows][P]
+  float* s_w = s_col + rows * P;                            // [2][rows][co_tile]
 
+  const int t = threadIdx.x, nthreads = blockDim.x;
+  const int warp = t >> 5, nwarps = nthreads >> 5;
+  // The thread's 8 x 8 tile: pixel quads px_t and output-channel quads
+  // co_t (see the contraction). A warp spans 32 / co_lanes pixel quads by
+  // co_lanes channel quads, 4 where the tile allows it: its loads of a row
+  // then cover 128 bytes of columns and 64 of weights, one wavefront each.
+  const int npx = P / 8, nco = co_tile / 8;
+  int co_lanes = 4;
+  while (co_lanes > 1 && (nco % co_lanes != 0 || npx % (32 / co_lanes) != 0)) co_lanes /= 2;
+  int px_t, co_t, kg;
+  if (npx % (32 / co_lanes) == 0 && nco % co_lanes == 0) {
+    const int pl_lanes = 32 / co_lanes, lane = t & 31;
+    const int px_hi = warp % (npx / pl_lanes), rest = warp / (npx / pl_lanes);
+    px_t = lane % pl_lanes + pl_lanes * px_hi;
+    co_t = lane / pl_lanes + co_lanes * (rest % (nco / co_lanes));
+    kg = rest / (nco / co_lanes);
+  } else {
+    px_t = t % npx;
+    co_t = (t / npx) % nco;
+    kg = t / (npx * nco);
+  }
+  const int ho0 = static_cast<int>(blockIdx.x / tiles_x) * tile_h;
+  const int wo0 = static_cast<int>(blockIdx.x % tiles_x) * TILE_W;
+  const int co0 = static_cast<int>(blockIdx.y / splits) * co_tile;
+  const int split = static_cast<int>(blockIdx.y % splits);
+  const long long b = blockIdx.z;
+  const int cg = cin / groups;
+  const int per_group = (cg + FWD_CHUNK - 1) / FWD_CHUNK;
+  const int nchunks = groups * per_group;
+  const int q_beg = split * nchunks / splits, q_end = (split + 1) * nchunks / splits;
+  const int npix = out_h * out_w;
   const long long hw = static_cast<long long>(height) * width;
+  const int win_y = ho0 * stride - pad - HALO, win_x = wo0 * stride - pad - HALO;
   const float* xb = x + b * cin * hw;
   const float* ob = offset + b * offset_bstride;
   const float* mb = mask ? mask + b * mask_bstride : nullptr;
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  auto chunk_c0 = [&](int q) { return (q / per_group) * cg + (q % per_group) * FWD_CHUNK; };
+  auto chunk_nc = [&](int q) { return min(FWD_CHUNK, (q / per_group + 1) * cg - chunk_c0(q)); };
 
-  for (int k = 0; k < taps; ++k) {
-    const int ki = k / kw, kj = k % kw;
+  // The x window of chunk q into window buffer q & 1.
+  // Channel-minor: position i of channel cl at word 4 i + cl, so that a
+  // corner's four channels are one 16-byte load.
+  auto stage_x = [&](int q) {
+    const int c0 = chunk_c0(q), nc = chunk_nc(q);
+    float* sx = s_x + (q & 1) * FWD_CHUNK * win_size;
+    for (int r = warp; r < win_h; r += nwarps) {
+      const int yy = win_y + r;
+      const bool row_in = yy >= 0 && yy < height;
+      const float* src = xb + c0 * hw + static_cast<long long>(yy) * width;
+      for (int e = t & 31; e < FWD_CHUNK * win_w; e += 32) {
+        const int col = e >> 2, cl = e & 3, xx = win_x + col;
+        const bool in = row_in && cl < nc && xx >= 0 && xx < width;
+        cp_async_f32(sx + 4 * (r * win_w + col) + cl, in ? src + cl * hw + xx : x, in);
+      }
+    }
+  };
+  // The weights of chunk q, [tap][channel][co_tile], into weight buffer q & 1.
+  auto stage_w = [&](int q) {
+    const int c0 = chunk_c0(q), nc = chunk_nc(q);
+    float* sw = s_w + (q & 1) * rows * co_tile;
+    const int quads = co_tile / 4;
+    for (int e = t; e < rows * quads; e += nthreads) {
+      const int r = e / quads, q4 = e - r * quads;
+      const int k = r / FWD_CHUNK, cc = r - k * FWD_CHUNK;
+      float* dst = sw + r * co_tile + 4 * q4;
+      if (cc < nc) {
+        cp_async_f32x4(dst, wt + (static_cast<long long>(k) * cin + c0 + cc) * cout + co0 + 4 * q4);
+      } else {
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  };
 
-    // Corner offsets and weights of tap k for every (group, pixel).
-    for (int e = t; e < groups * TP; e += THREADS) {
-      const int g = e / TP, pl = e % TP, p = p0 + pl;
-      int idx[4] = {0, 0, 0, 0};
-      float wt[4] = {0.f, 0.f, 0.f, 0.f};
-      if (p < npix) {
-        const int ho = p / out_w, wo = p % out_w;
+  // The (tap, pixel) table of group g: the window index of the quad's
+  // top-left corner, or -1 - (its corner in the image, (y0 + 2) * (W + 4)
+  // + x0 + 2) for a quad beyond the window; the fractions and the mask.
+  auto tabulate = [&](int g) {
+#pragma unroll 2
+    for (int e = t; e < taps * P; e += nthreads) {
+      const int k = e / P, pl = e - k * P;
+      const int ho = ho0 + pl / TILE_W, wo = wo0 + pl % TILE_W;
+      int quad = 0;
+      float ly = 0.f, lx = 0.f, m = 0.f;  // off the map: a zero sample
+      if (ho < out_h && wo < out_w) {
+        const int p = ho * out_w + wo, ki = k / kw, kj = k - ki * kw;
         const long long oc = static_cast<long long>((g * taps + k) * 2) * npix + p;
-        const float dy = ob[oc], dx = ob[oc + npix];
-        const float m = mb ? mb[static_cast<long long>(g * taps + k) * npix + p] : 1.f;
+        const float dy = __ldg(ob + oc), dx = __ldg(ob + oc + npix);
+        m = mb ? __ldg(mb + static_cast<long long>(g * taps + k) * npix + p) : 1.f;
         float py = static_cast<float>(ho * stride - pad + ki * dil) + dy;
         float px = static_cast<float>(wo * stride - pad + kj * dil) + dx;
         // Outside (-1, H) x (-1, W) every corner is padding; the clamp only
@@ -91,77 +225,165 @@ deform_conv_kernel(const float* __restrict__ x, const float* __restrict__ offset
         px = fminf(fmaxf(px, -2.f), static_cast<float>(width) + 1.f);
         const float fy = floorf(py), fx = floorf(px);
         const int y0 = static_cast<int>(fy), x0 = static_cast<int>(fx);
-        const float ly = py - fy, lx = px - fx;
-        const float wy[2] = {1.f - ly, ly};
-        const float wx[2] = {1.f - lx, lx};
-#pragma unroll
-        for (int cy = 0; cy < 2; ++cy)
-#pragma unroll
-          for (int cx = 0; cx < 2; ++cx) {
-            const int yy = y0 + cy, xx = x0 + cx;
-            if (yy >= 0 && yy < height && xx >= 0 && xx < width) {
-              idx[cy * 2 + cx] = yy * width + xx;
-              wt[cy * 2 + cx] = wy[cy] * wx[cx] * m;
-            }
-          }
+        ly = py - fy;
+        lx = px - fx;
+        const int ry = y0 - win_y, rx = x0 - win_x;
+        quad = ry >= 0 && ry + 1 < win_h && rx >= 0 && rx + 1 < win_w
+                   ? ry * win_w + rx
+                   : -1 - ((y0 + 2) * (width + 4) + x0 + 2);
       }
+      s_tab[e] = make_float4(__int_as_float(quad), ly, lx, m);
+    }
+  };
+
+  // Table entry e's modulated samples of chunk q's FWD_CHUNK channels
+  // (window buffer q & 1) into the column tile.
+  auto sample = [&](int e, int q) {
+    const int k = e / P, pl = e - k * P;
+    const float4 te = s_tab[e];
+    const int quad = __float_as_int(te.x);
+    const float ly = te.y, lx = te.z, m = te.w;
+    const float w00 = (1.f - ly) * (1.f - lx) * m, w01 = (1.f - ly) * lx * m;
+    const float w10 = ly * (1.f - lx) * m, w11 = ly * lx * m;
+    float* col = s_col + k * FWD_CHUNK * P + pl;
+    if (quad >= 0) {  // channels past the chunk's end are zero-filled
+      const float4* xs =
+          reinterpret_cast<const float4*>(s_x + (q & 1) * FWD_CHUNK * win_size) + quad;
+      const float4 v00 = xs[0], v01 = xs[1], v10 = xs[win_w], v11 = xs[win_w + 1];
+      col[0] = w00 * v00.x + w01 * v01.x + w10 * v10.x + w11 * v11.x;
+      col[P] = w00 * v00.y + w01 * v01.y + w10 * v10.y + w11 * v11.y;
+      col[2 * P] = w00 * v00.z + w01 * v01.z + w10 * v10.z + w11 * v11.z;
+      col[3 * P] = w00 * v00.w + w01 * v01.w + w10 * v10.w + w11 * v11.w;
+    } else {
+      // beyond the window: the corners inside the image, in device memory
+      const int far = -1 - quad, y0 = far / (width + 4) - 2, x0 = far % (width + 4) - 2;
+      const bool y0_in = y0 >= 0 && y0 < height, y1_in = y0 + 1 >= 0 && y0 + 1 < height;
+      const bool x0_in = x0 >= 0 && x0 < width, x1_in = x0 + 1 >= 0 && x0 + 1 < width;
+      const int nc = chunk_nc(q);
+      const float* xc = xb + chunk_c0(q) * hw + static_cast<long long>(y0) * width + x0;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        s_idx[g][q][pl] = idx[q];
-        s_wt[g][q][pl] = wt[q];
+      for (int cc = 0; cc < FWD_CHUNK; ++cc) {
+        float v = 0.f;
+        if (cc < nc) {
+          const float v00 = y0_in && x0_in ? __ldg(xc) : 0.f;
+          const float v01 = y0_in && x1_in ? __ldg(xc + 1) : 0.f;
+          const float v10 = y1_in && x0_in ? __ldg(xc + width) : 0.f;
+          const float v11 = y1_in && x1_in ? __ldg(xc + width + 1) : 0.f;
+          v = w00 * v00 + w01 * v01 + w10 * v10 + w11 * v11;
+        }
+        col[cc * P] = v;
+        xc += hw;
+      }
+    }
+  };
+
+  // The thread's pixels 4 px_t + {0..3} and P/2 + 4 px_t + {0..3}, and
+  // output channels 4 co_t + {0..3} and co_tile/2 + 4 co_t + {0..3}.
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  auto contract = [&](int r, const float* a_ptr, const float* w_ptr) {
+    const float4 a0 = *reinterpret_cast<const float4*>(a_ptr + r * P);
+    const float4 a1 = *reinterpret_cast<const float4*>(a_ptr + r * P + P / 2);
+    const float4 b0 = *reinterpret_cast<const float4*>(w_ptr + r * co_tile);
+    const float4 b1 = *reinterpret_cast<const float4*>(w_ptr + r * co_tile + co_tile / 2);
+    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float wv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], wv[j], acc[i][j]);
+  };
+
+  // Chunk q + 1's window and weights are in flight while chunk q is
+  // sampled and contracted.
+  stage_x(q_beg);
+  stage_w(q_beg);
+  tabulate(q_beg / per_group);  // while the first chunk is in flight
+  for (int q = q_beg; q < q_end; ++q) {
+    cp_async_wait_all();
+    __syncthreads();  // chunk q has landed; chunk q - 1 is contracted
+    if (q + 1 < q_end) {
+      stage_x(q + 1);
+      stage_w(q + 1);
+    }
+    const int g = q / per_group;
+    if (q > q_beg && g != (q - 1) / per_group) {
+      tabulate(g);
+      __syncthreads();
+    }
+#pragma unroll 2
+    for (int e = t; e < taps * P; e += nthreads) sample(e, q);
+    __syncthreads();
+    const float* a_ptr = s_col + 4 * px_t;
+    const float* w_ptr = s_w + (q & 1) * rows * co_tile + 4 * co_t;
+#pragma unroll 1  // unrolled, the loop was 3 % slower at every step shape
+    for (int r = kg; r < rows; r += ksplit) contract(r, a_ptr, w_ptr);
+  }
+
+  // The ksplit groups' partial tiles: groups 1.. through shared memory.
+  if (ksplit > 1) {
+    __syncthreads();
+    float* s_part = reinterpret_cast<float*>(s_raw);  // [ksplit - 1][co_tile][P]
+    if (kg > 0) {
+      float* dst = s_part + (kg - 1) * co_tile * P;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int cl = 4 * co_t + (j & 3) + (j >> 2) * (co_tile / 2);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float4*>(dst + cl * P + 4 * px_t + h * (P / 2)) =
+              make_float4(acc[4 * h][j], acc[4 * h + 1][j], acc[4 * h + 2][j], acc[4 * h + 3][j]);
       }
     }
     __syncthreads();
-
-    for (int c0 = 0; c0 < cin; c0 += CK) {
-      // Modulated im2col tile of tap k: CK channels x TP pixels.
-      for (int e = t; e < CK * TP; e += THREADS) {
-        const int cc = e / TP, pl = e % TP, c = c0 + cc;
-        float v = 0.f;
-        if (c < cin) {
-          const int g = c / cg;
-          const float* xc = xb + c * hw;
-          v = s_wt[g][0][pl] * xc[s_idx[g][0][pl]] +
-              s_wt[g][1][pl] * xc[s_idx[g][1][pl]] +
-              s_wt[g][2][pl] * xc[s_idx[g][2][pl]] +
-              s_wt[g][3][pl] * xc[s_idx[g][3][pl]];
+    if (kg > 0) return;
+    for (int s = 0; s < ksplit - 1; ++s) {
+      const float* src = s_part + s * co_tile * P;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int cl = 4 * co_t + (j & 3) + (j >> 2) * (co_tile / 2);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float4 v = *reinterpret_cast<const float4*>(src + cl * P + 4 * px_t + h * (P / 2));
+          acc[4 * h][j] += v.x;
+          acc[4 * h + 1][j] += v.y;
+          acc[4 * h + 2][j] += v.z;
+          acc[4 * h + 3][j] += v.w;
         }
-        s_col[cc][pl] = v;
       }
-      // Weight slice of tap k: weight[co, c, ki, kj] for the chunk.
-      for (int e = t; e < CK * TCO; e += THREADS) {
-        const int cc = e / TCO, cl = e % TCO, c = c0 + cc, co = co0 + cl;
-        s_w[cc][cl] = (c < cin && co < cout)
-                          ? weight[(static_cast<long long>(co) * cin + c) * taps + k]
-                          : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int cc = 0; cc < CK; ++cc) {
-        float a[4], wv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = s_col[cc][tp + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wv[j] = s_w[cc][tc + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], wv[j], acc[i][j]);
-      }
-      __syncthreads();
     }
   }
 
   float* outb = out + b * cout * static_cast<long long>(npix);
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int co = co0 + tc + 16 * j;
-    if (co >= cout) continue;
-    const float bv = bias ? bias[co] : 0.f;
+  for (int j = 0; j < 8; ++j) {
+    const int co = co0 + 4 * co_t + (j & 3) + (j >> 2) * (co_tile / 2);
+    const float bv = bias && split == 0 ? bias[co] : 0.f;
+    float* oc = outb + static_cast<long long>(co) * npix;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int p = p0 + tp + 16 * i;
-      if (p < npix) outb[static_cast<long long>(co) * npix + p] = acc[i][j] + bv;
+    for (int h = 0; h < 2; ++h) {
+      const int pl = 4 * px_t + h * (P / 2);  // four pixels of one row
+      const int ho = ho0 + pl / TILE_W, wo = wo0 + pl % TILE_W;
+      if (ho >= out_h) continue;
+      float* o = oc + ho * out_w + wo;
+      const float v[4] = {acc[4 * h][j] + bv, acc[4 * h + 1][j] + bv, acc[4 * h + 2][j] + bv,
+                          acc[4 * h + 3][j] + bv};
+      if (splits > 1 && out_vec && wo + 3 < out_w) {
+        atomicAdd(reinterpret_cast<float4*>(o), make_float4(v[0], v[1], v[2], v[3]));
+      } else if (splits > 1) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (wo + i < out_w) atomicAdd(o + i, v[i]);
+      } else if (out_vec && wo + 3 < out_w) {
+        *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (wo + i < out_w) o[i] = v[i];
+      }
     }
   }
 }
@@ -170,26 +392,53 @@ deform_conv_kernel(const float* __restrict__ x, const float* __restrict__ offset
 
 // x: [batch, cin, height, width]; offset: [batch, groups*kh*kw*2, out_h,
 // out_w] with batch stride offset_bstride (elements), the rest contiguous;
-// mask: [batch, groups*kh*kw, out_h, out_w] likewise, or null; weight:
-// [cout, cin, kh, kw]; bias: [cout] or null; out: [batch, cout, out_h,
-// out_w]. All float32; groups <= 8 and divides cin.
+// mask: [batch, groups*kh*kw, out_h, out_w] likewise, or null; wt: the
+// weight laid out [kh*kw, cin, cout] (wt[k, c, co] = weight[co, c, k / kw,
+// k % kw]); bias: [cout] or null; out: [batch, cout, out_h, out_w], zeroed
+// by the caller when splits > 1 (blocks add into it); wt and out 16-byte
+// aligned. All float32; groups divides cin. The plan (ops/deform.py
+// forward_plan): tile_h (output rows of a tile of 16 columns, even),
+// co_tile (output channels of a block: a multiple of 8 that divides cout,
+// at most 128), ksplit (thread groups that split a chunk's rows), splits
+// (blocks that split a tile's chunks, at most their number), and
+// smem_bytes, the block's shared memory, which must be what this layout
+// takes. Anything else is cudaErrorInvalidValue.
 extern "C" int aanet_deform_conv_f32(
-    const float* x, const float* offset, long long offset_bstride,
-    const float* mask, long long mask_bstride, const float* weight,
-    const float* bias, float* out, int batch, int cin, int height, int width,
-    int cout, int out_h, int out_w, int kh, int kw, int stride, int pad,
-    int dil, int groups, int device, void* stream) {
+    const float* x, const float* offset, long long offset_bstride, const float* mask,
+    long long mask_bstride, const float* wt, const float* bias, float* out, int batch, int cin,
+    int height, int width, int cout, int out_h, int out_w, int kh, int kw, int stride, int pad,
+    int dil, int groups, int tile_h, int co_tile, int ksplit, int splits, int smem_bytes,
+    int device, void* stream) {
   cudaSetDevice(device);
-  if (groups < 1 || groups > MAX_G || cin % groups != 0) {
+  const int threads = (co_tile / 8) * (tile_h * TILE_W / 8) * ksplit;
+  if (groups < 1 || cin % groups != 0 || tile_h < 2 || tile_h % 2 != 0 || co_tile < 8 ||
+      co_tile % 8 != 0 || co_tile > 128 || cout % co_tile != 0 || ksplit < 1 || splits < 1 ||
+      threads % 32 != 0 || threads > FWD_MAX_THREADS) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int nchunks = groups * ((cin / groups + FWD_CHUNK - 1) / FWD_CHUNK);
+  if (splits > nchunks) return static_cast<int>(cudaErrorInvalidValue);  // a block without work
+  if (!aligned16(wt) || !aligned16(out)) return static_cast<int>(cudaErrorInvalidValue);
   const long long npix = static_cast<long long>(out_h) * out_w;
   if (batch == 0 || npix == 0 || cout == 0) return 0;
-  dim3 grid(static_cast<unsigned int>((npix + TP - 1) / TP),
-            (cout + TCO - 1) / TCO, batch);
-  deform_conv_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, offset, offset_bstride, mask, mask_bstride, weight, bias, out, cin,
-      height, width, cout, out_h, out_w, kh, kw, stride, pad, dil, groups);
+  const int win_h = (tile_h - 1) * stride + (kh - 1) * dil + 2 * HALO + 2;
+  const int win_w = (TILE_W - 1) * stride + (kw - 1) * dil + 2 * HALO + 2;
+  const int win_size = win_h * win_w;
+  const int pixels = tile_h * TILE_W;
+  if (fwd_smem_words(kh * kw, pixels, co_tile, win_size, ksplit) * 4 != smem_bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);  // the wrapper's plan has another layout
+  }
+  const cudaError_t attr = cudaFuncSetAttribute(
+      deform_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int tiles_x = (out_w + TILE_W - 1) / TILE_W;
+  const int tiles_y = (out_h + tile_h - 1) / tile_h;
+  dim3 grid(tiles_x * tiles_y, (cout / co_tile) * splits, batch);
+  const bool out_vec = out_w % 4 == 0;
+  deform_fwd_kernel<<<grid, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      x, offset, offset_bstride, mask, mask_bstride, wt, bias, out, cin, height, width, cout,
+      out_h, out_w, kh, kw, stride, pad, dil, groups, tile_h, co_tile, ksplit, splits, win_h,
+      win_w, win_size, tiles_x, out_vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -224,7 +473,7 @@ extern "C" int aanet_deform_conv_f32(
 //   deform.backward_data_plan), and loops over the taps itself: the gout
 //   tile [cout x pixels] is staged in shared memory once for all of them.
 // - The input window that the tile's taps reach at zero offset, widened by
-//   a halo of BD_HALO = 3 pixels on every side (plus the bilinear corner;
+//   a halo of HALO = 3 pixels on every side (plus the bilinear corner;
 //   the wrapper's plan holds the same constant, and the kernel refuses a
 //   plan whose shared-memory size is not this layout's), is
 //   staged for the chunk with cp.async (zero-filled outside the image: the
@@ -267,8 +516,6 @@ extern "C" int aanet_deform_conv_f32(
 namespace {
 
 constexpr int BD_THREADS = 256;  // 8 warps: 2 halves x 4 pixel quarters
-constexpr int BD_TILE_W = 16;    // output columns of a tile
-constexpr int BD_HALO = 3;       // pixels of the window beyond the zero-offset footprint
 
 // With 2 pixels a thread, the four lanes of a pixel group read 2-float
 // runs of four gout rows 64 words apart at once: row co of the gout tile
@@ -278,21 +525,6 @@ template <int PPT>
 __device__ __forceinline__ int bd_gout_col(int co, int p) {
   return PPT == 2 ? (p + 16 * (co & 3)) & 63 : p;
 }
-
-__device__ __forceinline__ void cp_async_f32(float* dst, const float* src, bool valid) {
-  // 4 bytes from src, or zeros without reading it when !valid
-  const unsigned int s = static_cast<unsigned int>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_f32x4(float* dst, const float* src) {
-  // 16 bytes, both ends 16-byte aligned
-  const unsigned int s = static_cast<unsigned int>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
 
 template <int N>
 __device__ __forceinline__ void load_run(float (&v)[N], const float* p) {
@@ -311,7 +543,7 @@ __device__ __forceinline__ void load_run(float (&v)[N], const float* p) {
 }
 
 // CPT: channels per thread (chunk CC = 8 * CPT); PPT: pixels per thread
-// (tile P = 32 * PPT pixels: TH = 2 * PPT rows of BD_TILE_W columns);
+// (tile P = 32 * PPT pixels: TH = 2 * PPT rows of TILE_W columns);
 // the builds are 8 x 4, 8 x 8 and 16 x 4 (chunk x rows), CPT * PPT <= 4;
 // BLOCKS: blocks per SM the registers are budgeted for (128 or 80 a
 // thread for 2 or 3), as the plan's shared memory allows.
@@ -327,7 +559,7 @@ deform_bwd_data_kernel(const float* __restrict__ gout, const float* __restrict__
                        int win_w, int win_stride, int tiles_x, bool gout_vec, bool w_vec) {
   constexpr int CC = 8 * CPT;
   constexpr int P = 32 * PPT;
-  constexpr int TH = P / BD_TILE_W;
+  constexpr int TH = P / TILE_W;
   extern __shared__ float4 s_raw[];
   float* s_gout = reinterpret_cast<float*>(s_raw);  // [cout][P], rows rotated: bd_gout_col
   float* s_w = s_gout + cout * P;                     // [2][cout][CC]: taps k and k + 1
@@ -337,7 +569,7 @@ deform_bwd_data_kernel(const float* __restrict__ gout, const float* __restrict__
 
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   const int ho0 = static_cast<int>(blockIdx.x / tiles_x) * TH;
-  const int wo0 = static_cast<int>(blockIdx.x % tiles_x) * BD_TILE_W;
+  const int wo0 = static_cast<int>(blockIdx.x % tiles_x) * TILE_W;
   const int cg = cin / groups;
   const int chunks = (cg + CC - 1) / CC;
   const int g = blockIdx.y / chunks;
@@ -347,7 +579,7 @@ deform_bwd_data_kernel(const float* __restrict__ gout, const float* __restrict__
   const int taps = kh * kw;
   const int npix = out_h * out_w;
   const long long hw = static_cast<long long>(height) * width;
-  const int win_y = ho0 * stride - pad - BD_HALO, win_x = wo0 * stride - pad - BD_HALO;
+  const int win_y = ho0 * stride - pad - HALO, win_x = wo0 * stride - pad - HALO;
   const float* xb = x + (b * cin + c0) * hw;
   float* gxb = grad_x + (b * cin + c0) * hw;
   const float* gb = gout + b * cout * static_cast<long long>(npix);
@@ -360,7 +592,7 @@ deform_bwd_data_kernel(const float* __restrict__ gout, const float* __restrict__
   const int half = warp >> 2;
   const int cset = half * 4 + (lane >> 3);
   const int pl0 = ((warp & 3) * 8 + (lane & 7)) * PPT;
-  const int ho = ho0 + pl0 / BD_TILE_W, wo1 = wo0 + pl0 % BD_TILE_W;
+  const int ho = ho0 + pl0 / TILE_W, wo1 = wo0 + pl0 % TILE_W;
 
   // The chunk's weights of tap k into buffer k & 1.
   auto stage_w = [&](int k) {
@@ -394,7 +626,7 @@ deform_bwd_data_kernel(const float* __restrict__ gout, const float* __restrict__
   };
   // Tap kk's offset and mask gradients of pixel t of the tile (t < P).
   auto write_tap = [&](int kk) {
-    const int oh = ho0 + t / BD_TILE_W, ow = wo0 + t % BD_TILE_W;
+    const int oh = ho0 + t / TILE_W, ow = wo0 + t % TILE_W;
     if (t >= P || oh >= out_h || ow >= out_w) return;
     const float* part = s_part + (kk & 1) * 6 * P + t;
     const float sdy = part[0] + part[3 * P], sdx = part[P] + part[4 * P];
@@ -427,9 +659,9 @@ deform_bwd_data_kernel(const float* __restrict__ gout, const float* __restrict__
   }
   for (int e = t; e < cout * P / 4; e += BD_THREADS) {
     const int co = e / (P / 4), q = e % (P / 4);
-    const int r = q / (BD_TILE_W / 4), cq = (q % (BD_TILE_W / 4)) * 4;
+    const int r = q / (TILE_W / 4), cq = (q % (TILE_W / 4)) * 4;
     const int oh = ho0 + r, ow = wo0 + cq;
-    float* dst = s_gout + co * P + bd_gout_col<PPT>(co, r * BD_TILE_W + cq);
+    float* dst = s_gout + co * P + bd_gout_col<PPT>(co, r * TILE_W + cq);
     const float* src = gb + static_cast<long long>(co) * npix + oh * out_w + ow;
     if (gout_vec && oh < out_h && ow + 3 < out_w) {
       cp_async_f32x4(dst, src);
@@ -645,8 +877,6 @@ cudaError_t launch_bwd_data(int blocks, Args... args) {
   }
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<unsigned long long>(p) & 15) == 0; }
-
 }  // namespace
 
 // gout: [batch, cout, out_h, out_w]; x, offset, mask as for the forward;
@@ -674,11 +904,11 @@ extern "C" int aanet_deform_conv_backward_data_f32(
   }
   const long long npix = static_cast<long long>(out_h) * out_w;
   if (batch == 0 || npix == 0) return 0;
-  const int win_h = (tile_h - 1) * stride + (kh - 1) * dil + 2 * BD_HALO + 2;
-  const int win_w = (BD_TILE_W - 1) * stride + (kw - 1) * dil + 2 * BD_HALO + 2;
+  const int win_h = (tile_h - 1) * stride + (kh - 1) * dil + 2 * HALO + 2;
+  const int win_w = (TILE_W - 1) * stride + (kw - 1) * dil + 2 * HALO + 2;
   // odd: the four channel sets of a warp at one window position hit four banks
   const int win_stride = win_h * win_w | 1;
-  const int tiles_x = (out_w + BD_TILE_W - 1) / BD_TILE_W;
+  const int tiles_x = (out_w + TILE_W - 1) / TILE_W;
   const int tiles_y = (out_h + tile_h - 1) / tile_h;
   const int cg = cin / groups;
   dim3 grid(tiles_x * tiles_y, groups * ((cg + chunk - 1) / chunk), batch);
@@ -717,7 +947,9 @@ extern "C" int aanet_deform_conv_backward_data_f32(
 // ---------------------------------------------------------------------------
 namespace {
 
-constexpr int WP = 32;     // pixels per step
+constexpr int THREADS = 256;  // 16 x 16 threads, each a 4 x 4 tile
+constexpr int MAX_G = 8;      // deformable groups a block can stage
+constexpr int WP = 32;      // pixels per step
 constexpr int WT = 64;      // output and input channels per block tile
 constexpr int WSTEPS = 16;  // steps per block: 512 pixels
 

@@ -18,8 +18,10 @@ quirk of the JAX formulation: the fractional part of a sample position is
 one half, so at an integer sample position (every position, at zero
 offsets) the offset gradient is half the one-sided derivative. The CUDA
 kernels are ``csrc/deform_conv.cu``: the forward, the input/offset/mask
-gradient and the weight gradient. The input/offset/mask gradient's tiling
-is chosen here, per shape (``backward_data_plan``), and its weight is laid
+gradient and the weight gradient. The forward's tiling is chosen here per
+conv, batch, output size and SM count (``forward_plan``), with its weight
+laid out [tap, cin, cout] (``weight_taps_cin_major``); the input/offset/
+mask gradient's per shape (``backward_data_plan``), with its weight laid
 out tap-major (``weight_taps_major``).
 """
 from __future__ import annotations
@@ -36,15 +38,24 @@ MAX_GROUPS = 8  # deformable groups the kernels stage (csrc/deform_conv.cu)
 SMEM_BYTES = 232448  # shared memory one block may use on Hopper (227 KB)
 SM_SMEM_BYTES = 233472  # shared memory of one SM (228 KB), 1 KB of it reserved per block
 MAX_BLOCKS = 3  # blocks per SM the backward-data kernel's registers are budgeted for (2 or 3)
-HALO = 3  # pixels of the backward-data window beyond the zero-offset footprint
-TILE_W = 16  # output columns of a backward-data tile (BD_TILE_W)
+HALO = 3  # pixels of a staged window beyond the zero-offset footprint (both kernels)
+TILE_W = 16  # output columns of a tile (both kernels)
 TILINGS = ((8, 4), (8, 8), (16, 4))  # the backward-data kernel's builds: (channels, rows)
+FWD_CHUNK = 4  # input channels of a forward chunk (FWD_CHUNK in the kernel)
+FWD_TILE_H = (16, 8, 4, 2)  # forward tile heights the plan considers
+# The forward kernel's __launch_bounds__(FWD_MAX_THREADS, FWD_MIN_BLOCKS): its
+# largest block, and the blocks of that size an SM must hold, which cap a
+# thread's registers
+FWD_MAX_THREADS = 256
+FWD_MIN_BLOCKS = 2
+FWD_REGISTERS = 65536 // (FWD_MIN_BLOCKS * FWD_MAX_THREADS)  # of an SM's 64K
+SM_THREADS = 2048  # resident threads of one SM
 
 _SHAPE_ARGS = [ctypes.c_int] * 14 + [ctypes.c_void_p]  # batch .. groups, device, stream
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
     ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-] + _SHAPE_ARGS
+] + [ctypes.c_int] * 19 + [ctypes.c_void_p]  # batch .. groups, the plan's five, device, stream
 _BWD_DATA_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
@@ -274,6 +285,113 @@ def weight_taps_major(weight: torch.Tensor) -> torch.Tensor:
     return weight.permute(2, 3, 0, 1).reshape(kh * kw, cout, cin).contiguous()
 
 
+class ForwardPlan(NamedTuple):
+    """How ``aanet_deform_conv_f32`` cuts one conv: blocks of ``tile_h`` x
+    ``TILE_W`` output pixels by ``co_tile`` output channels, each walking
+    the chunks of ``FWD_CHUNK`` input channels (``splits`` blocks share a
+    tile's chunks and add into the output) with ``threads`` threads
+    (``ksplit`` groups of them split a chunk's rows), staging a window of
+    ``win_h`` x ``win_w`` per channel in ``smem_bytes`` of shared memory;
+    ``resident`` blocks fit one SM and the grid holds ``blocks``."""
+
+    tile_h: int
+    co_tile: int
+    ksplit: int
+    splits: int
+    threads: int
+    win_h: int
+    win_w: int
+    smem_bytes: int
+    resident: int
+    blocks: int
+
+
+def _fwd_smem(taps, tile_h, co_tile, win_h, win_w, ksplit):
+    """Bytes of the forward kernel's shared memory (``fwd_smem_words`` in
+    the kernel): the (tap, pixel) table, a float4 each; two x windows; the
+    column tile [taps x FWD_CHUNK][pixels]; two chunks' weights [taps x
+    FWD_CHUNK][co_tile]. The ksplit - 1 partial tiles of the final sum
+    reuse the space. The kernel refuses a plan whose ``smem_bytes``
+    differ."""
+    pixels = tile_h * TILE_W
+    rows = taps * FWD_CHUNK
+    main = 4 * taps * pixels + 2 * FWD_CHUNK * win_h * win_w + rows * pixels + 2 * rows * co_tile
+    return 4 * max(main, (ksplit - 1) * co_tile * pixels)
+
+
+@functools.lru_cache(maxsize=None)
+def forward_plan(batch: int, cin: int, cout: int, out_h: int, out_w: int, kh: int, kw: int,
+                 stride: int, dilation: int, groups: int, sms: int) -> ForwardPlan:
+    """The forward kernel's tiling for a conv of these shapes on a card of
+    ``sms`` SMs.
+
+    - The channel tile: the largest multiple of 8 that divides ``cout``, up
+      to 128 (all of them at 16, 32, 48, 64 and 128: no idle channel, and
+      each sampled column serves every output channel).
+    - The tile height, of ``FWD_TILE_H``: for each, ``ksplit`` is the least
+      power of two that gives a block 128 threads (whole warps, at most
+      ``FWD_MAX_THREADS``), and ``resident`` the blocks one SM holds by
+      shared memory, threads and registers. The plan takes the most
+      resident warps up to 12, then a ksplit of at most 2, then the taller
+      tile (less halo and table per pixel): the kernel is bound by latency
+      below 12 warps an SM, and a ksplit of 4 or more spends more on the
+      final sum and on syncs than it gains.
+    - ``splits``: 1, or a multiple of ``groups`` that divides the chunks
+      (a block then tabulates one group only); the fewest that give two
+      waves of resident blocks (``2 * sms * resident``), with at least
+      min(8, chunks / 2) chunks a block: each block pays for its group's
+      table and its atomic adds.
+    On an H100 this was within 6 % of the fastest plan timed at every
+    shape of the ``aanet`` train step. Raises if nothing fits."""
+    if cin % groups:
+        raise ValueError(f"deform conv: {groups} groups do not divide {cin} channels")
+    tiles_co = [c for c in range(8, min(cout, 128) + 1, 8) if cout % c == 0]
+    if not tiles_co:
+        raise ValueError(f"deform conv: no tile of 8 to 128 output channels divides {cout}")
+    co_tile = tiles_co[-1]
+    cg, taps = cin // groups, kh * kw
+    nchunks = groups * _ceil_div(cg, FWD_CHUNK)
+    best = None
+    for tile_h in FWD_TILE_H:
+        base = (co_tile // 8) * (2 * tile_h)
+        ksplit = 1
+        while base * ksplit < 128 and 2 * ksplit <= taps * FWD_CHUNK:
+            ksplit *= 2
+        threads = base * ksplit
+        if threads % 32 or threads > FWD_MAX_THREADS:
+            continue
+        win_h = (tile_h - 1) * stride + (kh - 1) * dilation + 2 * HALO + 2
+        win_w = (TILE_W - 1) * stride + (kw - 1) * dilation + 2 * HALO + 2
+        smem = _fwd_smem(taps, tile_h, co_tile, win_h, win_w, ksplit)
+        if smem > SMEM_BYTES:
+            continue
+        resident = min(SM_SMEM_BYTES // (smem + 1024), SM_THREADS // threads,
+                       65536 // (FWD_REGISTERS * threads))
+        key = (-min(resident * threads // 32, 12), ksplit > 2, -tile_h)
+        if best is None or key < best[0]:
+            best = (key, (tile_h, ksplit, threads, win_h, win_w, smem, resident))
+    if best is None:
+        raise ValueError(
+            f"deform conv: no forward tiling of {cin} -> {cout} channels (stride {stride}, "
+            f"dilation {dilation}, {groups} groups) fits {SMEM_BYTES} bytes of shared memory")
+    tile_h, ksplit, threads, win_h, win_w, smem, resident = best[1]
+    tiles = _ceil_div(out_h, tile_h) * _ceil_div(out_w, TILE_W) * (cout // co_tile) * batch
+    most = max(1, nchunks // min(8, max(1, nchunks // 2)))
+    options = [s for s in range(1, most + 1) if s == 1 or (s % groups == 0 and nchunks % s == 0)]
+    splits = next((s for s in options if tiles * s >= 2 * sms * resident), options[-1])
+    return ForwardPlan(tile_h, co_tile, ksplit, splits, threads, win_h, win_w, smem, resident,
+                       tiles * splits)
+
+
+def weight_taps_cin_major(weight: torch.Tensor) -> torch.Tensor:
+    """The weight [cout, cin, kh, kw] laid out [kh*kw, cin, cout], as the
+    forward kernel stages it: ``wt[k, c, co] = weight[co, c, k // kw, k %
+    kw]``, so a tap's rows for a chunk of channels are runs of contiguous
+    output channels."""
+    cout, cin, kh, kw = weight.shape
+    return weight.permute(2, 3, 1, 0).reshape(kh * kw, cin, cout).contiguous()
+
+
 def _check_shapes(x, offset, mask, weight, stride, padding, dilation, g):
     b, cin, h, w = x.shape
     cout, wcin, kh, kw = weight.shape
@@ -308,6 +426,8 @@ def _shape_args(x, weight, ho, wo, stride, padding, dilation, g):
 
 
 def _forward(x, offset, mask, weight, bias, *, stride, padding, dilation, deformable_groups):
+    """The forward: the plain version for a CPU tensor; for a CUDA tensor
+    ``aanet_deform_conv_f32`` with ``forward_plan``'s tiling."""
     g = deformable_groups
     ho, wo = _check_shapes(x, offset, mask, weight, stride, padding, dilation, g)
     if x.device.type == "cpu":
@@ -316,13 +436,21 @@ def _forward(x, offset, mask, weight, bias, *, stride, padding, dilation, deform
             dilation=dilation, deformable_groups=g,
         )
     _check_kernel_inputs("deform conv", x, offset, mask, g, weight=weight, bias=bias)
-    out = torch.empty((x.shape[0], weight.shape[0], ho, wo), dtype=torch.float32, device=x.device)
+    b, cin, _, _ = x.shape
+    cout, _, kh, kw = weight.shape
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = forward_plan(b, cin, cout, ho, wo, kh, kw, stride, dilation, g, sms)
+    # split chunks add into the output
+    new = torch.zeros if plan.splits > 1 else torch.empty
+    out = new((b, cout, ho, wo), dtype=torch.float32, device=x.device)
+    wt = weight_taps_cin_major(weight)
+    *shape, device, stream = _shape_args(x, weight, ho, wo, stride, padding, dilation, g)
     _build.launch(
         "deform_conv", "aanet_deform_conv_f32", _ARGTYPES,
         _build.ptr(x), _build.ptr(offset), offset.stride(0),
         _build.ptr(mask), 0 if mask is None else mask.stride(0),
-        _build.ptr(weight), _build.ptr(bias), _build.ptr(out),
-        *_shape_args(x, weight, ho, wo, stride, padding, dilation, g),
+        _build.ptr(wt), _build.ptr(bias), _build.ptr(out), *shape, plan.tile_h, plan.co_tile,
+        plan.ksplit, plan.splits, plan.smem_bytes, device, stream,
     )
     modulated_deform_conv2d.launches += 1
     return out

@@ -34,11 +34,13 @@
    plain version at the shapes that one plain train step of the ``aanet``
    preset at batch 16, 288x576 records, with the bound and, for warp,
    F.grid_sample's forward plus backward as the library yardstick;
-6b. holds the deformable conv's input/offset/mask gradient against its
-   twin beyond the path's inputs (offsets in (-16, 16) px, integer
-   offsets, mask-less with one group, a stride-2 shape of odd sizes) and
-   times it with the wide offsets at the step's largest shape; the warp
-   forward at widths that are not a multiple of 4;
+6b. holds the deformable conv's forward and its input/offset/mask
+   gradient against their twins beyond the path's inputs (offsets in
+   (-16, 16) px, integer offsets, mask-less with one group, a stride-2
+   shape of odd sizes; for the forward also a shape whose plan splits the
+   input channels over blocks) and times each with the wide offsets at
+   the step's largest shape; the warp forward at widths that are not a
+   multiple of 4;
 7. on each of three seeded batches (batch 2, 288x576), runs one train
    step through the kernels and the same step through the plain twins
    (seeded weights) and compares the loss, every parameter's gradient
@@ -56,14 +58,15 @@
    baseline with either aggregation, StereoNet, GC-Net, ``stereonet-aa``)
    at 288x576, max_disp 192, remat on: a kernel
    step against a plain step at batch 2, whose plain run records every
-   kernel call's shape; each backward kernel against its twin at those
-   shapes at the full step's batch (the two volume backwards bit for
-   bit); then the full-width step at batch 16, halved until a step fits
-   the card, with its launch counts per step, the median step time over
-   10 steps after 3 warm-ups, samples/s, peak memory, idle share and top
-   device kernels; then ``python -m aanet_torch.cli train`` with the
-   PSMNet baseline's flags for 6 steps at batch 8 on phase 9's dataset,
-   and ``predict`` with the weights it wrote;
+   kernel call's shape; each forward and backward kernel against its
+   twin at those shapes at the full step's batch (the two volume
+   backwards bit for bit); then the full-width step at batch 16, halved
+   until a step fits the card, with its launch counts per step, the
+   median step time over 10 steps after 3 warm-ups, samples/s, peak
+   memory, idle share and top device kernels; then ``python -m
+   aanet_torch.cli train`` with the PSMNet baseline's flags for 6 steps
+   at batch 8 on phase 9's dataset, and ``predict`` with the weights it
+   wrote;
 11. prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
 
 Any failure raises, so the exit code is non-zero and the last line is not
@@ -957,44 +960,60 @@ def compare_train_steps(cfg, specs, small, gen, dev, per_parameter=False, calls=
 
 
 def edge_cases(specs, bwd_specs, deform_sigs, rows, gen, dev, timer):
-    """Phase 6b: the two redesigned kernels against their twins where the
-    main path's inputs do not reach, with the path's tolerances. The
-    deformable conv's input/offset/mask gradient at every shape of the
-    step ``deform_sigs`` with offsets in (-16, 16) px (corners beyond the
-    kernel's window halo take its device-memory path) and with integer
-    offsets (jnp.clip's half gradient), the mask-less single-group case,
-    and a stride-2 shape of odd sizes; timed with the wide offsets at the
-    step's largest shape, beside that shape's time with the path's narrow
-    offsets (``rows``). The warp forward at widths that are not a
-    multiple of 4, timed beside F.grid_sample."""
-    by_name = {s["name"]: s for s in specs + bwd_specs}
-    data = by_name["deform_conv_backward_data"]
+    """Phase 6b: the redesigned kernels against their twins where the main
+    path's inputs do not reach, with the path's tolerances. The deformable
+    conv's forward and its input/offset/mask gradient at every shape of
+    the step ``deform_sigs`` with offsets in (-16, 16) px (corners beyond
+    the kernels' window halo take their device-memory path) and with
+    integer offsets (jnp.clip's half gradient), the mask-less single-group
+    case, and a stride-2 shape of odd sizes; the forward also at a shape
+    whose plan splits the input channels over blocks (inference's layer 3,
+    which adds into the output with atomics); each timed with the wide
+    offsets at the step's largest shape, beside that shape's time with the
+    path's narrow offsets (``rows``). The warp forward at widths that are
+    not a multiple of 4, timed beside F.grid_sample."""
+    from aanet_torch.ops import deform
 
-    def with_offsets(offsets):
-        return dict(data, inputs=functools.partial(data["inputs"], offsets=offsets))
+    by_name = {s["name"]: s for s in specs + bwd_specs}
+
+    def with_offsets(spec, offsets):
+        return dict(spec, inputs=functools.partial(spec["inputs"], offsets=offsets))
 
     records = []
     largest = max(deform_sigs, key=lambda sig: np.prod(sig[0]))
-    narrow = next(r for r in rows["deform_conv_backward_data"] if r["shape"] == str(largest))
-    wide = measure(with_offsets("wide"), largest, 1, gen, dev, timer, iters=10)
-    print(f"deform_conv_backward_data {largest}: offsets in (-3, 3) px {narrow['kernel_ms']:.4f} ms, "
-          f"in (-16, 16) px {wide['kernel_ms']:.4f} ms", flush=True)
-    records.append(dict(wide, case="wide offsets, timed", narrow_kernel_ms=narrow["kernel_ms"]))
-    for sig in deform_sigs:
-        for offsets in ("wide", "integer"):
-            if (sig, offsets) != (largest, "wide"):
-                records.append(dict(measure(with_offsets(offsets), sig, 1, gen, dev, timer, timed=False),
-                                    case=f"{offsets} offsets"))
     odd = ((2, 24, 37, 53), (24, 24, 3, 3), True, False, 2, 2, 2, 2)
-    for sig, case in ((odd, "stride 2, odd sizes"),
-                      (odd[:2] + (False, False) + odd[4:7] + (1,), "stride 2, odd sizes, mask-less, G=1"),
-                      (largest[:2] + (False, False) + largest[4:7] + (1,), "mask-less, G=1")):
-        for offsets in ("narrow", "wide"):
-            records.append(dict(measure(with_offsets(offsets), sig, 1, gen, dev, timer, timed=False),
-                                case=f"{case}, {offsets} offsets"))
+    cases = ((odd, "stride 2, odd sizes"),
+             (odd[:2] + (False, False) + odd[4:7] + (1,), "stride 2, odd sizes, mask-less, G=1"),
+             (largest[:2] + (False, False) + largest[4:7] + (1,), "mask-less, G=1"))
+    for name in ("deform_conv", "deform_conv_backward_data"):
+        spec = by_name[name]
+        narrow = next(r for r in rows[name] if r["shape"] == str(largest))
+        wide = measure(with_offsets(spec, "wide"), largest, 1, gen, dev, timer, iters=10)
+        print(f"{name} {largest}: offsets in (-3, 3) px {narrow['kernel_ms']:.4f} ms, "
+              f"in (-16, 16) px {wide['kernel_ms']:.4f} ms", flush=True)
+        records.append(dict(wide, kernel=name, case="wide offsets, timed",
+                            narrow_kernel_ms=narrow["kernel_ms"]))
+        for sig in deform_sigs:
+            for offsets in ("wide", "integer"):
+                if (sig, offsets) != (largest, "wide"):
+                    records.append(dict(measure(with_offsets(spec, offsets), sig, 1, gen, dev, timer,
+                                                timed=False), kernel=name, case=f"{offsets} offsets"))
+        for sig, case in cases:
+            for offsets in ("narrow", "wide"):
+                records.append(dict(measure(with_offsets(spec, offsets), sig, 1, gen, dev, timer,
+                                            timed=False), kernel=name, case=f"{case}, {offsets} offsets"))
+    # the forward where its plan splits the chunks over blocks
+    split = ((2, 128, 32, 104), (128, 128, 3, 3), True, True, 1, 2, 2, 2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = deform.forward_plan(2, 128, 128, 32, 104, 3, 3, 1, 2, 2, sms)
+    check(plan.splits > 1, f"deform_conv {split}: the plan {plan} splits nothing")
+    for offsets in ("narrow", "wide"):
+        records.append(dict(measure(with_offsets(by_name["deform_conv"], offsets), split, 1, gen, dev,
+                                    timer, timed=False),
+                            kernel="deform_conv", case=f"split over {plan.splits} blocks, {offsets} offsets"))
     for shape in ((2, 3, 37, 61), (1, 3, 375, 1242)):
         records.append(dict(measure(by_name["disp_warp"], (shape,), 1, gen, dev, timer),
-                            case="width not a multiple of 4"))
+                            kernel="disp_warp", case="width not a multiple of 4"))
     return records
 
 
@@ -1188,8 +1207,8 @@ def fit_batch(cfg, gen, dev, specs):
 def baseline_train_phases(specs, bwd_specs, gen, dev, timer, smi, data, lists):
     """Phase 10: the train steps of the 3-D-aggregation networks and
     stereonet-aa at 288x576, max_disp 192. Returns, per network, each
-    backward kernel's rows at the full step's shapes and the launches of
-    one full-width step."""
+    kernel's rows at the full step's shapes and the launches of one
+    full-width step."""
     torch.set_grad_enabled(True)
     all_specs = specs + bwd_specs
     out = {}
@@ -1219,10 +1238,16 @@ def baseline_train_phases(specs, bwd_specs, gen, dev, timer, smi, data, lists):
         del model, step, batch
         torch.cuda.empty_cache()
 
-        # each backward kernel against its twin at the full step's shapes
-        rows = {spec["name"]: [measure(spec, rebatch(sig, n), k, gen, dev, timer, iters=10)
-                               for sig, k in first[spec["forward"]].items()]
-                for spec in bwd_specs}
+        # each kernel against its twin at the full step's shapes: a forward
+        # with its recomputations, a backward at its forward's calls (the
+        # deform forward's plan depends on the batch)
+        rows = {spec["name"]: [measure(spec, rebatch(sig, n), k + again[spec["name"]][sig], gen,
+                                       dev, timer, iters=10)
+                               for sig, k in first[spec["name"]].items()]
+                for spec in specs}
+        rows.update({spec["name"]: [measure(spec, rebatch(sig, n), k, gen, dev, timer, iters=10)
+                                    for sig, k in first[spec["forward"]].items()]
+                     for spec in bwd_specs})
         record = dict(network=name, batch=n, batches_out_of_memory=refused,
                       height=TRAIN_HW[0], width=TRAIN_HW[1], max_disp=cfg.max_disp,
                       dtype="float32", remat=cfg.remat, launches=counts, compare=compare,
