@@ -36,7 +36,150 @@ __device__ __forceinline__ void cp_async_f32x4(float* dst, const float* src) {
 
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
 
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Wait for all committed groups but the newest `newest`.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<unsigned long long>(p) & 15) == 0; }
+
+// Shared by the forward and the weight gradient: a tile's channel-minor
+// input window, its (tap, pixel) corner table and the sampling of one
+// channel quad from both.
+
+// The x windows of nq channel quads, with cp.async: quad j's window at sx
+// + 4 j win_size, position i of its channel cl at word 4 i + cl, so that a
+// corner's four channels are one 16-byte load. xc: x at the first channel;
+// nc: the channels that exist (the rest, and positions outside the image,
+// are zero-filled); any: a valid address for the zero-fills.
+__device__ __forceinline__ void stage_window(float* sx, const float* xc, int nc, int nq,
+                                             long long hw, int win_y, int win_x, int win_h,
+                                             int win_w, int win_size, int height, int width,
+                                             int warp, int nwarps, int lane, const float* any) {
+  for (int j = 0; j < nq; ++j, sx += 4 * win_size, xc += 4 * hw, nc -= 4) {
+    for (int r = warp; r < win_h; r += nwarps) {
+      const int yy = win_y + r;
+      const bool row_in = yy >= 0 && yy < height;
+      const float* src = xc + static_cast<long long>(yy) * width;
+      for (int e = lane; e < 4 * win_w; e += 32) {
+        const int col = e >> 2, cl = e & 3, xx = win_x + col;
+        const bool in = row_in && cl < nc && xx >= 0 && xx < width;
+        cp_async_f32(sx + 4 * r * win_w + e, in ? src + cl * hw + xx : any, in);
+      }
+    }
+  }
+}
+
+// The bilinear quad of output pixel (ho, wo), tap (ki, kj) at offset (dy,
+// dx) with mask m: the window index of its top-left corner, or -1 - (its
+// corner in the image, (y0 + 2) * (W + 4) + x0 + 2) for a quad beyond the
+// window (win_y, win_x, win_h x win_w); the fractions and the mask.
+__device__ __forceinline__ float4 corner(int ho, int wo, int ki, int kj, float dy, float dx,
+                                         float m, int stride, int pad, int dil, int height,
+                                         int width, int win_y, int win_x, int win_h, int win_w) {
+  float py = static_cast<float>(ho * stride - pad + ki * dil) + dy;
+  float px = static_cast<float>(wo * stride - pad + kj * dil) + dx;
+  // Outside (-1, H) x (-1, W) every corner is padding; the clamp only keeps
+  // the integer conversion in range.
+  py = fminf(fmaxf(py, -2.f), static_cast<float>(height) + 1.f);
+  px = fminf(fmaxf(px, -2.f), static_cast<float>(width) + 1.f);
+  const float fy = floorf(py), fx = floorf(px);
+  const int y0 = static_cast<int>(fy), x0 = static_cast<int>(fx);
+  const int ry = y0 - win_y, rx = x0 - win_x;
+  const int quad = ry >= 0 && ry + 1 < win_h && rx >= 0 && rx + 1 < win_w
+                       ? ry * win_w + rx
+                       : -1 - ((y0 + 2) * (width + 4) + x0 + 2);
+  return make_float4(__int_as_float(quad), py - fy, px - fx, m);
+}
+
+// The (tap, pixel) table of deformable group g for the tile of P = tile_h x
+// TILE_W output pixels at (ho0, wo0) (ob, mb: this batch entry's offsets
+// and mask, mb null for a unit mask): each entry's corner(), or a zero
+// sample off the map.
+__device__ __forceinline__ void tabulate(float4* tab, const float* ob, const float* mb, int g,
+                                         int taps, int P, int ho0, int wo0, int out_h,
+                                         int out_w, int kw, int stride, int pad, int dil,
+                                         int height, int width, int win_y, int win_x, int win_h,
+                                         int win_w, int t, int nthreads) {
+  const int npix = out_h * out_w;
+#pragma unroll 2
+  for (int e = t; e < taps * P; e += nthreads) {
+    const int k = e / P, pl = e - k * P;
+    const int ho = ho0 + pl / TILE_W, wo = wo0 + pl % TILE_W;
+    float4 te = make_float4(0.f, 0.f, 0.f, 0.f);  // off the map: a zero sample
+    if (ho < out_h && wo < out_w) {
+      const int p = ho * out_w + wo, ki = k / kw, kj = k - ki * kw;
+      const long long oc = static_cast<long long>((g * taps + k) * 2) * npix + p;
+      const float dy = __ldg(ob + oc), dx = __ldg(ob + oc + npix);
+      const float m = mb ? __ldg(mb + static_cast<long long>(g * taps + k) * npix + p) : 1.f;
+      te = corner(ho, wo, ki, kj, dy, dx, m, stride, pad, dil, height, width, win_y, win_x, win_h,
+                  win_w);
+    }
+    tab[e] = te;
+  }
+}
+
+// sample_quad's quads beyond the window: the corners inside the image, in
+// device memory.
+__device__ __forceinline__ void sample_far(float* col, int rs, int quad, float w00, float w01,
+                                           float w10, float w11, const float* xc, long long hw,
+                                           int nc, int height, int width) {
+  const int far = -1 - quad, y0 = far / (width + 4) - 2, x0 = far % (width + 4) - 2;
+  const bool y0_in = y0 >= 0 && y0 < height, y1_in = y0 + 1 >= 0 && y0 + 1 < height;
+  const bool x0_in = x0 >= 0 && x0 < width, x1_in = x0 + 1 >= 0 && x0 + 1 < width;
+  xc += static_cast<long long>(y0) * width + x0;
+#pragma unroll
+  for (int cc = 0; cc < 4; ++cc) {
+    float v = 0.f;
+    if (cc < nc) {
+      const float v00 = y0_in && x0_in ? __ldg(xc) : 0.f;
+      const float v01 = y0_in && x1_in ? __ldg(xc + 1) : 0.f;
+      const float v10 = y1_in && x0_in ? __ldg(xc + width) : 0.f;
+      const float v11 = y1_in && x1_in ? __ldg(xc + width + 1) : 0.f;
+      v = w00 * v00 + w01 * v01 + w10 * v10 + w11 * v11;
+    }
+    col[cc * rs] = v;
+    xc += hw;
+  }
+}
+
+// The same, out of line: rare, and inlined it made the weight gradient's
+// step loop larger and slower (the forward is faster with it inline).
+__device__ __noinline__ void sample_far_call(float* col, int rs, int quad, float w00, float w01,
+                                             float w10, float w11, const float* xc, long long hw,
+                                             int nc, int height, int width) {
+  sample_far(col, rs, quad, w00, w01, w10, w11, xc, hw, nc, height, width);
+}
+
+// Table entry te's modulated samples of one channel quad into col[0],
+// col[rs], col[2 rs], col[3 rs]: from the quad's window xs (float4s), or,
+// for a quad beyond it, from x in device memory (xc: x at the quad's first
+// channel; nc: its channels that exist, the rest sample zero), inline or,
+// with FAR_CALL, out of line.
+template <bool FAR_CALL>
+__device__ __forceinline__ void sample_quad(float* col, int rs, float4 te, const float4* xs,
+                                            int win_w, const float* xc, long long hw, int nc,
+                                            int height, int width) {
+  const int quad = __float_as_int(te.x);
+  const float ly = te.y, lx = te.z, m = te.w;
+  const float w00 = (1.f - ly) * (1.f - lx) * m, w01 = (1.f - ly) * lx * m;
+  const float w10 = ly * (1.f - lx) * m, w11 = ly * lx * m;
+  if (quad >= 0) {  // channels past the end are zero-filled in the window
+    xs += quad;
+    const float4 v00 = xs[0], v01 = xs[1], v10 = xs[win_w], v11 = xs[win_w + 1];
+    col[0] = w00 * v00.x + w01 * v01.x + w10 * v10.x + w11 * v11.x;
+    col[rs] = w00 * v00.y + w01 * v01.y + w10 * v10.y + w11 * v11.y;
+    col[2 * rs] = w00 * v00.z + w01 * v01.z + w10 * v10.z + w11 * v11.z;
+    col[3 * rs] = w00 * v00.w + w01 * v01.w + w10 * v10.w + w11 * v11.w;
+  } else if (FAR_CALL) {
+    sample_far_call(col, rs, quad, w00, w01, w10, w11, xc, hw, nc, height, width);
+  } else {
+    sample_far(col, rs, quad, w00, w01, w10, w11, xc, hw, nc, height, width);
+  }
+}
 
 }  // namespace
 
@@ -169,21 +312,9 @@ deform_fwd_kernel(const float* __restrict__ x, const float* __restrict__ offset,
   auto chunk_nc = [&](int q) { return min(FWD_CHUNK, (q / per_group + 1) * cg - chunk_c0(q)); };
 
   // The x window of chunk q into window buffer q & 1.
-  // Channel-minor: position i of channel cl at word 4 i + cl, so that a
-  // corner's four channels are one 16-byte load.
   auto stage_x = [&](int q) {
-    const int c0 = chunk_c0(q), nc = chunk_nc(q);
-    float* sx = s_x + (q & 1) * FWD_CHUNK * win_size;
-    for (int r = warp; r < win_h; r += nwarps) {
-      const int yy = win_y + r;
-      const bool row_in = yy >= 0 && yy < height;
-      const float* src = xb + c0 * hw + static_cast<long long>(yy) * width;
-      for (int e = t & 31; e < FWD_CHUNK * win_w; e += 32) {
-        const int col = e >> 2, cl = e & 3, xx = win_x + col;
-        const bool in = row_in && cl < nc && xx >= 0 && xx < width;
-        cp_async_f32(sx + 4 * (r * win_w + col) + cl, in ? src + cl * hw + xx : x, in);
-      }
-    }
+    stage_window(s_x + (q & 1) * FWD_CHUNK * win_size, xb + chunk_c0(q) * hw, chunk_nc(q), 1, hw,
+                 win_y, win_x, win_h, win_w, win_size, height, width, warp, nwarps, t & 31, x);
   };
   // The weights of chunk q, [tap][channel][co_tile], into weight buffer q & 1.
   auto stage_w = [&](int q) {
@@ -202,79 +333,16 @@ deform_fwd_kernel(const float* __restrict__ x, const float* __restrict__ offset,
     }
   };
 
-  // The (tap, pixel) table of group g: the window index of the quad's
-  // top-left corner, or -1 - (its corner in the image, (y0 + 2) * (W + 4)
-  // + x0 + 2) for a quad beyond the window; the fractions and the mask.
-  auto tabulate = [&](int g) {
-#pragma unroll 2
-    for (int e = t; e < taps * P; e += nthreads) {
-      const int k = e / P, pl = e - k * P;
-      const int ho = ho0 + pl / TILE_W, wo = wo0 + pl % TILE_W;
-      int quad = 0;
-      float ly = 0.f, lx = 0.f, m = 0.f;  // off the map: a zero sample
-      if (ho < out_h && wo < out_w) {
-        const int p = ho * out_w + wo, ki = k / kw, kj = k - ki * kw;
-        const long long oc = static_cast<long long>((g * taps + k) * 2) * npix + p;
-        const float dy = __ldg(ob + oc), dx = __ldg(ob + oc + npix);
-        m = mb ? __ldg(mb + static_cast<long long>(g * taps + k) * npix + p) : 1.f;
-        float py = static_cast<float>(ho * stride - pad + ki * dil) + dy;
-        float px = static_cast<float>(wo * stride - pad + kj * dil) + dx;
-        // Outside (-1, H) x (-1, W) every corner is padding; the clamp only
-        // keeps the integer conversion in range.
-        py = fminf(fmaxf(py, -2.f), static_cast<float>(height) + 1.f);
-        px = fminf(fmaxf(px, -2.f), static_cast<float>(width) + 1.f);
-        const float fy = floorf(py), fx = floorf(px);
-        const int y0 = static_cast<int>(fy), x0 = static_cast<int>(fx);
-        ly = py - fy;
-        lx = px - fx;
-        const int ry = y0 - win_y, rx = x0 - win_x;
-        quad = ry >= 0 && ry + 1 < win_h && rx >= 0 && rx + 1 < win_w
-                   ? ry * win_w + rx
-                   : -1 - ((y0 + 2) * (width + 4) + x0 + 2);
-      }
-      s_tab[e] = make_float4(__int_as_float(quad), ly, lx, m);
-    }
+  auto tabulate_group = [&](int g) {
+    tabulate(s_tab, ob, mb, g, taps, P, ho0, wo0, out_h, out_w, kw, stride, pad, dil, height,
+             width, win_y, win_x, win_h, win_w, t, nthreads);
   };
-
   // Table entry e's modulated samples of chunk q's FWD_CHUNK channels
   // (window buffer q & 1) into the column tile.
-  auto sample = [&](int e, int q) {
+  auto sample = [&](int e, const float4* xs, const float* xq, int ncq) {
     const int k = e / P, pl = e - k * P;
-    const float4 te = s_tab[e];
-    const int quad = __float_as_int(te.x);
-    const float ly = te.y, lx = te.z, m = te.w;
-    const float w00 = (1.f - ly) * (1.f - lx) * m, w01 = (1.f - ly) * lx * m;
-    const float w10 = ly * (1.f - lx) * m, w11 = ly * lx * m;
-    float* col = s_col + k * FWD_CHUNK * P + pl;
-    if (quad >= 0) {  // channels past the chunk's end are zero-filled
-      const float4* xs =
-          reinterpret_cast<const float4*>(s_x + (q & 1) * FWD_CHUNK * win_size) + quad;
-      const float4 v00 = xs[0], v01 = xs[1], v10 = xs[win_w], v11 = xs[win_w + 1];
-      col[0] = w00 * v00.x + w01 * v01.x + w10 * v10.x + w11 * v11.x;
-      col[P] = w00 * v00.y + w01 * v01.y + w10 * v10.y + w11 * v11.y;
-      col[2 * P] = w00 * v00.z + w01 * v01.z + w10 * v10.z + w11 * v11.z;
-      col[3 * P] = w00 * v00.w + w01 * v01.w + w10 * v10.w + w11 * v11.w;
-    } else {
-      // beyond the window: the corners inside the image, in device memory
-      const int far = -1 - quad, y0 = far / (width + 4) - 2, x0 = far % (width + 4) - 2;
-      const bool y0_in = y0 >= 0 && y0 < height, y1_in = y0 + 1 >= 0 && y0 + 1 < height;
-      const bool x0_in = x0 >= 0 && x0 < width, x1_in = x0 + 1 >= 0 && x0 + 1 < width;
-      const int nc = chunk_nc(q);
-      const float* xc = xb + chunk_c0(q) * hw + static_cast<long long>(y0) * width + x0;
-#pragma unroll
-      for (int cc = 0; cc < FWD_CHUNK; ++cc) {
-        float v = 0.f;
-        if (cc < nc) {
-          const float v00 = y0_in && x0_in ? __ldg(xc) : 0.f;
-          const float v01 = y0_in && x1_in ? __ldg(xc + 1) : 0.f;
-          const float v10 = y1_in && x0_in ? __ldg(xc + width) : 0.f;
-          const float v11 = y1_in && x1_in ? __ldg(xc + width + 1) : 0.f;
-          v = w00 * v00 + w01 * v01 + w10 * v10 + w11 * v11;
-        }
-        col[cc * P] = v;
-        xc += hw;
-      }
-    }
+    sample_quad<false>(s_col + k * FWD_CHUNK * P + pl, P, s_tab[e], xs, win_w, xq, hw, ncq,
+                       height, width);
   };
 
   // The thread's pixels 4 px_t + {0..3} and P/2 + 4 px_t + {0..3}, and
@@ -301,7 +369,7 @@ deform_fwd_kernel(const float* __restrict__ x, const float* __restrict__ offset,
   // sampled and contracted.
   stage_x(q_beg);
   stage_w(q_beg);
-  tabulate(q_beg / per_group);  // while the first chunk is in flight
+  tabulate_group(q_beg / per_group);  // while the first chunk is in flight
   for (int q = q_beg; q < q_end; ++q) {
     cp_async_wait_all();
     __syncthreads();  // chunk q has landed; chunk q - 1 is contracted
@@ -311,11 +379,16 @@ deform_fwd_kernel(const float* __restrict__ x, const float* __restrict__ offset,
     }
     const int g = q / per_group;
     if (q > q_beg && g != (q - 1) / per_group) {
-      tabulate(g);
+      tabulate_group(g);
       __syncthreads();
     }
+    {
+      const float4* xs = reinterpret_cast<const float4*>(s_x + (q & 1) * FWD_CHUNK * win_size);
+      const float* xq = xb + chunk_c0(q) * hw;
+      const int ncq = chunk_nc(q);
 #pragma unroll 2
-    for (int e = t; e < taps * P; e += nthreads) sample(e, q);
+      for (int e = t; e < taps * P; e += nthreads) sample(e, xs, xq, ncq);
+    }
     __syncthreads();
     const float* a_ptr = s_col + 4 * px_t;
     const float* w_ptr = s_w + (q & 1) * rows * co_tile + 4 * co_t;
@@ -932,164 +1005,432 @@ extern "C" int aanet_deform_conv_backward_data_f32(
 // ---------------------------------------------------------------------------
 // Backward (b): the weight gradient,
 //   grad_w[co, c, k] = sum_{b, p} gout[b, co, p] * col[b, c, k, p],
-// with the modulated columns col recomputed in shared memory the way the
-// forward samples them; they are never stored in device memory (680 MB
-// per conv at scale 0, batch 16, 96x192, if they were).
+// with the modulated columns col sampled the way the forward samples them;
+// they never reach device memory (680 MB per conv at the main path's
+// largest shape, batch 16 at 96x192, if they were).
 //
-// Bound: operations (the forward's FLOP count once more). Design: a block
-// owns a [64 co x 64 c] tile of one tap k and a range of 512 pixels of one
-// batch entry. Per step of 32 pixels it tabulates the corners, samples the
-// column tile [32 px x 64 c] and stages the gout tile [32 px x 64 co]
-// (both padded to 65 words a row, so neither the transposing writes nor
-// the reads conflict on banks), and each thread accumulates a 4x4 register
-// tile with float32 FMA. Blocks add their partial tiles to grad_w (zeroed
-// by the caller) with atomicAdd.
+// Replaces the weight half of the transpose that jax.grad derives from the
+// contraction of aanet_tpu/ops/deform.py:modulated_deform_conv2d.
+//
+// Bound: operations (the forward's FLOP count once more, float32 FMA on the
+// CUDA cores: the JAX side pins Precision.HIGHEST, which TF32's one product
+// fails). It is a split-K matrix product: M = output channels, N = (input
+// channel, tap), K = the pixels of the batch. A first, simpler kernel re-sampled a
+// tap's columns for every output-channel tile, rebuilt the corner table per
+// tap, re-read gout per tap, idled most of its 64-wide tiles at 16 to 48
+// channels, and added every partial tile into grad_w with float atomics
+// (576 per address at the largest shape, in no fixed order). Design:
+// - A block owns co_tile output channels (all of them up to 128), a chunk
+//   of cc input channels of one group with all their taps (N = cc * 9; the
+//   plan takes cc among the group's divisors, so no channel idles), and a
+//   run of tiles of tile_h x TILE_W output pixels, contiguous in (batch,
+//   tile) order: its split's share of them.
+// - Each thread keeps a register tile of WG_TM = 8 output channels x the 9
+//   taps of one channel (72 sums) for the block's whole run, and reads both
+//   operands as float4 runs of 4 pixels at fixed offsets (its rows are
+//   contiguous; rows padded by WG_PAD words, so the 8 channels of a
+//   quarter-warp hit 8 bank groups): 8 + 9 16-byte loads for 288 FMAs.
+//   Where a block has fewer threads than the plan's, ksplit thread groups
+//   take alternate pixel quads and meet in shared memory at the end.
+// - A tile's channel-minor x window (the forward's, with the HALO) is
+//   copied once with cp.async, two steps before it is needed, as a group of
+//   its own; the tile is walked in steps of STEP_H rows. While step s is
+//   contracted, step s + 1 is sampled into a second column tile, step s +
+//   1's gout and step s + 2's offsets and mask are in flight: one
+//   __syncthreads a step. Each sample finds its bilinear quad from the
+//   staged offsets and mask (no table pass) and reads the window, corners
+//   beyond it exactly from device memory. Each value is read once per block
+//   and step.
+// - Each split writes its sums once, with plain stores, to its own slab of a
+//   workspace [splits][cout][cin * taps]; a second kernel adds the slabs in
+//   a fixed order into grad_w. No float atomics: the weight gradient is
+//   bit-reproducible for a given plan.
+// What set the pace, on an H100 (PERF.md section 6): latency around the
+// barriers, not FMA or shared-memory throughput (operands broadcast to a
+// whole warp ran no faster). Larger steps (more FMAs a barrier) at 8
+// resident warps beat more resident warps with small steps, and 255
+// registers a thread (one 256-thread block an SM) beat 128 where the plan
+// keeps 8 warps an SM; the plan picks the build.
 // ---------------------------------------------------------------------------
 namespace {
 
-constexpr int THREADS = 256;  // 16 x 16 threads, each a 4 x 4 tile
-constexpr int MAX_G = 8;      // deformable groups a block can stage
-constexpr int WP = 32;      // pixels per step
-constexpr int WT = 64;      // output and input channels per block tile
-constexpr int WSTEPS = 16;  // steps per block: 512 pixels
+// The launch bounds: the largest block (WG_MAX_THREADS in ops/deform.py);
+// the kernel is built for 1 and for 2 such blocks an SM (WG_BUILDS there),
+// so a thread may take 255 or 128 registers, and the plan names the build.
+constexpr int WG_MAX_THREADS = 256;
+constexpr int WG_TM = 8;        // output channels of a thread's register tile
+constexpr int WG_MAX_TAPS = 9;  // taps of a thread's register tile: all of one channel's
+                                // (rows past a conv's taps are zero)
+constexpr int WG_PAD = 4;       // words after each row of the gout and column tiles
+constexpr int WG_VEC = 4;       // pixels of an operand load in the contraction
 
-__global__ void __launch_bounds__(THREADS)
-deform_bwd_weight_kernel(const float* __restrict__ gout, const float* __restrict__ x,
-                         const float* __restrict__ offset, long long offset_bstride,
-                         const float* __restrict__ mask, long long mask_bstride,
-                         float* __restrict__ grad_w, int cin, int height, int width,
-                         int cout, int out_h, int out_w, int kh, int kw, int stride,
-                         int pad, int dil, int groups, int c_tiles, int splits) {
-  __shared__ float s_col[WP][WT + 1];
-  __shared__ float s_g[WP][WT + 1];
-  __shared__ int s_idx[MAX_G][4][WP];
-  __shared__ float s_wt[MAX_G][4][WP];
+// Words of the weight gradient's shared memory: two steps' offsets and
+// masks ([dy, dx per tap, then m per tap][pixels]), gout tiles and column
+// tiles, two x windows of the chunk; the ksplit - 1 groups' partial sums at
+// the end reuse the space. pixels: a step's.
+__host__ __device__ inline long long wg_smem_words(int taps, int pixels, int co_tile, int cc,
+                                                   int win_size, int ksplit) {
+  const long long rs = pixels + WG_PAD;
+  const long long main = 6LL * taps * pixels + 2LL * co_tile * rs + 2LL * cc * win_size +
+                         2LL * WG_MAX_TAPS * cc * rs;
+  const long long partial =
+      static_cast<long long>(ksplit - 1) * WG_TM * WG_MAX_TAPS * (co_tile / WG_TM) * cc;
+  return main > partial ? main : partial;
+}
 
+template <int STEP_H, int BLOCKS>
+__global__ void __launch_bounds__(WG_MAX_THREADS, BLOCKS)
+deform_wgrad_kernel(const float* __restrict__ gout, const float* __restrict__ x,
+                    const float* __restrict__ offset, long long offset_bstride,
+                    const float* __restrict__ mask, long long mask_bstride,
+                    float* __restrict__ ws, int cin, int height, int width, int cout, int out_h,
+                    int out_w, int kh, int kw, int stride, int pad, int dil, int groups,
+                    int tile_h, int co_tile, int cc, int ksplit, int splits, int win_h, int win_w,
+                    int win_size, int tiles_x, int tiles, int units, bool gout_vec, bool off_vec) {
+  constexpr int P = STEP_H * TILE_W, RS = P + WG_PAD;  // a step's pixels; a row's words
+  extern __shared__ float4 s_raw[];
+  const int taps = kh * kw, nq = cc / 4;
+  float* s_off = reinterpret_cast<float*>(s_raw);  // [2][3 * taps][P]: dy, dx per tap, then m
+  float* s_g = s_off + 6 * taps * P;               // [2][co_tile][RS]
+  float* s_x = s_g + 2 * co_tile * RS;             // [2][nq][win_size][4]
+  float* s_col = s_x + 2 * cc * win_size;          // [2][cc * WG_MAX_TAPS][RS]: row c * 9 + k
+
+  const int t = threadIdx.x, nthreads = blockDim.x;
+  const int warp = t >> 5, nwarps = nthreads >> 5;
+  const int nco = co_tile / WG_TM;
+  // The thread's channel c_t (a quarter-warp spans 8 channels), output
+  // channels WG_TM * co_t + i and pixel quads kg, kg + ksplit, ... of a step.
+  const int c_t = t % cc, co_t = (t / cc) % nco, kg = t / (cc * nco);
+  const int cg = cin / groups, per_group = (cg + cc - 1) / cc;
+  const int g = blockIdx.x / per_group;
+  const int c0 = g * cg + (blockIdx.x % per_group) * cc;
+  const int nc = min(cc, (g + 1) * cg - c0);  // the group's last chunk may be short
+  const int split = blockIdx.y;
+  const int co0 = blockIdx.z * co_tile;
+  const int u_beg = static_cast<int>(static_cast<long long>(split) * units / splits);
+  const int u_end = static_cast<int>(static_cast<long long>(split + 1) * units / splits);
   const int npix = out_h * out_w;
-  const int co0 = (blockIdx.x / c_tiles) * WT;
-  const int c0 = (blockIdx.x % c_tiles) * WT;
-  const int k = blockIdx.y;
-  const long long b = blockIdx.z / splits;
-  const int pbeg = (blockIdx.z % splits) * WSTEPS * WP;
-  const int pend = min(npix, pbeg + WSTEPS * WP);
-  const int taps = kh * kw, ki = k / kw, kj = k % kw;
-  const int cg = cin / groups;
-  const int t = threadIdx.x;
-  const int ty = t / 16;  // output channels ty, ty+16, ty+32, ty+48
-  const int tx = t % 16;  // input channels tx, tx+16, tx+32, tx+48
   const long long hw = static_cast<long long>(height) * width;
-  const float* xb = x + b * cin * hw;
-  const float* gb = gout + b * cout * static_cast<long long>(npix);
-  const float* ob = offset + b * offset_bstride;
-  const float* mb = mask ? mask + b * mask_bstride : nullptr;
 
-  float acc[4][4];
+  // Unit u: a tile of tile_h x TILE_W output pixels of batch entry b, with
+  // its window at (win_y, win_x), walked in steps of STEP_H rows.
+  struct Tile {
+    long long b;
+    int ho0, wo0, win_y, win_x, steps;
+  };
+  auto tile_of = [&](int u) {
+    Tile tl;
+    tl.b = u / tiles;
+    const int i = u - static_cast<int>(tl.b) * tiles;
+    tl.ho0 = (i / tiles_x) * tile_h;
+    tl.wo0 = (i % tiles_x) * TILE_W;
+    tl.win_y = tl.ho0 * stride - pad - HALO;
+    tl.win_x = tl.wo0 * stride - pad - HALO;
+    tl.steps = (min(tile_h, out_h - tl.ho0) + STEP_H - 1) / STEP_H;
+    return tl;
+  };
+  // Rows [rows][P] of a map at output rows ho0.. of a tile: row r from src +
+  // r * src_stride (a [.., out_h, out_w] map), zero off the map, into dst +
+  // r * dst_stride.
+  auto stage_rows = [&](float* dst, int dst_stride, const float* src, long long src_stride,
+                        int rows, int ho0, int wo0, bool vec) {
+    for (int e = t; e < rows * (P / 4); e += nthreads) {
+      const int r = e / (P / 4), q = e - r * (P / 4);
+      const int oh = ho0 + q / (TILE_W / 4), ow = wo0 + (q % (TILE_W / 4)) * 4;
+      float* d = dst + r * dst_stride + 4 * q;
+      const float* sp = src + r * src_stride + oh * out_w + ow;
+      if (vec && oh < out_h && ow + 3 < out_w) {
+        cp_async_f32x4(d, sp);
+      } else {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+        for (int i = 0; i < 4; ++i) {
+          const bool in = oh < out_h && ow + i < out_w;
+          cp_async_f32(d + i, in ? sp + i : gout, in);
+        }
+      }
+    }
+  };
+  // Unit u's x window into window buffer (u - u_beg) & 1; step i of unit
+  // u: its gout rows into gout buffer buf, its offsets and mask into offset
+  // buffer buf.
+  auto stage_window_of = [&](int u) {
+    const Tile tl = tile_of(u);
+    stage_window(s_x + ((u - u_beg) & 1) * cc * win_size, x + (tl.b * cin + c0) * hw, nc, nq, hw,
+                 tl.win_y, tl.win_x, win_h, win_w, win_size, height, width, warp, nwarps, t & 31,
+                 x);
+  };
+  auto stage_gout = [&](int u, int i, int buf) {
+    const Tile tl = tile_of(u);
+    stage_rows(s_g + buf * co_tile * RS, RS, gout + (tl.b * cout + co0) * npix, npix, co_tile,
+               tl.ho0 + i * STEP_H, tl.wo0, gout_vec);
+  };
+  auto stage_offsets = [&](int u, int i, int buf) {
+    const Tile tl = tile_of(u);
+    float* so = s_off + buf * 3 * taps * P;
+    const int ho0 = tl.ho0 + i * STEP_H;
+    stage_rows(so, P, offset + tl.b * offset_bstride + 2LL * g * taps * npix, npix, 2 * taps, ho0,
+               tl.wo0, off_vec);
+    if (mask) {
+      stage_rows(so + 2 * taps * P, P,
+                 mask + tl.b * mask_bstride + static_cast<long long>(g) * taps * npix, npix, taps,
+                 ho0, tl.wo0, off_vec);
+    }
+  };
+  // The column tile of step i of unit u into column buffer buf. Each (tap,
+  // pixel) item finds its bilinear quad from the staged offsets and mask
+  // once, and samples all the chunk's channel quads from the window.
+  auto sample_step = [&](int u, int i, int buf) {
+    const Tile tl = tile_of(u);
+    const float* xc = x + (tl.b * cin + c0) * hw;
+    const float* so = s_off + buf * 3 * taps * P;
+    const float* sx = s_x + ((u - u_beg) & 1) * cc * win_size;
+    float* col = s_col + buf * cc * WG_MAX_TAPS * RS;
+#pragma unroll 2
+    for (int e = t; e < taps * P; e += nthreads) {
+      const int k = e / P, pl = e - k * P;
+      const int ho = tl.ho0 + i * STEP_H + pl / TILE_W, wo = tl.wo0 + pl % TILE_W;
+      float4 te = make_float4(0.f, 0.f, 0.f, 0.f);  // off the map: a zero sample
+      if (ho < out_h && wo < out_w) {
+        const int ki = k / kw;
+        te = corner(ho, wo, ki, k - ki * kw, so[2 * k * P + pl], so[(2 * k + 1) * P + pl],
+                    mask ? so[(2 * taps + k) * P + pl] : 1.f, stride, pad, dil, height, width,
+                    tl.win_y, tl.win_x, win_h, win_w);
+      }
+      for (int j = 0; j < nq; ++j) {
+        sample_quad<true>(col + (4 * j * WG_MAX_TAPS + k) * RS + pl, WG_MAX_TAPS * RS, te,
+                    reinterpret_cast<const float4*>(sx + 4 * j * win_size), win_w,
+                    xc + 4 * j * hw, hw, nc - 4 * j, height, width);
+      }
+    }
+  };
 
-  for (int q0 = pbeg; q0 < pend; q0 += WP) {
-    for (int e = t; e < groups * WP; e += THREADS) {
-      const int g = e / WP, pl = e % WP, p = q0 + pl;
-      int idx[4] = {0, 0, 0, 0};
-      float wt[4] = {0.f, 0.f, 0.f, 0.f};
-      if (p < pend) {
-        const int ho = p / out_w, wo = p % out_w;
-        const long long oc = static_cast<long long>((g * taps + k) * 2) * npix + p;
-        const float dy = ob[oc], dx = ob[oc + npix];
-        const float m = mb ? mb[static_cast<long long>(g * taps + k) * npix + p] : 1.f;
-        float py = static_cast<float>(ho * stride - pad + ki * dil) + dy;
-        float px = static_cast<float>(wo * stride - pad + kj * dil) + dx;
-        py = fminf(fmaxf(py, -2.f), static_cast<float>(height) + 1.f);
-        px = fminf(fmaxf(px, -2.f), static_cast<float>(width) + 1.f);
-        const float fy = floorf(py), fx = floorf(px);
-        const int y0 = static_cast<int>(fy), x0 = static_cast<int>(fx);
-        const float ly = py - fy, lx = px - fx;
-        const float wy[2] = {1.f - ly, ly};
-        const float wx[2] = {1.f - lx, lx};
+  float acc[WG_TM][WG_MAX_TAPS];
 #pragma unroll
-        for (int cy = 0; cy < 2; ++cy)
+  for (int i = 0; i < WG_TM; ++i)
 #pragma unroll
-          for (int cx = 0; cx < 2; ++cx) {
-            const int yy = y0 + cy, xx = x0 + cx;
-            if (yy >= 0 && yy < height && xx >= 0 && xx < width) {
-              idx[cy * 2 + cx] = yy * width + xx;
-              wt[cy * 2 + cx] = wy[cy] * wx[cx] * m;
-            }
-          }
-      }
+    for (int k = 0; k < WG_MAX_TAPS; ++k) acc[i][k] = 0.f;
+  // The thread's rows are contiguous: output channels WG_TM * co_t + i of
+  // the gout tile, taps c_t * 9 + k of the column tile (those past taps are
+  // zero), all at fixed offsets.
+  auto contract = [&](int buf) {
+    const float* ap = s_g + (buf * co_tile + co_t * WG_TM) * RS + WG_VEC * kg;
+    const float* bp = s_col + (buf * cc + c_t) * WG_MAX_TAPS * RS + WG_VEC * kg;
+#pragma unroll 1
+    for (int q = kg; q < P / WG_VEC; q += ksplit, ap += WG_VEC * ksplit, bp += WG_VEC * ksplit) {
+      float a[WG_TM][WG_VEC];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        s_idx[g][q][pl] = idx[q];
-        s_wt[g][q][pl] = wt[q];
+      for (int i = 0; i < WG_TM; ++i) load_run<WG_VEC>(a[i], ap + i * RS);
+#pragma unroll
+      for (int k = 0; k < WG_MAX_TAPS; ++k) {
+        float v[WG_VEC];
+        load_run<WG_VEC>(v, bp + k * RS);
+#pragma unroll
+        for (int i = 0; i < WG_TM; ++i)
+#pragma unroll
+          for (int j = 0; j < WG_VEC; ++j) acc[i][k] = fmaf(a[i][j], v[j], acc[i][k]);
       }
     }
-    __syncthreads();
-    for (int e = t; e < WT * WP; e += THREADS) {
-      const int cc = e / WP, pl = e % WP, c = c0 + cc;
-      float v = 0.f;
-      if (c < cin && q0 + pl < pend) {
-        const int g = c / cg;
-        const float* xc = xb + c * hw;
-        v = s_wt[g][0][pl] * xc[s_idx[g][0][pl]] + s_wt[g][1][pl] * xc[s_idx[g][1][pl]] +
-            s_wt[g][2][pl] * xc[s_idx[g][2][pl]] + s_wt[g][3][pl] * xc[s_idx[g][3][pl]];
-      }
-      s_col[pl][cc] = v;
+  };
+
+  // Steps s, s + 1, s + 2 and s + 3 as (unit, step of the unit); a unit
+  // at u_end is past the block's run. While step s is contracted, step s +
+  // 1 is sampled into the other column buffer, and step s + 1's gout and
+  // step s + 2's offsets are in flight: one __syncthreads a step. A unit's
+  // window is copied while the two steps before it are worked on (one step,
+  // after a unit of a single step), as a cp.async group of its own.
+  auto advance = [&](int& u, int& i) {
+    if (u < u_end && ++i == tile_of(u).steps) {
+      ++u;
+      i = 0;
     }
-    for (int e = t; e < WT * WP; e += THREADS) {
-      const int r = e / WP, pl = e % WP, co = co0 + r, p = q0 + pl;
-      s_g[pl][r] = (co < cout && p < pend) ? gb[static_cast<long long>(co) * npix + p] : 0.f;
+  };
+  if (taps < WG_MAX_TAPS) {  // the column rows past the taps stay zero
+    for (int e = t; e < 2 * cc * WG_MAX_TAPS * RS; e += nthreads) {
+      if ((e / RS) % WG_MAX_TAPS >= taps) s_col[e] = 0.f;
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int pl = 0; pl < WP; ++pl) {
-      float a[4], v[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = s_g[pl][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] = s_col[pl][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], v[j], acc[i][j]);
+  }
+  int u0 = u_beg, i0 = 0, u1 = u0, i1 = 0;
+  advance(u1, i1);
+  int u2 = u1, i2 = i1;
+  advance(u2, i2);
+  int u3 = u2, i3 = i2;
+  advance(u3, i3);
+  stage_window_of(u0);
+  stage_offsets(u0, i0, 0);
+  stage_gout(u0, i0, 0);
+  if (u1 < u_end) {
+    if (i1 == 0) stage_window_of(u1);
+    stage_offsets(u1, i1, 1);
+  }
+  if (u2 < u_end && i2 == 0 && u1 == u0) stage_window_of(u2);
+  cp_async_wait_all();
+  __syncthreads();
+  sample_step(u0, i0, 0);
+  bool window_pending = false;  // the newest cp.async group is a window, needed a step later
+  for (int buf = 0; u0 < u_end; buf ^= 1) {
+    if (window_pending) {
+      cp_async_wait_group<1>();
+    } else {
+      cp_async_wait_group<0>();
     }
-    __syncthreads();
+    __syncthreads();  // step s's gout and column tile are in; s + 1's offsets have landed
+    if (u2 < u_end && i2 == 0 && u1 != u0 && u1 + 1 == u2) {
+      stage_window_of(u2);  // after a unit of one step: one step ahead
+    }
+    if (u1 < u_end) stage_gout(u1, i1, buf ^ 1);
+    if (u2 < u_end) stage_offsets(u2, i2, buf);
+    cp_async_commit();
+    window_pending = u3 < u_end && i3 == 0 && u2 + 1 == u3 && u1 == u2;
+    if (window_pending) {
+      stage_window_of(u3);
+      cp_async_commit();
+    }
+    if (u1 < u_end) sample_step(u1, i1, buf ^ 1);
+    contract(buf);
+    u0 = u1;
+    i0 = i1;
+    u1 = u2;
+    i1 = i2;
+    u2 = u3;
+    i2 = i3;
+    advance(u3, i3);
   }
 
+  // The ksplit groups' sums: groups 1.. through shared memory, added in
+  // group order by group 0.
+  const int group_threads = cc * nco, lt = t % group_threads;
+  if (ksplit > 1) {
+    __syncthreads();
+    float* s_part = reinterpret_cast<float*>(s_raw);  // [ksplit - 1][WG_TM * WG_MAX_TAPS][threads]
+    if (kg > 0) {
+      float* d = s_part + (kg - 1) * WG_TM * WG_MAX_TAPS * group_threads + lt;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int co = co0 + ty + 16 * i;
-    if (co >= cout) continue;
+      for (int i = 0; i < WG_TM; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tx + 16 * j;
-      if (c < cin) atomicAdd(&grad_w[(static_cast<long long>(co) * cin + c) * taps + k], acc[i][j]);
+        for (int k = 0; k < WG_MAX_TAPS; ++k)
+          if (k < taps) d[(i * WG_MAX_TAPS + k) * group_threads] = acc[i][k];
+    }
+    __syncthreads();
+    if (kg > 0) return;
+    for (int s = 0; s < ksplit - 1; ++s) {
+      const float* src = s_part + s * WG_TM * WG_MAX_TAPS * group_threads + lt;
+#pragma unroll
+      for (int i = 0; i < WG_TM; ++i)
+#pragma unroll
+        for (int k = 0; k < WG_MAX_TAPS; ++k)
+          if (k < taps) acc[i][k] += src[(i * WG_MAX_TAPS + k) * group_threads];
     }
   }
+
+  // The sums into this split's slab, once, in grad_w's [cout][cin][taps]
+  // order.
+  if (c_t < nc) {
+    const long long row = static_cast<long long>(cin) * taps;
+    float* w = ws + (static_cast<long long>(split) * cout + co0 + co_t * WG_TM) * row +
+               static_cast<long long>(c0 + c_t) * taps;
+#pragma unroll
+    for (int i = 0; i < WG_TM; ++i)
+#pragma unroll
+      for (int k = 0; k < WG_MAX_TAPS; ++k)
+        if (k < taps) w[i * row + k] = acc[i][k];
+  }
+}
+
+// grad_w[e] = the sum of the slabs' entries e in a fixed order: thread
+// (x, y) of a block sums slabs y, y + blockDim.y, ... of entry 32 b + x in
+// slab order, then row 0 adds the blockDim.y partial sums in row order.
+__global__ void __launch_bounds__(1024)
+deform_wgrad_sum_kernel(const float* __restrict__ ws, float* __restrict__ grad_w, int slabs,
+                        long long n) {
+  __shared__ float part[32][33];
+  const long long e = static_cast<long long>(blockIdx.x) * 32 + threadIdx.x;
+  float s = 0.f;
+  if (e < n) {
+#pragma unroll 4
+    for (int i = threadIdx.y; i < slabs; i += blockDim.y) s += __ldg(ws + i * n + e);
+  }
+  part[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y > 0 || e >= n) return;
+  float total = part[0][threadIdx.x];
+  for (int y = 1; y < blockDim.y; ++y) total += part[y][threadIdx.x];
+  grad_w[e] = total;
 }
 
 }  // namespace
 
-// gout, x, offset, mask as above; grad_w: [cout, cin, kh, kw], zeroed by
-// the caller (blocks add their partial sums into it).
+// gout: [batch, cout, out_h, out_w]; x, offset, mask as for the forward;
+// ws: the workspace, splits slabs of cout * cin * kh * kw floats (every
+// entry written: no zeroing); grad_w: [cout, cin, kh, kw], written (zeros
+// for an empty batch or map). All float32; at most WG_MAX_TAPS taps. The
+// plan (ops/deform.py backward_weight_plan): tile_h (output rows of a tile
+// of 16 columns: the window's), step_h (rows of a step: 2, 4 or 8,
+// dividing tile_h), co_tile (output channels of a block: a multiple of 8
+// that divides cout, at most 128), chunk (input channels of a block, a
+// multiple of 4), ksplit (thread groups that split a step's pixel quads),
+// splits (blocks that split the batch's tiles, at most their number),
+// blocks (per SM, 1 or 2: the register budget of the kernel's build), and
+// smem_bytes, the block's shared memory, which must be what this layout
+// takes. Anything else is cudaErrorInvalidValue. Two launches: the
+// products into the slabs, then their sum.
 extern "C" int aanet_deform_conv_backward_weight_f32(
     const float* gout, const float* x, const float* offset, long long offset_bstride,
-    const float* mask, long long mask_bstride, float* grad_w, int batch, int cin,
-    int height, int width, int cout, int out_h, int out_w, int kh, int kw, int stride,
-    int pad, int dil, int groups, int device, void* stream) {
+    const float* mask, long long mask_bstride, float* ws, float* grad_w, int batch, int cin,
+    int height, int width, int cout, int out_h, int out_w, int kh, int kw, int stride, int pad,
+    int dil, int groups, int tile_h, int step_h, int co_tile, int chunk, int ksplit, int splits,
+    int blocks, int smem_bytes, int device, void* stream) {
   cudaSetDevice(device);
-  if (groups < 1 || groups > MAX_G || cin % groups != 0) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int taps = kh * kw;
+  const int threads = (co_tile / WG_TM) * chunk * ksplit;
+  if (groups < 1 || cin % groups != 0 || taps < 1 || taps > WG_MAX_TAPS ||
+      (step_h != 2 && step_h != 4 && step_h != 8) || tile_h < step_h || tile_h % step_h != 0 || co_tile < WG_TM || co_tile % WG_TM != 0 ||
+      co_tile > 128 || cout % co_tile != 0 || chunk < 4 || chunk % 4 != 0 || ksplit < 1 ||
+      ksplit > step_h * TILE_W / WG_VEC || splits < 1 || threads % 32 != 0 ||
+      threads > WG_MAX_THREADS || (blocks != 1 && blocks != 2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long npix = static_cast<long long>(out_h) * out_w;
-  if (batch == 0 || npix == 0 || cout == 0) return 0;
-  const int c_tiles = (cin + WT - 1) / WT;
-  const int splits = static_cast<int>((npix + WSTEPS * WP - 1) / (WSTEPS * WP));
-  dim3 grid((cout + WT - 1) / WT * c_tiles, kh * kw,
-            static_cast<unsigned int>(batch) * splits);
-  deform_bwd_weight_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      gout, x, offset, offset_bstride, mask, mask_bstride, grad_w, cin, height, width,
-      cout, out_h, out_w, kh, kw, stride, pad, dil, groups, c_tiles, splits);
+  const long long n = static_cast<long long>(cout) * cin * taps;
+  if (n == 0) return 0;
+  const int tiles_x = (out_w + TILE_W - 1) / TILE_W;
+  const int tiles = ((out_h + tile_h - 1) / tile_h) * tiles_x;
+  const long long units = static_cast<long long>(batch) * tiles;
+  if (units == 0) {
+    return static_cast<int>(cudaMemsetAsync(grad_w, 0, n * sizeof(float), s));
+  }
+  if (splits > units || splits > 65535 || units > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int win_h = (tile_h - 1) * stride + (kh - 1) * dil + 2 * HALO + 2;
+  const int win_w = (TILE_W - 1) * stride + (kw - 1) * dil + 2 * HALO + 2;
+  const int win_size = win_h * win_w;
+  if (wg_smem_words(taps, step_h * TILE_W, co_tile, chunk, win_size, ksplit) * 4 != smem_bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);  // the wrapper's plan has another layout
+  }
+  const int cg = cin / groups;
+  dim3 grid(groups * ((cg + chunk - 1) / chunk), splits, cout / co_tile);
+  // 16-byte copies of rows of the maps: whole rows of 4 floats, aligned
+  const bool gout_vec = out_w % 4 == 0 && aligned16(gout);
+  const bool off_vec = out_w % 4 == 0 && aligned16(offset) && offset_bstride % 4 == 0 &&
+                       (!mask || (aligned16(mask) && mask_bstride % 4 == 0));
+  auto kernel = blocks == 1 ? (step_h == 2   ? deform_wgrad_kernel<2, 1>
+                               : step_h == 4 ? deform_wgrad_kernel<4, 1>
+                                             : deform_wgrad_kernel<8, 1>)
+                            : (step_h == 2   ? deform_wgrad_kernel<2, 2>
+                               : step_h == 4 ? deform_wgrad_kernel<4, 2>
+                                             : deform_wgrad_kernel<8, 2>);
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kernel<<<grid, threads, smem_bytes, s>>>(
+      gout, x, offset, offset_bstride, mask, mask_bstride, ws, cin, height, width, cout, out_h,
+      out_w, kh, kw, stride, pad, dil, groups, tile_h, co_tile, chunk, ksplit, splits, win_h,
+      win_w, win_size, tiles_x, tiles, static_cast<int>(units), gout_vec, off_vec);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // rows of a sum block: enough threads for the card, at most one a slab
+  int rows = 1;
+  while (rows < 32 && rows < splits && n * rows < (1 << 18)) rows *= 2;
+  deform_wgrad_sum_kernel<<<aanet_blocks(n, 32), dim3(32, rows), 0, s>>>(ws, grad_w, splits, n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,8 +2,9 @@
 
 ``predict_pairs`` runs the model on ``{data_dir}/left/*.png`` with the
 same names under ``right/``: each pair is normalised, zero-padded at the
-top and right to a multiple of 48, and the prediction is cropped back to
-the original size.
+top and right to a multiple of ``pad_multiple(cfg)`` (96 under hourglass
+refinement, else 48), and the prediction is cropped back to the original
+size.
 
 Every entry point takes a ``device``, ``"cuda"`` by default. Without a GPU
 it raises unless the caller asks for ``"cpu"``, which runs the plain
@@ -26,7 +27,11 @@ from aanet_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 
 logger = logging.getLogger("aanet_torch")
 
-PAD_MULTIPLE = 48  # the StereoDRNet preset's factor (predict.py:148-151)
+
+def pad_multiple(cfg: ModelConfig) -> int:
+    """The multiple a pair is padded to: 96 under hourglass refinement, else
+    48 (the reference's predict.py:148-151)."""
+    return 96 if cfg.refinement_type == "hourglass" else 48
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -130,14 +135,15 @@ def predict_pairs(
 
     mean = np.asarray(IMAGENET_MEAN, np.float32)
     std = np.asarray(IMAGENET_STD, np.float32)
+    factor = pad_multiple(cfg)
     saved = []
     for lp in lefts:
         rp = os.path.join(data_dir, "right", os.path.basename(lp))
         left = (read_img(lp) / 255.0 - mean) / std
         right = (read_img(rp) / 255.0 - mean) / std
         ori_h, ori_w = left.shape[:2]
-        ph = -(-ori_h // PAD_MULTIPLE) * PAD_MULTIPLE
-        pw = -(-ori_w // PAD_MULTIPLE) * PAD_MULTIPLE
+        ph = -(-ori_h // factor) * factor
+        pw = -(-ori_w // factor) * factor
         pred = forward(
             _pad_top_right(left[None].astype(np.float32), ph, pw),
             _pad_top_right(right[None].astype(np.float32), ph, pw),

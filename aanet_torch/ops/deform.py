@@ -22,7 +22,9 @@ gradient and the weight gradient. The forward's tiling is chosen here per
 conv, batch, output size and SM count (``forward_plan``), with its weight
 laid out [tap, cin, cout] (``weight_taps_cin_major``); the input/offset/
 mask gradient's per shape (``backward_data_plan``), with its weight laid
-out tap-major (``weight_taps_major``).
+out tap-major (``weight_taps_major``); the weight gradient's per conv,
+batch, output size and SM count (``backward_weight_plan``), with a
+workspace of one slab per split that the kernel sums in a fixed order.
 """
 from __future__ import annotations
 
@@ -34,7 +36,6 @@ import torch
 
 from aanet_torch import _build
 
-MAX_GROUPS = 8  # deformable groups the kernels stage (csrc/deform_conv.cu)
 SMEM_BYTES = 232448  # shared memory one block may use on Hopper (227 KB)
 SM_SMEM_BYTES = 233472  # shared memory of one SM (228 KB), 1 KB of it reserved per block
 MAX_BLOCKS = 3  # blocks per SM the backward-data kernel's registers are budgeted for (2 or 3)
@@ -50,8 +51,22 @@ FWD_MAX_THREADS = 256
 FWD_MIN_BLOCKS = 2
 FWD_REGISTERS = 65536 // (FWD_MIN_BLOCKS * FWD_MAX_THREADS)  # of an SM's 64K
 SM_THREADS = 2048  # resident threads of one SM
+# The weight-gradient kernel's largest block, its builds: for 1 and for 2
+# such blocks an SM (__launch_bounds__(WG_MAX_THREADS, blocks)), whose
+# registers a thread may take 65536 / (blocks * WG_MAX_THREADS) of, and its
+# register tile: WG_TM output channels by all taps (at most WG_MAX_TAPS) of
+# one input channel
+WG_MAX_THREADS = 256
+WG_BUILDS = (1, 2)
+WG_TM = 8
+WG_MAX_TAPS = 9
+WG_PAD = 4  # words after each row of its gout and column tiles
+WG_TILE_H = (16, 8, 4, 2)  # weight-gradient tile (window) heights the plan considers
+WG_STEP_H = (8, 4, 2)  # and step heights (the kernel's builds)
+WG_CHUNKS = tuple(range(4, 65, 4))  # input channels of a block it considers
+WG_WARPS = 8  # resident warps an SM needs, beyond which the plan looks at other things
+WG_WAVES = 1  # waves of resident blocks the plan's splits fill
 
-_SHAPE_ARGS = [ctypes.c_int] * 14 + [ctypes.c_void_p]  # batch .. groups, device, stream
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
     ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -63,8 +78,8 @@ _BWD_DATA_ARGTYPES = [
 ] + [ctypes.c_int] * 17 + [ctypes.c_void_p]  # batch .. groups, chunk, tile_h, blocks, smem, device, stream
 _BWD_WEIGHT_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-] + _SHAPE_ARGS
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+] + [ctypes.c_int] * 22 + [ctypes.c_void_p]  # batch .. groups, the plan's eight, device, stream
 
 
 def _out_size(size: int, k: int, stride: int, pad: int, dil: int) -> int:
@@ -383,6 +398,159 @@ def forward_plan(batch: int, cin: int, cout: int, out_h: int, out_w: int, kh: in
                        tiles * splits)
 
 
+class BackwardWeightPlan(NamedTuple):
+    """How ``aanet_deform_conv_backward_weight_f32`` cuts one conv's weight
+    gradient: blocks of ``co_tile`` output channels by a ``chunk`` of input
+    channels of one group (with all taps), each summing over a run of the
+    batch's tiles of ``tile_h`` x ``TILE_W`` output pixels (``splits`` runs,
+    contiguous in (batch, tile) order), a tile in steps of ``step_h`` rows,
+    with ``threads`` threads (``ksplit`` groups of them take alternate pixel
+    quads of a step), staging a tile's window of ``win_h`` x ``win_w`` per
+    channel; ``smem_bytes`` of shared memory; the kernel's ``build`` for 1
+    or 2 blocks an SM (its registers);
+    ``resident`` blocks fit one SM and the grid holds ``blocks``. Each split
+    writes its slab of the workspace (``workspace`` floats: ``splits``
+    slabs of cout x cin x taps), and the kernel's second launch sums the
+    slabs in a fixed order."""
+
+    tile_h: int
+    step_h: int
+    co_tile: int
+    chunk: int
+    ksplit: int
+    splits: int
+    threads: int
+    win_h: int
+    win_w: int
+    smem_bytes: int
+    build: int
+    resident: int
+    blocks: int
+    workspace: int
+
+
+def _wg_smem(taps, step_h, co_tile, chunk, win_h, win_w, ksplit):
+    """Bytes of the weight-gradient kernel's shared memory (``wg_smem_words``
+    in the kernel): two steps' offsets and masks (3 x taps rows of the
+    step's pixels); two steps' gout tiles and column tiles [chunk x
+    ``WG_MAX_TAPS``], rows of the step's pixels plus ``WG_PAD`` words; two x windows of the
+    chunk (a tile's). The ksplit - 1 thread
+    groups' partial sums at the end reuse the space. The kernel refuses a
+    plan whose ``smem_bytes`` differ."""
+    pixels = step_h * TILE_W
+    rs = pixels + WG_PAD
+    main = (6 * taps * pixels + 2 * co_tile * rs + 2 * chunk * win_h * win_w
+            + 2 * WG_MAX_TAPS * chunk * rs)
+    return 4 * max(main, (ksplit - 1) * WG_MAX_TAPS * co_tile * chunk)
+
+
+class _WgTiling(NamedTuple):
+    tile_h: int
+    step_h: int
+    chunk: int
+    ksplit: int
+    threads: int
+    win_h: int
+    win_w: int
+    smem_bytes: int
+    build: int
+    resident: int
+
+
+def weight_grad_tilings(cin, cout, kh, kw, stride, dilation, groups):
+    """The output-channel tile and every tiling the weight-gradient kernel
+    takes for this conv: a tile height of ``WG_TILE_H``, a step height of
+    ``WG_STEP_H`` that divides it, a chunk of ``WG_CHUNKS`` and a power of
+    two ``ksplit`` (at most one pixel quad of a step for each group) that
+    give whole warps, at most ``WG_MAX_THREADS``, in a block's shared
+    memory, with each of the kernel's ``WG_BUILDS``; ``resident``: the
+    blocks one SM holds by shared memory, threads and the build's
+    registers."""
+    if cin % groups:
+        raise ValueError(f"deform conv weight gradient: {groups} groups do not divide {cin} channels")
+    taps = kh * kw
+    if taps > WG_MAX_TAPS:
+        raise ValueError(f"deform conv weight gradient: {taps} taps, the kernel takes at most "
+                         f"{WG_MAX_TAPS}")
+    tiles_co = [c for c in range(8, min(cout, 128) + 1, 8) if cout % c == 0]
+    if not tiles_co:
+        raise ValueError(f"deform conv weight gradient: no tile of 8 to 128 output channels "
+                         f"divides {cout}")
+    co_tile = tiles_co[-1]
+    out = []
+    for tile_h in WG_TILE_H:
+        win_h = (tile_h - 1) * stride + (kh - 1) * dilation + 2 * HALO + 2
+        win_w = (TILE_W - 1) * stride + (kw - 1) * dilation + 2 * HALO + 2
+        for step_h in (s for s in WG_STEP_H if tile_h % s == 0):
+            for chunk in WG_CHUNKS:
+                ksplit = 1
+                while ksplit <= step_h * TILE_W // 4:
+                    threads = co_tile // WG_TM * chunk * ksplit
+                    smem = _wg_smem(taps, step_h, co_tile, chunk, win_h, win_w, ksplit)
+                    if threads % 32 == 0 and threads <= WG_MAX_THREADS and smem <= SMEM_BYTES:
+                        for build in WG_BUILDS:
+                            registers = 65536 // (build * WG_MAX_THREADS)
+                            resident = min(SM_SMEM_BYTES // (smem + 1024), SM_THREADS // threads,
+                                           65536 // (registers * threads))
+                            out.append(_WgTiling(tile_h, step_h, chunk, ksplit, threads, win_h,
+                                                 win_w, smem, build, resident))
+                    ksplit *= 2
+    return co_tile, out
+
+
+def weight_grad_plan_of(tiling, co_tile, batch, cin, cout, out_h, out_w, kh, kw, groups, sms,
+                        waves=WG_WAVES):
+    """The plan of one tiling: ``splits``, the most that keep the grid
+    within ``waves`` waves of resident blocks (``waves * sms * resident``:
+    a few blocks more would run as a tail of their own), at least one, at
+    most one a tile of the batch."""
+    units = batch * _ceil_div(out_h, tiling.tile_h) * _ceil_div(out_w, TILE_W)
+    base = groups * _ceil_div(cin // groups, tiling.chunk) * (cout // co_tile)
+    splits = max(1, min(units, waves * sms * tiling.resident // base, 65535))
+    return BackwardWeightPlan(tiling.tile_h, tiling.step_h, co_tile, tiling.chunk, tiling.ksplit,
+                              splits, tiling.threads, tiling.win_h, tiling.win_w,
+                              tiling.smem_bytes, tiling.build, tiling.resident, base * splits,
+                              splits * cout * cin * kh * kw)
+
+
+@functools.lru_cache(maxsize=None)
+def backward_weight_plan(batch: int, cin: int, cout: int, out_h: int, out_w: int, kh: int,
+                         kw: int, stride: int, dilation: int, groups: int,
+                         sms: int) -> BackwardWeightPlan:
+    """The weight-gradient kernel's tiling for a conv of these shapes on a
+    card of ``sms`` SMs.
+
+    - The channel tile: the largest multiple of 8 that divides ``cout``, up
+      to 128 (as the forward's): each sampled column serves all of them.
+    - Of ``weight_grad_tilings``: the fewest idle channels (none where a
+      multiple of 4 divides the group's channels), then the most resident
+      warps up to ``WG_WARPS``, then the most pixel quads a thread
+      contracts between two barriers (step_h * 4 / ksplit), then the
+      taller tile (less halo per pixel), the more threads, the build with
+      more registers, and the larger chunk.
+    - ``splits``: the most that keep the grid within ``WG_WAVES`` wave of
+      resident blocks, at most one a tile of the batch; so it shrinks with
+      the SM count, and only a batch too small for it caps it.
+    On an H100 this picked the fastest of every plan the kernel takes at
+    four of the six step shapes and was within 8 % at the others
+    (``tools/torch_deform_wgrad_sweep.py``). Raises if nothing fits."""
+    co_tile, tilings = weight_grad_tilings(cin, cout, kh, kw, stride, dilation, groups)
+    cg = cin // groups
+
+    def key(t):
+        idle = _ceil_div(cg, t.chunk) * t.chunk - cg
+        return (idle, -min(t.resident * t.threads // 32, WG_WARPS), -(t.step_h * 4 // t.ksplit),
+                -t.tile_h, -t.threads, t.build, -t.chunk)
+
+    if not tilings:
+        raise ValueError(
+            f"deform conv weight gradient: no tiling of {cin} -> {cout} channels (stride "
+            f"{stride}, dilation {dilation}, {groups} groups) fits {SMEM_BYTES} bytes of shared "
+            "memory")
+    return weight_grad_plan_of(min(tilings, key=key), co_tile, batch, cin, cout, out_h, out_w,
+                               kh, kw, groups, sms)
+
+
 def weight_taps_cin_major(weight: torch.Tensor) -> torch.Tensor:
     """The weight [cout, cin, kh, kw] laid out [kh*kw, cin, cout], as the
     forward kernel stages it: ``wt[k, c, co] = weight[co, c, k // kw, k %
@@ -407,12 +575,10 @@ def _check_shapes(x, offset, mask, weight, stride, padding, dilation, g):
     return ho, wo
 
 
-def _check_kernel_inputs(op, x, offset, mask, g, **dense):
+def _check_kernel_inputs(op, x, offset, mask, **dense):
     """Raise unless the tensors suit the CUDA kernels: x and ``dense``
     contiguous float32 CUDA tensors, offset and mask contiguous within each
     batch entry (channel slices allowed)."""
-    if g > MAX_GROUPS:
-        raise ValueError(f"{op}: the kernel takes at most {MAX_GROUPS} groups, got {g}")
     _build.check_cuda_f32(op, x=x, **{k: v for k, v in dense.items() if v is not None})
     sliced = dict(offset=offset) if mask is None else dict(offset=offset, mask=mask)
     _build.check_cuda_f32(op, **{k: v[0] for k, v in sliced.items()})
@@ -435,7 +601,7 @@ def _forward(x, offset, mask, weight, bias, *, stride, padding, dilation, deform
             x, offset, mask, weight, bias, stride=stride, padding=padding,
             dilation=dilation, deformable_groups=g,
         )
-    _check_kernel_inputs("deform conv", x, offset, mask, g, weight=weight, bias=bias)
+    _check_kernel_inputs("deform conv", x, offset, mask, weight=weight, bias=bias)
     b, cin, _, _ = x.shape
     cout, _, kh, kw = weight.shape
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
@@ -469,7 +635,7 @@ def modulated_deform_conv2d_backward_data(
             gout, x, offset, mask, weight, stride=stride, padding=padding,
             dilation=dilation, deformable_groups=g,
         )
-    _check_kernel_inputs("deform conv backward", x, offset, mask, g, gout=gout, weight=weight)
+    _check_kernel_inputs("deform conv backward", x, offset, mask, gout=gout, weight=weight)
     cout, cin, kh, kw = weight.shape
     plan = backward_data_plan(cin, cout, kh, kw, stride, dilation, g)
     grad_x = torch.zeros_like(x)  # the kernel adds its windows into it with atomics
@@ -496,7 +662,9 @@ def modulated_deform_conv2d_backward_weight(
 ):
     """Gradient for the weight given the output gradient ``gout``. A CPU
     tensor takes the plain version; a CUDA tensor launches
-    ``aanet_deform_conv_backward_weight_f32``."""
+    ``aanet_deform_conv_backward_weight_f32`` with ``backward_weight_plan``'s
+    tiling (its partial sums added in a fixed order: the result is
+    bit-reproducible)."""
     g = deformable_groups
     ho, wo = _check_shapes(x, offset, mask, weight, stride, padding, dilation, g)
     if x.device.type == "cpu":
@@ -504,13 +672,22 @@ def modulated_deform_conv2d_backward_weight(
             gout, x, offset, mask, weight, stride=stride, padding=padding,
             dilation=dilation, deformable_groups=g,
         )
-    _check_kernel_inputs("deform conv weight gradient", x, offset, mask, g, gout=gout, weight=weight)
-    grad_w = torch.zeros_like(weight)  # blocks add their pixel ranges' sums with atomics
+    _check_kernel_inputs("deform conv weight gradient", x, offset, mask, gout=gout, weight=weight)
+    b, cin, _, _ = x.shape
+    cout, _, kh, kw = weight.shape
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = backward_weight_plan(b, cin, cout, ho, wo, kh, kw, stride, dilation, g, sms)
+    # each split writes its slab; the kernel's second launch sums them in
+    # a fixed order
+    ws = torch.empty(plan.workspace, dtype=torch.float32, device=x.device)
+    grad_w = torch.empty_like(weight)
+    *shape, device, stream = _shape_args(x, weight, ho, wo, stride, padding, dilation, g)
     _build.launch(
         "deform_conv", "aanet_deform_conv_backward_weight_f32", _BWD_WEIGHT_ARGTYPES,
         _build.ptr(gout), _build.ptr(x), _build.ptr(offset), offset.stride(0),
-        _build.ptr(mask), 0 if mask is None else mask.stride(0), _build.ptr(grad_w),
-        *_shape_args(x, weight, ho, wo, stride, padding, dilation, g),
+        _build.ptr(mask), 0 if mask is None else mask.stride(0), _build.ptr(ws),
+        _build.ptr(grad_w), *shape, plan.tile_h, plan.step_h, plan.co_tile, plan.chunk, plan.ksplit,
+        plan.splits, plan.build, plan.smem_bytes, device, stream,
     )
     modulated_deform_conv2d_backward_weight.launches += 1
     return grad_w

@@ -34,13 +34,14 @@
    plain version at the shapes that one plain train step of the ``aanet``
    preset at batch 16, 288x576 records, with the bound and, for warp,
    F.grid_sample's forward plus backward as the library yardstick;
-6b. holds the deformable conv's forward and its input/offset/mask
-   gradient against their twins beyond the path's inputs (offsets in
-   (-16, 16) px, integer offsets, mask-less with one group, a stride-2
-   shape of odd sizes; for the forward also a shape whose plan splits the
-   input channels over blocks) and times each with the wide offsets at
-   the step's largest shape; the warp forward at widths that are not a
-   multiple of 4;
+6b. holds the deformable conv's forward, its input/offset/mask gradient
+   and its weight gradient against their twins beyond the path's inputs
+   (offsets in (-16, 16) px, integer offsets, mask-less with one group, a
+   stride-2 shape of odd sizes; for the forward also a shape whose plan
+   splits the input channels over blocks) and times each with the wide
+   offsets at the step's largest shape; checks that two launches of the
+   weight gradient give the same bits at every step shape; the warp
+   forward at widths that are not a multiple of 4;
 7. on each of three seeded batches (batch 2, 288x576), runs one train
    step through the kernels and the same step through the plain twins
    (seeded weights) and compares the loss, every parameter's gradient
@@ -962,16 +963,18 @@ def compare_train_steps(cfg, specs, small, gen, dev, per_parameter=False, calls=
 def edge_cases(specs, bwd_specs, deform_sigs, rows, gen, dev, timer):
     """Phase 6b: the redesigned kernels against their twins where the main
     path's inputs do not reach, with the path's tolerances. The deformable
-    conv's forward and its input/offset/mask gradient at every shape of
-    the step ``deform_sigs`` with offsets in (-16, 16) px (corners beyond
-    the kernels' window halo take their device-memory path) and with
-    integer offsets (jnp.clip's half gradient), the mask-less single-group
-    case, and a stride-2 shape of odd sizes; the forward also at a shape
-    whose plan splits the input channels over blocks (inference's layer 3,
-    which adds into the output with atomics); each timed with the wide
-    offsets at the step's largest shape, beside that shape's time with the
-    path's narrow offsets (``rows``). The warp forward at widths that are
-    not a multiple of 4, timed beside F.grid_sample."""
+    conv's forward, its input/offset/mask gradient and its weight gradient
+    at every shape of the step ``deform_sigs`` with offsets in (-16, 16) px
+    (corners beyond the kernels' window halo take their device-memory path)
+    and with integer offsets (jnp.clip's half gradient), the mask-less
+    single-group case, and a stride-2 shape of odd sizes; the forward also
+    at a shape whose plan splits the input channels over blocks
+    (inference's layer 3, which adds into the output with atomics); each
+    timed with the wide offsets at the step's largest shape, beside that
+    shape's time with the path's narrow offsets (``rows``). The weight
+    gradient sums its splits in a fixed order: two launches on the same
+    inputs must give the same bits at every step shape. The warp forward
+    at widths that are not a multiple of 4, timed beside F.grid_sample."""
     from aanet_torch.ops import deform
 
     by_name = {s["name"]: s for s in specs + bwd_specs}
@@ -985,7 +988,7 @@ def edge_cases(specs, bwd_specs, deform_sigs, rows, gen, dev, timer):
     cases = ((odd, "stride 2, odd sizes"),
              (odd[:2] + (False, False) + odd[4:7] + (1,), "stride 2, odd sizes, mask-less, G=1"),
              (largest[:2] + (False, False) + largest[4:7] + (1,), "mask-less, G=1"))
-    for name in ("deform_conv", "deform_conv_backward_data"):
+    for name in ("deform_conv", "deform_conv_backward_data", "deform_conv_backward_weight"):
         spec = by_name[name]
         narrow = next(r for r in rows[name] if r["shape"] == str(largest))
         wide = measure(with_offsets(spec, "wide"), largest, 1, gen, dev, timer, iters=10)
@@ -1002,6 +1005,18 @@ def edge_cases(specs, bwd_specs, deform_sigs, rows, gen, dev, timer):
             for offsets in ("narrow", "wide"):
                 records.append(dict(measure(with_offsets(spec, offsets), sig, 1, gen, dev, timer,
                                             timed=False), kernel=name, case=f"{case}, {offsets} offsets"))
+    # the weight gradient: the same bits from two launches
+    spec = by_name["deform_conv_backward_weight"]
+    op = getattr(spec["module"], spec["attr"])
+    for sig in deform_sigs:
+        args, kwargs = spec["inputs"](sig, gen, dev)
+        first, second = op(*args, **kwargs), op(*args, **kwargs)
+        torch.cuda.synchronize()
+        same = torch.equal(first, second)
+        print(f"deform_conv_backward_weight {sig}: two launches bitwise identical: {same}", flush=True)
+        check(same, f"deform_conv_backward_weight {sig}: two launches on the same inputs differ")
+        records.append(dict(kernel="deform_conv_backward_weight", case="two launches, bitwise",
+                            shape=str(sig), identical=same))
     # the forward where its plan splits the chunks over blocks
     split = ((2, 128, 32, 104), (128, 128, 3, 3), True, True, 1, 2, 2, 2)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count

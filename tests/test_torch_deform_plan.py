@@ -1,16 +1,17 @@
-"""The tilings and weight layouts of the deformable conv's forward and
-input/offset/mask gradient kernels (``aanet_torch/csrc/deform_conv.cu``),
-on the CPU.
+"""The tilings and weight layouts of the deformable conv's kernels
+(``aanet_torch/csrc/deform_conv.cu``: the forward, the input/offset/mask
+gradient and the weight gradient), on the CPU.
 
 The kernels themselves run only on the card (``chip_smoke.py`` holds them
 against their plain twins there). What surrounds them is Python: the
 wrappers pick the tile, the channel tile or chunk, the splits and the input
-window per shape (``ops.deform.forward_plan``, ``backward_data_plan``) and
-lay the weight out ([tap, cin, cout]: ``weight_taps_cin_major``; [tap,
-cout, cin]: ``weight_taps_major``). Here the plans are checked for every
-deformable conv that ``chip_smoke.py``'s paths run: they fit a block's
-shared memory, leave no channel idle, fill the card, and their windows
-cover the tile's zero-offset footprint with the halo.
+window per shape (``ops.deform.forward_plan``, ``backward_data_plan``,
+``backward_weight_plan``) and lay the weight out ([tap, cin, cout]:
+``weight_taps_cin_major``; [tap, cout, cin]: ``weight_taps_major``). Here
+the plans are checked for every deformable conv that ``chip_smoke.py``'s
+paths run: they fit a block's shared memory and registers, leave no
+channel idle, fill the card, cover every tile once, and their windows cover
+the tile's zero-offset footprint with the halo.
 """
 import collections
 import pathlib
@@ -232,3 +233,125 @@ def test_weight_taps_cin_major_is_the_forward_layout(kh, kw):
         for c in range(7):
             for co in range(5):
                 assert wt[k, c, co] == weight[co, c, k // kw, k % kw]
+
+
+# The weight gradient (``backward_weight_plan``): the step shapes above and
+# chip_smoke phase 6b's cases beyond them: an odd stride-2 shape, with two
+# groups and mask-less with one, and the step's largest shape with one
+# group.
+WG_SHAPES = PATH_SHAPES + [((2, 24, 37, 53), 24, 2)]
+WG_GROUPS = [(x, cout, stride, GROUPS) for x, cout, stride in WG_SHAPES] + [
+    ((2, 24, 37, 53), 24, 2, 1), ((16, 64, 96, 192), 64, 1, 1)]
+
+
+def _weight_plan(x_shape, cout, stride, groups=GROUPS, sms=SMS):
+    b, cin, h, w = x_shape
+    return deform.backward_weight_plan(b, cin, cout, _out(h, stride), _out(w, stride), K, K,
+                                       stride, DIL, groups, sms)
+
+
+@pytest.mark.parametrize("x_shape,cout,stride,groups", WG_GROUPS)
+def test_backward_weight_plan_fits(x_shape, cout, stride, groups):
+    b, cin, h, w = x_shape
+    plan = _weight_plan(x_shape, cout, stride, groups)
+    # the register tile: WG_TM output channels by all taps of one channel
+    # a thread; whole warps, at most the launch bound
+    assert plan.co_tile == cout and cout % deform.WG_TM == 0
+    assert plan.threads == cout // deform.WG_TM * plan.chunk * plan.ksplit
+    assert plan.threads % 32 == 0 and plan.threads <= deform.WG_MAX_THREADS
+    # a step's pixel quads for each of the ksplit groups, a step within a tile
+    assert plan.step_h in deform.WG_STEP_H and plan.tile_h % plan.step_h == 0
+    assert plan.ksplit <= plan.step_h * deform.TILE_W // 4
+    # shared memory: a block's and, for ``resident`` blocks, an SM's; at
+    # least the two windows, gout tiles and column tiles
+    rs = plan.step_h * deform.TILE_W + deform.WG_PAD
+    assert plan.smem_bytes <= deform.SMEM_BYTES == 227 * 1024
+    assert plan.smem_bytes >= 4 * 2 * (plan.chunk * plan.win_h * plan.win_w + cout * rs
+                                       + plan.chunk * deform.WG_MAX_TAPS * rs)
+    assert plan.resident >= 1 and plan.resident * (plan.smem_bytes + 1024) <= deform.SM_SMEM_BYTES
+    # registers: the build's, for ``resident`` blocks of these threads
+    assert plan.build in deform.WG_BUILDS
+    registers = 65536 // (plan.build * deform.WG_MAX_THREADS)
+    assert plan.resident * plan.threads * registers <= 65536
+    assert plan.resident * plan.threads <= deform.SM_THREADS
+    # the window of a tile covers its taps' reach at any offset within the halo
+    if groups == GROUPS:
+        _assert_window_covers(h, w, stride, plan.tile_h, plan.win_h, plan.win_w)
+    # the workspace: one slab of the weight per split
+    assert plan.workspace == plan.splits * cout * cin * K * K
+
+
+@pytest.mark.parametrize("x_shape,cout,stride,groups", WG_GROUPS)
+def test_backward_weight_plan_splits_cover_every_tile_once(x_shape, cout, stride, groups):
+    """Split s takes units [s * U // splits, (s + 1) * U // splits) of the
+    batch's U (batch, tile) units, as the kernel does: every unit once,
+    none empty, and the grid within one wave of resident blocks."""
+    b, _, h, w = x_shape
+    plan = _weight_plan(x_shape, cout, stride, groups)
+    units = b * -(-_out(h, stride) // plan.tile_h) * -(-_out(w, stride) // deform.TILE_W)
+    assert 1 <= plan.splits <= units
+    ranges = [range(s * units // plan.splits, (s + 1) * units // plan.splits)
+              for s in range(plan.splits)]
+    assert all(len(r) > 0 for r in ranges)
+    assert sorted(u for r in ranges for u in r) == list(range(units))
+    assert plan.blocks <= SMS * plan.resident * deform.WG_WAVES or plan.splits == 1
+
+
+@pytest.mark.parametrize("cg", [8, 12, 16, 24, 32, 64])
+@pytest.mark.parametrize("groups", [1, 2])
+def test_backward_weight_plan_leaves_no_channel_idle(cg, groups):
+    """A chunk divides the group's channels: no channel idles and no chunk
+    straddles two groups; chunks are whole channel quads (the window's)."""
+    cin = cg * groups
+    for cout in (16, 48, 128):
+        plan = deform.backward_weight_plan(16, cin, cout, 24, 48, K, K, 1, DIL, groups, SMS)
+        assert plan.chunk % 4 == 0 and cg % plan.chunk == 0
+        chunks = [(g * cg + j * plan.chunk, g * cg + (j + 1) * plan.chunk)
+                  for g in range(groups) for j in range(cg // plan.chunk)]
+        assert all(c0 // cg == (c1 - 1) // cg for c0, c1 in chunks)  # within one group
+        assert sorted(c for c0, c1 in chunks for c in range(c0, c1)) == list(range(cin))
+
+
+def test_backward_weight_plan_is_deterministic():
+    """The same shapes give the same plan, also without the cache; the
+    tiling depends on the conv, not on the batch or the SM count, while the
+    splits fill one wave of the card's SMs, capped only by a batch too
+    small for it."""
+    plans = [_weight_plan(x, cout, stride) for x, cout, stride in WG_SHAPES]
+    deform.backward_weight_plan.cache_clear()
+    assert [_weight_plan(x, cout, stride) for x, cout, stride in WG_SHAPES] == plans
+    layer3 = _weight_plan((16, 128, 24, 48), 128, 1)
+    fewer_sms = _weight_plan((16, 128, 24, 48), 128, 1, sms=16)
+    assert fewer_sms.splits < layer3.splits
+    assert fewer_sms._replace(splits=0, blocks=0, workspace=0) == layer3._replace(
+        splits=0, blocks=0, workspace=0)
+    assert _weight_plan((64, 128, 24, 48), 128, 1).splits == layer3.splits
+    tiny = _weight_plan((1, 128, 8, 16), 128, 1)  # one tile: one split
+    assert tiny.splits == 1
+
+
+def test_backward_weight_plan_raises_when_nothing_fits():
+    with pytest.raises(ValueError, match="taps"):
+        deform.backward_weight_plan(1, 16, 16, 32, 32, 5, 5, 1, 1, GROUPS, SMS)
+    with pytest.raises(ValueError, match="output channels"):
+        deform.backward_weight_plan(1, 16, 12, 32, 32, K, K, 1, DIL, GROUPS, SMS)
+    with pytest.raises(ValueError, match="groups"):
+        deform.backward_weight_plan(1, 15, 16, 32, 32, K, K, 1, DIL, GROUPS, SMS)
+    with pytest.raises(ValueError, match="shared memory"):
+        deform.backward_weight_plan(1, 64, 128, 32, 32, K, K, 4, 64, GROUPS, SMS)
+
+
+@pytest.mark.parametrize("name", ["TILE_W", "HALO", "WG_MAX_THREADS", "WG_TM", "WG_MAX_TAPS",
+                                  "WG_PAD"])
+def test_backward_weight_constants_are_the_kernels(name):
+    """The plan's constants are the kernel's: its tile width, halo, largest
+    block, register tile and row padding; and the kernel is built for each
+    step height and register budget the plan may name."""
+    source = (pathlib.Path(deform.__file__).parents[1] / "csrc" / "deform_conv.cu").read_text()
+    found = re.findall(rf"constexpr int {name} = (\d+);", source)
+    assert found == [str(getattr(deform, name))]
+    if name == "WG_MAX_THREADS":
+        assert ("template <int STEP_H, int BLOCKS>\n__global__ void __launch_bounds__("
+                "WG_MAX_THREADS, BLOCKS)\ndeform_wgrad_kernel") in source
+        built = set(re.findall(r"deform_wgrad_kernel<(\d+), (\d+)>", source))
+        assert built == {(str(s), str(b)) for s in deform.WG_STEP_H for b in deform.WG_BUILDS}

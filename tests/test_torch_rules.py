@@ -162,6 +162,17 @@ def test_predict_on_cpu_writes_cropped_outputs(tmp_path):
     assert [op.launches for op in KERNEL_OPS] == [0] * len(KERNEL_OPS)
 
 
+@pytest.mark.parametrize("name", sorted(MODEL_PRESETS))
+def test_predict_pads_to_the_references_multiple(name):
+    """96 under hourglass refinement, else 48, as the JAX predict_pairs
+    pads each preset (aanet_tpu/infer.py:304-305); a hourglass config is
+    made, not built (the port refuses to build it so far)."""
+    want = 96 if jax_preset(name).refinement_type == "hourglass" else 48
+    assert infer.pad_multiple(preset(name)) == want
+    assert infer.pad_multiple(ModelConfig(refinement_type="hourglass")) == 96
+    assert infer.pad_multiple(ModelConfig(refinement_type="stereodrnet")) == 48
+
+
 def test_cli_predict_on_cpu_with_weights(tmp_path):
     data = tmp_path / "pairs"
     _write_pairs(str(data), 50, 100, n=1)
