@@ -25,6 +25,9 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build_out"
 KERNELS = ("softargmin", "warp", "correlation", "deform_conv", "volume4d")
+# Hopper's shared memory, which the kernels' plans (ops.deform, ops.cost_volume) fit
+SMEM_BYTES = 232448  # one block may use (227 KB)
+SM_SMEM_BYTES = 233472  # one SM holds (228 KB), 1 KB of it reserved per block
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"  # the CUDA toolkit's default prefix
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

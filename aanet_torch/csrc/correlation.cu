@@ -1,110 +1,274 @@
-// Correlation cost volume, forward and backward. The forward:
+// Correlation cost volume, forward and backward, float32 on the CUDA cores:
 //   cost[b, d, h, w] = (1/C) sum_c L[b, c, h, w] * R[b, c, h, w - d],
-//   and 0 where w < d.
+//   and 0 where w < d; the backward gives dL and dR from g = d loss / d cost.
 //
-// Replaces aanet_tpu/ops/cost_volume.py:correlation_cost_volume (the
-// banded-matmul formulation with _skew_band_extract; its plain form is
-// correlation_cost_volume_reference).
-//
-// Bound: bytes, narrowly. At the main path's largest shape (C = 128,
-// D = 64, 128x416) the band needs 0.8 GFLOP of float32 (12 us at the
-// card's 67 TFLOP/s) against 68 MB of inputs and output (20 us at
-// 3.35 TB/s). So the design reads each input value from memory once per
-// disparity tile and serves every output that uses it from shared memory.
-// Design: one block per (b, h, tile of TW columns, tile of TD
-// disparities). Per chunk of CK channels the block stages the left tile
-// [CK][TW] and the right window [CK][TW+TD-1] -- the columns
-// w0-d0-(TD-1) .. w0-d0+TW-1, zero outside the image, which makes the
-// w < d region come out as exact zeros -- in shared memory. Thread (tx, dg)
-// owns column w0+tx and the disparities d0+dg, d0+dg+4, ..., so for each
-// (channel, disparity) the 32 threads of a warp read 32 consecutive words
-// (no bank conflicts) and each output row is written coalesced in the
-// NCHW layout the aggregation convs read.
+// Both kernels are banded contractions: each value of L and R meets D
+// values of the other (or of g) along one image row. Both are bound by
+// bytes on the H100 at every shape of the port's paths, but narrowly: they
+// do about 8 FMAs per byte they must move, and the card's float32 rate (67
+// TFLOP/s, 33.5 T FMA/s) against its 3.35 TB/s is 10. So the FMAs run from
+// register tiles, with the copies from device memory in flight behind
+// them. What sets the pace of both is shared memory: an SM delivers 32
+// values a clock to its lanes (a warp's 16-byte load takes 4 clocks, and
+// lanes that read the same address pay all the same) against 128 FMAs, so
+// a tile must load few values per FMA.
 #include "common.cuh"
 
 namespace {
 
-constexpr int TW = 64;                     // output columns per block
-constexpr int TD = 64;                     // disparities per block
-constexpr int CK = 32;                     // channels staged per step
-constexpr int THREADS = 256;
-constexpr int GROUPS = THREADS / TW;       // disparity groups per column: 4
-constexpr int DPT = TD / GROUPS;           // disparities per thread: 16
-constexpr int RW = TW + TD - 1;            // right-window width: 127
+// ---------------------------------------------------------------------------
+// Forward.
+//
+// Replaces aanet_tpu/ops/cost_volume.py:72 correlation_cost_volume (the
+// banded-matmul formulation with _skew_band_extract; its plain form is
+// correlation_cost_volume_reference).
+//
+// Bound: bytes. At the aanet train step's largest shape (L and R [16, 128,
+// 96, 192], D = 64) it reads L and R once (151 MB each) and writes the
+// volume (75 MB): 0.113 ms at 3.35 TB/s; the 2.0 G FMAs of the band take
+// 0.060 ms at 67 TFLOP/s. The step's three scales: 0.113, 0.025 and 0.006
+// ms; the inference forward's ([1, 128, 128, 416], D = 64, and its halves):
+// 0.020, 0.005 and 0.001 ms.
+//
+// Design: a block owns a row tile of `tw` columns of one (b, h) and all D
+// disparities, so no FMA is spent on d >= D beyond the last disparity
+// tile. A thread owns a register tile of FWD_CW = 4 columns x DD
+// disparities (DD = 8 or 16, a template): per channel it reads its 4 left
+// values (one 16-byte load) and the DD + 4 right values its tile needs
+// (DD / 4 + 1 aligned 16-byte loads) for 4 * DD FMAs: 24 values for 64
+// FMAs at DD = 16. The staging walks its rows without a division per
+// copy, and the store multiplies by 1 / C (a division there takes a slow
+// path of a few dozen instructions per value). Channels are walked in
+// chunks: the next chunk's left tile [chunk][tw] and right window
+// [chunk][tw + dtot] (columns w0 - dtot .. w0 + tw - 1, zero outside the
+// image, so w < d comes out as exact zeros) are copied with cp.async (16
+// bytes where the width is a multiple of 4) into a second buffer while the
+// current one is contracted.
+// `ksplit` groups of threads split a chunk's channels where the grid alone
+// is short of the card; group 0 adds the others' tiles in a fixed order at
+// the end (no atomics: the result is the same bits every launch). Each
+// output row is written once, coalesced, in the [B, D, H, W] layout the
+// aggregation convs read. The tiling is the plan of ops/cost_volume.py
+// forward_plan; the kernel refuses a plan whose shared memory is not its
+// layout's.
+// ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS)
-correlation_kernel(const float* __restrict__ left,
-                   const float* __restrict__ right, float* __restrict__ out,
-                   int channels, int height, int width, int max_disp,
-                   int disp_tiles) {
-  __shared__ float s_left[CK][TW];
-  __shared__ float s_right[CK][RW + 1];
+// Calls f(r, q) for the units t, t + blockDim.x, ... of a rows x cols grid
+// in row-major order (t = threadIdx.x), stepping (r, q) without a division
+// per unit.
+template <class F>
+__device__ __forceinline__ void for_each_unit(int rows, int cols, F f) {
+  const int dr = blockDim.x / cols, dq = blockDim.x % cols;
+  for (int r = threadIdx.x / cols, q = threadIdx.x % cols; r < rows;) {
+    f(r, q);
+    r += dr;
+    q += dq;
+    if (q >= cols) {
+      q -= cols;
+      ++r;
+    }
+  }
+}
 
-  const int w0 = blockIdx.x * TW;
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+constexpr int FWD_CW = 4;             // columns of a thread's register tile
+constexpr int FWD_LX = 8;             // neighbouring column groups of a warp
+constexpr int FWD_MAX_THREADS = 256;  // __launch_bounds__: the largest block,
+constexpr int FWD_MIN_BLOCKS = 2;     // and the blocks of that size an SM holds
+
+// Words of the forward's shared memory: two buffers of a chunk's left tile
+// [chunk][tw] and right window [chunk][tw + dtot]; the ksplit - 1 partial
+// tiles [tw * dtot] of the final sum reuse the space.
+inline int fwd_smem_words(int tw, int dtot, int chunk, int ksplit) {
+  const int stage = 2 * chunk * (2 * tw + dtot);
+  const int partial = (ksplit - 1) * tw * dtot;
+  return stage > partial ? stage : partial;
+}
+
+template <int DD>
+__global__ void __launch_bounds__(FWD_MAX_THREADS, FWD_MIN_BLOCKS)
+corr_fwd_kernel(const float* __restrict__ left, const float* __restrict__ right,
+                float* __restrict__ out, int channels, int height, int width, int max_disp,
+                int tw, int ny, int ksplit, int chunk, bool vec) {
+  extern __shared__ float4 corr_smem[];
+  float* smem = reinterpret_cast<float*>(corr_smem);
+  const int dtot = ny * DD;      // disparities of the block, D rounded up to DD
+  const int rw = tw + dtot;      // right-window width
+  const int stage_words = chunk * (tw + rw);
+  const int group = (tw / FWD_CW) * ny;  // threads of one channel group
+
+  // thread -> channel group k, disparity group y, column group x: a warp
+  // holds FWD_LX neighbouring column groups of 32 / FWD_LX disparity groups
+  const int k = threadIdx.x / group;
+  const int t = threadIdx.x % group;
+  const int y = (t / FWD_LX) % ny;
+  const int x = t % FWD_LX + FWD_LX * (t / (FWD_LX * ny));
+
+  const int w0 = blockIdx.x * tw;
   const int h = blockIdx.y;
-  const int d0 = (blockIdx.z % disp_tiles) * TD;
-  const long long b = blockIdx.z / disp_tiles;
-  const int tx = threadIdx.x % TW;
-  const int dg = threadIdx.x / TW;
-  const int r0 = w0 - d0 - (TD - 1);  // image column of window slot 0
-
+  const long long b = blockIdx.z;
   const long long plane = static_cast<long long>(height) * width;
   const float* lrow = left + b * channels * plane + static_cast<long long>(h) * width;
   const float* rrow = right + b * channels * plane + static_cast<long long>(h) * width;
+  const int r0 = w0 - dtot;  // image column of right-window slot 0
 
-  float acc[DPT];
-#pragma unroll
-  for (int j = 0; j < DPT; ++j) acc[j] = 0.f;
-
-  for (int c0 = 0; c0 < channels; c0 += CK) {
-    for (int e = threadIdx.x; e < CK * TW; e += THREADS) {
-      int cc = e / TW, ww = e % TW;
-      int c = c0 + cc, w = w0 + ww;
-      s_left[cc][ww] = (c < channels && w < width) ? lrow[c * plane + w] : 0.f;
+  // chunk n's left tile and right window into buffer n % 2, zero outside
+  // the image and beyond the channels
+  auto stage = [&](int n) {
+    float* sl = smem + (n & 1) * stage_words;
+    float* sr = sl + chunk * tw;
+    const int c0 = n * chunk;
+    if (vec) {  // a quad of columns lies wholly inside the row or outside
+      for_each_unit(chunk, tw / 4, [&](int cc, int q) {
+        const int w = w0 + 4 * q;
+        const bool in = c0 + cc < channels && w < width;
+        cp_async_f32x4(sl + cc * tw + 4 * q, in ? lrow + (c0 + cc) * plane + w : left, in);
+      });
+      for_each_unit(chunk, rw / 4, [&](int cc, int q) {
+        const int w = r0 + 4 * q;
+        const bool in = c0 + cc < channels && w >= 0 && w < width;
+        cp_async_f32x4(sr + cc * rw + 4 * q, in ? rrow + (c0 + cc) * plane + w : right, in);
+      });
+    } else {
+      for_each_unit(chunk, tw, [&](int cc, int q) {
+        const int w = w0 + q;
+        const bool in = c0 + cc < channels && w < width;
+        cp_async_f32(sl + cc * tw + q, in ? lrow + (c0 + cc) * plane + w : left, in);
+      });
+      for_each_unit(chunk, rw, [&](int cc, int q) {
+        const int w = r0 + q;
+        const bool in = c0 + cc < channels && w >= 0 && w < width;
+        cp_async_f32(sr + cc * rw + q, in ? rrow + (c0 + cc) * plane + w : right, in);
+      });
     }
-    for (int e = threadIdx.x; e < CK * RW; e += THREADS) {
-      int cc = e / RW, ww = e % RW;
-      int c = c0 + cc, w = r0 + ww;
-      s_right[cc][ww] =
-          (c < channels && w >= 0 && w < width) ? rrow[c * plane + w] : 0.f;
+  };
+
+  float acc[FWD_CW][DD];
+#pragma unroll
+  for (int i = 0; i < FWD_CW; ++i) {
+#pragma unroll
+    for (int j = 0; j < DD; ++j) acc[i][j] = 0.f;
+  }
+
+  const int nchunks = (channels + chunk - 1) / chunk;
+  if (nchunks > 0) {
+    stage(0);
+    cp_async_commit();
+  }
+  for (int n = 0; n < nchunks; ++n) {
+    if (n + 1 < nchunks) {
+      stage(n + 1);
+      cp_async_commit();
+      cp_async_wait_group<1>();
+    } else {
+      cp_async_wait_group<0>();
     }
     __syncthreads();
-#pragma unroll 4
-    for (int cc = 0; cc < CK; ++cc) {
-      const float l = s_left[cc][tx];
-      // window slot of (w0 + tx, d0 + dd) is tx - dd + TD - 1
-      const float* r = &s_right[cc][tx + TD - 1 - dg];
+    // the thread's left quad and the start of its right window: window
+    // value m is column w0 + 4x - (y + 1) DD + m, so (column i,
+    // disparity y DD + j) takes value i - j + DD
+    const float* sl = smem + (n & 1) * stage_words + FWD_CW * x;
+    const float* sr = smem + (n & 1) * stage_words + chunk * tw + FWD_CW * x + (ny - 1 - y) * DD;
+    const int nc = min(chunk, channels - n * chunk);
+    for (int cc = k; cc < nc; cc += ksplit) {
+      const float4 l4 = ld4(sl + cc * tw);
+      const float l[FWD_CW] = {l4.x, l4.y, l4.z, l4.w};
+      float r[DD + 4];
 #pragma unroll
-      for (int j = 0; j < DPT; ++j) acc[j] += l * r[-GROUPS * j];
+      for (int q = 0; q < DD / 4 + 1; ++q) {
+        const float4 v = ld4(sr + cc * rw + 4 * q);
+        r[4 * q] = v.x;
+        r[4 * q + 1] = v.y;
+        r[4 * q + 2] = v.z;
+        r[4 * q + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < FWD_CW; ++i) {
+#pragma unroll
+        for (int j = 0; j < DD; ++j) acc[i][j] = fmaf(l[i], r[i - j + DD], acc[i][j]);
+      }
     }
     __syncthreads();
   }
 
-  const int w = w0 + tx;
-  if (w >= width) return;
-  float* orow = out + b * max_disp * plane + static_cast<long long>(h) * width + w;
-  const float num_c = static_cast<float>(channels);
+  if (ksplit > 1) {  // the buffers are free: every thread passed the last barrier
+    float* part = smem + t;
+    if (k > 0) {
 #pragma unroll
-  for (int j = 0; j < DPT; ++j) {
-    int d = d0 + dg + GROUPS * j;
-    if (d < max_disp) orow[d * plane] = acc[j] / num_c;
+      for (int i = 0; i < FWD_CW; ++i) {
+#pragma unroll
+        for (int j = 0; j < DD; ++j) part[((k - 1) * FWD_CW * DD + i * DD + j) * group] = acc[i][j];
+      }
+    }
+    __syncthreads();
+    if (k > 0) return;
+    for (int kk = 1; kk < ksplit; ++kk) {
+#pragma unroll
+      for (int i = 0; i < FWD_CW; ++i) {
+#pragma unroll
+        for (int j = 0; j < DD; ++j) acc[i][j] += part[((kk - 1) * FWD_CW * DD + i * DD + j) * group];
+      }
+    }
+  }
+
+  const int w = w0 + FWD_CW * x;
+  if (w >= width) return;
+  float* ob = out + b * max_disp * plane + static_cast<long long>(h) * width + w;
+  const float inv_c = 1.f / static_cast<float>(channels);
+#pragma unroll
+  for (int j = 0; j < DD; ++j) {
+    const int d = y * DD + j;
+    if (d < max_disp) {
+      float* o = ob + d * plane;
+      if (vec) {
+        *reinterpret_cast<float4*>(o) = make_float4(acc[0][j] * inv_c, acc[1][j] * inv_c,
+                                                    acc[2][j] * inv_c, acc[3][j] * inv_c);
+      } else {
+#pragma unroll
+        for (int i = 0; i < FWD_CW; ++i) {
+          if (w + i < width) o[i] = acc[i][j] * inv_c;
+        }
+      }
+    }
   }
 }
 
 }  // namespace
 
 // left, right: [batch, channels, height, width]; out: [batch, max_disp,
-// height, width]; all float32.
-extern "C" int aanet_correlation_f32(const float* left, const float* right,
-                                     float* out, int batch, int channels,
-                                     int height, int width, int max_disp,
-                                     int device, void* stream) {
+// height, width]; all float32. The plan (ops/cost_volume.py forward_plan):
+// tw (columns of a block, a multiple of 4 * FWD_LX), dd (disparities of a
+// thread's tile: 8 or 16), ksplit (thread groups that split a chunk's
+// channels), chunk (channels staged at a time), and smem_bytes, the block's
+// shared memory, which must be what this layout takes. Anything else is
+// cudaErrorInvalidValue.
+extern "C" int aanet_correlation_f32(const float* left, const float* right, float* out,
+                                     int batch, int channels, int height, int width,
+                                     int max_disp, int tw, int dd, int ksplit, int chunk,
+                                     int smem_bytes, int device, void* stream) {
   cudaSetDevice(device);
   if (batch == 0 || height == 0 || width == 0 || max_disp == 0) return 0;
-  const int disp_tiles = (max_disp + TD - 1) / TD;
-  dim3 grid((width + TW - 1) / TW, height, batch * disp_tiles);
-  correlation_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      left, right, out, channels, height, width, max_disp, disp_tiles);
+  if ((dd != 8 && dd != 16) || tw < FWD_CW * FWD_LX || tw % (FWD_CW * FWD_LX) != 0 ||
+      ksplit < 1 || chunk < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int ny = (max_disp + dd - 1) / dd;
+  const int threads = (tw / FWD_CW) * ny * ksplit;
+  if (threads > FWD_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
+  if (fwd_smem_words(tw, ny * dd, chunk, ksplit) * 4 != smem_bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);  // the wrapper's plan has another layout
+  }
+  auto kernel = dd == 8 ? corr_fwd_kernel<8> : corr_fwd_kernel<16>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const bool vec = width % 4 == 0 && aligned16(left) && aligned16(right) && aligned16(out);
+  dim3 grid((width + tw - 1) / tw, height, batch);
+  kernel<<<grid, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      left, right, out, channels, height, width, max_disp, tw, ny, ksplit, chunk, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -112,94 +276,238 @@ extern "C" int aanet_correlation_f32(const float* left, const float* right,
 // Backward: with g = d loss / d cost,
 //   dL[c, h, w]  = (1/C) sum_d g[d, h, w]      * R[c, h, w - d]   (w >= d)
 //   dR[c, h, w'] = (1/C) sum_d g[d, h, w' + d] * L[c, h, w' + d]  (w'+d < W)
-// the transposes jax.grad derives for correlation_cost_volume. Where the
-// forward wrote its zeros (w < d), g does not reach either input.
+// the transposes jax.grad derives for correlation_cost_volume (XLA's
+// transpose of aanet_tpu/ops/cost_volume.py:72). Where the forward wrote
+// its zeros (w < d), g does not reach either input.
 //
-// Bound: bytes (per pair of outputs 2*D FMAs; the inputs, the gradient
-// band and the two outputs each cross device memory once per block).
-// Design: one block per (b, h, 64 columns); no atomics, each block owns
-// the dL and dR columns of its tile for every channel and writes them as
-// gathers. Per chunk of 32 disparities it stages the gradient rows the
-// tile needs, g[d][w0 .. w0+63] for dL and g[d][w0+d0 .. w0+d0+94] for dR,
-// then per chunk of 8 channels the right window (columns w0-d0-31 ..
-// w0-d0+63) and the left window (w0+d0 .. w0+d0+94), zero outside the
-// image, in shared memory. Thread (column, channel pair) sums its 32
-// disparities from shared memory; the first disparity chunk stores, later
-// ones add to the stored value.
+// Bound: bytes. At the aanet train step's largest shape it reads g (75 MB),
+// L and R and writes dL and dR (151 MB each): 0.203 ms at 3.35 TB/s; its 4.0
+// G FMAs take 0.121 ms at 67 TFLOP/s. The step's three scales: 0.203, 0.048
+// and 0.012 ms.
+//
+// Design: one pass, each output written once, no atomics. A block owns a
+// tile of `bw` columns of one (b, h) row, all channels and all D. It stages
+// the gradient rows once: g[d][w0 .. w0+bw) for dL and the skewed copy
+// g[d][w0+d .. w0+d+bw) for dR (both zero for d >= D and beyond the row),
+// so a thread's columns of either are one aligned 16-byte load. It walks
+// the channels in chunks, the next chunk's right window (columns w0 - dtot
+// .. w0 + bw - 1) and left window (w0 .. w0 + bw + dtot - 1), zero outside
+// the image, copied with cp.async into a second buffer while the current
+// chunk runs. The first half of the block's warps sums dL, the second dR: a
+// thread keeps BWD_CC = 8 channels x BWD_CW = 4 columns of one gradient in
+// registers and sums all D disparities there. Over d its window slides by
+// one value per channel and step, taken four at a time as one 16-byte load
+// per channel; each g quad serves all 8 channels. A lane pays for every
+// value it loads from shared memory (an SM delivers 32 a clock, against 128
+// FMAs), so the tile's 48 values per 128 FMAs set the pace, where a tile of
+// both gradients (4 x 4 each, the same 32 sums) loads 64. Then dL and dR
+// are written once, coalesced. The tiling is the plan of ops/cost_volume.py
+// backward_plan; the kernel refuses a plan whose shared memory is not its
+// layout's.
 // ---------------------------------------------------------------------------
 namespace {
 
-constexpr int BW = 64;            // columns per block
-constexpr int BD = 32;            // disparities per chunk
-constexpr int BC = 8;             // channels per chunk
-constexpr int BWIN = BW + BD - 1;  // window width: 95
-constexpr int BCPT = BC * BW / THREADS;  // channels per thread: 2
+constexpr int BWD_CW = 4;             // columns of a thread's register tile
+constexpr int BWD_CC = 8;             // channels of a thread's register tile
+constexpr int BWD_LX = 8;             // neighbouring column groups of a warp
+constexpr int BWD_DSTEP = 8;          // disparities of one trip of the slide (two turns)
+constexpr int BWD_MAX_THREADS = 256;  // __launch_bounds__: the largest block,
+constexpr int BWD_MIN_BLOCKS = 2;     // and the blocks of that size an SM holds
 
-__global__ void __launch_bounds__(THREADS)
-correlation_bwd_kernel(const float* __restrict__ grad, const float* __restrict__ left,
-                       const float* __restrict__ right, float* __restrict__ grad_left,
-                       float* __restrict__ grad_right, int channels, int height,
-                       int width, int max_disp) {
-  __shared__ float s_gl[BD][BW];    // g[d0+dd][w0+j]
-  __shared__ float s_gr[BD][BWIN];  // g[d0+dd][w0+d0+j]
-  __shared__ float s_r[BC][BWIN];   // R[c][w0-d0-(BD-1)+j]
-  __shared__ float s_l[BC][BWIN];   // L[c][w0+d0+j]
+// Words of the backward's shared memory: the two gradient tiles [dtot][bw]
+// and two buffers of a chunk's right and left windows [chunk][bw + dtot].
+inline int bwd_smem_words(int bw, int dtot, int chunk) {
+  return 2 * dtot * bw + 2 * 2 * chunk * (bw + dtot);
+}
 
-  const int w0 = blockIdx.x * BW;
+// Four disparities d0 .. d0 + 3 of dL for BWD_CC channels: the right
+// window [rn, ro] is columns w - d0 - 4 .. w - d0 + 3 of the thread's first
+// column w; g quads at g + d * bw.
+__device__ __forceinline__ void turn_left(float (&acc)[BWD_CC][BWD_CW], const float* g, int bw,
+                                          int d0, const float4 (&rn)[BWD_CC],
+                                          const float4 (&ro)[BWD_CC]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float4 a = ld4(g + (d0 + e) * bw);
+    const float ga[BWD_CW] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int q = 0; q < BWD_CC; ++q) {
+      const float r[8] = {rn[q].x, rn[q].y, rn[q].z, rn[q].w, ro[q].x, ro[q].y, ro[q].z, ro[q].w};
+#pragma unroll
+      for (int i = 0; i < BWD_CW; ++i) acc[q][i] = fmaf(ga[i], r[4 + i - e], acc[q][i]);
+    }
+  }
+}
+
+// The same for dR: the left window [lc, ln] is columns w + d0 .. w + d0 + 7;
+// g quads (the skewed copy) at g + d * bw.
+__device__ __forceinline__ void turn_right(float (&acc)[BWD_CC][BWD_CW], const float* g, int bw,
+                                           int d0, const float4 (&lc)[BWD_CC],
+                                           const float4 (&ln)[BWD_CC]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float4 a = ld4(g + (d0 + e) * bw);
+    const float ga[BWD_CW] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int q = 0; q < BWD_CC; ++q) {
+      const float l[8] = {lc[q].x, lc[q].y, lc[q].z, lc[q].w, ln[q].x, ln[q].y, ln[q].z, ln[q].w};
+#pragma unroll
+      for (int i = 0; i < BWD_CW; ++i) acc[q][i] = fmaf(ga[i], l[i + e], acc[q][i]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(BWD_MAX_THREADS, BWD_MIN_BLOCKS)
+corr_bwd_kernel(const float* __restrict__ grad, const float* __restrict__ left,
+                const float* __restrict__ right, float* __restrict__ grad_left,
+                float* __restrict__ grad_right, int channels, int height, int width,
+                int max_disp, int bw, int dtot, int chunk, bool vec) {
+  extern __shared__ float4 corr_smem[];
+  float* smem = reinterpret_cast<float*>(corr_smem);
+  const int ncg = chunk / BWD_CC;  // channel groups
+  const int ww = bw + dtot;        // window width
+  float* s_gl = smem;                   // [dtot][bw]: g[d][w0 + j]
+  float* s_gr = smem + dtot * bw;       // [dtot][bw]: g[d][w0 + j + d]
+  float* s_win = smem + 2 * dtot * bw;  // two buffers of {R [chunk][ww], L [chunk][ww]}
+  const int stage_words = 2 * chunk * ww;
+
+  // thread -> gradient (0: dL, 1: dR; whole warps), channel group cg,
+  // column group x: a warp holds BWD_LX neighbouring column groups of
+  // 32 / BWD_LX channel groups
+  const int per_side = (bw / BWD_CW) * ncg;
+  const int side = threadIdx.x / per_side;
+  const int t = threadIdx.x % per_side;
+  const int cg = (t / BWD_LX) % ncg;
+  const int x = t % BWD_LX + BWD_LX * (t / (BWD_LX * ncg));
+
+  const int w0 = blockIdx.x * bw;
   const int h = blockIdx.y;
   const long long b = blockIdx.z;
-  const int tx = threadIdx.x % BW;
-  const int tcg = threadIdx.x / BW;  // channels tcg, tcg + 4 of each chunk
   const long long plane = static_cast<long long>(height) * width;
   const long long row = static_cast<long long>(h) * width;
   const float* gb = grad + b * max_disp * plane + row;
   const float* lb = left + b * channels * plane + row;
   const float* rb = right + b * channels * plane + row;
-  float* glb = grad_left + b * channels * plane + row;
-  float* grb = grad_right + b * channels * plane + row;
-  const float inv_c = 1.f / static_cast<float>(channels);
-  const int w = w0 + tx;
 
-  for (int d0 = 0; d0 < max_disp; d0 += BD) {
-    __syncthreads();  // the previous chunk's readers are done with s_gl / s_gr
-    for (int e = threadIdx.x; e < BD * BW; e += THREADS) {
-      const int dd = e / BW, j = e % BW, d = d0 + dd, ww = w0 + j;
-      s_gl[dd][j] = (d < max_disp && ww < width) ? gb[d * plane + ww] : 0.f;
-    }
-    for (int e = threadIdx.x; e < BD * BWIN; e += THREADS) {
-      const int dd = e / BWIN, j = e % BWIN, d = d0 + dd, ww = w0 + d0 + j;
-      s_gr[dd][j] = (d < max_disp && ww < width) ? gb[d * plane + ww] : 0.f;
-    }
-    for (int c0 = 0; c0 < channels; c0 += BC) {
-      __syncthreads();
-      for (int e = threadIdx.x; e < BC * BWIN; e += THREADS) {
-        const int cc = e / BWIN, j = e % BWIN, c = c0 + cc;
-        const int wr = w0 - d0 - (BD - 1) + j, wl = w0 + d0 + j;
-        s_r[cc][j] = (c < channels && wr >= 0 && wr < width) ? rb[c * plane + wr] : 0.f;
-        s_l[cc][j] = (c < channels && wl < width) ? lb[c * plane + wl] : 0.f;
-      }
-      __syncthreads();
+  // the gradient tiles, once
+  for_each_unit(dtot, bw / 4, [&](int d, int q) {
+    const int j = 4 * q, w = w0 + j;
+    float* dst_l = s_gl + d * bw + j;
+    float* dst_r = s_gr + d * bw + j;
+    if (vec) {
+      const bool in = d < max_disp && w < width;
+      cp_async_f32x4(dst_l, in ? gb + d * plane + w : grad, in);
+    } else {
 #pragma unroll
-      for (int q = 0; q < BCPT; ++q) {
-        const int cc = tcg + (THREADS / BW) * q, c = c0 + cc;
-        float al = 0.f, ar = 0.f;
-#pragma unroll 8
-        for (int dd = 0; dd < BD; ++dd) {
-          al = fmaf(s_gl[dd][tx], s_r[cc][tx - dd + BD - 1], al);
-          ar = fmaf(s_gr[dd][tx + dd], s_l[cc][tx + dd], ar);
-        }
-        if (c < channels && w < width) {
-          const long long o = c * plane + w;
-          if (d0 == 0) {
-            glb[o] = al * inv_c;
-            grb[o] = ar * inv_c;
-          } else {
-            glb[o] += al * inv_c;
-            grb[o] += ar * inv_c;
+      for (int i = 0; i < 4; ++i) {
+        const bool in = d < max_disp && w + i < width;
+        cp_async_f32(dst_l + i, in ? gb + d * plane + w + i : grad, in);
+      }
+    }
+    if (vec && d % 4 == 0) {
+      const bool in = d < max_disp && w + d < width;
+      cp_async_f32x4(dst_r, in ? gb + d * plane + w + d : grad, in);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool in = d < max_disp && w + d + i < width;
+        cp_async_f32(dst_r + i, in ? gb + d * plane + w + d + i : grad, in);
+      }
+    }
+  });
+
+  // chunk n's windows into buffer n % 2: R slot s is column w0 - dtot + s,
+  // L slot s column w0 + s; zero outside the image and beyond the channels
+  auto stage = [&](int n) {
+    float* sr = s_win + (n & 1) * stage_words;
+    float* sl = sr + chunk * ww;
+    const int c0 = n * chunk;
+    if (vec) {  // a quad of columns lies wholly inside the row or outside
+      for_each_unit(chunk, ww / 4, [&](int cc, int q) {
+        const int s = 4 * q, c = c0 + cc, wr = w0 - dtot + s, wl = w0 + s;
+        const bool rin = c < channels && wr >= 0 && wr < width;
+        const bool lin = c < channels && wl < width;
+        cp_async_f32x4(sr + cc * ww + s, rin ? rb + c * plane + wr : right, rin);
+        cp_async_f32x4(sl + cc * ww + s, lin ? lb + c * plane + wl : left, lin);
+      });
+    } else {
+      for_each_unit(chunk, ww, [&](int cc, int s) {
+        const int c = c0 + cc, wr = w0 - dtot + s, wl = w0 + s;
+        const bool rin = c < channels && wr >= 0 && wr < width;
+        const bool lin = c < channels && wl < width;
+        cp_async_f32(sr + cc * ww + s, rin ? rb + c * plane + wr : right, rin);
+        cp_async_f32(sl + cc * ww + s, lin ? lb + c * plane + wl : left, lin);
+      });
+    }
+  };
+
+  const int nchunks = (channels + chunk - 1) / chunk;
+  stage(0);
+  cp_async_commit();  // with the gradient tiles
+  const float inv_c = 1.f / static_cast<float>(channels);
+  const float* g = (side == 0 ? s_gl : s_gr) + BWD_CW * x;
+  float* out = (side == 0 ? grad_left : grad_right) + b * channels * plane + row;
+  for (int n = 0; n < nchunks; ++n) {
+    if (n + 1 < nchunks) {
+      stage(n + 1);
+      cp_async_commit();
+      cp_async_wait_group<1>();
+    } else {
+      cp_async_wait_group<0>();
+    }
+    __syncthreads();
+    // the thread's window rows: R for dL, L for dR
+    const float* win = s_win + (n & 1) * stage_words + (side * chunk + cg * BWD_CC) * ww + BWD_CW * x;
+    float acc[BWD_CC][BWD_CW];
+    float4 a[BWD_CC], z[BWD_CC];
+#pragma unroll
+    for (int q = 0; q < BWD_CC; ++q) {
+#pragma unroll
+      for (int i = 0; i < BWD_CW; ++i) acc[q][i] = 0.f;
+    }
+    // two turns a trip, the registers swapping roles
+    if (side == 0) {
+#pragma unroll
+      for (int q = 0; q < BWD_CC; ++q) a[q] = ld4(win + q * ww + dtot);  // columns w .. w + 3
+      for (int d0 = 0; d0 < dtot; d0 += BWD_DSTEP) {
+#pragma unroll
+        for (int q = 0; q < BWD_CC; ++q) z[q] = ld4(win + q * ww + dtot - d0 - 4);
+        turn_left(acc, g, bw, d0, z, a);
+#pragma unroll
+        for (int q = 0; q < BWD_CC; ++q) a[q] = ld4(win + q * ww + dtot - d0 - 8);
+        turn_left(acc, g, bw, d0 + 4, a, z);
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < BWD_CC; ++q) a[q] = ld4(win + q * ww);  // columns w .. w + 3
+      for (int d0 = 0; d0 < dtot; d0 += BWD_DSTEP) {
+#pragma unroll
+        for (int q = 0; q < BWD_CC; ++q) z[q] = ld4(win + q * ww + d0 + 4);
+        turn_right(acc, g, bw, d0, a, z);
+#pragma unroll
+        for (int q = 0; q < BWD_CC; ++q) a[q] = ld4(win + q * ww + d0 + 8);
+        turn_right(acc, g, bw, d0 + 4, z, a);
+      }
+    }
+    const int w = w0 + BWD_CW * x;
+    if (w < width) {
+#pragma unroll
+      for (int q = 0; q < BWD_CC; ++q) {
+        const int c = n * chunk + cg * BWD_CC + q;
+        if (c >= channels) continue;
+        float* o = out + c * plane + w;
+        if (vec) {
+          *reinterpret_cast<float4*>(o) = make_float4(acc[q][0] * inv_c, acc[q][1] * inv_c,
+                                                      acc[q][2] * inv_c, acc[q][3] * inv_c);
+        } else {
+#pragma unroll
+          for (int i = 0; i < BWD_CW; ++i) {
+            if (w + i < width) o[i] = acc[q][i] * inv_c;
           }
         }
       }
     }
+    __syncthreads();
   }
 }
 
@@ -207,12 +515,17 @@ correlation_bwd_kernel(const float* __restrict__ grad, const float* __restrict__
 
 // grad: [batch, max_disp, height, width]; left, right, grad_left,
 // grad_right: [batch, channels, height, width]; all float32. The gradients
-// are written in full.
+// are written in full. The plan (ops/cost_volume.py backward_plan): bw
+// (columns of a block, a multiple of 4 * BWD_LX), chunk (channels staged at
+// a time, a multiple of BWD_CC), and smem_bytes, the block's shared memory,
+// which must be what this layout takes. Anything else is
+// cudaErrorInvalidValue. With max_disp == 0 the plan is not read.
 extern "C" int aanet_correlation_backward_f32(const float* grad, const float* left,
                                               const float* right, float* grad_left,
                                               float* grad_right, int batch, int channels,
-                                              int height, int width, int max_disp,
-                                              int device, void* stream) {
+                                              int height, int width, int max_disp, int bw,
+                                              int chunk, int smem_bytes, int device,
+                                              void* stream) {
   cudaSetDevice(device);
   if (batch == 0 || height == 0 || width == 0 || channels == 0) return 0;
   if (max_disp == 0) {  // a volume of no disparities passes no gradient
@@ -221,8 +534,24 @@ extern "C" int aanet_correlation_backward_f32(const float* grad, const float* le
     cudaMemsetAsync(grad_right, 0, bytes, static_cast<cudaStream_t>(stream));
     return static_cast<int>(cudaGetLastError());
   }
-  dim3 grid((width + BW - 1) / BW, height, batch);
-  correlation_bwd_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      grad, left, right, grad_left, grad_right, channels, height, width, max_disp);
+  if (bw < BWD_CW * BWD_LX || bw % (BWD_CW * BWD_LX) != 0 || chunk < BWD_CC ||
+      chunk % BWD_CC != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int threads = 2 * (bw / BWD_CW) * (chunk / BWD_CC);
+  if (threads > BWD_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
+  const int dtot = (max_disp + BWD_DSTEP - 1) / BWD_DSTEP * BWD_DSTEP;
+  if (bwd_smem_words(bw, dtot, chunk) * 4 != smem_bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);  // the wrapper's plan has another layout
+  }
+  const cudaError_t attr = cudaFuncSetAttribute(
+      corr_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const bool vec = width % 4 == 0 && aligned16(grad) && aligned16(left) && aligned16(right) &&
+                   aligned16(grad_left) && aligned16(grad_right);
+  dim3 grid((width + bw - 1) / bw, height, batch);
+  corr_bwd_kernel<<<grid, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      grad, left, right, grad_left, grad_right, channels, height, width, max_disp, bw, dtot,
+      chunk, vec);
   return static_cast<int>(cudaGetLastError());
 }

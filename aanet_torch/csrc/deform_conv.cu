@@ -21,31 +21,6 @@ namespace {
 constexpr int TILE_W = 16;  // output columns of a tile (forward and backward-data)
 constexpr int HALO = 3;     // pixels of a staged window beyond the zero-offset footprint
 
-__device__ __forceinline__ void cp_async_f32(float* dst, const float* src, bool valid) {
-  // 4 bytes from src, or zeros without reading it when !valid
-  const unsigned int s = static_cast<unsigned int>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_f32x4(float* dst, const float* src) {
-  // 16 bytes, both ends 16-byte aligned
-  const unsigned int s = static_cast<unsigned int>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-// Wait for all committed groups but the newest `newest`.
-template <int N>
-__device__ __forceinline__ void cp_async_wait_group() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-bool aligned16(const void* p) { return (reinterpret_cast<unsigned long long>(p) & 15) == 0; }
-
 // Shared by the forward and the weight gradient: a tile's channel-minor
 // input window, its (tap, pixel) corner table and the sampling of one
 // channel quad from both.

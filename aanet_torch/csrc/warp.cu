@@ -23,15 +23,10 @@
 #include "common.cuh"
 
 #include <math.h>
-#include <stdint.h>
 
 namespace {
 
 constexpr int WARP_MAX_THREADS = 256;
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
 
 template <int C>  // C > 0: that many channels; C == 0: `channels`
 __global__ void __launch_bounds__(WARP_MAX_THREADS)

@@ -2,7 +2,9 @@
 
 * correlation: ``cost[b, d, h, w] = mean_c L[b, c, h, w] * R[b, c, h, w - d]``,
   laid out [B, D, H, W] so the aggregation convs read D as channels; the
-  CUDA kernels (forward and backward) are ``csrc/correlation.cu``;
+  CUDA kernels (forward and backward) are ``csrc/correlation.cu``, their
+  tilings chosen here per shape and SM count (``forward_plan``,
+  ``backward_plan``);
 * difference: ``cost[b, c, d, h, w] = L[b, c, h, w] - R[b, c, h, w - d]``,
   [B, C, D, H, W];
 * concat: ``[L ; R(w - d)]`` on the channel axis, [B, 2C, D, H, W].
@@ -16,17 +18,47 @@ aggregations; their CUDA kernels, forward and backward, are
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from aanet_torch import _build
+from aanet_torch._build import SMEM_BYTES
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_void_p,
 ]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# left, right, out, batch .. max_disp, the plan's five, device, stream
+_CORR_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+# grad, left, right, grad_left, grad_right, batch .. max_disp, the plan's three, device, stream
+_CORR_BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+
+# The correlation kernels' constants (csrc/correlation.cu): a forward
+# thread's tile of FWD_CW columns by one of FWD_DD disparities (the builds),
+# a backward thread's of BWD_CW columns by BWD_CC channels of one gradient
+# (its window slides BWD_DSTEP disparities a trip), the neighbouring column
+# groups of a warp (FWD_LX, BWD_LX), and each kernel's
+# __launch_bounds__(MAX_THREADS, MIN_BLOCKS), which cap a thread's registers
+FWD_CW = 4
+FWD_LX = 8
+FWD_DD = (8, 16)
+FWD_MAX_THREADS = 256
+FWD_MIN_BLOCKS = 2
+BWD_CW = 4
+BWD_CC = 8
+BWD_LX = 8
+BWD_DSTEP = 8
+BWD_MAX_THREADS = 256
+BWD_MIN_BLOCKS = 2
+TILE_WS = (32, 64, 128, 256)  # columns of a block the plans consider
+CHUNKS = (8, 16, 32, 64)  # channels staged at a time the plans consider
+# The forward's plan: blocks of at least FWD_MIN_THREADS threads, and the
+# least ksplit that gives the grid FWD_SM_THREADS threads an SM
+FWD_MIN_THREADS = 64
+FWD_SM_THREADS = 256
 
 
 def correlation_cost_volume_plain(
@@ -66,16 +98,171 @@ def _check(left, right, op="correlation"):
         )
 
 
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class ForwardPlan(NamedTuple):
+    """How ``aanet_correlation_f32`` cuts one volume: a block takes
+    ``tile_w`` columns of one (b, h) row and all disparities; a thread a
+    tile of ``FWD_CW`` columns by ``dd`` disparities (``ny`` disparity
+    groups cover D); ``ksplit`` thread groups split each chunk of ``chunk``
+    channels. ``threads`` a block, ``smem_bytes`` of shared memory,
+    ``blocks`` in the grid."""
+
+    tile_w: int
+    dd: int
+    ny: int
+    ksplit: int
+    chunk: int
+    threads: int
+    smem_bytes: int
+    blocks: int
+
+
+class BackwardPlan(NamedTuple):
+    """How ``aanet_correlation_backward_f32`` cuts one gradient: a block
+    takes ``tile_w`` columns of one (b, h) row, all channels and ``dtot``
+    disparities (D rounded up to ``BWD_DSTEP``); half its threads sum dL,
+    half dR, each a tile of ``BWD_CC`` channels by ``BWD_CW`` columns;
+    channels are staged ``chunk`` at a time. ``threads`` a block,
+    ``smem_bytes`` of shared memory, ``blocks`` in the grid."""
+
+    tile_w: int
+    chunk: int
+    dtot: int
+    threads: int
+    smem_bytes: int
+    blocks: int
+
+
+def _fwd_smem(tile_w: int, dtot: int, chunk: int, ksplit: int) -> int:
+    """Bytes of the forward's shared memory (``fwd_smem_words`` in the
+    kernel): two buffers of a chunk's left tile [chunk][tile_w] and right
+    window [chunk][tile_w + dtot]; the ksplit - 1 partial tiles of the final
+    sum reuse them. The kernel refuses a plan whose ``smem_bytes`` differ."""
+    return 4 * max(2 * chunk * (2 * tile_w + dtot), (ksplit - 1) * tile_w * dtot)
+
+
+def _bwd_smem(tile_w: int, dtot: int, chunk: int) -> int:
+    """Bytes of the backward's shared memory (``bwd_smem_words``): the two
+    gradient tiles [dtot][tile_w] and two buffers of a chunk's right and left
+    windows [chunk][tile_w + dtot]. The kernel refuses a plan whose
+    ``smem_bytes`` differ."""
+    return 4 * (2 * dtot * tile_w + 4 * chunk * (tile_w + dtot))
+
+
+def forward_plans(batch: int, channels: int, height: int, width: int,
+                  max_disp: int) -> list[ForwardPlan]:
+    """Every tiling the forward kernel takes at this shape: whole warps
+    within its launch bounds and a block's shared memory, a chunk of at
+    least one channel per thread group."""
+    plans = []
+    for dd in FWD_DD:
+        ny = _ceil_div(max_disp, dd)
+        for tile_w in TILE_WS:
+            for ksplit in (1, 2, 4, 8):
+                threads = tile_w // FWD_CW * ny * ksplit
+                if threads % 32 or threads > FWD_MAX_THREADS:
+                    continue
+                for chunk in CHUNKS:
+                    smem = _fwd_smem(tile_w, ny * dd, chunk, ksplit)
+                    if ksplit <= chunk and smem <= SMEM_BYTES:
+                        plans.append(ForwardPlan(tile_w, dd, ny, ksplit, chunk, threads, smem,
+                                                 batch * height * _ceil_div(width, tile_w)))
+    return plans
+
+
+def backward_plans(batch: int, channels: int, height: int, width: int,
+                   max_disp: int) -> list[BackwardPlan]:
+    """Every tiling the backward kernel takes at this shape (``max_disp``
+    > 0): whole warps for each gradient within its launch bounds and a
+    block's shared memory."""
+    dtot = _ceil_div(max_disp, BWD_DSTEP) * BWD_DSTEP
+    plans = []
+    for tile_w in TILE_WS:
+        for chunk in CHUNKS:
+            per_side = tile_w // BWD_CW * (chunk // BWD_CC)
+            smem = _bwd_smem(tile_w, dtot, chunk)
+            if chunk % BWD_CC or per_side % 32 or 2 * per_side > BWD_MAX_THREADS or smem > SMEM_BYTES:
+                continue
+            plans.append(BackwardPlan(tile_w, chunk, dtot, 2 * per_side, smem,
+                                      batch * height * _ceil_div(width, tile_w)))
+    return plans
+
+
+@functools.lru_cache(maxsize=None)
+def forward_plan(batch: int, channels: int, height: int, width: int, max_disp: int,
+                 sms: int) -> ForwardPlan:
+    """The forward kernel's tiling for L and R [batch, channels, height,
+    width] and ``max_disp`` disparities on a card of ``sms`` SMs, of
+    ``forward_plans``, by these preferences in turn:
+
+    - a thread's tile of 16 disparities where D is a multiple of 32, else 8
+      (whole warps of a block at ksplit 1 in both cases);
+    - blocks of 64 columns, or 32 where the grid of 64-column blocks is
+      short of one block an SM;
+    - channel chunks of 16, or 32 at ksplit 4 and more (each thread group
+      keeps 8 channels a chunk);
+    - blocks of FWD_MIN_THREADS threads or more;
+    - a grid of FWD_SM_THREADS threads an SM or more, else the most;
+    - the least ksplit.
+
+    ``tools/torch_correlation_sweep.py`` times it against every other plan
+    (PERF.md §6 has its distance from the fastest on an H100). Raises if
+    nothing fits."""
+    plans = forward_plans(batch, channels, height, width, max_disp)
+    if not plans:
+        raise ValueError(
+            f"correlation: no forward tiling of {max_disp} disparities fits a block of "
+            f"{FWD_MAX_THREADS} threads and {SMEM_BYTES} bytes of shared memory")
+    dd = 16 if max_disp % 32 == 0 else 8
+    tile_w = 64 if batch * height * _ceil_div(width, 64) >= sms else 32
+
+    def key(p):
+        supply = min(p.blocks * p.threads, FWD_SM_THREADS * sms)
+        return (p.dd != dd, p.tile_w != tile_w, p.chunk != (32 if p.ksplit >= 4 else 16),
+                p.threads < FWD_MIN_THREADS, -supply, p.ksplit, p.tile_w, p.chunk)
+    return min(plans, key=key)
+
+
+@functools.lru_cache(maxsize=None)
+def backward_plan(batch: int, channels: int, height: int, width: int, max_disp: int,
+                  sms: int) -> BackwardPlan:
+    """The backward kernel's tiling for ``max_disp`` > 0 on a card of
+    ``sms`` SMs, of ``backward_plans``: blocks of 64 columns where they pad
+    the row no more than blocks of 32 and the grid holds a block an SM,
+    else 32; chunks of 32 channels where there are 64 or more, else 16.
+    Raises if nothing fits."""
+    plans = backward_plans(batch, channels, height, width, max_disp)
+    if not plans:
+        raise ValueError(
+            f"correlation backward: no tiling of {max_disp} disparities fits a block of "
+            f"{BWD_MAX_THREADS} threads and {SMEM_BYTES} bytes of shared memory")
+    pad = lambda tw: _ceil_div(width, tw) * tw - width  # noqa: E731
+    tile_w = 64 if pad(64) <= pad(32) and batch * height * _ceil_div(width, 64) >= sms else 32
+    chunk = 32 if channels >= 64 else 16
+    return min(plans, key=lambda p: (p.tile_w != tile_w, p.chunk != chunk, p.tile_w, p.chunk))
+
+
+def _sms(t: torch.Tensor) -> int:
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
 def _forward(left, right, max_disp):
     if left.device.type == "cpu":
         return correlation_cost_volume_plain(left, right, max_disp)
     _build.check_cuda_f32("correlation", left=left, right=right)
     b, c, h, w = left.shape
     cost = torch.empty((b, max_disp, h, w), dtype=torch.float32, device=left.device)
+    plan = (0,) * 5
+    if cost.numel():
+        p = forward_plan(b, c, h, w, max_disp, _sms(left))
+        plan = (p.tile_w, p.dd, p.ksplit, p.chunk, p.smem_bytes)
     _build.launch(
-        "correlation", "aanet_correlation_f32", _ARGTYPES,
+        "correlation", "aanet_correlation_f32", _CORR_ARGTYPES,
         _build.ptr(left), _build.ptr(right), _build.ptr(cost),
-        b, c, h, w, max_disp, left.device.index, _build.stream(left),
+        b, c, h, w, max_disp, *plan, left.device.index, _build.stream(left),
     )
     correlation_cost_volume.launches += 1
     return cost
@@ -84,7 +271,8 @@ def _forward(left, right, max_disp):
 def correlation_cost_volume_backward(grad, left, right):
     """Gradients (d left, d right) given the volume's gradient ``grad``
     [B, D, H, W]. A CPU tensor takes the plain version; a CUDA tensor
-    launches ``aanet_correlation_backward_f32``."""
+    launches ``aanet_correlation_backward_f32`` with ``backward_plan``'s
+    tiling."""
     _check(left, right)
     if left.device.type == "cpu":
         return correlation_cost_volume_backward_plain(grad, left, right)
@@ -94,11 +282,15 @@ def correlation_cost_volume_backward(grad, left, right):
         raise ValueError(f"correlation backward: grad {tuple(grad.shape)} does not fit {tuple(left.shape)}")
     grad_left = torch.empty_like(left)
     grad_right = torch.empty_like(right)
+    plan = (0,) * 3  # no disparities: the kernel zeroes the gradients
+    if grad.shape[1] and left.numel():
+        p = backward_plan(b, c, h, w, grad.shape[1], _sms(left))
+        plan = (p.tile_w, p.chunk, p.smem_bytes)
     _build.launch(
-        "correlation", "aanet_correlation_backward_f32", _BWD_ARGTYPES,
+        "correlation", "aanet_correlation_backward_f32", _CORR_BWD_ARGTYPES,
         _build.ptr(grad), _build.ptr(left), _build.ptr(right),
         _build.ptr(grad_left), _build.ptr(grad_right),
-        b, c, h, w, grad.shape[1], left.device.index, _build.stream(left),
+        b, c, h, w, grad.shape[1], *plan, left.device.index, _build.stream(left),
     )
     correlation_cost_volume_backward.launches += 1
     return grad_left, grad_right

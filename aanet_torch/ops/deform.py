@@ -35,9 +35,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from aanet_torch import _build
+from aanet_torch._build import SM_SMEM_BYTES, SMEM_BYTES
 
-SMEM_BYTES = 232448  # shared memory one block may use on Hopper (227 KB)
-SM_SMEM_BYTES = 233472  # shared memory of one SM (228 KB), 1 KB of it reserved per block
 MAX_BLOCKS = 3  # blocks per SM the backward-data kernel's registers are budgeted for (2 or 3)
 HALO = 3  # pixels of a staged window beyond the zero-offset footprint (both kernels)
 TILE_W = 16  # output columns of a tile (both kernels)

@@ -41,7 +41,12 @@
    splits the input channels over blocks) and times each with the wide
    offsets at the step's largest shape; checks that two launches of the
    weight gradient give the same bits at every step shape; the warp
-   forward at widths that are not a multiple of 4;
+   forward at widths that are not a multiple of 4; the correlation's
+   forward and backward: two launches give the same bits at every path
+   shape (the aanet step's and inference's, stereonet-aa's), each timed
+   beside its bound, and both against their twins at widths 37 and 53,
+   channels 3 and 37, D > W, D = 1, 24 and 40, batch 3, and the backward
+   at D = 0;
 7. on each of three seeded batches (batch 2, 288x576), runs one train
    step through the kernels and the same step through the plain twins
    (seeded weights) and compares the loss, every parameter's gradient
@@ -166,6 +171,24 @@ ZERO_GRADIENT = {"aggregation.Conv_4.Conv_0.bias"}
 CLI_PAIRS, CLI_HW = 48, (540, 960)  # SceneFlow's image size
 CLI_BASELINE, CLI_BASELINE_BATCH = "psmnet", 8  # phase 10's train entry point
 VAL_HW = (576, 960)  # the SceneFlow recipe's validation crop (pads 540 to 576)
+# The correlation volumes of the paths ((L and R shape), max_disp), by path:
+# the aanet train step's and inference forward's three scales, stereonet-aa's
+# one at inference and in its train step
+CORR_PATHS = {
+    "aanet step": (((16, 128, 96, 192), 64), ((16, 128, 48, 96), 32), ((16, 128, 24, 48), 16)),
+    "aanet inference": (((1, 128, 128, 416), 64), ((1, 128, 64, 208), 32), ((1, 128, 32, 104), 16)),
+    "stereonet-aa inference": (((1, 32, 96, 312), 48),),
+    "stereonet-aa step": (((16, 32, 72, 144), 48),),
+}
+CORR_PATH_SHAPES = [sig for sigs in CORR_PATHS.values() for sig in sigs]
+# and the shapes beyond them: widths that are not a multiple of 4 (37, 53),
+# channels off the chunks (3, 37), D > W, D = 1, 24 and 40, batch 3; the
+# backward also at D = 0
+CORR_EDGE_SHAPES = [
+    ((2, 128, 6, 37), 64), ((2, 128, 6, 53), 32), ((2, 3, 6, 64), 16), ((2, 37, 6, 64), 48),
+    ((1, 32, 4, 24), 64), ((2, 32, 6, 64), 1), ((2, 32, 6, 64), 24), ((2, 32, 6, 64), 40),
+    ((3, 64, 6, 96), 32),
+]
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s, float32 FLOP/s
 # outside the tensor cores (the kernels run float32 FMA on the CUDA cores)
 PEAK_BYTES_S = 3.35e12
@@ -960,7 +983,7 @@ def compare_train_steps(cfg, specs, small, gen, dev, per_parameter=False, calls=
     return record, m_kernel, step_kernel
 
 
-def edge_cases(specs, bwd_specs, deform_sigs, rows, gen, dev, timer):
+def edge_cases(specs, bwd_specs, deform_sigs, corr_sigs, rows, gen, dev, timer):
     """Phase 6b: the redesigned kernels against their twins where the main
     path's inputs do not reach, with the path's tolerances. The deformable
     conv's forward, its input/offset/mask gradient and its weight gradient
@@ -974,7 +997,8 @@ def edge_cases(specs, bwd_specs, deform_sigs, rows, gen, dev, timer):
     shape's time with the path's narrow offsets (``rows``). The weight
     gradient sums its splits in a fixed order: two launches on the same
     inputs must give the same bits at every step shape. The warp forward
-    at widths that are not a multiple of 4, timed beside F.grid_sample."""
+    at widths that are not a multiple of 4, timed beside F.grid_sample. The
+    correlation kernels (``correlation_edge_cases``)."""
     from aanet_torch.ops import deform
 
     by_name = {s["name"]: s for s in specs + bwd_specs}
@@ -1029,6 +1053,42 @@ def edge_cases(specs, bwd_specs, deform_sigs, rows, gen, dev, timer):
     for shape in ((2, 3, 37, 61), (1, 3, 375, 1242)):
         records.append(dict(measure(by_name["disp_warp"], (shape,), 1, gen, dev, timer),
                             kernel="disp_warp", case="width not a multiple of 4"))
+    return records + correlation_edge_cases(by_name, corr_sigs, gen, dev, timer)
+
+
+def correlation_edge_cases(by_name, corr_sigs, gen, dev, timer):
+    """Phase 6b for the correlation kernels: at every path shape
+    (``CORR_PATH_SHAPES``, which must hold the step's ``corr_sigs``) two
+    launches of each kernel give the same bits, and each is timed beside its
+    bound; at ``CORR_EDGE_SHAPES`` (and the backward at D = 0) both are held
+    against their twins with the path's tolerances."""
+    check(set(corr_sigs) <= set(CORR_PATH_SHAPES),
+          f"correlation: the step's shapes {corr_sigs} are not all in CORR_PATH_SHAPES")
+    records = []
+    for sig in CORR_PATH_SHAPES:
+        for spec in (by_name["correlation"], by_name["correlation_backward"]):
+            args, kwargs = spec["inputs"](sig, gen, dev)
+            op = getattr(spec["module"], spec["attr"])
+            first, second = op(*args, **kwargs), op(*args, **kwargs)
+            torch.cuda.synchronize()
+            first = first if isinstance(first, tuple) else (first,)
+            second = second if isinstance(second, tuple) else (second,)
+            same = all(torch.equal(x, y) for x, y in zip(first, second))
+            check(same, f"{spec['name']} {sig}: two launches on the same inputs differ")
+            nbytes, flops = spec["cost"](sig)
+            bound = max(nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S) * 1e3
+            ms = timer.ms(lambda: op(*args, **kwargs), iters=10)
+            print(f"{spec['name']} {sig}: two launches bitwise identical: {same}; {ms:.4f} ms, "
+                  f"bound {bound:.4f} ms", flush=True)
+            records.append(dict(kernel=spec["name"], case="path shape: two launches, bitwise; timed",
+                                shape=str(sig), identical=same, kernel_ms=ms, bound_ms=bound))
+    for sig in CORR_EDGE_SHAPES:
+        for name in ("correlation", "correlation_backward"):
+            records.append(dict(measure(by_name[name], sig, 1, gen, dev, timer, timed=False),
+                                kernel=name, case="beyond the path"))
+    zero = (CORR_EDGE_SHAPES[-1][0], 0)
+    records.append(dict(measure(by_name["correlation_backward"], zero, 1, gen, dev, timer, timed=False),
+                        kernel="correlation_backward", case="D = 0"))
     return records
 
 
@@ -1070,7 +1130,8 @@ def train_phases(specs, bwd_specs, gen, dev, timer, smi, data, lists):
         rows[spec["name"]] = [measure(spec, sig, n, gen, dev, timer, iters=10)
                               for sig, n in first[spec["forward"]].items()]
     # 6b. the redesigned kernels beyond the path's inputs
-    edges = edge_cases(specs, bwd_specs, list(first["deform_conv"]), rows, gen, dev, timer)
+    edges = edge_cases(specs, bwd_specs, list(first["deform_conv"]), list(first["correlation"]),
+                       rows, gen, dev, timer)
     print(json.dumps({"edge_cases": edges}), flush=True)
 
     # 7. one train step through the kernels against the same step through
@@ -1111,7 +1172,7 @@ def train_phases(specs, bwd_specs, gen, dev, timer, smi, data, lists):
     # 9. the train entry point on the card, then predict with its weights
     cli = cli_train_and_predict(data, lists, ["--preset", "aanet"], TRAIN_BATCH)
     print(json.dumps({"cli_train": cli}), flush=True)
-    return dict(rows=rows, launches=counts)
+    return dict(rows=rows, launches=counts, edge_cases=edges)
 
 
 def time_steps(step, batch, metrics, dev, top):
@@ -1307,6 +1368,9 @@ def kernels_record(all_specs, report, counts_main, train, baselines, baseline_tr
             entry["other_paths"] = {p: dict(launches=k, **totals(r, lib), shapes=r)
                                     for p, r, k in others}
         entry["shapes"] = rows
+        edges = [r for r in train["edge_cases"] if r["kernel"] == name]
+        if edges:
+            entry["edge_cases"] = edges
         kernels.append(entry)
     return kernels
 

@@ -154,7 +154,7 @@ def test_deform_backward_with_channel_slice_offsets():
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("w,d", [(37, 8), (20, 24)])
+@pytest.mark.parametrize("w,d", [(37, 8), (20, 24), (52, 48), (45, 16)])
 def test_correlation_backward_matches_jax(w, d):
     left, right = rng(2, 5, w, 16, seed=1), rng(2, 5, w, 16, seed=2)
     cot = rng(2, 5, w, d, seed=3)

@@ -31,7 +31,7 @@ def no_launches_on_cpu():
     assert [op.launches for op in KERNEL_OPS] == before == [0] * len(KERNEL_OPS)
 
 
-@pytest.mark.parametrize("w,d", [(37, 8), (64, 16), (20, 24)])
+@pytest.mark.parametrize("w,d", [(37, 8), (64, 16), (20, 24), (52, 48), (45, 16)])
 def test_correlation_matches_jax(w, d):
     left = rng(2, 5, w, 16, seed=1)
     right = rng(2, 5, w, 16, seed=2)
