@@ -3,23 +3,164 @@
 Softmax over the disparity axis, then the expectation against candidates
 0..D-1; a matching cost (rather than a similarity) is negated first. The
 op is a ``torch.autograd.Function``; the CUDA kernels (forward and
-backward) are ``csrc/softargmin.cu``.
+backward) are ``csrc/softargmin.cu``, their tilings chosen here per shape
+and SM count (``forward_plan``, ``backward_plan``).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from aanet_torch import _build
+from aanet_torch._build import SM_SMEM_BYTES, SMEM_BYTES
 
+# cost, out, batch, depth, plane, negate, the plan's three, device, stream
 _ARGTYPES = [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 3 + [
-    ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-]
+# grad, cost, grad_cost, then as the forward's
+_BWD_ARGTYPES = [ctypes.c_void_p] + _ARGTYPES
+
+# The kernels' constants (csrc/softargmin.cu): the candidates of a slice a
+# thread loads before its first expf (UNROLL), the forward's tile of pixels
+# (FWD_TILE: 32 quads of 4, one warp a slice), the backward's tiles, and each
+# kernel's __launch_bounds__(MAX_THREADS, MIN_BLOCKS), which cap a thread's
+# registers
+UNROLL = 8
+FWD_TILE = 128
+FWD_MAX_THREADS = 256
+FWD_MIN_BLOCKS = 4
+BWD_TILES = (32, 64, 128, 256)
+BWD_THREADS = (64, 128, 256)  # the block sizes the backward's plans consider
+BWD_MAX_THREADS = 256
+BWD_MIN_BLOCKS = 4
+# the plans' picks (tools/torch_softargmin_sweep.py on an H100): the
+# forward's slices at most FWD_SLICES; the backward's tile BWD_TILE, with
+# BWD_SLICES[1] slices where D reaches BWD_DEEP or the grid is short of
+# BWD_SM_BLOCKS blocks an SM, else BWD_SLICES[0]; where the plane is not a
+# multiple of 4, the tile BWD_ODD_TILE with BWD_SLICES[1] slices
+FWD_SLICES = 4
+BWD_TILE = 64
+BWD_ODD_TILE = 128
+BWD_SLICES = (4, 8)
+BWD_DEEP = 96
+BWD_SM_BLOCKS = 8
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class ForwardPlan(NamedTuple):
+    """How ``aanet_softargmin_f32`` cuts one volume: a block takes ``tile``
+    pixels of one batch element's plane and all D, split into ``slices``
+    ranges of ceil(D / slices) candidates, one warp each. ``threads`` a
+    block, ``smem_bytes`` of shared memory, ``blocks`` in the grid."""
+
+    tile: int
+    slices: int
+    threads: int
+    smem_bytes: int
+    blocks: int
+
+
+class BackwardPlan(NamedTuple):
+    """How ``aanet_softargmin_backward_f32`` cuts one gradient: a block
+    stages ``tile`` pixels of one batch element's plane by all D in shared
+    memory; ``slices`` ranges of D a quad of pixels, one thread each.
+    ``threads`` a block, ``smem_bytes`` of shared memory, ``blocks`` in the
+    grid."""
+
+    tile: int
+    slices: int
+    threads: int
+    smem_bytes: int
+    blocks: int
+
+
+def _fwd_smem(slices: int) -> int:
+    """Bytes of the forward's shared memory (``fwd_smem_bytes`` in the
+    kernel): the slices' merge slots [slices][2][tile], none for one slice.
+    The kernel refuses a plan whose ``smem_bytes`` differ."""
+    return 4 * 2 * FWD_TILE * slices if slices > 1 else 0
+
+
+def _bwd_smem(tile: int, depth: int, slices: int) -> int:
+    """Bytes of the backward's shared memory (``bwd_smem_bytes``): the slab
+    [depth][tile] and the slices' merge slots [slices][2][tile]. The kernel
+    refuses a plan whose ``smem_bytes`` differ."""
+    return 4 * tile * (depth + 2 * slices)
+
+
+def forward_plans(batch: int, depth: int, plane: int) -> list[ForwardPlan]:
+    """Every tiling the forward kernel takes: 1 to FWD_MAX_THREADS / 32
+    slices, never more than D has candidates (one at D = 0)."""
+    blocks = batch * _ceil_div(plane, FWD_TILE)
+    return [ForwardPlan(FWD_TILE, s, FWD_TILE // 4 * s, _fwd_smem(s), blocks)
+            for s in range(1, min(FWD_MAX_THREADS * 4 // FWD_TILE, max(depth, 1)) + 1)]
+
+
+def backward_plans(batch: int, depth: int, plane: int) -> list[BackwardPlan]:
+    """Every tiling the backward kernel takes at ``depth`` > 0: blocks of
+    BWD_THREADS threads (tile / 4 quads by the slices, no more slices than
+    candidates), a block's shared memory, and an SM's with its reserve."""
+    plans = []
+    for tile in BWD_TILES:
+        for threads in BWD_THREADS:
+            slices = threads // (tile // 4)
+            smem = _bwd_smem(tile, depth, slices)
+            if 1 <= slices <= depth and smem <= SMEM_BYTES and smem + 1024 <= SM_SMEM_BYTES:
+                plans.append(BackwardPlan(tile, slices, threads, smem,
+                                          batch * _ceil_div(plane, tile)))
+    return plans
+
+
+@functools.lru_cache(maxsize=None)
+def forward_plan(batch: int, depth: int, plane: int, sms: int) -> ForwardPlan:
+    """The forward kernel's tiling for a volume [batch, depth, plane] on a
+    card of ``sms`` SMs, of ``forward_plans``: the most slices, at most
+    FWD_SLICES, whose ranges are whole chunks of UNROLL candidates (a chunk
+    half masked costs a whole one); else ceil(D / UNROLL) slices, at most
+    FWD_SLICES. The SM count does not move the pick: on an H100 no plan
+    gained on the paths' short grids (``tools/torch_softargmin_sweep.py``
+    times every plan; PERF.md §6)."""
+    plans = forward_plans(batch, depth, plane)[:FWD_SLICES]
+    whole = [p for p in plans if _ceil_div(depth, p.slices) % UNROLL == 0]
+    return whole[-1] if whole else plans[min(len(plans), max(1, _ceil_div(depth, UNROLL))) - 1]
+
+
+@functools.lru_cache(maxsize=None)
+def backward_plan(batch: int, depth: int, plane: int, sms: int) -> BackwardPlan:
+    """The backward kernel's tiling for ``depth`` > 0 on a card of ``sms``
+    SMs, of ``backward_plans``: where the plane is a multiple of 4 (rows
+    copied 16 bytes at a time), the tile BWD_TILE with BWD_SLICES[1] slices
+    (two warps) where D reaches BWD_DEEP or the grid holds fewer than
+    BWD_SM_BLOCKS blocks an SM, else BWD_SLICES[0] (one warp): small blocks
+    keep many slabs in flight (at D = 192 a 64-pixel slab takes 48 KB, four
+    blocks an SM). Otherwise (4-byte copies and stores) the tile
+    BWD_ODD_TILE with BWD_SLICES[1] slices: a warp's 32 quads then copy and
+    store one 128-byte run of a row. Then the narrowest tile and the fewest
+    threads. ``tools/torch_softargmin_sweep.py`` times it against every
+    other plan. Raises if nothing fits."""
+    plans = backward_plans(batch, depth, plane)
+    if not plans:
+        raise ValueError(
+            f"soft_argmin backward: no tiling of {depth} candidates fits a block's "
+            f"{SMEM_BYTES} bytes of shared memory")
+    if plane % 4:
+        tile, slices = BWD_ODD_TILE, BWD_SLICES[1]
+    else:
+        deep = depth >= BWD_DEEP or batch * _ceil_div(plane, BWD_TILE) < BWD_SM_BLOCKS * sms
+        tile, slices = BWD_TILE, BWD_SLICES[deep]
+    return min(plans, key=lambda p: (p.tile != tile, p.slices != slices, p.tile, p.threads))
+
+
+def _sms(t: torch.Tensor) -> int:
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
 
 
 def _probabilities(cost, match_similarity):
@@ -51,10 +192,11 @@ def _forward(cost, match_similarity):
     _build.check_cuda_f32("soft_argmin", cost=cost)
     b, d, h, w = cost.shape
     out = torch.empty((b, h, w), dtype=torch.float32, device=cost.device)
+    p = forward_plan(b, d, h * w, _sms(cost))
     _build.launch(
         "softargmin", "aanet_softargmin_f32", _ARGTYPES,
         _build.ptr(cost), _build.ptr(out), b, d, h * w, int(not match_similarity),
-        cost.device.index, _build.stream(cost),
+        p.tile, p.slices, p.smem_bytes, cost.device.index, _build.stream(cost),
     )
     soft_argmin.launches += 1
     return out
@@ -63,7 +205,8 @@ def _forward(cost, match_similarity):
 def soft_argmin_backward(grad: torch.Tensor, cost: torch.Tensor, match_similarity: bool = True):
     """Gradient of the volume [B, D, H, W] given the disparity's gradient
     ``grad`` [B, H, W]. A CPU tensor takes the plain version; a CUDA tensor
-    launches ``aanet_softargmin_backward_f32``."""
+    launches ``aanet_softargmin_backward_f32`` with ``backward_plan``'s
+    tiling."""
     if cost.device.type == "cpu":
         return soft_argmin_backward_plain(grad, cost, match_similarity)
     _build.check_cuda_f32("soft_argmin backward", grad=grad, cost=cost)
@@ -71,10 +214,14 @@ def soft_argmin_backward(grad: torch.Tensor, cost: torch.Tensor, match_similarit
     if grad.shape != (b, h, w):
         raise ValueError(f"soft_argmin backward: grad {tuple(grad.shape)}, expected {(b, h, w)}")
     grad_cost = torch.empty_like(cost)
+    plan = (0,) * 3  # an empty volume: the kernel has nothing to write
+    if grad_cost.numel():
+        p = backward_plan(b, d, h * w, _sms(cost))
+        plan = (p.tile, p.slices, p.smem_bytes)
     _build.launch(
         "softargmin", "aanet_softargmin_backward_f32", _BWD_ARGTYPES,
         _build.ptr(grad), _build.ptr(cost), _build.ptr(grad_cost), b, d, h * w,
-        int(not match_similarity), cost.device.index, _build.stream(cost),
+        int(not match_similarity), *plan, cost.device.index, _build.stream(cost),
     )
     soft_argmin_backward.launches += 1
     return grad_cost

@@ -46,7 +46,12 @@
    shape (the aanet step's and inference's, stereonet-aa's), each timed
    beside its bound, and both against their twins at widths 37 and 53,
    channels 3 and 37, D > W, D = 1, 24 and 40, batch 3, and the backward
-   at D = 0;
+   at D = 0; the soft-argmin's forward and backward: two launches give the
+   same bits at every path shape (the aanet step's and inference's, each
+   baseline's and stereonet-aa's, ``SA_PATHS``), each timed beside its
+   bound, both against their twins with both signs at planes that are not
+   a multiple of 4, planes smaller than a tile, D = 1, 37 and 191, batch 3,
+   and at D = 0 the forward gives zeros and the backward an empty gradient;
 7. on each of three seeded batches (batch 2, 288x576), runs one train
    step through the kernels and the same step through the plain twins
    (seeded weights) and compares the loss, every parameter's gradient
@@ -189,6 +194,34 @@ CORR_EDGE_SHAPES = [
     ((1, 32, 4, 24), 64), ((2, 32, 6, 64), 1), ((2, 32, 6, 64), 24), ((2, 32, 6, 64), 40),
     ((3, 64, 6, 96), 32),
 ]
+# The soft-argmin volumes of the paths (([B, D, H, W]), match_similarity), by
+# path: the aanet train step's and inference forward's three scales (a
+# correlation volume is a similarity), the baselines' one at inference
+# (384x1248) and in their train steps (288x576, at the batch phase 10 fits;
+# the PSMNet hourglass step launches its shape three times). A difference or
+# GC-Net's concat volume is a matching cost, PSMNet's a similarity.
+SA_PATHS = {
+    "aanet step": (((16, 64, 96, 192), True), ((16, 32, 48, 96), True), ((16, 16, 24, 48), True)),
+    "aanet inference": (((1, 64, 128, 416), True), ((1, 32, 64, 208), True),
+                        ((1, 16, 32, 104), True)),
+    "psmnet inference": (((1, 192, 384, 1248), True),),
+    "gcnet inference": (((1, 191, 383, 1247), False),),
+    "stereonet inference": (((1, 48, 96, 312), False),),
+    "stereonet-aa inference": (((1, 48, 96, 312), True),),
+    "psmnet step": (((16, 192, 288, 576), True),),
+    "gcnet step": (((8, 191, 287, 575), False),),
+    "stereonet step": (((16, 48, 72, 144), False),),
+    "stereonet-aa step": (((16, 48, 72, 144), True),),
+}
+SA_PATH_SHAPES = [sig for sigs in SA_PATHS.values() for sig in sigs]
+# and the shapes beyond them, each with both signs: planes that are not a
+# multiple of 4 (63, 135, 15), planes smaller than one tile (63, 15), a
+# ragged last tile (480), D = 1, 37 and 191, batch 3
+SA_EDGE_SHAPES = [
+    (shape, match) for shape in ((2, 37, 7, 9), (2, 1, 6, 64), (3, 191, 5, 27), (3, 37, 12, 40),
+                                 (1, 24, 3, 5), (2, 191, 16, 100))
+    for match in (True, False)
+]
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s, float32 FLOP/s
 # outside the tensor cores (the kernels run float32 FMA on the CUDA cores)
 PEAK_BYTES_S = 3.35e12
@@ -213,8 +246,12 @@ class Timer:
 
     SPIN_CYCLES = 1_000_000  # about 0.5 ms at the H100's clocks
 
-    def __init__(self, device):
+    def __init__(self, device, clean=False):
         self.scratch = torch.empty(64 * 2**20, dtype=torch.float32, device=device)
+        # the flush leaves the L2 full of dirty lines, which the run's reads
+        # then evict to device memory; with ``clean`` the flush goes on to
+        # read a 64 MB buffer, so the run finds clean lines
+        self.clean = torch.zeros(16 * 2**20, dtype=torch.float32, device=device) if clean else None
 
     def ms(self, fn, warmup=3, iters=20):
         for _ in range(warmup):
@@ -222,6 +259,8 @@ class Timer:
         events = []
         for _ in range(iters):
             self.scratch.zero_()
+            if self.clean is not None:
+                self.clean.sum()
             torch.cuda._sleep(self.SPIN_CYCLES)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
@@ -433,7 +472,8 @@ def kernel_specs():
 
     def sa_bwd_cost(sig):
         (b, d, h, w), _ = sig
-        # two passes over the volume: compare, exp, sums; then exp, products
+        # g and the volume read once, the volume's gradient written once;
+        # per element: compare, exp, sums; then exp, products
         return 4 * (b * h * w + 2 * b * d * h * w), 10 * b * d * h * w
 
     def warp_bwd_inputs(sig, gen, dev):
@@ -983,7 +1023,7 @@ def compare_train_steps(cfg, specs, small, gen, dev, per_parameter=False, calls=
     return record, m_kernel, step_kernel
 
 
-def edge_cases(specs, bwd_specs, deform_sigs, corr_sigs, rows, gen, dev, timer):
+def edge_cases(specs, bwd_specs, deform_sigs, corr_sigs, sa_sigs, rows, gen, dev, timer):
     """Phase 6b: the redesigned kernels against their twins where the main
     path's inputs do not reach, with the path's tolerances. The deformable
     conv's forward, its input/offset/mask gradient and its weight gradient
@@ -998,7 +1038,8 @@ def edge_cases(specs, bwd_specs, deform_sigs, corr_sigs, rows, gen, dev, timer):
     gradient sums its splits in a fixed order: two launches on the same
     inputs must give the same bits at every step shape. The warp forward
     at widths that are not a multiple of 4, timed beside F.grid_sample. The
-    correlation kernels (``correlation_edge_cases``)."""
+    correlation kernels (``correlation_edge_cases``) and the soft-argmin
+    kernels (``softargmin_edge_cases``)."""
     from aanet_torch.ops import deform
 
     by_name = {s["name"]: s for s in specs + bwd_specs}
@@ -1053,7 +1094,29 @@ def edge_cases(specs, bwd_specs, deform_sigs, corr_sigs, rows, gen, dev, timer):
     for shape in ((2, 3, 37, 61), (1, 3, 375, 1242)):
         records.append(dict(measure(by_name["disp_warp"], (shape,), 1, gen, dev, timer),
                             kernel="disp_warp", case="width not a multiple of 4"))
-    return records + correlation_edge_cases(by_name, corr_sigs, gen, dev, timer)
+    return (records + correlation_edge_cases(by_name, corr_sigs, gen, dev, timer)
+            + softargmin_edge_cases(by_name, sa_sigs, gen, dev, timer))
+
+
+def same_bits_timed(spec, sig, gen, dev, timer):
+    """Two launches of ``spec``'s kernel on the same seeded inputs of
+    signature ``sig`` must give the same bits; the kernel is timed beside
+    its bound."""
+    args, kwargs = spec["inputs"](sig, gen, dev)
+    op = getattr(spec["module"], spec["attr"])
+    first, second = op(*args, **kwargs), op(*args, **kwargs)
+    torch.cuda.synchronize()
+    first = first if isinstance(first, tuple) else (first,)
+    second = second if isinstance(second, tuple) else (second,)
+    same = all(torch.equal(x, y) for x, y in zip(first, second))
+    check(same, f"{spec['name']} {sig}: two launches on the same inputs differ")
+    nbytes, flops = spec["cost"](sig)
+    bound = max(nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S) * 1e3
+    ms = timer.ms(lambda: op(*args, **kwargs), iters=10)
+    print(f"{spec['name']} {sig}: two launches bitwise identical: {same}; {ms:.4f} ms, "
+          f"bound {bound:.4f} ms", flush=True)
+    return dict(kernel=spec["name"], case="path shape: two launches, bitwise; timed",
+                shape=str(sig), identical=same, kernel_ms=ms, bound_ms=bound)
 
 
 def correlation_edge_cases(by_name, corr_sigs, gen, dev, timer):
@@ -1064,24 +1127,8 @@ def correlation_edge_cases(by_name, corr_sigs, gen, dev, timer):
     against their twins with the path's tolerances."""
     check(set(corr_sigs) <= set(CORR_PATH_SHAPES),
           f"correlation: the step's shapes {corr_sigs} are not all in CORR_PATH_SHAPES")
-    records = []
-    for sig in CORR_PATH_SHAPES:
-        for spec in (by_name["correlation"], by_name["correlation_backward"]):
-            args, kwargs = spec["inputs"](sig, gen, dev)
-            op = getattr(spec["module"], spec["attr"])
-            first, second = op(*args, **kwargs), op(*args, **kwargs)
-            torch.cuda.synchronize()
-            first = first if isinstance(first, tuple) else (first,)
-            second = second if isinstance(second, tuple) else (second,)
-            same = all(torch.equal(x, y) for x, y in zip(first, second))
-            check(same, f"{spec['name']} {sig}: two launches on the same inputs differ")
-            nbytes, flops = spec["cost"](sig)
-            bound = max(nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S) * 1e3
-            ms = timer.ms(lambda: op(*args, **kwargs), iters=10)
-            print(f"{spec['name']} {sig}: two launches bitwise identical: {same}; {ms:.4f} ms, "
-                  f"bound {bound:.4f} ms", flush=True)
-            records.append(dict(kernel=spec["name"], case="path shape: two launches, bitwise; timed",
-                                shape=str(sig), identical=same, kernel_ms=ms, bound_ms=bound))
+    records = [same_bits_timed(spec, sig, gen, dev, timer) for sig in CORR_PATH_SHAPES
+               for spec in (by_name["correlation"], by_name["correlation_backward"])]
     for sig in CORR_EDGE_SHAPES:
         for name in ("correlation", "correlation_backward"):
             records.append(dict(measure(by_name[name], sig, 1, gen, dev, timer, timed=False),
@@ -1089,6 +1136,41 @@ def correlation_edge_cases(by_name, corr_sigs, gen, dev, timer):
     zero = (CORR_EDGE_SHAPES[-1][0], 0)
     records.append(dict(measure(by_name["correlation_backward"], zero, 1, gen, dev, timer, timed=False),
                         kernel="correlation_backward", case="D = 0"))
+    return records
+
+
+def softargmin_edge_cases(by_name, sa_sigs, gen, dev, timer):
+    """Phase 6b for the soft-argmin kernels: at every path shape
+    (``SA_PATH_SHAPES``, which must hold the step's ``sa_sigs``) two launches
+    of each kernel give the same bits, and each is timed beside its bound; at
+    ``SA_EDGE_SHAPES`` both are held against their twins with the path's
+    tolerances; at D = 0 the forward returns zeros and the backward an empty
+    gradient."""
+    check(set(sa_sigs) <= set(SA_PATH_SHAPES),
+          f"soft_argmin: the step's shapes {sa_sigs} are not all in SA_PATH_SHAPES")
+    fwd, bwd = by_name["soft_argmin"], by_name["soft_argmin_backward"]
+    records = []
+    for sig in SA_PATH_SHAPES:
+        for spec in (fwd, bwd):
+            records.append(same_bits_timed(spec, sig, gen, dev, timer))
+            torch.cuda.empty_cache()  # the PSMNet step's volume is 2 GB
+    for sig in SA_EDGE_SHAPES:
+        for spec in (fwd, bwd):
+            records.append(dict(measure(spec, sig, 1, gen, dev, timer, timed=False),
+                                kernel=spec["name"], case="beyond the path"))
+    for match in (True, False):
+        cost = torch.randn((2, 0, 6, 10), generator=gen, device=dev)
+        grad = torch.randn((2, 6, 10), generator=gen, device=dev)
+        disp = getattr(fwd["module"], fwd["attr"])(cost, match)
+        dcost = getattr(bwd["module"], bwd["attr"])(grad, cost, match)
+        torch.cuda.synchronize()
+        check(disp.shape == (2, 6, 10) and torch.equal(disp, torch.zeros_like(disp)),
+              f"soft_argmin at D = 0: {disp}, expected zeros")
+        check(dcost.shape == (2, 0, 6, 10), f"soft_argmin_backward at D = 0: {tuple(dcost.shape)}")
+        print(f"soft_argmin at D = 0 (match_similarity={match}): zeros; backward {tuple(dcost.shape)}",
+              flush=True)
+        records.append(dict(kernel="soft_argmin", case="D = 0: zeros", shape=str(((2, 0, 6, 10), match)),
+                            max_err=float(disp.abs().max()), tolerance=0.0))
     return records
 
 
@@ -1131,7 +1213,7 @@ def train_phases(specs, bwd_specs, gen, dev, timer, smi, data, lists):
                               for sig, n in first[spec["forward"]].items()]
     # 6b. the redesigned kernels beyond the path's inputs
     edges = edge_cases(specs, bwd_specs, list(first["deform_conv"]), list(first["correlation"]),
-                       rows, gen, dev, timer)
+                       list(first["soft_argmin"]), rows, gen, dev, timer)
     print(json.dumps({"edge_cases": edges}), flush=True)
 
     # 7. one train step through the kernels against the same step through

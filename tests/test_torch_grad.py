@@ -38,6 +38,8 @@ def close(got, want, rtol):
     """|got - want| <= rtol * max|want| (+ a floor for all-zero gradients)."""
     got, want = np.asarray(got), np.asarray(want)
     assert got.shape == want.shape, (got.shape, want.shape)
+    if want.size == 0:  # an empty gradient (a volume of no candidates)
+        return
     scale = max(float(np.abs(want).max()), 1e-3)
     err = float(np.abs(got - want).max())
     assert err <= rtol * scale, (err, scale)
@@ -167,10 +169,21 @@ def test_correlation_backward_matches_jax(w, d):
         close(rt.grad.numpy(), want[1], 1e-5)
 
 
-@pytest.mark.parametrize("match_similarity", [True, False])
-def test_soft_argmin_backward_matches_jax(match_similarity):
-    cost = rng(2, 6, 7, 24, seed=3, scale=3.0)
-    cot = rng(2, 6, 7, seed=4)
+# volumes [B, H, W, D] (the JAX layout) with each sign: the first case, then
+# the edges of the kernels' tiling: D = 0 (an empty gradient), D = 1, an odd
+# D, and an H*W that is not a multiple of 4
+SOFT_ARGMIN_CASES = [
+    pytest.param(shape, match, id=f"{tag}{match}")
+    for shape, tag in (((2, 6, 7, 24), ""), ((2, 5, 7, 0), "D0-"), ((2, 5, 7, 1), "D1-"),
+                       ((2, 4, 6, 37), "D37-"), ((3, 3, 5, 24), "HW15-"))
+    for match in (True, False)
+]
+
+
+@pytest.mark.parametrize("shape,match_similarity", SOFT_ARGMIN_CASES)
+def test_soft_argmin_backward_matches_jax(shape, match_similarity):
+    cost = rng(*shape, seed=3, scale=3.0)
+    cot = rng(*shape[:3], seed=4)
     _, vjp = jax.vjp(lambda c: jops.soft_argmin(c, match_similarity), jnp.asarray(cost))
     want = np.asarray(vjp(jnp.asarray(cot))[0]).transpose(0, 3, 1, 2)
     for fn in (softargmin.soft_argmin, softargmin.soft_argmin_plain):

@@ -41,13 +41,26 @@ def test_correlation_matches_jax(w, d):
     np.testing.assert_allclose(got.numpy().transpose(0, 2, 3, 1), want, atol=1e-5)
 
 
-@pytest.mark.parametrize("match_similarity", [True, False])
-def test_soft_argmin_matches_jax(match_similarity):
-    cost = rng(2, 6, 7, 24, seed=3, scale=3.0)
+# volumes [B, H, W, D] (the JAX layout) with each sign: the first case, then
+# the edges of the kernels' tiling: D = 0 (zeros), D = 1, an odd D, and an
+# H*W that is not a multiple of 4
+SOFT_ARGMIN_CASES = [
+    pytest.param(shape, match, id=f"{tag}{match}")
+    for shape, tag in (((2, 6, 7, 24), ""), ((2, 5, 7, 0), "D0-"), ((2, 5, 7, 1), "D1-"),
+                       ((2, 4, 6, 37), "D37-"), ((3, 3, 5, 24), "HW15-"))
+    for match in (True, False)
+]
+
+
+@pytest.mark.parametrize("shape,match_similarity", SOFT_ARGMIN_CASES)
+def test_soft_argmin_matches_jax(shape, match_similarity):
+    cost = rng(*shape, seed=3, scale=3.0)
     want = np.asarray(jops.soft_argmin(jnp.asarray(cost), match_similarity))
     got = softargmin.soft_argmin(nchw(cost), match_similarity)
-    assert got.dtype == torch.float32 and got.shape == (2, 6, 7)
+    assert got.dtype == torch.float32 and got.shape == shape[:3]
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    if shape[3] == 0:
+        assert not got.any()
 
 
 def test_disp_warp_matches_jax_off_both_edges():
