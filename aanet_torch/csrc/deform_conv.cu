@@ -174,7 +174,9 @@ __device__ __forceinline__ void sample_quad(float* col, int rs, float4 te, const
 // - A block owns a tile of tile_h rows x TILE_W columns of output pixels
 //   of one batch entry, and co_tile output channels: all of them up to
 //   128 (the wrapper's plan: deform.forward_plan), so each sampled column
-//   serves every output channel.
+//   serves every output channel. Where no multiple of 8 divides cout, the
+//   tiles are padded: the wrapper's weight has zero channels up to whole
+//   tiles, and the last tile's channels at or above cout are not stored.
 // - It walks chunks of FWD_CHUNK = 4 input channels of one group, with
 //   all taps inside a chunk. The next chunk's input window (the tile's
 //   taps' footprint at zero offset, widened by HALO pixels and the
@@ -235,8 +237,8 @@ deform_fwd_kernel(const float* __restrict__ x, const float* __restrict__ offset,
                   long long mask_bstride, const float* __restrict__ wt,
                   const float* __restrict__ bias, float* __restrict__ out, int cin, int height,
                   int width, int cout, int out_h, int out_w, int kh, int kw, int stride, int pad,
-                  int dil, int groups, int tile_h, int co_tile, int ksplit, int splits, int win_h,
-                  int win_w, int win_size, int tiles_x, bool out_vec) {
+                  int dil, int groups, int tile_h, int co_tile, int wt_stride, int ksplit,
+                  int splits, int win_h, int win_w, int win_size, int tiles_x, bool out_vec) {
   extern __shared__ float4 s_raw[];
   const int P = tile_h * TILE_W;
   const int taps = kh * kw;
@@ -291,7 +293,9 @@ deform_fwd_kernel(const float* __restrict__ x, const float* __restrict__ offset,
     stage_window(s_x + (q & 1) * FWD_CHUNK * win_size, xb + chunk_c0(q) * hw, chunk_nc(q), 1, hw,
                  win_y, win_x, win_h, win_w, win_size, height, width, warp, nwarps, t & 31, x);
   };
-  // The weights of chunk q, [tap][channel][co_tile], into weight buffer q & 1.
+  // The weights of chunk q, [tap][channel][co_tile], into weight buffer q & 1
+  // (rows of wt_stride >= the tiles' channels: the last tile's channels at
+  // or above cout are zero in wt).
   auto stage_w = [&](int q) {
     const int c0 = chunk_c0(q), nc = chunk_nc(q);
     float* sw = s_w + (q & 1) * rows * co_tile;
@@ -301,7 +305,7 @@ deform_fwd_kernel(const float* __restrict__ x, const float* __restrict__ offset,
       const int k = r / FWD_CHUNK, cc = r - k * FWD_CHUNK;
       float* dst = sw + r * co_tile + 4 * q4;
       if (cc < nc) {
-        cp_async_f32x4(dst, wt + (static_cast<long long>(k) * cin + c0 + cc) * cout + co0 + 4 * q4);
+        cp_async_f32x4(dst, wt + (static_cast<long long>(k) * cin + c0 + cc) * wt_stride + co0 + 4 * q4);
       } else {
         *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
       }
@@ -409,6 +413,7 @@ deform_fwd_kernel(const float* __restrict__ x, const float* __restrict__ offset,
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int co = co0 + 4 * co_t + (j & 3) + (j >> 2) * (co_tile / 2);
+    if (co >= cout) continue;  // an idle channel of the last tile
     const float bv = bias && split == 0 ? bias[co] : 0.f;
     float* oc = outb + static_cast<long long>(co) * npix;
 #pragma unroll
@@ -442,12 +447,15 @@ deform_fwd_kernel(const float* __restrict__ x, const float* __restrict__ offset,
 // out_w] with batch stride offset_bstride (elements), the rest contiguous;
 // mask: [batch, groups*kh*kw, out_h, out_w] likewise, or null; wt: the
 // weight laid out [kh*kw, cin, cout] (wt[k, c, co] = weight[co, c, k / kw,
-// k % kw]); bias: [cout] or null; out: [batch, cout, out_h, out_w], zeroed
-// by the caller when splits > 1 (blocks add into it); wt and out 16-byte
-// aligned. All float32; groups divides cin. The plan (ops/deform.py
-// forward_plan): tile_h (output rows of a tile of 16 columns, even),
-// co_tile (output channels of a block: a multiple of 8 that divides cout,
-// at most 128), ksplit (thread groups that split a chunk's rows), splits
+// k % kw], rows of wt_stride channels: the output channels padded with
+// zeros to a whole number of tiles); bias: [cout] or null; out: [batch,
+// cout, out_h, out_w], zeroed by the caller when splits > 1 (blocks add
+// into it); wt and out 16-byte aligned. All float32; groups divides cin.
+// The plan (ops/deform.py forward_plan): tile_h (output rows of a tile of
+// 16 columns, even), co_tile (output channels of a block: a multiple of 8,
+// at most 128; the grid takes ceil(cout / co_tile) tiles, and the last
+// one's channels at or above cout are idle), wt_stride (a multiple of 4, at
+// least the tiles' channels), ksplit (thread groups that split a chunk's rows), splits
 // (blocks that split a tile's chunks, at most their number), and
 // smem_bytes, the block's shared memory, which must be what this layout
 // takes. Anything else is cudaErrorInvalidValue.
@@ -455,14 +463,18 @@ extern "C" int aanet_deform_conv_f32(
     const float* x, const float* offset, long long offset_bstride, const float* mask,
     long long mask_bstride, const float* wt, const float* bias, float* out, int batch, int cin,
     int height, int width, int cout, int out_h, int out_w, int kh, int kw, int stride, int pad,
-    int dil, int groups, int tile_h, int co_tile, int ksplit, int splits, int smem_bytes,
-    int device, void* stream) {
+    int dil, int groups, int tile_h, int co_tile, int wt_stride, int ksplit, int splits,
+    int smem_bytes, int device, void* stream) {
   cudaSetDevice(device);
   const int threads = (co_tile / 8) * (tile_h * TILE_W / 8) * ksplit;
   if (groups < 1 || cin % groups != 0 || tile_h < 2 || tile_h % 2 != 0 || co_tile < 8 ||
-      co_tile % 8 != 0 || co_tile > 128 || cout % co_tile != 0 || ksplit < 1 || splits < 1 ||
+      co_tile % 8 != 0 || co_tile > 128 || ksplit < 1 || splits < 1 ||
       threads % 32 != 0 || threads > FWD_MAX_THREADS) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int co_tiles = (cout + co_tile - 1) / co_tile;
+  if (wt_stride % 4 != 0 || wt_stride < co_tiles * co_tile) {
+    return static_cast<int>(cudaErrorInvalidValue);  // the weight's rows are not the tiles'
   }
   const int nchunks = groups * ((cin / groups + FWD_CHUNK - 1) / FWD_CHUNK);
   if (splits > nchunks) return static_cast<int>(cudaErrorInvalidValue);  // a block without work
@@ -481,12 +493,12 @@ extern "C" int aanet_deform_conv_f32(
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int tiles_x = (out_w + TILE_W - 1) / TILE_W;
   const int tiles_y = (out_h + tile_h - 1) / tile_h;
-  dim3 grid(tiles_x * tiles_y, (cout / co_tile) * splits, batch);
+  dim3 grid(tiles_x * tiles_y, co_tiles * splits, batch);
   const bool out_vec = out_w % 4 == 0;
   deform_fwd_kernel<<<grid, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       x, offset, offset_bstride, mask, mask_bstride, wt, bias, out, cin, height, width, cout,
-      out_h, out_w, kh, kw, stride, pad, dil, groups, tile_h, co_tile, ksplit, splits, win_h,
-      win_w, win_size, tiles_x, out_vec);
+      out_h, out_w, kh, kw, stride, pad, dil, groups, tile_h, co_tile, wt_stride, ksplit, splits,
+      win_h, win_w, win_size, tiles_x, out_vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -995,7 +1007,9 @@ extern "C" int aanet_deform_conv_backward_data_f32(
 // tap, re-read gout per tap, idled most of its 64-wide tiles at 16 to 48
 // channels, and added every partial tile into grad_w with float atomics
 // (576 per address at the largest shape, in no fixed order). Design:
-// - A block owns co_tile output channels (all of them up to 128), a chunk
+// - A block owns co_tile output channels (all of them up to 128; where no
+//   multiple of 8 divides cout, the last tile's gout rows at or above cout
+//   are staged as zeros and their sums not written), a chunk
 //   of cc input channels of one group with all their taps (N = cc * 9; the
 //   plan takes cc among the group's divisors, so no channel idles), and a
 //   run of tiles of tile_h x TILE_W output pixels, contiguous in (batch,
@@ -1105,21 +1119,22 @@ deform_wgrad_kernel(const float* __restrict__ gout, const float* __restrict__ x,
     return tl;
   };
   // Rows [rows][P] of a map at output rows ho0.. of a tile: row r from src +
-  // r * src_stride (a [.., out_h, out_w] map), zero off the map, into dst +
-  // r * dst_stride.
+  // r * src_stride (a [.., out_h, out_w] map), zero off the map and for r
+  // >= valid, into dst + r * dst_stride.
   auto stage_rows = [&](float* dst, int dst_stride, const float* src, long long src_stride,
-                        int rows, int ho0, int wo0, bool vec) {
+                        int rows, int valid, int ho0, int wo0, bool vec) {
     for (int e = t; e < rows * (P / 4); e += nthreads) {
       const int r = e / (P / 4), q = e - r * (P / 4);
       const int oh = ho0 + q / (TILE_W / 4), ow = wo0 + (q % (TILE_W / 4)) * 4;
       float* d = dst + r * dst_stride + 4 * q;
       const float* sp = src + r * src_stride + oh * out_w + ow;
-      if (vec && oh < out_h && ow + 3 < out_w) {
-        cp_async_f32x4(d, sp);
+      const bool row_in = r < valid && oh < out_h;
+      if (vec && (!row_in || ow + 3 < out_w)) {
+        cp_async_f32x4(d, row_in ? sp : src, row_in);  // src: aligned where vec
       } else {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const bool in = oh < out_h && ow + i < out_w;
+          const bool in = row_in && ow + i < out_w;
           cp_async_f32(d + i, in ? sp + i : gout, in);
         }
       }
@@ -1137,18 +1152,18 @@ deform_wgrad_kernel(const float* __restrict__ gout, const float* __restrict__ x,
   auto stage_gout = [&](int u, int i, int buf) {
     const Tile tl = tile_of(u);
     stage_rows(s_g + buf * co_tile * RS, RS, gout + (tl.b * cout + co0) * npix, npix, co_tile,
-               tl.ho0 + i * STEP_H, tl.wo0, gout_vec);
+               cout - co0, tl.ho0 + i * STEP_H, tl.wo0, gout_vec);
   };
   auto stage_offsets = [&](int u, int i, int buf) {
     const Tile tl = tile_of(u);
     float* so = s_off + buf * 3 * taps * P;
     const int ho0 = tl.ho0 + i * STEP_H;
-    stage_rows(so, P, offset + tl.b * offset_bstride + 2LL * g * taps * npix, npix, 2 * taps, ho0,
-               tl.wo0, off_vec);
+    stage_rows(so, P, offset + tl.b * offset_bstride + 2LL * g * taps * npix, npix, 2 * taps,
+               2 * taps, ho0, tl.wo0, off_vec);
     if (mask) {
       stage_rows(so + 2 * taps * P, P,
                  mask + tl.b * mask_bstride + static_cast<long long>(g) * taps * npix, npix, taps,
-                 ho0, tl.wo0, off_vec);
+                 taps, ho0, tl.wo0, off_vec);
     }
   };
   // The column tile of step i of unit u into column buffer buf. Each (tap,
@@ -1298,16 +1313,17 @@ deform_wgrad_kernel(const float* __restrict__ gout, const float* __restrict__ x,
   }
 
   // The sums into this split's slab, once, in grad_w's [cout][cin][taps]
-  // order.
+  // order: the real output channels only (the slab has cout rows).
   if (c_t < nc) {
     const long long row = static_cast<long long>(cin) * taps;
     float* w = ws + (static_cast<long long>(split) * cout + co0 + co_t * WG_TM) * row +
                static_cast<long long>(c0 + c_t) * taps;
+    const int real = cout - co0 - co_t * WG_TM;  // the thread's channels below cout
 #pragma unroll
     for (int i = 0; i < WG_TM; ++i)
 #pragma unroll
       for (int k = 0; k < WG_MAX_TAPS; ++k)
-        if (k < taps) w[i * row + k] = acc[i][k];
+        if (i < real && k < taps) w[i * row + k] = acc[i][k];
   }
 }
 
@@ -1340,8 +1356,9 @@ deform_wgrad_sum_kernel(const float* __restrict__ ws, float* __restrict__ grad_w
 // for an empty batch or map). All float32; at most WG_MAX_TAPS taps. The
 // plan (ops/deform.py backward_weight_plan): tile_h (output rows of a tile
 // of 16 columns: the window's), step_h (rows of a step: 2, 4 or 8,
-// dividing tile_h), co_tile (output channels of a block: a multiple of 8
-// that divides cout, at most 128), chunk (input channels of a block, a
+// dividing tile_h), co_tile (output channels of a block: a multiple of 8,
+// at most 128; the grid takes ceil(cout / co_tile) tiles, and the last
+// one's channels at or above cout are idle), chunk (input channels of a block, a
 // multiple of 4), ksplit (thread groups that split a step's pixel quads),
 // splits (blocks that split the batch's tiles, at most their number),
 // blocks (per SM, 1 or 2: the register budget of the kernel's build), and
@@ -1360,7 +1377,7 @@ extern "C" int aanet_deform_conv_backward_weight_f32(
   const int threads = (co_tile / WG_TM) * chunk * ksplit;
   if (groups < 1 || cin % groups != 0 || taps < 1 || taps > WG_MAX_TAPS ||
       (step_h != 2 && step_h != 4 && step_h != 8) || tile_h < step_h || tile_h % step_h != 0 || co_tile < WG_TM || co_tile % WG_TM != 0 ||
-      co_tile > 128 || cout % co_tile != 0 || chunk < 4 || chunk % 4 != 0 || ksplit < 1 ||
+      co_tile > 128 || chunk < 4 || chunk % 4 != 0 || ksplit < 1 ||
       ksplit > step_h * TILE_W / WG_VEC || splits < 1 || threads % 32 != 0 ||
       threads > WG_MAX_THREADS || (blocks != 1 && blocks != 2)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1383,7 +1400,7 @@ extern "C" int aanet_deform_conv_backward_weight_f32(
     return static_cast<int>(cudaErrorInvalidValue);  // the wrapper's plan has another layout
   }
   const int cg = cin / groups;
-  dim3 grid(groups * ((cg + chunk - 1) / chunk), splits, cout / co_tile);
+  dim3 grid(groups * ((cg + chunk - 1) / chunk), splits, (cout + co_tile - 1) / co_tile);
   // 16-byte copies of rows of the maps: whole rows of 4 floats, aligned
   const bool gout_vec = out_w % 4 == 0 && aligned16(gout);
   const bool off_vec = out_w % 4 == 0 && aligned16(offset) && offset_bstride % 4 == 0 &&

@@ -8,180 +8,390 @@
 // Replaces aanet_tpu/ops/cost_volume.py:difference_cost_volume and
 // concat_cost_volume (the reference's loop over d, nets/cost.py:22-38).
 //
-// Bound: bytes, and the writes alone: the volume is D times its inputs
-// (at 384x1248, max_disp 192: 2 x 4 MB of features in, 184 MB or 368 MB
-// out). Design: one block per (b, c, h) row stages the L and R rows in
-// shared memory, so each input value is read from device memory once;
-// then its threads write the D x W outputs of the row, neighbouring
-// threads on neighbouring w, so every store is coalesced. A copy or one
-// float32 subtraction per output: the result equals the plain version bit
-// for bit.
+// Forward. Bound: bytes, and the writes alone: the volume is D times its
+// inputs (at 384x1248, max_disp 192: 2 x 4 MB of features in, 184 MB or
+// 368 MB out). The first kernel (one block per (b, c, h) row, one thread
+// per output) spent an integer division and 64-bit index arithmetic on
+// every 4-byte store. Design: a thread owns a quad of 4 columns of one
+// (b, c, h) row and walks its run of D (the plan's dchunk: all of D, or a
+// quarter of it where the quads are fewer than two waves of the card's
+// threads, as at inference) plane by plane: one 16-byte store a plane (two for concat;
+// four 4-byte ones each where W % 4 != 0). It keeps its
+// quad of L in registers, and a window of the two R quads that the shifted
+// read R[w - d] spans for four consecutive d: one 16-byte load of R (through
+// the read-only cache) every four planes, and the shift a register choice.
+// Neighbouring threads take neighbouring quads, so a warp's stores at one
+// plane are 512 contiguous bytes. The stores are streaming (__stcs): every
+// path volume exceeds the 50 MB L2, and on an H100 they beat plain stores
+// at every path shape (PERF.md section 6).
 //
-// The backward kernels are XLA's transposes of the shifted copies, for
-// grad [B, C', D, H, W]:
+// Backward: XLA's transposes of the shifted copies, for grad [B, C', D, H, W]:
 //   dL[b, c, h, w]  =  sum_{d <= w}       g[b, c, d, h, w]
 //   dR[b, c, h, w'] = -sum_{w' + d < W}   g[b, c, d, h, w' + d]  (difference)
 //                   = +sum_{w' + d < W}   g[b, C + c, d, h, w' + d]  (concat)
-// with d < D. Bound: bytes, ``grad`` read once and dL, dR written once.
-// Design: one thread per output (b, c, h, w) walks d upwards once and sums
-// both gradients; neighbouring threads take neighbouring w, so the read of
-// g[d, w] and the shifted read of g[d, w + d] are both coalesced (for the
-// difference volume the second mostly hits L1). No atomics: deterministic.
-// Each sum starts from 0 and adds (or subtracts) in ascending d, as the
-// plain twins accumulate their slices, so the result equals them bit for
-// bit.
+// with d < D. Bound: bytes, the band of grad (w >= d) read once and dL, dR
+// written once. The first kernel ran one thread per (b, c, h, w) with
+// 64-bit divisions, walked d serially with two 4-byte loads a step (one
+// misaligned), few loads in flight, and fetched every g value twice.
+// Design: a block owns `rows` (b, c, h) rows (a column tile of one row
+// where a row is wider than a block: `tile` columns); a thread a quad of
+// 4 columns of one of them. The block streams the rows' planes of g, d by
+// d, with 16-byte cp.async into a ring of two stages of BWD_CHUNK = 4 planes
+// in shared memory (each thread copies its own quad of every plane: each g
+// value read from device memory once); while chunk k + 1 is in flight, each
+// thread sums dL down its columns and dR along the diagonals g[d][w' + d],
+// read from the staged rows as two aligned quads and a shift fixed by d % 4.
+// Concat stages the second channel half for dR beside the first; a tile of
+// a wider row also stages, for each plane, the tile + 4 columns from w0 +
+// 4 floor(d / 4) that its dR reads. dL and dR are written once, 16 bytes a
+// thread where W % 4 == 0. No atomics: deterministic. Each sum starts from 0
+// and adds (or subtracts) in ascending d, as the plain twins accumulate
+// their slices, so the result equals them bit for bit.
+//
+// Both kernels take every shape: any B, C, H, W and D >= 0.
 #include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
+// The forward's block, the backward's launch bounds and the planes of a
+// stage of its ring (VOL_FWD_THREADS, VOL_BWD_MAX_THREADS, VOL_BWD_MIN_BLOCKS
+// and VOL_BWD_CHUNK in ops/cost_volume.py). Stages of 4 planes were the
+// fastest, or within 1 % of it, at every path shape on an H100.
+constexpr int FWD_THREADS = 256;
+constexpr int BWD_MAX_THREADS = 512;
+constexpr int BWD_MIN_BLOCKS = 2;
+constexpr int BWD_CHUNK = 4;  // d % 4 is the plane's index in its stage
 
-template <bool kConcat>
-__global__ void __launch_bounds__(THREADS)
-volume4d_kernel(const float* __restrict__ left, const float* __restrict__ right,
-                float* __restrict__ out, int channels, int height, int width,
-                int max_disp) {
-  extern __shared__ float rows[];  // the L row, then the R row
-  float* l = rows;
-  float* r = rows + width;
-  const int h = blockIdx.x;
-  const int c = blockIdx.y;
-  const long long b = blockIdx.z;
-  const long long in_row = ((b * channels + c) * height + h) * width;
-  for (int w = threadIdx.x; w < width; w += THREADS) {
-    l[w] = left[in_row + w];
-    r[w] = right[in_row + w];
-  }
-  __syncthreads();
-  const long long plane = static_cast<long long>(height) * width;  // one (c, d) plane
-  const int out_channels = kConcat ? 2 * channels : channels;
-  // (b, c, d = 0, h, w = 0), and for concat (b, C + c, 0, h, 0)
-  float* dst = out + (b * out_channels + c) * max_disp * plane + static_cast<long long>(h) * width;
-  float* dst_r = dst + static_cast<long long>(channels) * max_disp * plane;
-  const int n = max_disp * width;
-  for (int i = threadIdx.x; i < n; i += THREADS) {
-    const int d = i / width;
-    const int w = i - d * width;
-    const bool valid = w >= d;
-    const long long o = d * plane + w;
-    if (kConcat) {
-      dst[o] = valid ? l[w] : 0.f;
-      dst_r[o] = valid ? r[w - d] : 0.f;
-    } else {
-      dst[o] = valid ? l[w] - r[w - d] : 0.f;
+// Quad j (columns 4 j .. 4 j + 3) of a row of `width` floats, zero outside
+// [0, width); 16-byte aligned loads where kVec.
+template <bool kVec>
+__device__ __forceinline__ void load_quad(float (&v)[4], const float* row, long long j,
+                                          int width) {
+  if (kVec) {
+    float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (j >= 0 && 4 * j < width) q = __ldg(reinterpret_cast<const float4*>(row) + j);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const long long i = 4 * j + e;
+      v[e] = i >= 0 && i < width ? __ldg(row + i) : 0.f;
     }
   }
 }
 
-template <bool kConcat>
-int launch(const float* left, const float* right, float* out, int batch,
-           int channels, int height, int width, int max_disp, int device,
-           void* stream) {
-  cudaSetDevice(device);
-  if (batch == 0 || channels == 0 || height == 0 || width == 0 || max_disp == 0) return 0;
-  const int smem = 2 * width * static_cast<int>(sizeof(float));
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        volume4d_kernel<kConcat>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  dim3 grid(height, channels, batch);
-  volume4d_kernel<kConcat><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      left, right, out, channels, height, width, max_disp);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool kConcat>
-__global__ void __launch_bounds__(THREADS)
-volume4d_backward_kernel(const float* __restrict__ grad, float* __restrict__ grad_left,
-                         float* __restrict__ grad_right, long long n, int channels,
-                         int height, int width, int max_disp) {
-  const long long i = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
-  if (i >= n) return;
-  const int w = static_cast<int>(i % width);
-  const long long row = i / width;  // (b, c, h)
-  const int h = static_cast<int>(row % height);
-  const long long bc = row / height;
-  const long long c = bc % channels;
-  const long long b = bc / channels;
-  const long long plane = static_cast<long long>(height) * width;  // one (c, d) plane
-  const int grad_channels = kConcat ? 2 * channels : channels;
-  // g[b, c, 0, h, 0] for dL; for dR the same channel (difference) or C + c
-  const float* gl = grad + (b * grad_channels + c) * max_disp * plane + static_cast<long long>(h) * width;
-  const float* gr = kConcat ? gl + static_cast<long long>(channels) * max_disp * plane : gl;
-  const int left_end = min(max_disp, w + 1);       // d <= w
-  const int right_end = min(max_disp, width - w);  // w + d < W
-  const int end = max(left_end, right_end);
-  float acc_l = 0.f;
-  float acc_r = 0.f;
-  // one pass over d: thread w's shifted read g[d, w + d] is thread
-  // (w + d)'s g[d, w + d] of the same iteration, so for the difference
-  // volume it mostly hits L1
-  for (int d = 0; d < end; ++d) {
-    const float* plane_d = gl + d * plane;
-    if (d < left_end) acc_l += plane_d[w];
-    if (d < right_end) {
-      const float g = (kConcat ? gr + d * plane : plane_d)[w + d];
-      if (kConcat) {
-        acc_r += g;
-      } else {
-        acc_r -= g;
+// v into p, p .. p + 3 (those below `valid` where !kVec); streaming stores
+// where kStream.
+template <bool kVec, bool kStream>
+__device__ __forceinline__ void store_quad(float* p, const float (&v)[4], int valid) {
+  if (kVec) {
+    const float4 q = make_float4(v[0], v[1], v[2], v[3]);
+    if (kStream) {
+      __stcs(reinterpret_cast<float4*>(p), q);
+    } else {
+      *reinterpret_cast<float4*>(p) = q;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (e < valid) {
+        if (kStream) {
+          __stcs(p + e, v[e]);
+        } else {
+          p[e] = v[e];
+        }
       }
     }
   }
-  grad_left[i] = acc_l;
-  grad_right[i] = acc_r;
+}
+
+template <bool kConcat, bool kVec>
+__global__ void __launch_bounds__(FWD_THREADS)
+volume4d_fwd_kernel(const float* __restrict__ left, const float* __restrict__ right,
+                    float* __restrict__ out, long long quads, int channels, int height,
+                    int width, int max_disp, int nq, int dchunk) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= quads) return;
+  const long long row = i / nq;  // (b, c, h)
+  const int q = static_cast<int>(i - row * nq);
+  const int w = 4 * q;  // the thread's first column
+  const long long bc = row / height;
+  const int h = static_cast<int>(row - bc * height);
+  const long long hw = static_cast<long long>(height) * width;  // one (channel, d) plane
+  // (b, c, d = 0, h, w); concat: out channel b * 2C + c, and C + that for R
+  const long long oc = kConcat ? bc + (bc / channels) * channels : bc;
+  float* dst = out + oc * max_disp * hw + static_cast<long long>(h) * width + w;
+  float* dst_r = dst + static_cast<long long>(channels) * max_disp * hw;
+  const float* lrow = left + row * width;
+  const float* rrow = right + row * width;
+  const int valid = min(4, width - w);
+
+  float l[4], cur[4], prev[4];
+  load_quad<kVec>(l, lrow, q, width);
+  const int d_beg = blockIdx.y * dchunk;  // a multiple of 4
+  const int d_end = min(max_disp, d_beg + dchunk);
+  // For d = 4 a + s, R[w + e - d] is word 4 - s + e of the window [R quad
+  // q - a - 1, R quad q - a] (prev, cur).
+  load_quad<kVec>(cur, rrow, q - (d_beg >> 2), width);
+  load_quad<kVec>(prev, rrow, q - (d_beg >> 2) - 1, width);
+  for (int d0 = d_beg; d0 < d_end; d0 += 4) {
+    float next[4];  // the window's new quad for d0 + 4, in flight during these four planes
+    load_quad<kVec>(next, rrow, q - (d0 >> 2) - 2, width);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int d = d0 + s;
+      if (d >= d_end) break;
+      float a[4], r[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool in = w + e >= d;
+        r[e] = e < s ? prev[4 - s + e] : cur[e - s];
+        if (kConcat) {
+          a[e] = in ? l[e] : 0.f;
+          r[e] = in ? r[e] : 0.f;
+        } else {
+          a[e] = in ? l[e] - r[e] : 0.f;
+        }
+      }
+      const long long o = static_cast<long long>(d) * hw;
+      store_quad<kVec, true>(dst + o, a, valid);
+      if (kConcat) store_quad<kVec, true>(dst_r + o, r, valid);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      cur[e] = prev[e];
+      prev[e] = next[e];
+    }
+  }
+}
+
+template <bool kConcat>
+int launch(const float* left, const float* right, float* out, int batch, int channels,
+           int height, int width, int max_disp, int dchunk, int device, void* stream) {
+  cudaSetDevice(device);
+  if (dchunk < 4 || dchunk % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0 || channels == 0 || height == 0 || width == 0 || max_disp == 0) return 0;
+  const int nq = (width + 3) / 4;
+  const long long quads = static_cast<long long>(batch) * channels * height * nq;
+  const long long blocks_x = (quads + FWD_THREADS - 1) / FWD_THREADS;
+  const long long blocks_y = (static_cast<long long>(max_disp) + dchunk - 1) / dchunk;
+  if (blocks_x > 0x7fffffff || blocks_y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(static_cast<unsigned int>(blocks_x), static_cast<unsigned int>(blocks_y));
+  const bool vec = width % 4 == 0 && aligned16(left) && aligned16(right) && aligned16(out);
+  auto kernel = vec ? volume4d_fwd_kernel<kConcat, true> : volume4d_fwd_kernel<kConcat, false>;
+  kernel<<<grid, FWD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      left, right, out, quads, channels, height, width, max_disp, nq, dchunk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Words of one stage of the backward's ring: BWD_CHUNK planes of the rows'
+// dL pieces [BWD_CHUNK][rows][tile], then of their dR pieces
+// [BWD_CHUNK][rows][b_w]:
+// none where the dR reads come from the dL pieces (the difference volume's
+// whole rows), the second channel half's rows (concat, whole rows), or the
+// tile + 4 columns from w0 + 4 floor(d / 4) (a tile of a wider row).
+__host__ __device__ inline int bwd_piece_words(int tile, bool whole, bool concat) {
+  return whole ? (concat ? tile : 0) : tile + 4;
+}
+
+__host__ __device__ inline long long bwd_smem_words(int rows, int tile, bool whole, bool concat) {
+  return 2LL * BWD_CHUNK * rows * (tile + bwd_piece_words(tile, whole, concat));
+}
+
+// Columns col .. col + 3 of a staged plane row (src: the row at column 0)
+// into dst, where they hold band values (d <= column < width); 16 bytes
+// where kVec (rows of a multiple of 4 floats: a quad lies wholly inside).
+template <bool kVec>
+__device__ __forceinline__ void stage_quad(float* dst, const float* src, int col, int d,
+                                           int width) {
+  if (kVec) {
+    if (col < width && col + 3 >= d) cp_async_f32x4(dst, src + col);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = col + e;
+      if (c >= d && c < width) cp_async_f32(dst + e, src + c, true);
+    }
+  }
+}
+
+template <bool kConcat, bool kVec>
+__global__ void __launch_bounds__(BWD_MAX_THREADS, BWD_MIN_BLOCKS)
+volume4d_bwd_kernel(const float* __restrict__ grad, float* __restrict__ grad_left,
+                    float* __restrict__ grad_right, long long nrows, int channels, int height,
+                    int width, int max_disp, int depth, int rows, int tile, int tiles_x) {
+  extern __shared__ float4 s_raw[];
+  float* smem = reinterpret_cast<float*>(s_raw);
+  const bool whole = tiles_x == 1;  // each row in one tile: tile >= width
+  const int nq = tile / 4;
+  const int b_w = bwd_piece_words(tile, whole, kConcat);
+  const int a_words = BWD_CHUNK * rows * tile;
+  const int stage_words = a_words + BWD_CHUNK * rows * b_w;
+  const int t = threadIdx.x;
+  const int r = t / nq, q = t - r * nq;  // the thread's row of the block and quad of its tile
+  const long long row = static_cast<long long>(blockIdx.x / tiles_x) * rows + r;
+  const int w0 = static_cast<int>(blockIdx.x % tiles_x) * tile;
+  const int w = w0 + 4 * q;  // the thread's first column
+  const bool active = r < rows && row < nrows && w < width;
+  const long long hw = static_cast<long long>(height) * width;
+  // the row's plane 0: g[b, c, 0, h, :] for dL, and for dR the same
+  // (difference) or g[b, C + c, 0, h, :] (concat)
+  const long long bc = row / height;
+  const long long h = row - bc * height;
+  const long long gc = kConcat ? bc + (bc / channels) * channels : bc;
+  const float* ga = grad + gc * max_disp * hw + h * width;
+  const float* gb = kConcat ? ga + static_cast<long long>(channels) * max_disp * hw : ga;
+  // where the thread reads its dR quads of plane j of a stage: the dL
+  // pieces (difference, whole rows; 4 floor(d / 4) further) or the dR
+  // pieces (4 floor(d / 4) further where whole)
+  const int dr_stride = b_w ? rows * b_w : rows * tile;
+  const int dr_base = (b_w ? a_words + r * b_w : r * tile) + 4 * q;
+
+  // chunk k's planes into stage k & 1: each thread its own quads
+  auto stage = [&](int k) {
+    float* sa = smem + (k & 1) * stage_words;
+#pragma unroll 1  // unrolled, the 4-byte copies' variant spilled at 64 registers
+    for (int j = 0; j < BWD_CHUNK; ++j) {
+      const int d = k * BWD_CHUNK + j;
+      if (d >= depth || !active) break;
+      stage_quad<kVec>(sa + (j * rows + r) * tile + 4 * q, ga + d * hw, w, d, width);
+      if (b_w) {
+        float* sb = sa + a_words + (j * rows + r) * b_w;
+        const int b0 = whole ? 0 : w0 + (d & ~3);  // the dR piece's first column
+        stage_quad<kVec>(sb + 4 * q, gb + d * hw, b0 + 4 * q, d, width);
+        if (!whole && q == 0) stage_quad<kVec>(sb + tile, gb + d * hw, b0 + tile, d, width);
+      }
+    }
+  };
+
+  float acc_l[4] = {0.f, 0.f, 0.f, 0.f}, acc_r[4] = {0.f, 0.f, 0.f, 0.f};
+  const int nchunks = (depth + BWD_CHUNK - 1) / BWD_CHUNK;
+  if (nchunks > 0) stage(0);
+  cp_async_commit();
+  for (int k = 0; k < nchunks; ++k) {
+    if (k + 1 < nchunks) stage(k + 1);
+    cp_async_commit();
+    cp_async_wait_group<1>();
+    __syncthreads();  // chunk k has landed
+    if (active) {
+      const float* sa = smem + (k & 1) * stage_words + r * tile + 4 * q;
+      const float* sr = smem + (k & 1) * stage_words + dr_base;
+#pragma unroll
+      for (int s = 0; s < BWD_CHUNK; ++s) {  // d % 4 == s
+        const int d = k * BWD_CHUNK + s;
+        if (d >= depth) break;
+        if (w + 3 >= d) {  // dL: the band's values of the thread's columns
+          const float4 g = *reinterpret_cast<const float4*>(sa + s * rows * tile);
+          const float v[4] = {g.x, g.y, g.z, g.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (w + e >= d) acc_l[e] += v[e];
+        }
+        if (w + d < width) {  // dR: columns w + d .. w + d + 3, where below width
+          const int off = s * dr_stride + (whole ? d - s : 0);
+          const float4 lo = *reinterpret_cast<const float4*>(sr + off);
+          float4 hi = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (s > 0 && w + d - s + 4 < width) hi = *reinterpret_cast<const float4*>(sr + off + 4);
+          const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (w + e + d < width) {
+              if (kConcat) {
+                acc_r[e] += v[s + e];
+              } else {
+                acc_r[e] -= v[s + e];
+              }
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // stage k & 1 is free for chunk k + 2
+  }
+  if (!active) return;
+  const int valid = min(4, width - w);
+  store_quad<kVec, false>(grad_left + row * width + w, acc_l, valid);
+  store_quad<kVec, false>(grad_right + row * width + w, acc_r, valid);
 }
 
 template <bool kConcat>
 int launch_backward(const float* grad, float* grad_left, float* grad_right, int batch,
-                    int channels, int height, int width, int max_disp, int device,
-                    void* stream) {
+                    int channels, int height, int width, int max_disp, int rows, int tile,
+                    int smem_bytes, int device, void* stream) {
   cudaSetDevice(device);
-  const long long n = static_cast<long long>(batch) * channels * height * width;
-  if (n == 0) return 0;  // with max_disp 0 the kernel writes zeros
-  volume4d_backward_kernel<kConcat><<<aanet_blocks(n, THREADS), THREADS, 0,
-                                      static_cast<cudaStream_t>(stream)>>>(
-      grad, grad_left, grad_right, n, channels, height, width, max_disp);
+  const long long nrows = static_cast<long long>(batch) * channels * height;
+  if (nrows == 0 || width == 0) return 0;
+  const int threads = ((rows * (tile / 4) + 31) / 32) * 32;
+  if (rows < 1 || tile < 4 || tile % 4 != 0 || threads > BWD_MAX_THREADS ||
+      (rows > 1 && tile < width)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tiles_x = (width + tile - 1) / tile;
+  const bool whole = tiles_x == 1;
+  if (bwd_smem_words(rows, tile, whole, kConcat) * 4 != smem_bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);  // the wrapper's plan has another layout
+  }
+  const long long blocks = (nrows + rows - 1) / rows * tiles_x;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const int depth = min(max_disp, width);  // planes d >= W hold no band value
+  const bool vec = width % 4 == 0 && aligned16(grad) && aligned16(grad_left) &&
+                   aligned16(grad_right);
+  auto kernel = vec ? volume4d_bwd_kernel<kConcat, true> : volume4d_bwd_kernel<kConcat, false>;
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<static_cast<unsigned int>(blocks), threads, smem_bytes,
+           static_cast<cudaStream_t>(stream)>>>(grad, grad_left, grad_right, nrows, channels,
+                                                height, width, max_disp, depth, rows, tile,
+                                                tiles_x);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// left, right: [batch, channels, height, width] float32;
-// out: [batch, channels, max_disp, height, width] float32.
-extern "C" int aanet_difference_volume_f32(const float* left, const float* right,
-                                           float* out, int batch, int channels,
-                                           int height, int width, int max_disp,
-                                           int device, void* stream) {
-  return launch<false>(left, right, out, batch, channels, height, width, max_disp,
+// left, right: [batch, channels, height, width] float32; out: [batch,
+// channels, max_disp, height, width] float32. The plan (ops/cost_volume.py
+// volume_forward_plan): dchunk, the planes a thread walks, a multiple of 4
+// (else cudaErrorInvalidValue).
+extern "C" int aanet_difference_volume_f32(const float* left, const float* right, float* out,
+                                           int batch, int channels, int height, int width,
+                                           int max_disp, int dchunk, int device, void* stream) {
+  return launch<false>(left, right, out, batch, channels, height, width, max_disp, dchunk,
                        device, stream);
 }
 
 // out: [batch, 2 * channels, max_disp, height, width] float32.
-extern "C" int aanet_concat_volume_f32(const float* left, const float* right,
-                                       float* out, int batch, int channels,
-                                       int height, int width, int max_disp,
-                                       int device, void* stream) {
-  return launch<true>(left, right, out, batch, channels, height, width, max_disp,
-                      device, stream);
+extern "C" int aanet_concat_volume_f32(const float* left, const float* right, float* out,
+                                       int batch, int channels, int height, int width,
+                                       int max_disp, int dchunk, int device, void* stream) {
+  return launch<true>(left, right, out, batch, channels, height, width, max_disp, dchunk, device,
+                      stream);
 }
 
-// grad: [batch, channels, max_disp, height, width] float32;
-// grad_left, grad_right: [batch, channels, height, width] float32.
+// grad: [batch, channels, max_disp, height, width] float32; grad_left,
+// grad_right: [batch, channels, height, width] float32, written in full
+// (zeros where max_disp is 0). The plan (ops/cost_volume.py
+// volume_backward_plan): rows (of a block; more than one only where tile >=
+// width), tile (columns of a block, a multiple of 4), and smem_bytes, the
+// block's shared memory, which must be what this layout takes. Anything
+// else is cudaErrorInvalidValue.
 extern "C" int aanet_difference_volume_backward_f32(const float* grad, float* grad_left,
-                                                    float* grad_right, int batch,
-                                                    int channels, int height, int width,
-                                                    int max_disp, int device, void* stream) {
+                                                    float* grad_right, int batch, int channels,
+                                                    int height, int width, int max_disp,
+                                                    int rows, int tile, int smem_bytes,
+                                                    int device, void* stream) {
   return launch_backward<false>(grad, grad_left, grad_right, batch, channels, height, width,
-                                max_disp, device, stream);
+                                max_disp, rows, tile, smem_bytes, device, stream);
 }
 
 // grad: [batch, 2 * channels, max_disp, height, width] float32.
 extern "C" int aanet_concat_volume_backward_f32(const float* grad, float* grad_left,
                                                 float* grad_right, int batch, int channels,
-                                                int height, int width, int max_disp,
-                                                int device, void* stream) {
+                                                int height, int width, int max_disp, int rows,
+                                                int tile, int smem_bytes, int device,
+                                                void* stream) {
   return launch_backward<true>(grad, grad_left, grad_right, batch, channels, height, width,
-                               max_disp, device, stream);
+                               max_disp, rows, tile, smem_bytes, device, stream);
 }

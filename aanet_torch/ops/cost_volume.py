@@ -13,7 +13,8 @@ Each is zero where w < d (both channel halves of the concat volume) and is
 a ``torch.autograd.Function`` with gradients for both feature maps. The 4-D
 volumes feed the 3-D convs of the PSMNet, StereoNet and GC-Net
 aggregations; their CUDA kernels, forward and backward, are
-``csrc/volume4d.cu``.
+``csrc/volume4d.cu``, with tilings chosen here per shape and SM count
+(``volume_forward_plan``, ``volume_backward_plan``).
 """
 from __future__ import annotations
 
@@ -24,13 +25,12 @@ from typing import NamedTuple
 import torch
 
 from aanet_torch import _build
-from aanet_torch._build import SMEM_BYTES
+from aanet_torch._build import SM_SMEM_BYTES, SMEM_BYTES
 
-_ARGTYPES = [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_void_p,
-]
+# the 4-D volumes: three tensors, batch .. max_disp, the plan's one
+# (forward) or three (backward), device, stream
+_VOL_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_VOL_BWD_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 # left, right, out, batch .. max_disp, the plan's five, device, stream
 _CORR_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 # grad, left, right, grad_left, grad_right, batch .. max_disp, the plan's three, device, stream
@@ -329,8 +329,130 @@ correlation_cost_volume_backward.launches = 0
 # The 4-D volumes: difference and concat
 # ---------------------------------------------------------------------------
 
-# the kernel stages one L and one R row in shared memory (227 KB a block)
-MAX_VOLUME_WIDTH = 232448 // 8
+# The 4-D volume kernels' constants (csrc/volume4d.cu): the forward's block,
+# the backward's __launch_bounds__ (MIN_BLOCKS caps a thread's registers)
+# and the planes of a stage of its ring
+VOL_FWD_THREADS = 256
+VOL_BWD_MAX_THREADS = 512
+VOL_BWD_MIN_BLOCKS = 2
+VOL_BWD_CHUNK = 4
+VOL_FWD_SPLITS = (1, 2, 4, 8)  # runs of D the forward's plans consider
+VOL_BWD_TILE = 1024  # columns of a backward block where a row is wider than a block's quads
+VOL_BWD_WARPS = 16  # resident warps an SM the backward's plan looks for first
+SM_THREADS = 2048  # resident threads of one SM
+
+
+class VolumeForwardPlan(NamedTuple):
+    """How ``aanet_{difference,concat}_volume_f32`` cut one volume: a thread
+    takes a quad of 4 columns of one (b, c, h) row and a run of ``dchunk``
+    planes of D (``ceil(D / dchunk)`` runs), ``VOL_FWD_THREADS`` a block;
+    ``blocks`` in the grid."""
+
+    dchunk: int
+    blocks: int
+
+
+class VolumeBackwardPlan(NamedTuple):
+    """How ``aanet_{difference,concat}_volume_backward_f32`` cut one
+    gradient: a block takes ``rows`` (b, c, h) rows of ``tile`` columns
+    (the whole row where ``tile`` >= W; else ``rows`` is 1 and a row has
+    ``ceil(W / tile)`` tiles), a thread a quad of 4 columns; the planes of
+    grad stream through a ring of two stages of ``VOL_BWD_CHUNK`` planes.
+    ``threads`` a block, ``smem_bytes`` of shared memory, ``blocks`` in the
+    grid."""
+
+    rows: int
+    tile: int
+    threads: int
+    smem_bytes: int
+    blocks: int
+
+
+def _round4(n: int) -> int:
+    return 4 * _ceil_div(n, 4)
+
+
+def volume_forward_plans(batch: int, channels: int, height: int, width: int,
+                         max_disp: int) -> list[VolumeForwardPlan]:
+    """Every cut the forward kernel takes at this shape (``max_disp`` > 0)
+    that the plan considers: D in 1, 2, 4 or 8 runs of whole quads of
+    planes."""
+    blocks = _ceil_div(batch * channels * height * _ceil_div(width, 4), VOL_FWD_THREADS)
+    dchunks = sorted({_round4(_ceil_div(max_disp, n)) for n in VOL_FWD_SPLITS}, reverse=True)
+    return [VolumeForwardPlan(d, blocks * _ceil_div(max_disp, d)) for d in dchunks]
+
+
+@functools.lru_cache(maxsize=None)
+def volume_forward_plan(batch: int, channels: int, height: int, width: int, max_disp: int,
+                        sms: int) -> VolumeForwardPlan:
+    """The forward kernel's cut for L and R [batch, channels, height,
+    width] and ``max_disp`` > 0 planes on a card of ``sms`` SMs: all of D a
+    thread, unless the quads are fewer than two waves of the threads the SMs
+    hold, then the fewest runs of D that reach it (the inference volumes'
+    4: 7 % faster than all of D for the difference volume on an H100).
+    ``tools/torch_volume_sweep.py`` times it against the others."""
+    quads = batch * channels * height * _ceil_div(width, 4)
+    splits = next((n for n in VOL_FWD_SPLITS if quads * n >= 2 * sms * SM_THREADS),
+                  VOL_FWD_SPLITS[-1])
+    dchunk = _round4(_ceil_div(max_disp, splits))
+    return next(p for p in volume_forward_plans(batch, channels, height, width, max_disp)
+                if p.dchunk == dchunk)
+
+
+def _vol_bwd_smem(rows: int, tile: int, whole: bool, concat: bool) -> int:
+    """Bytes of the backward's shared memory (``bwd_smem_words`` in the
+    kernel): two stages of ``VOL_BWD_CHUNK`` planes of the rows' dL pieces (``tile``
+    columns) and their dR pieces: none for the difference volume's whole
+    rows (its dR reads the dL pieces), the second channel half's row for
+    concat's, ``tile + 4`` columns for a tile of a wider row. The kernel
+    refuses a plan whose ``smem_bytes`` differ."""
+    piece = (tile if concat else 0) if whole else tile + 4
+    return 4 * 2 * VOL_BWD_CHUNK * rows * (tile + piece)
+
+
+def _vol_bwd_resident(threads: int, smem: int) -> int:
+    """Blocks one SM holds by shared memory, threads and the launch bounds'
+    registers."""
+    registers = 65536 // (VOL_BWD_MAX_THREADS * VOL_BWD_MIN_BLOCKS)
+    return min(SM_SMEM_BYTES // (smem + 1024), SM_THREADS // threads,
+               65536 // (registers * threads))
+
+
+def volume_backward_plans(batch: int, channels: int, height: int, width: int,
+                          concat: bool) -> list[VolumeBackwardPlan]:
+    """Every cut the backward kernel takes at this shape (whatever D): whole rows (as
+    many as ``VOL_BWD_MAX_THREADS`` threads hold) where a row's quads fit a
+    block, else one row's tiles of ``VOL_BWD_TILE`` columns; within a
+    block's shared memory."""
+    nrows = batch * channels * height
+    whole = _ceil_div(width, 4) <= VOL_BWD_MAX_THREADS
+    tile = _round4(width) if whole else VOL_BWD_TILE
+    quads = tile // 4
+    plans = []
+    for rows in range(1, (VOL_BWD_MAX_THREADS // quads if whole else 1) + 1):
+        smem = _vol_bwd_smem(rows, tile, whole, concat)
+        if smem <= SMEM_BYTES:
+            plans.append(VolumeBackwardPlan(rows, tile, 32 * _ceil_div(rows * quads, 32), smem,
+                                            _ceil_div(nrows, rows) * _ceil_div(width, tile)))
+    return plans
+
+
+@functools.lru_cache(maxsize=None)
+def volume_backward_plan(batch: int, channels: int, height: int, width: int, concat: bool,
+                         sms: int) -> VolumeBackwardPlan:
+    """The backward kernel's cut for a gradient of L and R [batch,
+    channels, height, width] on a card of ``sms`` SMs, of
+    ``volume_backward_plans``, by these preferences in turn: at least
+    ``VOL_BWD_WARPS`` resident warps an SM (the most, short of that); the
+    fewest idle threads (a block's quads in whole warps); the more rows.
+    ``tools/torch_volume_sweep.py`` times it against the others."""
+    plans = volume_backward_plans(batch, channels, height, width, concat)
+
+    def key(p):
+        warps = _vol_bwd_resident(p.threads, p.smem_bytes) * p.threads // 32
+        idle = p.threads - p.rows * (p.tile // 4)
+        return (-min(warps, VOL_BWD_WARPS), idle / p.threads, -p.rows)
+    return min(plans, key=key)
 
 
 def difference_cost_volume_plain(
@@ -409,10 +531,14 @@ def _volume_backward(kind, plain, grad, left, right):
         )
     grad_left = torch.empty_like(left)
     grad_right = torch.empty_like(right)
+    plan = (1, 4, 0)  # nothing to sum or write
+    if left.numel():
+        p = volume_backward_plan(b, c, h, w, kind == "concat", _sms(left))
+        plan = (p.rows, p.tile, p.smem_bytes)
     _build.launch(
-        "volume4d", f"aanet_{kind}_volume_backward_f32", _ARGTYPES,
+        "volume4d", f"aanet_{kind}_volume_backward_f32", _VOL_BWD_ARGTYPES,
         _build.ptr(grad), _build.ptr(grad_left), _build.ptr(grad_right),
-        b, c, h, w, grad.shape[2], left.device.index, _build.stream(left),
+        b, c, h, w, grad.shape[2], *plan, left.device.index, _build.stream(left),
     )
     wrapper = {"difference": difference_cost_volume_backward,
                "concat": concat_cost_volume_backward}[kind]
@@ -435,13 +561,14 @@ class _Volume(torch.autograd.Function):
             return plain(left, right, max_disp)
         _build.check_cuda_f32(f"{kind} volume", left=left, right=right)
         b, c, h, w = left.shape
-        if w > MAX_VOLUME_WIDTH:
-            raise ValueError(f"{kind} volume: width {w} exceeds the kernel's {MAX_VOLUME_WIDTH}")
         cost = torch.empty((b, channels * c, max_disp, h, w), dtype=torch.float32, device=left.device)
+        dchunk = 4  # an empty volume: nothing to write
+        if cost.numel():
+            dchunk = volume_forward_plan(b, c, h, w, max_disp, _sms(left)).dchunk
         _build.launch(
-            "volume4d", f"aanet_{kind}_volume_f32", _ARGTYPES,
+            "volume4d", f"aanet_{kind}_volume_f32", _VOL_ARGTYPES,
             _build.ptr(left), _build.ptr(right), _build.ptr(cost),
-            b, c, h, w, max_disp, left.device.index, _build.stream(left),
+            b, c, h, w, max_disp, dchunk, left.device.index, _build.stream(left),
         )
         op.launches += 1
         return cost

@@ -20,7 +20,8 @@ offsets) the offset gradient is half the one-sided derivative. The CUDA
 kernels are ``csrc/deform_conv.cu``: the forward, the input/offset/mask
 gradient and the weight gradient. The forward's tiling is chosen here per
 conv, batch, output size and SM count (``forward_plan``), with its weight
-laid out [tap, cin, cout] (``weight_taps_cin_major``); the input/offset/
+laid out [tap, cin, cout] (``weight_taps_cin_major``, zero channels up to
+whole channel tiles); the input/offset/
 mask gradient's per shape (``backward_data_plan``), with its weight laid
 out tap-major (``weight_taps_major``); the weight gradient's per conv,
 batch, output size and SM count (``backward_weight_plan``), with a
@@ -69,7 +70,7 @@ WG_WAVES = 1  # waves of resident blocks the plan's splits fill
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
     ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-] + [ctypes.c_int] * 19 + [ctypes.c_void_p]  # batch .. groups, the plan's five, device, stream
+] + [ctypes.c_int] * 20 + [ctypes.c_void_p]  # batch .. groups, the plan's five and wt_stride, device, stream
 _BWD_DATA_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
@@ -320,6 +321,24 @@ class ForwardPlan(NamedTuple):
     blocks: int
 
 
+def channel_tiles(op: str, cout: int) -> list[int]:
+    """The output-channel tiles the forward and the weight gradient try
+    for ``cout`` channels, in order: the largest multiple of 8 up to 128
+    that divides ``cout`` (no idle channel); then, for n = ceil(cout / 128)
+    tiles and more, ``8 * ceil(ceil(cout / n) / 8)``, zero-padded: the last
+    tile's channels at or above ``cout`` are idle, fewer than 8 a tile. The
+    plans take the first tile that some tiling of theirs fits (a block of
+    9, 11, 13 or 15 register tiles of 8 channels has no whole warps)."""
+    if cout < 1:
+        raise ValueError(f"{op}: {cout} output channels")
+    tiles = [c for c in range(8, min(cout, 128) + 1, 8) if cout % c == 0][-1:]
+    for n in range(_ceil_div(cout, 128), _ceil_div(cout, 8) + 1):
+        tile = 8 * _ceil_div(_ceil_div(cout, n), 8)
+        if tile not in tiles:
+            tiles.append(tile)
+    return tiles
+
+
 def _fwd_smem(taps, tile_h, co_tile, win_h, win_w, ksplit):
     """Bytes of the forward kernel's shared memory (``fwd_smem_words`` in
     the kernel): the (tap, pixel) table, a float4 each; two x windows; the
@@ -339,9 +358,11 @@ def forward_plan(batch: int, cin: int, cout: int, out_h: int, out_w: int, kh: in
     """The forward kernel's tiling for a conv of these shapes on a card of
     ``sms`` SMs.
 
-    - The channel tile: the largest multiple of 8 that divides ``cout``, up
-      to 128 (all of them at 16, 32, 48, 64 and 128: no idle channel, and
-      each sampled column serves every output channel).
+    - The channel tile: the first of ``channel_tiles`` that a tiling fits:
+      the largest multiple of 8 that divides ``cout``, up to 128 (all of
+      them at 16, 32, 48, 64 and 128: no idle channel, and each sampled
+      column serves every output channel); else zero-padded tiles
+      (``ceil(cout / co_tile)`` of them in the grid).
     - The tile height, of ``FWD_TILE_H``: for each, ``ksplit`` is the least
       power of two that gives a block 128 threads (whole warps, at most
       ``FWD_MAX_THREADS``), and ``resident`` the blocks one SM holds by
@@ -359,37 +380,36 @@ def forward_plan(batch: int, cin: int, cout: int, out_h: int, out_w: int, kh: in
     shape of the ``aanet`` train step. Raises if nothing fits."""
     if cin % groups:
         raise ValueError(f"deform conv: {groups} groups do not divide {cin} channels")
-    tiles_co = [c for c in range(8, min(cout, 128) + 1, 8) if cout % c == 0]
-    if not tiles_co:
-        raise ValueError(f"deform conv: no tile of 8 to 128 output channels divides {cout}")
-    co_tile = tiles_co[-1]
     cg, taps = cin // groups, kh * kw
     nchunks = groups * _ceil_div(cg, FWD_CHUNK)
     best = None
-    for tile_h in FWD_TILE_H:
-        base = (co_tile // 8) * (2 * tile_h)
-        ksplit = 1
-        while base * ksplit < 128 and 2 * ksplit <= taps * FWD_CHUNK:
-            ksplit *= 2
-        threads = base * ksplit
-        if threads % 32 or threads > FWD_MAX_THREADS:
-            continue
-        win_h = (tile_h - 1) * stride + (kh - 1) * dilation + 2 * HALO + 2
-        win_w = (TILE_W - 1) * stride + (kw - 1) * dilation + 2 * HALO + 2
-        smem = _fwd_smem(taps, tile_h, co_tile, win_h, win_w, ksplit)
-        if smem > SMEM_BYTES:
-            continue
-        resident = min(SM_SMEM_BYTES // (smem + 1024), SM_THREADS // threads,
-                       65536 // (FWD_REGISTERS * threads))
-        key = (-min(resident * threads // 32, 12), ksplit > 2, -tile_h)
-        if best is None or key < best[0]:
-            best = (key, (tile_h, ksplit, threads, win_h, win_w, smem, resident))
+    for co_tile in channel_tiles("deform conv", cout):
+        for tile_h in FWD_TILE_H:
+            base = (co_tile // 8) * (2 * tile_h)
+            ksplit = 1
+            while base * ksplit < 128 and 2 * ksplit <= taps * FWD_CHUNK:
+                ksplit *= 2
+            threads = base * ksplit
+            if threads % 32 or threads > FWD_MAX_THREADS:
+                continue
+            win_h = (tile_h - 1) * stride + (kh - 1) * dilation + 2 * HALO + 2
+            win_w = (TILE_W - 1) * stride + (kw - 1) * dilation + 2 * HALO + 2
+            smem = _fwd_smem(taps, tile_h, co_tile, win_h, win_w, ksplit)
+            if smem > SMEM_BYTES:
+                continue
+            resident = min(SM_SMEM_BYTES // (smem + 1024), SM_THREADS // threads,
+                           65536 // (FWD_REGISTERS * threads))
+            key = (-min(resident * threads // 32, 12), ksplit > 2, -tile_h)
+            if best is None or key < best[0]:
+                best = (key, (co_tile, tile_h, ksplit, threads, win_h, win_w, smem, resident))
+        if best is not None:
+            break
     if best is None:
         raise ValueError(
             f"deform conv: no forward tiling of {cin} -> {cout} channels (stride {stride}, "
             f"dilation {dilation}, {groups} groups) fits {SMEM_BYTES} bytes of shared memory")
-    tile_h, ksplit, threads, win_h, win_w, smem, resident = best[1]
-    tiles = _ceil_div(out_h, tile_h) * _ceil_div(out_w, TILE_W) * (cout // co_tile) * batch
+    co_tile, tile_h, ksplit, threads, win_h, win_w, smem, resident = best[1]
+    tiles = _ceil_div(out_h, tile_h) * _ceil_div(out_w, TILE_W) * _ceil_div(cout, co_tile) * batch
     most = max(1, nchunks // min(8, max(1, nchunks // 2)))
     options = [s for s in range(1, most + 1) if s == 1 or (s % groups == 0 and nchunks % s == 0)]
     splits = next((s for s in options if tiles * s >= 2 * sms * resident), options[-1])
@@ -457,8 +477,9 @@ class _WgTiling(NamedTuple):
 
 
 def weight_grad_tilings(cin, cout, kh, kw, stride, dilation, groups):
-    """The output-channel tile and every tiling the weight-gradient kernel
-    takes for this conv: a tile height of ``WG_TILE_H``, a step height of
+    """The output-channel tile (the first of ``channel_tiles`` that a tiling
+    fits) and every tiling the weight-gradient kernel takes for this conv
+    with it: a tile height of ``WG_TILE_H``, a step height of
     ``WG_STEP_H`` that divides it, a chunk of ``WG_CHUNKS`` and a power of
     two ``ksplit`` (at most one pixel quad of a step for each group) that
     give whole warps, at most ``WG_MAX_THREADS``, in a block's shared
@@ -471,30 +492,30 @@ def weight_grad_tilings(cin, cout, kh, kw, stride, dilation, groups):
     if taps > WG_MAX_TAPS:
         raise ValueError(f"deform conv weight gradient: {taps} taps, the kernel takes at most "
                          f"{WG_MAX_TAPS}")
-    tiles_co = [c for c in range(8, min(cout, 128) + 1, 8) if cout % c == 0]
-    if not tiles_co:
-        raise ValueError(f"deform conv weight gradient: no tile of 8 to 128 output channels "
-                         f"divides {cout}")
-    co_tile = tiles_co[-1]
-    out = []
-    for tile_h in WG_TILE_H:
-        win_h = (tile_h - 1) * stride + (kh - 1) * dilation + 2 * HALO + 2
-        win_w = (TILE_W - 1) * stride + (kw - 1) * dilation + 2 * HALO + 2
-        for step_h in (s for s in WG_STEP_H if tile_h % s == 0):
-            for chunk in WG_CHUNKS:
-                ksplit = 1
-                while ksplit <= step_h * TILE_W // 4:
-                    threads = co_tile // WG_TM * chunk * ksplit
-                    smem = _wg_smem(taps, step_h, co_tile, chunk, win_h, win_w, ksplit)
-                    if threads % 32 == 0 and threads <= WG_MAX_THREADS and smem <= SMEM_BYTES:
-                        for build in WG_BUILDS:
-                            registers = 65536 // (build * WG_MAX_THREADS)
-                            resident = min(SM_SMEM_BYTES // (smem + 1024), SM_THREADS // threads,
-                                           65536 // (registers * threads))
-                            out.append(_WgTiling(tile_h, step_h, chunk, ksplit, threads, win_h,
-                                                 win_w, smem, build, resident))
-                    ksplit *= 2
-    return co_tile, out
+    tiles = channel_tiles("deform conv weight gradient", cout)
+    for co_tile in tiles:
+        out = []
+        for tile_h in WG_TILE_H:
+            win_h = (tile_h - 1) * stride + (kh - 1) * dilation + 2 * HALO + 2
+            win_w = (TILE_W - 1) * stride + (kw - 1) * dilation + 2 * HALO + 2
+            for step_h in (s for s in WG_STEP_H if tile_h % s == 0):
+                for chunk in WG_CHUNKS:
+                    ksplit = 1
+                    while ksplit <= step_h * TILE_W // 4:
+                        threads = co_tile // WG_TM * chunk * ksplit
+                        smem = _wg_smem(taps, step_h, co_tile, chunk, win_h, win_w, ksplit)
+                        if threads % 32 == 0 and threads <= WG_MAX_THREADS and smem <= SMEM_BYTES:
+                            for build in WG_BUILDS:
+                                registers = 65536 // (build * WG_MAX_THREADS)
+                                resident = min(SM_SMEM_BYTES // (smem + 1024),
+                                               SM_THREADS // threads,
+                                               65536 // (registers * threads))
+                                out.append(_WgTiling(tile_h, step_h, chunk, ksplit, threads, win_h,
+                                                     win_w, smem, build, resident))
+                        ksplit *= 2
+        if out:
+            return co_tile, out
+    return tiles[0], []
 
 
 def weight_grad_plan_of(tiling, co_tile, batch, cin, cout, out_h, out_w, kh, kw, groups, sms,
@@ -504,7 +525,7 @@ def weight_grad_plan_of(tiling, co_tile, batch, cin, cout, out_h, out_w, kh, kw,
     a few blocks more would run as a tail of their own), at least one, at
     most one a tile of the batch."""
     units = batch * _ceil_div(out_h, tiling.tile_h) * _ceil_div(out_w, TILE_W)
-    base = groups * _ceil_div(cin // groups, tiling.chunk) * (cout // co_tile)
+    base = groups * _ceil_div(cin // groups, tiling.chunk) * _ceil_div(cout, co_tile)
     splits = max(1, min(units, waves * sms * tiling.resident // base, 65535))
     return BackwardWeightPlan(tiling.tile_h, tiling.step_h, co_tile, tiling.chunk, tiling.ksplit,
                               splits, tiling.threads, tiling.win_h, tiling.win_w,
@@ -519,8 +540,10 @@ def backward_weight_plan(batch: int, cin: int, cout: int, out_h: int, out_w: int
     """The weight-gradient kernel's tiling for a conv of these shapes on a
     card of ``sms`` SMs.
 
-    - The channel tile: the largest multiple of 8 that divides ``cout``, up
-      to 128 (as the forward's): each sampled column serves all of them.
+    - The channel tile: as the forward's, the first of ``channel_tiles``
+      that a tiling fits (the largest multiple of 8 up to 128 that divides
+      ``cout``, else zero-padded tiles): each sampled column serves all of
+      them.
     - Of ``weight_grad_tilings``: the fewest idle channels (none where a
       multiple of 4 divides the group's channels), then the most resident
       warps up to ``WG_WARPS``, then the most pixel quads a thread
@@ -550,13 +573,17 @@ def backward_weight_plan(batch: int, cin: int, cout: int, out_h: int, out_w: int
                                kh, kw, groups, sms)
 
 
-def weight_taps_cin_major(weight: torch.Tensor) -> torch.Tensor:
-    """The weight [cout, cin, kh, kw] laid out [kh*kw, cin, cout], as the
-    forward kernel stages it: ``wt[k, c, co] = weight[co, c, k // kw, k %
-    kw]``, so a tap's rows for a chunk of channels are runs of contiguous
-    output channels."""
+def weight_taps_cin_major(weight: torch.Tensor, cout_pad: Optional[int] = None) -> torch.Tensor:
+    """The weight [cout, cin, kh, kw] laid out [kh*kw, cin, cout_pad], as
+    the forward kernel stages it: ``wt[k, c, co] = weight[co, c, k // kw, k
+    % kw]`` for co < cout, zero for the padded channels up to ``cout_pad``
+    (default ``cout``), so a tap's rows for a chunk of channels are runs of
+    contiguous output channels, each tile's 16-byte aligned."""
     cout, cin, kh, kw = weight.shape
-    return weight.permute(2, 3, 1, 0).reshape(kh * kw, cin, cout).contiguous()
+    wt = weight.permute(2, 3, 1, 0).reshape(kh * kw, cin, cout)
+    if cout_pad is None or cout_pad == cout:
+        return wt.contiguous()
+    return torch.nn.functional.pad(wt, (0, cout_pad - cout))
 
 
 def _check_shapes(x, offset, mask, weight, stride, padding, dilation, g):
@@ -608,14 +635,15 @@ def _forward(x, offset, mask, weight, bias, *, stride, padding, dilation, deform
     # split chunks add into the output
     new = torch.zeros if plan.splits > 1 else torch.empty
     out = new((b, cout, ho, wo), dtype=torch.float32, device=x.device)
-    wt = weight_taps_cin_major(weight)
+    cout_pad = _ceil_div(cout, plan.co_tile) * plan.co_tile  # zero channels up to whole tiles
+    wt = weight_taps_cin_major(weight, cout_pad)
     *shape, device, stream = _shape_args(x, weight, ho, wo, stride, padding, dilation, g)
     _build.launch(
         "deform_conv", "aanet_deform_conv_f32", _ARGTYPES,
         _build.ptr(x), _build.ptr(offset), offset.stride(0),
         _build.ptr(mask), 0 if mask is None else mask.stride(0),
         _build.ptr(wt), _build.ptr(bias), _build.ptr(out), *shape, plan.tile_h, plan.co_tile,
-        plan.ksplit, plan.splits, plan.smem_bytes, device, stream,
+        cout_pad, plan.ksplit, plan.splits, plan.smem_bytes, device, stream,
     )
     modulated_deform_conv2d.launches += 1
     return out

@@ -52,6 +52,10 @@
    bound, both against their twins with both signs at planes that are not
    a multiple of 4, planes smaller than a tile, D = 1, 37 and 191, batch 3,
    and at D = 0 the forward gives zeros and the backward an empty gradient;
+   the three deformable-conv kernels at 4, 6, 12 and 20 output channels
+   (no multiple of 8 up to 128 divides them: zero-padded channel tiles)
+   with narrow, wide and integer offsets at 96x192 and 24x48, two
+   weight-gradient launches bitwise, each timed at batch 16, 96x192;
 7. on each of three seeded batches (batch 2, 288x576), runs one train
    step through the kernels and the same step through the plain twins
    (seeded weights) and compares the loss, every parameter's gradient
@@ -65,6 +69,12 @@
    synthetic SceneFlow-layout dataset that it writes itself (48 pairs of
    540x960 PNGs with PFM disparities and filename lists), checks the
    losses and the checkpoint, and predicts with the written weights;
+9b. the trained anchor's setting: the ``aanet`` preset at max_disp 48 (ISA
+   deformable convs of 16, 8 and 4 output channels): its forward at
+   384x1248 through the kernels against the plain run, one train step at
+   batch 2, 288x576 against the plain step, and ``python -m
+   aanet_torch.cli predict --preset aanet --max_disp 48`` on two 375x1242
+   pairs;
 10. the train steps of phase 5b's five configurations (the PSMNet
    baseline with either aggregation, StereoNet, GC-Net, ``stereonet-aa``)
    at 288x576, max_disp 192, remat on: a kernel
@@ -78,6 +88,12 @@
    aanet_torch.cli train`` with the PSMNet baseline's flags for 6 steps
    at batch 8 on phase 9's dataset, and ``predict`` with the weights it
    wrote;
+10b. the 4-D volume kernels (difference and concat, forward and
+   backward): two launches give the same bits at every path shape
+   (``VOL_PATHS``, which must hold the shapes phases 5b and 10 recorded),
+   each timed beside its bound; and bit for bit against their twins at
+   widths that are not a multiple of 4, W < D, D = 1, odd C, batch 3, rows
+   wider than a backward block, and the backward at D = 0;
 11. prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
 
 Any failure raises, so the exit code is non-zero and the last line is not
@@ -89,6 +105,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import dataclasses
 import functools
 import gc
 import json
@@ -222,6 +239,30 @@ SA_EDGE_SHAPES = [
                                  (1, 24, 3, 5), (2, 191, 16, 100))
     for match in (True, False)
 ]
+# The 4-D volumes of the paths (([B, C, H, W] of L and R, D), concat), by
+# path: the baselines' at inference (384x1248: PSMNet, either aggregation,
+# and GC-Net concat, StereoNet difference) and in their train steps
+# (288x576, at the batch phase 10 fits)
+VOL_PATHS = {
+    "psmnet inference": (((1, 32, 96, 312), 48), True),
+    "gcnet inference": (((1, 32, 192, 624), 96), True),
+    "stereonet inference": (((1, 32, 96, 312), 48), False),
+    "psmnet step": (((16, 32, 72, 144), 48), True),
+    "gcnet step": (((8, 32, 144, 288), 96), True),
+    "stereonet step": (((16, 32, 72, 144), 48), False),
+}
+# and the shapes beyond them, for both volumes: widths that are not a
+# multiple of 4 (37, 53, 61, 4099), odd C (3), W < D, D = 1, batch 3, rows
+# wider than a backward block (4099, 29056); the backward also at D = 0
+VOL_EDGE_SHAPES = [
+    ((2, 3, 6, 37), 5), ((2, 4, 5, 53), 48), ((2, 4, 6, 20), 32), ((3, 8, 6, 64), 1),
+    ((3, 3, 4, 61), 24), ((1, 2, 3, 4099), 40), ((1, 2, 2, 29056), 12),
+]
+# Phase 6b's output-channel counts of the deformable conv that its
+# forward and weight gradient reach with zero-padded channel tiles
+ODD_COUTS = (4, 6, 12, 20)
+# the trained anchor's setting (artifacts/aanet_synthetic_best.msgpack.gz)
+ANCHOR_MAX_DISP = 48
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s, float32 FLOP/s
 # outside the tensor cores (the kernels run float32 FMA on the CUDA cores)
 PEAK_BYTES_S = 3.35e12
@@ -941,13 +982,16 @@ def baseline_phases(specs, gen, dev, timer, smi, left, right):
 
 
 def compare_train_steps(cfg, specs, small, gen, dev, per_parameter=False, calls=None,
-                        recomputed=None):
+                        recomputed=None, rerun=False):
     """One train step through the kernels against the same step through
     the plain twins (same seeded weights, the batch ``small``), and the
     plain step's own spread: the largest change of its gradients over
     ``NUDGES`` 1e-6 relative changes of the left image (some gradients are
     sums that nearly cancel, and move by far more than 1e-6 under it; one
-    change is too few to tell how far). Checks the loss to rtol 1e-5, a
+    change is too few to tell how far); with ``rerun``, also the change of
+    the kernel step's gradients when it runs again on the same inputs (its
+    float atomics add in another order: an error that repeats in both runs
+    still shows). Checks the loss to rtol 1e-5, a
     non-zero gradient for every parameter but those of ``ZERO_GRADIENT``,
     all gradients together (and, with ``per_parameter``, each parameter's)
     within max(1e-3, 2x the spread) and the BatchNorm statistics to 1e-4;
@@ -979,12 +1023,19 @@ def compare_train_steps(cfg, specs, small, gen, dev, per_parameter=False, calls=
             for name, p in m_floor.named_parameters():
                 moved[name].append(float((p.grad - plain_params[name].grad).square().sum()))
             del m_floor
+    if rerun:
+        m_again = seeded_model(cfg, dev)
+        make_train_step(m_again, make_optimizer(m_again, 1e-3), cfg.max_disp)(small)
+        kernel_params = dict(m_kernel.named_parameters())
+        for name, p in m_again.named_parameters():
+            moved[name].append(float((p.grad - kernel_params[name].grad).square().sum()))
+        del m_again
     loss_k, loss_p = float(met_kernel["total_loss"]), float(met_plain["total_loss"])
     failures = []
     if abs(loss_k - loss_p) > 1e-5 * abs(loss_p):
         failures.append(f"train-step loss kernel {loss_k} plain {loss_p}")
     worst, floored, dk2, dp2 = [], [], 0.0, 0.0
-    df2 = [0.0] * NUDGES
+    df2 = [0.0] * (NUDGES + rerun)
     for name, p in m_kernel.named_parameters():
         gk, gp = p.grad, plain_params[name].grad
         check(gk is not None, f"{name}: no gradient on the kernel path")
@@ -1005,7 +1056,7 @@ def compare_train_steps(cfg, specs, small, gen, dev, per_parameter=False, calls=
     worst = sorted(worst)[-8:]
     grad_rel, grad_spread = (dk2 / dp2) ** 0.5, (max(df2) / dp2) ** 0.5
     print(f"gradients: kernel vs plain {grad_rel:.3g}, plain spread {grad_spread:.3g} (largest of "
-          f"{NUDGES}: {[round((x / dp2) ** 0.5, 6) for x in df2]}); worst (error / allowed, error, "
+          f"{len(df2)}: {[round((x / dp2) ** 0.5, 6) for x in df2]}); worst (error / allowed, error, "
           f"spread, parameter): {worst}", flush=True)
     if grad_rel > max(1e-3, 2 * grad_spread):
         failures.append(f"all gradients: relative error {grad_rel} (plain spread {grad_spread})")
@@ -1094,8 +1145,53 @@ def edge_cases(specs, bwd_specs, deform_sigs, corr_sigs, sa_sigs, rows, gen, dev
     for shape in ((2, 3, 37, 61), (1, 3, 375, 1242)):
         records.append(dict(measure(by_name["disp_warp"], (shape,), 1, gen, dev, timer),
                             kernel="disp_warp", case="width not a multiple of 4"))
-    return (records + correlation_edge_cases(by_name, corr_sigs, gen, dev, timer)
+    return (records + odd_cout_cases(by_name, with_offsets, gen, dev, timer)
+            + correlation_edge_cases(by_name, corr_sigs, gen, dev, timer)
             + softargmin_edge_cases(by_name, sa_sigs, gen, dev, timer))
+
+
+def odd_cout_cases(by_name, with_offsets, gen, dev, timer):
+    """Phase 6b for the deformable conv's zero-padded channel tiles: the
+    three kernels against their twins at ``ODD_COUTS`` output channels (cin
+    = cout, 2 deformable groups where cin is even, else 1; mask and bias)
+    at 96x192 and 24x48 (288x576 / 3 and / 12), batch 2, with narrow, wide
+    and integer offsets and the path's tolerances; two weight-gradient
+    launches give the same bits; each kernel timed beside its twin at
+    batch 16, 96x192."""
+    from aanet_torch.ops import deform
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    names = ("deform_conv", "deform_conv_backward_data", "deform_conv_backward_weight")
+    records = []
+    for cout in ODD_COUTS:
+        g = 2 if cout % 2 == 0 else 1
+
+        def sig(batch, h, w):
+            return ((batch, cout, h, w), (cout, cout, 3, 3), True, True, 1, 2, 2, g)
+
+        fwd = deform.forward_plan(16, cout, cout, 96, 192, 3, 3, 1, 2, g, sms)
+        wgt = deform.backward_weight_plan(16, cout, cout, 96, 192, 3, 3, 1, 2, g, sms)
+        print(f"deform_conv cout {cout}: forward tile {fwd.co_tile}, weight gradient tile "
+              f"{wgt.co_tile}", flush=True)
+        for h, w in ((96, 192), (24, 48)):
+            for name in names:
+                for offsets in ("narrow", "wide", "integer"):
+                    records.append(dict(measure(with_offsets(by_name[name], offsets), sig(2, h, w),
+                                                1, gen, dev, timer, timed=False),
+                                        kernel=name, case=f"cout {cout}, {offsets} offsets"))
+            spec = by_name["deform_conv_backward_weight"]
+            args, kwargs = spec["inputs"](sig(2, h, w), gen, dev)
+            op = getattr(spec["module"], spec["attr"])
+            first, second = op(*args, **kwargs), op(*args, **kwargs)
+            torch.cuda.synchronize()
+            check(torch.equal(first, second),
+                  f"deform_conv_backward_weight {sig(2, h, w)}: two launches on the same inputs differ")
+            records.append(dict(kernel="deform_conv_backward_weight", identical=True,
+                                case=f"cout {cout}: two launches, bitwise", shape=str(sig(2, h, w))))
+        for name in names:
+            records.append(dict(measure(by_name[name], sig(16, 96, 192), 1, gen, dev, timer, iters=10),
+                                kernel=name, case=f"cout {cout}, timed"))
+    return records
 
 
 def same_bits_timed(spec, sig, gen, dev, timer):
@@ -1172,6 +1268,98 @@ def softargmin_edge_cases(by_name, sa_sigs, gen, dev, timer):
         records.append(dict(kernel="soft_argmin", case="D = 0: zeros", shape=str(((2, 0, 6, 10), match)),
                             max_err=float(disp.abs().max()), tolerance=0.0))
     return records
+
+
+def volume_edge_cases(by_name, recorded, gen, dev, timer):
+    """Phase 10b for the 4-D volume kernels: at every path shape
+    (``VOL_PATHS``, which must hold the shapes of ``recorded``: each volume
+    kernel's rows from phases 5b and 10) two launches of each kernel give
+    the same bits, and each is timed beside its bound; at
+    ``VOL_EDGE_SHAPES`` both volumes' kernels, and the backwards at D = 0,
+    are held against their twins bit for bit."""
+    listed = {n: {str(sig) for sig, concat in VOL_PATHS.values()
+                  if concat == n.startswith("concat")}
+              for n in ("difference_volume", "concat_volume")}
+    for name, shapes in recorded.items():
+        kind = name.replace("_backward", "")
+        check(set(shapes) <= listed[kind], f"{name}: the paths' shapes {shapes} are not all in VOL_PATHS")
+    records = []
+    for sig, concat in VOL_PATHS.values():
+        kind = "concat_volume" if concat else "difference_volume"
+        for name in (kind, f"{kind}_backward"):
+            records.append(same_bits_timed(by_name[name], sig, gen, dev, timer))
+            torch.cuda.empty_cache()  # GC-Net's inference volume is 2.9 GB
+    for sig in VOL_EDGE_SHAPES + [(VOL_EDGE_SHAPES[0][0], 0)]:
+        for kind in ("difference_volume", "concat_volume"):
+            for name in ((kind, f"{kind}_backward") if sig[1] else (f"{kind}_backward",)):
+                records.append(dict(measure(by_name[name], sig, 1, gen, dev, timer, timed=False),
+                                    kernel=name, case="beyond the path" if sig[1] else "D = 0"))
+    return records
+
+
+def anchor_phase(specs, gen, dev, left, right):
+    """Phase 9b: the ``aanet`` preset at ``ANCHOR_MAX_DISP`` (the committed
+    trained anchor's setting; its ISA deformable convs have 16, 8 and 4
+    output channels): the forward at 384x1248 through the kernels against
+    the plain run (launches and pyramid tolerances as phase 4's), one train
+    step at batch 2, 288x576 against the plain step (phase 7's comparison,
+    one seeded batch, the spread also taking the kernel step's own change
+    when it runs again), and the predict entry point with the preset and
+    ``--max_disp`` on two 375x1242 pairs, which must exit 0."""
+    from aanet_torch.config import preset
+
+    cfg = dataclasses.replace(preset("aanet"), max_disp=ANCHOR_MAX_DISP)
+    record = dict(preset="aanet", max_disp=ANCHOR_MAX_DISP)
+    with torch.no_grad():
+        model = seeded_model(cfg, dev).eval()
+        calibrate_bn_(model, specs, left, right)
+        calls = {s["name"]: collections.Counter() for s in specs}
+        with plain_ops(specs, calls):
+            plain_pyramid = model(left, right)
+        couts = sorted({sig[1][0] for sig in calls["deform_conv"]})
+        print(f"anchor: deformable convs' output channels {couts}", flush=True)
+        check(set(ANCHOR_MAX_DISP // 3 // 2**i for i in range(3)) <= set(couts),
+              f"anchor: the ISA convs' output channels are not among {couts}")
+        reset_launches(specs)
+        pyramid = model(left, right)
+        torch.cuda.synchronize()
+        counts = launches(specs)
+        check(counts == EXPECTED_LAUNCHES, f"anchor: launches {counts}, expected {EXPECTED_LAUNCHES}")
+        shapes = [(1, HEIGHT // k, WIDTH // k) for k in (12, 6, 3, 2, 1)]
+        record.update(deform_couts=couts, launches=counts,
+                      pyramid_err_px=compare_pyramids(pyramid, plain_pyramid, shapes, "anchor"))
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = os.path.join(tmp, "weights.pt")
+        torch.save(model.state_dict(), weights)
+        del model, plain_pyramid, pyramid
+        data = os.path.join(tmp, "pairs")
+        write_pngs(data, 2, PREDICT_HW, SEED)
+        cmd = [sys.executable, "-m", "aanet_torch.cli", "predict", "--preset", "aanet",
+               "--max_disp", str(ANCHOR_MAX_DISP), "--data_dir", data, "--pretrained", weights,
+               "--device", DEVICE, "--save_type", "npy"]
+        proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"anchor predict exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+        for i in range(2):
+            pred = np.load(os.path.join(data, "pred", f"{i:06d}.npy"))
+            check(pred.shape == PREDICT_HW and np.isfinite(pred).all(),
+                  f"anchor prediction {i}: shape {pred.shape}")
+        record["predict_returncode"] = proc.returncode
+    torch.set_grad_enabled(True)
+    seed_gen = torch.Generator(device=dev).manual_seed(COMPARE_SEEDS[0])
+    small = train_batch(seed_gen, dev, COMPARE_BATCH, TRAIN_HW)
+    # each parameter against the plain step's spread and the kernel step's
+    # own change from run to run: at max_disp 48 the float atomics alone
+    # moved single leaves (a BatchNorm bias of the last fusion's H/12
+    # branch) by as much as the kernel path differs from the plain one
+    compare, m_kernel, step_kernel = compare_train_steps(cfg, specs, small, seed_gen, dev,
+                                                         per_parameter=True, rerun=True)
+    del m_kernel, step_kernel
+    torch.cuda.empty_cache()
+    record["train_step_compare"] = compare
+    print(json.dumps({"anchor": record}), flush=True)
+    check(not compare["failures"], f"anchor kernel vs plain train step: {compare['failures']}")
+    return record
 
 
 def train_phases(specs, bwd_specs, gen, dev, timer, smi, data, lists):
@@ -1548,7 +1736,19 @@ def main() -> int:
         data, lists = write_sceneflow(tmp, CLI_PAIRS, CLI_HW, SEED)
         train = train_phases(specs, bwd_specs, gen, dev, timer, smi, data, lists)
         torch.cuda.empty_cache()
+        anchor_phase(specs, gen, dev, left, right)
         baseline_train = baseline_train_phases(specs, bwd_specs, gen, dev, timer, smi, data, lists)
+    del left, right
+    torch.cuda.empty_cache()
+
+    # 10b. the 4-D volume kernels beyond the paths
+    by_name = {s["name"]: s for s in specs + bwd_specs}
+    recorded = {name: [r["shape"] for run in (*baselines.values(), *baseline_train.values())
+                       if run["launches"].get(name) for r in run["rows"][name]]
+                for name in by_name if "volume" in name}
+    vol_edges = volume_edge_cases(by_name, recorded, gen, dev, timer)
+    print(json.dumps({"volume_edge_cases": vol_edges}), flush=True)
+    train["edge_cases"] += vol_edges
 
     # 11. the record
     kernels = kernels_record(specs + bwd_specs, report, counts_main, train, baselines,

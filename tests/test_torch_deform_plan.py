@@ -11,9 +11,12 @@ window per shape (``ops.deform.forward_plan``, ``backward_data_plan``,
 the plans are checked for every deformable conv that ``chip_smoke.py``'s
 paths run: they fit a block's shared memory and registers, leave no
 channel idle, fill the card, cover every tile once, and their windows cover
-the tile's zero-offset footprint with the halo.
+the tile's zero-offset footprint with the halo. Output-channel counts that
+no multiple of 8 up to 128 divides get zero-padded channel tiles; the plans
+at the path shapes are pinned, so that the padding rule changed none.
 """
 import collections
+import dataclasses
 import pathlib
 import re
 from unittest import mock
@@ -215,8 +218,10 @@ def test_forward_plan_is_deterministic():
 
 
 def test_forward_plan_raises_when_nothing_fits():
-    with pytest.raises(ValueError, match="output channels"):
-        deform.forward_plan(1, 16, 12, 32, 32, K, K, 1, DIL, GROUPS, SMS)  # no tile divides 12
+    # no multiple of 8 divides 12: one zero-padded tile of 16, 4 channels idle
+    twelve = deform.forward_plan(1, 16, 12, 32, 32, K, K, 1, DIL, GROUPS, SMS)
+    assert twelve.co_tile == 16 and twelve.co_tile - 12 == 4
+    assert twelve.blocks == -(-32 // twelve.tile_h) * -(-32 // deform.TILE_W) * twelve.splits
     with pytest.raises(ValueError, match="shared memory"):
         deform.forward_plan(1, 16, 128, 32, 32, 15, 15, 1, 4, GROUPS, SMS)  # 225 taps
     with pytest.raises(ValueError, match="groups"):
@@ -333,8 +338,11 @@ def test_backward_weight_plan_is_deterministic():
 def test_backward_weight_plan_raises_when_nothing_fits():
     with pytest.raises(ValueError, match="taps"):
         deform.backward_weight_plan(1, 16, 16, 32, 32, 5, 5, 1, 1, GROUPS, SMS)
-    with pytest.raises(ValueError, match="output channels"):
-        deform.backward_weight_plan(1, 16, 12, 32, 32, K, K, 1, DIL, GROUPS, SMS)
+    # no multiple of 8 divides 12: one zero-padded tile of 16, 4 channels
+    # idle, the workspace of the real channels only
+    twelve = deform.backward_weight_plan(1, 16, 12, 32, 32, K, K, 1, DIL, GROUPS, SMS)
+    assert twelve.co_tile == 16 and twelve.co_tile - 12 == 4
+    assert twelve.workspace == twelve.splits * 12 * 16 * K * K
     with pytest.raises(ValueError, match="groups"):
         deform.backward_weight_plan(1, 15, 16, 32, 32, K, K, 1, DIL, GROUPS, SMS)
     with pytest.raises(ValueError, match="shared memory"):
@@ -355,3 +363,130 @@ def test_backward_weight_constants_are_the_kernels(name):
                 "WG_MAX_THREADS, BLOCKS)\ndeform_wgrad_kernel") in source
         built = set(re.findall(r"deform_wgrad_kernel<(\d+), (\d+)>", source))
         assert built == {(str(s), str(b)) for s in deform.WG_STEP_H for b in deform.WG_BUILDS}
+
+
+# --- output-channel counts off the multiples of 8: zero-padded channel tiles
+
+# the parent tree's plans at the path shapes (forward, weight gradient), pinned
+PINNED = {
+    ((16, 128, 48, 96), 128, 2): ((8, 128, 1, 4, 256, 26, 42, 108672, 2, 576),
+        (8, 2, 128, 16, 1, 16, 256, 26, 42, 225024, 1, 1, 128, 2359296)),
+    ((16, 128, 24, 48), 128, 1): ((8, 128, 1, 4, 256, 19, 27, 90144, 2, 576),
+        (8, 4, 128, 16, 1, 16, 256, 19, 27, 227456, 1, 1, 128, 2359296)),
+    ((16, 64, 96, 192), 64, 1): ((16, 64, 1, 1, 256, 27, 27, 115488, 2, 1152),
+        (16, 4, 64, 16, 2, 33, 256, 27, 27, 220288, 1, 1, 132, 1216512)),
+    ((16, 32, 48, 96), 32, 1): ((8, 32, 2, 2, 128, 19, 27, 62496, 3, 1152),
+        (16, 4, 32, 16, 4, 66, 256, 27, 27, 202880, 1, 1, 132, 608256)),
+    ((16, 16, 24, 48), 16, 1): ((8, 16, 4, 2, 128, 19, 27, 57888, 3, 288),
+        (16, 8, 16, 8, 16, 66, 256, 27, 27, 167232, 1, 1, 132, 152064)),
+    ((16, 48, 72, 144), 48, 1): ((16, 48, 1, 1, 192, 27, 27, 110880, 2, 720),
+        (8, 4, 48, 8, 4, 44, 192, 19, 27, 111936, 2, 2, 264, 912384)),
+    ((2, 128, 64, 208), 128, 2): ((8, 128, 1, 4, 256, 26, 42, 108672, 2, 224),
+        (8, 2, 128, 16, 1, 16, 256, 26, 42, 225024, 1, 1, 128, 2359296)),
+    ((2, 128, 32, 104), 128, 1): ((8, 128, 1, 4, 256, 19, 27, 90144, 2, 224),
+        (8, 4, 128, 16, 1, 16, 256, 19, 27, 227456, 1, 1, 128, 2359296)),
+    ((1, 64, 128, 416), 64, 1): ((16, 64, 1, 2, 256, 27, 27, 115488, 2, 416),
+        (16, 4, 64, 16, 2, 33, 256, 27, 27, 220288, 1, 1, 132, 1216512)),
+    ((1, 32, 64, 208), 32, 1): ((8, 32, 2, 2, 128, 19, 27, 62496, 3, 208),
+        (16, 4, 32, 16, 4, 52, 256, 27, 27, 202880, 1, 1, 104, 479232)),
+    ((1, 16, 32, 104), 16, 1): ((8, 16, 4, 2, 128, 19, 27, 57888, 3, 56),
+        (16, 8, 16, 8, 16, 14, 256, 27, 27, 167232, 1, 1, 28, 32256)),
+    ((1, 48, 96, 312), 48, 1): ((16, 48, 1, 2, 192, 27, 27, 110880, 2, 240),
+        (8, 4, 48, 8, 4, 44, 192, 19, 27, 111936, 2, 2, 264, 912384)),
+}
+
+
+@pytest.mark.parametrize("x_shape,cout,stride", PATH_SHAPES)
+def test_path_plans_are_pinned(x_shape, cout, stride):
+    """The padding rule leaves every plan that planned before it as it was:
+    at the path shapes, the same forward and weight-gradient plans."""
+    assert set(PINNED) == {(x, c, s) for x, c, s in PATH_SHAPES}
+    forward, weight = PINNED[(x_shape, cout, stride)]
+    assert tuple(_forward_plan(x_shape, cout, stride)) == forward
+    assert tuple(_weight_plan(x_shape, cout, stride)) == weight
+
+
+def _covers(cout, co_tile):
+    """The grid's ceil(cout / co_tile) tiles cover cout once, the last one's
+    channels at or above cout idle, fewer than 8 a tile."""
+    tiles = -(-cout // co_tile)
+    assert co_tile % 8 == 0 and 8 <= co_tile <= 128
+    assert (tiles - 1) * co_tile < cout <= tiles * co_tile
+    assert tiles * co_tile - cout < 8 * tiles
+    return tiles
+
+
+@pytest.mark.parametrize("cout", range(1, 261))
+def test_every_output_channel_count_plans(cout):
+    """Every cout from 1 to 260 gets a forward and a weight-gradient plan
+    (cin = 64 in two groups, the step's 96x192 at batch 16): a multiple of
+    8 up to 128 that divides cout where one fits a tiling (no idle
+    channel), else zero-padded tiles; the same tile for both kernels."""
+    forward = deform.forward_plan(16, 64, cout, 96, 192, K, K, 1, DIL, GROUPS, SMS)
+    weight = deform.backward_weight_plan(16, 64, cout, 96, 192, K, K, 1, DIL, GROUPS, SMS)
+    tiles = _covers(cout, forward.co_tile)
+    assert forward.co_tile == weight.co_tile
+    assert forward.blocks == -(-96 // forward.tile_h) * -(-192 // deform.TILE_W) * tiles * 16 \
+        * forward.splits
+    assert weight.blocks == GROUPS * -(-32 // weight.chunk) * tiles * weight.splits
+    assert weight.workspace == weight.splits * cout * 64 * K * K  # the real channels' rows
+    divisors = [c for c in range(8, min(cout, 128) + 1, 8) if cout % c == 0]
+    if divisors and (divisors[-1] // 8) not in (9, 11, 13, 15):
+        assert forward.co_tile == divisors[-1]
+    assert forward.co_tile in deform.channel_tiles("deform conv", cout)
+
+
+def _isa_convs(name, max_disp):
+    """The deformable convs of preset ``name`` at ``max_disp``: (cout, cin,
+    stride, dilation, groups) of each."""
+    from aanet_torch.models.layers import DeformConv2dLayer
+
+    model = dataclasses.replace(preset(name), max_disp=max_disp).build()
+    return sorted({(m.weight.shape[0], m.weight.shape[1], m.stride, m.dilation, m.groups)
+                   for m in model.modules() if isinstance(m, DeformConv2dLayer)})
+
+
+def _plans(convs):
+    """Each conv's forward, input/offset/mask-gradient and weight-gradient
+    plans at the step's batch and the ISA scales of 288x576 (/3, /12)."""
+    for cout, cin, stride, dil, groups in convs:
+        for h, w in ((96, 192), (24, 48)):
+            forward = deform.forward_plan(16, cin, cout, h // stride, w // stride, K, K, stride, dil,
+                                          groups, SMS)
+            weight = deform.backward_weight_plan(16, cin, cout, h // stride, w // stride, K, K,
+                                                 stride, dil, groups, SMS)
+            _covers(cout, forward.co_tile)
+            _covers(cout, weight.co_tile)
+        deform.backward_data_plan(cin, cout, K, K, stride, dil, groups)
+
+
+@pytest.mark.parametrize("max_disp", [48, 96, 144, 192])
+@pytest.mark.parametrize("name", ["aanet", "stereonet-aa"])
+def test_presets_deform_convs_plan(name, max_disp):
+    """Each preset's deformable convs at max_disp 48 to 192 plan, forward,
+    input/offset/mask gradient and weight gradient: the ISA convs have
+    max_disp / scale / 2^i channels (aanet at 48: 16, 8 and 4; stereonet-aa
+    at 48: 12)."""
+    convs = _isa_convs(name, max_disp)
+    if max_disp == 48:
+        assert {c[0] for c in convs} >= ({16, 8, 4} if name == "aanet" else {12})
+    _plans(convs)
+
+
+@pytest.mark.parametrize("counts", [(48, 24, 12), (96, 48, 24)])
+def test_adaptive_baselines_isa_counts_plan(counts):
+    """The ISA channel counts that psmnet-aa and gcnet-aa (not ported yet)
+    will need at max_disp 192 (max_disp / 4 and / 2 over three scales),
+    with their two deformable groups."""
+    _plans([(c, c, 1, DIL, GROUPS) for c in counts])
+
+
+@pytest.mark.parametrize("cout,pad", [(12, 16), (20, 24), (4, 8), (16, 16)])
+def test_weight_taps_cin_major_pads_the_channels(cout, pad):
+    """The forward's weight [tap, cin, cout_pad]: the weight's channels,
+    then zeros up to the tiles' channels."""
+    weight = torch.from_numpy(np.random.RandomState(2).randn(cout, 6, K, K).astype(np.float32))
+    wt = deform.weight_taps_cin_major(weight, pad)
+    assert wt.shape == (K * K, 6, pad) and wt.is_contiguous()
+    assert torch.equal(wt[..., :cout], deform.weight_taps_cin_major(weight))
+    assert not wt[..., cout:].any()
