@@ -2,6 +2,11 @@
 
   python -m aanet_torch.cli train --preset aanet --data_dir data/SceneFlow \\
       --checkpoint_dir runs/aanet [--recipe aanet_sceneflow] [--device cuda|cpu]
+  python -m aanet_torch.cli evaluate --preset aanet --data_dir data/SceneFlow \\
+      [--pretrained ckpt.msgpack.gz | --checkpoint_dir runs/aanet] [--device cuda|cpu]
+  python -m aanet_torch.cli inference --preset aanet --data_dir data/KITTI \\
+      --dataset_name KITTI2015 --img_height 384 --img_width 1248 \\
+      --pretrained weights.pt [--count_time] [--device cuda|cpu]
   python -m aanet_torch.cli predict --preset aanet --data_dir pairs/ \\
       [--pretrained weights.pt] [--device cuda|cpu]
   python -m aanet_torch.cli train --feature_type psmnet \\
@@ -11,24 +16,32 @@
       --feature_similarity concat --aggregation_type gcnet --num_downsample 1 \\
       --refinement_type None --data_dir pairs/
 
-Both take the JAX CLI's model flags (aanet_tpu/cli.py:94-122) on top of
+All take the JAX CLI's model flags (aanet_tpu/cli.py:94-122) on top of
 ``--preset``: the PSMNet (hourglass or basic aggregation), StereoNet and
 GC-Net baselines are reached through them, as in the JAX package, which
 has no preset or recipe for them. ``train`` also takes the data flags and the
 training flags without resume, periodic checkpoints and summaries. It
 writes ``aanet_latest.pt`` after every epoch and ``aanet_best.pt`` on the
-best validation. ``predict`` reads ``left/*.png`` and ``right/`` with the
+best validation. ``evaluate`` takes the same flags, validates on the
+``--mode`` split (``val`` by default) and prints the metrics as one JSON
+line; its weights are ``--pretrained``, else ``aanet_best.pt`` and then
+``aanet_latest.pt`` under ``--checkpoint_dir`` (``FileNotFoundError``
+without one). ``inference`` predicts the test split of a filename-list
+dataset, padded to ``--img_height`` x ``--img_width`` and cropped back, and
+with ``--count_time`` prints ``{"mean_inference_seconds": ...}`` instead.
+``predict`` reads ``left/*.png`` and ``right/`` with the
 same names under ``--data_dir`` (GC-Net's map, one pixel short of the
 padded pair, crops to one row fewer than the image, as the JAX
-``predict`` gives it); the weights are a torch state_dict file
-or a training checkpoint (``aanet_torch.convert`` maps a flax
-checkpoint's trees onto a state_dict). Both default to ``--device cuda``
-and raise without a GPU. Float32 convolutions and matmuls run in full
-float32 (TF32 off), as the JAX package's float32 mode does.
+``predict`` gives it). Weights are a torch state_dict file, a training
+checkpoint, or a flax checkpoint of the JAX package (``.msgpack`` or
+``.msgpack.gz``). All default to ``--device cuda`` and raise without a
+GPU. Float32 convolutions and matmuls run in full float32 (TF32 off), as
+the JAX package's float32 mode does.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import sys
@@ -66,8 +79,9 @@ def _add_device(p):
 
 def _add_model_args(p):
     p.add_argument("--preset", default=None,
-                   help="model preset; the port runs 'aanet' (the default) and 'stereonet-aa'; "
-                        "the PSMNet, StereoNet and GC-Net baselines take the model flags instead")
+                   help="model preset; the port runs 'aanet' (the default), 'stereonet-aa', "
+                        "'psmnet-aa' and 'gcnet-aa'; the PSMNet, StereoNet and GC-Net baselines "
+                        "take the model flags instead")
     for name, kind in _MODEL_FLAGS.items():
         p.add_argument(f"--{name}", type=kind, default=None)
     for name in _MODEL_SWITCHES:
@@ -98,19 +112,19 @@ def model_config(args) -> ModelConfig:
 def build_config(args) -> Config:
     """Recipe or preset defaults, then every flag given on the command line
     (aanet_tpu/cli.py:170-203)."""
-    if args.recipe:
+    if getattr(args, "recipe", None):
         cfg = recipe(args.recipe)
         cfg.model = _apply_model_flags(preset(args.preset) if args.preset else cfg.model, args)
     else:
         cfg = Config(model=model_config(args), data=DataConfig(), train=TrainConfig())
     for section, flags in ((cfg.data, _DATA_FLAGS), (cfg.train, _TRAIN_FLAGS)):
         for name in flags:
-            if getattr(args, name) is not None:
+            if getattr(args, name, None) is not None:
                 setattr(section, name, getattr(args, name))
-    if args.no_remat:
+    if getattr(args, "no_remat", False):
         cfg.model.remat = False
     for name in _TRAIN_SWITCHES:
-        value = getattr(args, name)
+        value = getattr(args, name, None)
         if value is None:
             continue
         if name == "load_pseudo_gt":
@@ -165,6 +179,61 @@ def cmd_train(args):
     logger.info("training done")
 
 
+def cmd_evaluate(args):
+    """Validate the weights of ``--pretrained``, else of the run under
+    ``--checkpoint_dir``, and print the metrics as one JSON line
+    (aanet_tpu/cli.py:265-307)."""
+    from aanet_torch.data.datasets import StereoDataset
+    from aanet_torch.data.pipeline import make_val_loader
+    from aanet_torch.data.transforms import val_transform
+    from aanet_torch.infer import load_weights_into
+    from aanet_torch.train.trainer import Trainer, get_logger
+
+    cfg = build_config(args)
+    cfg.train.evaluate_only = True
+    d, t = cfg.data, cfg.train
+    weights = None
+    if not t.pretrained:
+        # aanet_best -> aanet_latest (reference model.py:267-277)
+        found = [p for p in (os.path.join(t.checkpoint_dir, f"{name}.pt")
+                             for name in ("aanet_best", "aanet_latest")) if os.path.exists(p)]
+        if not found:
+            raise FileNotFoundError(
+                f"no aanet_best/aanet_latest checkpoint under {t.checkpoint_dir!r} "
+                "and no --pretrained given"
+            )
+        weights = found[0]
+    logger = get_logger()
+    val_ds = StereoDataset(
+        d.data_dir, d.dataset_name, mode=d.mode, split_preset=d.split_preset,
+        filename_root=d.filename_root, save_filename=False,
+        transform=val_transform(d.val_img_height, d.val_img_width),
+    )
+    trainer = Trainer(cfg, steps_per_epoch=1, logger=logger, device=args.device)
+    if weights:
+        load_weights_into(trainer.model, weights, strict=True)
+        logger.info(f"loaded {weights}")
+    means = trainer.validate(make_val_loader(val_ds, d.val_batch_size, d.num_workers))
+    print(json.dumps(means), flush=True)
+
+
+def cmd_inference(args):
+    """Predict the test split and save the maps, or with ``--count_time``
+    print the mean forward seconds per pair (aanet_tpu/cli.py:310-325)."""
+    from aanet_torch.infer import run_inference
+
+    cfg = build_config(args)
+    out = args.output_dir or os.path.join(
+        os.path.dirname(args.pretrained or "."), "inference_output"
+    )
+    mean_s = run_inference(
+        cfg, out, save_type=args.save_type, visualize=args.visualize,
+        count_time=args.count_time, num_images=args.num_images, device=args.device,
+    )
+    if mean_s is not None:
+        print(json.dumps({"mean_inference_seconds": mean_s}), flush=True)
+
+
 def cmd_predict(args):
     from aanet_torch.infer import predict_pairs
 
@@ -179,25 +248,46 @@ def main(argv=None):
     parser = argparse.ArgumentParser(prog="aanet_torch")
     sub = parser.add_subparsers(dest="command", required=True)
 
-    t = sub.add_parser("train", help="train the network on a filename-list dataset")
-    _add_model_args(t)
-    t.add_argument("--recipe", default=None,
-                   help="a training stage of config.RUN_RECIPES, e.g. aanet_sceneflow")
     bool_flag = dict(action=argparse.BooleanOptionalAction, default=None)
-    for name, kind in {**_DATA_FLAGS, **_TRAIN_FLAGS}.items():
-        t.add_argument(f"--{name}", type=kind, default=None)
-    for name in _TRAIN_SWITCHES:
-        t.add_argument(f"--{name}", **bool_flag)
-    t.add_argument("--no_remat", action="store_true",
-                   help="keep every training activation (more memory, no recomputation)")
-    _add_device(t)
-    t.set_defaults(fn=cmd_train)
+    for name, fn, helptext in (
+        ("train", cmd_train, "train the network on a filename-list dataset"),
+        ("evaluate", cmd_evaluate, "validate a checkpoint on a filename-list dataset"),
+    ):
+        t = sub.add_parser(name, help=helptext)
+        _add_model_args(t)
+        t.add_argument("--recipe", default=None,
+                       help="a training stage of config.RUN_RECIPES, e.g. aanet_sceneflow")
+        for flag, kind in {**_DATA_FLAGS, **_TRAIN_FLAGS}.items():
+            t.add_argument(f"--{flag}", type=kind, default=None)
+        for flag in _TRAIN_SWITCHES:
+            t.add_argument(f"--{flag}", **bool_flag)
+        t.add_argument("--no_remat", action="store_true",
+                       help="keep every training activation (more memory, no recomputation)")
+        _add_device(t)
+        t.set_defaults(fn=fn)
+
+    i = sub.add_parser("inference", help="predict the test split of a filename-list dataset")
+    _add_model_args(i)
+    for flag, kind in _DATA_FLAGS.items():
+        i.add_argument(f"--{flag}", type=kind, default=None)
+    i.add_argument("--pretrained", default=None,
+                   help="torch state_dict, training checkpoint or flax .msgpack(.gz)")
+    i.add_argument("--strict", **bool_flag)
+    i.add_argument("--output_dir", default=None)
+    i.add_argument("--save_type", default="png", choices=["png", "pfm", "npy"])
+    i.add_argument("--visualize", action="store_true")
+    i.add_argument("--count_time", action="store_true",
+                   help="time the forward on the first batch and print the mean per pair")
+    i.add_argument("--num_images", type=int, default=100)
+    _add_device(i)
+    i.set_defaults(fn=cmd_inference)
 
     p = sub.add_parser("predict", help="predict disparities of rectified pairs")
     _add_model_args(p)
     p.add_argument("--data_dir", required=True)
     p.add_argument("--output_dir", default=None)
-    p.add_argument("--pretrained", default=None, help="torch state_dict or training checkpoint")
+    p.add_argument("--pretrained", default=None,
+                   help="torch state_dict, training checkpoint or flax .msgpack(.gz)")
     p.add_argument("--save_type", default="png", choices=["png", "pfm", "npy"])
     p.add_argument("--visualize", action="store_true")
     _add_device(p)

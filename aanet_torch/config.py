@@ -4,9 +4,9 @@
 An own copy of ``aanet_tpu/config.py`` (the port imports nothing of the
 JAX package). ``ModelConfig.build`` constructs the port's network and
 raises ``NotImplementedError`` for every preset or flag the port does not
-run yet. It runs, in float32, for inference and training, the ``aanet``
-and ``stereonet-aa`` presets and the 3-D-aggregation baselines reached
-through the model flags:
+run yet. It runs, in float32, for inference and training, the ``aanet``,
+``stereonet-aa``, ``psmnet-aa`` and ``gcnet-aa`` presets and the
+3-D-aggregation baselines reached through the model flags:
 
 * PSMNet: ``feature_type="psmnet", feature_similarity="concat",
   aggregation_type="psmnet_hourglass", refinement_type="None"``, or
@@ -63,7 +63,6 @@ class ModelConfig:
              "feature_type='ganet': the GANet extractor is not ported yet"),
             (self.feature_type not in ("aanet", "stereonet", "psmnet", "ganet", "gcnet"),
              f"feature_type={self.feature_type!r}: unknown extractor"),
-            (self.feature_pyramid, "feature_pyramid=True: FeaturePyramid is not ported yet"),
             (self.aggregation_type not in ("adaptive", "stereonet", "psmnet_hourglass",
                                            "psmnet_basic", "gcnet"),
              f"aggregation_type={self.aggregation_type!r}: unknown aggregation"),
@@ -71,18 +70,19 @@ class ModelConfig:
              "refinement_type='hourglass': HourglassRefinement is not ported yet"),
             (self.refinement_type not in (None, "None", "stereonet", "stereodrnet", "hourglass"),
              f"refinement_type={self.refinement_type!r}: unknown refinement"),
-            (self.no_intermediate_supervision,
-             "no_intermediate_supervision=True: the single-output adaptive aggregation "
-             "is not ported yet"),
             (self.dtype not in (None, "float32"),
              f"dtype={self.dtype!r}: the PyTorch port runs float32 only so far"),
         ]
-        multi_scale = self.feature_type == "aanet"
+        # the JAX composer's multi-scale rule (aanet.py:149-153): the AANet
+        # extractor's three levels, or one scale made three by the FPN or
+        # the pyramid (the FPN where both flags are set, aanet.py:94-99)
+        multi_scale = (self.feature_type == "aanet" or self.feature_pyramid
+                       or self.feature_pyramid_network)
         volume_4d = self.feature_similarity in ("difference", "concat")
         refused += [
             (self.feature_similarity not in ("correlation", "difference", "concat"),
              f"feature_similarity={self.feature_similarity!r}: unknown cost volume"),
-            (self.feature_pyramid_network != multi_scale,
+            ((self.feature_type == "aanet") != bool(self.feature_pyramid_network),
              "the FPN runs on the AANet extractor's three levels, and only there "
              f"(feature_type={self.feature_type!r}, "
              f"feature_pyramid_network={self.feature_pyramid_network})"),
@@ -95,7 +95,8 @@ class ModelConfig:
             (self.aggregation_type == "adaptive"
              and self.num_scales != (3 if multi_scale else 1),
              f"num_scales={self.num_scales} with feature_type={self.feature_type!r}: the "
-             "port runs the adaptive aggregation at the extractor's own scales"),
+             "port runs the adaptive aggregation at three scales when the features are "
+             "multi-scale, else at one"),
         ]
         for refuse, message in refused:
             if refuse:
@@ -107,12 +108,14 @@ class ModelConfig:
             num_downsample=self.num_downsample,
             feature_type=self.feature_type,
             feature_pyramid_network=self.feature_pyramid_network,
+            feature_pyramid=self.feature_pyramid,
             feature_similarity=self.feature_similarity,
             aggregation_type=self.aggregation_type,
             num_scales=self.num_scales,
             num_fusions=self.num_fusions,
             num_stage_blocks=self.num_stage_blocks,
             num_deform_blocks=self.num_deform_blocks,
+            intermediate_supervision=not self.no_intermediate_supervision,
             refinement_type=self.refinement_type,
             mdconv_dilation=self.mdconv_dilation,
             deformable_groups=self.deformable_groups,
@@ -192,6 +195,9 @@ class TrainConfig:
     highest_loss_only: bool = False
     val_metric: str = "epe"  # epe | d1
     print_freq: int = 50
+    # validation only, as the evaluate entry point runs it: no aanet_best
+    # is written (aanet_tpu/config.py:85)
+    evaluate_only: bool = False
     no_validate: bool = False
     # non-strict pretrained loading by default, like the reference
     strict_load: bool = False

@@ -12,10 +12,12 @@ leaf ``a/b/c/kernel`` is the state_dict entry ``a.b.c.weight``:
   ``running_mean``/``running_var``, plus torch's ``num_batches_tracked``;
 * biases unchanged.
 
-The inputs are nested dicts of numpy arrays, as ``jax.device_get`` gives
-them; the port reads no flax file itself. ``flax_from_state_dict`` is the
-inverse map, for the port's trained state (writing a flax msgpack file
-from it is not ported yet).
+The inputs are nested dicts of numpy arrays, as ``jax.device_get`` or the
+port's own flax-checkpoint reader (``aanet_torch/utils/checkpoint.py``,
+which loads a ``.msgpack`` or ``.msgpack.gz`` file through this map) give
+them. ``flax_from_state_dict`` is the inverse map: the reader's template
+of a model's trees, and the port's trained state (writing a flax msgpack
+file from it is not ported yet).
 """
 from __future__ import annotations
 

@@ -172,3 +172,9 @@ def val_transform(img_height: int, img_width: int):
         ToArray(),
         Normalize(),
     ])
+
+
+def test_transform():
+    """Inference: ToArray and Normalize only, no crop (reference
+    inference.py:97-100; aanet_tpu/data/transforms.py:177-179)."""
+    return Compose([ToArray(), Normalize()])

@@ -1,10 +1,19 @@
-"""Prediction on rectified stereo pairs (aanet_tpu/infer.py:270-339).
+"""Inference on a dataset's test split and prediction on rectified stereo
+pairs (aanet_tpu/infer.py:163-339).
 
-``predict_pairs`` runs the model on ``{data_dir}/left/*.png`` with the
-same names under ``right/``: each pair is normalised, zero-padded at the
-top and right to a multiple of ``pad_multiple(cfg)`` (96 under hourglass
-refinement, else 48), and the prediction is cropped back to the original
-size.
+``run_inference`` runs the model over the test list of a filename-list
+dataset: each batch is zero-padded at the top and right to the configured
+``img_height`` x ``img_width``, a smaller prediction is upsampled, and the
+result is cropped back and saved; with ``count_time`` it times the
+forward instead. ``predict_pairs`` runs the model on
+``{data_dir}/left/*.png`` with the same names under ``right/``: each pair
+is normalised, zero-padded at the top and right to a multiple of
+``pad_multiple(cfg)`` (96 under hourglass refinement, else 48), and the
+prediction is cropped back to the original size.
+
+Weights come from a torch file (a state_dict or a training checkpoint) or
+from a flax msgpack checkpoint of the JAX package (``.msgpack`` or
+``.msgpack.gz``, read by ``aanet_torch.utils.checkpoint``).
 
 Every entry point takes a ``device``, ``"cuda"`` by default. Without a GPU
 it raises unless the caller asks for ``"cpu"``, which runs the plain
@@ -15,15 +24,20 @@ from __future__ import annotations
 import glob
 import logging
 import os
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 from PIL import Image
 
-from aanet_torch.config import ModelConfig
+from aanet_torch.config import Config, ModelConfig
+from aanet_torch.data.datasets import StereoDataset
 from aanet_torch.data.file_io import read_img, write_pfm
-from aanet_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+from aanet_torch.data.pipeline import make_val_loader
+from aanet_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD, test_transform
+from aanet_torch.ops.resize import upsample_disparity
+from aanet_torch.utils import checkpoint
 
 logger = logging.getLogger("aanet_torch")
 
@@ -66,15 +80,27 @@ def load_weights(path: str) -> dict:
     return state
 
 
-def load_model(cfg: ModelConfig, pretrained: Optional[str] = None, device="cuda"):
+def load_weights_into(model: torch.nn.Module, path: str, strict: bool = True) -> list[str]:
+    """Load ``path`` into ``model``: a flax checkpoint (``.msgpack`` or
+    ``.msgpack.gz``) through ``checkpoint.load_pretrained``, else a torch
+    file (``load_weights``). Under ``strict`` every entry of the model must
+    be in the file; otherwise what matches is loaded. Returns the entries
+    of the model that were not loaded."""
+    if path.endswith(checkpoint.FLAX_SUFFIXES):
+        return checkpoint.load_pretrained(model, path, strict=strict)
+    return model.load_state_dict(load_weights(path), strict=strict).missing_keys
+
+
+def load_model(cfg: ModelConfig, pretrained: Optional[str] = None, device="cuda",
+               strict: bool = True):
     """Build ``cfg``'s model in eval mode on ``device``; load a state_dict
     file (as written by ``torch.save`` of ``convert.state_dict_from_flax``
-    or of ``model.state_dict()``), or a training checkpoint (its ``model``
-    entry), when ``pretrained`` is given."""
+    or of ``model.state_dict()``), a training checkpoint (its ``model``
+    entry) or a flax checkpoint when ``pretrained`` is given."""
     dev = resolve_device(device)
     model = cfg.build()
     if pretrained:
-        model.load_state_dict(load_weights(pretrained), strict=True)
+        load_weights_into(model, pretrained, strict=strict)
     return model.to(dev).eval()
 
 
@@ -155,3 +181,75 @@ def predict_pairs(
         logger.info("saved %s", name)
         saved.append(name)
     return saved
+
+
+def _time_forward(model: torch.nn.Module, left: torch.Tensor, right: torch.Tensor,
+                 iters: int, warmup: int = 2) -> float:
+    """Mean seconds of one forward of ``model`` on the batch (left, right)
+    over ``iters`` forwards after ``warmup``: CUDA events around the
+    forwards on the card, ``time.perf_counter`` on the CPU."""
+    with torch.inference_mode():
+        for _ in range(warmup):
+            model(left, right)
+        if left.device.type != "cuda":
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                model(left, right)
+            return (time.perf_counter() - t0) / iters
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            model(left, right)
+        end.record()
+        end.synchronize()
+    return start.elapsed_time(end) / 1e3 / iters
+
+
+def run_inference(cfg: Config, output_dir: str, save_type: str = "png", visualize: bool = False,
+                  count_time: bool = False, num_images: int = 100, device="cuda",
+                  logger=None) -> Optional[float]:
+    """Run ``cfg``'s model (weights from ``cfg.train.pretrained``, loaded
+    under ``cfg.train.strict_load``) over the test split of ``cfg.data``
+    in batches of ``data.batch_size`` (a ragged last batch at its own size)
+    and save each prediction under ``output_dir`` by its left image's list
+    name (aanet_tpu/infer.py:175-267). A batch smaller than
+    ``img_height`` x ``img_width`` is zero-padded at the top and right, and
+    its prediction, upsampled where the model's is smaller, is cropped
+    back. With ``count_time`` nothing is saved: the first batch's forward
+    is timed over ``max(2, min(num_images, 8))`` runs after two warm-ups
+    (``_time_forward``) and the mean seconds per pair is returned."""
+    logger = logger or logging.getLogger("aanet_torch")
+    d = cfg.data
+    dev = resolve_device(device)
+    model = load_model(cfg.model, cfg.train.pretrained, device, strict=cfg.train.strict_load)
+    ds = StereoDataset(d.data_dir, d.dataset_name, mode="test", split_preset=d.split_preset,
+                       filename_root=d.filename_root, transform=test_transform())
+    logger.info(f"{len(ds)} samples found in the test set")
+
+    num_imgs = 0
+    for batch in make_val_loader(ds, d.batch_size, num_workers=d.num_workers):
+        left, right = batch["left"], batch["right"]
+        ori_h, ori_w = left.shape[1:3]
+        top, pad_right = max(0, d.img_height - ori_h), max(0, d.img_width - ori_w)
+        left = _pad_top_right(left, ori_h + top, ori_w + pad_right)
+        right = _pad_top_right(right, ori_h + top, ori_w + pad_right)
+        lt = torch.from_numpy(left).permute(0, 3, 1, 2).contiguous().to(dev)
+        rt = torch.from_numpy(right).permute(0, 3, 1, 2).contiguous().to(dev)
+        if count_time:
+            iters = int(max(2, min(num_images, 8)))
+            mean_s = _time_forward(model, lt, rt, iters) / lt.shape[0]
+            logger.info(f"mean inference time per pair at {lt.shape[2]}x{lt.shape[3]} batch "
+                        f"{lt.shape[0]}: {mean_s:.4f}s ({iters} forwards)")
+            return mean_s
+        with torch.inference_mode():
+            pred = model(lt, rt)[-1]
+            if pred.shape[2] < lt.shape[3]:
+                pred = upsample_disparity(pred, tuple(lt.shape[2:]))
+        pred = pred.cpu().numpy()[:, top:, : pred.shape[2] - pad_right]
+        for b in range(pred.shape[0]):
+            name = _save_disp(pred[b], os.path.join(output_dir, batch["left_name"][b]),
+                              save_type, visualize)
+            logger.info("saved %s", name)
+        num_imgs += pred.shape[0]
+    logger.info(f"saved predictions for {num_imgs} images")
+    return None

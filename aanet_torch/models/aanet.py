@@ -21,7 +21,15 @@ refuses the rest):
 * GC-Net: features at H/2, the concat volume over max_disp / 2
   candidates, the 3-D encoder-decoder, a negated soft-argmin (a concat
   volume without PSMNet's aggregation is a matching cost), no refinement:
-  [(H - 1, W - 1)], one pixel short on each axis as in the reference.
+  [(H - 1, W - 1)], one pixel short on each axis as in the reference;
+* ``psmnet-aa``: SPP features at H/4 made three scales by the strided
+  ``FeaturePyramid`` (32/64/128 channels at H/4, H/8, H/16), the
+  correlation pyramid over 48/24/12 candidates at max_disp 192, the
+  adaptive aggregation with one output (no intermediate supervision),
+  soft-argmin at H/4, two StereoDRNet refinements: [H/4, H/2, H];
+* ``gcnet-aa``: GC-Net features at H/2 through the same pyramid (H/2,
+  H/4, H/8; 96/48/24 candidates), one output, one StereoDRNet
+  refinement: [H/2, H].
 
 Every map is a float32 [B, h, w] disparity. In eval mode one feature pass
 runs over both views stacked on the batch axis (exact: shared weights,
@@ -48,6 +56,7 @@ from aanet_torch.models.aggregation import (
 )
 from aanet_torch.models.feature import (
     AANetFeature,
+    FeaturePyramid,
     FeaturePyramidNetwork,
     GCNetFeature,
     PSMNetFeature,
@@ -77,9 +86,10 @@ class AANet(nn.Module):
     """
 
     def __init__(self, max_disp=192, num_downsample=2, feature_type="aanet",
-                 feature_pyramid_network=True, feature_similarity="correlation",
-                 aggregation_type="adaptive", num_scales=3, num_fusions=6,
-                 num_stage_blocks=1, num_deform_blocks=3, refinement_type="stereodrnet",
+                 feature_pyramid_network=True, feature_pyramid=False,
+                 feature_similarity="correlation", aggregation_type="adaptive", num_scales=3,
+                 num_fusions=6, num_stage_blocks=1, num_deform_blocks=3,
+                 intermediate_supervision=True, refinement_type="stereodrnet",
                  mdconv_dilation=2, deformable_groups=2, feature_mdconv=True, remat=True):
         super().__init__()
         self.remat = remat
@@ -98,14 +108,20 @@ class AANet(nn.Module):
             self.feature_extractor = GCNetFeature()
         else:
             raise NotImplementedError(feature_type)
-        self.fpn = FeaturePyramidNetwork(out_channels=128) if feature_pyramid_network else None
+        # the FPN where both are asked for, as the JAX composer (aanet.py:94-99)
+        if feature_pyramid_network:
+            self.fpn = FeaturePyramidNetwork(out_channels=128)
+        elif feature_pyramid:
+            self.fpn = FeaturePyramid()
+        else:
+            self.fpn = None
 
         if aggregation_type == "adaptive":
             self.aggregation = AdaptiveAggregation(
                 self.max_disp, num_scales=num_scales, num_fusions=num_fusions,
                 num_stage_blocks=num_stage_blocks, num_deform_blocks=num_deform_blocks,
                 deformable_groups=deformable_groups, mdconv_dilation=mdconv_dilation,
-                remat=remat,
+                remat=remat, intermediate_supervision=intermediate_supervision,
             )
         elif aggregation_type in AGGREGATIONS_3D:
             channels = FEATURE_CHANNELS * (2 if feature_similarity == "concat" else 1)

@@ -94,25 +94,31 @@ class AdaptiveAggregationModule(nn.Module):
 class AdaptiveAggregation(nn.Module):
     """``num_fusions`` AAModules, the last ``num_deform_blocks`` of them with
     deformable ISA, then per-scale final 1x1 convs (reference
-    nets/aggregation.py:406-464). Returns the similarity volumes
-    [H/3, H/6, H/12], each [B, D_s, H_s, W_s]. With ``remat`` each AAModule
-    is checkpointed on its own in training (aggregation.py:134-137)."""
+    nets/aggregation.py:406-464). Returns the similarity volumes, finest
+    first ([H/3, H/6, H/12] for the ``aanet`` preset), each [B, D_s, H_s,
+    W_s]. Without ``intermediate_supervision`` the last AAModule fuses into
+    the finest scale only and only ``final_conv_0`` runs: one volume
+    (aggregation.py:119-122,151-152). With ``remat`` each AAModule is
+    checkpointed on its own in training (aggregation.py:134-137)."""
 
     def __init__(self, max_disp, num_scales=3, num_fusions=6, num_stage_blocks=1,
-                 num_deform_blocks=3, deformable_groups=2, mdconv_dilation=2, remat=False):
+                 num_deform_blocks=3, deformable_groups=2, mdconv_dilation=2, remat=False,
+                 intermediate_supervision=True):
         super().__init__()
-        self.num_fusions, self.num_scales, self.remat = num_fusions, num_scales, remat
+        self.num_fusions, self.remat = num_fusions, remat
+        self.num_outputs = num_scales if intermediate_supervision else 1
         for i in range(num_fusions):
+            last = i == num_fusions - 1
             self.add_module(f"fusion_{i}", AdaptiveAggregationModule(
                 num_scales=num_scales,
-                num_output_branches=num_scales,
+                num_output_branches=self.num_outputs if last else num_scales,
                 max_disp=max_disp,
                 num_blocks=num_stage_blocks,
                 simple_bottleneck=i < num_fusions - num_deform_blocks,
                 deformable_groups=deformable_groups,
                 mdconv_dilation=mdconv_dilation,
             ))
-        for i in range(num_scales):
+        for i in range(self.num_outputs):
             d_i = max_disp // 2**i
             self.add_module(f"final_conv_{i}", nn.Conv2d(d_i, d_i, 1, bias=True))
 
@@ -121,7 +127,7 @@ class AdaptiveAggregation(nn.Module):
         for i in range(self.num_fusions):
             module = getattr(self, f"fusion_{i}")
             x = remat(module, x) if self.remat and self.training else module(x)
-        return [getattr(self, f"final_conv_{i}")(x[i]) for i in range(self.num_scales)]
+        return [getattr(self, f"final_conv_{i}")(x[i]) for i in range(self.num_outputs)]
 
 
 class StereoNetAggregation(nn.Module):

@@ -1,14 +1,22 @@
 """Feature extractors (aanet_tpu/models/feature.py): the ResNet-40
 backbone with a deformable layer3 and the top-down FPN (``aanet``), and
 the single-scale StereoNet (H/2^k), PSMNet (SPP, H/4) and GC-Net (H/2)
-extractors."""
+extractors, and the strided pyramid that turns one scale into three
+(``FeaturePyramid``)."""
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from aanet_torch.models.layers import BasicBlock, Bottleneck, Conv, DeformBottleneck, Norm
+from aanet_torch.models.layers import (
+    BasicBlock,
+    Bottleneck,
+    Conv,
+    DeformBottleneck,
+    Norm,
+    leaky_relu,
+)
 from aanet_torch.ops.resize import resize_bilinear, resize_nearest
 
 
@@ -84,6 +92,30 @@ class FeaturePyramidNetwork(nn.Module):
             F.relu(getattr(self, f"Norm_{i}")(getattr(self, f"fpn_{i}")(lat)))
             for i, lat in enumerate(laterals)
         ]
+
+
+class FeaturePyramid(nn.Module):
+    """One scale to three: [x, down(x), down(down(x))], each ``down`` a 3x3
+    stride-2 conv, BN, leaky ReLU, 1x1 conv, BN, leaky ReLU at twice the
+    channels of the last (``feature.py:219-240``). Flax names the two
+    blocks' layers ``Conv_0..3`` and ``Norm_0..3`` in creation order."""
+
+    def __init__(self, in_channels=32):
+        super().__init__()
+        c = in_channels
+        for i, (cin, cout) in enumerate(((c, 2 * c), (2 * c, 4 * c))):
+            self.add_module(f"Conv_{2 * i}", Conv(cin, cout, 3, 2, 1))
+            self.add_module(f"Norm_{2 * i}", Norm(cout))
+            self.add_module(f"Conv_{2 * i + 1}", Conv(cout, cout, 1))
+            self.add_module(f"Norm_{2 * i + 1}", Norm(cout))
+
+    def forward(self, x):
+        levels = [x]
+        for k in range(4):
+            x = leaky_relu(getattr(self, f"Norm_{k}")(getattr(self, f"Conv_{k}")(x)))
+            if k % 2:
+                levels.append(x)
+        return levels  # [H_s 32ch, H_s/2 64ch, H_s/4 128ch]
 
 
 class StereoNetFeature(nn.Module):

@@ -13,7 +13,9 @@
   JAX step does (trainer.py:149), which is matched here and not fixed.
 * ``Trainer``: epochs of train steps with the learning rate from the
   piecewise-constant schedule, validation averaged per batch, and the
-  ``aanet_latest`` / ``aanet_best`` checkpoints as torch files. Resume,
+  ``aanet_latest`` / ``aanet_best`` checkpoints as torch files (no
+  ``aanet_best`` under ``evaluate_only``, the ``evaluate`` entry point's
+  setting). Resume,
   the periodic checkpoints, the ``.mat`` export and the TensorBoard image
   panels of the JAX trainer are not ported yet.
 
@@ -31,7 +33,7 @@ import numpy as np
 import torch
 
 from aanet_torch.config import Config
-from aanet_torch.infer import load_weights, resolve_device
+from aanet_torch.infer import load_weights_into, resolve_device
 from aanet_torch.models.layers import set_train_mode
 from aanet_torch.ops.resize import upsample_disparity
 from aanet_torch.train.loss import pyramid_loss
@@ -146,9 +148,9 @@ class Trainer:
         self.logger = logger or get_logger(os.path.join(t.checkpoint_dir, "trainLog.txt"))
         if t.pretrained:
             self.logger.info(f"loading pretrained weights: {t.pretrained}")
-            missing, unexpected = self.model.load_state_dict(load_weights(t.pretrained), strict=t.strict_load)
-            if missing or unexpected:
-                self.logger.info(f"not loaded: {missing}; unused: {unexpected}")
+            missing = load_weights_into(self.model, t.pretrained, strict=t.strict_load)
+            if missing:
+                self.logger.info(f"not loaded: {missing}")
         self.steps_per_epoch = max(1, steps_per_epoch)
         self.schedule = piecewise_constant_schedule(
             t.learning_rate, {int(m) * self.steps_per_epoch: t.lr_decay_gamma for m in t.milestones}
@@ -200,7 +202,8 @@ class Trainer:
     def validate(self, batches: Iterable[Dict[str, np.ndarray]]) -> dict:
         """Metrics averaged per batch over the batches with any valid pixel
         (reference model.py:337-345, 371-377); a ragged last batch runs at
-        its own size. Appends ``val_results.txt`` and keeps ``aanet_best``."""
+        its own size. Appends ``val_results.txt`` and keeps ``aanet_best``,
+        unless ``evaluate_only`` (aanet_tpu/train/trainer.py:503)."""
         cfg = self.cfg.train
         sums: Dict[str, float] = {}
         valid_batches = 0
@@ -224,7 +227,7 @@ class Trainer:
                 if k in means:
                     f.write(f"{k}: {means[k]:.4f}\t")
             f.write("\n")
-        if means:
+        if means and not cfg.evaluate_only:
             current = means.get(cfg.val_metric, means.get("epe", 999.0))
             if current < self.best_metric:
                 self.best_metric = current

@@ -94,7 +94,28 @@
    each timed beside its bound; and bit for bit against their twins at
    widths that are not a multiple of 4, W < D, D = 1, odd C, batch 3, rows
    wider than a backward block, and the backward at D = 0;
-11. prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
+11. the adaptive-aggregation presets on PSMNet's and GC-Net's features,
+   ``psmnet-aa`` and ``gcnet-aa`` (the strided feature pyramid, one
+   aggregated volume; ISA convs of 48/24/12 and 96/48/24 channels), at
+   max_disp 192: each forward at 384x1248, batch 1, seeded and calibrated,
+   through the plain twins with every kernel call's shape, each kernel
+   against its twin at those shapes, then through the kernels with its
+   launch counts (deform 9, correlation 3, soft-argmin 1, warp 2 or 1),
+   its pyramid against the plain one, its latency, peak memory and idle
+   share; ``python -m aanet_torch.cli predict --preset psmnet-aa`` on two
+   375x1242 pairs; a kernel train step against a plain one at batch 2,
+   288x576, for each (``gcnet-aa``'s with the final map's loss only: the
+   loss has no weights for its pyramid of two), and ``psmnet-aa``'s full
+   step at batch 16, halved until it fits, with its launches, step time,
+   samples/s, peak memory and idle share, and each kernel against its twin
+   at that step's shapes;
+12. the JAX package's trained anchor (artifacts/aanet_synthetic_best.msgpack.gz,
+   ``aanet`` at max_disp 48) through the port's entry points on the set it
+   was trained on (``write_synthetic``: 16 pairs of 96x192): ``python -m
+   aanet_torch.cli evaluate`` (EPE below 2.0 px), the same evaluation in
+   this process through the plain twins (EPE within 1e-3 px), and
+   ``inference --count_time --save_type pfm`` (its mean seconds per pair);
+13. prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
 
 Any failure raises, so the exit code is non-zero and the last line is not
 printed. Without CUDA, or without the aanet_torch package beside it, the
@@ -108,6 +129,7 @@ import copy
 import dataclasses
 import functools
 import gc
+import io
 import json
 import os
 import shutil
@@ -195,14 +217,20 @@ CLI_BASELINE, CLI_BASELINE_BATCH = "psmnet", 8  # phase 10's train entry point
 VAL_HW = (576, 960)  # the SceneFlow recipe's validation crop (pads 540 to 576)
 # The correlation volumes of the paths ((L and R shape), max_disp), by path:
 # the aanet train step's and inference forward's three scales, stereonet-aa's
-# one at inference and in its train step
+# one at inference and in its train step, and the three scales of
+# psmnet-aa's (H/4, 32/64/128 channels) and gcnet-aa's (H/2) pyramids at
+# inference and of psmnet-aa's train step
 CORR_PATHS = {
     "aanet step": (((16, 128, 96, 192), 64), ((16, 128, 48, 96), 32), ((16, 128, 24, 48), 16)),
     "aanet inference": (((1, 128, 128, 416), 64), ((1, 128, 64, 208), 32), ((1, 128, 32, 104), 16)),
     "stereonet-aa inference": (((1, 32, 96, 312), 48),),
     "stereonet-aa step": (((16, 32, 72, 144), 48),),
+    "psmnet-aa inference": (((1, 32, 96, 312), 48), ((1, 64, 48, 156), 24), ((1, 128, 24, 78), 12)),
+    "gcnet-aa inference": (((1, 32, 192, 624), 96), ((1, 64, 96, 312), 48),
+                           ((1, 128, 48, 156), 24)),
+    "psmnet-aa step": (((16, 32, 72, 144), 48), ((16, 64, 36, 72), 24), ((16, 128, 18, 36), 12)),
 }
-CORR_PATH_SHAPES = [sig for sigs in CORR_PATHS.values() for sig in sigs]
+CORR_PATH_SHAPES = list(dict.fromkeys(sig for sigs in CORR_PATHS.values() for sig in sigs))
 # and the shapes beyond them: widths that are not a multiple of 4 (37, 53),
 # channels off the chunks (3, 37), D > W, D = 1, 24 and 40, batch 3; the
 # backward also at D = 0
@@ -216,7 +244,8 @@ CORR_EDGE_SHAPES = [
 # correlation volume is a similarity), the baselines' one at inference
 # (384x1248) and in their train steps (288x576, at the batch phase 10 fits;
 # the PSMNet hourglass step launches its shape three times). A difference or
-# GC-Net's concat volume is a matching cost, PSMNet's a similarity.
+# GC-Net's concat volume is a matching cost, PSMNet's a similarity; psmnet-aa's
+# and gcnet-aa's single aggregated volume is a similarity at H/4 and H/2.
 SA_PATHS = {
     "aanet step": (((16, 64, 96, 192), True), ((16, 32, 48, 96), True), ((16, 16, 24, 48), True)),
     "aanet inference": (((1, 64, 128, 416), True), ((1, 32, 64, 208), True),
@@ -229,8 +258,11 @@ SA_PATHS = {
     "gcnet step": (((8, 191, 287, 575), False),),
     "stereonet step": (((16, 48, 72, 144), False),),
     "stereonet-aa step": (((16, 48, 72, 144), True),),
+    "psmnet-aa inference": (((1, 48, 96, 312), True),),
+    "gcnet-aa inference": (((1, 96, 192, 624), True),),
+    "psmnet-aa step": (((16, 48, 72, 144), True),),
 }
-SA_PATH_SHAPES = [sig for sigs in SA_PATHS.values() for sig in sigs]
+SA_PATH_SHAPES = list(dict.fromkeys(sig for sigs in SA_PATHS.values() for sig in sigs))
 # and the shapes beyond them, each with both signs: planes that are not a
 # multiple of 4 (63, 135, 15), planes smaller than one tile (63, 15), a
 # ragged last tile (480), D = 1, 37 and 191, batch 3
@@ -261,8 +293,33 @@ VOL_EDGE_SHAPES = [
 # Phase 6b's output-channel counts of the deformable conv that its
 # forward and weight gradient reach with zero-padded channel tiles
 ODD_COUTS = (4, 6, 12, 20)
-# the trained anchor's setting (artifacts/aanet_synthetic_best.msgpack.gz)
+# the trained anchor and its setting; phase 12 holds its EPE on the set it
+# was trained on below ANCHOR_EPE px, as tests/test_torch_trained.py holds
+# the JAX model's
+ANCHOR = os.path.join("artifacts", "aanet_synthetic_best.msgpack.gz")
 ANCHOR_MAX_DISP = 48
+ANCHOR_EPE = 2.0
+# Phase 11: the adaptive aggregation on PSMNet's and GC-Net's features
+# (the strided pyramid, one aggregated volume) at max_disp 192: launches per
+# forward (9 deformable ISA convs, the last 3 of 6 fusions at 3 scales; a
+# correlation a scale; one soft-argmin; a warp a refinement), the pyramid's
+# shapes at 384x1248, and the launches per train step (remat on: the
+# deformable convs and the warps run again when backward recomputes their
+# AAModule and refinement stage). gcnet-aa trains on its final map only.
+_AA_STEP = {"deform_conv": 18, "deform_conv_backward_data": 9, "deform_conv_backward_weight": 9,
+            "correlation": 3, "correlation_backward": 3, "soft_argmin": 1,
+            "soft_argmin_backward": 1}
+AA_PRESETS = {
+    "psmnet-aa": dict(
+        launches={"deform_conv": 9, "correlation": 3, "soft_argmin": 1, "disp_warp": 2},
+        shapes=[(1, HEIGHT // k, WIDTH // k) for k in (4, 2, 1)],
+        train_launches=dict(_AA_STEP, disp_warp=4, disp_warp_backward=2), highest_loss_only=False),
+    "gcnet-aa": dict(
+        launches={"deform_conv": 9, "correlation": 3, "soft_argmin": 1, "disp_warp": 1},
+        shapes=[(1, HEIGHT // k, WIDTH // k) for k in (2, 1)],
+        train_launches=dict(_AA_STEP, disp_warp=2, disp_warp_backward=1), highest_loss_only=True),
+}
+AA_FULL_STEP = "psmnet-aa"  # the preset whose full-width step phase 11 times
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s, float32 FLOP/s
 # outside the tensor cores (the kernels run float32 FMA on the CUDA cores)
 PEAK_BYTES_S = 3.35e12
@@ -866,6 +923,41 @@ def write_sceneflow(root, n, hw, seed, n_val=4):
     return data, lists
 
 
+def write_synthetic(root, pairs=16, hw=(96, 192), min_disp=3, max_disp_gt=10, seed=0):
+    """The constant-shift set of ``tools/synthetic_dataset.py`` (the same
+    draws, files and lists, written by the port's own PFM writer): pair i
+    has one disparity d_i in [min_disp, max_disp_gt], left[x] = right[x -
+    d_i] of horizontally smoothed noise, the PFM ground truth, and the same
+    list for train, val and test. With the defaults it is the set the
+    trained anchor was trained on (docs/CONVERGENCE_r04.md). Returns
+    (data_dir, filename_root)."""
+    from PIL import Image
+
+    from aanet_torch.data.file_io import write_pfm
+
+    h, w = hw
+    data, lists = os.path.join(root, "data"), os.path.join(root, "lists")
+    os.makedirs(os.path.join(lists, "filenames"), exist_ok=True)
+    for side in ("left", "right", "disp"):
+        os.makedirs(os.path.join(data, side), exist_ok=True)
+    rs = np.random.RandomState(seed)
+    lines = []
+    for i in range(pairs):
+        d = int(rs.randint(min_disp, max_disp_gt + 1))
+        base = rs.rand(h, w + max_disp_gt + 1, 3)
+        base = (base + np.roll(base, 1, 1) + np.roll(base, 2, 1)) / 3
+        Image.fromarray((base[:, d: w + d] * 255).astype(np.uint8)).save(
+            os.path.join(data, "left", f"{i}.png"))
+        Image.fromarray((base[:, :w] * 255).astype(np.uint8)).save(
+            os.path.join(data, "right", f"{i}.png"))
+        write_pfm(os.path.join(data, "disp", f"{i}.pfm"), np.full((h, w), float(d), np.float32))
+        lines.append(f"left/{i}.png right/{i}.png disp/{i}.pfm")
+    for split in ("train", "val", "test"):
+        with open(os.path.join(lists, "filenames", f"SceneFlow_finalpass_{split}.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return data, lists
+
+
 def seeded_model(cfg, dev):
     model = cfg.build()
     seed_weights_(model, SEED)
@@ -982,7 +1074,7 @@ def baseline_phases(specs, gen, dev, timer, smi, left, right):
 
 
 def compare_train_steps(cfg, specs, small, gen, dev, per_parameter=False, calls=None,
-                        recomputed=None, rerun=False):
+                        recomputed=None, rerun=False, highest_loss_only=False):
     """One train step through the kernels against the same step through
     the plain twins (same seeded weights, the batch ``small``), and the
     plain step's own spread: the largest change of its gradients over
@@ -997,16 +1089,17 @@ def compare_train_steps(cfg, specs, small, gen, dev, per_parameter=False, calls=
     within max(1e-3, 2x the spread) and the BatchNorm statistics to 1e-4;
     every check is made after the record is printed. The plain step
     records its kernel calls into ``calls`` and ``recomputed``
-    (``plain_ops``). Returns the record, the kernel step's model and its
-    step."""
+    (``plain_ops``). With ``highest_loss_only`` the loss takes the final
+    map only. Returns the record, the kernel step's model and its step."""
     from aanet_torch.models.layers import set_train_mode
     from aanet_torch.train.optimizer import make_optimizer
     from aanet_torch.train.trainer import make_loss_fn, make_train_step
 
     m_kernel = seeded_model(cfg, dev)
     m_plain = copy.deepcopy(m_kernel)
-    step_kernel = make_train_step(m_kernel, make_optimizer(m_kernel, 1e-3), cfg.max_disp)
-    step_plain = make_train_step(m_plain, make_optimizer(m_plain, 1e-3), cfg.max_disp)
+    last = dict(highest_loss_only=highest_loss_only)
+    step_kernel = make_train_step(m_kernel, make_optimizer(m_kernel, 1e-3), cfg.max_disp, **last)
+    step_plain = make_train_step(m_plain, make_optimizer(m_plain, 1e-3), cfg.max_disp, **last)
     met_kernel = step_kernel(small)
     with plain_ops(specs, calls, recomputed):
         met_plain = step_plain(small)
@@ -1019,13 +1112,13 @@ def compare_train_steps(cfg, specs, small, gen, dev, per_parameter=False, calls=
             set_train_mode(m_floor)
             noise = torch.randn(small["left"].shape, generator=gen, device=dev)
             nudged = dict(small, left=small["left"] * (1 + 1e-6 * noise))
-            make_loss_fn(m_floor, cfg.max_disp)(nudged)[0].backward()
+            make_loss_fn(m_floor, cfg.max_disp, **last)(nudged)[0].backward()
             for name, p in m_floor.named_parameters():
                 moved[name].append(float((p.grad - plain_params[name].grad).square().sum()))
             del m_floor
     if rerun:
         m_again = seeded_model(cfg, dev)
-        make_train_step(m_again, make_optimizer(m_again, 1e-3), cfg.max_disp)(small)
+        make_train_step(m_again, make_optimizer(m_again, 1e-3), cfg.max_disp, **last)(small)
         kernel_params = dict(m_kernel.named_parameters())
         for name, p in m_again.named_parameters():
             moved[name].append(float((p.grad - kernel_params[name].grad).square().sum()))
@@ -1610,14 +1703,157 @@ def baseline_train_phases(specs, bwd_specs, gen, dev, timer, smi, data, lists):
     return out
 
 
+def aa_preset_phases(specs, bwd_specs, gen, dev, timer, smi, left, right):
+    """Phase 11: ``psmnet-aa`` and ``gcnet-aa`` at max_disp 192. Returns, per
+    preset, each kernel's rows at its forward's shapes and the launches of
+    one forward through the kernels; and for ``AA_FULL_STEP`` each kernel's
+    rows at its full-width step's shapes and the launches of one step."""
+    from aanet_torch.config import preset
+
+    out, steps = {}, {}
+    for name, spec in AA_PRESETS.items():
+        cfg = preset(name)
+        expected = {s["name"]: spec["launches"].get(s["name"], 0) for s in specs}
+        with torch.no_grad():
+            model = seeded_model(cfg, dev).eval()
+            calibrate_bn_(model, specs, left, right)
+            calls = {s["name"]: collections.Counter() for s in specs}
+            with plain_ops(specs, calls):
+                plain_pyramid = model(left, right)
+            with plain_ops(specs):
+                plain_ms = timer.ms(lambda: model(left, right), warmup=1, iters=5)
+            made = {n: sum(c.values()) for n, c in calls.items()}
+            check(made == expected, f"{name}: plain forward made {made}, expected {expected}")
+            couts = sorted({sig[1][0] for sig in calls["deform_conv"]})
+            check(couts == sorted(cfg.max_disp // (4 if name == "psmnet-aa" else 2) // 2**i
+                                  for i in range(3)), f"{name}: ISA output channels {couts}")
+            rows = {s["name"]: [measure(s, sig, n, gen, dev, timer) for sig, n in calls[s["name"]].items()]
+                    for s in specs}
+            reset_launches(specs)
+            pyramid = model(left, right)
+            torch.cuda.synchronize()
+            counts = launches(specs)
+            print(f"{name} launches: {counts}", flush=True)
+            check(counts == expected, f"{name}: launches {counts}, expected {expected}")
+            errs = compare_pyramids(pyramid, plain_pyramid, spec["shapes"], name)
+            record = forward_record(name, model, left, right, plain_ms, errs, timer, smi)
+        record.update(deform_couts=couts, launches=counts)
+        print(json.dumps({"aa_forward": record}), flush=True)
+        out[name] = dict(rows=rows, launches=counts)
+        if name == AA_FULL_STEP:  # the predict entry point with the preset
+            with tempfile.TemporaryDirectory() as tmp:
+                weights = os.path.join(tmp, "weights.pt")
+                torch.save(model.state_dict(), weights)
+                data = os.path.join(tmp, "pairs")
+                write_pngs(data, 2, PREDICT_HW, SEED)
+                cmd = [sys.executable, "-m", "aanet_torch.cli", "predict", "--preset", name,
+                       "--data_dir", data, "--pretrained", weights, "--device", DEVICE,
+                       "--save_type", "npy"]
+                proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                                      capture_output=True, text=True, timeout=600)
+                check(proc.returncode == 0, f"{name} predict exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+                for i in range(2):
+                    pred = np.load(os.path.join(data, "pred", f"{i:06d}.npy"))
+                    check(pred.shape == PREDICT_HW and np.isfinite(pred).all(),
+                          f"{name} prediction {i}: shape {pred.shape}")
+            print(f"{name} predict: 2 pairs of {PREDICT_HW[0]}x{PREDICT_HW[1]}, exit 0", flush=True)
+        del model, plain_pyramid, pyramid
+        torch.cuda.empty_cache()
+
+    torch.set_grad_enabled(True)
+    all_specs = specs + bwd_specs
+    for name, spec in AA_PRESETS.items():
+        cfg = preset(name)
+        # a kernel step against a plain step at batch 2; the plain step
+        # records every kernel call
+        first = {s["name"]: collections.Counter() for s in specs}
+        again = {s["name"]: collections.Counter() for s in specs}
+        small = train_batch(gen, dev, COMPARE_BATCH, TRAIN_HW)
+        compare, m_kernel, step_kernel = compare_train_steps(
+            cfg, specs, small, gen, dev, calls=first, recomputed=again,
+            highest_loss_only=spec["highest_loss_only"])
+        del m_kernel, step_kernel, small
+        made = {n: sum(first[n].values()) + sum(again[n].values()) for n in first}
+        made.update({b["name"]: sum(first[b["forward"]].values()) for b in bwd_specs})
+        expected = {s["name"]: spec["train_launches"].get(s["name"], 0) for s in all_specs}
+        record = dict(preset=name, highest_loss_only=spec["highest_loss_only"],
+                      height=TRAIN_HW[0], width=TRAIN_HW[1], max_disp=cfg.max_disp, dtype="float32",
+                      remat=cfg.remat, compare=compare, card=smi)
+        torch.cuda.empty_cache()
+        if name == AA_FULL_STEP:  # the full-width step at the batch rule
+            model, step, batch, metrics, counts, refused = fit_batch(cfg, gen, dev, all_specs)
+            n = batch["left"].shape[0]
+            print(f"{name} train-step launches at batch {n}: {counts}", flush=True)
+            check(counts == expected, f"{name}: train-step launches {counts}, expected {expected}")
+            record.update(batch=n, batches_out_of_memory=refused, launches=counts,
+                          **time_steps(step, batch, metrics, dev, top=15))
+            del model, step, batch
+            torch.cuda.empty_cache()
+            # each kernel against its twin at the full step's shapes
+            rows = {sp["name"]: [measure(sp, rebatch(sig, n), k + again[sp["name"]][sig], gen, dev,
+                                         timer, iters=10)
+                                 for sig, k in first[sp["name"]].items()] for sp in specs}
+            rows.update({sp["name"]: [measure(sp, rebatch(sig, n), k, gen, dev, timer, iters=10)
+                                      for sig, k in first[sp["forward"]].items()]
+                         for sp in bwd_specs})
+            steps[name] = dict(rows=rows, launches=counts)
+        print(json.dumps({"aa_train_step": record}), flush=True)
+        check(made == expected, f"{name}: plain train step made {made}, expected {expected}")
+        check(not compare["failures"], f"{name} kernel vs plain train step: {compare['failures']}")
+    return out, steps
+
+
+def anchor_entry_points(specs, smi):
+    """Phase 12: the trained anchor through ``evaluate`` and ``inference``
+    as a user runs them, on the set it was trained on; the evaluation again
+    in this process through the plain twins. Returns the record."""
+    from aanet_torch import cli
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        data, lists = write_synthetic(tmp)
+        model = ["--preset", "aanet", "--max_disp", str(ANCHOR_MAX_DISP), "--pretrained",
+                 os.path.join(root, ANCHOR), "--strict", "--data_dir", data, "--filename_root", lists,
+                 "--num_workers", "4", "--device", DEVICE]
+        val = ["--val_img_height", "96", "--val_img_width", "192", "--val_batch_size", "4"]
+
+        def run(*args):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "aanet_torch.cli", *args], cwd=root,
+                                  capture_output=True, text=True, timeout=600)
+            check(proc.returncode == 0, f"cli {args[0]} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+            return json.loads(proc.stdout.strip().splitlines()[-1]), time.perf_counter() - t0
+
+        kernel, eval_s = run("evaluate", *model, *val, "--checkpoint_dir", os.path.join(tmp, "eval"))
+        out = io.StringIO()
+        with plain_ops(specs), contextlib.redirect_stdout(out):
+            cli.main(["evaluate", *model, *val, "--checkpoint_dir", os.path.join(tmp, "plain")])
+        plain = json.loads(out.getvalue().strip().splitlines()[-1])
+        timed, inference_s = run("inference", *model, "--img_height", "96", "--img_width", "192",
+                                 "--batch_size", "1", "--count_time", "--save_type", "pfm",
+                                 "--output_dir", os.path.join(tmp, "inference"))
+    mean_s = timed["mean_inference_seconds"]
+    print(f"anchor inference --count_time: {mean_s} s per pair at 96x192, batch 1 ({smi})", flush=True)
+    record = dict(evaluate_kernel=kernel, evaluate_plain=plain, evaluate_s=eval_s,
+                  epe_difference=abs(kernel["epe"] - plain["epe"]), mean_inference_seconds=mean_s,
+                  inference_s=inference_s, card=smi)
+    print(json.dumps({"anchor_entry_points": record}), flush=True)
+    check(kernel["epe"] < ANCHOR_EPE, f"anchor evaluate: EPE {kernel['epe']} >= {ANCHOR_EPE}")
+    check(record["epe_difference"] <= 1e-3,
+          f"anchor evaluate: kernel EPE {kernel['epe']}, plain {plain['epe']}")
+    check(np.isfinite(mean_s) and mean_s > 0, f"anchor inference: {mean_s} s per pair")
+    return record
+
+
 def kernels_record(all_specs, report, counts_main, train, baselines, baseline_train):
     """Every kernel with its totals over the first path that runs it: one
     train step of aanet (the training slice's main path); for the 4-D
     volumes' forward, one forward of the first baseline that runs it
     (PSMNet, StereoNet); for their backward, one train step of the same
     baseline. The other paths that run a kernel ride along: one aanet
-    inference forward, each baseline forward and each baseline train
-    step."""
+    inference forward, each baseline and adaptive-preset forward
+    (``baselines`` holds both) and each baseline train step and
+    ``AA_FULL_STEP``'s (``baseline_train``)."""
     inference = {sp["name"]: r for sp, r in report}
     kernels = []
     for spec in all_specs:
@@ -1738,7 +1974,6 @@ def main() -> int:
         torch.cuda.empty_cache()
         anchor_phase(specs, gen, dev, left, right)
         baseline_train = baseline_train_phases(specs, bwd_specs, gen, dev, timer, smi, data, lists)
-    del left, right
     torch.cuda.empty_cache()
 
     # 10b. the 4-D volume kernels beyond the paths
@@ -1750,9 +1985,17 @@ def main() -> int:
     print(json.dumps({"volume_edge_cases": vol_edges}), flush=True)
     train["edge_cases"] += vol_edges
 
-    # 11. the record
-    kernels = kernels_record(specs + bwd_specs, report, counts_main, train, baselines,
-                             baseline_train)
+    # 11. psmnet-aa and gcnet-aa
+    aa, aa_train = aa_preset_phases(specs, bwd_specs, gen, dev, timer, smi, left, right)
+    del left, right
+    torch.cuda.empty_cache()
+
+    # 12. the trained anchor through the evaluate and inference entry points
+    anchor_entry_points(specs, smi)
+
+    # 13. the record
+    kernels = kernels_record(specs + bwd_specs, report, counts_main, train, {**baselines, **aa},
+                             {**baseline_train, **aa_train})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -475,9 +475,9 @@ def test_presets_deform_convs_plan(name, max_disp):
 
 @pytest.mark.parametrize("counts", [(48, 24, 12), (96, 48, 24)])
 def test_adaptive_baselines_isa_counts_plan(counts):
-    """The ISA channel counts that psmnet-aa and gcnet-aa (not ported yet)
-    will need at max_disp 192 (max_disp / 4 and / 2 over three scales),
-    with their two deformable groups."""
+    """The ISA channel counts of psmnet-aa and gcnet-aa at max_disp 192
+    (max_disp / 4 and / 2 over three scales), with their two deformable
+    groups."""
     _plans([(c, c, 1, DIL, GROUPS) for c in counts])
 
 

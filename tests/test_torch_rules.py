@@ -67,10 +67,31 @@ def test_converted_flax_tree_loads_strictly():
     port.load_state_dict(state, strict=True)
 
 
+@pytest.mark.parametrize("name", ["psmnet-aa", "gcnet-aa"])
+def test_aa_preset_flax_tree_loads_strictly(name):
+    """Every parameter and statistic of the full ``psmnet-aa`` and
+    ``gcnet-aa`` presets (the strided pyramid as ``fpn``, the single-output
+    aggregation) maps onto exactly the port's state_dict keys, with
+    matching shapes."""
+    jmodel = jax_preset(name).build()
+    img = jnp.zeros((1, 256, 256, 3))
+    shapes = jax.eval_shape(
+        lambda: jmodel.init(jax.random.PRNGKey(0), img, img, train=False)
+    )
+    zeros = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), shapes)
+    state = state_dict_from_flax(zeros["params"], zeros["batch_stats"])
+    port = preset(name).build()
+    want = port.state_dict()
+    assert set(state) == set(want)
+    assert all(state[k].shape == want[k].shape for k in want)
+    port.load_state_dict(state, strict=True)
+    assert "final_conv_1.weight" not in {k.split(".", 1)[1] for k in want if k.startswith("aggregation.")}
+
+
 @pytest.mark.parametrize(
     "overrides",
     [dict(MODEL_PRESETS[name].__dict__) for name in sorted(MODEL_PRESETS)
-     if name not in ("aanet", "stereonet-aa")]
+     if name not in ("aanet", "stereonet-aa", "psmnet-aa", "gcnet-aa")]
     + [dict(dtype="bfloat16"), dict(feature_similarity="difference"),
        dict(aggregation_type="gcnet")],
 )
@@ -199,18 +220,22 @@ BASELINE_FLAGS = {
     "stereonet-aa": ["--preset", "stereonet-aa"],
     "gcnet": ["--feature_type", "gcnet", "--feature_similarity", "concat",
               "--aggregation_type", "gcnet", "--num_downsample", "1", "--refinement_type", "None"],
+    "psmnet-aa": ["--preset", "psmnet-aa"],
+    "gcnet-aa": ["--preset", "gcnet-aa"],
 }
 # image size (padded to a multiple of 48) and max_disp per configuration:
 # the PSMNet extractor needs 256 px at least; GC-Net's four stride-2 levels
-# need H/2, W/2 and max_disp/2 to be multiples of 16
+# need H/2, W/2 and max_disp/2 to be multiples of 16; psmnet-aa's ISA convs
+# of max_disp / 16 channels take two deformable groups
 PREDICT_SIZES = {"psmnet": ((260, 270), 48), "psmnet_basic": ((260, 270), 48),
-                 "gcnet": ((90, 90), 32)}
+                 "gcnet": ((90, 90), 32), "psmnet-aa": ((260, 270), 96)}
 
 
 @pytest.mark.parametrize("name", sorted(BASELINE_FLAGS))
 def test_cli_predict_runs_the_baselines_on_cpu(tmp_path, name):
     """``predict`` reaches the 3-D-aggregation baselines through the JAX
-    CLI's model flags, and the stereonet-aa preset, on the CPU. GC-Net's
+    CLI's model flags, and the stereonet-aa, psmnet-aa and gcnet-aa
+    presets, on the CPU. GC-Net's
     map is one pixel short of the padded pair, so its crop has one row
     fewer than the image, as the JAX ``predict`` gives it."""
     data = tmp_path / "pairs"
