@@ -1,7 +1,8 @@
 """Command-line entry points of the PyTorch port:
 
   python -m aanet_torch.cli train --preset aanet --data_dir data/SceneFlow \\
-      --checkpoint_dir runs/aanet [--recipe aanet_sceneflow] [--device cuda|cpu]
+      --checkpoint_dir runs/aanet [--recipe aanet_sceneflow] [--resume] \\
+      [--save_ckpt_freq 5] [--device cuda|cpu]
   python -m aanet_torch.cli evaluate --preset aanet --data_dir data/SceneFlow \\
       [--pretrained ckpt.msgpack.gz | --checkpoint_dir runs/aanet] [--device cuda|cpu]
   python -m aanet_torch.cli inference --preset aanet --data_dir data/KITTI \\
@@ -20,11 +21,14 @@ All take the JAX CLI's model flags (aanet_tpu/cli.py:94-122) on top of
 ``--preset``: the PSMNet (hourglass or basic aggregation), StereoNet and
 GC-Net baselines are reached through them, as in the JAX package, which
 has no preset or recipe for them. ``train`` also takes the data flags and the
-training flags without resume, periodic checkpoints and summaries. It
-writes ``aanet_latest.pt`` after every epoch and ``aanet_best.pt`` on the
-best validation. ``evaluate`` takes the same flags, validates on the
-``--mode`` split (``val`` by default) and prints the metrics as one JSON
-line; its weights are ``--pretrained``, else ``aanet_best.pt`` and then
+training flags but the summaries' (TensorBoard is not ported), and the
+recipes of both AANet and AANet+ (``--recipe aanet+_sceneflow``). It
+writes ``aanet_latest.pt`` after every epoch, ``models/aanet_epoch_NNN.pt``
+every ``--save_ckpt_freq`` epochs and ``aanet_best.pt`` on the best
+validation; ``--resume`` continues from ``aanet_latest.pt``. ``evaluate``
+takes the same flags, validates on the ``--mode`` split (``val`` by
+default) and prints the metrics as one JSON line; its weights are
+``--pretrained``, else ``aanet_best.pt`` and then
 ``aanet_latest.pt`` under ``--checkpoint_dir`` (``FileNotFoundError``
 without one). ``inference`` predicts the test split of a filename-list
 dataset, padded to ``--img_height`` x ``--img_width`` and cropped back, and
@@ -67,9 +71,10 @@ _DATA_FLAGS = {
 _TRAIN_FLAGS = {
     "checkpoint_dir": str, "seed": int, "learning_rate": float, "weight_decay": float,
     "lr_decay_gamma": float, "milestones": str, "max_epoch": int, "accumulation_steps": int,
-    "val_metric": str, "print_freq": int, "pretrained": str,
+    "val_metric": str, "save_ckpt_freq": int, "print_freq": int, "pretrained": str,
 }
-_TRAIN_SWITCHES = ("freeze_bn", "highest_loss_only", "no_validate", "load_pseudo_gt", "strict")
+_TRAIN_SWITCHES = ("freeze_bn", "highest_loss_only", "no_validate", "load_pseudo_gt", "strict",
+                   "resume")
 
 
 def _add_device(p):
@@ -79,9 +84,9 @@ def _add_device(p):
 
 def _add_model_args(p):
     p.add_argument("--preset", default=None,
-                   help="model preset; the port runs 'aanet' (the default), 'stereonet-aa', "
-                        "'psmnet-aa' and 'gcnet-aa'; the PSMNet, StereoNet and GC-Net baselines "
-                        "take the model flags instead")
+                   help="model preset: 'aanet' (the default), 'aanet+', 'stereonet-aa', "
+                        "'psmnet-aa', 'ganet-aa' or 'gcnet-aa'; the PSMNet, StereoNet and GC-Net "
+                        "baselines take the model flags instead")
     for name, kind in _MODEL_FLAGS.items():
         p.add_argument(f"--{name}", type=kind, default=None)
     for name in _MODEL_SWITCHES:
@@ -256,7 +261,7 @@ def main(argv=None):
         t = sub.add_parser(name, help=helptext)
         _add_model_args(t)
         t.add_argument("--recipe", default=None,
-                       help="a training stage of config.RUN_RECIPES, e.g. aanet_sceneflow")
+                       help="a training stage of config.RUN_RECIPES, e.g. aanet+_sceneflow")
         for flag, kind in {**_DATA_FLAGS, **_TRAIN_FLAGS}.items():
             t.add_argument(f"--{flag}", type=kind, default=None)
         for flag in _TRAIN_SWITCHES:

@@ -3,9 +3,10 @@
 
 An own copy of ``aanet_tpu/config.py`` (the port imports nothing of the
 JAX package). ``ModelConfig.build`` constructs the port's network and
-raises ``NotImplementedError`` for every preset or flag the port does not
-run yet. It runs, in float32, for inference and training, the ``aanet``,
-``stereonet-aa``, ``psmnet-aa`` and ``gcnet-aa`` presets and the
+raises ``NotImplementedError`` for what it does not run: bfloat16, and
+flags whose stages do not fit each other. It runs, in float32, for
+inference and training, every preset (``aanet``, ``aanet+``,
+``stereonet-aa``, ``psmnet-aa``, ``ganet-aa``, ``gcnet-aa``) and the
 3-D-aggregation baselines reached through the model flags:
 
 * PSMNet: ``feature_type="psmnet", feature_similarity="concat",
@@ -54,20 +55,16 @@ class ModelConfig:
         """The port's ``AANet`` for this configuration (in training mode,
         as ``nn.Module``s start; call ``.eval()`` for inference).
 
-        Raises ``NotImplementedError`` for what the port does not run: the
-        modules not ported yet, and the combinations of flags whose cost
-        volume and aggregation do not fit each other (the JAX composer
+        Raises ``NotImplementedError`` for what the port does not run:
+        bfloat16, unknown stage types, and the combinations of flags whose
+        cost volume and aggregation do not fit each other (the JAX composer
         fails on them too)."""
         refused = [
-            (self.feature_type == "ganet",
-             "feature_type='ganet': the GANet extractor is not ported yet"),
             (self.feature_type not in ("aanet", "stereonet", "psmnet", "ganet", "gcnet"),
              f"feature_type={self.feature_type!r}: unknown extractor"),
             (self.aggregation_type not in ("adaptive", "stereonet", "psmnet_hourglass",
                                            "psmnet_basic", "gcnet"),
              f"aggregation_type={self.aggregation_type!r}: unknown aggregation"),
-            (self.refinement_type == "hourglass",
-             "refinement_type='hourglass': HourglassRefinement is not ported yet"),
             (self.refinement_type not in (None, "None", "stereonet", "stereodrnet", "hourglass"),
              f"refinement_type={self.refinement_type!r}: unknown refinement"),
             (self.dtype not in (None, "float32"),
@@ -194,7 +191,11 @@ class TrainConfig:
     freeze_bn: bool = False
     highest_loss_only: bool = False
     val_metric: str = "epe"  # epe | d1
+    # models/aanet_epoch_NNN.pt, without the optimizer, every this many epochs
+    save_ckpt_freq: int = 5
     print_freq: int = 50
+    # continue from aanet_latest.pt under checkpoint_dir, where there is one
+    resume: bool = False
     # validation only, as the evaluate entry point runs it: no aanet_best
     # is written (aanet_tpu/config.py:85)
     evaluate_only: bool = False
@@ -214,32 +215,41 @@ class Config:
         return json.dumps(dataclasses.asdict(self), indent=2)
 
 
-def _recipe(stage: str) -> Config:
-    """The reference's staged training pipeline for AANet
-    (scripts/aanet_train.sh; aanet_tpu/config.py:164-225)."""
-    model = preset("aanet")
+def _recipe(model_name: str, stage: str) -> Config:
+    """The reference's staged training pipelines for AANet and AANet+
+    (scripts/aanet_train.sh, scripts/aanet+_train.sh:5-60;
+    aanet_tpu/config.py:164-240). Stage N's ``pretrained`` is stage N-1's
+    checkpoint, a torch file of the port."""
+    model = preset(model_name)
+    plus = "+" in model_name
     if stage == "sceneflow":
+        # batch 64 over 4 V100s (README.md:110); AANet+ at 16
         data = DataConfig(
-            dataset_name="SceneFlow", mode="val", batch_size=64, val_batch_size=64,
-            img_height=288, img_width=576, val_img_height=576, val_img_width=960,
+            dataset_name="SceneFlow", mode="val", batch_size=16 if plus else 64,
+            val_batch_size=64, img_height=288, img_width=576, val_img_height=576,
+            val_img_width=960,
         )
         train = TrainConfig(
-            checkpoint_dir="checkpoints/aanet_sceneflow",
+            checkpoint_dir=f"checkpoints/{model_name}_sceneflow",
             learning_rate=1e-3, milestones=(20, 30, 40, 50, 60), max_epoch=64,
         )
     elif stage == "kittimix":
+        # pseudo-GT supervised KITTI mix (aanet+_train.sh:21-40)
         data = DataConfig(
             data_dir="data/KITTI", dataset_name="KITTI_mix", mode="train",
-            batch_size=6, val_batch_size=8, img_height=336, img_width=960,
-            val_img_height=384, val_img_width=1248, load_pseudo_gt=True,
+            batch_size=8 if plus else 6, val_batch_size=8, img_height=288 if plus else 336,
+            img_width=1152 if plus else 960, val_img_height=384, val_img_width=1248,
+            load_pseudo_gt=True,
         )
         train = TrainConfig(
-            checkpoint_dir="checkpoints/aanet_kittimix",
-            pretrained="checkpoints/aanet_sceneflow/aanet_best.pt",
+            checkpoint_dir=f"checkpoints/{model_name}_kittimix",
+            pretrained=f"checkpoints/{model_name}_sceneflow/aanet_best.pt",
             learning_rate=1e-3, milestones=(400, 600, 800, 900),
-            max_epoch=1000, no_validate=True,
+            max_epoch=1000, save_ckpt_freq=100, no_validate=True,
         )
     elif stage in ("kitti15", "kitti12"):
+        # the full-resolution fine-tune on the last map; AANet+ with frozen
+        # BatchNorm (aanet+_train.sh:42-60)
         k15 = stage == "kitti15"
         data = DataConfig(
             data_dir=(
@@ -247,27 +257,31 @@ def _recipe(stage: str) -> Config:
                 if k15 else "data/KITTI/kitti_2012/data_stereo_flow"
             ),
             dataset_name="KITTI2015" if k15 else "KITTI2012",
-            mode="train_all", batch_size=6, val_batch_size=8,
+            mode="train_all", batch_size=8 if plus else 6, val_batch_size=8,
             img_height=384, img_width=1248, val_img_height=384, val_img_width=1248,
             load_pseudo_gt=True,
         )
         train = TrainConfig(
-            checkpoint_dir=f"checkpoints/aanet_{stage}",
-            pretrained="checkpoints/aanet_kittimix/aanet_latest.pt",
+            checkpoint_dir=f"checkpoints/{model_name}_{stage}",
+            pretrained=f"checkpoints/{model_name}_kittimix/aanet_latest.pt",
             learning_rate=1e-4, milestones=(400, 600, 800, 900),
-            max_epoch=1000, no_validate=True, highest_loss_only=True,
+            max_epoch=1000, save_ckpt_freq=100, no_validate=True, highest_loss_only=True,
+            freeze_bn=plus,
         )
     else:
         raise KeyError(stage)
     return Config(model=model, data=data, train=train)
 
 
-# the aanet+ stages of the JAX package wait for the AANet+ slice
-RUN_RECIPES = {f"aanet_{s}": s for s in ("sceneflow", "kittimix", "kitti15", "kitti12")}
+RUN_RECIPES = {
+    f"{m}_{s}": (m, s)
+    for m in ("aanet", "aanet+")
+    for s in ("sceneflow", "kittimix", "kitti15", "kitti12")
+}
 
 
 def recipe(name: str) -> Config:
-    """Full Config for a named training recipe (e.g. 'aanet_sceneflow')."""
+    """Full Config for a named training recipe (e.g. 'aanet+_sceneflow')."""
     if name not in RUN_RECIPES:
         raise KeyError(f"unknown recipe {name!r}; have {sorted(RUN_RECIPES)}")
-    return _recipe(RUN_RECIPES[name])
+    return _recipe(*RUN_RECIPES[name])

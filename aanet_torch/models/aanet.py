@@ -29,7 +29,14 @@ refuses the rest):
   soft-argmin at H/4, two StereoDRNet refinements: [H/4, H/2, H];
 * ``gcnet-aa``: GC-Net features at H/2 through the same pyramid (H/2,
   H/4, H/8; 96/48/24 candidates), one output, one StereoDRNet
-  refinement: [H/2, H].
+  refinement: [H/2, H];
+* ``aanet+``: GANet's UNet features at H/3 (deformable) through the same
+  pyramid (32/64/128 channels at H/3, H/6, H/12; 64/32/16 candidates at
+  max_disp 192), the adaptive aggregation with intermediate supervision,
+  soft-argmin at three scales, two hourglass refinements: the pyramid
+  [H/12, H/6, H/3, H/2, H]; H and W multiples of 96;
+* ``ganet-aa``: the same features and pyramid, one output, two
+  StereoDRNet refinements: [H/3, H/2, H]; H and W multiples of 48.
 
 Every map is a float32 [B, h, w] disparity. In eval mode one feature pass
 runs over both views stacked on the batch axis (exact: shared weights,
@@ -58,23 +65,29 @@ from aanet_torch.models.feature import (
     AANetFeature,
     FeaturePyramid,
     FeaturePyramidNetwork,
+    GANetFeature,
     GCNetFeature,
     PSMNetFeature,
     StereoNetFeature,
 )
 from aanet_torch.models.layers import remat
-from aanet_torch.models.refinement import StereoDRNetRefinement, StereoNetRefinement
+from aanet_torch.models.refinement import (
+    HourglassRefinement,
+    StereoDRNetRefinement,
+    StereoNetRefinement,
+)
 from aanet_torch.ops import cost_volume as cost_ops
 from aanet_torch.ops import softargmin as softargmin_ops
 from aanet_torch.ops.resize import resize_bilinear
 
 FEATURE_CHANNELS = 32  # the StereoNet, PSMNet and GC-Net extractors' output
-REFINEMENTS = {"stereonet": StereoNetRefinement, "stereodrnet": StereoDRNetRefinement}
+REFINEMENTS = {"stereonet": StereoNetRefinement, "stereodrnet": StereoDRNetRefinement,
+               "hourglass": HourglassRefinement}
 AGGREGATIONS_3D = {"stereonet": StereoNetAggregation, "psmnet_basic": PSMNetBasicAggregation,
                    "psmnet_hourglass": PSMNetHGAggregation, "gcnet": GCNetAggregation}
 # the feature scale of each extractor (nets/aanet.py:43-61); StereoNet's
 # and PSMNet's is 2^num_downsample
-FEATURE_SCALE = {"aanet": 3, "gcnet": 2}
+FEATURE_SCALE = {"aanet": 3, "ganet": 3, "gcnet": 2}
 
 
 class AANet(nn.Module):
@@ -104,6 +117,8 @@ class AANet(nn.Module):
             self.feature_extractor = StereoNetFeature(num_downsample)
         elif feature_type == "psmnet":
             self.feature_extractor = PSMNetFeature()
+        elif feature_type == "ganet":
+            self.feature_extractor = GANetFeature(feature_mdconv=feature_mdconv)
         elif feature_type == "gcnet":
             self.feature_extractor = GCNetFeature()
         else:

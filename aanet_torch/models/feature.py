@@ -1,8 +1,8 @@
 """Feature extractors (aanet_tpu/models/feature.py): the ResNet-40
 backbone with a deformable layer3 and the top-down FPN (``aanet``), and
-the single-scale StereoNet (H/2^k), PSMNet (SPP, H/4) and GC-Net (H/2)
-extractors, and the strided pyramid that turns one scale into three
-(``FeaturePyramid``)."""
+the single-scale StereoNet (H/2^k), PSMNet (SPP, H/4), GANet (a UNet,
+H/3) and GC-Net (H/2) extractors, and the strided pyramid that turns one
+scale into three (``FeaturePyramid``)."""
 from __future__ import annotations
 
 import torch
@@ -11,27 +11,18 @@ import torch.nn.functional as F
 
 from aanet_torch.models.layers import (
     BasicBlock,
+    BasicConv,
     Bottleneck,
     Conv,
     DeformBottleneck,
+    DeformConv2dLayer,
     Norm,
+    add_numbered,
     leaky_relu,
+    unet_forward,
+    unet_layers,
 )
 from aanet_torch.ops.resize import resize_bilinear, resize_nearest
-
-
-def _add_numbered(module, blocks):
-    """Add ``blocks`` as ``<class>_<n>``, as flax auto-names them in
-    creation order; return the names in order."""
-    counts: dict = {}
-    names = []
-    for block in blocks:
-        kind = type(block).__name__
-        name = f"{kind}_{counts.get(kind, 0)}"
-        counts[kind] = counts.get(kind, 0) + 1
-        module.add_module(name, block)
-        names.append(name)
-    return names
 
 
 class AANetFeature(nn.Module):
@@ -53,7 +44,7 @@ class AANetFeature(nn.Module):
             blocks += [DeformBottleneck(16 * c, 4 * c) for _ in range(5)]
         else:
             blocks += [Bottleneck(8 * c, 4 * c, stride=2)] + [Bottleneck(16 * c, 4 * c) for _ in range(5)]
-        self.block_names = _add_numbered(self, blocks)
+        self.block_names = add_numbered(self, blocks)
 
     def forward(self, x):
         x = F.relu(self.Norm_0(self.Conv_0(x)))
@@ -128,7 +119,7 @@ class StereoNetFeature(nn.Module):
         for i in range(num_downsample):
             self.add_module(f"Conv_{i}", Conv(3 if i == 0 else 32, 32, 5, 2, 2))
             self.add_module(f"Norm_{i}", Norm(32))
-        self.block_names = _add_numbered(self, [BasicBlock(32, 32, leaky=True) for _ in range(6)])
+        self.block_names = add_numbered(self, [BasicBlock(32, 32, leaky=True) for _ in range(6)])
         self.add_module(f"Conv_{num_downsample}", Conv(32, 32, 3, 1, 1))
 
     def forward(self, x):
@@ -181,7 +172,7 @@ class PSMNetFeature(nn.Module):
                    for i in range(16)]
         blocks += [PSMNetBasicBlock(64 if i == 0 else 128, 128, downsample=i == 0) for i in range(3)]
         blocks += [PSMNetBasicBlock(128, 128, dilation=2) for _ in range(3)]
-        self.block_names = _add_numbered(self, blocks)
+        self.block_names = add_numbered(self, blocks)
         for i in range(len(SPP_POOLS)):
             self.add_module(f"Conv_{3 + i}", Conv(128, 32, 1))
             self.add_module(f"Norm_{3 + i}", Norm(32))
@@ -214,6 +205,26 @@ class PSMNetFeature(nn.Module):
         return self.Conv_8(F.relu(self.Norm_7(self.Conv_7(cat))))
 
 
+class GANetFeature(nn.Module):
+    """GANet's extractor: a 3x3 and a 5x5 stride-3 BasicConv, a 3x3
+    BasicConv or, with ``feature_mdconv``, a deformable conv, then the
+    UNet of ``layers.unet_layers`` (deformable where ``feature_mdconv``):
+    32 channels at H/3 (``feature.py:152-202``). H/3 and W/3 must be
+    multiples of 16."""
+
+    def __init__(self, feature_mdconv=False):
+        super().__init__()
+        stem = [BasicConv(3, 32, 3, 1, 1), BasicConv(32, 32, 5, 3, 2)]
+        stem.append(DeformConv2dLayer(32, 32) if feature_mdconv else BasicConv(32, 32, 3, 1, 1))
+        names = add_numbered(self, stem + unet_layers(feature_mdconv))
+        self.stem_names, self.unet_names = names[:3], names[3:]
+
+    def forward(self, x):
+        for name in self.stem_names:
+            x = getattr(self, name)(x)
+        return unet_forward(x, [getattr(self, name) for name in self.unet_names])
+
+
 class GCNetFeature(nn.Module):
     """A 5x5 stride-2 conv, eight PSMNet residual blocks and a 3x3 conv: 32
     channels at H/2 (``feature.py:205-216``)."""
@@ -222,7 +233,7 @@ class GCNetFeature(nn.Module):
         super().__init__()
         self.Conv_0 = Conv(3, 32, 5, 2, 2)
         self.Norm_0 = Norm(32)
-        self.block_names = _add_numbered(self, [PSMNetBasicBlock(32, 32) for _ in range(8)])
+        self.block_names = add_numbered(self, [PSMNetBasicBlock(32, 32) for _ in range(8)])
         self.Conv_1 = Conv(32, 32, 3, 1, 1)
 
     def forward(self, x):

@@ -55,6 +55,20 @@ def remat(fn, *args):
     return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
 
 
+def add_numbered(module: nn.Module, blocks) -> list[str]:
+    """Add ``blocks`` to ``module`` as ``<class>_<n>``, as flax auto-names
+    them in creation order; return the names in order."""
+    counts: dict = {}
+    names = []
+    for block in blocks:
+        kind = type(block).__name__
+        name = f"{kind}_{counts.get(kind, 0)}"
+        counts[kind] = counts.get(kind, 0) + 1
+        module.add_module(name, block)
+        names.append(name)
+    return names
+
+
 def set_train_mode(model: nn.Module, freeze_bn: bool = False) -> nn.Module:
     """``model.train()``, with every BatchNorm (2-D and 3-D) left in eval
     mode under ``freeze_bn`` (running statistics, no updates)."""
@@ -313,3 +327,91 @@ class DeformSimpleBottleneck(nn.Module):
         out = self.Norm_2(self.Conv_1(out))
         identity = self.Norm_3(self.Conv_2(x)) if self.has_identity else x
         return F.relu(out + identity)
+
+
+class BasicConv(nn.Module):
+    """A conv, or with ``deconv`` a transposed conv of output size
+    ``in * stride``, then BatchNorm and ReLU (2-D; ``layers.py:481-524``,
+    reference nets/feature.py:314-339; the JAX module's optional BatchNorm
+    and ReLU are on in every use)."""
+
+    def __init__(self, cin, features, kernel_size=3, stride=1, padding=0, deconv=False):
+        super().__init__()
+        self.deconv = deconv
+        if deconv:
+            # the output padding that makes the output in * stride (0 for
+            # the reference's k=4, s=2, p=1)
+            output_padding = stride - (kernel_size - 2 * padding)
+            self.ConvTranspose_0 = ConvTranspose(cin, features, kernel_size, stride, padding,
+                                                 output_padding)
+        else:
+            self.Conv_0 = Conv(cin, features, kernel_size, stride, padding)
+        self.Norm_0 = Norm(features)
+
+    def forward(self, x):
+        conv = self.ConvTranspose_0 if self.deconv else self.Conv_0
+        return F.relu(self.Norm_0(conv(x)))
+
+
+class Conv2x(nn.Module):
+    """A stride-2 conv (k=3) or transposed conv (k=4) to ``features``
+    channels, then the skip ``rem`` merged: concatenated and fused by a 3x3
+    BasicConv, or under ``mdconv`` by a deformable conv (no BatchNorm, no
+    ReLU), or without ``concat`` added before the 3x3 BasicConv
+    (``layers.py:527-558``, reference nets/feature.py:342-376)."""
+
+    def __init__(self, cin, features, deconv=False, concat=True, mdconv=False):
+        super().__init__()
+        self.concat, self.mdconv = concat, concat and mdconv
+        self.BasicConv_0 = BasicConv(cin, features, 4 if deconv else 3, 2, 1, deconv=deconv)
+        if self.mdconv:
+            self.DeformConv2dLayer_0 = DeformConv2dLayer(2 * features, features)
+        else:
+            self.BasicConv_1 = BasicConv(2 * features if concat else features, features, 3, 1, 1)
+
+    def forward(self, x, rem):
+        x = self.BasicConv_0(x)
+        assert x.shape == rem.shape, (x.shape, rem.shape)
+        if not self.concat:
+            return self.BasicConv_1(x + rem)
+        x = torch.cat([x, rem], 1)
+        return self.DeformConv2dLayer_0(x) if self.mdconv else self.BasicConv_1(x)
+
+
+UNET_CHANNELS = (32, 48, 64, 96, 128)  # at 1, 1/2, 1/4, 1/8 and 1/16 of the input
+
+
+def unet_layers(mdconv: bool) -> list[nn.Module]:
+    """The layers of the deformable UNet that GANet's extractor and the
+    hourglass refinement share (``feature.py:168-202``,
+    ``refinement.py:176-210``), in flax's creation order: four stride-2
+    convs down from 32 channels (the last two deformable under
+    ``mdconv``), then twelve Conv2x: up, down (the last two merging by
+    deformable convs under ``mdconv``) and up again. Run them with
+    ``unet_forward``."""
+    c = UNET_CHANNELS
+    down = [BasicConv(c[0], c[1], 3, 2, 1), BasicConv(c[1], c[2], 3, 2, 1)]
+    if mdconv:
+        down += [DeformConv2dLayer(c[2], c[3], stride=2), DeformConv2dLayer(c[3], c[4], stride=2)]
+    else:
+        down += [BasicConv(c[2], c[3], 3, 2, 1), BasicConv(c[3], c[4], 3, 2, 1)]
+    up = lambda: [Conv2x(c[i + 1], c[i], deconv=True) for i in (3, 2, 1, 0)]  # noqa: E731
+    return down + up() + [Conv2x(c[i], c[i + 1], mdconv=mdconv and i >= 2) for i in range(4)] + up()
+
+
+def unet_forward(x, layers, call=None):
+    """``unet_layers``' UNet on ``x`` (32 channels, H and W multiples of
+    16); ``call(layer, *inputs)`` runs each layer (default: the layer
+    itself)."""
+    call = call or (lambda layer, *inputs: layer(*inputs))
+    rem = [x]  # the skips at 1, 1/2, 1/4, 1/8, 1/16
+    for layer in layers[:4]:
+        x = call(layer, x)
+        rem.append(x)
+    for i, layer in enumerate(layers[4:8]):  # up to 1/8, ..., 1
+        x = rem[3 - i] = call(layer, x, rem[3 - i])
+    for i, layer in enumerate(layers[8:12]):  # down to 1/2, ..., 1/16
+        x = rem[i + 1] = call(layer, x, rem[i + 1])
+    for i, layer in enumerate(layers[12:]):  # up to 1/8, ..., 1
+        x = call(layer, x, rem[3 - i])
+    return x

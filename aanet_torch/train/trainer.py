@@ -13,11 +13,13 @@
   JAX step does (trainer.py:149), which is matched here and not fixed.
 * ``Trainer``: epochs of train steps with the learning rate from the
   piecewise-constant schedule, validation averaged per batch, and the
-  ``aanet_latest`` / ``aanet_best`` checkpoints as torch files (no
-  ``aanet_best`` under ``evaluate_only``, the ``evaluate`` entry point's
-  setting). Resume,
-  the periodic checkpoints, the ``.mat`` export and the TensorBoard image
-  panels of the JAX trainer are not ported yet.
+  checkpoints as torch files: ``aanet_latest`` after every epoch,
+  ``models/aanet_epoch_NNN`` (no optimizer) every ``save_ckpt_freq``
+  epochs and ``aanet_best`` on the best validation (none under
+  ``evaluate_only``, the ``evaluate`` entry point's setting). ``resume``
+  continues from ``aanet_latest``: weights, optimizer, epoch, step and the
+  best metric and its epoch (trainer.py:232-251). The ``.mat`` export and
+  the TensorBoard panels of the JAX trainer are not ported.
 
 Batches arrive as numpy NHWC arrays from ``aanet_torch.data.pipeline``
 and become NCHW torch tensors on the device here, at the batch boundary.
@@ -72,6 +74,7 @@ def make_train_step(model, optimizer, max_disp: int, accumulation_steps: int = 1
     optimizer update from the global ``batch``."""
     loss_fn = make_loss_fn(model, max_disp, highest_loss_only)
     a = accumulation_steps
+    params = [p for p in model.parameters() if p.requires_grad]
 
     def train_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         set_train_mode(model, freeze_bn)
@@ -85,6 +88,12 @@ def make_train_step(model, optimizer, max_disp: int, accumulation_steps: int = 1
             loss, metrics = loss_fn(micro)
             (loss / a).backward()
             history.append(metrics)
+        for p in params:
+            # a parameter the loss does not reach (under highest_loss_only
+            # the heads of the coarser maps) gets a zero gradient, so that
+            # Adam decays it as the JAX step does; torch's skips a None
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         optimizer.step()
         return {k: torch.stack([m[k] for m in history]).mean() for k in history[0]}
 
@@ -168,6 +177,8 @@ class Trainer:
         self.step = 0
         self.best_metric = 999.0
         self.best_epoch = -1
+        if t.resume:
+            self._resume(os.path.join(t.checkpoint_dir, "aanet_latest.pt"))
         os.makedirs(t.checkpoint_dir, exist_ok=True)
         self._metrics_file = os.path.join(t.checkpoint_dir, "metrics.jsonl")
 
@@ -197,6 +208,9 @@ class Trainer:
         if history:
             means = {k: float(torch.stack([m[k] for m in history]).mean()) for k in history[0]}
         self._save("aanet_latest", with_optimizer=True)
+        if self.epoch % cfg.save_ckpt_freq == 0:
+            self._save(os.path.join("models", f"aanet_epoch_{self.epoch:03d}"),
+                       with_optimizer=False)
         return means
 
     def validate(self, batches: Iterable[Dict[str, np.ndarray]]) -> dict:
@@ -235,8 +249,23 @@ class Trainer:
                 self._save("aanet_best", with_optimizer=True, epe=current)
         return means
 
+    def _resume(self, path: str):
+        """Continue the run whose ``aanet_latest`` checkpoint is ``path``;
+        without one, start afresh as the JAX trainer does."""
+        if not os.path.exists(path):
+            self.logger.info(f"no {path} to resume from; starting afresh")
+            return
+        payload = torch.load(path, map_location=self.device, weights_only=True)
+        self.model.load_state_dict(payload["model"])
+        if "optimizer" in payload:
+            self.optimizer.load_state_dict(payload["optimizer"])
+        self.epoch, self.step = payload["epoch"], payload["step"]
+        self.best_metric, self.best_epoch = payload["best_epe"], payload["best_epoch"]
+        self.logger.info(f"resumed from epoch {self.epoch}, step {self.step}")
+
     def _save(self, name: str, with_optimizer: bool, epe: float = -1.0) -> str:
         path = os.path.join(self.cfg.train.checkpoint_dir, name + ".pt")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
         payload = dict(
             model=self.model.state_dict(), epoch=self.epoch, step=self.step, epe=epe,
             best_epe=self.best_metric, best_epoch=self.best_epoch,

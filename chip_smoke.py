@@ -101,10 +101,11 @@
    through the plain twins with every kernel call's shape, each kernel
    against its twin at those shapes, then through the kernels with its
    launch counts (deform 9, correlation 3, soft-argmin 1, warp 2 or 1),
-   its pyramid against the plain one, its latency, peak memory and idle
-   share; ``python -m aanet_torch.cli predict --preset psmnet-aa`` on two
-   375x1242 pairs; a kernel train step against a plain one at batch 2,
-   288x576, for each (``gcnet-aa``'s with the final map's loss only: the
+   its pyramid against the plain one (and, recorded, the plain path's
+   change under a 1e-6 input change and the kernel path's re-run), its
+   latency, peak memory and idle share; ``python -m aanet_torch.cli
+   predict --preset psmnet-aa`` on two 375x1242 pairs; a kernel train
+   step against a plain one at batch 2, 288x576, for each (``gcnet-aa``'s with the final map's loss only: the
    loss has no weights for its pyramid of two), and ``psmnet-aa``'s full
    step at batch 16, halved until it fits, with its launches, step time,
    samples/s, peak memory and idle share, and each kernel against its twin
@@ -115,7 +116,28 @@
    aanet_torch.cli evaluate`` (EPE below 2.0 px), the same evaluation in
    this process through the plain twins (EPE within 1e-3 px), and
    ``inference --count_time --save_type pfm`` (its mean seconds per pair);
-13. prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
+13. AANet+ and ``ganet-aa`` (GANet's UNet features at H/3 through the
+   strided pyramid; ``aanet+`` with five maps and two hourglass
+   refinements, ``ganet-aa`` with one aggregated volume and two StereoDRNet
+   refinements) at max_disp 192, as phase 11 runs its presets: each
+   forward at 384x1248 (its seeded BatchNorm scales drawn in (0.25, 0.75):
+   ``PLUS_FORWARD_BN_SCALE``) through the plain twins with every kernel
+   call's shape, each kernel against its twin at those shapes, then
+   through the kernels with its launch counts (deform 24 or 14,
+   correlation 3, soft-argmin 3 or 1, warp 2), its pyramid against the
+   plain one (and, recorded, the plain path's change under a 1e-6 input
+   change and the kernel path's re-run), its latency, peak memory and
+   idle share; ``python -m aanet_torch.cli
+   predict --preset aanet+`` on two 375x1242 pairs; a kernel train step
+   against a plain one for each on phase 7's three seeded batches (each
+   parameter against the plain step's spread and the kernel step's own
+   re-run, three steps lowering the loss), ``aanet+``'s full step at batch
+   16, halved until it fits, with its launches, step time, samples/s, peak
+   memory and idle share, and each kernel against its twin at that step's
+   shapes; then ``python -m aanet_torch.cli train --preset aanet+
+   --save_ckpt_freq 1`` for one epoch on phase 9's dataset and again with
+   ``--resume --max_epoch 2``, which must restore epoch 1 and its step;
+14. prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
 
 Any failure raises, so the exit code is non-zero and the last line is not
 printed. Without CUDA, or without the aanet_torch package beside it, the
@@ -219,7 +241,9 @@ VAL_HW = (576, 960)  # the SceneFlow recipe's validation crop (pads 540 to 576)
 # the aanet train step's and inference forward's three scales, stereonet-aa's
 # one at inference and in its train step, and the three scales of
 # psmnet-aa's (H/4, 32/64/128 channels) and gcnet-aa's (H/2) pyramids at
-# inference and of psmnet-aa's train step
+# inference and of psmnet-aa's train step, and those of GANet's features
+# (H/3, 32/64/128 channels) in aanet+'s and ganet-aa's forwards and
+# aanet+'s step
 CORR_PATHS = {
     "aanet step": (((16, 128, 96, 192), 64), ((16, 128, 48, 96), 32), ((16, 128, 24, 48), 16)),
     "aanet inference": (((1, 128, 128, 416), 64), ((1, 128, 64, 208), 32), ((1, 128, 32, 104), 16)),
@@ -229,6 +253,10 @@ CORR_PATHS = {
     "gcnet-aa inference": (((1, 32, 192, 624), 96), ((1, 64, 96, 312), 48),
                            ((1, 128, 48, 156), 24)),
     "psmnet-aa step": (((16, 32, 72, 144), 48), ((16, 64, 36, 72), 24), ((16, 128, 18, 36), 12)),
+    "aanet+ inference": (((1, 32, 128, 416), 64), ((1, 64, 64, 208), 32), ((1, 128, 32, 104), 16)),
+    "ganet-aa inference": (((1, 32, 128, 416), 64), ((1, 64, 64, 208), 32),
+                           ((1, 128, 32, 104), 16)),
+    "aanet+ step": (((16, 32, 96, 192), 64), ((16, 64, 48, 96), 32), ((16, 128, 24, 48), 16)),
 }
 CORR_PATH_SHAPES = list(dict.fromkeys(sig for sigs in CORR_PATHS.values() for sig in sigs))
 # and the shapes beyond them: widths that are not a multiple of 4 (37, 53),
@@ -245,7 +273,8 @@ CORR_EDGE_SHAPES = [
 # (384x1248) and in their train steps (288x576, at the batch phase 10 fits;
 # the PSMNet hourglass step launches its shape three times). A difference or
 # GC-Net's concat volume is a matching cost, PSMNet's a similarity; psmnet-aa's
-# and gcnet-aa's single aggregated volume is a similarity at H/4 and H/2.
+# and gcnet-aa's single aggregated volume is a similarity at H/4 and H/2,
+# ganet-aa's at H/3; aanet+'s three are aanet's.
 SA_PATHS = {
     "aanet step": (((16, 64, 96, 192), True), ((16, 32, 48, 96), True), ((16, 16, 24, 48), True)),
     "aanet inference": (((1, 64, 128, 416), True), ((1, 32, 64, 208), True),
@@ -261,6 +290,10 @@ SA_PATHS = {
     "psmnet-aa inference": (((1, 48, 96, 312), True),),
     "gcnet-aa inference": (((1, 96, 192, 624), True),),
     "psmnet-aa step": (((16, 48, 72, 144), True),),
+    "aanet+ inference": (((1, 64, 128, 416), True), ((1, 32, 64, 208), True),
+                         ((1, 16, 32, 104), True)),
+    "ganet-aa inference": (((1, 64, 128, 416), True),),
+    "aanet+ step": (((16, 64, 96, 192), True), ((16, 32, 48, 96), True), ((16, 16, 24, 48), True)),
 }
 SA_PATH_SHAPES = list(dict.fromkeys(sig for sigs in SA_PATHS.values() for sig in sigs))
 # and the shapes beyond them, each with both signs: planes that are not a
@@ -312,14 +345,56 @@ _AA_STEP = {"deform_conv": 18, "deform_conv_backward_data": 9, "deform_conv_back
 AA_PRESETS = {
     "psmnet-aa": dict(
         launches={"deform_conv": 9, "correlation": 3, "soft_argmin": 1, "disp_warp": 2},
-        shapes=[(1, HEIGHT // k, WIDTH // k) for k in (4, 2, 1)],
+        shapes=[(1, HEIGHT // k, WIDTH // k) for k in (4, 2, 1)], couts=[12, 24, 48],
         train_launches=dict(_AA_STEP, disp_warp=4, disp_warp_backward=2), highest_loss_only=False),
     "gcnet-aa": dict(
         launches={"deform_conv": 9, "correlation": 3, "soft_argmin": 1, "disp_warp": 1},
-        shapes=[(1, HEIGHT // k, WIDTH // k) for k in (2, 1)],
+        shapes=[(1, HEIGHT // k, WIDTH // k) for k in (2, 1)], couts=[24, 48, 96],
         train_launches=dict(_AA_STEP, disp_warp=2, disp_warp_backward=1), highest_loss_only=True),
 }
 AA_FULL_STEP = "psmnet-aa"  # the preset whose full-width step phase 11 times
+# The seeded networks draw their BatchNorm scales uniform in BN_SCALE. Phase
+# 13's forwards draw them in PLUS_FORWARD_BN_SCALE: with BN_SCALE the
+# networks on GANet's features are chaotic in eval mode (a 1e-6 relative
+# change of the left image moved the plain path's final map by 0.058 px,
+# aanet+, and 0.091 px, ganet-aa, on an H100, past the 5e-2 px tolerance,
+# and the kernel path sat at 0.027 and 0.046 px from the plain one; the
+# smaller scales calm the aggregation and the UNet). Their train steps keep
+# BN_SCALE, as every other phase's: with the smaller scales the plain
+# step's spread under input changes shrinks below float32's own rounding
+# of a few near-cancelling sums (PERF.md §6).
+BN_SCALE = (0.5, 1.5)
+PLUS_FORWARD_BN_SCALE = (0.25, 0.75)
+# Phase 13: GANet's UNet features at H/3 (five deformable convs) through the
+# strided pyramid at max_disp 192; aanet+ with intermediate supervision and
+# two hourglass refinements (five deformable convs each), ganet-aa with one
+# output and two StereoDRNet refinements. Launches per forward, the
+# pyramid's shapes at 384x1248, the deformable convs' output channels (ISA
+# 64/32/16, the UNet's 32/96/128), and per train step (remat on: each view's
+# feature pass, each AAModule and each refinement stage run again in
+# backward, and the hourglass's Conv2x a third time inside its stage). The
+# train steps are compared on phase 7's three seeded batches, each parameter
+# against the plain step's spread and the kernel step's own re-run.
+_PLUS_COUTS = [16, 32, 64, 96, 128]
+PLUS_PRESETS = {
+    "aanet+": dict(
+        launches={"deform_conv": 24, "correlation": 3, "soft_argmin": 3, "disp_warp": 2},
+        shapes=[(1, HEIGHT // k, WIDTH // k) for k in (12, 6, 3, 2, 1)], couts=_PLUS_COUTS,
+        train_launches={"deform_conv": 62, "deform_conv_backward_data": 29,
+                        "deform_conv_backward_weight": 29, "correlation": 3,
+                        "correlation_backward": 3, "soft_argmin": 3, "soft_argmin_backward": 3,
+                        "disp_warp": 4, "disp_warp_backward": 2},
+        highest_loss_only=False, seeds=COMPARE_SEEDS, forward_bn_scale=PLUS_FORWARD_BN_SCALE),
+    "ganet-aa": dict(
+        launches={"deform_conv": 14, "correlation": 3, "soft_argmin": 1, "disp_warp": 2},
+        shapes=[(1, HEIGHT // k, WIDTH // k) for k in (3, 2, 1)], couts=_PLUS_COUTS,
+        train_launches={"deform_conv": 38, "deform_conv_backward_data": 19,
+                        "deform_conv_backward_weight": 19, "correlation": 3,
+                        "correlation_backward": 3, "soft_argmin": 1, "soft_argmin_backward": 1,
+                        "disp_warp": 4, "disp_warp_backward": 2},
+        highest_loss_only=False, seeds=COMPARE_SEEDS, forward_bn_scale=PLUS_FORWARD_BN_SCALE),
+}
+PLUS_FULL_STEP = "aanet+"  # the preset whose full-width step and entry points phase 13 runs
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s, float32 FLOP/s
 # outside the tensor cores (the kernels run float32 FMA on the CUDA cores)
 PEAK_BYTES_S = 3.35e12
@@ -759,9 +834,10 @@ def reset_launches(specs):
 # --------------------------------------------------------------------------
 
 
-def seed_weights_(model, seed):
+def seed_weights_(model, seed, bn_scale=BN_SCALE):
     """Every parameter from RandomState(seed), with non-zero offset heads
-    (fractional offsets, masks around 1) and non-zero ZeroNorm scales.
+    (fractional offsets, masks around 1) and non-zero ZeroNorm scales; the
+    other BatchNorm scales uniform in ``bn_scale``.
 
     The offset heads and the residual branches' ZeroNorm scales are drawn
     small. With ZeroNorm scales near 1 the random network is chaotic: the
@@ -779,7 +855,7 @@ def seed_weights_(model, seed):
             elif name.endswith("ZeroNorm_0.BatchNorm_0.weight"):
                 val = rs.uniform(0.1, 0.3, p.shape)
             elif name.endswith("BatchNorm_0.weight"):
-                val = rs.uniform(0.5, 1.5, p.shape)
+                val = rs.uniform(*bn_scale, p.shape)
             else:
                 val = rs.randn(*p.shape) * 0.1
             p.copy_(torch.from_numpy(val.astype(np.float32)))
@@ -958,9 +1034,9 @@ def write_synthetic(root, pairs=16, hw=(96, 192), min_disp=3, max_disp_gt=10, se
     return data, lists
 
 
-def seeded_model(cfg, dev):
+def seeded_model(cfg, dev, bn_scale=BN_SCALE):
     model = cfg.build()
-    seed_weights_(model, SEED)
+    seed_weights_(model, SEED, bn_scale)
     return model.to(dev)
 
 def forward_record(name, model, left, right, plain_ms, errs, timer, smi):
@@ -1010,6 +1086,23 @@ def compare_pyramids(pyramid, plain_pyramid, shapes, what):
     check(all(mx <= 5e-2 and mn <= 5e-3 for mx, mn in errs),
           f"{what}: kernel path vs plain path (max, mean) px per level: {errs}")
     return errs
+
+
+def pyramid_spread(model, specs, left, right, plain_pyramid, pyramid):
+    """What moves the pyramid besides the kernels, per level (max, mean)
+    px: the plain path's own change under a 1e-6 relative change of the
+    left image, and the kernel path's change when it runs again (the
+    deform forward's split plans add with float atomics)."""
+    def diff(a, b):
+        return [(float((x - y).abs().max()), float((x - y).abs().mean())) for x, y in zip(a, b)]
+
+    gen = torch.Generator(device=left.device).manual_seed(SEED + 1)  # the run's draws stay
+    noise = torch.randn(left.shape, generator=gen, device=left.device)
+    with plain_ops(specs):
+        nudged = model(left * (1 + 1e-6 * noise), right)
+    again = model(left, right)
+    return dict(plain_nudge_err_px=diff(nudged, plain_pyramid),
+                kernel_rerun_err_px=diff(again, pyramid))
 
 
 def baseline_config(name):
@@ -1165,6 +1258,36 @@ def compare_train_steps(cfg, specs, small, gen, dev, per_parameter=False, calls=
                   params_within_plain_spread_only=floored, bn_stats_rel_err=stats_err,
                   failures=failures)
     return record, m_kernel, step_kernel
+
+
+def seeded_compares(cfg, specs, dev, seeds, calls=None, recomputed=None, rerun=False,
+                    highest_loss_only=False):
+    """Phase 7's protocol: one train step through the kernels against the
+    same step through the plain twins (same weights, batch 2) on each of
+    ``seeds``' batches, each with its nudges from a generator of its own,
+    each parameter against the spread (``compare_train_steps`` with
+    ``per_parameter``; with ``rerun`` the spread also takes the kernel
+    step's own re-run), and three kernel steps on the batch must lower the
+    loss. The first plain step records its kernel calls into ``calls`` and
+    ``recomputed``. Every record is printed, and returned, before any is
+    checked: the failures are in each record's ``failures``."""
+    compares = []
+    for i, seed in enumerate(seeds):
+        seed_gen = torch.Generator(device=dev).manual_seed(seed)
+        small = train_batch(seed_gen, dev, COMPARE_BATCH, TRAIN_HW)
+        recording = dict(calls=calls, recomputed=recomputed) if i == 0 else {}
+        compare, m_kernel, step_kernel = compare_train_steps(
+            cfg, specs, small, seed_gen, dev, per_parameter=True, rerun=rerun,
+            highest_loss_only=highest_loss_only, **recording)
+        losses = [compare["loss_kernel"]] + [float(step_kernel(small)["total_loss"]) for _ in range(2)]
+        if losses[-1] >= losses[0]:
+            compare["failures"].append(f"three steps did not lower the loss: {losses}")
+        compare.update(seed=seed, losses_three_steps=losses)
+        print(json.dumps({"train_step_compare": compare}), flush=True)
+        compares.append(compare)
+        del m_kernel, step_kernel
+        torch.cuda.empty_cache()
+    return compares
 
 
 def edge_cases(specs, bwd_specs, deform_sigs, corr_sigs, sa_sigs, rows, gen, dev, timer):
@@ -1498,23 +1621,9 @@ def train_phases(specs, bwd_specs, gen, dev, timer, smi, data, lists):
     print(json.dumps({"edge_cases": edges}), flush=True)
 
     # 7. one train step through the kernels against the same step through
-    # the plain twins: same weights, same batch (batch 2), on each of
-    # COMPARE_SEEDS batches, each with its nudges from a generator of its
-    # own; all are printed before any is checked
-    failures = []
-    for seed in COMPARE_SEEDS:
-        seed_gen = torch.Generator(device=dev).manual_seed(seed)
-        small = train_batch(seed_gen, dev, COMPARE_BATCH, TRAIN_HW)
-        compare, m_kernel, step_kernel = compare_train_steps(cfg, specs, small, seed_gen, dev,
-                                                             per_parameter=True)
-        losses = [compare["loss_kernel"]] + [float(step_kernel(small)["total_loss"]) for _ in range(2)]
-        if losses[-1] >= losses[0]:
-            compare["failures"].append(f"three steps did not lower the loss: {losses}")
-        compare.update(seed=seed, losses_three_steps=losses)
-        print(json.dumps({"train_step_compare": compare}), flush=True)
-        failures += [f"seed {seed}: {f}" for f in compare["failures"]]
-        del m_kernel, step_kernel
-        torch.cuda.empty_cache()
+    # the plain twins on each of COMPARE_SEEDS batches
+    failures = [f"seed {c['seed']}: {f}" for c in seeded_compares(cfg, specs, dev, COMPARE_SEEDS)
+                for f in c["failures"]]
     check(not failures, "kernel vs plain train step: " + "; ".join(failures))
 
     # 8. the full-width step: the launches of one step, then the timing
@@ -1703,19 +1812,25 @@ def baseline_train_phases(specs, bwd_specs, gen, dev, timer, smi, data, lists):
     return out
 
 
-def aa_preset_phases(specs, bwd_specs, gen, dev, timer, smi, left, right):
-    """Phase 11: ``psmnet-aa`` and ``gcnet-aa`` at max_disp 192. Returns, per
-    preset, each kernel's rows at its forward's shapes and the launches of
-    one forward through the kernels; and for ``AA_FULL_STEP`` each kernel's
-    rows at its full-width step's shapes and the launches of one step."""
+def adaptive_preset_phases(presets, full_step, specs, bwd_specs, gen, dev, timer, smi, left,
+                           right):
+    """Phases 11 and 13: each preset of ``presets`` at max_disp 192, its
+    forward at 384x1248 (plain, each kernel against its twin at the plain
+    run's shapes, through the kernels), ``full_step``'s predict entry
+    point, a kernel train step against a plain one at batch 2 (on the
+    preset's ``seeds``, phase 7's protocol, where it has them, else on one
+    batch), and ``full_step``'s full-width step. Returns, per preset, each
+    kernel's rows at its forward's shapes and the launches of one forward
+    through the kernels; and for ``full_step`` each kernel's rows at its
+    full-width step's shapes and the launches of one step."""
     from aanet_torch.config import preset
 
     out, steps = {}, {}
-    for name, spec in AA_PRESETS.items():
+    for name, spec in presets.items():
         cfg = preset(name)
         expected = {s["name"]: spec["launches"].get(s["name"], 0) for s in specs}
         with torch.no_grad():
-            model = seeded_model(cfg, dev).eval()
+            model = seeded_model(cfg, dev, spec.get("forward_bn_scale", BN_SCALE)).eval()
             calibrate_bn_(model, specs, left, right)
             calls = {s["name"]: collections.Counter() for s in specs}
             with plain_ops(specs, calls):
@@ -1725,8 +1840,7 @@ def aa_preset_phases(specs, bwd_specs, gen, dev, timer, smi, left, right):
             made = {n: sum(c.values()) for n, c in calls.items()}
             check(made == expected, f"{name}: plain forward made {made}, expected {expected}")
             couts = sorted({sig[1][0] for sig in calls["deform_conv"]})
-            check(couts == sorted(cfg.max_disp // (4 if name == "psmnet-aa" else 2) // 2**i
-                                  for i in range(3)), f"{name}: ISA output channels {couts}")
+            check(couts == spec["couts"], f"{name}: deformable convs' output channels {couts}")
             rows = {s["name"]: [measure(s, sig, n, gen, dev, timer) for sig, n in calls[s["name"]].items()]
                     for s in specs}
             reset_launches(specs)
@@ -1735,12 +1849,14 @@ def aa_preset_phases(specs, bwd_specs, gen, dev, timer, smi, left, right):
             counts = launches(specs)
             print(f"{name} launches: {counts}", flush=True)
             check(counts == expected, f"{name}: launches {counts}, expected {expected}")
+            spread = pyramid_spread(model, specs, left, right, plain_pyramid, pyramid)
+            print(f"{name} spread (max, mean) px per level: {spread}", flush=True)
             errs = compare_pyramids(pyramid, plain_pyramid, spec["shapes"], name)
             record = forward_record(name, model, left, right, plain_ms, errs, timer, smi)
-        record.update(deform_couts=couts, launches=counts)
+        record.update(deform_couts=couts, launches=counts, **spread)
         print(json.dumps({"aa_forward": record}), flush=True)
         out[name] = dict(rows=rows, launches=counts)
-        if name == AA_FULL_STEP:  # the predict entry point with the preset
+        if name == full_step:  # the predict entry point with the preset
             with tempfile.TemporaryDirectory() as tmp:
                 weights = os.path.join(tmp, "weights.pt")
                 torch.save(model.state_dict(), weights)
@@ -1762,17 +1878,23 @@ def aa_preset_phases(specs, bwd_specs, gen, dev, timer, smi, left, right):
 
     torch.set_grad_enabled(True)
     all_specs = specs + bwd_specs
-    for name, spec in AA_PRESETS.items():
+    for name, spec in presets.items():
         cfg = preset(name)
-        # a kernel step against a plain step at batch 2; the plain step
-        # records every kernel call
+        # a kernel step against a plain step at batch 2; the (first) plain
+        # step records every kernel call
         first = {s["name"]: collections.Counter() for s in specs}
         again = {s["name"]: collections.Counter() for s in specs}
-        small = train_batch(gen, dev, COMPARE_BATCH, TRAIN_HW)
-        compare, m_kernel, step_kernel = compare_train_steps(
-            cfg, specs, small, gen, dev, calls=first, recomputed=again,
-            highest_loss_only=spec["highest_loss_only"])
-        del m_kernel, step_kernel, small
+        last = dict(highest_loss_only=spec["highest_loss_only"])
+        if "seeds" in spec:
+            compare = seeded_compares(cfg, specs, dev, spec["seeds"], calls=first,
+                                      recomputed=again, rerun=True, **last)
+            failures = [f for c in compare for f in c["failures"]]
+        else:
+            small = train_batch(gen, dev, COMPARE_BATCH, TRAIN_HW)
+            compare, m_kernel, step_kernel = compare_train_steps(
+                cfg, specs, small, gen, dev, calls=first, recomputed=again, **last)
+            failures = compare["failures"]
+            del m_kernel, step_kernel, small
         made = {n: sum(first[n].values()) + sum(again[n].values()) for n in first}
         made.update({b["name"]: sum(first[b["forward"]].values()) for b in bwd_specs})
         expected = {s["name"]: spec["train_launches"].get(s["name"], 0) for s in all_specs}
@@ -1780,7 +1902,7 @@ def aa_preset_phases(specs, bwd_specs, gen, dev, timer, smi, left, right):
                       height=TRAIN_HW[0], width=TRAIN_HW[1], max_disp=cfg.max_disp, dtype="float32",
                       remat=cfg.remat, compare=compare, card=smi)
         torch.cuda.empty_cache()
-        if name == AA_FULL_STEP:  # the full-width step at the batch rule
+        if name == full_step:  # the full-width step at the batch rule
             model, step, batch, metrics, counts, refused = fit_batch(cfg, gen, dev, all_specs)
             n = batch["left"].shape[0]
             print(f"{name} train-step launches at batch {n}: {counts}", flush=True)
@@ -1796,11 +1918,50 @@ def aa_preset_phases(specs, bwd_specs, gen, dev, timer, smi, left, right):
             rows.update({sp["name"]: [measure(sp, rebatch(sig, n), k, gen, dev, timer, iters=10)
                                       for sig, k in first[sp["forward"]].items()]
                          for sp in bwd_specs})
-            steps[name] = dict(rows=rows, launches=counts)
+            steps[name] = dict(rows=rows, launches=counts, batch=n)
         print(json.dumps({"aa_train_step": record}), flush=True)
         check(made == expected, f"{name}: plain train step made {made}, expected {expected}")
-        check(not compare["failures"], f"{name} kernel vs plain train step: {compare['failures']}")
+        check(not failures, f"{name} kernel vs plain train step: {failures}")
     return out, steps
+
+
+def cli_train_and_resume(data, lists, name, batch):
+    """``python -m aanet_torch.cli train --preset name --save_ckpt_freq 1``
+    for one epoch at ``batch`` on phase 9's dataset, as a user runs it, then
+    the same command with ``--resume`` and ``--max_epoch 2``: the second run
+    restores epoch 1 and its step, takes the next epoch's steps from there,
+    and each run writes its epoch's periodic checkpoint."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "run")
+        cmd = [sys.executable, "-m", "aanet_torch.cli", "train", "--preset", name,
+               "--data_dir", data, "--filename_root", lists, "--checkpoint_dir", ckpt,
+               "--img_height", str(TRAIN_HW[0]), "--img_width", str(TRAIN_HW[1]),
+               "--batch_size", str(batch), "--num_workers", "8", "--milestones", "10",
+               "--print_freq", "1", "--no_validate", "--save_ckpt_freq", "1", "--device", DEVICE]
+        runs = []
+        for extra in (["--max_epoch", "1"], ["--max_epoch", "2", "--resume"]):
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd + extra, cwd=os.path.dirname(os.path.abspath(__file__)),
+                                  capture_output=True, text=True, timeout=600)
+            runs.append(time.perf_counter() - t0)
+            check(proc.returncode == 0, f"cli train {extra} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+        steps = CLI_PAIRS // batch
+        with open(os.path.join(ckpt, "trainLog.txt")) as f:
+            log = f.read()
+        check(f"resumed from epoch 1, step {steps}" in log, "cli train --resume: no resume logged")
+        records = [json.loads(line) for line in open(os.path.join(ckpt, "metrics.jsonl"))]
+        losses = [r["total_loss"] for r in records if r["kind"] == "train"]
+        check([r["step"] for r in records] == list(range(1, 2 * steps + 1))
+              and all(np.isfinite(losses)), f"cli train and resume: {records}")
+        latest = torch.load(os.path.join(ckpt, "aanet_latest.pt"), map_location="cpu",
+                            weights_only=True)
+        saved = sorted(os.listdir(os.path.join(ckpt, "models")))
+        check((latest["epoch"], latest["step"]) == (2, 2 * steps)
+              and saved == ["aanet_epoch_001.pt", "aanet_epoch_002.pt"],
+              f"cli train and resume: latest at epoch {latest['epoch']} step {latest['step']}, "
+              f"periodic {saved}")
+    return dict(preset=name, batch=batch, seconds=runs, losses=losses, periodic=saved,
+                resumed_epoch=latest["epoch"], resumed_step=latest["step"])
 
 
 def anchor_entry_points(specs, smi):
@@ -1852,8 +2013,9 @@ def kernels_record(all_specs, report, counts_main, train, baselines, baseline_tr
     (PSMNet, StereoNet); for their backward, one train step of the same
     baseline. The other paths that run a kernel ride along: one aanet
     inference forward, each baseline and adaptive-preset forward
-    (``baselines`` holds both) and each baseline train step and
-    ``AA_FULL_STEP``'s (``baseline_train``)."""
+    (``baselines`` holds both, phase 13's presets too) and each baseline
+    train step, ``AA_FULL_STEP``'s and ``PLUS_FULL_STEP``'s
+    (``baseline_train``)."""
     inference = {sp["name"]: r for sp, r in report}
     kernels = []
     for spec in all_specs:
@@ -1974,28 +2136,37 @@ def main() -> int:
         torch.cuda.empty_cache()
         anchor_phase(specs, gen, dev, left, right)
         baseline_train = baseline_train_phases(specs, bwd_specs, gen, dev, timer, smi, data, lists)
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
 
-    # 10b. the 4-D volume kernels beyond the paths
-    by_name = {s["name"]: s for s in specs + bwd_specs}
-    recorded = {name: [r["shape"] for run in (*baselines.values(), *baseline_train.values())
-                       if run["launches"].get(name) for r in run["rows"][name]]
-                for name in by_name if "volume" in name}
-    vol_edges = volume_edge_cases(by_name, recorded, gen, dev, timer)
-    print(json.dumps({"volume_edge_cases": vol_edges}), flush=True)
-    train["edge_cases"] += vol_edges
+        # 10b. the 4-D volume kernels beyond the paths
+        by_name = {s["name"]: s for s in specs + bwd_specs}
+        recorded = {name: [r["shape"] for run in (*baselines.values(), *baseline_train.values())
+                           if run["launches"].get(name) for r in run["rows"][name]]
+                    for name in by_name if "volume" in name}
+        vol_edges = volume_edge_cases(by_name, recorded, gen, dev, timer)
+        print(json.dumps({"volume_edge_cases": vol_edges}), flush=True)
+        train["edge_cases"] += vol_edges
 
-    # 11. psmnet-aa and gcnet-aa
-    aa, aa_train = aa_preset_phases(specs, bwd_specs, gen, dev, timer, smi, left, right)
-    del left, right
-    torch.cuda.empty_cache()
+        # 11. psmnet-aa and gcnet-aa
+        aa, aa_train = adaptive_preset_phases(AA_PRESETS, AA_FULL_STEP, specs, bwd_specs, gen, dev,
+                                              timer, smi, left, right)
+        torch.cuda.empty_cache()
 
-    # 12. the trained anchor through the evaluate and inference entry points
-    anchor_entry_points(specs, smi)
+        # 12. the trained anchor through the evaluate and inference entry points
+        anchor_entry_points(specs, smi)
 
-    # 13. the record
-    kernels = kernels_record(specs + bwd_specs, report, counts_main, train, {**baselines, **aa},
-                             {**baseline_train, **aa_train})
+        # 13. aanet+ and ganet-aa, then aanet+'s train entry point and its resume
+        plus, plus_train = adaptive_preset_phases(PLUS_PRESETS, PLUS_FULL_STEP, specs, bwd_specs,
+                                                  gen, dev, timer, smi, left, right)
+        del left, right
+        torch.cuda.empty_cache()
+        plus_cli = cli_train_and_resume(data, lists, PLUS_FULL_STEP,
+                                        plus_train[PLUS_FULL_STEP]["batch"])
+        print(json.dumps({"plus_cli_train": plus_cli}), flush=True)
+
+    # 14. the record
+    kernels = kernels_record(specs + bwd_specs, report, counts_main, train,
+                             {**baselines, **aa, **plus}, {**baseline_train, **aa_train, **plus_train})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

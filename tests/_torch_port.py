@@ -47,6 +47,27 @@ def randomize(variables, seed):
     return out
 
 
+def random_variables(init, seed):
+    """Variables of ``init``'s shapes drawn by ``randomize`` (no init run)."""
+    shapes = jax.eval_shape(init)
+    return randomize(jax.tree_util.tree_map(lambda x: np.zeros(x.shape, x.dtype), shapes), seed)
+
+
+def calibrate_bn_(model, left, right):
+    """Set each BatchNorm's running statistics to its input's on this pair,
+    so that a random network's activations stay near unit scale."""
+    def hook(mod, inputs):
+        mod.running_mean.copy_(inputs[0].mean((0, 2, 3)))
+        mod.running_var.copy_(inputs[0].var((0, 2, 3), unbiased=False))
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, torch.nn.BatchNorm2d)]
+    with torch.no_grad():
+        model(left, right)
+    for handle in handles:
+        handle.remove()
+
+
 def load_flax(module: torch.nn.Module, variables) -> torch.nn.Module:
     """Load flax ``variables`` into the port's ``module`` (strict) in eval mode."""
     state = state_dict_from_flax(variables["params"], variables.get("batch_stats", {}))
@@ -67,13 +88,16 @@ def rel_stats_err(a, b):
     return float((np.abs(a - b) / (np.abs(b) + 1.0)).max())
 
 
-def compare_train_step(jax_cfg, cfg, hw, batch_size, seed=13, lr=1e-3, wd=1e-4):
+def compare_train_step(jax_cfg, cfg, hw, batch_size, seed=13, lr=1e-3, wd=1e-4, nudges=0):
     """One train step of the JAX package's ``jax_cfg`` (remat off) and of
     the port's ``cfg`` (remat as given) from the same randomised variables
     (carried across with strict loads) on a numpy-seeded batch; asserts
     the loss and the update norm within rtol 1e-4, every parameter within
     the per-leaf bounds below, and the BatchNorm statistics within 2e-4.
-    Returns the port's metrics."""
+    With ``nudges`` the JAX step also runs that many times on the batch
+    with its left images changed by 1e-6 relative, and the entries the
+    port may move by more than 1 % of an update are bounded by twice the
+    most that the JAX step moves so. Returns the port's metrics."""
     import dataclasses
 
     import jax.numpy as jnp
@@ -88,20 +112,30 @@ def compare_train_step(jax_cfg, cfg, hw, batch_size, seed=13, lr=1e-3, wd=1e-4):
     h, w = hw
     jmodel = dataclasses.replace(jax_cfg, remat=False).build()
     zeros = jnp.zeros((1, h, w, 3))
-    variables = jax.jit(lambda k: jmodel.init(k, zeros, zeros, train=False))(jax.random.PRNGKey(0))
-    variables = randomize(variables, seed)
+    variables = random_variables(
+        lambda: jmodel.init(jax.random.PRNGKey(0), zeros, zeros, train=False), seed)
     rs = np.random.RandomState(seed)
     batch = dict(
         left=rs.randn(batch_size, h, w, 3).astype(np.float32),
         right=rs.randn(batch_size, h, w, 3).astype(np.float32),
         disp=rs.uniform(0, 0.8 * cfg.max_disp, (batch_size, h, w)).astype(np.float32),
     )
-    state = TrainState.create(
-        apply_fn=jmodel.apply, params=variables["params"], batch_stats=variables["batch_stats"],
-        tx=jax_make_optimizer(variables["params"], lr, weight_decay=wd),
-    )
-    new_state, want = jax_make_train_step(jmodel, cfg.max_disp)(
-        state, {k: jnp.asarray(v) for k, v in batch.items()})
+    jax_step = jax_make_train_step(jmodel, cfg.max_disp)
+    tx = jax_make_optimizer(variables["params"], lr, weight_decay=wd)  # one: the step's jit key
+
+    def jax_run(images):
+        state = TrainState.create(  # anew each time: the step donates it
+            apply_fn=jmodel.apply, params=variables["params"],
+            batch_stats=variables["batch_stats"], tx=tx,
+        )
+        return jax_step(state, {k: jnp.asarray(v) for k, v in dict(batch, **images).items()})
+
+    new_state, want = jax_run({})
+    nudged = []  # the JAX step's parameters under 1e-6 input changes
+    for k in range(nudges):
+        noise = np.random.RandomState(seed + 1 + k).randn(*batch["left"].shape)
+        nudged.append(jax.tree.leaves(jax.device_get(
+            jax_run({"left": batch["left"] * (1 + 1e-6 * noise)})[0].params)))
 
     port = load_flax(cfg.build(), variables)
     step = make_train_step(port, make_optimizer(port, lr, weight_decay=wd), cfg.max_disp)
@@ -134,7 +168,13 @@ def compare_train_step(jax_cfg, cfg, hw, batch_size, seed=13, lr=1e-3, wd=1e-4):
         assert diff.max() <= 2.2 * lr, "/".join(str(getattr(k, "key", k)) for k in path)
         off += int((diff > 0.01 * lr).sum())
         total += diff.size
-    assert off <= 5e-3 * total, (off, total)
+    # in the convs of GANet's UNet (extractor and hourglass) the JAX step
+    # alone moves 0.76 % (ganet-aa) to 2.78 % (aanet+) of all entries by
+    # more than 1 % of an update under a 1e-6 change of its input (96x192,
+    # batch 2; 1.03 % for ganet-aa at 192x384), the port as many
+    flips = [sum(int((np.abs(np.asarray(a) - b) > 0.01 * lr).sum())
+                 for a, b in zip(leaves, want_leaves)) for leaves in nudged]
+    assert off <= max([5e-3 * total] + [2 * n for n in flips]), (off, total, flips)
     want_stats = jax.tree_util.tree_flatten_with_path(jax.device_get(new_state.batch_stats))[0]
     got_stats = jax.tree.leaves(stats)
     assert len(got_stats) == len(want_stats)

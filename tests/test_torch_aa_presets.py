@@ -32,7 +32,7 @@ from aanet_torch.convert import flax_from_state_dict
 from aanet_torch.models import aggregation, feature
 from aanet_torch.ops import KERNEL_OPS
 
-from _torch_port import load_flax, nchw, nhwc, randomize
+from _torch_port import calibrate_bn_, load_flax, nchw, nhwc, random_variables
 
 CUT = dict(num_fusions=2, num_deform_blocks=1)
 # name -> (max_disp, input size, the pyramid's scales as divisors of H and W)
@@ -67,14 +67,8 @@ def close(got, want, rtol=2e-3):
     assert err <= rtol * scale, (err, scale)
 
 
-def _random_variables(init, seed):
-    """Variables of ``init``'s shapes drawn by ``randomize`` (no init run)."""
-    shapes = jax.eval_shape(init)
-    return randomize(jax.tree_util.tree_map(lambda x: np.zeros(x.shape, x.dtype), shapes), seed)
-
-
 def _flax(module, *inputs, seed, **kwargs):
-    variables = _random_variables(lambda: module.init(jax.random.PRNGKey(0), *inputs, **kwargs), seed)
+    variables = random_variables(lambda: module.init(jax.random.PRNGKey(0), *inputs, **kwargs), seed)
     return variables, jax.jit(lambda v, *a: module.apply(v, *a, **kwargs))(variables, *inputs)
 
 
@@ -109,20 +103,6 @@ def test_single_output_aggregation_matches_flax():
     close(nhwc(got[0]), want[0])
 
 
-def calibrate_bn_(model, left, right):
-    """Set each BatchNorm's running statistics to its input's on this pair."""
-    def hook(mod, inputs):
-        mod.running_mean.copy_(inputs[0].mean((0, 2, 3)))
-        mod.running_var.copy_(inputs[0].var((0, 2, 3), unbiased=False))
-
-    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
-               if isinstance(m, torch.nn.BatchNorm2d)]
-    with torch.no_grad():
-        model(left, right)
-    for handle in handles:
-        handle.remove()
-
-
 @pytest.mark.parametrize("name", sorted(PRESETS))
 def test_preset_pyramid_matches_jax(name):
     max_disp, (h, w), scales = PRESETS[name]
@@ -130,7 +110,7 @@ def test_preset_pyramid_matches_jax(name):
     rs = np.random.RandomState(21)
     left, right = (rs.randn(1, h, w, 3).astype(np.float32) for _ in range(2))
     zeros = jnp.zeros((1, h, w, 3))
-    variables = _random_variables(
+    variables = random_variables(
         lambda: jmodel.init(jax.random.PRNGKey(0), zeros, zeros, train=False), 22)
     port = load_flax(dataclasses.replace(preset(name), max_disp=max_disp, **CUT).build(), variables)
     calibrate_bn_(port, nchw(left), nchw(right))

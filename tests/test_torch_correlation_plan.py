@@ -26,19 +26,20 @@ from aanet_torch.config import preset
 from aanet_torch.ops import cost_volume as cv
 
 SMS = 132  # an H100 SXM's SMs
-# (L and R shape, max_disp) of each correlation of the aanet, stereonet-aa
-# and psmnet-aa train steps (batch 16, 288x576) and of their and gcnet-aa's
-# inference forwards (384x1248), and
+# (L and R shape, max_disp) of each correlation of the aanet, stereonet-aa,
+# psmnet-aa and aanet+ train steps (batch 16, 288x576) and of their,
+# gcnet-aa's and ganet-aa's inference forwards (384x1248), and
 # chip_smoke.py phase 6b's shapes beyond them: widths that are not a
 # multiple of 4, channels off the chunks, D > W, D = 1, 24 and 40, batch 3
 PATH_SHAPES = chip_smoke.CORR_PATH_SHAPES
 EDGE_SHAPES = chip_smoke.CORR_EDGE_SHAPES
 INPUTS = {"aanet": [(288, 576), (384, 1248)], "stereonet-aa": [(288, 576), (384, 1248)],
-          "psmnet-aa": [(288, 576), (384, 1248)], "gcnet-aa": [(384, 1248)]}
+          "psmnet-aa": [(288, 576), (384, 1248)], "gcnet-aa": [(384, 1248)],
+          "aanet+": [(288, 576), (384, 1248)], "ganet-aa": [(384, 1248)]}
 # the small input each preset's CPU forward runs at (psmnet-aa's SPP pools
-# 64-px windows at H/4)
+# 64-px windows at H/4; aanet+ pads to multiples of 96)
 SMALL = {"aanet": (48, 96), "stereonet-aa": (48, 96), "psmnet-aa": (256, 256),
-         "gcnet-aa": (48, 96)}
+         "gcnet-aa": (48, 96), "aanet+": (96, 192), "ganet-aa": (48, 96)}
 SOURCE = (pathlib.Path(cv.__file__).parents[1] / "csrc" / "correlation.cu").read_text()
 
 
@@ -60,7 +61,7 @@ def _recorded_volumes(name, hw):
 
 
 @pytest.mark.parametrize("name,calls", [("aanet", 3), ("stereonet-aa", 1), ("psmnet-aa", 3),
-                                        ("gcnet-aa", 3)])
+                                        ("gcnet-aa", 3), ("aanet+", 3), ("ganet-aa", 3)])
 def test_path_shapes_are_the_models_volumes(name, calls):
     """chip_smoke.py's list holds every correlation the presets run: a small
     forward finds their channels, disparities and the scales of the input

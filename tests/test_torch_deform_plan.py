@@ -83,15 +83,52 @@ def _assert_window_covers(h, w, stride, tile_h, win_h, win_w):
                     assert win_x <= x0 and x0 + 1 < win_x + win_w
 
 
-@pytest.mark.parametrize("name,calls", [("aanet", 15), ("stereonet-aa", 4)])
+def _unet_convs(batch, h, w):
+    """(x shape, cout, stride) of the five deformable convs of the UNet that
+    GANet's extractor and the hourglass refinement share, on a 32-channel
+    input of h x w: its own, the two deepest downsamplings and two merges."""
+    return [((batch, 32, h, w), 32, 1), ((batch, 64, h // 4, w // 4), 96, 2),
+            ((batch, 96, h // 8, w // 8), 128, 2), ((batch, 192, h // 8, w // 8), 96, 1),
+            ((batch, 256, h // 16, w // 16), 128, 1)]
+
+
+# aanet+'s UNet convs beside its ISA convs (those of the list above): GANet's
+# extractor at H/3 (both views at once at inference), the hourglasses at
+# H/2 and H, in the inference forward (384x1248) and the train step (batch
+# 16, 288x576); ganet-aa runs the extractor's
+UNET_SHAPES = [shape for (h, w), batches in (((384, 1248), (2, 1, 1)), ((288, 576), (16, 16, 16)))
+               for k, b in zip((3, 2, 1), batches) for shape in _unet_convs(b, h // k, w // k)]
+
+
+@pytest.mark.parametrize("name,calls", [("aanet", 15), ("stereonet-aa", 4), ("aanet+", 24),
+                                        ("ganet-aa", 14)])
 def test_path_shapes_are_the_models_convs(name, calls):
-    """The list above holds every deformable conv configuration the two
+    """The lists above hold every deformable conv configuration the
     presets run (the plan depends on channels and geometry, not on the
     image size, so a small forward finds them all)."""
-    seen = _recorded_convs(name, (48, 96))
+    seen = _recorded_convs(name, (96, 192) if "+" in name else (48, 96))
     assert sum(seen.values()) == calls
-    listed = {(x[1], cout, K, K, stride, DIL, GROUPS) for x, cout, stride in PATH_SHAPES}
+    listed = {(x[1], cout, K, K, stride, DIL, GROUPS) for x, cout, stride in
+              PATH_SHAPES + UNET_SHAPES}
     assert set(seen) <= listed
+
+
+@pytest.mark.parametrize("x_shape,cout,stride", UNET_SHAPES)
+def test_unet_path_shapes_plan(x_shape, cout, stride):
+    """Each of aanet+'s UNet convs plans at its path shape, forward,
+    input/offset/mask gradient and weight gradient: every channel in one
+    tile, a block's and an SM's shared memory, windows covering the taps
+    at any offset within the halo."""
+    b, cin, h, w = x_shape
+    forward, weight = _forward_plan(x_shape, cout, stride), _weight_plan(x_shape, cout, stride)
+    data = deform.backward_data_plan(cin, cout, K, K, stride, DIL, GROUPS)
+    assert forward.co_tile == weight.co_tile == cout
+    for plan in (forward, weight, data):
+        assert plan.smem_bytes <= deform.SMEM_BYTES
+    for plan in (forward, weight):
+        assert plan.resident >= 1 and plan.resident * (plan.smem_bytes + 1024) <= deform.SM_SMEM_BYTES
+        _assert_window_covers(h, w, stride, plan.tile_h, plan.win_h, plan.win_w)
+    assert weight.workspace == weight.splits * cout * cin * K * K
 
 
 @pytest.mark.parametrize("x_shape,cout,stride", PATH_SHAPES)

@@ -67,14 +67,16 @@ def test_converted_flax_tree_loads_strictly():
     port.load_state_dict(state, strict=True)
 
 
-@pytest.mark.parametrize("name", ["psmnet-aa", "gcnet-aa"])
+@pytest.mark.parametrize("name", ["psmnet-aa", "gcnet-aa", "ganet-aa", "aanet+"])
 def test_aa_preset_flax_tree_loads_strictly(name):
-    """Every parameter and statistic of the full ``psmnet-aa`` and
-    ``gcnet-aa`` presets (the strided pyramid as ``fpn``, the single-output
-    aggregation) maps onto exactly the port's state_dict keys, with
-    matching shapes."""
+    """Every parameter and statistic of the full ``psmnet-aa``,
+    ``gcnet-aa``, ``ganet-aa`` and ``aanet+`` presets (the strided pyramid
+    as ``fpn``, the single-output aggregation, GANet's UNet and the
+    hourglass refinements) maps onto exactly the port's state_dict keys,
+    with matching shapes."""
     jmodel = jax_preset(name).build()
-    img = jnp.zeros((1, 256, 256, 3))
+    size = 96 if "ganet" in jax_preset(name).feature_type else 256  # PSMNet's SPP: 256 px
+    img = jnp.zeros((1, size, size, 3))
     shapes = jax.eval_shape(
         lambda: jmodel.init(jax.random.PRNGKey(0), img, img, train=False)
     )
@@ -85,15 +87,17 @@ def test_aa_preset_flax_tree_loads_strictly(name):
     assert set(state) == set(want)
     assert all(state[k].shape == want[k].shape for k in want)
     port.load_state_dict(state, strict=True)
-    assert "final_conv_1.weight" not in {k.split(".", 1)[1] for k in want if k.startswith("aggregation.")}
+    heads = {k.split(".", 1)[1] for k in want if k.startswith("aggregation.")}
+    assert ("final_conv_1.weight" in heads) == (name == "aanet+")  # intermediate supervision
 
 
 @pytest.mark.parametrize(
     "overrides",
-    [dict(MODEL_PRESETS[name].__dict__) for name in sorted(MODEL_PRESETS)
-     if name not in ("aanet", "stereonet-aa", "psmnet-aa", "gcnet-aa")]
-    + [dict(dtype="bfloat16"), dict(feature_similarity="difference"),
-       dict(aggregation_type="gcnet")],
+    # GANet's single scale under the FPN; an unknown refinement; bfloat16;
+    # a difference volume under the adaptive aggregation; a 3-D aggregation
+    # of multi-scale features
+    [dict(feature_type="ganet"), dict(refinement_type="bogus"), dict(dtype="bfloat16"),
+     dict(feature_similarity="difference"), dict(aggregation_type="gcnet")],
 )
 def test_build_refuses_what_the_port_does_not_run(overrides):
     with pytest.raises(NotImplementedError):
@@ -186,8 +190,7 @@ def test_predict_on_cpu_writes_cropped_outputs(tmp_path):
 @pytest.mark.parametrize("name", sorted(MODEL_PRESETS))
 def test_predict_pads_to_the_references_multiple(name):
     """96 under hourglass refinement, else 48, as the JAX predict_pairs
-    pads each preset (aanet_tpu/infer.py:304-305); a hourglass config is
-    made, not built (the port refuses to build it so far)."""
+    pads each preset (aanet_tpu/infer.py:304-305)."""
     want = 96 if jax_preset(name).refinement_type == "hourglass" else 48
     assert infer.pad_multiple(preset(name)) == want
     assert infer.pad_multiple(ModelConfig(refinement_type="hourglass")) == 96
@@ -222,6 +225,8 @@ BASELINE_FLAGS = {
               "--aggregation_type", "gcnet", "--num_downsample", "1", "--refinement_type", "None"],
     "psmnet-aa": ["--preset", "psmnet-aa"],
     "gcnet-aa": ["--preset", "gcnet-aa"],
+    "ganet-aa": ["--preset", "ganet-aa"],
+    "aanet+": ["--preset", "aanet+"],
 }
 # image size (padded to a multiple of 48) and max_disp per configuration:
 # the PSMNet extractor needs 256 px at least; GC-Net's four stride-2 levels
@@ -234,8 +239,8 @@ PREDICT_SIZES = {"psmnet": ((260, 270), 48), "psmnet_basic": ((260, 270), 48),
 @pytest.mark.parametrize("name", sorted(BASELINE_FLAGS))
 def test_cli_predict_runs_the_baselines_on_cpu(tmp_path, name):
     """``predict`` reaches the 3-D-aggregation baselines through the JAX
-    CLI's model flags, and the stereonet-aa, psmnet-aa and gcnet-aa
-    presets, on the CPU. GC-Net's
+    CLI's model flags, and the stereonet-aa, psmnet-aa, gcnet-aa,
+    ganet-aa and aanet+ (padded to 96x96) presets, on the CPU. GC-Net's
     map is one pixel short of the padded pair, so its crop has one row
     fewer than the image, as the JAX ``predict`` gives it."""
     data = tmp_path / "pairs"

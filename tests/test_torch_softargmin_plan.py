@@ -28,8 +28,8 @@ from aanet_torch.ops import softargmin as sa
 SMS = 132  # an H100 SXM's SMs
 # ((B, D, H, W), match_similarity) of each soft-argmin of the aanet train step
 # (batch 16, 288x576) and inference forward (384x1248), the baselines' and
-# stereonet-aa's forwards and steps, psmnet-aa's forward and step and
-# gcnet-aa's forward, and chip_smoke.py phase 6b's shapes
+# stereonet-aa's forwards and steps, psmnet-aa's and aanet+'s forward and
+# step, gcnet-aa's and ganet-aa's forward, and chip_smoke.py phase 6b's shapes
 # beyond them: planes that are not a multiple of 4 or smaller than a tile,
 # D = 1, 37 and 191, batch 3
 PATH_SHAPES = chip_smoke.SA_PATH_SHAPES
@@ -59,14 +59,16 @@ def _recorded_volumes(name, hw):
 
 @pytest.mark.parametrize("name,calls,paths", [
     ("aanet", 3, INPUTS), ("stereonet-aa", 1, INPUTS), ("psmnet-aa", 1, INPUTS),
-    ("gcnet-aa", 1, {"inference": INPUTS["inference"]}),
+    ("gcnet-aa", 1, {"inference": INPUTS["inference"]}), ("aanet+", 3, INPUTS),
+    ("ganet-aa", 1, {"inference": INPUTS["inference"]}),
 ])
 def test_path_shapes_are_the_models_volumes(name, calls, paths):
     """chip_smoke.py's paths hold every soft-argmin the presets run: a
     small forward finds their candidates, signs and the scales of the input
     they run at, and those at the paths' batches and sizes are the listed
-    ones (gcnet-aa's at inference only)."""
-    hw = (256, 256) if name == "psmnet-aa" else (48, 96)  # its SPP pools 64-px windows at H/4
+    ones (gcnet-aa's and ganet-aa's at inference only)."""
+    # psmnet-aa's SPP pools 64-px windows at H/4; aanet+ pads to multiples of 96
+    hw = {"psmnet-aa": (256, 256), "aanet+": (96, 192)}.get(name, (48, 96))
     seen = _recorded_volumes(name, hw)
     assert sum(seen.values()) == calls
     for d, h, w, match in seen:
