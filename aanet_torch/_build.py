@@ -123,15 +123,41 @@ def launch(name: str, symbol: str, argtypes, *args) -> None:
         raise RuntimeError(f"{symbol}: CUDA error {err} ({msg})")
 
 
-def check_cuda_f32(op: str, **tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous float32 CUDA tensor."""
-    for arg, t in tensors.items():
+# The value types the forward kernels take, each the suffix of its C entry
+# points (``aanet_deform_conv_f32``, ``aanet_deform_conv_bf16``, ...); the
+# backward kernels take float32 only
+FORMS = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def form(op: str, dtype: torch.dtype) -> str:
+    """The entry-point suffix of the kernel form for values of ``dtype``;
+    raise for a dtype no form takes."""
+    if dtype not in FORMS:
+        raise TypeError(f"{op}: values of {dtype}; the kernels take "
+                        + " or ".join(str(d) for d in FORMS))
+    return FORMS[dtype]
+
+
+def check_cuda(op: str, **tensors) -> None:
+    """Each keyword is ``name=(tensor, dtype)``: raise unless the tensor is
+    a contiguous CUDA tensor of that dtype."""
+    for arg, (t, dtype) in tensors.items():
         if t.device.type != "cuda":
             raise ValueError(f"{op}: {arg} lies on {t.device}, the kernel takes CUDA tensors")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{op}: {arg} is {t.dtype}, the kernel takes float32")
+        if t.dtype != dtype:
+            raise TypeError(f"{op}: {arg} is {t.dtype}, the kernel takes {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{op}: {arg} must be contiguous")
+
+
+def refuse_bf16_backward(op: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` for a bfloat16 tensor handed to a
+    backward: bf16 training is not ported (its backward kernels come in a
+    later slice), on the card or on the CPU."""
+    if any(t is not None and t.dtype == torch.bfloat16 for t in tensors):
+        raise NotImplementedError(
+            f"{op}: bfloat16 has no backward in the PyTorch port yet (bf16 training "
+            "is a later slice); train in float32")
 
 
 def ptr(t) -> ctypes.c_void_p:

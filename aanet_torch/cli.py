@@ -40,7 +40,10 @@ padded pair, crops to one row fewer than the image, as the JAX
 checkpoint, or a flax checkpoint of the JAX package (``.msgpack`` or
 ``.msgpack.gz``). All default to ``--device cuda`` and raise without a
 GPU. Float32 convolutions and matmuls run in full float32 (TF32 off), as
-the JAX package's float32 mode does.
+the JAX package's float32 mode does. ``--dtype bfloat16`` serves in the
+JAX package's bf16 policy (``evaluate``, ``inference``, ``predict``;
+parameters, also a flax checkpoint's, stay float32); ``train`` refuses it
+for now.
 """
 from __future__ import annotations
 
@@ -58,8 +61,9 @@ _MODEL_FLAGS = {
     "max_disp": int, "feature_type": str, "feature_similarity": str, "num_downsample": int,
     "aggregation_type": str, "num_scales": int, "num_fusions": int, "num_stage_blocks": int,
     "num_deform_blocks": int, "refinement_type": str, "mdconv_dilation": int,
-    "deformable_groups": int,
+    "deformable_groups": int, "dtype": str,
 }
+DTYPES = ("float32", "bfloat16")  # --dtype: the compute dtype (aanet_tpu/cli.py:117-119)
 # tri-state: None keeps the preset's value, --flag / --no-flag set it
 _MODEL_SWITCHES = ("no_feature_mdconv", "feature_pyramid", "feature_pyramid_network",
                    "no_intermediate_supervision")
@@ -88,7 +92,12 @@ def _add_model_args(p):
                         "'psmnet-aa', 'ganet-aa' or 'gcnet-aa'; the PSMNet, StereoNet and GC-Net "
                         "baselines take the model flags instead")
     for name, kind in _MODEL_FLAGS.items():
-        p.add_argument(f"--{name}", type=kind, default=None)
+        if name == "dtype":
+            p.add_argument("--dtype", choices=DTYPES, default=None,
+                           help="compute dtype (default float32); bfloat16 serves (evaluate, "
+                                "inference, predict) and train refuses it")
+        else:
+            p.add_argument(f"--{name}", type=kind, default=None)
     for name in _MODEL_SWITCHES:
         p.add_argument(f"--{name}", action=argparse.BooleanOptionalAction, default=None)
 
@@ -145,9 +154,10 @@ def cmd_train(args):
     from aanet_torch.data.datasets import StereoDataset
     from aanet_torch.data.pipeline import make_train_loader, make_val_loader
     from aanet_torch.data.transforms import train_transform, val_transform
-    from aanet_torch.train.trainer import Trainer, get_logger
+    from aanet_torch.train.trainer import Trainer, get_logger, refuse_bf16_training
 
     cfg = build_config(args)
+    refuse_bf16_training(cfg)  # before anything is written or read
     os.makedirs(cfg.train.checkpoint_dir, exist_ok=True)
     with open(os.path.join(cfg.train.checkpoint_dir, "args.json"), "w") as f:
         f.write(cfg.to_json())

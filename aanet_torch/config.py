@@ -3,8 +3,9 @@
 
 An own copy of ``aanet_tpu/config.py`` (the port imports nothing of the
 JAX package). ``ModelConfig.build`` constructs the port's network and
-raises ``NotImplementedError`` for what it does not run: bfloat16, and
-flags whose stages do not fit each other. It runs, in float32, for
+raises ``NotImplementedError`` for what it does not run: a dtype other
+than float32 and bfloat16, bfloat16 with a difference or concat volume,
+and flags whose stages do not fit each other. It runs, in float32, for
 inference and training, every preset (``aanet``, ``aanet+``,
 ``stereonet-aa``, ``psmnet-aa``, ``ganet-aa``, ``gcnet-aa``) and the
 3-D-aggregation baselines reached through the model flags:
@@ -16,6 +17,9 @@ inference and training, every preset (``aanet``, ``aanet+``,
   aggregation_type="stereonet", refinement_type="stereonet"``;
 * GC-Net: ``feature_type="gcnet", feature_similarity="concat",
   aggregation_type="gcnet", num_downsample=1, refinement_type="None"``.
+
+In bfloat16 (``dtype="bfloat16"``) it runs the six presets for inference
+only: the model's forward in training mode and ``Trainer`` refuse it.
 """
 from __future__ import annotations
 
@@ -45,7 +49,8 @@ class ModelConfig:
     refinement_type: Optional[str] = "stereodrnet"
     mdconv_dilation: int = 2
     deformable_groups: int = 2
-    # compute dtype ('float32' | 'bfloat16'); None is float32
+    # compute dtype ('float32' | 'bfloat16'); None is float32. bfloat16
+    # serves only (eval mode) and only with correlation volumes
     dtype: Optional[str] = None
     # training-time activation checkpointing (torch.utils.checkpoint per
     # feature pass, per AAModule and per refinement); inference ignores it
@@ -55,10 +60,13 @@ class ModelConfig:
         """The port's ``AANet`` for this configuration (in training mode,
         as ``nn.Module``s start; call ``.eval()`` for inference).
 
-        Raises ``NotImplementedError`` for what the port does not run:
-        bfloat16, unknown stage types, and the combinations of flags whose
-        cost volume and aggregation do not fit each other (the JAX composer
-        fails on them too)."""
+        Raises ``NotImplementedError`` for what the port does not run: a
+        dtype other than float32 and bfloat16, bfloat16 with a difference
+        or concat volume (their bf16 forms are not ported yet), unknown
+        stage types, and the combinations of flags whose cost volume and
+        aggregation do not fit each other (the JAX composer fails on them
+        too). A bfloat16 model serves in eval mode; its forward in
+        training mode raises."""
         refused = [
             (self.feature_type not in ("aanet", "stereonet", "psmnet", "ganet", "gcnet"),
              f"feature_type={self.feature_type!r}: unknown extractor"),
@@ -67,8 +75,8 @@ class ModelConfig:
              f"aggregation_type={self.aggregation_type!r}: unknown aggregation"),
             (self.refinement_type not in (None, "None", "stereonet", "stereodrnet", "hourglass"),
              f"refinement_type={self.refinement_type!r}: unknown refinement"),
-            (self.dtype not in (None, "float32"),
-             f"dtype={self.dtype!r}: the PyTorch port runs float32 only so far"),
+            (self.dtype not in (None, "float32", "bfloat16"),
+             f"dtype={self.dtype!r}: the PyTorch port runs float32 and bfloat16"),
         ]
         # the JAX composer's multi-scale rule (aanet.py:149-153): the AANet
         # extractor's three levels, or one scale made three by the FPN or
@@ -77,6 +85,10 @@ class ModelConfig:
                        or self.feature_pyramid_network)
         volume_4d = self.feature_similarity in ("difference", "concat")
         refused += [
+            (self.dtype == "bfloat16" and volume_4d,
+             f"dtype='bfloat16' with feature_similarity={self.feature_similarity!r}: the "
+             "difference and concat volumes' bf16 forms are not ported yet (a later slice "
+             "with the bf16 backward kernels); run the 3-D networks in float32"),
             (self.feature_similarity not in ("correlation", "difference", "concat"),
              f"feature_similarity={self.feature_similarity!r}: unknown cost volume"),
             ((self.feature_type == "aanet") != bool(self.feature_pyramid_network),
@@ -118,6 +130,7 @@ class ModelConfig:
             deformable_groups=self.deformable_groups,
             feature_mdconv=not self.no_feature_mdconv,
             remat=self.remat,
+            dtype=self.dtype,
         )
 
 

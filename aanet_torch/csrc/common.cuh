@@ -7,7 +7,10 @@
 // Python wrapper can raise on a launch that CUDA refused.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 extern "C" const char* aanet_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -56,4 +59,53 @@ static __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 static __device__ __forceinline__ void cp_async_wait_group() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The forward kernels' two forms: float32 values, and bfloat16 values that
+// are widened to float32 where they are loaded (exactly), computed on in
+// float32 and rounded to bfloat16 once, where they are stored (to nearest,
+// ties to even), as the JAX ops compute under a bf16 compute dtype.
+using bf16 = __nv_bfloat16;
+
+template <typename T>
+constexpr bool is_bf16 = std::is_same<T, bf16>::value;
+
+static __device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
+
+static __device__ __forceinline__ float load_f32(const bf16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+
+// Four neighbouring values: one 16-byte load of float32 (16-byte aligned),
+// one 8-byte load of bfloat16 (8-byte aligned).
+static __device__ __forceinline__ float4 load4_f32(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// Four bfloat16 values in 8 bytes (the first in the low half of u.x) widened.
+static __device__ __forceinline__ float4 widen4(uint2 u) {
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+static __device__ __forceinline__ float4 load4_f32(const bf16* p) {
+  return widen4(__ldg(reinterpret_cast<const uint2*>(p)));
+}
+
+static __device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
+
+static __device__ __forceinline__ void store_f32(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// Four neighbouring values, aligned as load4_f32's.
+static __device__ __forceinline__ void store4_f32(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+static __device__ __forceinline__ void store4_f32(bf16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned int*>(&lo);
+  u.y = *reinterpret_cast<const unsigned int*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
 }

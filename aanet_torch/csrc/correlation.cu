@@ -12,6 +12,9 @@
 // values a clock to its lanes (a warp's 16-byte load takes 4 clocks, and
 // lanes that read the same address pay all the same) against 128 FMAs, so
 // a tile must load few values per FMA.
+//
+// The forward has a float32 and a bfloat16 form (aanet_correlation_f32,
+// aanet_correlation_bf16); the backward is float32 only.
 #include "common.cuh"
 
 namespace {
@@ -51,6 +54,14 @@ namespace {
 // aggregation convs read. The tiling is the plan of ops/cost_volume.py
 // forward_plan; the kernel refuses a plan whose shared memory is not its
 // layout's.
+//
+// The bf16 form (T = bf16: L, R and the volume in bfloat16) is the same
+// kernel: L and R are widened to float32 where they are staged (a load and
+// a store, four values at a time where the width allows it: cp.async
+// copies bytes and cannot widen them), so the plan, the shared-memory
+// layout, the float32 products and the float32 sums of the ksplit groups
+// are the float32 form's; the mean over C is rounded to bf16 once, where
+// it is stored. Its global traffic is half the float32 form's.
 // ---------------------------------------------------------------------------
 
 // Calls f(r, q) for the units t, t + blockDim.x, ... of a rows x cols grid
@@ -88,10 +99,29 @@ inline int fwd_smem_words(int tw, int dtot, int chunk, int ksplit) {
   return stage > partial ? stage : partial;
 }
 
-template <int DD>
+// One value of L or R into shared memory as float32 (zero when !valid):
+// float32 with cp.async, bfloat16 widened by a load and a store; and four
+// neighbouring values (16-byte aligned float32, 8-byte aligned bfloat16).
+__device__ __forceinline__ void stage1(float* dst, const float* src, bool valid) {
+  cp_async_f32(dst, src, valid);
+}
+
+__device__ __forceinline__ void stage1(float* dst, const bf16* src, bool valid) {
+  *dst = valid ? load_f32(src) : 0.f;
+}
+
+__device__ __forceinline__ void stage4(float* dst, const float* src, bool valid) {
+  cp_async_f32x4(dst, src, valid);
+}
+
+__device__ __forceinline__ void stage4(float* dst, const bf16* src, bool valid) {
+  *reinterpret_cast<float4*>(dst) = valid ? load4_f32(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+template <int DD, typename T>
 __global__ void __launch_bounds__(FWD_MAX_THREADS, FWD_MIN_BLOCKS)
-corr_fwd_kernel(const float* __restrict__ left, const float* __restrict__ right,
-                float* __restrict__ out, int channels, int height, int width, int max_disp,
+corr_fwd_kernel(const T* __restrict__ left, const T* __restrict__ right,
+                T* __restrict__ out, int channels, int height, int width, int max_disp,
                 int tw, int ny, int ksplit, int chunk, bool vec) {
   extern __shared__ float4 corr_smem[];
   float* smem = reinterpret_cast<float*>(corr_smem);
@@ -111,8 +141,8 @@ corr_fwd_kernel(const float* __restrict__ left, const float* __restrict__ right,
   const int h = blockIdx.y;
   const long long b = blockIdx.z;
   const long long plane = static_cast<long long>(height) * width;
-  const float* lrow = left + b * channels * plane + static_cast<long long>(h) * width;
-  const float* rrow = right + b * channels * plane + static_cast<long long>(h) * width;
+  const T* lrow = left + b * channels * plane + static_cast<long long>(h) * width;
+  const T* rrow = right + b * channels * plane + static_cast<long long>(h) * width;
   const int r0 = w0 - dtot;  // image column of right-window slot 0
 
   // chunk n's left tile and right window into buffer n % 2, zero outside
@@ -125,23 +155,23 @@ corr_fwd_kernel(const float* __restrict__ left, const float* __restrict__ right,
       for_each_unit(chunk, tw / 4, [&](int cc, int q) {
         const int w = w0 + 4 * q;
         const bool in = c0 + cc < channels && w < width;
-        cp_async_f32x4(sl + cc * tw + 4 * q, in ? lrow + (c0 + cc) * plane + w : left, in);
+        stage4(sl + cc * tw + 4 * q, in ? lrow + (c0 + cc) * plane + w : left, in);
       });
       for_each_unit(chunk, rw / 4, [&](int cc, int q) {
         const int w = r0 + 4 * q;
         const bool in = c0 + cc < channels && w >= 0 && w < width;
-        cp_async_f32x4(sr + cc * rw + 4 * q, in ? rrow + (c0 + cc) * plane + w : right, in);
+        stage4(sr + cc * rw + 4 * q, in ? rrow + (c0 + cc) * plane + w : right, in);
       });
     } else {
       for_each_unit(chunk, tw, [&](int cc, int q) {
         const int w = w0 + q;
         const bool in = c0 + cc < channels && w < width;
-        cp_async_f32(sl + cc * tw + q, in ? lrow + (c0 + cc) * plane + w : left, in);
+        stage1(sl + cc * tw + q, in ? lrow + (c0 + cc) * plane + w : left, in);
       });
       for_each_unit(chunk, rw, [&](int cc, int q) {
         const int w = r0 + q;
         const bool in = c0 + cc < channels && w >= 0 && w < width;
-        cp_async_f32(sr + cc * rw + q, in ? rrow + (c0 + cc) * plane + w : right, in);
+        stage1(sr + cc * rw + q, in ? rrow + (c0 + cc) * plane + w : right, in);
       });
     }
   };
@@ -216,24 +246,51 @@ corr_fwd_kernel(const float* __restrict__ left, const float* __restrict__ right,
 
   const int w = w0 + FWD_CW * x;
   if (w >= width) return;
-  float* ob = out + b * max_disp * plane + static_cast<long long>(h) * width + w;
+  T* ob = out + b * max_disp * plane + static_cast<long long>(h) * width + w;
   const float inv_c = 1.f / static_cast<float>(channels);
 #pragma unroll
   for (int j = 0; j < DD; ++j) {
     const int d = y * DD + j;
     if (d < max_disp) {
-      float* o = ob + d * plane;
+      T* o = ob + d * plane;
       if (vec) {
-        *reinterpret_cast<float4*>(o) = make_float4(acc[0][j] * inv_c, acc[1][j] * inv_c,
-                                                    acc[2][j] * inv_c, acc[3][j] * inv_c);
+        store4_f32(o, make_float4(acc[0][j] * inv_c, acc[1][j] * inv_c, acc[2][j] * inv_c,
+                                  acc[3][j] * inv_c));
       } else {
 #pragma unroll
         for (int i = 0; i < FWD_CW; ++i) {
-          if (w + i < width) o[i] = acc[i][j] * inv_c;
+          if (w + i < width) store_f32(o + i, acc[i][j] * inv_c);
         }
       }
     }
   }
+}
+
+// The checks and the launch of both forms' entry points.
+template <typename T>
+int launch_corr_fwd(const T* left, const T* right, T* out, int batch, int channels, int height,
+                    int width, int max_disp, int tw, int dd, int ksplit, int chunk,
+                    int smem_bytes, cudaStream_t stream) {
+  if (batch == 0 || height == 0 || width == 0 || max_disp == 0) return 0;
+  if ((dd != 8 && dd != 16) || tw < FWD_CW * FWD_LX || tw % (FWD_CW * FWD_LX) != 0 ||
+      ksplit < 1 || chunk < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int ny = (max_disp + dd - 1) / dd;
+  const int threads = (tw / FWD_CW) * ny * ksplit;
+  if (threads > FWD_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
+  if (fwd_smem_words(tw, ny * dd, chunk, ksplit) * 4 != smem_bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);  // the wrapper's plan has another layout
+  }
+  auto kernel = dd == 8 ? corr_fwd_kernel<8, T> : corr_fwd_kernel<16, T>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const bool vec = width % 4 == 0 && aligned16(left) && aligned16(right) && aligned16(out);
+  dim3 grid((width + tw - 1) / tw, height, batch);
+  kernel<<<grid, threads, smem_bytes, stream>>>(left, right, out, channels, height, width,
+                                                 max_disp, tw, ny, ksplit, chunk, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -250,26 +307,19 @@ extern "C" int aanet_correlation_f32(const float* left, const float* right, floa
                                      int max_disp, int tw, int dd, int ksplit, int chunk,
                                      int smem_bytes, int device, void* stream) {
   cudaSetDevice(device);
-  if (batch == 0 || height == 0 || width == 0 || max_disp == 0) return 0;
-  if ((dd != 8 && dd != 16) || tw < FWD_CW * FWD_LX || tw % (FWD_CW * FWD_LX) != 0 ||
-      ksplit < 1 || chunk < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int ny = (max_disp + dd - 1) / dd;
-  const int threads = (tw / FWD_CW) * ny * ksplit;
-  if (threads > FWD_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
-  if (fwd_smem_words(tw, ny * dd, chunk, ksplit) * 4 != smem_bytes) {
-    return static_cast<int>(cudaErrorInvalidValue);  // the wrapper's plan has another layout
-  }
-  auto kernel = dd == 8 ? corr_fwd_kernel<8> : corr_fwd_kernel<16>;
-  const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const bool vec = width % 4 == 0 && aligned16(left) && aligned16(right) && aligned16(out);
-  dim3 grid((width + tw - 1) / tw, height, batch);
-  kernel<<<grid, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      left, right, out, channels, height, width, max_disp, tw, ny, ksplit, chunk, vec);
-  return static_cast<int>(cudaGetLastError());
+  return launch_corr_fwd(left, right, out, batch, channels, height, width, max_disp, tw, dd,
+                         ksplit, chunk, smem_bytes, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 form: left, right and out bfloat16, the rest as
+// aanet_correlation_f32's (the same plan).
+extern "C" int aanet_correlation_bf16(const bf16* left, const bf16* right, bf16* out,
+                                      int batch, int channels, int height, int width,
+                                      int max_disp, int tw, int dd, int ksplit, int chunk,
+                                      int smem_bytes, int device, void* stream) {
+  cudaSetDevice(device);
+  return launch_corr_fwd(left, right, out, batch, channels, height, width, max_disp, tw, dd,
+                         ksplit, chunk, smem_bytes, static_cast<cudaStream_t>(stream));
 }
 
 // ---------------------------------------------------------------------------

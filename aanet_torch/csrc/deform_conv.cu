@@ -12,6 +12,9 @@
 //       + sum_{c, k} weight[co, c, k] * m[b, g(c), k] * x~[b, c, y, x].
 // Offsets are [B, G*K*2, Ho, Wo] in the (g, k, (dy, dx)) channel order and
 // the mask [B, G*K, Ho, Wo] in the (g, k) order, as the JAX package has it.
+//
+// The forward has a float32 and a bfloat16 form (aanet_deform_conv_f32,
+// aanet_deform_conv_bf16); the backward kernels are float32 only.
 #include "common.cuh"
 
 #include <math.h>
@@ -25,24 +28,38 @@ constexpr int HALO = 3;     // pixels of a staged window beyond the zero-offset 
 // input window, its (tap, pixel) corner table and the sampling of one
 // channel quad from both.
 
-// The x windows of nq channel quads, with cp.async: quad j's window at sx
-// + 4 j win_size, position i of its channel cl at word 4 i + cl, so that a
-// corner's four channels are one 16-byte load. xc: x at the first channel;
-// nc: the channels that exist (the rest, and positions outside the image,
-// are zero-filled); any: a valid address for the zero-fills.
-__device__ __forceinline__ void stage_window(float* sx, const float* xc, int nc, int nq,
+// One value of x into shared memory as float32: float32 with cp.async (src
+// is not read when !valid, and zeros land), bfloat16 widened by a load and
+// a store (the forward's bf16 form: converted where it is staged, so that
+// the window, the table and the contraction are the float32 form's).
+__device__ __forceinline__ void stage_value(float* dst, const float* src, bool valid) {
+  cp_async_f32(dst, src, valid);
+}
+
+__device__ __forceinline__ void stage_value(float* dst, const bf16* src, bool valid) {
+  *dst = valid ? load_f32(src) : 0.f;
+}
+
+// The x windows of nq channel quads, staged as float32 (stage_value): quad
+// j's window at sx + 4 j win_size, position i of its channel cl at word 4 i
+// + cl, so that a corner's four channels are one 16-byte load. xc: x at the
+// first channel; nc: the channels that exist (the rest, and positions
+// outside the image, are zero-filled); any: a valid address for the
+// zero-fills.
+template <typename T>
+__device__ __forceinline__ void stage_window(float* sx, const T* xc, int nc, int nq,
                                              long long hw, int win_y, int win_x, int win_h,
                                              int win_w, int win_size, int height, int width,
-                                             int warp, int nwarps, int lane, const float* any) {
+                                             int warp, int nwarps, int lane, const T* any) {
   for (int j = 0; j < nq; ++j, sx += 4 * win_size, xc += 4 * hw, nc -= 4) {
     for (int r = warp; r < win_h; r += nwarps) {
       const int yy = win_y + r;
       const bool row_in = yy >= 0 && yy < height;
-      const float* src = xc + static_cast<long long>(yy) * width;
+      const T* src = xc + static_cast<long long>(yy) * width;
       for (int e = lane; e < 4 * win_w; e += 32) {
         const int col = e >> 2, cl = e & 3, xx = win_x + col;
         const bool in = row_in && cl < nc && xx >= 0 && xx < width;
-        cp_async_f32(sx + 4 * r * win_w + e, in ? src + cl * hw + xx : any, in);
+        stage_value(sx + 4 * r * win_w + e, in ? src + cl * hw + xx : any, in);
       }
     }
   }
@@ -72,9 +89,10 @@ __device__ __forceinline__ float4 corner(int ho, int wo, int ki, int kj, float d
 
 // The (tap, pixel) table of deformable group g for the tile of P = tile_h x
 // TILE_W output pixels at (ho0, wo0) (ob, mb: this batch entry's offsets
-// and mask, mb null for a unit mask): each entry's corner(), or a zero
-// sample off the map.
-__device__ __forceinline__ void tabulate(float4* tab, const float* ob, const float* mb, int g,
+// and mask, mb null for a unit mask; the mask float32 or, in the forward's
+// bf16 form, bfloat16): each entry's corner(), or a zero sample off the map.
+template <typename T>
+__device__ __forceinline__ void tabulate(float4* tab, const float* ob, const T* mb, int g,
                                          int taps, int P, int ho0, int wo0, int out_h,
                                          int out_w, int kw, int stride, int pad, int dil,
                                          int height, int width, int win_y, int win_x, int win_h,
@@ -89,7 +107,7 @@ __device__ __forceinline__ void tabulate(float4* tab, const float* ob, const flo
       const int p = ho * out_w + wo, ki = k / kw, kj = k - ki * kw;
       const long long oc = static_cast<long long>((g * taps + k) * 2) * npix + p;
       const float dy = __ldg(ob + oc), dx = __ldg(ob + oc + npix);
-      const float m = mb ? __ldg(mb + static_cast<long long>(g * taps + k) * npix + p) : 1.f;
+      const float m = mb ? load_f32(mb + static_cast<long long>(g * taps + k) * npix + p) : 1.f;
       te = corner(ho, wo, ki, kj, dy, dx, m, stride, pad, dil, height, width, win_y, win_x, win_h,
                   win_w);
     }
@@ -98,9 +116,10 @@ __device__ __forceinline__ void tabulate(float4* tab, const float* ob, const flo
 }
 
 // sample_quad's quads beyond the window: the corners inside the image, in
-// device memory.
+// device memory (float32, or bfloat16 widened as it is loaded).
+template <typename T>
 __device__ __forceinline__ void sample_far(float* col, int rs, int quad, float w00, float w01,
-                                           float w10, float w11, const float* xc, long long hw,
+                                           float w10, float w11, const T* xc, long long hw,
                                            int nc, int height, int width) {
   const int far = -1 - quad, y0 = far / (width + 4) - 2, x0 = far % (width + 4) - 2;
   const bool y0_in = y0 >= 0 && y0 < height, y1_in = y0 + 1 >= 0 && y0 + 1 < height;
@@ -110,10 +129,10 @@ __device__ __forceinline__ void sample_far(float* col, int rs, int quad, float w
   for (int cc = 0; cc < 4; ++cc) {
     float v = 0.f;
     if (cc < nc) {
-      const float v00 = y0_in && x0_in ? __ldg(xc) : 0.f;
-      const float v01 = y0_in && x1_in ? __ldg(xc + 1) : 0.f;
-      const float v10 = y1_in && x0_in ? __ldg(xc + width) : 0.f;
-      const float v11 = y1_in && x1_in ? __ldg(xc + width + 1) : 0.f;
+      const float v00 = y0_in && x0_in ? load_f32(xc) : 0.f;
+      const float v01 = y0_in && x1_in ? load_f32(xc + 1) : 0.f;
+      const float v10 = y1_in && x0_in ? load_f32(xc + width) : 0.f;
+      const float v11 = y1_in && x1_in ? load_f32(xc + width + 1) : 0.f;
       v = w00 * v00 + w01 * v01 + w10 * v10 + w11 * v11;
     }
     col[cc * rs] = v;
@@ -134,9 +153,9 @@ __device__ __noinline__ void sample_far_call(float* col, int rs, int quad, float
 // for a quad beyond it, from x in device memory (xc: x at the quad's first
 // channel; nc: its channels that exist, the rest sample zero), inline or,
 // with FAR_CALL, out of line.
-template <bool FAR_CALL>
+template <bool FAR_CALL, typename T>
 __device__ __forceinline__ void sample_quad(float* col, int rs, float4 te, const float4* xs,
-                                            int win_w, const float* xc, long long hw, int nc,
+                                            int win_w, const T* xc, long long hw, int nc,
                                             int height, int width) {
   const int quad = __float_as_int(te.x);
   const float ly = te.y, lx = te.z, m = te.w;
@@ -149,7 +168,8 @@ __device__ __forceinline__ void sample_quad(float* col, int rs, float4 te, const
     col[rs] = w00 * v00.y + w01 * v01.y + w10 * v10.y + w11 * v11.y;
     col[2 * rs] = w00 * v00.z + w01 * v01.z + w10 * v10.z + w11 * v11.z;
     col[3 * rs] = w00 * v00.w + w01 * v01.w + w10 * v10.w + w11 * v11.w;
-  } else if (FAR_CALL) {
+  } else if constexpr (FAR_CALL) {
+    static_assert(!is_bf16<T>, "the out-of-line far sample is the float32 weight gradient's");
     sample_far_call(col, rs, quad, w00, w01, w10, w11, xc, hw, nc, height, width);
   } else {
     sample_far(col, rs, quad, w00, w01, w10, w11, xc, hw, nc, height, width);
@@ -210,6 +230,19 @@ __device__ __forceinline__ void sample_quad(float* col, int rs, float4 te, const
 // from a second column tile (more shared memory, fewer resident blocks).
 // The columns (490 MB at the largest shape if written out) never reach
 // device memory.
+//
+// The bf16 form (T = bf16: x, the mask and the weight in bfloat16; the
+// offsets and the bias float32) is the same kernel: x and the weight taps
+// are widened to float32 where they are staged in shared memory and the
+// mask where it is tabulated, so the plan, the shared-memory layout and
+// the float32 contraction are the float32 form's, and only the global
+// loads of those values halve. Staged by a load and a store (cp.async
+// copies bytes, it cannot widen them), the next chunk's window and weights
+// are not in flight behind the current chunk's work as the float32
+// form's are. The output (TO) is rounded to bf16 once, where it is
+// stored; where the plan splits the chunks over blocks, the blocks add
+// into a float32 scratch (TO = float) that round_to_bf16_kernel rounds
+// into the output afterwards: no partial sum is rounded.
 // ---------------------------------------------------------------------------
 namespace {
 
@@ -231,11 +264,12 @@ __host__ __device__ inline long long fwd_smem_words(int taps, int pixels, int co
   return main > partial ? main : partial;
 }
 
+template <typename T, typename TO>
 __global__ void __launch_bounds__(FWD_MAX_THREADS, FWD_MIN_BLOCKS)
-deform_fwd_kernel(const float* __restrict__ x, const float* __restrict__ offset,
-                  long long offset_bstride, const float* __restrict__ mask,
-                  long long mask_bstride, const float* __restrict__ wt,
-                  const float* __restrict__ bias, float* __restrict__ out, int cin, int height,
+deform_fwd_kernel(const T* __restrict__ x, const float* __restrict__ offset,
+                  long long offset_bstride, const T* __restrict__ mask,
+                  long long mask_bstride, const T* __restrict__ wt,
+                  const float* __restrict__ bias, TO* __restrict__ out, int cin, int height,
                   int width, int cout, int out_h, int out_w, int kh, int kw, int stride, int pad,
                   int dil, int groups, int tile_h, int co_tile, int wt_stride, int ksplit,
                   int splits, int win_h, int win_w, int win_size, int tiles_x, bool out_vec) {
@@ -281,9 +315,9 @@ deform_fwd_kernel(const float* __restrict__ x, const float* __restrict__ offset,
   const int npix = out_h * out_w;
   const long long hw = static_cast<long long>(height) * width;
   const int win_y = ho0 * stride - pad - HALO, win_x = wo0 * stride - pad - HALO;
-  const float* xb = x + b * cin * hw;
+  const T* xb = x + b * cin * hw;
   const float* ob = offset + b * offset_bstride;
-  const float* mb = mask ? mask + b * mask_bstride : nullptr;
+  const T* mb = mask ? mask + b * mask_bstride : nullptr;
 
   auto chunk_c0 = [&](int q) { return (q / per_group) * cg + (q % per_group) * FWD_CHUNK; };
   auto chunk_nc = [&](int q) { return min(FWD_CHUNK, (q / per_group + 1) * cg - chunk_c0(q)); };
@@ -304,8 +338,11 @@ deform_fwd_kernel(const float* __restrict__ x, const float* __restrict__ offset,
       const int r = e / quads, q4 = e - r * quads;
       const int k = r / FWD_CHUNK, cc = r - k * FWD_CHUNK;
       float* dst = sw + r * co_tile + 4 * q4;
-      if (cc < nc) {
-        cp_async_f32x4(dst, wt + (static_cast<long long>(k) * cin + c0 + cc) * wt_stride + co0 + 4 * q4);
+      const T* src = wt + (static_cast<long long>(k) * cin + c0 + cc) * wt_stride + co0 + 4 * q4;
+      if (cc < nc && is_bf16<T>) {
+        *reinterpret_cast<float4*>(dst) = load4_f32(src);
+      } else if (cc < nc) {
+        cp_async_f32x4(dst, reinterpret_cast<const float*>(src));
       } else {
         *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
       }
@@ -318,7 +355,7 @@ deform_fwd_kernel(const float* __restrict__ x, const float* __restrict__ offset,
   };
   // Table entry e's modulated samples of chunk q's FWD_CHUNK channels
   // (window buffer q & 1) into the column tile.
-  auto sample = [&](int e, const float4* xs, const float* xq, int ncq) {
+  auto sample = [&](int e, const float4* xs, const T* xq, int ncq) {
     const int k = e / P, pl = e - k * P;
     sample_quad<false>(s_col + k * FWD_CHUNK * P + pl, P, s_tab[e], xs, win_w, xq, hw, ncq,
                        height, width);
@@ -363,7 +400,7 @@ deform_fwd_kernel(const float* __restrict__ x, const float* __restrict__ offset,
     }
     {
       const float4* xs = reinterpret_cast<const float4*>(s_x + (q & 1) * FWD_CHUNK * win_size);
-      const float* xq = xb + chunk_c0(q) * hw;
+      const T* xq = xb + chunk_c0(q) * hw;
       const int ncq = chunk_nc(q);
 #pragma unroll 2
       for (int e = t; e < taps * P; e += nthreads) sample(e, xs, xq, ncq);
@@ -409,36 +446,98 @@ deform_fwd_kernel(const float* __restrict__ x, const float* __restrict__ offset,
     }
   }
 
-  float* outb = out + b * cout * static_cast<long long>(npix);
+  TO* outb = out + b * cout * static_cast<long long>(npix);
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int co = co0 + 4 * co_t + (j & 3) + (j >> 2) * (co_tile / 2);
     if (co >= cout) continue;  // an idle channel of the last tile
     const float bv = bias && split == 0 ? bias[co] : 0.f;
-    float* oc = outb + static_cast<long long>(co) * npix;
+    TO* oc = outb + static_cast<long long>(co) * npix;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int pl = 4 * px_t + h * (P / 2);  // four pixels of one row
       const int ho = ho0 + pl / TILE_W, wo = wo0 + pl % TILE_W;
       if (ho >= out_h) continue;
-      float* o = oc + ho * out_w + wo;
+      TO* o = oc + ho * out_w + wo;
       const float v[4] = {acc[4 * h][j] + bv, acc[4 * h + 1][j] + bv, acc[4 * h + 2][j] + bv,
                           acc[4 * h + 3][j] + bv};
-      if (splits > 1 && out_vec && wo + 3 < out_w) {
-        atomicAdd(reinterpret_cast<float4*>(o), make_float4(v[0], v[1], v[2], v[3]));
-      } else if (splits > 1) {
+      if constexpr (!is_bf16<TO>) {  // split plans add into a float32 output
+        if (splits > 1 && out_vec && wo + 3 < out_w) {
+          atomicAdd(reinterpret_cast<float4*>(o), make_float4(v[0], v[1], v[2], v[3]));
+          continue;
+        } else if (splits > 1) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (wo + i < out_w) atomicAdd(o + i, v[i]);
-      } else if (out_vec && wo + 3 < out_w) {
-        *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+          for (int i = 0; i < 4; ++i)
+            if (wo + i < out_w) atomicAdd(o + i, v[i]);
+          continue;
+        }
+      }
+      if (out_vec && wo + 3 < out_w) {
+        store4_f32(o, make_float4(v[0], v[1], v[2], v[3]));
       } else {
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          if (wo + i < out_w) o[i] = v[i];
+          if (wo + i < out_w) store_f32(o + i, v[i]);
       }
     }
   }
+}
+
+// float32 sums rounded to bfloat16 once: the bf16 form's epilogue where the
+// blocks of a split plan add their partial sums into a float32 scratch.
+__global__ void round_to_bf16_kernel(const float* __restrict__ in, bf16* __restrict__ out,
+                                     long long n) {
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    out[i] = __float2bfloat16_rn(in[i]);
+  }
+}
+
+// The forward of values T into an output TO (the checks and the launch of
+// both entry points).
+template <typename T, typename TO>
+int launch_deform_fwd(const T* x, const float* offset, long long offset_bstride, const T* mask,
+                      long long mask_bstride, const T* wt, const float* bias, TO* out,
+                      int batch, int cin, int height, int width, int cout, int out_h, int out_w,
+                      int kh, int kw, int stride, int pad, int dil, int groups, int tile_h,
+                      int co_tile, int wt_stride, int ksplit, int splits, int smem_bytes,
+                      cudaStream_t stream) {
+  const int threads = (co_tile / 8) * (tile_h * TILE_W / 8) * ksplit;
+  if (groups < 1 || cin % groups != 0 || tile_h < 2 || tile_h % 2 != 0 || co_tile < 8 ||
+      co_tile % 8 != 0 || co_tile > 128 || ksplit < 1 || splits < 1 ||
+      threads % 32 != 0 || threads > FWD_MAX_THREADS) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (is_bf16<TO> && splits > 1) return static_cast<int>(cudaErrorInvalidValue);  // adds need float32
+  const int co_tiles = (cout + co_tile - 1) / co_tile;
+  if (wt_stride % 4 != 0 || wt_stride < co_tiles * co_tile) {
+    return static_cast<int>(cudaErrorInvalidValue);  // the weight's rows are not the tiles'
+  }
+  const int nchunks = groups * ((cin / groups + FWD_CHUNK - 1) / FWD_CHUNK);
+  if (splits > nchunks) return static_cast<int>(cudaErrorInvalidValue);  // a block without work
+  if (!aligned16(wt) || !aligned16(out)) return static_cast<int>(cudaErrorInvalidValue);
+  const long long npix = static_cast<long long>(out_h) * out_w;
+  if (batch == 0 || npix == 0 || cout == 0) return 0;
+  const int win_h = (tile_h - 1) * stride + (kh - 1) * dil + 2 * HALO + 2;
+  const int win_w = (TILE_W - 1) * stride + (kw - 1) * dil + 2 * HALO + 2;
+  const int win_size = win_h * win_w;
+  const int pixels = tile_h * TILE_W;
+  if (fwd_smem_words(kh * kw, pixels, co_tile, win_size, ksplit) * 4 != smem_bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);  // the wrapper's plan has another layout
+  }
+  auto kernel = deform_fwd_kernel<T, TO>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int tiles_x = (out_w + TILE_W - 1) / TILE_W;
+  const int tiles_y = (out_h + tile_h - 1) / tile_h;
+  dim3 grid(tiles_x * tiles_y, co_tiles * splits, batch);
+  const bool out_vec = out_w % 4 == 0;
+  kernel<<<grid, threads, smem_bytes, stream>>>(
+      x, offset, offset_bstride, mask, mask_bstride, wt, bias, out, cin, height, width, cout,
+      out_h, out_w, kh, kw, stride, pad, dil, groups, tile_h, co_tile, wt_stride, ksplit, splits,
+      win_h, win_w, win_size, tiles_x, out_vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -466,39 +565,41 @@ extern "C" int aanet_deform_conv_f32(
     int dil, int groups, int tile_h, int co_tile, int wt_stride, int ksplit, int splits,
     int smem_bytes, int device, void* stream) {
   cudaSetDevice(device);
-  const int threads = (co_tile / 8) * (tile_h * TILE_W / 8) * ksplit;
-  if (groups < 1 || cin % groups != 0 || tile_h < 2 || tile_h % 2 != 0 || co_tile < 8 ||
-      co_tile % 8 != 0 || co_tile > 128 || ksplit < 1 || splits < 1 ||
-      threads % 32 != 0 || threads > FWD_MAX_THREADS) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_deform_fwd(x, offset, offset_bstride, mask, mask_bstride, wt, bias, out, batch,
+                           cin, height, width, cout, out_h, out_w, kh, kw, stride, pad, dil,
+                           groups, tile_h, co_tile, wt_stride, ksplit, splits, smem_bytes,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 form: x, mask, wt and out bfloat16 (wt and out 16-byte aligned),
+// offset and bias float32, the rest as aanet_deform_conv_f32's. Where
+// splits > 1 the blocks add into sums (float32 [batch, cout, out_h,
+// out_w], zeroed by the caller, 16-byte aligned), which a second kernel
+// rounds into out; else sums is not used (may be null).
+extern "C" int aanet_deform_conv_bf16(
+    const bf16* x, const float* offset, long long offset_bstride, const bf16* mask,
+    long long mask_bstride, const bf16* wt, const float* bias, bf16* out, float* sums, int batch,
+    int cin, int height, int width, int cout, int out_h, int out_w, int kh, int kw, int stride,
+    int pad, int dil, int groups, int tile_h, int co_tile, int wt_stride, int ksplit,
+    int splits, int smem_bytes, int device, void* stream) {
+  cudaSetDevice(device);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (splits <= 1) {
+    return launch_deform_fwd(x, offset, offset_bstride, mask, mask_bstride, wt, bias, out, batch,
+                             cin, height, width, cout, out_h, out_w, kh, kw, stride, pad, dil,
+                             groups, tile_h, co_tile, wt_stride, ksplit, splits, smem_bytes, st);
   }
-  const int co_tiles = (cout + co_tile - 1) / co_tile;
-  if (wt_stride % 4 != 0 || wt_stride < co_tiles * co_tile) {
-    return static_cast<int>(cudaErrorInvalidValue);  // the weight's rows are not the tiles'
-  }
-  const int nchunks = groups * ((cin / groups + FWD_CHUNK - 1) / FWD_CHUNK);
-  if (splits > nchunks) return static_cast<int>(cudaErrorInvalidValue);  // a block without work
-  if (!aligned16(wt) || !aligned16(out)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long npix = static_cast<long long>(out_h) * out_w;
-  if (batch == 0 || npix == 0 || cout == 0) return 0;
-  const int win_h = (tile_h - 1) * stride + (kh - 1) * dil + 2 * HALO + 2;
-  const int win_w = (TILE_W - 1) * stride + (kw - 1) * dil + 2 * HALO + 2;
-  const int win_size = win_h * win_w;
-  const int pixels = tile_h * TILE_W;
-  if (fwd_smem_words(kh * kw, pixels, co_tile, win_size, ksplit) * 4 != smem_bytes) {
-    return static_cast<int>(cudaErrorInvalidValue);  // the wrapper's plan has another layout
-  }
-  const cudaError_t attr = cudaFuncSetAttribute(
-      deform_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const int tiles_x = (out_w + TILE_W - 1) / TILE_W;
-  const int tiles_y = (out_h + tile_h - 1) / tile_h;
-  dim3 grid(tiles_x * tiles_y, co_tiles * splits, batch);
-  const bool out_vec = out_w % 4 == 0;
-  deform_fwd_kernel<<<grid, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      x, offset, offset_bstride, mask, mask_bstride, wt, bias, out, cin, height, width, cout,
-      out_h, out_w, kh, kw, stride, pad, dil, groups, tile_h, co_tile, wt_stride, ksplit, splits,
-      win_h, win_w, win_size, tiles_x, out_vec);
+  if (sums == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int err = launch_deform_fwd(x, offset, offset_bstride, mask, mask_bstride, wt, bias, sums,
+                                    batch, cin, height, width, cout, out_h, out_w, kh, kw, stride,
+                                    pad, dil, groups, tile_h, co_tile, wt_stride, ksplit, splits,
+                                    smem_bytes, st);
+  const long long n = static_cast<long long>(batch) * cout * out_h * out_w;
+  if (err != 0 || n == 0) return err;
+  const int threads = 256;
+  const long long blocks = (n + threads - 1) / threads;
+  round_to_bf16_kernel<<<static_cast<unsigned int>(blocks < 65535 * 8 ? blocks : 65535 * 8),
+                         threads, 0, st>>>(sums, out, n);
   return static_cast<int>(cudaGetLastError());
 }
 

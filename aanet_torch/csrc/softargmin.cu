@@ -48,6 +48,15 @@
 // The tiling is the plan of ops/softargmin.py (forward_plan, backward_plan);
 // each kernel refuses a plan whose shared memory is not its layout's.
 // PERF.md section 6 has the times on an H100 and what holds each.
+//
+// The forward has a bfloat16 form (aanet_softargmin_bf16, the same plan): a
+// bf16 volume, widened to float32 as it is loaded, the softmax and the
+// expectation in float32 and a float32 disparity, as the JAX op computes
+// under a bf16 compute dtype (softargmin.py:28). A thread's quad is four
+// values of 8 bytes there, not 16: the quads and the plan stay the float32
+// form's, and a warp still reads 256 neighbouring bytes of a row at once.
+// Its bytes are half the float32 form's and the rest unchanged. The
+// backward is float32 only.
 #include "common.cuh"
 
 #include <math.h>
@@ -70,6 +79,23 @@ inline int fwd_smem_bytes(int slices) { return slices > 1 ? 4 * 2 * FWD_TILE * s
 // slices' merge slots [slices][2][tile].
 inline int bwd_smem_bytes(int tile, int depth, int slices) {
   return 4 * tile * (depth + 2 * slices);
+}
+
+// Evict-first loads of the volume (each value is read once), widened to
+// float32: one value, and four neighbours (16-byte aligned float32, 8-byte
+// aligned bfloat16).
+__device__ __forceinline__ float load_first(const float* p) { return __ldcs(p); }
+
+__device__ __forceinline__ float load_first(const bf16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(__ldcs(reinterpret_cast<const unsigned short*>(p))));
+}
+
+__device__ __forceinline__ float4 load4_first(const float* p) {
+  return __ldcs(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ float4 load4_first(const bf16* p) {
+  return widen4(__ldcs(reinterpret_cast<const uint2*>(p)));
 }
 
 // Pixel i of quad q in a tile of TP pixels: 4 neighbours where rows are read
@@ -180,16 +206,16 @@ __device__ __forceinline__ void slice_range(int depth, int slices, int s, int& b
 // Forward. A block: FWD_TILE pixels x all D; thread (quad q, slice s), 32
 // quads a warp, so one warp a slice.
 // ---------------------------------------------------------------------------
-template <bool VEC>
+template <bool VEC, typename T>
 __global__ void __launch_bounds__(FWD_MAX_THREADS, FWD_MIN_BLOCKS)
-softargmin_fwd_kernel(const float* __restrict__ cost, float* __restrict__ out, int depth,
+softargmin_fwd_kernel(const T* __restrict__ cost, float* __restrict__ out, int depth,
                       long long plane, int slices, float sign) {
   extern __shared__ float4 sa_smem[];  // [slices][2][NQ] float4: the merge slots
   constexpr int NQ = FWD_TILE / 4;
   const int q = threadIdx.x % NQ, s = threadIdx.x / NQ;
   const long long p0 = static_cast<long long>(blockIdx.x) * FWD_TILE;
   const long long b = blockIdx.y;
-  const float* c = cost + b * depth * plane + p0;
+  const T* c = cost + b * depth * plane + p0;
   bool in[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) in[i] = p0 + pixel<FWD_TILE, VEC>(q, i) < plane;
@@ -201,18 +227,18 @@ softargmin_fwd_kernel(const float* __restrict__ cost, float* __restrict__ out, i
     float v[UNROLL][4];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
-      const float* row = c + static_cast<long long>(d0 + u) * plane;
+      const T* row = c + static_cast<long long>(d0 + u) * plane;
       const bool live = d0 + u < end;
       if (VEC) {
         float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (live && in[0]) x = __ldcs(reinterpret_cast<const float4*>(row) + q);
+        if (live && in[0]) x = load4_first(row + 4 * q);
         v[u][0] = x.x;
         v[u][1] = x.y;
         v[u][2] = x.z;
         v[u][3] = x.w;
       } else {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) v[u][i] = live && in[i] ? __ldcs(row + pixel<FWD_TILE, VEC>(q, i)) : 0.f;
+        for (int i = 0; i < 4; ++i) v[u][i] = live && in[i] ? load_first(row + pixel<FWD_TILE, VEC>(q, i)) : 0.f;
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) v[u][i] = live ? sign * v[u][i] : -INFINITY;
@@ -354,16 +380,10 @@ cudaError_t launch_bwd(bool vec, const float* grad_out, const float* cost, float
                                             slices, smem_bytes, sign, stream);
 }
 
-}  // namespace
-
-// cost: [batch, depth, plane] float32, out: [batch, plane] float32. The plan
-// (ops/softargmin.py forward_plan): tile (FWD_TILE pixels a block), slices
-// (of D a block: one warp each) and smem_bytes, which must be this layout's.
-// Anything else is cudaErrorInvalidValue.
-extern "C" int aanet_softargmin_f32(const float* cost, float* out, int batch, int depth,
-                                    long long plane, int negate, int tile, int slices,
-                                    int smem_bytes, int device, void* stream) {
-  cudaSetDevice(device);
+// The checks and the launch of both forms' entry points (T: the volume's type).
+template <typename T>
+int launch_fwd(const T* cost, float* out, int batch, int depth, long long plane, int negate,
+               int tile, int slices, int smem_bytes, cudaStream_t stream) {
   if (batch == 0 || plane == 0) return 0;
   const long long tiles = (plane + FWD_TILE - 1) / FWD_TILE;
   if (tile != FWD_TILE || slices < 1 || (FWD_TILE / 4) * slices > FWD_MAX_THREADS ||
@@ -374,11 +394,35 @@ extern "C" int aanet_softargmin_f32(const float* cost, float* out, int batch, in
     return static_cast<int>(cudaErrorInvalidValue);  // the wrapper's plan has another layout
   }
   const bool vec = plane % 4 == 0 && aligned16(cost) && aligned16(out);
-  auto kernel = vec ? softargmin_fwd_kernel<true> : softargmin_fwd_kernel<false>;
+  auto kernel = vec ? softargmin_fwd_kernel<true, T> : softargmin_fwd_kernel<false, T>;
   dim3 grid(static_cast<unsigned int>(tiles), batch);
-  kernel<<<grid, (FWD_TILE / 4) * slices, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      cost, out, depth, plane, slices, negate ? -1.f : 1.f);
+  kernel<<<grid, (FWD_TILE / 4) * slices, smem_bytes, stream>>>(cost, out, depth, plane, slices,
+                                                                 negate ? -1.f : 1.f);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// cost: [batch, depth, plane] float32, out: [batch, plane] float32. The plan
+// (ops/softargmin.py forward_plan): tile (FWD_TILE pixels a block), slices
+// (of D a block: one warp each) and smem_bytes, which must be this layout's.
+// Anything else is cudaErrorInvalidValue.
+extern "C" int aanet_softargmin_f32(const float* cost, float* out, int batch, int depth,
+                                    long long plane, int negate, int tile, int slices,
+                                    int smem_bytes, int device, void* stream) {
+  cudaSetDevice(device);
+  return launch_fwd(cost, out, batch, depth, plane, negate, tile, slices, smem_bytes,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 form: cost bfloat16, out float32, the rest as
+// aanet_softargmin_f32's (the same plan).
+extern "C" int aanet_softargmin_bf16(const bf16* cost, float* out, int batch, int depth,
+                                     long long plane, int negate, int tile, int slices,
+                                     int smem_bytes, int device, void* stream) {
+  cudaSetDevice(device);
+  return launch_fwd(cost, out, batch, depth, plane, negate, tile, slices, smem_bytes,
+                    static_cast<cudaStream_t>(stream));
 }
 
 // grad_out: [batch, plane]; cost, grad_cost: [batch, depth, plane]; float32.

@@ -20,6 +20,13 @@
 // warped run and of the mask. The image row (at most a few KB a channel)
 // is served from L1. A row whose width is not a multiple of 4 (rows then
 // start unaligned) and the last partial quad take scalar loads and stores.
+//
+// The forward has a bfloat16 form (aanet_warp_bf16; T = bf16): the image,
+// the warped image and the mask in bfloat16, the disparity and the sample
+// positions float32, the blend in float32 from the widened taps, each
+// output rounded to bf16 once, as the JAX op computes under a bf16 compute
+// dtype (warp.py:30,60,66). Its quads are 8 bytes of each channel's row.
+// The backward is float32 only.
 #include "common.cuh"
 
 #include <math.h>
@@ -28,10 +35,10 @@ namespace {
 
 constexpr int WARP_MAX_THREADS = 256;
 
-template <int C>  // C > 0: that many channels; C == 0: `channels`
+template <int C, typename T>  // C > 0: that many channels; C == 0: `channels`
 __global__ void __launch_bounds__(WARP_MAX_THREADS)
-warp_kernel(const float* __restrict__ img, const float* __restrict__ disp,
-            float* __restrict__ warped, float* __restrict__ valid, int channels, int height,
+warp_kernel(const T* __restrict__ img, const float* __restrict__ disp,
+            T* __restrict__ warped, T* __restrict__ valid, int channels, int height,
             int width) {
   const int w0 = (blockIdx.x * blockDim.x + threadIdx.x) * 4;
   if (w0 >= width) return;
@@ -40,9 +47,9 @@ warp_kernel(const float* __restrict__ img, const float* __restrict__ disp,
   const size_t b = blockIdx.z;
   const size_t plane = static_cast<size_t>(height) * width;
   const float* drow = disp + (b * height + h) * width;
-  float* vrow = valid + (b * height + h) * width;
-  const float* irow = img + b * nch * plane + static_cast<size_t>(h) * width;
-  float* orow = warped + b * nch * plane + static_cast<size_t>(h) * width;
+  T* vrow = valid + (b * height + h) * width;
+  const T* irow = img + b * nch * plane + static_cast<size_t>(h) * width;
+  T* orow = warped + b * nch * plane + static_cast<size_t>(h) * width;
   const bool vec = (width & 3) == 0 && aligned16(disp) && aligned16(valid) && aligned16(img) &&
                    aligned16(warped);
   const int n = min(4, width - w0);
@@ -72,13 +79,13 @@ warp_kernel(const float* __restrict__ img, const float* __restrict__ disp,
     ok[i] = cover >= 0.9999f ? 1.f : 0.f;
   }
 
-  auto store = [&](float* dst, const float (&v)[4]) {
+  auto store = [&](T* dst, const float (&v)[4]) {
     if (vec) {
-      *reinterpret_cast<float4*>(dst + w0) = make_float4(v[0], v[1], v[2], v[3]);
+      store4_f32(dst + w0, make_float4(v[0], v[1], v[2], v[3]));
     } else {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        if (i < n) dst[w0 + i] = v[i];
+        if (i < n) store_f32(dst + w0 + i, v[i]);
     }
   };
   if constexpr (C > 0) {
@@ -87,8 +94,8 @@ warp_kernel(const float* __restrict__ img, const float* __restrict__ disp,
     for (int c = 0; c < C; ++c)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        lo[c][i] = irow[c * plane + x0[i]];
-        hi[c][i] = irow[c * plane + x0[i] + 1];
+        lo[c][i] = load_f32(irow + c * plane + x0[i]);
+        hi[c][i] = load_f32(irow + c * plane + x0[i] + 1);
       }
 #pragma unroll
     for (int c = 0; c < C; ++c) {
@@ -99,12 +106,12 @@ warp_kernel(const float* __restrict__ img, const float* __restrict__ disp,
     }
   } else {
     for (int c = 0; c < nch; ++c) {
-      const float* src = irow + c * plane;
+      const T* src = irow + c * plane;
       float lo[4], hi[4], v[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        lo[i] = src[x0[i]];
-        hi[i] = src[x0[i] + 1];
+        lo[i] = load_f32(src + x0[i]);
+        hi[i] = load_f32(src + x0[i] + 1);
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) v[i] = lo[i] * (1.f - t[i]) + hi[i] * t[i];
@@ -112,6 +119,25 @@ warp_kernel(const float* __restrict__ img, const float* __restrict__ disp,
     }
   }
   store(vrow, ok);
+}
+
+// The checks and the launch of both forms' entry points.
+template <typename T>
+int launch_warp(const T* img, const float* disp, T* warped, T* valid, int batch, int channels,
+                int height, int width, cudaStream_t s) {
+  if (batch > 65535 || height > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0 || height == 0 || width == 0) return 0;
+  // quads of a row over as few blocks as fit, each a multiple of 32 threads
+  const int quads = (width + 3) / 4;
+  const int blocks = (quads + WARP_MAX_THREADS - 1) / WARP_MAX_THREADS;
+  const int threads = ((quads + blocks - 1) / blocks + 31) / 32 * 32;
+  const dim3 grid(blocks, height, batch);
+  if (channels == 3) {
+    warp_kernel<3, T><<<grid, threads, 0, s>>>(img, disp, warped, valid, channels, height, width);
+  } else {
+    warp_kernel<0, T><<<grid, threads, 0, s>>>(img, disp, warped, valid, channels, height, width);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -124,20 +150,18 @@ extern "C" int aanet_warp_f32(const float* img, const float* disp,
                               int channels, int height, int width, int device,
                               void* stream) {
   cudaSetDevice(device);
-  if (batch > 65535 || height > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  if (batch == 0 || height == 0 || width == 0) return 0;
-  // quads of a row over as few blocks as fit, each a multiple of 32 threads
-  const int quads = (width + 3) / 4;
-  const int blocks = (quads + WARP_MAX_THREADS - 1) / WARP_MAX_THREADS;
-  const int threads = ((quads + blocks - 1) / blocks + 31) / 32 * 32;
-  const dim3 grid(blocks, height, batch);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (channels == 3) {
-    warp_kernel<3><<<grid, threads, 0, s>>>(img, disp, warped, valid, channels, height, width);
-  } else {
-    warp_kernel<0><<<grid, threads, 0, s>>>(img, disp, warped, valid, channels, height, width);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_warp(img, disp, warped, valid, batch, channels, height, width,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 form: img, warped and valid bfloat16, disp float32, the rest as
+// aanet_warp_f32's.
+extern "C" int aanet_warp_bf16(const bf16* img, const float* disp, bf16* warped, bf16* valid,
+                               int batch, int channels, int height, int width, int device,
+                               void* stream) {
+  cudaSetDevice(device);
+  return launch_warp(img, disp, warped, valid, batch, channels, height, width,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // Backward for the disparity only (the image is the network's input on

@@ -38,16 +38,24 @@ refuses the rest):
 * ``ganet-aa``: the same features and pyramid, one output, two
   StereoDRNet refinements: [H/3, H/2, H]; H and W multiples of 48.
 
-Every map is a float32 [B, h, w] disparity. In eval mode one feature pass
-runs over both views stacked on the batch axis (exact: shared weights,
-running BatchNorm statistics). In training mode the views take two
-separate feature passes, left then right, so each BatchNorm updates its
-statistics once per view, as the reference and the JAX model do
-(aanet_tpu/models/aanet.py:242-244). With ``remat`` the training forward
-is checkpointed as the JAX model rematerialises it (aanet.py:206-213):
-each view's feature pass and each refinement stage as a whole, the 3-D
-aggregations as a whole, each AAModule and each refinement BasicBlock on
-its own.
+Every map is a float32 [B, h, w] disparity. Under ``dtype="bfloat16"``
+the forward installs bf16 as the compute dtype (``ops.precision``) and
+casts both images to it (aanet.py:217-221): the convs, BatchNorms,
+deformable convs, correlation volumes and warps then run in bf16, while
+the parameters and statistics, the offset heads, soft-argmin's
+disparities, the refinements' ``disp + residual`` (a float32 disparity
+meets a bf16 residual) and the disparity upsampling stay float32. Only
+inference runs in bf16: the forward in training mode raises.
+
+In eval mode one feature pass runs over both views stacked on the batch
+axis (exact: shared weights, running BatchNorm statistics). In training
+mode the views take two separate feature passes, left then right, so each
+BatchNorm updates its statistics once per view, as the reference and the
+JAX model do (aanet_tpu/models/aanet.py:242-244). With ``remat`` the
+training forward is checkpointed as the JAX model rematerialises it
+(aanet.py:206-213): each view's feature pass and each refinement stage as
+a whole, the 3-D aggregations as a whole, each AAModule and each
+refinement BasicBlock on its own.
 """
 from __future__ import annotations
 
@@ -78,6 +86,7 @@ from aanet_torch.models.refinement import (
 )
 from aanet_torch.ops import cost_volume as cost_ops
 from aanet_torch.ops import softargmin as softargmin_ops
+from aanet_torch.ops.precision import canonical_dtype, precision
 from aanet_torch.ops.resize import resize_bilinear
 
 FEATURE_CHANNELS = 32  # the StereoNet, PSMNet and GC-Net extractors' output
@@ -103,9 +112,11 @@ class AANet(nn.Module):
                  feature_similarity="correlation", aggregation_type="adaptive", num_scales=3,
                  num_fusions=6, num_stage_blocks=1, num_deform_blocks=3,
                  intermediate_supervision=True, refinement_type="stereodrnet",
-                 mdconv_dilation=2, deformable_groups=2, feature_mdconv=True, remat=True):
+                 mdconv_dilation=2, deformable_groups=2, feature_mdconv=True, remat=True,
+                 dtype=None):
         super().__init__()
         self.remat = remat
+        self.dtype = canonical_dtype(dtype)  # None for float32: no policy
         self.num_downsample = num_downsample
         self.feature_similarity = feature_similarity
         self.aggregation_type = aggregation_type
@@ -191,7 +202,18 @@ class AANet(nn.Module):
 
     def forward(self, left_img: torch.Tensor, right_img: torch.Tensor):
         """left_img, right_img: [B, 3, H, W] normalised images -> the
-        disparity pyramid, coarse to fine."""
+        disparity pyramid, coarse to fine, in float32, under the model's
+        compute dtype."""
+        if self.training and self.dtype is not None:
+            raise NotImplementedError(
+                f"training in {self.dtype} is not ported yet (its backward kernels come in "
+                "a later slice): train in float32, or call .eval() to serve in bfloat16")
+        with precision(self.dtype):
+            if self.dtype is not None:
+                left_img, right_img = left_img.to(self.dtype), right_img.to(self.dtype)
+            return self._forward(left_img, right_img)
+
+    def _forward(self, left_img, right_img):
         n = left_img.shape[0]
         checkpointed = self.training and self.remat
         if self.training:

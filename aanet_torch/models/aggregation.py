@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from aanet_torch.models.layers import (
     Conv,
     ConvTranspose,
+    DtypeConv2d,
     DeformSimpleBottleneck,
     Norm,
     SimpleBottleneck,
@@ -120,7 +121,7 @@ class AdaptiveAggregation(nn.Module):
             ))
         for i in range(self.num_outputs):
             d_i = max_disp // 2**i
-            self.add_module(f"final_conv_{i}", nn.Conv2d(d_i, d_i, 1, bias=True))
+            self.add_module(f"final_conv_{i}", DtypeConv2d(d_i, d_i, 1, bias=True))
 
     def forward(self, cost_volumes):
         x = list(cost_volumes)

@@ -16,6 +16,7 @@ from aanet_torch.models.layers import (
     Conv,
     DeformBottleneck,
     DeformConv2dLayer,
+    DtypeConv2d,
     Norm,
     add_numbered,
     leaky_relu,
@@ -64,8 +65,8 @@ class FeaturePyramidNetwork(nn.Module):
         super().__init__()
         self.num_levels = len(in_channels)
         for i, cin in enumerate(in_channels):
-            lateral = nn.Conv2d(cin, out_channels, 1, bias=True)
-            fpn = nn.Conv2d(out_channels, out_channels, 3, padding=1, bias=True)
+            lateral = DtypeConv2d(cin, out_channels, 1, bias=True)
+            fpn = DtypeConv2d(out_channels, out_channels, 3, padding=1, bias=True)
             for conv in (lateral, fpn):
                 nn.init.xavier_uniform_(conv.weight)
                 nn.init.zeros_(conv.bias)

@@ -15,6 +15,15 @@ unbiased one). In eval mode, or when ``freeze_bn`` has put the BatchNorms
 in eval mode while the rest of the network trains (the reference's
 fine-tune protocol, layers.py:30-47), the running statistics normalise.
 
+Under a compute dtype (``aanet_torch.ops.precision``, installed by the
+model's forward) the layers cast as their flax counterparts do: ``Conv``,
+``ConvTranspose`` and the bare convs (``DtypeConv2d``) cast their input,
+kernel and bias to it (flax's ``nn.Conv(dtype=...)``); ``Norm``
+normalises in float32 and returns the compute dtype (flax's
+``_normalize``); ``DeformConv2dLayer`` runs its offset head in float32 on
+a float32 copy of its input, and its op rounds the mask and the weight to
+the input's dtype. Parameters and statistics stay float32.
+
 ``remat`` is the port's activation rematerialisation (flax ``nn.remat``):
 ``torch.utils.checkpoint`` with the BatchNorm statistics updated only on
 the first, saved forward, never again when backward recomputes the block.
@@ -29,6 +38,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from aanet_torch.ops import deform as deform_ops
+from aanet_torch.ops.precision import compute_dtype
 
 BN_MOMENTUM = 0.1  # torch convention; flax's momentum 0.9
 # False while torch.utils.checkpoint recomputes a block in backward: the
@@ -84,15 +94,49 @@ def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope=0.2)
 
 
+def in_compute_dtype(*tensors):
+    """``tensors`` cast to the compute dtype (None stays None); as they are
+    without one."""
+    dt = compute_dtype()
+    if dt is None:
+        return tensors
+    return tuple(None if t is None else t.to(dt) for t in tensors)
+
+
+def add_bias(y, bias):
+    """``y`` plus ``bias`` over its channels (dim 1), or ``y`` without one."""
+    return y if bias is None else y + bias.view((1, -1) + (1,) * (y.ndim - 2))
+
+
+class _ComputeDtypeConv:
+    """A conv run in the compute dtype: its input, kernel and bias cast to
+    it, as flax's ``nn.Conv(dtype=compute_dtype())`` promotes all three;
+    the bias is added to the rounded product, as flax adds it."""
+
+    def forward(self, x):
+        if compute_dtype() is None:
+            return super().forward(x)
+        x, weight, bias = in_compute_dtype(x, self.weight, self.bias)
+        return add_bias(self._conv_forward(x, weight, None), bias)
+
+
+class DtypeConv2d(_ComputeDtypeConv, nn.Conv2d):
+    """``nn.Conv2d`` in the compute dtype (the same parameters)."""
+
+
+class DtypeConv3d(_ComputeDtypeConv, nn.Conv3d):
+    """``nn.Conv3d`` in the compute dtype (the same parameters)."""
+
+
 class Conv(nn.Module):
     """A Conv2d with torch padding arithmetic, no bias by default; a Conv3d
     over (D, H, W) when ``kernel_size`` is a 3-tuple, as the flax
-    ``Conv`` (layers.py:77-130)."""
+    ``Conv`` (layers.py:77-130); in the compute dtype."""
 
     def __init__(self, cin, cout, kernel_size=3, stride=1, padding=0, dilation=1,
                  groups=1, bias=False):
         super().__init__()
-        conv = nn.Conv3d if isinstance(kernel_size, (tuple, list)) and len(kernel_size) == 3 else nn.Conv2d
+        conv = DtypeConv3d if isinstance(kernel_size, (tuple, list)) and len(kernel_size) == 3 else DtypeConv2d
         self.Conv_0 = conv(cin, cout, kernel_size, stride, padding, dilation, groups, bias=bias)
         nn.init.kaiming_normal_(self.Conv_0.weight, mode="fan_out", nonlinearity="relu")
 
@@ -119,15 +163,20 @@ class ConvTranspose(nn.Module):
         self.stride, self.padding, self.output_padding = stride, padding, output_padding
 
     def forward(self, x):
-        weight = self.Conv_0.weight
+        x, weight, bias = in_compute_dtype(x, self.Conv_0.weight, self.Conv_0.bias)
         flipped = weight.flip(tuple(range(2, weight.ndim))).transpose(0, 1)
         fn = F.conv_transpose3d if weight.ndim == 5 else F.conv_transpose2d
-        return fn(x, flipped, self.Conv_0.bias, self.stride, self.padding, self.output_padding)
+        if compute_dtype() is None:
+            return fn(x, flipped, bias, self.stride, self.padding, self.output_padding)
+        return add_bias(fn(x, flipped, None, self.stride, self.padding, self.output_padding), bias)
 
 
 class Norm(nn.Module):
     """BatchNorm with flax's training semantics (module docstring), over
-    [B, C, H, W] or, with ``dims=3``, over [B, C, D, H, W]."""
+    [B, C, H, W] or, with ``dims=3``, over [B, C, D, H, W]. Under a compute
+    dtype it normalises in float32 and returns the compute dtype, as flax's
+    ``_normalize`` promotes its input to the float32 statistics and casts
+    the result."""
 
     def __init__(self, channels, zero_init=False, dims=2):
         super().__init__()
@@ -137,6 +186,16 @@ class Norm(nn.Module):
             nn.init.zeros_(self.BatchNorm_0.weight)
 
     def forward(self, x):
+        dt = compute_dtype()
+        if dt is None:
+            return self._normalize(x)
+        if x.dtype == dt and not self.BatchNorm_0.training:
+            # one batch_norm of the bf16 input with the float32 statistics
+            # and parameters: float32 arithmetic, the result rounded once
+            return self.BatchNorm_0(x)
+        return self._normalize(x.float()).to(dt)
+
+    def _normalize(self, x):
         bn = self.BatchNorm_0
         if not bn.training:
             return bn(x)
@@ -164,7 +223,9 @@ class DeformConv2dLayer(nn.Module):
     ``offset_conv`` yields G*3*K^2 channels: offsets ``[:, :2*G*K^2]`` in the
     (g, k, (dy, dx)) order, then mask logits in the (g, k) order; the mask is
     sigmoid, times 2 under ``double_mask``. ``offset_conv`` starts at zero,
-    so a fresh layer is a plain dilated conv.
+    so a fresh layer is a plain dilated conv. The offset head runs in
+    float32 on a float32 copy of x, whatever the compute dtype
+    (``layers.py:272-287``): the offsets place the bilinear samples.
     """
 
     def __init__(self, cin, cout, kernel_size=3, stride=1, dilation=2,
@@ -186,7 +247,7 @@ class DeformConv2dLayer(nn.Module):
         self.bias: Optional[nn.Parameter] = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x):
-        offset_mask = self.offset_conv(x)
+        offset_mask = self.offset_conv(x.to(torch.promote_types(x.dtype, torch.float32)))
         mask = None
         if self.modulation:
             mask = torch.sigmoid(offset_mask[:, self.n_offset:])

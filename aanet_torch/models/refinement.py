@@ -23,6 +23,7 @@ from aanet_torch.models.layers import (
     BasicBlock,
     Conv,
     DeformConv2dLayer,
+    DtypeConv2d,
     Norm,
     add_numbered,
     leaky_relu,
@@ -114,7 +115,7 @@ class HourglassRefinement(nn.Module):
         names = add_numbered(self, [DeformConv2dLayer(32, 32)] + unet_layers(mdconv=True))
         self.first_name, self.unet_names = names[0], names[1:]
         # flax's own nn.Conv beside the Conv wrappers: the third "Conv"
-        self.Conv_2 = nn.Conv2d(32, 1, 3, padding=1, bias=True)
+        self.Conv_2 = DtypeConv2d(32, 1, 3, padding=1, bias=True)
         nn.init.normal_(self.Conv_2.weight, std=(1.0 / (32 * 9)) ** 0.5)  # lecun normal
         nn.init.zeros_(self.Conv_2.bias)
 

@@ -15,6 +15,12 @@ volumes feed the 3-D convs of the PSMNet, StereoNet and GC-Net
 aggregations; their CUDA kernels, forward and backward, are
 ``csrc/volume4d.cu``, with tilings chosen here per shape and SM count
 (``volume_forward_plan``, ``volume_backward_plan``).
+
+The correlation forward also has a bfloat16 form (the JAX op under a bf16
+compute dtype, ``cost_volume.py:108,113``): bf16 features, float32
+products, sums and the division by C, the volume rounded to bf16 once
+(``aanet_correlation_bf16``, the same plan). The backward kernels and the
+4-D volumes take float32 only; every backward refuses a bf16 tensor.
 """
 from __future__ import annotations
 
@@ -65,7 +71,10 @@ def correlation_cost_volume_plain(
     left: torch.Tensor, right: torch.Tensor, max_disp: int
 ) -> torch.Tensor:
     """Plain PyTorch correlation volume: the reference's shift-multiply
-    loop over d (nets/cost.py:40-48)."""
+    loop over d (nets/cost.py:40-48). For bf16 features, the bf16 form:
+    computed in float32, the volume rounded to bf16 once."""
+    if left.dtype == torch.bfloat16:
+        return correlation_cost_volume_plain(left.float(), right.float(), max_disp).to(left.dtype)
     b, c, h, w = left.shape
     cost = left.new_zeros((b, max_disp, h, w))
     for d in range(max_disp):
@@ -252,19 +261,23 @@ def _sms(t: torch.Tensor) -> int:
 def _forward(left, right, max_disp):
     if left.device.type == "cpu":
         return correlation_cost_volume_plain(left, right, max_disp)
-    _build.check_cuda_f32("correlation", left=left, right=right)
+    form = _build.form("correlation", left.dtype)
+    _build.check_cuda("correlation", left=(left, left.dtype), right=(right, left.dtype))
     b, c, h, w = left.shape
-    cost = torch.empty((b, max_disp, h, w), dtype=torch.float32, device=left.device)
+    cost = torch.empty((b, max_disp, h, w), dtype=left.dtype, device=left.device)
     plan = (0,) * 5
     if cost.numel():
         p = forward_plan(b, c, h, w, max_disp, _sms(left))
         plan = (p.tile_w, p.dd, p.ksplit, p.chunk, p.smem_bytes)
     _build.launch(
-        "correlation", "aanet_correlation_f32", _CORR_ARGTYPES,
+        "correlation", f"aanet_correlation_{form}", _CORR_ARGTYPES,
         _build.ptr(left), _build.ptr(right), _build.ptr(cost),
         b, c, h, w, max_disp, *plan, left.device.index, _build.stream(left),
     )
-    correlation_cost_volume.launches += 1
+    if form == "f32":
+        correlation_cost_volume.launches += 1
+    else:
+        correlation_cost_volume.launches_bf16 += 1
     return cost
 
 
@@ -272,11 +285,13 @@ def correlation_cost_volume_backward(grad, left, right):
     """Gradients (d left, d right) given the volume's gradient ``grad``
     [B, D, H, W]. A CPU tensor takes the plain version; a CUDA tensor
     launches ``aanet_correlation_backward_f32`` with ``backward_plan``'s
-    tiling."""
+    tiling. A bf16 tensor raises ``NotImplementedError``."""
     _check(left, right)
+    _build.refuse_bf16_backward("correlation backward", grad, left, right)
     if left.device.type == "cpu":
         return correlation_cost_volume_backward_plain(grad, left, right)
-    _build.check_cuda_f32("correlation backward", grad=grad, left=left, right=right)
+    f32 = torch.float32
+    _build.check_cuda("correlation backward", grad=(grad, f32), left=(left, f32), right=(right, f32))
     b, c, h, w = left.shape
     if grad.shape[0] != b or grad.shape[2:] != (h, w):
         raise ValueError(f"correlation backward: grad {tuple(grad.shape)} does not fit {tuple(left.shape)}")
@@ -312,8 +327,9 @@ class _Correlation(torch.autograd.Function):
 def correlation_cost_volume(
     left: torch.Tensor, right: torch.Tensor, max_disp: int
 ) -> torch.Tensor:
-    """Correlation volume of left/right features [B, C, H, W] -> [B, D, H, W],
-    differentiable in both.
+    """Correlation volume of left/right features [B, C, H, W] -> [B, D, H, W]
+    in their dtype (float32 or bfloat16), differentiable in both (in
+    float32 only).
 
     A CPU tensor takes the plain versions; a CUDA tensor launches the kernels.
     """
@@ -322,6 +338,7 @@ def correlation_cost_volume(
 
 
 correlation_cost_volume.launches = 0
+correlation_cost_volume.launches_bf16 = 0
 correlation_cost_volume_backward.launches = 0
 
 
@@ -522,7 +539,9 @@ def _volume_backward(kind, plain, grad, left, right):
     _check(left, right, f"{kind} volume backward")
     if left.device.type == "cpu":
         return plain(grad, left, right)
-    _build.check_cuda_f32(f"{kind} volume backward", grad=grad, left=left, right=right)
+    f32 = torch.float32
+    _build.check_cuda(f"{kind} volume backward", grad=(grad, f32), left=(left, f32),
+                      right=(right, f32))
     b, c, h, w = left.shape
     channels = 2 * c if kind == "concat" else c
     if grad.ndim != 5 or grad.shape[:2] != (b, channels) or grad.shape[3:] != (h, w):
@@ -559,7 +578,7 @@ class _Volume(torch.autograd.Function):
         }[kind]
         if left.device.type == "cpu":
             return plain(left, right, max_disp)
-        _build.check_cuda_f32(f"{kind} volume", left=left, right=right)
+        _build.check_cuda(f"{kind} volume", left=(left, torch.float32), right=(right, torch.float32))
         b, c, h, w = left.shape
         cost = torch.empty((b, channels * c, max_disp, h, w), dtype=torch.float32, device=left.device)
         dchunk = 4  # an empty volume: nothing to write

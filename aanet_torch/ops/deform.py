@@ -26,6 +26,15 @@ mask gradient's per shape (``backward_data_plan``), with its weight laid
 out tap-major (``weight_taps_major``); the weight gradient's per conv,
 batch, output size and SM count (``backward_weight_plan``), with a
 workspace of one slab per split that the kernel sums in a fixed order.
+
+The forward also has a bfloat16 form (the JAX op under a bf16 compute
+dtype, ``deform.py:146-162,203,220-225``): x, the mask and the weight in
+bf16, the offsets and the bias float32; the samples, their blend and the
+contraction in float32, and the output rounded to bf16 once. Its kernel
+is ``aanet_deform_conv_bf16`` (the same plan). The JAX op also rounds
+each blended, modulated sample to bf16 before the contraction; neither
+the kernel nor the twin does. The backward kernels take float32 only,
+and every backward refuses a bf16 tensor (bf16 training is not ported).
 """
 from __future__ import annotations
 
@@ -71,6 +80,8 @@ _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
     ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 ] + [ctypes.c_int] * 20 + [ctypes.c_void_p]  # batch .. groups, the plan's five and wt_stride, device, stream
+# the bf16 form: the same, with the float32 scratch of split plans after out
+_BF16_ARGTYPES = _ARGTYPES[:8] + [ctypes.c_void_p] + _ARGTYPES[8:]
 _BWD_DATA_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
@@ -138,7 +149,17 @@ def modulated_deform_conv2d_plain(
     deformable_groups: int = 1,
 ) -> torch.Tensor:
     """Plain PyTorch DCNv2: gathers the modulated im2col columns
-    [B, Cin*K, Ho*Wo] and multiplies them by the weight."""
+    [B, Cin*K, Ho*Wo] and multiplies them by the weight. For a bf16 x, the
+    bf16 form: the mask and the weight rounded to bf16, everything taken
+    to float32 and computed as here, the output rounded to bf16 once."""
+    if x.dtype == torch.bfloat16:
+        mask, weight = _bf16_operands(x, mask, weight)
+        out = modulated_deform_conv2d_plain(
+            x.float(), offset.float(), None if mask is None else mask.float(), weight.float(),
+            None if bias is None else bias.float(), stride=stride, padding=padding,
+            dilation=dilation, deformable_groups=deformable_groups,
+        )
+        return out.to(x.dtype)
     b, cin, h, w = x.shape
     cout, _, kh, kw = weight.shape
     g = deformable_groups
@@ -154,6 +175,12 @@ def modulated_deform_conv2d_plain(
     if bias is not None:
         out = out + bias.view(1, -1, 1, 1)
     return out
+
+
+def _bf16_operands(x, mask, weight):
+    """The mask and the weight in bf16 x's dtype, as the JAX op casts them
+    to its values' dtype (``deform.py:153,197``)."""
+    return None if mask is None else mask.to(x.dtype), weight.to(x.dtype)
 
 
 def _column_grad(gout, weight, g):
@@ -603,11 +630,15 @@ def _check_shapes(x, offset, mask, weight, stride, padding, dilation, g):
 
 def _check_kernel_inputs(op, x, offset, mask, **dense):
     """Raise unless the tensors suit the CUDA kernels: x and ``dense``
-    contiguous float32 CUDA tensors, offset and mask contiguous within each
-    batch entry (channel slices allowed)."""
-    _build.check_cuda_f32(op, x=x, **{k: v for k, v in dense.items() if v is not None})
+    contiguous CUDA tensors, offset and mask contiguous within each batch
+    entry (channel slices allowed); x, the mask and the weight of x's
+    dtype, the offsets, the bias and the output gradient float32."""
+    def arg(name, t):
+        return t, x.dtype if name in ("x", "mask", "weight") else torch.float32
+
+    _build.check_cuda(op, **{k: arg(k, v) for k, v in dict(x=x, **dense).items() if v is not None})
     sliced = dict(offset=offset) if mask is None else dict(offset=offset, mask=mask)
-    _build.check_cuda_f32(op, **{k: v[0] for k, v in sliced.items()})
+    _build.check_cuda(op, **{k: arg(k, v[0]) for k, v in sliced.items()})
 
 
 def _shape_args(x, weight, ho, wo, stride, padding, dilation, g):
@@ -619,7 +650,8 @@ def _shape_args(x, weight, ho, wo, stride, padding, dilation, g):
 
 def _forward(x, offset, mask, weight, bias, *, stride, padding, dilation, deformable_groups):
     """The forward: the plain version for a CPU tensor; for a CUDA tensor
-    ``aanet_deform_conv_f32`` with ``forward_plan``'s tiling."""
+    ``aanet_deform_conv_f32`` or, for bf16 x, ``aanet_deform_conv_bf16``,
+    with ``forward_plan``'s tiling."""
     g = deformable_groups
     ho, wo = _check_shapes(x, offset, mask, weight, stride, padding, dilation, g)
     if x.device.type == "cpu":
@@ -627,25 +659,33 @@ def _forward(x, offset, mask, weight, bias, *, stride, padding, dilation, deform
             x, offset, mask, weight, bias, stride=stride, padding=padding,
             dilation=dilation, deformable_groups=g,
         )
+    form = _build.form("deform conv", x.dtype)
     _check_kernel_inputs("deform conv", x, offset, mask, weight=weight, bias=bias)
     b, cin, _, _ = x.shape
     cout, _, kh, kw = weight.shape
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     plan = forward_plan(b, cin, cout, ho, wo, kh, kw, stride, dilation, g, sms)
-    # split chunks add into the output
+    # split chunks add into a zeroed float32 output (bf16: a scratch that
+    # the kernel's epilogue rounds into the output once)
     new = torch.zeros if plan.splits > 1 else torch.empty
-    out = new((b, cout, ho, wo), dtype=torch.float32, device=x.device)
+    f32_out = form == "f32" or plan.splits > 1
+    sums = new((b, cout, ho, wo), dtype=torch.float32, device=x.device) if f32_out else None
+    out = sums if form == "f32" else torch.empty((b, cout, ho, wo), dtype=x.dtype, device=x.device)
     cout_pad = _ceil_div(cout, plan.co_tile) * plan.co_tile  # zero channels up to whole tiles
     wt = weight_taps_cin_major(weight, cout_pad)
     *shape, device, stream = _shape_args(x, weight, ho, wo, stride, padding, dilation, g)
+    outs = (_build.ptr(out),) if form == "f32" else (_build.ptr(out), _build.ptr(sums))
     _build.launch(
-        "deform_conv", "aanet_deform_conv_f32", _ARGTYPES,
+        "deform_conv", f"aanet_deform_conv_{form}", _ARGTYPES if form == "f32" else _BF16_ARGTYPES,
         _build.ptr(x), _build.ptr(offset), offset.stride(0),
         _build.ptr(mask), 0 if mask is None else mask.stride(0),
-        _build.ptr(wt), _build.ptr(bias), _build.ptr(out), *shape, plan.tile_h, plan.co_tile,
+        _build.ptr(wt), _build.ptr(bias), *outs, *shape, plan.tile_h, plan.co_tile,
         cout_pad, plan.ksplit, plan.splits, plan.smem_bytes, device, stream,
     )
-    modulated_deform_conv2d.launches += 1
+    if form == "f32":
+        modulated_deform_conv2d.launches += 1
+    else:
+        modulated_deform_conv2d.launches_bf16 += 1
     return out
 
 
@@ -654,7 +694,9 @@ def modulated_deform_conv2d_backward_data(
 ):
     """Gradients for x, offset and mask (None for a unit mask) given the
     output gradient ``gout``. A CPU tensor takes the plain version; a CUDA
-    tensor launches ``aanet_deform_conv_backward_data_f32``."""
+    tensor launches ``aanet_deform_conv_backward_data_f32``. A bf16
+    tensor raises ``NotImplementedError``."""
+    _build.refuse_bf16_backward("deform conv backward", gout, x, mask, weight)
     g = deformable_groups
     ho, wo = _check_shapes(x, offset, mask, weight, stride, padding, dilation, g)
     if x.device.type == "cpu":
@@ -691,7 +733,8 @@ def modulated_deform_conv2d_backward_weight(
     tensor takes the plain version; a CUDA tensor launches
     ``aanet_deform_conv_backward_weight_f32`` with ``backward_weight_plan``'s
     tiling (its partial sums added in a fixed order: the result is
-    bit-reproducible)."""
+    bit-reproducible). A bf16 tensor raises ``NotImplementedError``."""
+    _build.refuse_bf16_backward("deform conv weight gradient", gout, x, mask, weight)
     g = deformable_groups
     ho, wo = _check_shapes(x, offset, mask, weight, stride, padding, dilation, g)
     if x.device.type == "cpu":
@@ -763,22 +806,27 @@ def modulated_deform_conv2d(
     """Modulated deformable conv (DCNv2 semantics, zero-pad sampling).
 
     Args:
-      x: [B, Cin, H, W].
-      offset: [B, G*K*2, Ho, Wo], channel order (g, k, (dy, dx)).
+      x: [B, Cin, H, W], float32 or bfloat16.
+      offset: [B, G*K*2, Ho, Wo], channel order (g, k, (dy, dx)); float32.
       mask: [B, G*K, Ho, Wo] modulation, or None for a unit mask.
       weight: [Cout, Cin, kh, kw].
-      bias: [Cout] or None.
+      bias: [Cout] or None; float32.
     Returns:
-      [B, Cout, Ho, Wo], differentiable in every tensor argument.
+      [B, Cout, Ho, Wo] in x's dtype, differentiable in every tensor
+      argument (in float32 only).
 
     A CPU tensor takes the plain versions; a CUDA tensor launches the
     kernels. ``offset`` and ``mask`` may be channel slices of a larger
-    tensor: only each batch entry must be contiguous.
+    tensor: only each batch entry must be contiguous. For a bf16 x the
+    mask and the weight are rounded to bf16, as the JAX op rounds them.
     """
+    if x.dtype == torch.bfloat16:
+        mask, weight = _bf16_operands(x, mask, weight)
     conf = dict(stride=stride, padding=padding, dilation=dilation, deformable_groups=deformable_groups)
     return _ModulatedDeformConv.apply(x, offset, mask, weight, bias, conf)
 
 
 modulated_deform_conv2d.launches = 0
+modulated_deform_conv2d.launches_bf16 = 0
 modulated_deform_conv2d_backward_data.launches = 0
 modulated_deform_conv2d_backward_weight.launches = 0

@@ -5,6 +5,12 @@ Softmax over the disparity axis, then the expectation against candidates
 op is a ``torch.autograd.Function``; the CUDA kernels (forward and
 backward) are ``csrc/softargmin.cu``, their tilings chosen here per shape
 and SM count (``forward_plan``, ``backward_plan``).
+
+The forward also has a bfloat16 form (the JAX op under a bf16 compute
+dtype, ``softargmin.py:28``): a bf16 volume, the softmax and the
+expectation in float32, a float32 disparity (``aanet_softargmin_bf16``,
+the same plan). The backward takes float32 only and refuses a bf16
+volume.
 """
 from __future__ import annotations
 
@@ -170,7 +176,7 @@ def _probabilities(cost, match_similarity):
 
 def soft_argmin_plain(cost: torch.Tensor, match_similarity: bool = True) -> torch.Tensor:
     """Plain PyTorch soft-argmin: [B, D, H, W] -> float32 [B, H, W]
-    (float64 for a float64 volume)."""
+    (float64 for a float64 volume); a bf16 volume is taken to float32."""
     prob = _probabilities(cost, match_similarity)
     candidates = torch.arange(cost.shape[1], dtype=prob.dtype, device=cost.device)
     return (prob * candidates.view(1, -1, 1, 1)).sum(1)
@@ -189,16 +195,20 @@ def soft_argmin_backward_plain(grad, cost, match_similarity=True):
 def _forward(cost, match_similarity):
     if cost.device.type == "cpu":
         return soft_argmin_plain(cost, match_similarity)
-    _build.check_cuda_f32("soft_argmin", cost=cost)
+    form = _build.form("soft_argmin", cost.dtype)
+    _build.check_cuda("soft_argmin", cost=(cost, cost.dtype))
     b, d, h, w = cost.shape
     out = torch.empty((b, h, w), dtype=torch.float32, device=cost.device)
     p = forward_plan(b, d, h * w, _sms(cost))
     _build.launch(
-        "softargmin", "aanet_softargmin_f32", _ARGTYPES,
+        "softargmin", f"aanet_softargmin_{form}", _ARGTYPES,
         _build.ptr(cost), _build.ptr(out), b, d, h * w, int(not match_similarity),
         p.tile, p.slices, p.smem_bytes, cost.device.index, _build.stream(cost),
     )
-    soft_argmin.launches += 1
+    if form == "f32":
+        soft_argmin.launches += 1
+    else:
+        soft_argmin.launches_bf16 += 1
     return out
 
 
@@ -206,10 +216,11 @@ def soft_argmin_backward(grad: torch.Tensor, cost: torch.Tensor, match_similarit
     """Gradient of the volume [B, D, H, W] given the disparity's gradient
     ``grad`` [B, H, W]. A CPU tensor takes the plain version; a CUDA tensor
     launches ``aanet_softargmin_backward_f32`` with ``backward_plan``'s
-    tiling."""
+    tiling. A bf16 tensor raises ``NotImplementedError``."""
+    _build.refuse_bf16_backward("soft_argmin backward", grad, cost)
     if cost.device.type == "cpu":
         return soft_argmin_backward_plain(grad, cost, match_similarity)
-    _build.check_cuda_f32("soft_argmin backward", grad=grad, cost=cost)
+    _build.check_cuda("soft_argmin backward", grad=(grad, torch.float32), cost=(cost, torch.float32))
     b, d, h, w = cost.shape
     if grad.shape != (b, h, w):
         raise ValueError(f"soft_argmin backward: grad {tuple(grad.shape)}, expected {(b, h, w)}")
@@ -244,9 +255,11 @@ def soft_argmin(cost: torch.Tensor, match_similarity: bool = True) -> torch.Tens
     """Expected disparity under softmax(cost) over dim 1.
 
     Args:
-      cost: [B, D, H, W] similarity (or cost, if match_similarity=False).
+      cost: [B, D, H, W] similarity (or cost, if match_similarity=False),
+        float32 or bfloat16.
     Returns:
-      disparity [B, H, W], float32, differentiable in ``cost``.
+      disparity [B, H, W], float32, differentiable in ``cost`` (in float32
+      only).
 
     A CPU tensor takes the plain versions; a CUDA tensor launches the kernels.
     """
@@ -256,4 +269,5 @@ def soft_argmin(cost: torch.Tensor, match_similarity: bool = True) -> torch.Tens
 
 
 soft_argmin.launches = 0
+soft_argmin.launches_bf16 = 0
 soft_argmin_backward.launches = 0

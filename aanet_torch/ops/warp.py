@@ -8,6 +8,12 @@ half gradient where ``x - disp`` hits the border exactly); the mask
 carries no gradient. The image is the network's input wherever the model
 warps, so its gradient is not computed: an image that requires one is
 refused. The CUDA kernels (forward and backward) are ``csrc/warp.cu``.
+
+The forward also has a bfloat16 form (the JAX op under a bf16 compute
+dtype, ``warp.py:30,60,66``): a bf16 image, a float32 disparity and
+sample positions, the blend in float32, the warped image and the mask
+in bf16 (``aanet_warp_bf16``). The backward takes float32 only and
+refuses a bf16 image.
 """
 from __future__ import annotations
 
@@ -35,7 +41,12 @@ def _sample(img, disp):
 
 def disp_warp_plain(img: torch.Tensor, disp: torch.Tensor):
     """Plain PyTorch warp: img [B, C, H, W], disp [B, H, W] ->
-    (warped [B, C, H, W], valid [B, 1, H, W])."""
+    (warped [B, C, H, W], valid [B, 1, H, W]). For a bf16 image, the bf16
+    form: the blend in float32 from a float32 disparity, the warped image
+    and the mask rounded to bf16."""
+    if img.dtype == torch.bfloat16:
+        warped, valid = disp_warp_plain(img.float(), disp.float())
+        return warped.to(img.dtype), valid.to(img.dtype)
     w = img.shape[3]
     x, t, idx = _sample(img, disp)
     t = t.unsqueeze(1)
@@ -74,27 +85,34 @@ def _check(img, disp):
 def _forward(img, disp):
     if img.device.type == "cpu":
         return disp_warp_plain(img, disp)
-    _build.check_cuda_f32("disp_warp", img=img, disp=disp)
+    form = _build.form("disp_warp", img.dtype)
+    _build.check_cuda("disp_warp", img=(img, img.dtype), disp=(disp, torch.float32))
     b, c, h, w = img.shape
     warped = torch.empty_like(img)
-    valid = torch.empty((b, 1, h, w), dtype=torch.float32, device=img.device)
+    valid = torch.empty((b, 1, h, w), dtype=img.dtype, device=img.device)
     _build.launch(
-        "warp", "aanet_warp_f32", _ARGTYPES,
+        "warp", f"aanet_warp_{form}", _ARGTYPES,
         _build.ptr(img), _build.ptr(disp), _build.ptr(warped), _build.ptr(valid),
         b, c, h, w, img.device.index, _build.stream(img),
     )
-    disp_warp.launches += 1
+    if form == "f32":
+        disp_warp.launches += 1
+    else:
+        disp_warp.launches_bf16 += 1
     return warped, valid
 
 
 def disp_warp_backward(grad: torch.Tensor, img: torch.Tensor, disp: torch.Tensor):
     """Gradient for ``disp`` [B, H, W] given the warped image's gradient
     ``grad`` [B, C, H, W]. A CPU tensor takes the plain version; a CUDA
-    tensor launches ``aanet_warp_backward_f32``."""
+    tensor launches ``aanet_warp_backward_f32``. A bf16 tensor raises
+    ``NotImplementedError``."""
     _check(img, disp)
+    _build.refuse_bf16_backward("disp_warp backward", grad, img, disp)
     if img.device.type == "cpu":
         return disp_warp_backward_plain(grad, img, disp)
-    _build.check_cuda_f32("disp_warp backward", grad=grad, img=img, disp=disp)
+    f32 = torch.float32
+    _build.check_cuda("disp_warp backward", grad=(grad, f32), img=(img, f32), disp=(disp, f32))
     if grad.shape != img.shape:
         raise ValueError(f"disp_warp backward: grad {tuple(grad.shape)}, expected {tuple(img.shape)}")
     b, c, h, w = img.shape
@@ -126,11 +144,12 @@ def disp_warp(img: torch.Tensor, disp: torch.Tensor):
     """Warp ``img`` (the right view) to the left view by ``disp``.
 
     Args:
-      img: [B, C, H, W]; must not require a gradient.
-      disp: [B, H, W] disparity in pixels.
+      img: [B, C, H, W], float32 or bfloat16; must not require a gradient.
+      disp: [B, H, W] disparity in pixels, float32.
     Returns:
-      (warped [B, C, H, W], valid [B, 1, H, W] in {0, 1}); ``warped`` is
-      differentiable in ``disp``.
+      (warped [B, C, H, W], valid [B, 1, H, W] in {0, 1}), both in the
+      image's dtype; ``warped`` is differentiable in ``disp`` (in float32
+      only).
 
     A CPU tensor takes the plain versions; a CUDA tensor launches the kernels.
     """
@@ -144,4 +163,5 @@ def disp_warp(img: torch.Tensor, disp: torch.Tensor):
 
 
 disp_warp.launches = 0
+disp_warp.launches_bf16 = 0
 disp_warp_backward.launches = 0

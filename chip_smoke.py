@@ -137,7 +137,32 @@
    shapes; then ``python -m aanet_torch.cli train --preset aanet+
    --save_ckpt_freq 1`` for one epoch on phase 9's dataset and again with
    ``--resume --max_epoch 2``, which must restore epoch 1 and its step;
-14. prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
+14. bf16 serving: ``aanet`` and ``aanet+`` at max_disp 192 with phases 4's
+   and 13's seeded, calibrated weights in ``dtype="bfloat16"``: each
+   forward at 384x1248 through the plain bf16 twins with every bf16 kernel
+   call's shape, each bf16 kernel (the ``_bf16`` entry points of the
+   deformable conv, correlation, soft-argmin and warp forwards) against its
+   twin at those shapes (one bf16 ulp of the output's scale; soft-argmin's
+   float32 disparity 1e-4 px), timed beside its bound, its float32 kernel
+   at the same shapes and, for the warp, F.grid_sample in bf16; then
+   through the kernels with its launch counts (deform 15 or 24,
+   correlation 3, soft-argmin 3, warp 2; no float32 kernel), every kernel
+   call of that path against its twin on the path's own inputs, the
+   pyramid against the plain bf16 one and the float32 one (a loose guard:
+   the random networks are chaotic in bf16), its latency, peak memory and
+   idle share beside the float32 forward's of phases 4 and 13, and the
+   float32 and bf16 forwards in turns with the host's enqueue time beside
+   each latency; the trained anchor at 384x1248 in bf16 through the
+   kernels (the same launch counts as ``aanet``), its pyramid against the
+   plain bf16 one within 0.3 px (max) and 0.03 px (mean) per level and
+   its final map against float32 within 0.05 px (mean) and 0.2 px (99th
+   percentile); ``python -m aanet_torch.cli predict --preset aanet+ --dtype
+   bfloat16`` on two 375x1242 pairs; the trained anchor through
+   ``evaluate --dtype bfloat16`` on phase 12's set (EPE within 0.15 px of
+   phase 12's float32 EPE) and ``inference --count_time --dtype
+   bfloat16``; and ``train --dtype bfloat16``, which must exit non-zero;
+15. prints the kernels' JSON line (the bf16 forms too) and, last,
+   {"ok": true, "device": ...}.
 
 Any failure raises, so the exit code is non-zero and the last line is not
 printed. Without CUDA, or without the aanet_torch package beside it, the
@@ -395,6 +420,33 @@ PLUS_PRESETS = {
         highest_loss_only=False, seeds=COMPARE_SEEDS, forward_bn_scale=PLUS_FORWARD_BN_SCALE),
 }
 PLUS_FULL_STEP = "aanet+"  # the preset whose full-width step and entry points phase 13 runs
+# Phase 14: the presets served in bfloat16, with phase 4's and phase 13's
+# seeded weights (and BatchNorm scales), their bf16 launches per forward and
+# the pyramid's shapes at 384x1248
+BF16_PRESETS = {
+    "aanet": dict(bn_scale=BN_SCALE, shapes=[(1, HEIGHT // k, WIDTH // k) for k in (12, 6, 3, 2, 1)],
+                  launches={"deform_conv_bf16": 15, "correlation_bf16": 3, "soft_argmin_bf16": 3,
+                            "disp_warp_bf16": 2}),
+    "aanet+": dict(bn_scale=PLUS_FORWARD_BN_SCALE,
+                   shapes=[(1, HEIGHT // k, WIDTH // k) for k in (12, 6, 3, 2, 1)],
+                   launches={"deform_conv_bf16": 24, "correlation_bf16": 3, "soft_argmin_bf16": 3,
+                             "disp_warp_bf16": 2}),
+}
+# the trained anchor's EPE through evaluate in bf16 against phase 12's
+# float32 EPE (tests/test_bf16_trained.py's mean bound for the maps)
+ANCHOR_BF16_EPE = 0.15
+# Phase 14's whole-network bf16 check: the trained anchor at 384x1248 on an
+# in-distribution pair (the smoothed noise of its training set, shifted by
+# ANCHOR_SHIFT px). Its bf16 pyramid through the kernels against the plain
+# bf16 one, (max, mean) px per level: an H100 read at most 0.129 and 0.0167
+# (the final level), and the kernel path 0.096 and 0.0073 from itself when
+# run again (the split deform plans add with float atomics, and one flipped
+# bf16 rounding moves the maps as far as bf16 itself does: the plain bf16
+# path sat 0.147 and 0.0176 from float32). Its final map against its
+# float32 forward's, (mean, 99th percentile) px: read 0.0176 and 0.0587
+ANCHOR_SHIFT = 6
+ANCHOR_BF16_PYRAMID_PX = (0.3, 0.03)
+ANCHOR_BF16_F32_PX = (0.05, 0.2)
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s, float32 FLOP/s
 # outside the tensor cores (the kernels run float32 FMA on the CUDA cores)
 PEAK_BYTES_S = 3.35e12
@@ -721,6 +773,84 @@ def kernel_specs():
     return fwd, bwd
 
 
+def bf16_kernel_specs(specs):
+    """The bf16 forms of the four forward kernels that serve in bfloat16
+    (phase 14), derived from their float32 specs: the same wrapper, twin
+    and signature; launches counted in the wrapper's ``launches_bf16``;
+    seeded inputs as the bf16 path hands them over (bf16 x, mask and weight
+    rounded by the op from float32, bf16 features, volumes and images,
+    float32 offsets, biases and disparities); bytes at 2 a bf16 value and 4
+    a float32 one; the float32 kernel timed at the same shapes
+    (``f32_args``). Tolerance: one bf16 ulp of the output's scale (both
+    round the same float32 sums, in another order, once), soft-argmin's
+    float32 disparity within 1e-4 px."""
+    by_name = {s["name"]: s for s in specs}
+    bf = torch.bfloat16
+
+    def one_ulp(ref):
+        top = float(ref.float().abs().max())
+        return 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else 0.0
+
+    def deform_cost(sig):
+        (b, cin, h, w), (cout, _, kh, kw), has_mask, has_bias, stride, pad, dil, g = sig
+        ho = (h + 2 * pad - dil * (kh - 1) - 1) // stride + 1
+        wo = (w + 2 * pad - dil * (kw - 1) - 1) // stride + 1
+        k2, pix = kh * kw, b * ho * wo
+        # x, mask, weight and the output at 2 bytes; offsets and bias at 4
+        nbytes = (2 * (b * cin * h * w + (pix * g * k2 if has_mask else 0) + cout * cin * k2
+                       + pix * cout) + 4 * (pix * g * k2 * 2 + (cout if has_bias else 0)))
+        return nbytes, by_name["deform_conv"]["cost"](sig)[1]
+
+    def corr_cost(sig):
+        (b, c, h, w), d = sig
+        return 2 * (2 * b * c * h * w + b * d * h * w), by_name["correlation"]["cost"](sig)[1]
+
+    def sa_cost(sig):
+        (b, d, h, w), _ = sig
+        return 2 * b * d * h * w + 4 * b * h * w, by_name["soft_argmin"]["cost"](sig)[1]
+
+    def warp_cost(sig):
+        ((b, c, h, w),) = sig
+        # image and warped image, the mask at 2 bytes; the disparity at 4
+        return 2 * (2 * b * c * h * w + b * h * w) + 4 * b * h * w, by_name["disp_warp"]["cost"](sig)[1]
+
+    def warp_library(img, disp):
+        """F.grid_sample of the bf16 image with a bf16 grid (it takes one
+        dtype): the warped image."""
+        b, c, h, w = img.shape
+        xs = torch.arange(w, device=img.device, dtype=torch.float32).view(1, 1, w) - disp
+        ys = torch.arange(h, device=img.device, dtype=torch.float32).view(1, h, 1).expand(b, h, w)
+        grid = torch.stack((2 * xs / (w - 1) - 1, 2 * ys / (h - 1) - 1), dim=-1).to(img.dtype)
+        return lambda: F.grid_sample(img, grid, mode="bilinear", padding_mode="border",
+                                     align_corners=True)
+
+    def to_f32(args):
+        return tuple(a.float() if isinstance(a, torch.Tensor) else a for a in args)
+
+    def inputs_of(name, convert):
+        def make(sig, gen, dev):
+            args, kwargs = by_name[name]["inputs"](sig, gen, dev)
+            return convert(args), kwargs
+        return make
+
+    images = lambda args: (args[0].to(bf), args[1])  # noqa: E731
+    out = []
+    for name, inputs, cost, tol, tol_text, library in (
+        ("deform_conv", inputs_of("deform_conv", lambda a: (a[0].to(bf), *a[1:])), deform_cost,
+         one_ulp, "1 bf16 ulp of max|ref|", None),
+        ("correlation", inputs_of("correlation", lambda a: (a[0].to(bf), a[1].to(bf), a[2])),
+         corr_cost, one_ulp, "1 bf16 ulp of max|ref|", None),
+        ("soft_argmin", inputs_of("soft_argmin", lambda a: (a[0].to(bf), a[1])), sa_cost,
+         lambda ref: 1e-4, "1e-4 px", None),
+        ("disp_warp", inputs_of("disp_warp", images), warp_cost, one_ulp,
+         "1 bf16 ulp of max|ref| (the mask: exactly)", warp_library),
+    ):
+        spec = dict(by_name[name], name=f"{name}_bf16", counter="launches_bf16", inputs=inputs,
+                    cost=cost, tol=tol, tol_text=tol_text, library=library, f32_args=to_f32)
+        out.append(spec)
+    return out
+
+
 @contextlib.contextmanager
 def plain_ops(specs, calls=None, recomputed=None):
     """Swap each kernel op for its plain twin; count calls by signature,
@@ -821,12 +951,13 @@ def device_breakdown(run, iters=3, top=12):
 
 
 def launches(specs):
-    return {s["name"]: getattr(s["module"], s["attr"]).launches for s in specs}
+    return {s["name"]: getattr(getattr(s["module"], s["attr"]), s.get("counter", "launches"))
+            for s in specs}
 
 
 def reset_launches(specs):
     for s in specs:
-        getattr(s["module"], s["attr"]).launches = 0
+        setattr(getattr(s["module"], s["attr"]), s.get("counter", "launches"), 0)
 
 
 # --------------------------------------------------------------------------
@@ -917,7 +1048,8 @@ def measure(spec, sig, n, gen, dev, timer, iters=20, timed=True):
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
-    errs = [(float((g - w).abs().max()), spec["tol"](w)) for g, w in zip(got, want) if w is not None]
+    errs = [(float((g.float() - w.float()).abs().max()), spec["tol"](w)) for g, w in zip(got, want)
+            if w is not None]
     for err, tol in errs:
         check(err <= tol, f"{spec['name']} {sig}: max error {err} > {tol}")
     err, tol = max(errs, key=lambda e: e[0] / e[1] if e[1] > 0 else e[0])
@@ -935,9 +1067,14 @@ def measure(spec, sig, n, gen, dev, timer, iters=20, timed=True):
         bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms,
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
     )
+    if "f32_args" in spec:  # a bf16 form: its float32 kernel at the same shape
+        f32 = spec["f32_args"](args)
+        row["f32_kernel_ms"] = timer.ms(lambda: op(*f32, **kwargs), iters=iters)
     print(f"{spec['name']} {sig} x{n}: err {err:.3g} (tol {tol:.3g}) kernel {row['kernel_ms']:.4f} ms "
           f"plain {row['plain_ms']:.4f} ms bound {row['bound_ms']:.4f} ms"
-          + (f" library {row['library_ms']:.4f} ms" if lib else ""), flush=True)
+          + (f" library {row['library_ms']:.4f} ms" if lib else "")
+          + (f" float32 kernel {row['f32_kernel_ms']:.4f} ms" if "f32_args" in spec else ""),
+          flush=True)
     return row
 
 
@@ -945,12 +1082,15 @@ def totals(rows, has_library):
     """A kernel's totals over one run of its path: each shape's time times
     that shape's launches, summed."""
     total = lambda key: sum(r[key] * r["launches"] for r in rows)  # noqa: E731
-    return dict(
+    out = dict(
         ms=total("kernel_ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
         bound_by="bytes" if total("bytes_ms") >= total("ops_ms") else "operations",
         library_ms=total("library_ms") if has_library else None,
         max_abs_err=max(r["max_err"] for r in rows),
     )
+    if all("f32_kernel_ms" in r for r in rows):
+        out["f32_kernel_ms"] = total("f32_kernel_ms")
+    return out
 
 
 def train_batch(gen, dev, n, hw, max_shift=40):
@@ -1039,7 +1179,7 @@ def seeded_model(cfg, dev, bn_scale=BN_SCALE):
     seed_weights_(model, SEED, bn_scale)
     return model.to(dev)
 
-def forward_record(name, model, left, right, plain_ms, errs, timer, smi):
+def forward_record(name, model, left, right, plain_ms, errs, timer, smi, dtype="float32"):
     """Latency (median of 20 after 3 warm-ups, L2 flushed), peak memory,
     stage times, the dense convs' and matmuls' FLOPs (torch's flop
     counter; the hand-written kernels are not counted) and the device's
@@ -1060,7 +1200,7 @@ def forward_record(name, model, left, right, plain_ms, errs, timer, smi):
     stages = stage_breakdown(model, left, right)
     device = device_breakdown(lambda: model(left, right))
     return dict(
-        config=name, batch=1, height=left.shape[2], width=left.shape[3], dtype="float32",
+        config=name, batch=1, height=left.shape[2], width=left.shape[3], dtype=dtype,
         latency_ms=fwd_ms, plain_latency_ms=plain_ms, dense_flops=dense_flops,
         dense_tflop_s=dense_flops / fwd_ms / 1e9, peak_memory_bytes=peak,
         resident_before_bytes=resident, forward_memory_bytes=peak - resident,
@@ -1855,7 +1995,7 @@ def adaptive_preset_phases(presets, full_step, specs, bwd_specs, gen, dev, timer
             record = forward_record(name, model, left, right, plain_ms, errs, timer, smi)
         record.update(deform_couts=couts, launches=counts, **spread)
         print(json.dumps({"aa_forward": record}), flush=True)
-        out[name] = dict(rows=rows, launches=counts)
+        out[name] = dict(rows=rows, launches=counts, record=record)
         if name == full_step:  # the predict entry point with the preset
             with tempfile.TemporaryDirectory() as tmp:
                 weights = os.path.join(tmp, "weights.pt")
@@ -2006,6 +2146,299 @@ def anchor_entry_points(specs, smi):
     return record
 
 
+@contextlib.contextmanager
+def checked_ops(specs, errs):
+    """Run each op of ``specs`` (its kernel) and then its plain twin on the
+    same inputs, and append (name, error, tolerance) of every call to
+    ``errs``: the kernels held against their twins on the path's own data.
+    The twins launch nothing; the kernels' launches go to counters of the
+    wrapper (a copy of the op's), which nothing reads."""
+    def checking(spec, op):
+        @functools.wraps(op)  # the op counts its launches on the module's name
+        def run(*args, **kwargs):
+            got = op(*args, **kwargs)
+            want = spec["plain"](*args, **kwargs)
+            pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+            for g, w in pairs:
+                errs.append((spec["name"], float((g.float() - w.float()).abs().max()), spec["tol"](w)))
+            return got
+        return run
+
+    with contextlib.ExitStack() as stack:
+        for spec in specs:
+            op = getattr(spec["module"], spec["attr"])
+            stack.enter_context(mock.patch.object(spec["module"], spec["attr"], checking(spec, op)))
+        yield
+
+
+def pyramid_errors(a, b):
+    return [(float((x - y).abs().max()), float((x - y).abs().mean())) for x, y in zip(a, b)]
+
+
+def interleaved_latency(runs, iters=10, warmup=2):
+    """Each (label, fn) of ``runs`` in turns, in the order a, b, b, a:
+    ``iters`` calls a block, each started on an idle device, timed by the
+    host (until the call returns: the time to enqueue it) and by CUDA
+    events (from the call to the end of its work; no L2 flush). Returns,
+    per label, the medians of each block."""
+    out = {label: [] for label, _ in runs}
+    for label, fn in list(runs) + list(reversed(runs)):
+        for _ in range(warmup):
+            fn()
+        enqueue, latency = [], []
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            fn()
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+            end.record()
+            torch.cuda.synchronize()
+            latency.append(start.elapsed_time(end))
+        out[label].append(dict(enqueue_ms=statistics.median(enqueue),
+                               latency_ms=statistics.median(latency)))
+    return out
+
+
+def anchor_pair(dev, h=HEIGHT, w=WIDTH, shift=ANCHOR_SHIFT):
+    """A pair like the trained anchor's training set at h x w (numpy seed
+    ``SEED``): horizontally smoothed noise, left[x] = right[x + shift],
+    normalised as the data pipeline does."""
+    from aanet_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+
+    rs = np.random.RandomState(SEED)
+    base = rs.rand(h, w + 16, 3)
+    base = (base + np.roll(base, 1, 1) + np.roll(base, 2, 1)) / 3
+    mean, std = np.array(IMAGENET_MEAN), np.array(IMAGENET_STD)
+
+    def image(a):
+        a = ((a - mean) / std).astype(np.float32).transpose(2, 0, 1)[None]
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return image(base[:, shift: w + shift]), image(base[:, :w])
+
+
+def anchor_bf16_pyramid(specs, specs16, dev, smi):
+    """Phase 14, the whole network in bf16 at trained weights: the anchor
+    (``aanet`` at ``ANCHOR_MAX_DISP``) at 384x1248 on ``anchor_pair``, in
+    float32 and in bf16, through the kernels and through the plain twins.
+    The bf16 kernel path launches the bf16 kernels only (deform 15,
+    correlation 3, soft-argmin 3, warp 2); its pyramid is held to the plain
+    bf16 one within ``ANCHOR_BF16_PYRAMID_PX`` per level, and its final map
+    to the float32 kernel path's within ``ANCHOR_BF16_F32_PX``. Returns the
+    record."""
+    from aanet_torch.config import preset
+    from aanet_torch.utils.checkpoint import load_pretrained
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = dataclasses.replace(preset("aanet"), max_disp=ANCHOR_MAX_DISP)
+    left, right = anchor_pair(dev)
+    expected = BF16_PRESETS["aanet"]["launches"]
+    models = {}
+    for dtype in ("float32", "bfloat16"):
+        model = dataclasses.replace(cfg, dtype=dtype).build()
+        load_pretrained(model, os.path.join(root, ANCHOR), strict=True)
+        models[dtype] = model.to(dev).eval()
+    with torch.no_grad():
+        f32 = models["float32"](left, right)
+        with plain_ops(specs16):
+            plain = models["bfloat16"](left, right)
+        reset_launches(specs + specs16)
+        pyramid = models["bfloat16"](left, right)
+        torch.cuda.synchronize()
+        counts = launches(specs16)
+        f32_counts = {k: v for k, v in launches(specs).items() if v}
+        again = models["bfloat16"](left, right)
+    del models
+    shapes = BF16_PRESETS["aanet"]["shapes"]
+    check([tuple(p.shape) for p in pyramid] == shapes
+          and all(p.dtype == torch.float32 and bool(torch.isfinite(p).all()) for p in pyramid),
+          f"anchor bf16: pyramid {[(tuple(p.shape), p.dtype) for p in pyramid]}")
+    check(counts == expected and not f32_counts,
+          f"anchor bf16: launches {counts} (float32 kernels {f32_counts}), expected {expected}")
+    final = (pyramid[-1] - f32[-1]).abs().flatten()
+    record = dict(
+        preset="aanet", max_disp=ANCHOR_MAX_DISP, height=HEIGHT, width=WIDTH, shift=ANCHOR_SHIFT,
+        launches=counts, kernel_vs_plain_bf16_px=pyramid_errors(pyramid, plain),
+        kernel_rerun_px=pyramid_errors(again, pyramid),
+        plain_bf16_vs_float32_px=pyramid_errors(plain, f32),
+        kernel_bf16_vs_float32_px=pyramid_errors(pyramid, f32),
+        final_vs_float32_mean_p99_px=(float(final.mean()), float(torch.quantile(final, 0.99))),
+        final_epe_px=dict(float32=float((f32[-1] - ANCHOR_SHIFT).abs().mean()),
+                          bfloat16=float((pyramid[-1] - ANCHOR_SHIFT).abs().mean())),
+        card=smi)
+    print(json.dumps({"anchor_bf16_pyramid": record}), flush=True)
+    limit_max, limit_mean = ANCHOR_BF16_PYRAMID_PX
+    check(all(mx <= limit_max and mn <= limit_mean for mx, mn in record["kernel_vs_plain_bf16_px"]),
+          f"anchor bf16: kernel vs plain bf16 (max, mean) px per level "
+          f"{record['kernel_vs_plain_bf16_px']}, limits {ANCHOR_BF16_PYRAMID_PX}")
+    mean, p99 = record["final_vs_float32_mean_p99_px"]
+    check(mean < ANCHOR_BF16_F32_PX[0] and p99 < ANCHOR_BF16_F32_PX[1],
+          f"anchor bf16 vs float32 at the final level: mean {mean}, p99 {p99} px")
+    return record
+
+
+def bf16_serving_phases(specs, specs16, gen, dev, timer, smi, left, right, f32_records):
+    """Phase 14: ``aanet`` and ``aanet+`` served in bfloat16 at max_disp
+    192, 384x1248, batch 1 (the seeded, calibrated weights of phases 4 and
+    13): the forward through the plain twins recording every bf16 kernel
+    call, each bf16 kernel against its twin at those shapes (timed beside
+    its bound, its float32 kernel and, for the warp, F.grid_sample in
+    bf16), then through the kernels with its launch counts, every kernel
+    call of that path against its twin on the path's own inputs, and the
+    pyramid against the plain bf16 one and the float32 one; latency, peak
+    memory and idle share beside the float32 forward's (``f32_records``,
+    this run's phases 4 and 13). Returns, per preset, each bf16 kernel's
+    rows and the launches of one forward."""
+    from aanet_torch.config import preset
+
+    out = {}
+    for name, spec in BF16_PRESETS.items():
+        cfg = preset(name)
+        expected = {s["name"]: spec["launches"][s["name"]] for s in specs16}
+        with torch.no_grad():
+            model32 = seeded_model(cfg, dev, spec["bn_scale"]).eval()
+            calibrate_bn_(model32, specs, left, right)
+            model = dataclasses.replace(cfg, dtype="bfloat16").build()
+            model.load_state_dict(model32.state_dict())
+            model = model.to(dev).eval()
+            with plain_ops(specs):
+                plain32 = model32(left, right)
+            calls = {s["name"]: collections.Counter() for s in specs16}
+            with plain_ops(specs16, calls):
+                plain = model(left, right)
+            with plain_ops(specs16):
+                plain_ms = timer.ms(lambda: model(left, right), warmup=1, iters=5)
+            made = {n: sum(c.values()) for n, c in calls.items()}
+            check(made == expected, f"{name} bf16: plain forward made {made}, expected {expected}")
+            rows = {s["name"]: [measure(s, sig, n, gen, dev, timer) for sig, n in calls[s["name"]].items()]
+                    for s in specs16}
+            reset_launches(specs + specs16)
+            pyramid = model(left, right)
+            torch.cuda.synchronize()
+            counts = launches(specs16)
+            f32_counts = {k: v for k, v in launches(specs).items() if v}
+            print(f"{name} bf16 launches: {counts}", flush=True)
+            check(counts == expected and not f32_counts,
+                  f"{name} bf16: launches {counts} (float32 kernels {f32_counts}), expected {expected}")
+            calls_checked = []
+            with checked_ops(specs16, calls_checked):
+                model(left, right)
+            worst = max(calls_checked, key=lambda e: e[1] / e[2] if e[2] > 0 else e[1])
+            check(len(calls_checked) == sum(expected.values()) + expected["disp_warp_bf16"]
+                  and all(err <= tol for _, err, tol in calls_checked),
+                  f"{name} bf16: a path call off its twin: {[e for e in calls_checked if e[1] > e[2]]}")
+            shapes = spec["shapes"]
+            check([tuple(p.shape) for p in pyramid] == shapes
+                  and all(p.dtype == torch.float32 and bool(torch.isfinite(p).all()) for p in pyramid),
+                  f"{name} bf16: pyramid {[(tuple(p.shape), p.dtype) for p in pyramid]}")
+            kernel_plain = pyramid_errors(pyramid, plain)
+            plain_f32 = pyramid_errors(plain, plain32)
+            kernel_f32 = pyramid_errors(pyramid, plain32)
+            # The random network in bf16 is chaotic: a rounding flip moves
+            # its maps by pixels, with either BatchNorm scale (aanet+ draws
+            # PLUS_FORWARD_BN_SCALE). A loose guard per level: the kernel
+            # path no farther (in the mean) from the plain bf16 path than
+            # the plain bf16 path is from float32, and no farther from
+            # float32 than 1.5 times it. The tight whole-network check is
+            # the trained anchor's (anchor_bf16_pyramid).
+            check(all(kp[1] <= pf[1] and kf[1] <= 1.5 * pf[1]
+                      for kp, pf, kf in zip(kernel_plain, plain_f32, kernel_f32)),
+                  f"{name} bf16: (max, mean) px per level, kernel vs plain bf16 {kernel_plain}, "
+                  f"plain bf16 vs float32 {plain_f32}, kernel bf16 vs float32 {kernel_f32}")
+            # float32 and bf16 in turns on the same weights and inputs, the
+            # host's enqueue time beside each latency
+            turns = interleaved_latency([("float32", lambda: model32(left, right)),
+                                         ("bfloat16", lambda: model(left, right))])
+            del model32
+            record = forward_record(f"{name} bf16", model, left, right, plain_ms, kernel_plain,
+                                    timer, smi, dtype="bfloat16")
+        f32 = f32_records[name]
+        record.update(
+            launches=counts, path_calls_checked=len(calls_checked),
+            worst_path_call=dict(kernel=worst[0], err=worst[1], tolerance=worst[2]),
+            plain_bf16_vs_float32_px=plain_f32, kernel_bf16_vs_float32_px=kernel_f32,
+            in_turns=turns,
+            float32=dict(latency_ms=f32["latency_ms"], peak_memory_bytes=f32["peak_memory_bytes"],
+                         forward_memory_bytes=f32["forward_memory_bytes"],
+                         device_idle_share=f32["device_idle_share"], device_ms=f32["device_ms"]),
+        )
+        print(f"{name} bf16 forward {record['latency_ms']:.4f} ms (float32 {f32['latency_ms']:.4f} "
+              f"ms), idle {record['device_idle_share']:.4f} (float32 "
+              f"{f32['device_idle_share']:.4f}), peak {record['peak_memory_bytes']} B (float32 "
+              f"{f32['peak_memory_bytes']} B) on {smi}", flush=True)
+        print(f"{name} in turns (float32, bf16, bf16, float32; enqueue and latency ms): "
+              f"{turns}", flush=True)
+        print(json.dumps({"bf16_forward": record}), flush=True)
+        out[f"{name} bf16"] = dict(rows=rows, launches=counts)
+        if name == "aanet+":  # the predict entry point in bf16
+            with tempfile.TemporaryDirectory() as tmp:
+                weights = os.path.join(tmp, "weights.pt")
+                torch.save(model.state_dict(), weights)
+                data = os.path.join(tmp, "pairs")
+                write_pngs(data, 2, PREDICT_HW, SEED)
+                cmd = [sys.executable, "-m", "aanet_torch.cli", "predict", "--preset", name,
+                       "--dtype", "bfloat16", "--data_dir", data, "--pretrained", weights,
+                       "--device", DEVICE, "--save_type", "npy"]
+                proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                                      capture_output=True, text=True, timeout=600)
+                check(proc.returncode == 0, f"{name} bf16 predict exited {proc.returncode}:\n"
+                      f"{proc.stderr[-4000:]}")
+                for i in range(2):
+                    pred = np.load(os.path.join(data, "pred", f"{i:06d}.npy"))
+                    check(pred.shape == PREDICT_HW and np.isfinite(pred).all(),
+                          f"{name} bf16 prediction {i}: shape {pred.shape}")
+            print(f"{name} predict --dtype bfloat16: 2 pairs of {PREDICT_HW[0]}x{PREDICT_HW[1]}, "
+                  "exit 0", flush=True)
+        del model, plain, plain32, pyramid
+        torch.cuda.empty_cache()
+    return out
+
+
+def anchor_bf16_entry_points(f32_record, smi):
+    """Phase 14, continued: the trained anchor through ``evaluate
+    --dtype bfloat16`` on phase 12's set (its EPE within
+    ``ANCHOR_BF16_EPE`` px of phase 12's float32 EPE) and ``inference
+    --count_time --dtype bfloat16``; then ``train --dtype bfloat16``, which
+    must exit non-zero with the refusal. Returns the record."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        data, lists = write_synthetic(tmp)
+        model = ["--preset", "aanet", "--max_disp", str(ANCHOR_MAX_DISP), "--pretrained",
+                 os.path.join(root, ANCHOR), "--strict", "--dtype", "bfloat16", "--data_dir", data,
+                 "--filename_root", lists, "--num_workers", "4", "--device", DEVICE]
+
+        def run(*args):
+            return subprocess.run([sys.executable, "-m", "aanet_torch.cli", *args], cwd=root,
+                                  capture_output=True, text=True, timeout=600)
+
+        results = {}
+        for args in (["evaluate", *model, "--val_img_height", "96", "--val_img_width", "192",
+                      "--val_batch_size", "4", "--checkpoint_dir", os.path.join(tmp, "eval")],
+                     ["inference", *model, "--img_height", "96", "--img_width", "192",
+                      "--batch_size", "1", "--count_time", "--output_dir", os.path.join(tmp, "inf")]):
+            proc = run(*args)
+            check(proc.returncode == 0, f"cli {args[0]} --dtype bfloat16 exited {proc.returncode}:\n"
+                  f"{proc.stderr[-4000:]}")
+            results[args[0]] = json.loads(proc.stdout.strip().splitlines()[-1])
+        refused = run("train", "--preset", "aanet", "--dtype", "bfloat16", "--data_dir", data,
+                      "--filename_root", lists, "--checkpoint_dir", os.path.join(tmp, "train"),
+                      "--device", DEVICE)
+    epe16, epe32 = results["evaluate"]["epe"], f32_record["evaluate_kernel"]["epe"]
+    record = dict(evaluate_bf16=results["evaluate"], evaluate_float32_epe=epe32,
+                  epe_difference=abs(epe16 - epe32),
+                  mean_inference_seconds_bf16=results["inference"]["mean_inference_seconds"],
+                  mean_inference_seconds_float32=f32_record["mean_inference_seconds"],
+                  train_refused_exit=refused.returncode, card=smi)
+    print(json.dumps({"anchor_bf16_entry_points": record}), flush=True)
+    check(record["epe_difference"] <= ANCHOR_BF16_EPE,
+          f"anchor evaluate --dtype bfloat16: EPE {epe16}, float32 {epe32}")
+    check(refused.returncode != 0 and "NotImplementedError" in refused.stderr,
+          f"train --dtype bfloat16 exited {refused.returncode}:\n{refused.stderr[-2000:]}")
+    return record
+
+
 def kernels_record(all_specs, report, counts_main, train, baselines, baseline_train):
     """Every kernel with its totals over the first path that runs it: one
     train step of aanet (the training slice's main path); for the 4-D
@@ -2015,12 +2448,13 @@ def kernels_record(all_specs, report, counts_main, train, baselines, baseline_tr
     inference forward, each baseline and adaptive-preset forward
     (``baselines`` holds both, phase 13's presets too) and each baseline
     train step, ``AA_FULL_STEP``'s and ``PLUS_FULL_STEP``'s
-    (``baseline_train``)."""
+    (``baseline_train``). Without ``train`` (the bf16 forms, which serve
+    only) the first path is the first of ``baselines``."""
     inference = {sp["name"]: r for sp, r in report}
     kernels = []
     for spec in all_specs:
         name, lib = spec["name"], bool(spec["library"])
-        paths = [("aanet train step", train)]
+        paths = [("aanet train step", train)] if train else []
         paths += [(f"{cfg} forward", b) for cfg, b in baselines.items()]
         paths += [(f"{cfg} train step", b) for cfg, b in baseline_train.items()]
         runs = [(path, run["rows"][name], run["launches"][name]) for path, run in paths
@@ -2036,7 +2470,7 @@ def kernels_record(all_specs, report, counts_main, train, baselines, baseline_tr
             entry["other_paths"] = {p: dict(launches=k, **totals(r, lib), shapes=r)
                                     for p, r, k in others}
         entry["shapes"] = rows
-        edges = [r for r in train["edge_cases"] if r["kernel"] == name]
+        edges = [r for r in train["edge_cases"] if r["kernel"] == name] if train else []
         if edges:
             entry["edge_cases"] = edges
         kernels.append(entry)
@@ -2153,20 +2587,33 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         # 12. the trained anchor through the evaluate and inference entry points
-        anchor_entry_points(specs, smi)
+        anchor = anchor_entry_points(specs, smi)
 
         # 13. aanet+ and ganet-aa, then aanet+'s train entry point and its resume
         plus, plus_train = adaptive_preset_phases(PLUS_PRESETS, PLUS_FULL_STEP, specs, bwd_specs,
                                                   gen, dev, timer, smi, left, right)
-        del left, right
         torch.cuda.empty_cache()
         plus_cli = cli_train_and_resume(data, lists, PLUS_FULL_STEP,
                                         plus_train[PLUS_FULL_STEP]["batch"])
         print(json.dumps({"plus_cli_train": plus_cli}), flush=True)
 
-    # 14. the record
+    # 14. bf16 serving: aanet and aanet+ in bfloat16, the anchor's evaluate
+    # and inference in bf16, and bf16 training refused
+    t14 = time.perf_counter()
+    specs16 = bf16_kernel_specs(specs)
+    served = bf16_serving_phases(specs, specs16, gen, dev, timer, smi, left, right,
+                                 {"aanet": forward, "aanet+": plus["aanet+"]["record"]})
+    del left, right
+    torch.cuda.empty_cache()
+    anchor_bf16_pyramid(specs, specs16, dev, smi)
+    torch.cuda.empty_cache()
+    anchor_bf16_entry_points(anchor, smi)
+    print(f"phase 14 took {time.perf_counter() - t14:.1f} s", flush=True)
+
+    # 15. the record
     kernels = kernels_record(specs + bwd_specs, report, counts_main, train,
                              {**baselines, **aa, **plus}, {**baseline_train, **aa_train, **plus_train})
+    kernels += kernels_record(specs16, [], {}, None, served, {})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

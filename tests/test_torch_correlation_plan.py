@@ -241,7 +241,7 @@ def test_constants_are_the_kernels(name):
 def test_builds_and_layouts_are_the_kernels():
     """The forward is built for each disparity tile the plans name, and both
     kernels' shared-memory layouts are the plans' formulas."""
-    assert set(re.findall(r"corr_fwd_kernel<(\d+)>", SOURCE)) == {str(d) for d in cv.FWD_DD}
+    assert set(re.findall(r"corr_fwd_kernel<(\d+), T>", SOURCE)) == {str(d) for d in cv.FWD_DD}
     assert "const int stage = 2 * chunk * (2 * tw + dtot);" in SOURCE
     assert "const int partial = (ksplit - 1) * tw * dtot;" in SOURCE
     assert "return 2 * dtot * bw + 2 * 2 * chunk * (bw + dtot);" in SOURCE

@@ -131,10 +131,10 @@ def test_resize_nearest_matches_jax():
 
 def test_kernel_path_refuses_non_cuda_tensors():
     with pytest.raises(ValueError, match="lies on cpu"):
-        _build.check_cuda_f32("op", x=torch.zeros(2))
+        _build.check_cuda("op", x=(torch.zeros(2), torch.float32))
     meta = torch.zeros(2, dtype=torch.float64, device="meta")
     with pytest.raises(ValueError, match="lies on meta"):
-        _build.check_cuda_f32("op", x=meta)
+        _build.check_cuda("op", x=(meta, torch.float32))
 
 
 def test_build_without_nvcc_raises(monkeypatch):

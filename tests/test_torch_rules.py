@@ -93,10 +93,10 @@ def test_aa_preset_flax_tree_loads_strictly(name):
 
 @pytest.mark.parametrize(
     "overrides",
-    # GANet's single scale under the FPN; an unknown refinement; bfloat16;
-    # a difference volume under the adaptive aggregation; a 3-D aggregation
-    # of multi-scale features
-    [dict(feature_type="ganet"), dict(refinement_type="bogus"), dict(dtype="bfloat16"),
+    # GANet's single scale under the FPN; an unknown refinement; float16
+    # (the port runs float32 and bfloat16); a difference volume under the
+    # adaptive aggregation; a 3-D aggregation of multi-scale features
+    [dict(feature_type="ganet"), dict(refinement_type="bogus"), dict(dtype="float16"),
      dict(feature_similarity="difference"), dict(aggregation_type="gcnet")],
 )
 def test_build_refuses_what_the_port_does_not_run(overrides):
