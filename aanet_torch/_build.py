@@ -123,9 +123,10 @@ def launch(name: str, symbol: str, argtypes, *args) -> None:
         raise RuntimeError(f"{symbol}: CUDA error {err} ({msg})")
 
 
-# The value types the forward kernels take, each the suffix of its C entry
-# points (``aanet_deform_conv_f32``, ``aanet_deform_conv_bf16``, ...); the
-# backward kernels take float32 only
+# The value types the kernels take, each the suffix of its C entry points
+# (``aanet_deform_conv_f32``, ``aanet_deform_conv_bf16``,
+# ``aanet_softargmin_backward_bf16``, ...); the 4-D volumes take float32
+# only
 FORMS = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -138,6 +139,13 @@ def form(op: str, dtype: torch.dtype) -> str:
     return FORMS[dtype]
 
 
+def count_launch(wrapper, form_: str) -> None:
+    """Add one to ``wrapper``'s count of launches of the kernel form
+    ``form_``: ``launches`` for float32, ``launches_bf16`` for bf16."""
+    name = "launches" if form_ == "f32" else f"launches_{form_}"
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
+
+
 def check_cuda(op: str, **tensors) -> None:
     """Each keyword is ``name=(tensor, dtype)``: raise unless the tensor is
     a contiguous CUDA tensor of that dtype."""
@@ -148,16 +156,6 @@ def check_cuda(op: str, **tensors) -> None:
             raise TypeError(f"{op}: {arg} is {t.dtype}, the kernel takes {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{op}: {arg} must be contiguous")
-
-
-def refuse_bf16_backward(op: str, *tensors) -> None:
-    """Raise ``NotImplementedError`` for a bfloat16 tensor handed to a
-    backward: bf16 training is not ported (its backward kernels come in a
-    later slice), on the card or on the CPU."""
-    if any(t is not None and t.dtype == torch.bfloat16 for t in tensors):
-        raise NotImplementedError(
-            f"{op}: bfloat16 has no backward in the PyTorch port yet (bf16 training "
-            "is a later slice); train in float32")
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -40,10 +40,11 @@ padded pair, crops to one row fewer than the image, as the JAX
 checkpoint, or a flax checkpoint of the JAX package (``.msgpack`` or
 ``.msgpack.gz``). All default to ``--device cuda`` and raise without a
 GPU. Float32 convolutions and matmuls run in full float32 (TF32 off), as
-the JAX package's float32 mode does. ``--dtype bfloat16`` serves in the
-JAX package's bf16 policy (``evaluate``, ``inference``, ``predict``;
-parameters, also a flax checkpoint's, stay float32); ``train`` refuses it
-for now.
+the JAX package's float32 mode does. ``--dtype bfloat16`` serves and
+trains in the JAX package's bf16 policy (``train``, ``evaluate``,
+``inference``, ``predict``; parameters, also a flax checkpoint's, stay
+float32, and so do the checkpoints ``train`` writes, which any entry point
+reads in either dtype).
 """
 from __future__ import annotations
 
@@ -94,8 +95,8 @@ def _add_model_args(p):
     for name, kind in _MODEL_FLAGS.items():
         if name == "dtype":
             p.add_argument("--dtype", choices=DTYPES, default=None,
-                           help="compute dtype (default float32); bfloat16 serves (evaluate, "
-                                "inference, predict) and train refuses it")
+                           help="compute dtype (default float32); bfloat16 trains and serves "
+                                "(parameters and checkpoints stay float32)")
         else:
             p.add_argument(f"--{name}", type=kind, default=None)
     for name in _MODEL_SWITCHES:
@@ -154,10 +155,9 @@ def cmd_train(args):
     from aanet_torch.data.datasets import StereoDataset
     from aanet_torch.data.pipeline import make_train_loader, make_val_loader
     from aanet_torch.data.transforms import train_transform, val_transform
-    from aanet_torch.train.trainer import Trainer, get_logger, refuse_bf16_training
+    from aanet_torch.train.trainer import Trainer, get_logger
 
     cfg = build_config(args)
-    refuse_bf16_training(cfg)  # before anything is written or read
     os.makedirs(cfg.train.checkpoint_dir, exist_ok=True)
     with open(os.path.join(cfg.train.checkpoint_dir, "args.json"), "w") as f:
         f.write(cfg.to_json())

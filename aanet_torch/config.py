@@ -19,7 +19,8 @@ inference and training, every preset (``aanet``, ``aanet+``,
   aggregation_type="gcnet", num_downsample=1, refinement_type="None"``.
 
 In bfloat16 (``dtype="bfloat16"``) it runs the six presets for inference
-only: the model's forward in training mode and ``Trainer`` refuse it.
+and training (float32 parameters, BatchNorm statistics and losses, as the
+JAX package trains in bf16).
 """
 from __future__ import annotations
 
@@ -50,7 +51,7 @@ class ModelConfig:
     mdconv_dilation: int = 2
     deformable_groups: int = 2
     # compute dtype ('float32' | 'bfloat16'); None is float32. bfloat16
-    # serves only (eval mode) and only with correlation volumes
+    # serves and trains, only with correlation volumes
     dtype: Optional[str] = None
     # training-time activation checkpointing (torch.utils.checkpoint per
     # feature pass, per AAModule and per refinement); inference ignores it
@@ -65,8 +66,7 @@ class ModelConfig:
         or concat volume (their bf16 forms are not ported yet), unknown
         stage types, and the combinations of flags whose cost volume and
         aggregation do not fit each other (the JAX composer fails on them
-        too). A bfloat16 model serves in eval mode; its forward in
-        training mode raises."""
+        too). A bfloat16 model serves and trains."""
         refused = [
             (self.feature_type not in ("aanet", "stereonet", "psmnet", "ganet", "gcnet"),
              f"feature_type={self.feature_type!r}: unknown extractor"),
@@ -87,8 +87,8 @@ class ModelConfig:
         refused += [
             (self.dtype == "bfloat16" and volume_4d,
              f"dtype='bfloat16' with feature_similarity={self.feature_similarity!r}: the "
-             "difference and concat volumes' bf16 forms are not ported yet (a later slice "
-             "with the bf16 backward kernels); run the 3-D networks in float32"),
+             "difference and concat volumes' bf16 forms are not ported yet (a later "
+             "slice); run the 3-D networks in float32"),
             (self.feature_similarity not in ("correlation", "difference", "concat"),
              f"feature_similarity={self.feature_similarity!r}: unknown cost volume"),
             ((self.feature_type == "aanet") != bool(self.feature_pyramid_network),

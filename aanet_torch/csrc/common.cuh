@@ -61,8 +61,8 @@ static __device__ __forceinline__ void cp_async_wait_group() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// The forward kernels' two forms: float32 values, and bfloat16 values that
-// are widened to float32 where they are loaded (exactly), computed on in
+// The kernels' two forms: float32 values, and bfloat16 values that are
+// widened to float32 where they are loaded (exactly), computed on in
 // float32 and rounded to bfloat16 once, where they are stored (to nearest,
 // ties to even), as the JAX ops compute under a bf16 compute dtype.
 using bf16 = __nv_bfloat16;
@@ -91,6 +91,28 @@ static __device__ __forceinline__ float4 widen4(uint2 u) {
 
 static __device__ __forceinline__ float4 load4_f32(const bf16* p) {
   return widen4(__ldg(reinterpret_cast<const uint2*>(p)));
+}
+
+// One value into shared memory as float32, zero when !valid (src is then
+// not read but must be a valid address): float32 with cp.async, bfloat16
+// widened by a load and a store (cp.async copies bytes, it cannot widen
+// them, so a bf16 form's copies are not in flight behind other work); and
+// four neighbouring values (16-byte aligned float32, 8-byte aligned
+// bfloat16; dst 16-byte aligned).
+static __device__ __forceinline__ void stage1(float* dst, const float* src, bool valid) {
+  cp_async_f32(dst, src, valid);
+}
+
+static __device__ __forceinline__ void stage1(float* dst, const bf16* src, bool valid) {
+  *dst = valid ? load_f32(src) : 0.f;
+}
+
+static __device__ __forceinline__ void stage4(float* dst, const float* src, bool valid) {
+  cp_async_f32x4(dst, src, valid);
+}
+
+static __device__ __forceinline__ void stage4(float* dst, const bf16* src, bool valid) {
+  *reinterpret_cast<float4*>(dst) = valid ? load4_f32(src) : make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
 static __device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }

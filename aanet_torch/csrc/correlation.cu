@@ -13,8 +13,9 @@
 // lanes that read the same address pay all the same) against 128 FMAs, so
 // a tile must load few values per FMA.
 //
-// The forward has a float32 and a bfloat16 form (aanet_correlation_f32,
-// aanet_correlation_bf16); the backward is float32 only.
+// Both have a float32 and a bfloat16 form (aanet_correlation_f32,
+// aanet_correlation_bf16, aanet_correlation_backward_f32,
+// aanet_correlation_backward_bf16).
 #include "common.cuh"
 
 namespace {
@@ -97,25 +98,6 @@ inline int fwd_smem_words(int tw, int dtot, int chunk, int ksplit) {
   const int stage = 2 * chunk * (2 * tw + dtot);
   const int partial = (ksplit - 1) * tw * dtot;
   return stage > partial ? stage : partial;
-}
-
-// One value of L or R into shared memory as float32 (zero when !valid):
-// float32 with cp.async, bfloat16 widened by a load and a store; and four
-// neighbouring values (16-byte aligned float32, 8-byte aligned bfloat16).
-__device__ __forceinline__ void stage1(float* dst, const float* src, bool valid) {
-  cp_async_f32(dst, src, valid);
-}
-
-__device__ __forceinline__ void stage1(float* dst, const bf16* src, bool valid) {
-  *dst = valid ? load_f32(src) : 0.f;
-}
-
-__device__ __forceinline__ void stage4(float* dst, const float* src, bool valid) {
-  cp_async_f32x4(dst, src, valid);
-}
-
-__device__ __forceinline__ void stage4(float* dst, const bf16* src, bool valid) {
-  *reinterpret_cast<float4*>(dst) = valid ? load4_f32(src) : make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
 template <int DD, typename T>
@@ -354,6 +336,12 @@ extern "C" int aanet_correlation_bf16(const bf16* left, const bf16* right, bf16*
 // are written once, coalesced. The tiling is the plan of ops/cost_volume.py
 // backward_plan; the kernel refuses a plan whose shared memory is not its
 // layout's.
+//
+// The bf16 form (T = bf16: g, L, R, dL and dR in bfloat16) is the same
+// kernel, as the forward's is: g, L and R are widened where they are staged
+// (a load and a store), the sums run in float32 in the same order, and dL
+// and dR are rounded to bf16 once, where they are stored. Without atomics
+// it gives the same bits every launch, as the float32 form does.
 // ---------------------------------------------------------------------------
 namespace {
 
@@ -407,10 +395,11 @@ __device__ __forceinline__ void turn_right(float (&acc)[BWD_CC][BWD_CW], const f
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(BWD_MAX_THREADS, BWD_MIN_BLOCKS)
-corr_bwd_kernel(const float* __restrict__ grad, const float* __restrict__ left,
-                const float* __restrict__ right, float* __restrict__ grad_left,
-                float* __restrict__ grad_right, int channels, int height, int width,
+corr_bwd_kernel(const T* __restrict__ grad, const T* __restrict__ left,
+                const T* __restrict__ right, T* __restrict__ grad_left,
+                T* __restrict__ grad_right, int channels, int height, int width,
                 int max_disp, int bw, int dtot, int chunk, bool vec) {
   extern __shared__ float4 corr_smem[];
   float* smem = reinterpret_cast<float*>(corr_smem);
@@ -435,9 +424,9 @@ corr_bwd_kernel(const float* __restrict__ grad, const float* __restrict__ left,
   const long long b = blockIdx.z;
   const long long plane = static_cast<long long>(height) * width;
   const long long row = static_cast<long long>(h) * width;
-  const float* gb = grad + b * max_disp * plane + row;
-  const float* lb = left + b * channels * plane + row;
-  const float* rb = right + b * channels * plane + row;
+  const T* gb = grad + b * max_disp * plane + row;
+  const T* lb = left + b * channels * plane + row;
+  const T* rb = right + b * channels * plane + row;
 
   // the gradient tiles, once
   for_each_unit(dtot, bw / 4, [&](int d, int q) {
@@ -446,22 +435,22 @@ corr_bwd_kernel(const float* __restrict__ grad, const float* __restrict__ left,
     float* dst_r = s_gr + d * bw + j;
     if (vec) {
       const bool in = d < max_disp && w < width;
-      cp_async_f32x4(dst_l, in ? gb + d * plane + w : grad, in);
+      stage4(dst_l, in ? gb + d * plane + w : grad, in);
     } else {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const bool in = d < max_disp && w + i < width;
-        cp_async_f32(dst_l + i, in ? gb + d * plane + w + i : grad, in);
+        stage1(dst_l + i, in ? gb + d * plane + w + i : grad, in);
       }
     }
     if (vec && d % 4 == 0) {
       const bool in = d < max_disp && w + d < width;
-      cp_async_f32x4(dst_r, in ? gb + d * plane + w + d : grad, in);
+      stage4(dst_r, in ? gb + d * plane + w + d : grad, in);
     } else {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const bool in = d < max_disp && w + d + i < width;
-        cp_async_f32(dst_r + i, in ? gb + d * plane + w + d + i : grad, in);
+        stage1(dst_r + i, in ? gb + d * plane + w + d + i : grad, in);
       }
     }
   });
@@ -477,16 +466,16 @@ corr_bwd_kernel(const float* __restrict__ grad, const float* __restrict__ left,
         const int s = 4 * q, c = c0 + cc, wr = w0 - dtot + s, wl = w0 + s;
         const bool rin = c < channels && wr >= 0 && wr < width;
         const bool lin = c < channels && wl < width;
-        cp_async_f32x4(sr + cc * ww + s, rin ? rb + c * plane + wr : right, rin);
-        cp_async_f32x4(sl + cc * ww + s, lin ? lb + c * plane + wl : left, lin);
+        stage4(sr + cc * ww + s, rin ? rb + c * plane + wr : right, rin);
+        stage4(sl + cc * ww + s, lin ? lb + c * plane + wl : left, lin);
       });
     } else {
       for_each_unit(chunk, ww, [&](int cc, int s) {
         const int c = c0 + cc, wr = w0 - dtot + s, wl = w0 + s;
         const bool rin = c < channels && wr >= 0 && wr < width;
         const bool lin = c < channels && wl < width;
-        cp_async_f32(sr + cc * ww + s, rin ? rb + c * plane + wr : right, rin);
-        cp_async_f32(sl + cc * ww + s, lin ? lb + c * plane + wl : left, lin);
+        stage1(sr + cc * ww + s, rin ? rb + c * plane + wr : right, rin);
+        stage1(sl + cc * ww + s, lin ? lb + c * plane + wl : left, lin);
       });
     }
   };
@@ -496,7 +485,7 @@ corr_bwd_kernel(const float* __restrict__ grad, const float* __restrict__ left,
   cp_async_commit();  // with the gradient tiles
   const float inv_c = 1.f / static_cast<float>(channels);
   const float* g = (side == 0 ? s_gl : s_gr) + BWD_CW * x;
-  float* out = (side == 0 ? grad_left : grad_right) + b * channels * plane + row;
+  T* out = (side == 0 ? grad_left : grad_right) + b * channels * plane + row;
   for (int n = 0; n < nchunks; ++n) {
     if (n + 1 < nchunks) {
       stage(n + 1);
@@ -545,20 +534,54 @@ corr_bwd_kernel(const float* __restrict__ grad, const float* __restrict__ left,
       for (int q = 0; q < BWD_CC; ++q) {
         const int c = n * chunk + cg * BWD_CC + q;
         if (c >= channels) continue;
-        float* o = out + c * plane + w;
+        T* o = out + c * plane + w;
         if (vec) {
-          *reinterpret_cast<float4*>(o) = make_float4(acc[q][0] * inv_c, acc[q][1] * inv_c,
-                                                      acc[q][2] * inv_c, acc[q][3] * inv_c);
+          store4_f32(o, make_float4(acc[q][0] * inv_c, acc[q][1] * inv_c, acc[q][2] * inv_c,
+                                    acc[q][3] * inv_c));
         } else {
 #pragma unroll
           for (int i = 0; i < BWD_CW; ++i) {
-            if (w + i < width) o[i] = acc[q][i] * inv_c;
+            if (w + i < width) store_f32(o + i, acc[q][i] * inv_c);
           }
         }
       }
     }
     __syncthreads();
   }
+}
+
+// The checks and the launch of both backward forms' entry points.
+template <typename T>
+int launch_corr_bwd(const T* grad, const T* left, const T* right, T* grad_left, T* grad_right,
+                    int batch, int channels, int height, int width, int max_disp, int bw,
+                    int chunk, int smem_bytes, cudaStream_t stream) {
+  if (batch == 0 || height == 0 || width == 0 || channels == 0) return 0;
+  if (max_disp == 0) {  // a volume of no disparities passes no gradient
+    const size_t bytes = sizeof(T) * batch * channels * height * static_cast<size_t>(width);
+    cudaMemsetAsync(grad_left, 0, bytes, stream);
+    cudaMemsetAsync(grad_right, 0, bytes, stream);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (bw < BWD_CW * BWD_LX || bw % (BWD_CW * BWD_LX) != 0 || chunk < BWD_CC ||
+      chunk % BWD_CC != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int threads = 2 * (bw / BWD_CW) * (chunk / BWD_CC);
+  if (threads > BWD_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
+  const int dtot = (max_disp + BWD_DSTEP - 1) / BWD_DSTEP * BWD_DSTEP;
+  if (bwd_smem_words(bw, dtot, chunk) * 4 != smem_bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);  // the wrapper's plan has another layout
+  }
+  auto kernel = corr_bwd_kernel<T>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const bool vec = width % 4 == 0 && aligned16(grad) && aligned16(left) && aligned16(right) &&
+                   aligned16(grad_left) && aligned16(grad_right);
+  dim3 grid((width + bw - 1) / bw, height, batch);
+  kernel<<<grid, threads, smem_bytes, stream>>>(grad, left, right, grad_left, grad_right, channels,
+                                                height, width, max_disp, bw, dtot, chunk, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -577,31 +600,19 @@ extern "C" int aanet_correlation_backward_f32(const float* grad, const float* le
                                               int chunk, int smem_bytes, int device,
                                               void* stream) {
   cudaSetDevice(device);
-  if (batch == 0 || height == 0 || width == 0 || channels == 0) return 0;
-  if (max_disp == 0) {  // a volume of no disparities passes no gradient
-    const size_t bytes = sizeof(float) * batch * channels * height * static_cast<size_t>(width);
-    cudaMemsetAsync(grad_left, 0, bytes, static_cast<cudaStream_t>(stream));
-    cudaMemsetAsync(grad_right, 0, bytes, static_cast<cudaStream_t>(stream));
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (bw < BWD_CW * BWD_LX || bw % (BWD_CW * BWD_LX) != 0 || chunk < BWD_CC ||
-      chunk % BWD_CC != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int threads = 2 * (bw / BWD_CW) * (chunk / BWD_CC);
-  if (threads > BWD_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
-  const int dtot = (max_disp + BWD_DSTEP - 1) / BWD_DSTEP * BWD_DSTEP;
-  if (bwd_smem_words(bw, dtot, chunk) * 4 != smem_bytes) {
-    return static_cast<int>(cudaErrorInvalidValue);  // the wrapper's plan has another layout
-  }
-  const cudaError_t attr = cudaFuncSetAttribute(
-      corr_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const bool vec = width % 4 == 0 && aligned16(grad) && aligned16(left) && aligned16(right) &&
-                   aligned16(grad_left) && aligned16(grad_right);
-  dim3 grid((width + bw - 1) / bw, height, batch);
-  corr_bwd_kernel<<<grid, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      grad, left, right, grad_left, grad_right, channels, height, width, max_disp, bw, dtot,
-      chunk, vec);
-  return static_cast<int>(cudaGetLastError());
+  return launch_corr_bwd(grad, left, right, grad_left, grad_right, batch, channels, height,
+                         width, max_disp, bw, chunk, smem_bytes, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 form: every tensor bfloat16, the rest as
+// aanet_correlation_backward_f32's (the same plan).
+extern "C" int aanet_correlation_backward_bf16(const bf16* grad, const bf16* left,
+                                               const bf16* right, bf16* grad_left,
+                                               bf16* grad_right, int batch, int channels,
+                                               int height, int width, int max_disp, int bw,
+                                               int chunk, int smem_bytes, int device,
+                                               void* stream) {
+  cudaSetDevice(device);
+  return launch_corr_bwd(grad, left, right, grad_left, grad_right, batch, channels, height,
+                         width, max_disp, bw, chunk, smem_bytes, static_cast<cudaStream_t>(stream));
 }

@@ -13,8 +13,9 @@
 // Offsets are [B, G*K*2, Ho, Wo] in the (g, k, (dy, dx)) channel order and
 // the mask [B, G*K, Ho, Wo] in the (g, k) order, as the JAX package has it.
 //
-// The forward has a float32 and a bfloat16 form (aanet_deform_conv_f32,
-// aanet_deform_conv_bf16); the backward kernels are float32 only.
+// Each of the three has a float32 and a bfloat16 form (aanet_deform_conv_f32
+// and aanet_deform_conv_bf16, and the same suffixes on the backward's entry
+// points).
 #include "common.cuh"
 
 #include <math.h>
@@ -28,19 +29,9 @@ constexpr int HALO = 3;     // pixels of a staged window beyond the zero-offset 
 // input window, its (tap, pixel) corner table and the sampling of one
 // channel quad from both.
 
-// One value of x into shared memory as float32: float32 with cp.async (src
-// is not read when !valid, and zeros land), bfloat16 widened by a load and
-// a store (the forward's bf16 form: converted where it is staged, so that
-// the window, the table and the contraction are the float32 form's).
-__device__ __forceinline__ void stage_value(float* dst, const float* src, bool valid) {
-  cp_async_f32(dst, src, valid);
-}
-
-__device__ __forceinline__ void stage_value(float* dst, const bf16* src, bool valid) {
-  *dst = valid ? load_f32(src) : 0.f;
-}
-
-// The x windows of nq channel quads, staged as float32 (stage_value): quad
+// The x windows of nq channel quads, staged as float32 (stage1: a bf16 x is
+// converted where it is staged, so that the window, the table and the
+// contraction are the float32 form's): quad
 // j's window at sx + 4 j win_size, position i of its channel cl at word 4 i
 // + cl, so that a corner's four channels are one 16-byte load. xc: x at the
 // first channel; nc: the channels that exist (the rest, and positions
@@ -59,7 +50,7 @@ __device__ __forceinline__ void stage_window(float* sx, const T* xc, int nc, int
       for (int e = lane; e < 4 * win_w; e += 32) {
         const int col = e >> 2, cl = e & 3, xx = win_x + col;
         const bool in = row_in && cl < nc && xx >= 0 && xx < width;
-        stage_value(sx + 4 * r * win_w + e, in ? src + cl * hw + xx : any, in);
+        stage1(sx + 4 * r * win_w + e, in ? src + cl * hw + xx : any, in);
       }
     }
   }
@@ -142,8 +133,9 @@ __device__ __forceinline__ void sample_far(float* col, int rs, int quad, float w
 
 // The same, out of line: rare, and inlined it made the weight gradient's
 // step loop larger and slower (the forward is faster with it inline).
+template <typename T>
 __device__ __noinline__ void sample_far_call(float* col, int rs, int quad, float w00, float w01,
-                                             float w10, float w11, const float* xc, long long hw,
+                                             float w10, float w11, const T* xc, long long hw,
                                              int nc, int height, int width) {
   sample_far(col, rs, quad, w00, w01, w10, w11, xc, hw, nc, height, width);
 }
@@ -169,7 +161,6 @@ __device__ __forceinline__ void sample_quad(float* col, int rs, float4 te, const
     col[2 * rs] = w00 * v00.z + w01 * v01.z + w10 * v10.z + w11 * v11.z;
     col[3 * rs] = w00 * v00.w + w01 * v01.w + w10 * v10.w + w11 * v11.w;
   } else if constexpr (FAR_CALL) {
-    static_assert(!is_bf16<T>, "the out-of-line far sample is the float32 weight gradient's");
     sample_far_call(col, rs, quad, w00, w01, w10, w11, xc, hw, nc, height, width);
   } else {
     sample_far(col, rs, quad, w00, w01, w10, w11, xc, hw, nc, height, width);
@@ -224,7 +215,8 @@ __device__ __forceinline__ void sample_quad(float* col, int rs, float4 te, const
 //   16-byte atomicAdd, and split 0 adds the bias. The order of those adds
 //   varies from launch to launch, so wherever the plan splits, the output
 //   is not bit-reproducible (a recomputed forward under checkpointing may
-//   differ in its last bits); where splits == 1 it is.
+//   differ in its last bits); where splits == 1 it is. (The bf16 form
+//   stores each split's sums in a slab of its own instead: below.)
 // Designs that lost on the card (PERF.md section 6): chunks of 8 (less
 // occupancy), and the next chunk sampled while this one is contracted
 // from a second column tile (more shared memory, fewer resident blocks).
@@ -240,9 +232,11 @@ __device__ __forceinline__ void sample_quad(float* col, int rs, float4 te, const
 // copies bytes, it cannot widen them), the next chunk's window and weights
 // are not in flight behind the current chunk's work as the float32
 // form's are. The output (TO) is rounded to bf16 once, where it is
-// stored; where the plan splits the chunks over blocks, the blocks add
-// into a float32 scratch (TO = float) that round_to_bf16_kernel rounds
-// into the output afterwards: no partial sum is rounded.
+// stored; where the plan splits the chunks over blocks, each split stores
+// its float32 partial sums (TO = float) in a slab of its own, and
+// slab_sum_kernel sums the slabs in a fixed order and rounds the sum into
+// the output: no partial sum is rounded, and the output is
+// bit-reproducible.
 // ---------------------------------------------------------------------------
 namespace {
 
@@ -272,7 +266,8 @@ deform_fwd_kernel(const T* __restrict__ x, const float* __restrict__ offset,
                   const float* __restrict__ bias, TO* __restrict__ out, int cin, int height,
                   int width, int cout, int out_h, int out_w, int kh, int kw, int stride, int pad,
                   int dil, int groups, int tile_h, int co_tile, int wt_stride, int ksplit,
-                  int splits, int win_h, int win_w, int win_size, int tiles_x, bool out_vec) {
+                  int splits, long long slab, int win_h, int win_w, int win_size, int tiles_x,
+                  bool out_vec) {
   extern __shared__ float4 s_raw[];
   const int P = tile_h * TILE_W;
   const int taps = kh * kw;
@@ -446,7 +441,8 @@ deform_fwd_kernel(const T* __restrict__ x, const float* __restrict__ offset,
     }
   }
 
-  TO* outb = out + b * cout * static_cast<long long>(npix);
+  // a split of a slab plan stores its partial sums in its own slab
+  TO* outb = out + (slab ? split * slab : 0) + b * cout * static_cast<long long>(npix);
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int co = co0 + 4 * co_t + (j & 3) + (j >> 2) * (co_tile / 2);
@@ -462,10 +458,10 @@ deform_fwd_kernel(const T* __restrict__ x, const float* __restrict__ offset,
       const float v[4] = {acc[4 * h][j] + bv, acc[4 * h + 1][j] + bv, acc[4 * h + 2][j] + bv,
                           acc[4 * h + 3][j] + bv};
       if constexpr (!is_bf16<TO>) {  // split plans add into a float32 output
-        if (splits > 1 && out_vec && wo + 3 < out_w) {
+        if (splits > 1 && slab == 0 && out_vec && wo + 3 < out_w) {
           atomicAdd(reinterpret_cast<float4*>(o), make_float4(v[0], v[1], v[2], v[3]));
           continue;
-        } else if (splits > 1) {
+        } else if (splits > 1 && slab == 0) {
 #pragma unroll
           for (int i = 0; i < 4; ++i)
             if (wo + i < out_w) atomicAdd(o + i, v[i]);
@@ -483,14 +479,59 @@ deform_fwd_kernel(const T* __restrict__ x, const float* __restrict__ offset,
   }
 }
 
-// float32 sums rounded to bfloat16 once: the bf16 form's epilogue where the
-// blocks of a split plan add their partial sums into a float32 scratch.
+// float32 sums rounded to bfloat16 once: the bf16 forms' epilogue where
+// blocks add their partial sums into a float32 scratch (a split forward
+// plan, the backward-data kernel's scatter).
 __global__ void round_to_bf16_kernel(const float* __restrict__ in, bf16* __restrict__ out,
                                      long long n) {
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
        i += static_cast<long long>(gridDim.x) * blockDim.x) {
     out[i] = __float2bfloat16_rn(in[i]);
   }
+}
+
+// float32 sums rounded into n bfloat16 values once (no-op for n == 0).
+int round_into_bf16(const float* sums, bf16* out, long long n, cudaStream_t s) {
+  if (n == 0) return 0;
+  const int threads = 256;
+  const long long blocks = (n + threads - 1) / threads;
+  round_to_bf16_kernel<<<static_cast<unsigned int>(blocks < 65535 * 8 ? blocks : 65535 * 8),
+                         threads, 0, s>>>(sums, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[e] = the sum of the slabs' entries e in a fixed order, rounded once
+// where TO is bf16: thread (x, y) of a block sums slabs y, y + blockDim.y,
+// ... of entry 32 b + x in slab order, then row 0 adds the blockDim.y
+// partial sums in row order. The epilogue of the weight gradient and of a
+// bf16 split forward: bit-reproducible, where atomic adds are not.
+template <typename TO>
+__global__ void __launch_bounds__(1024)
+slab_sum_kernel(const float* __restrict__ ws, TO* __restrict__ out, int slabs, long long n) {
+  __shared__ float part[32][33];
+  const long long e = static_cast<long long>(blockIdx.x) * 32 + threadIdx.x;
+  float s = 0.f;
+  if (e < n) {
+#pragma unroll 4
+    for (int i = threadIdx.y; i < slabs; i += blockDim.y) s += __ldg(ws + i * n + e);
+  }
+  part[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y > 0 || e >= n) return;
+  float total = part[0][threadIdx.x];
+  for (int y = 1; y < blockDim.y; ++y) total += part[y][threadIdx.x];
+  store_f32(out + e, total);
+}
+
+// The sum of `slabs` slabs of n floats into out (slab_sum_kernel).
+template <typename TO>
+int sum_slabs(const float* ws, TO* out, int slabs, long long n, cudaStream_t s) {
+  if (n == 0) return 0;
+  // rows of a sum block: enough threads for the card, at most one a slab
+  int rows = 1;
+  while (rows < 32 && rows < slabs && n * rows < (1 << 18)) rows *= 2;
+  slab_sum_kernel<<<aanet_blocks(n, 32), dim3(32, rows), 0, s>>>(ws, out, slabs, n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The forward of values T into an output TO (the checks and the launch of
@@ -500,8 +541,8 @@ int launch_deform_fwd(const T* x, const float* offset, long long offset_bstride,
                       long long mask_bstride, const T* wt, const float* bias, TO* out,
                       int batch, int cin, int height, int width, int cout, int out_h, int out_w,
                       int kh, int kw, int stride, int pad, int dil, int groups, int tile_h,
-                      int co_tile, int wt_stride, int ksplit, int splits, int smem_bytes,
-                      cudaStream_t stream) {
+                      int co_tile, int wt_stride, int ksplit, int splits, long long slab,
+                      int smem_bytes, cudaStream_t stream) {
   const int threads = (co_tile / 8) * (tile_h * TILE_W / 8) * ksplit;
   if (groups < 1 || cin % groups != 0 || tile_h < 2 || tile_h % 2 != 0 || co_tile < 8 ||
       co_tile % 8 != 0 || co_tile > 128 || ksplit < 1 || splits < 1 ||
@@ -536,7 +577,7 @@ int launch_deform_fwd(const T* x, const float* offset, long long offset_bstride,
   kernel<<<grid, threads, smem_bytes, stream>>>(
       x, offset, offset_bstride, mask, mask_bstride, wt, bias, out, cin, height, width, cout,
       out_h, out_w, kh, kw, stride, pad, dil, groups, tile_h, co_tile, wt_stride, ksplit, splits,
-      win_h, win_w, win_size, tiles_x, out_vec);
+      slab, win_h, win_w, win_size, tiles_x, out_vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -567,15 +608,17 @@ extern "C" int aanet_deform_conv_f32(
   cudaSetDevice(device);
   return launch_deform_fwd(x, offset, offset_bstride, mask, mask_bstride, wt, bias, out, batch,
                            cin, height, width, cout, out_h, out_w, kh, kw, stride, pad, dil,
-                           groups, tile_h, co_tile, wt_stride, ksplit, splits, smem_bytes,
+                           groups, tile_h, co_tile, wt_stride, ksplit, splits, 0LL, smem_bytes,
                            static_cast<cudaStream_t>(stream));
 }
 
 // The bf16 form: x, mask, wt and out bfloat16 (wt and out 16-byte aligned),
 // offset and bias float32, the rest as aanet_deform_conv_f32's. Where
-// splits > 1 the blocks add into sums (float32 [batch, cout, out_h,
-// out_w], zeroed by the caller, 16-byte aligned), which a second kernel
-// rounds into out; else sums is not used (may be null).
+// splits > 1 each split stores its partial sums in its slab of sums
+// (float32 [splits, batch, cout, out_h, out_w], 16-byte aligned, every
+// entry written: no zeroing), and a second kernel sums the slabs in a
+// fixed order and rounds the sum into out once: bit-reproducible. Else
+// sums is not used (may be null).
 extern "C" int aanet_deform_conv_bf16(
     const bf16* x, const float* offset, long long offset_bstride, const bf16* mask,
     long long mask_bstride, const bf16* wt, const float* bias, bf16* out, float* sums, int batch,
@@ -587,20 +630,17 @@ extern "C" int aanet_deform_conv_bf16(
   if (splits <= 1) {
     return launch_deform_fwd(x, offset, offset_bstride, mask, mask_bstride, wt, bias, out, batch,
                              cin, height, width, cout, out_h, out_w, kh, kw, stride, pad, dil,
-                             groups, tile_h, co_tile, wt_stride, ksplit, splits, smem_bytes, st);
+                             groups, tile_h, co_tile, wt_stride, ksplit, splits, 0LL, smem_bytes,
+                             st);
   }
   if (sums == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n = static_cast<long long>(batch) * cout * out_h * out_w;
   const int err = launch_deform_fwd(x, offset, offset_bstride, mask, mask_bstride, wt, bias, sums,
                                     batch, cin, height, width, cout, out_h, out_w, kh, kw, stride,
                                     pad, dil, groups, tile_h, co_tile, wt_stride, ksplit, splits,
-                                    smem_bytes, st);
-  const long long n = static_cast<long long>(batch) * cout * out_h * out_w;
-  if (err != 0 || n == 0) return err;
-  const int threads = 256;
-  const long long blocks = (n + threads - 1) / threads;
-  round_to_bf16_kernel<<<static_cast<unsigned int>(blocks < 65535 * 8 ? blocks : 65535 * 8),
-                         threads, 0, st>>>(sums, out, n);
-  return static_cast<int>(cudaGetLastError());
+                                    n, smem_bytes, st);
+  if (err != 0) return err;
+  return sum_slabs(sums, out, splits, n, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -673,6 +713,17 @@ extern "C" int aanet_deform_conv_bf16(
 //   (80 registers a thread, a few spilled) as well as for two (128), and
 //   the plan names the build.
 // gcol never reaches device memory.
+//
+// The bf16 form (T = bf16: gout, x and the mask in bfloat16; the offsets
+// float32) is the same kernel. gout and the x window are widened where they
+// are staged (a load and a store: cp.async cannot widen), the mask where it
+// is loaded, far corners where they are read; the wrapper hands over the
+// weight widened to float32 as it lays it out (exact, and its copies stay
+// cp.async). The scatter still adds float32 into the window and into a
+// float32 scratch of x's shape, never bf16 atomics; the mask's gradient
+// goes to a float32 scratch too, and round_to_bf16_kernel rounds both into
+// the bf16 gradients once, after the kernel. The offsets' gradient stays
+// float32 (its primal's dtype).
 // ---------------------------------------------------------------------------
 namespace {
 
@@ -708,11 +759,11 @@ __device__ __forceinline__ void load_run(float (&v)[N], const float* p) {
 // the builds are 8 x 4, 8 x 8 and 16 x 4 (chunk x rows), CPT * PPT <= 4;
 // BLOCKS: blocks per SM the registers are budgeted for (128 or 80 a
 // thread for 2 or 3), as the plan's shared memory allows.
-template <int CPT, int PPT, int BLOCKS>
+template <int CPT, int PPT, int BLOCKS, typename T>
 __global__ void __launch_bounds__(BD_THREADS, BLOCKS)
-deform_bwd_data_kernel(const float* __restrict__ gout, const float* __restrict__ x,
+deform_bwd_data_kernel(const T* __restrict__ gout, const T* __restrict__ x,
                        const float* __restrict__ offset, long long offset_bstride,
-                       const float* __restrict__ mask, long long mask_bstride,
+                       const T* __restrict__ mask, long long mask_bstride,
                        const float* __restrict__ wt, float* __restrict__ grad_x,
                        float* __restrict__ grad_offset, float* __restrict__ grad_mask,
                        int cin, int height, int width, int cout, int out_h, int out_w, int kh,
@@ -741,11 +792,11 @@ deform_bwd_data_kernel(const float* __restrict__ gout, const float* __restrict__
   const int npix = out_h * out_w;
   const long long hw = static_cast<long long>(height) * width;
   const int win_y = ho0 * stride - pad - HALO, win_x = wo0 * stride - pad - HALO;
-  const float* xb = x + (b * cin + c0) * hw;
+  const T* xb = x + (b * cin + c0) * hw;
   float* gxb = grad_x + (b * cin + c0) * hw;
-  const float* gb = gout + b * cout * static_cast<long long>(npix);
+  const T* gb = gout + b * cout * static_cast<long long>(npix);
   const float* ob = offset + b * offset_bstride;
-  const float* mb = mask ? mask + b * mask_bstride : nullptr;
+  const T* mb = mask ? mask + b * mask_bstride : nullptr;
   float* gob = grad_offset + b * groups * taps * 2 * static_cast<long long>(npix);
   float* gmb = grad_mask ? grad_mask + b * groups * taps * static_cast<long long>(npix) : nullptr;
 
@@ -781,7 +832,7 @@ deform_bwd_data_kernel(const float* __restrict__ gout, const float* __restrict__
         const long long oc = static_cast<long long>((g * taps + k) * 2) * npix + p;
         dy[i] = __ldg(ob + oc);
         dx[i] = __ldg(ob + oc + npix);
-        mv[i] = mb ? __ldg(mb + static_cast<long long>(g * taps + k) * npix + p) : 1.f;
+        mv[i] = mb ? load_f32(mb + static_cast<long long>(g * taps + k) * npix + p) : 1.f;
       }
     }
   };
@@ -814,8 +865,7 @@ deform_bwd_data_kernel(const float* __restrict__ gout, const float* __restrict__
     for (int col = lane; col < win_w; col += 32) {
       const int xx = win_x + col;
       const bool in = row_in && xx >= 0 && xx < width;
-      cp_async_f32(s_x + cl * win_stride + r * win_w + col, in ? xb + cl * hw + yy * width + xx : x,
-                   in);
+      stage1(s_x + cl * win_stride + r * win_w + col, in ? xb + cl * hw + yy * width + xx : x, in);
     }
   }
   for (int e = t; e < cout * P / 4; e += BD_THREADS) {
@@ -823,14 +873,14 @@ deform_bwd_data_kernel(const float* __restrict__ gout, const float* __restrict__
     const int r = q / (TILE_W / 4), cq = (q % (TILE_W / 4)) * 4;
     const int oh = ho0 + r, ow = wo0 + cq;
     float* dst = s_gout + co * P + bd_gout_col<PPT>(co, r * TILE_W + cq);
-    const float* src = gb + static_cast<long long>(co) * npix + oh * out_w + ow;
+    const T* src = gb + static_cast<long long>(co) * npix + oh * out_w + ow;
     if (gout_vec && oh < out_h && ow + 3 < out_w) {
-      cp_async_f32x4(dst, src);
+      stage4(dst, src, true);
     } else {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const bool in = oh < out_h && ow + i < out_w;
-        cp_async_f32(dst + i, in ? src + i : gout, in);
+        stage1(dst + i, in ? src + i : gout, in);
       }
     }
   }
@@ -945,12 +995,12 @@ deform_bwd_data_kernel(const float* __restrict__ gout, const float* __restrict__
         for (int j = 0; j < CPT; ++j) {
           const int cl = cset * CPT + j;
           if (cl >= nc) break;
-          const float* xc = xb + cl * hw + i00;
+          const T* xc = xb + cl * hw + i00;
           float* gc_ptr = gxb + cl * hw + i00;
-          const float v00 = y0_in && x0_in ? __ldg(xc) : 0.f;
-          const float v01 = y0_in && x1_in ? __ldg(xc + 1) : 0.f;
-          const float v10 = y1_in && x0_in ? __ldg(xc + width) : 0.f;
-          const float v11 = y1_in && x1_in ? __ldg(xc + width + 1) : 0.f;
+          const float v00 = y0_in && x0_in ? load_f32(xc) : 0.f;
+          const float v01 = y0_in && x1_in ? load_f32(xc + 1) : 0.f;
+          const float v10 = y1_in && x0_in ? load_f32(xc + width) : 0.f;
+          const float v11 = y1_in && x1_in ? load_f32(xc + width + 1) : 0.f;
           const float gc = acc[j][i], gm = gc * m;
           const float top = wx0 * v00 + lx * v01, bot = wx0 * v10 + lx * v11;
           sums[0][i] = fmaf(gm, sy * (bot - top), sums[0][i]);
@@ -1003,10 +1053,10 @@ deform_bwd_data_kernel(const float* __restrict__ gout, const float* __restrict__
   }
 }
 
-template <int CPT, int PPT, int BLOCKS>
-cudaError_t launch_bwd_data_blocks(dim3 grid, int smem, cudaStream_t stream, const float* gout,
-                                   const float* x, const float* offset, long long offset_bstride,
-                                   const float* mask, long long mask_bstride, const float* wt,
+template <int CPT, int PPT, int BLOCKS, typename T>
+cudaError_t launch_bwd_data_blocks(dim3 grid, int smem, cudaStream_t stream, const T* gout,
+                                   const T* x, const float* offset, long long offset_bstride,
+                                   const T* mask, long long mask_bstride, const float* wt,
                                    float* grad_x, float* grad_offset, float* grad_mask, int cin,
                                    int height, int width, int cout, int out_h, int out_w, int kh,
                                    int kw, int stride, int pad, int dil, int groups, int win_h,
@@ -1018,7 +1068,7 @@ cudaError_t launch_bwd_data_blocks(dim3 grid, int smem, cudaStream_t stream, con
   const long long words = static_cast<long long>(cout) * P +
                           2LL * cout * 8 * CPT + 2LL * 8 * CPT * win_stride + 12LL * P;
   if (words * 4 != smem) return cudaErrorInvalidValue;  // the wrapper's plan has another layout
-  auto kernel = deform_bwd_data_kernel<CPT, PPT, BLOCKS>;
+  auto kernel = deform_bwd_data_kernel<CPT, PPT, BLOCKS, T>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, BD_THREADS, smem, stream>>>(
@@ -1036,6 +1086,45 @@ cudaError_t launch_bwd_data(int blocks, Args... args) {
     case 3: return launch_bwd_data_blocks<CPT, PPT, 3>(args...);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The checks and the launch of both backward-data forms' kernel (T: the
+// values' type; grad_x and grad_mask float32 either way).
+template <typename T>
+int launch_bwd_data_entry(const T* gout, const T* x, const float* offset,
+                          long long offset_bstride, const T* mask, long long mask_bstride,
+                          const float* wt, float* grad_x, float* grad_offset, float* grad_mask,
+                          int batch, int cin, int height, int width, int cout, int out_h,
+                          int out_w, int kh, int kw, int stride, int pad, int dil, int groups,
+                          int chunk, int tile_h, int blocks, int smem_bytes, cudaStream_t s) {
+  const bool built = (chunk == 8 && (tile_h == 4 || tile_h == 8)) || (chunk == 16 && tile_h == 4);
+  if (groups < 1 || cin % groups != 0 || !built) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long npix = static_cast<long long>(out_h) * out_w;
+  if (batch == 0 || npix == 0) return 0;
+  const int win_h = (tile_h - 1) * stride + (kh - 1) * dil + 2 * HALO + 2;
+  const int win_w = (TILE_W - 1) * stride + (kw - 1) * dil + 2 * HALO + 2;
+  // odd: the four channel sets of a warp at one window position hit four banks
+  const int win_stride = win_h * win_w | 1;
+  const int tiles_x = (out_w + TILE_W - 1) / TILE_W;
+  const int tiles_y = (out_h + tile_h - 1) / tile_h;
+  const int cg = cin / groups;
+  dim3 grid(tiles_x * tiles_y, groups * ((cg + chunk - 1) / chunk), batch);
+  // 16-byte copies (8-byte loads of bf16): gout rows of a multiple of 4
+  // values; weight runs of whole chunks starting at a multiple of 4 channels
+  const bool gout_vec = out_w % 4 == 0 && aligned16(gout);
+  const bool w_vec = cin % 4 == 0 && cg % chunk == 0 && cg % 4 == 0 && aligned16(wt);
+#define AANET_BWD_DATA(CPT, PPT)                                                                 \
+  launch_bwd_data<CPT, PPT>(blocks, grid, smem_bytes, s, gout, x, offset, offset_bstride, mask,  \
+                            mask_bstride, wt, grad_x, grad_offset, grad_mask, cin, height,       \
+                            width, cout, out_h, out_w, kh, kw, stride, pad, dil, groups, win_h,  \
+                            win_w, win_stride, tiles_x, gout_vec, w_vec)
+  const cudaError_t err = chunk == 16 ? AANET_BWD_DATA(2, 2)
+                          : tile_h == 8 ? AANET_BWD_DATA(1, 4)
+                                        : AANET_BWD_DATA(1, 2);
+#undef AANET_BWD_DATA
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -1059,35 +1148,39 @@ extern "C" int aanet_deform_conv_backward_data_f32(
     int cout, int out_h, int out_w, int kh, int kw, int stride, int pad, int dil,
     int groups, int chunk, int tile_h, int blocks, int smem_bytes, int device, void* stream) {
   cudaSetDevice(device);
-  const bool built = (chunk == 8 && (tile_h == 4 || tile_h == 8)) || (chunk == 16 && tile_h == 4);
-  if (groups < 1 || cin % groups != 0 || !built) {
+  return launch_bwd_data_entry(gout, x, offset, offset_bstride, mask, mask_bstride, wt, grad_x,
+                               grad_offset, grad_mask, batch, cin, height, width, cout, out_h,
+                               out_w, kh, kw, stride, pad, dil, groups, chunk, tile_h, blocks,
+                               smem_bytes, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 form: gout, x and mask bfloat16, offset float32, wt float32 (the
+// bf16 weight widened as it is laid out); the kernel adds into x_sums
+// (float32 [batch, cin, height, width], zeroed by the caller) and writes or
+// adds mask_sums (float32, the mask's shape, zeroed by the caller where the
+// kernel adds; null without a mask), then a second kernel rounds them into
+// grad_x and grad_mask (bfloat16); grad_offset float32 as in the float32
+// form. The rest as aanet_deform_conv_backward_data_f32's (the same plan).
+extern "C" int aanet_deform_conv_backward_data_bf16(
+    const bf16* gout, const bf16* x, const float* offset, long long offset_bstride,
+    const bf16* mask, long long mask_bstride, const float* wt, float* x_sums, bf16* grad_x,
+    float* grad_offset, float* mask_sums, bf16* grad_mask, int batch, int cin, int height,
+    int width, int cout, int out_h, int out_w, int kh, int kw, int stride, int pad, int dil,
+    int groups, int chunk, int tile_h, int blocks, int smem_bytes, int device, void* stream) {
+  cudaSetDevice(device);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((mask == nullptr) != (mask_sums == nullptr) || (mask == nullptr) != (grad_mask == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long npix = static_cast<long long>(out_h) * out_w;
-  if (batch == 0 || npix == 0) return 0;
-  const int win_h = (tile_h - 1) * stride + (kh - 1) * dil + 2 * HALO + 2;
-  const int win_w = (TILE_W - 1) * stride + (kw - 1) * dil + 2 * HALO + 2;
-  // odd: the four channel sets of a warp at one window position hit four banks
-  const int win_stride = win_h * win_w | 1;
-  const int tiles_x = (out_w + TILE_W - 1) / TILE_W;
-  const int tiles_y = (out_h + tile_h - 1) / tile_h;
-  const int cg = cin / groups;
-  dim3 grid(tiles_x * tiles_y, groups * ((cg + chunk - 1) / chunk), batch);
-  // 16-byte copies: gout rows of a multiple of 4 floats; weight runs of
-  // whole chunks starting at a multiple of 4 channels
-  const bool gout_vec = out_w % 4 == 0 && aligned16(gout);
-  const bool w_vec = cin % 4 == 0 && cg % chunk == 0 && cg % 4 == 0 && aligned16(wt);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define AANET_BWD_DATA(CPT, PPT)                                                                 \
-  launch_bwd_data<CPT, PPT>(blocks, grid, smem_bytes, s, gout, x, offset, offset_bstride, mask,  \
-                            mask_bstride, wt, grad_x, grad_offset, grad_mask, cin, height,       \
-                            width, cout, out_h, out_w, kh, kw, stride, pad, dil, groups, win_h,  \
-                            win_w, win_stride, tiles_x, gout_vec, w_vec)
-  const cudaError_t err = chunk == 16 ? AANET_BWD_DATA(2, 2)
-                          : tile_h == 8 ? AANET_BWD_DATA(1, 4)
-                                        : AANET_BWD_DATA(1, 2);
-#undef AANET_BWD_DATA
-  return static_cast<int>(err);
+  int err = launch_bwd_data_entry(gout, x, offset, offset_bstride, mask, mask_bstride, wt, x_sums,
+                                  grad_offset, mask_sums, batch, cin, height, width, cout, out_h,
+                                  out_w, kh, kw, stride, pad, dil, groups, chunk, tile_h, blocks,
+                                  smem_bytes, s);
+  if (err != 0) return err;
+  err = round_into_bf16(x_sums, grad_x, static_cast<long long>(batch) * cin * height * width, s);
+  if (err != 0 || mask == nullptr) return err;
+  const long long masks = static_cast<long long>(batch) * groups * kh * kw * out_h * out_w;
+  return round_into_bf16(mask_sums, grad_mask, masks, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -1141,6 +1234,14 @@ extern "C" int aanet_deform_conv_backward_data_f32(
 // resident warps beat more resident warps with small steps, and 255
 // registers a thread (one 256-thread block an SM) beat 128 where the plan
 // keeps 8 warps an SM; the plan picks the build.
+//
+// The bf16 form (T = bf16: gout, x and the mask in bfloat16; the offsets
+// float32) is the same kernel with the same plan: gout, the mask and the x
+// window are widened where they are staged (a load and a store), far
+// corners where they are read; the slabs stay float32, summed in the same
+// fixed order, and the sum kernel rounds each entry of grad_w to bf16 once
+// (the weight's primal is bf16). It is bit-reproducible as the float32
+// form is.
 // ---------------------------------------------------------------------------
 namespace {
 
@@ -1168,11 +1269,11 @@ __host__ __device__ inline long long wg_smem_words(int taps, int pixels, int co_
   return main > partial ? main : partial;
 }
 
-template <int STEP_H, int BLOCKS>
+template <int STEP_H, int BLOCKS, typename T>
 __global__ void __launch_bounds__(WG_MAX_THREADS, BLOCKS)
-deform_wgrad_kernel(const float* __restrict__ gout, const float* __restrict__ x,
+deform_wgrad_kernel(const T* __restrict__ gout, const T* __restrict__ x,
                     const float* __restrict__ offset, long long offset_bstride,
-                    const float* __restrict__ mask, long long mask_bstride,
+                    const T* __restrict__ mask, long long mask_bstride,
                     float* __restrict__ ws, int cin, int height, int width, int cout, int out_h,
                     int out_w, int kh, int kw, int stride, int pad, int dil, int groups,
                     int tile_h, int co_tile, int cc, int ksplit, int splits, int win_h, int win_w,
@@ -1220,23 +1321,23 @@ deform_wgrad_kernel(const float* __restrict__ gout, const float* __restrict__ x,
     return tl;
   };
   // Rows [rows][P] of a map at output rows ho0.. of a tile: row r from src +
-  // r * src_stride (a [.., out_h, out_w] map), zero off the map and for r
-  // >= valid, into dst + r * dst_stride.
-  auto stage_rows = [&](float* dst, int dst_stride, const float* src, long long src_stride,
+  // r * src_stride (a [.., out_h, out_w] map of float32 or T), zero off the
+  // map and for r >= valid, into dst + r * dst_stride.
+  auto stage_rows = [&](float* dst, int dst_stride, const auto* src, long long src_stride,
                         int rows, int valid, int ho0, int wo0, bool vec) {
     for (int e = t; e < rows * (P / 4); e += nthreads) {
       const int r = e / (P / 4), q = e - r * (P / 4);
       const int oh = ho0 + q / (TILE_W / 4), ow = wo0 + (q % (TILE_W / 4)) * 4;
       float* d = dst + r * dst_stride + 4 * q;
-      const float* sp = src + r * src_stride + oh * out_w + ow;
+      const auto* sp = src + r * src_stride + oh * out_w + ow;
       const bool row_in = r < valid && oh < out_h;
       if (vec && (!row_in || ow + 3 < out_w)) {
-        cp_async_f32x4(d, row_in ? sp : src, row_in);  // src: aligned where vec
+        stage4(d, row_in ? sp : src, row_in);  // src: aligned where vec
       } else {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const bool in = row_in && ow + i < out_w;
-          cp_async_f32(d + i, in ? sp + i : gout, in);
+          stage1(d + i, in ? sp + i : src, in);
         }
       }
     }
@@ -1272,7 +1373,7 @@ deform_wgrad_kernel(const float* __restrict__ gout, const float* __restrict__ x,
   // once, and samples all the chunk's channel quads from the window.
   auto sample_step = [&](int u, int i, int buf) {
     const Tile tl = tile_of(u);
-    const float* xc = x + (tl.b * cin + c0) * hw;
+    const T* xc = x + (tl.b * cin + c0) * hw;
     const float* so = s_off + buf * 3 * taps * P;
     const float* sx = s_x + ((u - u_beg) & 1) * cc * win_size;
     float* col = s_col + buf * cc * WG_MAX_TAPS * RS;
@@ -1428,25 +1529,62 @@ deform_wgrad_kernel(const float* __restrict__ gout, const float* __restrict__ x,
   }
 }
 
-// grad_w[e] = the sum of the slabs' entries e in a fixed order: thread
-// (x, y) of a block sums slabs y, y + blockDim.y, ... of entry 32 b + x in
-// slab order, then row 0 adds the blockDim.y partial sums in row order.
-__global__ void __launch_bounds__(1024)
-deform_wgrad_sum_kernel(const float* __restrict__ ws, float* __restrict__ grad_w, int slabs,
-                        long long n) {
-  __shared__ float part[32][33];
-  const long long e = static_cast<long long>(blockIdx.x) * 32 + threadIdx.x;
-  float s = 0.f;
-  if (e < n) {
-#pragma unroll 4
-    for (int i = threadIdx.y; i < slabs; i += blockDim.y) s += __ldg(ws + i * n + e);
+// The checks and the two launches of both weight-gradient forms (T: the
+// values' type and grad_w's).
+template <typename T>
+int launch_wgrad(const T* gout, const T* x, const float* offset, long long offset_bstride,
+                 const T* mask, long long mask_bstride, float* ws, T* grad_w, int batch, int cin,
+                 int height, int width, int cout, int out_h, int out_w, int kh, int kw,
+                 int stride, int pad, int dil, int groups, int tile_h, int step_h, int co_tile,
+                 int chunk, int ksplit, int splits, int blocks, int smem_bytes, cudaStream_t s) {
+  const int taps = kh * kw;
+  const int threads = (co_tile / WG_TM) * chunk * ksplit;
+  if (groups < 1 || cin % groups != 0 || taps < 1 || taps > WG_MAX_TAPS ||
+      (step_h != 2 && step_h != 4 && step_h != 8) || tile_h < step_h || tile_h % step_h != 0 || co_tile < WG_TM || co_tile % WG_TM != 0 ||
+      co_tile > 128 || chunk < 4 || chunk % 4 != 0 || ksplit < 1 ||
+      ksplit > step_h * TILE_W / WG_VEC || splits < 1 || threads % 32 != 0 ||
+      threads > WG_MAX_THREADS || (blocks != 1 && blocks != 2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  part[threadIdx.y][threadIdx.x] = s;
-  __syncthreads();
-  if (threadIdx.y > 0 || e >= n) return;
-  float total = part[0][threadIdx.x];
-  for (int y = 1; y < blockDim.y; ++y) total += part[y][threadIdx.x];
-  grad_w[e] = total;
+  const long long n = static_cast<long long>(cout) * cin * taps;
+  if (n == 0) return 0;
+  const int tiles_x = (out_w + TILE_W - 1) / TILE_W;
+  const int tiles = ((out_h + tile_h - 1) / tile_h) * tiles_x;
+  const long long units = static_cast<long long>(batch) * tiles;
+  if (units == 0) {
+    return static_cast<int>(cudaMemsetAsync(grad_w, 0, n * sizeof(T), s));
+  }
+  if (splits > units || splits > 65535 || units > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int win_h = (tile_h - 1) * stride + (kh - 1) * dil + 2 * HALO + 2;
+  const int win_w = (TILE_W - 1) * stride + (kw - 1) * dil + 2 * HALO + 2;
+  const int win_size = win_h * win_w;
+  if (wg_smem_words(taps, step_h * TILE_W, co_tile, chunk, win_size, ksplit) * 4 != smem_bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);  // the wrapper's plan has another layout
+  }
+  const int cg = cin / groups;
+  dim3 grid(groups * ((cg + chunk - 1) / chunk), splits, (cout + co_tile - 1) / co_tile);
+  // 16-byte copies of rows of the maps: whole rows of 4 floats, aligned
+  const bool gout_vec = out_w % 4 == 0 && aligned16(gout);
+  const bool off_vec = out_w % 4 == 0 && aligned16(offset) && offset_bstride % 4 == 0 &&
+                       (!mask || (aligned16(mask) && mask_bstride % 4 == 0));
+  auto kernel = blocks == 1 ? (step_h == 2   ? deform_wgrad_kernel<2, 1, T>
+                               : step_h == 4 ? deform_wgrad_kernel<4, 1, T>
+                                             : deform_wgrad_kernel<8, 1, T>)
+                            : (step_h == 2   ? deform_wgrad_kernel<2, 2, T>
+                               : step_h == 4 ? deform_wgrad_kernel<4, 2, T>
+                                             : deform_wgrad_kernel<8, 2, T>);
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kernel<<<grid, threads, smem_bytes, s>>>(
+      gout, x, offset, offset_bstride, mask, mask_bstride, ws, cin, height, width, cout, out_h,
+      out_w, kh, kw, stride, pad, dil, groups, tile_h, co_tile, chunk, ksplit, splits, win_h,
+      win_w, win_size, tiles_x, tiles, static_cast<int>(units), gout_vec, off_vec);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return sum_slabs(ws, grad_w, splits, n, s);
 }
 
 }  // namespace
@@ -1473,57 +1611,23 @@ extern "C" int aanet_deform_conv_backward_weight_f32(
     int dil, int groups, int tile_h, int step_h, int co_tile, int chunk, int ksplit, int splits,
     int blocks, int smem_bytes, int device, void* stream) {
   cudaSetDevice(device);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int taps = kh * kw;
-  const int threads = (co_tile / WG_TM) * chunk * ksplit;
-  if (groups < 1 || cin % groups != 0 || taps < 1 || taps > WG_MAX_TAPS ||
-      (step_h != 2 && step_h != 4 && step_h != 8) || tile_h < step_h || tile_h % step_h != 0 || co_tile < WG_TM || co_tile % WG_TM != 0 ||
-      co_tile > 128 || chunk < 4 || chunk % 4 != 0 || ksplit < 1 ||
-      ksplit > step_h * TILE_W / WG_VEC || splits < 1 || threads % 32 != 0 ||
-      threads > WG_MAX_THREADS || (blocks != 1 && blocks != 2)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const long long n = static_cast<long long>(cout) * cin * taps;
-  if (n == 0) return 0;
-  const int tiles_x = (out_w + TILE_W - 1) / TILE_W;
-  const int tiles = ((out_h + tile_h - 1) / tile_h) * tiles_x;
-  const long long units = static_cast<long long>(batch) * tiles;
-  if (units == 0) {
-    return static_cast<int>(cudaMemsetAsync(grad_w, 0, n * sizeof(float), s));
-  }
-  if (splits > units || splits > 65535 || units > 0x7fffffff) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int win_h = (tile_h - 1) * stride + (kh - 1) * dil + 2 * HALO + 2;
-  const int win_w = (TILE_W - 1) * stride + (kw - 1) * dil + 2 * HALO + 2;
-  const int win_size = win_h * win_w;
-  if (wg_smem_words(taps, step_h * TILE_W, co_tile, chunk, win_size, ksplit) * 4 != smem_bytes) {
-    return static_cast<int>(cudaErrorInvalidValue);  // the wrapper's plan has another layout
-  }
-  const int cg = cin / groups;
-  dim3 grid(groups * ((cg + chunk - 1) / chunk), splits, (cout + co_tile - 1) / co_tile);
-  // 16-byte copies of rows of the maps: whole rows of 4 floats, aligned
-  const bool gout_vec = out_w % 4 == 0 && aligned16(gout);
-  const bool off_vec = out_w % 4 == 0 && aligned16(offset) && offset_bstride % 4 == 0 &&
-                       (!mask || (aligned16(mask) && mask_bstride % 4 == 0));
-  auto kernel = blocks == 1 ? (step_h == 2   ? deform_wgrad_kernel<2, 1>
-                               : step_h == 4 ? deform_wgrad_kernel<4, 1>
-                                             : deform_wgrad_kernel<8, 1>)
-                            : (step_h == 2   ? deform_wgrad_kernel<2, 2>
-                               : step_h == 4 ? deform_wgrad_kernel<4, 2>
-                                             : deform_wgrad_kernel<8, 2>);
-  const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  kernel<<<grid, threads, smem_bytes, s>>>(
-      gout, x, offset, offset_bstride, mask, mask_bstride, ws, cin, height, width, cout, out_h,
-      out_w, kh, kw, stride, pad, dil, groups, tile_h, co_tile, chunk, ksplit, splits, win_h,
-      win_w, win_size, tiles_x, tiles, static_cast<int>(units), gout_vec, off_vec);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // rows of a sum block: enough threads for the card, at most one a slab
-  int rows = 1;
-  while (rows < 32 && rows < splits && n * rows < (1 << 18)) rows *= 2;
-  deform_wgrad_sum_kernel<<<aanet_blocks(n, 32), dim3(32, rows), 0, s>>>(ws, grad_w, splits, n);
-  return static_cast<int>(cudaGetLastError());
+  return launch_wgrad(gout, x, offset, offset_bstride, mask, mask_bstride, ws, grad_w, batch, cin,
+                      height, width, cout, out_h, out_w, kh, kw, stride, pad, dil, groups, tile_h,
+                      step_h, co_tile, chunk, ksplit, splits, blocks, smem_bytes,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 form: gout, x, mask and grad_w bfloat16, offset and ws float32,
+// the rest as aanet_deform_conv_backward_weight_f32's (the same plan).
+extern "C" int aanet_deform_conv_backward_weight_bf16(
+    const bf16* gout, const bf16* x, const float* offset, long long offset_bstride,
+    const bf16* mask, long long mask_bstride, float* ws, bf16* grad_w, int batch, int cin,
+    int height, int width, int cout, int out_h, int out_w, int kh, int kw, int stride, int pad,
+    int dil, int groups, int tile_h, int step_h, int co_tile, int chunk, int ksplit, int splits,
+    int blocks, int smem_bytes, int device, void* stream) {
+  cudaSetDevice(device);
+  return launch_wgrad(gout, x, offset, offset_bstride, mask, mask_bstride, ws, grad_w, batch, cin,
+                      height, width, cout, out_h, out_w, kh, kw, stride, pad, dil, groups, tile_h,
+                      step_h, co_tile, chunk, ksplit, splits, blocks, smem_bytes,
+                      static_cast<cudaStream_t>(stream));
 }

@@ -56,7 +56,11 @@
 // values of 8 bytes there, not 16: the quads and the plan stay the float32
 // form's, and a warp still reads 256 neighbouring bytes of a row at once.
 // Its bytes are half the float32 form's and the rest unchanged. The
-// backward is float32 only.
+// backward has a bf16 form too (aanet_softargmin_backward_bf16, the same
+// plan and slab): the bf16 volume is widened as it is staged (a load and a
+// store, 8 bytes a quad: cp.async cannot widen), the softmax and its
+// backward run in float32 from the float32 g, and the volume's gradient is
+// rounded to bf16 once, where it is stored.
 #include "common.cuh"
 
 #include <math.h>
@@ -270,10 +274,10 @@ softargmin_fwd_kernel(const T* __restrict__ cost, float* __restrict__ out, int d
 // q, slice s) takes its slice's statistics, then, after the merge, writes
 // its slice's rows of the gradient.
 // ---------------------------------------------------------------------------
-template <int TP, bool VEC>
+template <int TP, bool VEC, typename T>
 __global__ void __launch_bounds__(BWD_MAX_THREADS, BWD_MIN_BLOCKS)
-softargmin_bwd_kernel(const float* __restrict__ grad_out, const float* __restrict__ cost,
-                      float* __restrict__ grad_cost, int depth, long long plane, int slices,
+softargmin_bwd_kernel(const float* __restrict__ grad_out, const T* __restrict__ cost,
+                      T* __restrict__ grad_cost, int depth, long long plane, int slices,
                       float sign) {
   constexpr int NQ = TP / 4;
   extern __shared__ float4 sa_smem[];
@@ -289,17 +293,17 @@ softargmin_bwd_kernel(const float* __restrict__ grad_out, const float* __restric
 
   // the slab: rows d, pixels p0 .. p0 + TP - 1, zeros beyond the plane;
   // thread (q, s) copies its quad of rows s, s + slices, ...
-  const float* c = cost + base;
+  const T* c = cost + base;
   for (int d = s; d < depth; d += slices) {
-    const float* src = c + d * plane;
+    const T* src = c + d * plane;
     float* dst = slab + d * TP;
     if (VEC) {
-      cp_async_f32x4(dst + 4 * q, in[0] ? src + 4 * q : cost, in[0]);
+      stage4(dst + 4 * q, in[0] ? src + 4 * q : cost, in[0]);
     } else {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int j = pixel<TP, VEC>(q, i);
-        cp_async_f32(dst + j, in[i] ? src + j : cost, in[i]);
+        stage1(dst + j, in[i] ? src + j : cost, in[i]);
       }
     }
   }
@@ -335,7 +339,7 @@ softargmin_bwd_kernel(const float* __restrict__ grad_out, const float* __restric
     mean[i] = st.wsum[i] / st.sum[i];
   }
   const float* m = st.m;
-  float* gc = grad_cost + base;
+  T* gc = grad_cost + base;
 #pragma unroll 2
   for (int d = begin; d < end; ++d) {
     float v[4], r[4];
@@ -344,23 +348,23 @@ softargmin_bwd_kernel(const float* __restrict__ grad_out, const float* __restric
     for (int i = 0; i < 4; ++i) {
       r[i] = coef[i] * expf(sign * v[i] - m[i]) * (static_cast<float>(d) - mean[i]);
     }
-    float* out = gc + static_cast<long long>(d) * plane;
+    T* out = gc + static_cast<long long>(d) * plane;
     if (VEC) {
-      if (in[0]) reinterpret_cast<float4*>(out)[q] = make_float4(r[0], r[1], r[2], r[3]);
+      if (in[0]) store4_f32(out + 4 * q, make_float4(r[0], r[1], r[2], r[3]));
     } else {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        if (in[i]) out[pixel<TP, VEC>(q, i)] = r[i];
+        if (in[i]) store_f32(out + pixel<TP, VEC>(q, i), r[i]);
       }
     }
   }
 }
 
-template <int TP, bool VEC>
-cudaError_t launch_bwd_kernel(const float* grad_out, const float* cost, float* grad_cost,
+template <int TP, bool VEC, typename T>
+cudaError_t launch_bwd_kernel(const float* grad_out, const T* cost, T* grad_cost,
                               int batch, int depth, long long plane, int slices, int smem_bytes,
                               float sign, cudaStream_t stream) {
-  auto kernel = softargmin_bwd_kernel<TP, VEC>;
+  auto kernel = softargmin_bwd_kernel<TP, VEC, T>;
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (attr != cudaSuccess) return attr;
@@ -370,14 +374,53 @@ cudaError_t launch_bwd_kernel(const float* grad_out, const float* cost, float* g
   return cudaGetLastError();
 }
 
-template <int TP>
-cudaError_t launch_bwd(bool vec, const float* grad_out, const float* cost, float* grad_cost,
+template <int TP, typename T>
+cudaError_t launch_bwd(bool vec, const float* grad_out, const T* cost, T* grad_cost,
                        int batch, int depth, long long plane, int slices, int smem_bytes,
                        float sign, cudaStream_t stream) {
   return vec ? launch_bwd_kernel<TP, true>(grad_out, cost, grad_cost, batch, depth, plane,
                                            slices, smem_bytes, sign, stream)
              : launch_bwd_kernel<TP, false>(grad_out, cost, grad_cost, batch, depth, plane,
                                             slices, smem_bytes, sign, stream);
+}
+
+// The checks and the launch of both backward forms' entry points (T: the
+// volume's type).
+template <typename T>
+int launch_bwd_entry(const float* grad_out, const T* cost, T* grad_cost, int batch, int depth,
+                     long long plane, int negate, int tile, int slices, int smem_bytes,
+                     cudaStream_t st) {
+  if (batch == 0 || plane == 0 || depth == 0) return 0;
+  if ((tile != 32 && tile != 64 && tile != 128 && tile != 256) || slices < 1 ||
+      (tile / 4) * slices > BWD_MAX_THREADS || depth < 0 || batch > 65535 ||
+      (plane + tile - 1) / tile > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (static_cast<long long>(bwd_smem_bytes(tile, depth, slices)) != smem_bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);  // the wrapper's plan has another layout
+  }
+  const bool vec = plane % 4 == 0 && aligned16(cost) && aligned16(grad_cost);
+  const float sign = negate ? -1.f : 1.f;
+  cudaError_t err;
+  switch (tile) {
+    case 32:
+      err = launch_bwd<32>(vec, grad_out, cost, grad_cost, batch, depth, plane, slices, smem_bytes,
+                           sign, st);
+      break;
+    case 64:
+      err = launch_bwd<64>(vec, grad_out, cost, grad_cost, batch, depth, plane, slices, smem_bytes,
+                           sign, st);
+      break;
+    case 128:
+      err = launch_bwd<128>(vec, grad_out, cost, grad_cost, batch, depth, plane, slices,
+                            smem_bytes, sign, st);
+      break;
+    default:
+      err = launch_bwd<256>(vec, grad_out, cost, grad_cost, batch, depth, plane, slices,
+                            smem_bytes, sign, st);
+      break;
+  }
+  return static_cast<int>(err);
 }
 
 // The checks and the launch of both forms' entry points (T: the volume's type).
@@ -435,36 +478,17 @@ extern "C" int aanet_softargmin_backward_f32(const float* grad_out, const float*
                                              long long plane, int negate, int tile, int slices,
                                              int smem_bytes, int device, void* stream) {
   cudaSetDevice(device);
-  if (batch == 0 || plane == 0 || depth == 0) return 0;
-  if ((tile != 32 && tile != 64 && tile != 128 && tile != 256) || slices < 1 ||
-      (tile / 4) * slices > BWD_MAX_THREADS || depth < 0 || batch > 65535 ||
-      (plane + tile - 1) / tile > 0x7fffffffLL) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (static_cast<long long>(bwd_smem_bytes(tile, depth, slices)) != smem_bytes) {
-    return static_cast<int>(cudaErrorInvalidValue);  // the wrapper's plan has another layout
-  }
-  const bool vec = plane % 4 == 0 && aligned16(cost) && aligned16(grad_cost);
-  const float sign = negate ? -1.f : 1.f;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (tile) {
-    case 32:
-      err = launch_bwd<32>(vec, grad_out, cost, grad_cost, batch, depth, plane, slices, smem_bytes,
-                           sign, st);
-      break;
-    case 64:
-      err = launch_bwd<64>(vec, grad_out, cost, grad_cost, batch, depth, plane, slices, smem_bytes,
-                           sign, st);
-      break;
-    case 128:
-      err = launch_bwd<128>(vec, grad_out, cost, grad_cost, batch, depth, plane, slices,
-                            smem_bytes, sign, st);
-      break;
-    default:
-      err = launch_bwd<256>(vec, grad_out, cost, grad_cost, batch, depth, plane, slices,
-                            smem_bytes, sign, st);
-      break;
-  }
-  return static_cast<int>(err);
+  return launch_bwd_entry(grad_out, cost, grad_cost, batch, depth, plane, negate, tile, slices,
+                          smem_bytes, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 form: cost and grad_cost bfloat16, grad_out float32, the rest as
+// aanet_softargmin_backward_f32's (the same plan).
+extern "C" int aanet_softargmin_backward_bf16(const float* grad_out, const bf16* cost,
+                                              bf16* grad_cost, int batch, int depth,
+                                              long long plane, int negate, int tile, int slices,
+                                              int smem_bytes, int device, void* stream) {
+  cudaSetDevice(device);
+  return launch_bwd_entry(grad_out, cost, grad_cost, batch, depth, plane, negate, tile, slices,
+                          smem_bytes, static_cast<cudaStream_t>(stream));
 }

@@ -26,7 +26,10 @@
 // positions float32, the blend in float32 from the widened taps, each
 // output rounded to bf16 once, as the JAX op computes under a bf16 compute
 // dtype (warp.py:30,60,66). Its quads are 8 bytes of each channel's row.
-// The backward is float32 only.
+// The backward has a bf16 form too (aanet_warp_backward_bf16): the bf16
+// warped image's gradient and the bf16 image widened as they are loaded,
+// the float32 disparity, the sum over channels in float32, and a float32
+// gradient for the disparity (its primal's dtype).
 #include "common.cuh"
 
 #include <math.h>
@@ -164,6 +167,8 @@ extern "C" int aanet_warp_bf16(const bf16* img, const float* disp, bf16* warped,
                      static_cast<cudaStream_t>(stream));
 }
 
+namespace {
+
 // Backward for the disparity only (the image is the network's input on
 // every path that warps, and the wrapper refuses an image that needs a
 // gradient):
@@ -173,11 +178,10 @@ extern "C" int aanet_warp_bf16(const bf16* img, const float* disp, bf16* warped,
 // carries no gradient. Bound: bytes (C+1 floats read and one written per
 // pixel, like the forward). Design: one thread per pixel with the channel
 // loop inside, as in the forward.
-__global__ void warp_bwd_kernel(const float* __restrict__ grad_warped,
-                                const float* __restrict__ img,
-                                const float* __restrict__ disp,
-                                float* __restrict__ grad_disp, long long pixels,
-                                int channels, int height, int width) {
+template <typename T>
+__global__ void warp_bwd_kernel(const T* __restrict__ grad_warped, const T* __restrict__ img,
+                                const float* __restrict__ disp, float* __restrict__ grad_disp,
+                                long long pixels, int channels, int height, int width) {
   long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= pixels) return;
   int w = static_cast<int>(i % width);
@@ -195,12 +199,27 @@ __global__ void warp_bwd_kernel(const float* __restrict__ grad_warped,
     const long long plane = static_cast<long long>(height) * width;
     const long long row = b * channels * plane + static_cast<long long>(h) * width;
     for (int c = 0; c < channels; ++c) {
-      const float* src = img + row + c * plane;
-      acc = fmaf(grad_warped[row + c * plane + w], src[x0 + 1] - src[x0], acc);
+      const T* src = img + row + c * plane;
+      const float slope = load_f32(src + x0 + 1) - load_f32(src + x0);
+      acc = fmaf(load_f32(grad_warped + row + c * plane + w), slope, acc);
     }
   }
   grad_disp[i] = -dclip * acc;
 }
+
+// The checks and the launch of both backward forms' entry points.
+template <typename T>
+int launch_warp_bwd(const T* grad_warped, const T* img, const float* disp, float* grad_disp,
+                    int batch, int channels, int height, int width, cudaStream_t s) {
+  long long pixels = static_cast<long long>(batch) * height * width;
+  if (pixels == 0) return 0;
+  const int threads = 256;
+  warp_bwd_kernel<<<aanet_blocks(pixels, threads), threads, 0, s>>>(
+      grad_warped, img, disp, grad_disp, pixels, channels, height, width);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
 
 // grad_warped, img: [batch, channels, height, width]; disp, grad_disp:
 // [batch, height, width]; all float32, width >= 2.
@@ -209,11 +228,17 @@ extern "C" int aanet_warp_backward_f32(const float* grad_warped, const float* im
                                        int channels, int height, int width, int device,
                                        void* stream) {
   cudaSetDevice(device);
-  long long pixels = static_cast<long long>(batch) * height * width;
-  if (pixels == 0) return 0;
-  const int threads = 256;
-  warp_bwd_kernel<<<aanet_blocks(pixels, threads), threads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      grad_warped, img, disp, grad_disp, pixels, channels, height, width);
-  return static_cast<int>(cudaGetLastError());
+  return launch_warp_bwd(grad_warped, img, disp, grad_disp, batch, channels, height, width,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 form: grad_warped and img bfloat16, disp and grad_disp float32,
+// the rest as aanet_warp_backward_f32's.
+extern "C" int aanet_warp_backward_bf16(const bf16* grad_warped, const bf16* img,
+                                        const float* disp, float* grad_disp, int batch,
+                                        int channels, int height, int width, int device,
+                                        void* stream) {
+  cudaSetDevice(device);
+  return launch_warp_bwd(grad_warped, img, disp, grad_disp, batch, channels, height, width,
+                         static_cast<cudaStream_t>(stream));
 }

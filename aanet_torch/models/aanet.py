@@ -44,8 +44,9 @@ casts both images to it (aanet.py:217-221): the convs, BatchNorms,
 deformable convs, correlation volumes and warps then run in bf16, while
 the parameters and statistics, the offset heads, soft-argmin's
 disparities, the refinements' ``disp + residual`` (a float32 disparity
-meets a bf16 residual) and the disparity upsampling stay float32. Only
-inference runs in bf16: the forward in training mode raises.
+meets a bf16 residual) and the disparity upsampling stay float32. It
+serves and trains in bf16; under ``remat`` backward recomputes a block
+under the same compute dtype (``layers.remat``).
 
 In eval mode one feature pass runs over both views stacked on the batch
 axis (exact: shared weights, running BatchNorm statistics). In training
@@ -204,10 +205,6 @@ class AANet(nn.Module):
         """left_img, right_img: [B, 3, H, W] normalised images -> the
         disparity pyramid, coarse to fine, in float32, under the model's
         compute dtype."""
-        if self.training and self.dtype is not None:
-            raise NotImplementedError(
-                f"training in {self.dtype} is not ported yet (its backward kernels come in "
-                "a later slice): train in float32, or call .eval() to serve in bfloat16")
         with precision(self.dtype):
             if self.dtype is not None:
                 left_img, right_img = left_img.to(self.dtype), right_img.to(self.dtype)

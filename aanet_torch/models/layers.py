@@ -26,7 +26,8 @@ the input's dtype. Parameters and statistics stay float32.
 
 ``remat`` is the port's activation rematerialisation (flax ``nn.remat``):
 ``torch.utils.checkpoint`` with the BatchNorm statistics updated only on
-the first, saved forward, never again when backward recomputes the block.
+the first, saved forward, never again when backward recomputes the block,
+and the recomputation under the first forward's compute dtype.
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from aanet_torch.ops import deform as deform_ops
-from aanet_torch.ops.precision import compute_dtype
+from aanet_torch.ops.precision import compute_dtype, precision
 
 BN_MOMENTUM = 0.1  # torch convention; flax's momentum 0.9
 # False while torch.utils.checkpoint recomputes a block in backward: the
@@ -49,8 +50,11 @@ _UPDATE_STATS = True
 def remat(fn, *args):
     """``fn(*args)`` under activation checkpointing: only ``args`` are saved
     and ``fn`` runs again in backward. Nested calls compose; BatchNorm
-    statistics update on the first forward only."""
+    statistics update on the first forward only; the recomputation runs
+    under the compute dtype of the first forward (backward runs outside
+    the model's ``precision`` scope)."""
     calls = []
+    dtype = compute_dtype()
 
     def run(*inner):
         global _UPDATE_STATS
@@ -58,7 +62,8 @@ def remat(fn, *args):
         _UPDATE_STATS = outer and not calls
         calls.append(None)
         try:
-            return fn(*inner)
+            with precision(dtype):
+                return fn(*inner)
         finally:
             _UPDATE_STATS = outer
 

@@ -2,7 +2,8 @@
 and backward each have a plain PyTorch twin (``*_plain``) in its module;
 the op runs the twins for CPU tensors and its CUDA kernels for CUDA
 tensors. Every wrapper that launches a kernel counts its launches in
-``<wrapper>.launches``.
+``<wrapper>.launches``, and those of its bf16 form, where it has one, in
+``<wrapper>.launches_bf16`` (``_build.count_launch``).
 
 Callers reach the ops through their modules (``deform.modulated_deform_conv2d``
 and so on), so a check can swap an op module's function for its twin.

@@ -16,11 +16,12 @@ aggregations; their CUDA kernels, forward and backward, are
 ``csrc/volume4d.cu``, with tilings chosen here per shape and SM count
 (``volume_forward_plan``, ``volume_backward_plan``).
 
-The correlation forward also has a bfloat16 form (the JAX op under a bf16
-compute dtype, ``cost_volume.py:108,113``): bf16 features, float32
-products, sums and the division by C, the volume rounded to bf16 once
-(``aanet_correlation_bf16``, the same plan). The backward kernels and the
-4-D volumes take float32 only; every backward refuses a bf16 tensor.
+The correlation's kernels also have a bfloat16 form (the JAX op under a
+bf16 compute dtype, ``cost_volume.py:108,113``, and its transpose): bf16
+features and volume (and volume gradient), float32 products, sums and
+the division by C, each output rounded to bf16 once
+(``aanet_correlation_bf16``, ``aanet_correlation_backward_bf16``, the
+float32 forms' plans). The 4-D volumes take float32 only.
 """
 from __future__ import annotations
 
@@ -88,7 +89,12 @@ def correlation_cost_volume_plain(
 def correlation_cost_volume_backward_plain(grad, left, right):
     """Plain PyTorch gradients of the volume for (left, right):
     dL[c, w] = sum_d g[d, w] R[c, w-d] / C and dR[c, w'] = sum_d
-    g[d, w'+d] L[c, w'+d] / C, over the pairs with w >= d."""
+    g[d, w'+d] L[c, w'+d] / C, over the pairs with w >= d. For bf16
+    features, the bf16 form: computed in float32, each gradient rounded to
+    bf16 once."""
+    if left.dtype == torch.bfloat16:
+        grads = correlation_cost_volume_backward_plain(grad.float(), left.float(), right.float())
+        return tuple(g.to(left.dtype) for g in grads)
     b, c, h, w = left.shape
     grad_left = torch.zeros_like(left)
     grad_right = torch.zeros_like(right)
@@ -274,24 +280,22 @@ def _forward(left, right, max_disp):
         _build.ptr(left), _build.ptr(right), _build.ptr(cost),
         b, c, h, w, max_disp, *plan, left.device.index, _build.stream(left),
     )
-    if form == "f32":
-        correlation_cost_volume.launches += 1
-    else:
-        correlation_cost_volume.launches_bf16 += 1
+    _build.count_launch(correlation_cost_volume, form)
     return cost
 
 
 def correlation_cost_volume_backward(grad, left, right):
     """Gradients (d left, d right) given the volume's gradient ``grad``
-    [B, D, H, W]. A CPU tensor takes the plain version; a CUDA tensor
-    launches ``aanet_correlation_backward_f32`` with ``backward_plan``'s
-    tiling. A bf16 tensor raises ``NotImplementedError``."""
+    [B, D, H, W], all of the features' dtype. A CPU tensor takes the plain
+    version; a CUDA tensor launches ``aanet_correlation_backward_f32`` or,
+    for bf16 features, ``aanet_correlation_backward_bf16``, with
+    ``backward_plan``'s tiling."""
     _check(left, right)
-    _build.refuse_bf16_backward("correlation backward", grad, left, right)
     if left.device.type == "cpu":
         return correlation_cost_volume_backward_plain(grad, left, right)
-    f32 = torch.float32
-    _build.check_cuda("correlation backward", grad=(grad, f32), left=(left, f32), right=(right, f32))
+    form = _build.form("correlation backward", left.dtype)
+    dt = left.dtype
+    _build.check_cuda("correlation backward", grad=(grad, dt), left=(left, dt), right=(right, dt))
     b, c, h, w = left.shape
     if grad.shape[0] != b or grad.shape[2:] != (h, w):
         raise ValueError(f"correlation backward: grad {tuple(grad.shape)} does not fit {tuple(left.shape)}")
@@ -302,12 +306,12 @@ def correlation_cost_volume_backward(grad, left, right):
         p = backward_plan(b, c, h, w, grad.shape[1], _sms(left))
         plan = (p.tile_w, p.chunk, p.smem_bytes)
     _build.launch(
-        "correlation", "aanet_correlation_backward_f32", _CORR_BWD_ARGTYPES,
+        "correlation", f"aanet_correlation_backward_{form}", _CORR_BWD_ARGTYPES,
         _build.ptr(grad), _build.ptr(left), _build.ptr(right),
         _build.ptr(grad_left), _build.ptr(grad_right),
         b, c, h, w, grad.shape[1], *plan, left.device.index, _build.stream(left),
     )
-    correlation_cost_volume_backward.launches += 1
+    _build.count_launch(correlation_cost_volume_backward, form)
     return grad_left, grad_right
 
 
@@ -328,8 +332,7 @@ def correlation_cost_volume(
     left: torch.Tensor, right: torch.Tensor, max_disp: int
 ) -> torch.Tensor:
     """Correlation volume of left/right features [B, C, H, W] -> [B, D, H, W]
-    in their dtype (float32 or bfloat16), differentiable in both (in
-    float32 only).
+    in their dtype (float32 or bfloat16), differentiable in both.
 
     A CPU tensor takes the plain versions; a CUDA tensor launches the kernels.
     """
@@ -340,6 +343,7 @@ def correlation_cost_volume(
 correlation_cost_volume.launches = 0
 correlation_cost_volume.launches_bf16 = 0
 correlation_cost_volume_backward.launches = 0
+correlation_cost_volume_backward.launches_bf16 = 0
 
 
 # ---------------------------------------------------------------------------

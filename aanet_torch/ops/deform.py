@@ -27,14 +27,22 @@ out tap-major (``weight_taps_major``); the weight gradient's per conv,
 batch, output size and SM count (``backward_weight_plan``), with a
 workspace of one slab per split that the kernel sums in a fixed order.
 
-The forward also has a bfloat16 form (the JAX op under a bf16 compute
-dtype, ``deform.py:146-162,203,220-225``): x, the mask and the weight in
-bf16, the offsets and the bias float32; the samples, their blend and the
-contraction in float32, and the output rounded to bf16 once. Its kernel
-is ``aanet_deform_conv_bf16`` (the same plan). The JAX op also rounds
-each blended, modulated sample to bf16 before the contraction; neither
-the kernel nor the twin does. The backward kernels take float32 only,
-and every backward refuses a bf16 tensor (bf16 training is not ported).
+Each kernel also has a bfloat16 form (the JAX op under a bf16 compute
+dtype, ``deform.py:146-162,203,220-225``, and the gradients ``jax.vjp``
+derives for it): x, the mask and the weight in bf16, the offsets and the
+bias float32; the samples, their blend, the contractions and the scatter
+in float32, each output rounded once to its primal's dtype (the output,
+the x, mask and weight gradients to bf16, the offsets' gradient kept
+float32). The entry points are ``aanet_deform_conv_bf16``,
+``aanet_deform_conv_backward_data_bf16`` (the scatter adds into a float32
+scratch of x's shape, rounded once afterwards; the weight laid out in
+float32) and ``aanet_deform_conv_backward_weight_bf16`` (the float32 slabs
+summed in the same fixed order, the sum rounded once), with the float32
+forms' plans. Where the forward's plan splits the chunks over blocks,
+the bf16 form's splits store float32 slabs that a second kernel sums in a
+fixed order and rounds (bit-reproducible; the float32 form adds with
+atomics). The JAX op also rounds each blended, modulated sample to
+bf16 before the contraction; neither the kernels nor the twins do.
 """
 from __future__ import annotations
 
@@ -87,6 +95,10 @@ _BWD_DATA_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p,
 ] + [ctypes.c_int] * 17 + [ctypes.c_void_p]  # batch .. groups, chunk, tile_h, blocks, smem, device, stream
+# the bf16 form: float32 scratches for the x and mask gradients before each
+# bf16 gradient
+_BWD_DATA_BF16_ARGTYPES = (_BWD_DATA_ARGTYPES[:8] + [ctypes.c_void_p] + _BWD_DATA_ARGTYPES[8:10]
+                           + [ctypes.c_void_p] + _BWD_DATA_ARGTYPES[10:])
 _BWD_WEIGHT_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
@@ -183,6 +195,11 @@ def _bf16_operands(x, mask, weight):
     return None if mask is None else mask.to(x.dtype), weight.to(x.dtype)
 
 
+def _widened(*tensors):
+    """The tensors taken to float32 (None stays None)."""
+    return tuple(None if t is None else t.float() for t in tensors)
+
+
 def _column_grad(gout, weight, g):
     """W^T . gout: the gradient of the modulated columns,
     [b, g, cg, k2*ho*wo]."""
@@ -200,7 +217,15 @@ def modulated_deform_conv2d_backward_data_plain(
     W^T.gout scattered to the four corners for x; for the offset, the
     column gradient times the mask times the derivative of the bilinear
     sample by its position, summed over the group's channels; for the
-    mask, the column gradient times the sample."""
+    mask, the column gradient times the sample. For a bf16 x, the bf16
+    form: every value taken to float32 and computed as here, the x and mask
+    gradients rounded to bf16 once (the offsets' stays float32)."""
+    if x.dtype == torch.bfloat16:
+        grad_x, grad_off, grad_mask = modulated_deform_conv2d_backward_data_plain(
+            *_widened(gout, x, offset, mask, weight), stride=stride, padding=padding,
+            dilation=dilation, deformable_groups=deformable_groups,
+        )
+        return grad_x.to(x.dtype), grad_off, None if mask is None else grad_mask.to(mask.dtype)
     b, cin, h, w = x.shape
     _, _, kh, kw = weight.shape
     g = deformable_groups
@@ -231,7 +256,13 @@ def modulated_deform_conv2d_backward_weight_plain(
     gout, x, offset, mask, weight, *, stride=1, padding=0, dilation=1, deformable_groups=1
 ):
     """Plain PyTorch weight gradient: gout . cols^T summed over the batch,
-    with the modulated columns gathered as in the forward."""
+    with the modulated columns gathered as in the forward. For a bf16 x,
+    the bf16 form: computed in float32, rounded to bf16 once."""
+    if x.dtype == torch.bfloat16:
+        return modulated_deform_conv2d_backward_weight_plain(
+            *_widened(gout, x, offset, mask, weight), stride=stride, padding=padding,
+            dilation=dilation, deformable_groups=deformable_groups,
+        ).to(weight.dtype)
     b, cin, h, w = x.shape
     cout, _, kh, kw = weight.shape
     g = deformable_groups
@@ -319,12 +350,13 @@ def backward_data_plan(cin: int, cout: int, kh: int, kw: int, stride: int, dilat
 
 
 def weight_taps_major(weight: torch.Tensor) -> torch.Tensor:
-    """The weight [cout, cin, kh, kw] laid out [kh*kw, cout, cin], as the
-    backward-data kernel stages it: ``wt[k, co, c] = weight[co, c, k // kw,
-    k % kw]``, so a tap's slice for a chunk of channels is ``cout`` runs of
-    contiguous channels."""
+    """The weight [cout, cin, kh, kw] laid out [kh*kw, cout, cin] in float32
+    (a bf16 weight widened, exactly), as the backward-data kernel stages it:
+    ``wt[k, co, c] = weight[co, c, k // kw, k % kw]``, so a tap's slice for
+    a chunk of channels is ``cout`` runs of contiguous channels."""
     cout, cin, kh, kw = weight.shape
-    return weight.permute(2, 3, 0, 1).reshape(kh * kw, cout, cin).contiguous()
+    wt = torch.empty((kh * kw, cout, cin), dtype=torch.float32, device=weight.device)
+    return wt.copy_(weight.permute(2, 3, 0, 1).reshape(kh * kw, cout, cin))
 
 
 class ForwardPlan(NamedTuple):
@@ -631,10 +663,10 @@ def _check_shapes(x, offset, mask, weight, stride, padding, dilation, g):
 def _check_kernel_inputs(op, x, offset, mask, **dense):
     """Raise unless the tensors suit the CUDA kernels: x and ``dense``
     contiguous CUDA tensors, offset and mask contiguous within each batch
-    entry (channel slices allowed); x, the mask and the weight of x's
-    dtype, the offsets, the bias and the output gradient float32."""
+    entry (channel slices allowed); x, the mask, the weight and the output
+    gradient of x's dtype, the offsets and the bias float32."""
     def arg(name, t):
-        return t, x.dtype if name in ("x", "mask", "weight") else torch.float32
+        return t, x.dtype if name in ("x", "mask", "weight", "gout") else torch.float32
 
     _build.check_cuda(op, **{k: arg(k, v) for k, v in dict(x=x, **dense).items() if v is not None})
     sliced = dict(offset=offset) if mask is None else dict(offset=offset, mask=mask)
@@ -665,12 +697,13 @@ def _forward(x, offset, mask, weight, bias, *, stride, padding, dilation, deform
     cout, _, kh, kw = weight.shape
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     plan = forward_plan(b, cin, cout, ho, wo, kh, kw, stride, dilation, g, sms)
-    # split chunks add into a zeroed float32 output (bf16: a scratch that
-    # the kernel's epilogue rounds into the output once)
-    new = torch.zeros if plan.splits > 1 else torch.empty
-    f32_out = form == "f32" or plan.splits > 1
-    sums = new((b, cout, ho, wo), dtype=torch.float32, device=x.device) if f32_out else None
-    out = sums if form == "f32" else torch.empty((b, cout, ho, wo), dtype=x.dtype, device=x.device)
+    if form == "f32":  # split chunks add into the zeroed output
+        out = (torch.zeros if plan.splits > 1 else torch.empty)(
+            (b, cout, ho, wo), dtype=torch.float32, device=x.device)
+    else:  # each split its float32 slab, which the epilogue sums in order and rounds
+        out = torch.empty((b, cout, ho, wo), dtype=x.dtype, device=x.device)
+        sums = (torch.empty((plan.splits, b, cout, ho, wo), dtype=torch.float32, device=x.device)
+                if plan.splits > 1 else None)
     cout_pad = _ceil_div(cout, plan.co_tile) * plan.co_tile  # zero channels up to whole tiles
     wt = weight_taps_cin_major(weight, cout_pad)
     *shape, device, stream = _shape_args(x, weight, ho, wo, stride, padding, dilation, g)
@@ -682,10 +715,7 @@ def _forward(x, offset, mask, weight, bias, *, stride, padding, dilation, deform
         _build.ptr(wt), _build.ptr(bias), *outs, *shape, plan.tile_h, plan.co_tile,
         cout_pad, plan.ksplit, plan.splits, plan.smem_bytes, device, stream,
     )
-    if form == "f32":
-        modulated_deform_conv2d.launches += 1
-    else:
-        modulated_deform_conv2d.launches_bf16 += 1
+    _build.count_launch(modulated_deform_conv2d, form)
     return out
 
 
@@ -693,10 +723,10 @@ def modulated_deform_conv2d_backward_data(
     gout, x, offset, mask, weight, *, stride=1, padding=0, dilation=1, deformable_groups=1
 ):
     """Gradients for x, offset and mask (None for a unit mask) given the
-    output gradient ``gout``. A CPU tensor takes the plain version; a CUDA
-    tensor launches ``aanet_deform_conv_backward_data_f32``. A bf16
-    tensor raises ``NotImplementedError``."""
-    _build.refuse_bf16_backward("deform conv backward", gout, x, mask, weight)
+    output gradient ``gout``, each in its primal's dtype. A CPU tensor
+    takes the plain version; a CUDA tensor launches
+    ``aanet_deform_conv_backward_data_f32`` or, for a bf16 x,
+    ``aanet_deform_conv_backward_data_bf16``."""
     g = deformable_groups
     ho, wo = _check_shapes(x, offset, mask, weight, stride, padding, dilation, g)
     if x.device.type == "cpu":
@@ -704,37 +734,48 @@ def modulated_deform_conv2d_backward_data(
             gout, x, offset, mask, weight, stride=stride, padding=padding,
             dilation=dilation, deformable_groups=g,
         )
+    form = _build.form("deform conv backward", x.dtype)
     _check_kernel_inputs("deform conv backward", x, offset, mask, gout=gout, weight=weight)
     cout, cin, kh, kw = weight.shape
     plan = backward_data_plan(cin, cout, kh, kw, stride, dilation, g)
-    grad_x = torch.zeros_like(x)  # the kernel adds its windows into it with atomics
+    f32 = dict(dtype=torch.float32, device=x.device)
+    # the kernel adds its windows into the x gradient with atomics (bf16:
+    # into a float32 scratch that its epilogue rounds once)
+    x_sums = torch.zeros(x.shape, **f32)
     # a group split over several chunks: each block adds its part
     new = torch.zeros if plan.chunks > 1 else torch.empty
-    grad_off = new(offset.shape, dtype=torch.float32, device=x.device)
-    grad_mask = None if mask is None else new(mask.shape, dtype=torch.float32, device=x.device)
+    grad_off = new(offset.shape, **f32)
+    mask_sums = None if mask is None else new(mask.shape, **f32)
     wt = weight_taps_major(weight)
     *shape, device, stream = _shape_args(x, weight, ho, wo, stride, padding, dilation, g)
+    if form == "f32":
+        grad_x, grad_mask = x_sums, mask_sums
+        outs = (grad_x, grad_off, grad_mask)
+    else:
+        grad_x = torch.empty_like(x)
+        grad_mask = None if mask is None else torch.empty(mask.shape, dtype=mask.dtype, device=x.device)
+        outs = (x_sums, grad_x, grad_off, mask_sums, grad_mask)
     _build.launch(
-        "deform_conv", "aanet_deform_conv_backward_data_f32", _BWD_DATA_ARGTYPES,
+        "deform_conv", f"aanet_deform_conv_backward_data_{form}",
+        _BWD_DATA_ARGTYPES if form == "f32" else _BWD_DATA_BF16_ARGTYPES,
         _build.ptr(gout), _build.ptr(x), _build.ptr(offset), offset.stride(0),
-        _build.ptr(mask), 0 if mask is None else mask.stride(0),
-        _build.ptr(wt), _build.ptr(grad_x), _build.ptr(grad_off),
-        _build.ptr(grad_mask), *shape, plan.chunk, plan.tile_h, plan.blocks, plan.smem_bytes, device,
-        stream,
+        _build.ptr(mask), 0 if mask is None else mask.stride(0), _build.ptr(wt),
+        *map(_build.ptr, outs), *shape, plan.chunk, plan.tile_h, plan.blocks, plan.smem_bytes,
+        device, stream,
     )
-    modulated_deform_conv2d_backward_data.launches += 1
+    _build.count_launch(modulated_deform_conv2d_backward_data, form)
     return grad_x, grad_off, grad_mask
 
 
 def modulated_deform_conv2d_backward_weight(
     gout, x, offset, mask, weight, *, stride=1, padding=0, dilation=1, deformable_groups=1
 ):
-    """Gradient for the weight given the output gradient ``gout``. A CPU
-    tensor takes the plain version; a CUDA tensor launches
-    ``aanet_deform_conv_backward_weight_f32`` with ``backward_weight_plan``'s
-    tiling (its partial sums added in a fixed order: the result is
-    bit-reproducible). A bf16 tensor raises ``NotImplementedError``."""
-    _build.refuse_bf16_backward("deform conv weight gradient", gout, x, mask, weight)
+    """Gradient for the weight, in its dtype, given the output gradient
+    ``gout``. A CPU tensor takes the plain version; a CUDA tensor launches
+    ``aanet_deform_conv_backward_weight_f32`` or, for a bf16 x,
+    ``aanet_deform_conv_backward_weight_bf16``, with
+    ``backward_weight_plan``'s tiling (its partial sums added in a fixed
+    order: the result is bit-reproducible)."""
     g = deformable_groups
     ho, wo = _check_shapes(x, offset, mask, weight, stride, padding, dilation, g)
     if x.device.type == "cpu":
@@ -742,6 +783,7 @@ def modulated_deform_conv2d_backward_weight(
             gout, x, offset, mask, weight, stride=stride, padding=padding,
             dilation=dilation, deformable_groups=g,
         )
+    form = _build.form("deform conv weight gradient", x.dtype)
     _check_kernel_inputs("deform conv weight gradient", x, offset, mask, gout=gout, weight=weight)
     b, cin, _, _ = x.shape
     cout, _, kh, kw = weight.shape
@@ -753,13 +795,13 @@ def modulated_deform_conv2d_backward_weight(
     grad_w = torch.empty_like(weight)
     *shape, device, stream = _shape_args(x, weight, ho, wo, stride, padding, dilation, g)
     _build.launch(
-        "deform_conv", "aanet_deform_conv_backward_weight_f32", _BWD_WEIGHT_ARGTYPES,
+        "deform_conv", f"aanet_deform_conv_backward_weight_{form}", _BWD_WEIGHT_ARGTYPES,
         _build.ptr(gout), _build.ptr(x), _build.ptr(offset), offset.stride(0),
         _build.ptr(mask), 0 if mask is None else mask.stride(0), _build.ptr(ws),
         _build.ptr(grad_w), *shape, plan.tile_h, plan.step_h, plan.co_tile, plan.chunk, plan.ksplit,
         plan.splits, plan.build, plan.smem_bytes, device, stream,
     )
-    modulated_deform_conv2d_backward_weight.launches += 1
+    _build.count_launch(modulated_deform_conv2d_backward_weight, form)
     return grad_w
 
 
@@ -785,8 +827,8 @@ class _ModulatedDeformConv(torch.autograd.Function):
             )
         if need_w:
             grad_w = modulated_deform_conv2d_backward_weight(gout, x, offset, mask, weight, **ctx.conf)
-        if need_b:
-            grad_b = gout.sum((0, 2, 3))
+        if need_b:  # in the bias's dtype (float32 under bf16 too), as the JAX op adds it
+            grad_b = gout.sum((0, 2, 3), dtype=torch.promote_types(gout.dtype, torch.float32))
         return (grad_x if need_x else None, grad_off if need_off else None,
                 grad_mask if need_mask else None, grad_w, grad_b, None)
 
@@ -813,7 +855,7 @@ def modulated_deform_conv2d(
       bias: [Cout] or None; float32.
     Returns:
       [B, Cout, Ho, Wo] in x's dtype, differentiable in every tensor
-      argument (in float32 only).
+      argument.
 
     A CPU tensor takes the plain versions; a CUDA tensor launches the
     kernels. ``offset`` and ``mask`` may be channel slices of a larger
@@ -829,4 +871,6 @@ def modulated_deform_conv2d(
 modulated_deform_conv2d.launches = 0
 modulated_deform_conv2d.launches_bf16 = 0
 modulated_deform_conv2d_backward_data.launches = 0
+modulated_deform_conv2d_backward_data.launches_bf16 = 0
 modulated_deform_conv2d_backward_weight.launches = 0
+modulated_deform_conv2d_backward_weight.launches_bf16 = 0

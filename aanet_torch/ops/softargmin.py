@@ -6,11 +6,12 @@ op is a ``torch.autograd.Function``; the CUDA kernels (forward and
 backward) are ``csrc/softargmin.cu``, their tilings chosen here per shape
 and SM count (``forward_plan``, ``backward_plan``).
 
-The forward also has a bfloat16 form (the JAX op under a bf16 compute
-dtype, ``softargmin.py:28``): a bf16 volume, the softmax and the
-expectation in float32, a float32 disparity (``aanet_softargmin_bf16``,
-the same plan). The backward takes float32 only and refuses a bf16
-volume.
+Both kernels also have a bfloat16 form (the JAX op under a bf16 compute
+dtype, ``softargmin.py:28``, and the gradient ``jax.vjp`` derives for it):
+a bf16 volume, the softmax, the expectation and their backward in
+float32, a float32 disparity and its float32 gradient, the volume's
+gradient rounded to bf16 once (``aanet_softargmin_bf16``,
+``aanet_softargmin_backward_bf16``, the float32 forms' plans).
 """
 from __future__ import annotations
 
@@ -184,7 +185,8 @@ def soft_argmin_plain(cost: torch.Tensor, match_similarity: bool = True) -> torc
 
 def soft_argmin_backward_plain(grad, cost, match_similarity=True):
     """Plain PyTorch gradient of the volume: s * g * p_d * (d - E[d]), with
-    s = -1 for a matching cost."""
+    s = -1 for a matching cost; for a bf16 volume computed in float32 and
+    rounded to bf16 once."""
     prob = _probabilities(cost, match_similarity)
     candidates = torch.arange(cost.shape[1], dtype=prob.dtype, device=cost.device).view(1, -1, 1, 1)
     mean = (prob * candidates).sum(1, keepdim=True)
@@ -205,22 +207,20 @@ def _forward(cost, match_similarity):
         _build.ptr(cost), _build.ptr(out), b, d, h * w, int(not match_similarity),
         p.tile, p.slices, p.smem_bytes, cost.device.index, _build.stream(cost),
     )
-    if form == "f32":
-        soft_argmin.launches += 1
-    else:
-        soft_argmin.launches_bf16 += 1
+    _build.count_launch(soft_argmin, form)
     return out
 
 
 def soft_argmin_backward(grad: torch.Tensor, cost: torch.Tensor, match_similarity: bool = True):
-    """Gradient of the volume [B, D, H, W] given the disparity's gradient
-    ``grad`` [B, H, W]. A CPU tensor takes the plain version; a CUDA tensor
-    launches ``aanet_softargmin_backward_f32`` with ``backward_plan``'s
-    tiling. A bf16 tensor raises ``NotImplementedError``."""
-    _build.refuse_bf16_backward("soft_argmin backward", grad, cost)
+    """Gradient of the volume [B, D, H, W] given the disparity's float32
+    gradient ``grad`` [B, H, W], in the volume's dtype. A CPU tensor takes
+    the plain version; a CUDA tensor launches
+    ``aanet_softargmin_backward_f32`` or, for a bf16 volume,
+    ``aanet_softargmin_backward_bf16``, with ``backward_plan``'s tiling."""
     if cost.device.type == "cpu":
         return soft_argmin_backward_plain(grad, cost, match_similarity)
-    _build.check_cuda("soft_argmin backward", grad=(grad, torch.float32), cost=(cost, torch.float32))
+    form = _build.form("soft_argmin backward", cost.dtype)
+    _build.check_cuda("soft_argmin backward", grad=(grad, torch.float32), cost=(cost, cost.dtype))
     b, d, h, w = cost.shape
     if grad.shape != (b, h, w):
         raise ValueError(f"soft_argmin backward: grad {tuple(grad.shape)}, expected {(b, h, w)}")
@@ -230,11 +230,11 @@ def soft_argmin_backward(grad: torch.Tensor, cost: torch.Tensor, match_similarit
         p = backward_plan(b, d, h * w, _sms(cost))
         plan = (p.tile, p.slices, p.smem_bytes)
     _build.launch(
-        "softargmin", "aanet_softargmin_backward_f32", _BWD_ARGTYPES,
+        "softargmin", f"aanet_softargmin_backward_{form}", _BWD_ARGTYPES,
         _build.ptr(grad), _build.ptr(cost), _build.ptr(grad_cost), b, d, h * w,
         int(not match_similarity), *plan, cost.device.index, _build.stream(cost),
     )
-    soft_argmin_backward.launches += 1
+    _build.count_launch(soft_argmin_backward, form)
     return grad_cost
 
 
@@ -258,8 +258,7 @@ def soft_argmin(cost: torch.Tensor, match_similarity: bool = True) -> torch.Tens
       cost: [B, D, H, W] similarity (or cost, if match_similarity=False),
         float32 or bfloat16.
     Returns:
-      disparity [B, H, W], float32, differentiable in ``cost`` (in float32
-      only).
+      disparity [B, H, W], float32, differentiable in ``cost``.
 
     A CPU tensor takes the plain versions; a CUDA tensor launches the kernels.
     """
@@ -271,3 +270,4 @@ def soft_argmin(cost: torch.Tensor, match_similarity: bool = True) -> torch.Tens
 soft_argmin.launches = 0
 soft_argmin.launches_bf16 = 0
 soft_argmin_backward.launches = 0
+soft_argmin_backward.launches_bf16 = 0

@@ -12,8 +12,10 @@ refused. The CUDA kernels (forward and backward) are ``csrc/warp.cu``.
 The forward also has a bfloat16 form (the JAX op under a bf16 compute
 dtype, ``warp.py:30,60,66``): a bf16 image, a float32 disparity and
 sample positions, the blend in float32, the warped image and the mask
-in bf16 (``aanet_warp_bf16``). The backward takes float32 only and
-refuses a bf16 image.
+in bf16 (``aanet_warp_bf16``); so has the backward: the bf16 warped
+image's gradient and the bf16 image widened, the sum over channels in
+float32, a float32 gradient for the disparity
+(``aanet_warp_backward_bf16``).
 """
 from __future__ import annotations
 
@@ -65,7 +67,10 @@ def disp_warp_plain(img: torch.Tensor, disp: torch.Tensor):
 def disp_warp_backward_plain(grad, img, disp):
     """Plain PyTorch gradient for the disparity: -clip'(x) * sum_c g_c *
     (img[x0+1] - img[x0]), where clip' is 1 inside (0, W-1), 1/2 at either
-    end and 0 outside."""
+    end and 0 outside. For a bf16 image, the bf16 form: the image and the
+    gradient widened, the float32 disparity's gradient in float32."""
+    if img.dtype == torch.bfloat16:
+        return disp_warp_backward_plain(grad.float(), img.float(), disp)
     w = img.shape[3]
     x, _, idx = _sample(img, disp)
     slope = img.gather(3, idx + 1) - img.gather(3, idx)
@@ -95,34 +100,31 @@ def _forward(img, disp):
         _build.ptr(img), _build.ptr(disp), _build.ptr(warped), _build.ptr(valid),
         b, c, h, w, img.device.index, _build.stream(img),
     )
-    if form == "f32":
-        disp_warp.launches += 1
-    else:
-        disp_warp.launches_bf16 += 1
+    _build.count_launch(disp_warp, form)
     return warped, valid
 
 
 def disp_warp_backward(grad: torch.Tensor, img: torch.Tensor, disp: torch.Tensor):
-    """Gradient for ``disp`` [B, H, W] given the warped image's gradient
-    ``grad`` [B, C, H, W]. A CPU tensor takes the plain version; a CUDA
-    tensor launches ``aanet_warp_backward_f32``. A bf16 tensor raises
-    ``NotImplementedError``."""
+    """Gradient for the float32 ``disp`` [B, H, W] given the warped image's
+    gradient ``grad`` [B, C, H, W] (the image's dtype). A CPU tensor takes
+    the plain version; a CUDA tensor launches ``aanet_warp_backward_f32``
+    or, for a bf16 image, ``aanet_warp_backward_bf16``."""
     _check(img, disp)
-    _build.refuse_bf16_backward("disp_warp backward", grad, img, disp)
     if img.device.type == "cpu":
         return disp_warp_backward_plain(grad, img, disp)
-    f32 = torch.float32
-    _build.check_cuda("disp_warp backward", grad=(grad, f32), img=(img, f32), disp=(disp, f32))
+    form = _build.form("disp_warp backward", img.dtype)
+    _build.check_cuda("disp_warp backward", grad=(grad, img.dtype), img=(img, img.dtype),
+                      disp=(disp, torch.float32))
     if grad.shape != img.shape:
         raise ValueError(f"disp_warp backward: grad {tuple(grad.shape)}, expected {tuple(img.shape)}")
     b, c, h, w = img.shape
     grad_disp = torch.empty_like(disp)
     _build.launch(
-        "warp", "aanet_warp_backward_f32", _ARGTYPES,
+        "warp", f"aanet_warp_backward_{form}", _ARGTYPES,
         _build.ptr(grad), _build.ptr(img), _build.ptr(disp), _build.ptr(grad_disp),
         b, c, h, w, img.device.index, _build.stream(img),
     )
-    disp_warp_backward.launches += 1
+    _build.count_launch(disp_warp_backward, form)
     return grad_disp
 
 
@@ -148,8 +150,7 @@ def disp_warp(img: torch.Tensor, disp: torch.Tensor):
       disp: [B, H, W] disparity in pixels, float32.
     Returns:
       (warped [B, C, H, W], valid [B, 1, H, W] in {0, 1}), both in the
-      image's dtype; ``warped`` is differentiable in ``disp`` (in float32
-      only).
+      image's dtype; ``warped`` is differentiable in ``disp``.
 
     A CPU tensor takes the plain versions; a CUDA tensor launches the kernels.
     """
@@ -165,3 +166,4 @@ def disp_warp(img: torch.Tensor, disp: torch.Tensor):
 disp_warp.launches = 0
 disp_warp.launches_bf16 = 0
 disp_warp_backward.launches = 0
+disp_warp_backward.launches_bf16 = 0

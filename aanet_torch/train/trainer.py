@@ -19,8 +19,11 @@
   ``evaluate_only``, the ``evaluate`` entry point's setting). ``resume``
   continues from ``aanet_latest``: weights, optimizer, epoch, step and the
   best metric and its epoch (trainer.py:232-251). A bfloat16 model
-  config is refused unless ``evaluate_only`` (bf16 does not train yet). The ``.mat`` export and
-  the TensorBoard panels of the JAX trainer are not ported.
+  config trains as the JAX package's does: the bf16 model on float32
+  parameters, its casts' backward handing Adam float32 gradients, the
+  BatchNorm statistics, the pyramid and the losses in float32; the
+  checkpoints hold the float32 parameters. The ``.mat`` export and the
+  TensorBoard panels of the JAX trainer are not ported.
 
 Batches arrive as numpy NHWC arrays from ``aanet_torch.data.pipeline``
 and become NCHW torch tensors on the device here, at the batch boundary.
@@ -42,15 +45,6 @@ from aanet_torch.ops.resize import upsample_disparity
 from aanet_torch.train.loss import pyramid_loss
 from aanet_torch.train.metrics import all_metrics, validity_mask
 from aanet_torch.train.optimizer import make_optimizer, piecewise_constant_schedule, set_learning_rate
-
-def refuse_bf16_training(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for a bfloat16 model config: bf16
-    serves but does not train yet."""
-    if cfg.model.dtype == "bfloat16":
-        raise NotImplementedError(
-            "training in bfloat16 is not ported yet (its backward kernels come in a later "
-            "slice): train in float32; evaluate, inference and predict take --dtype bfloat16")
-
 
 def make_loss_fn(model, max_disp: int, highest_loss_only: bool = False):
     """loss_fn(batch) -> (total loss, detached metrics) for a batch of NCHW
@@ -161,8 +155,6 @@ class Trainer:
     def __init__(self, cfg: Config, steps_per_epoch: int, model=None, logger=None, device="cuda"):
         self.cfg = cfg
         t = cfg.train
-        if not t.evaluate_only:
-            refuse_bf16_training(cfg)
         self.device = resolve_device(device)
         torch.manual_seed(t.seed)
         self.model = (model if model is not None else cfg.model.build()).to(self.device)

@@ -160,8 +160,33 @@
    bfloat16`` on two 375x1242 pairs; the trained anchor through
    ``evaluate --dtype bfloat16`` on phase 12's set (EPE within 0.15 px of
    phase 12's float32 EPE) and ``inference --count_time --dtype
-   bfloat16``; and ``train --dtype bfloat16``, which must exit non-zero;
-15. prints the kernels' JSON line (the bf16 forms too) and, last,
+   bfloat16``;
+15. bf16 training (``bf16_training_phases``, ``anchor_bf16_finetune``):
+   one plain bf16 train step of ``aanet`` and of ``aanet+`` at batch 2,
+   288x576, records every bf16 kernel call; each bf16 form of the five
+   backward kernels (the deformable conv's input/offset/mask and weight
+   gradients, the correlation's, soft-argmin's and the warp's) against its
+   twin at those shapes, also with offsets in (-16, 16) px, at 4, 6, 12 and
+   20 output channels, mask-less and at an odd stride-2 shape (one bf16 ulp
+   of each bf16 gradient's scale, the float32 form's tolerance for the
+   float32 offset and disparity gradients), and the bf16 deform forward at
+   those shapes; two launches of the deform forward, the weight gradient
+   and the correlation backward bitwise; every backward kernel call of a kernel
+   step against its twin on the path's own inputs; the ``aanet`` bf16
+   kernel step against the plain bf16 step on phase 7's three seeded
+   batches (loss, all gradients and the BatchNorm statistics within 2 times
+   the plain step's spread under one-ulp changes of the left image, and no
+   farther than the plain bf16 step from the float32 one; every parameter
+   a non-zero gradient; three steps lowering the loss); the full-width
+   bf16 steps of ``aanet`` and ``aanet+`` (batch 16) with their launches
+   (no float32 kernel), step time, samples/s, peak memory and idle share
+   beside phases 8's and 13's float32 steps, and each bf16 backward kernel
+   at their shapes, timed beside its float32 form; then ``python -m
+   aanet_torch.cli train --dtype bfloat16`` from the trained anchor for one
+   epoch on phase 12's set (its losses beside the same epoch in float32)
+   and ``evaluate`` of its float32 checkpoint, in float32 (EPE < 2.0 px)
+   and in bf16;
+16. prints the kernels' JSON line (the bf16 forms too) and, last,
    {"ok": true, "device": ...}.
 
 Any failure raises, so the exit code is non-zero and the last line is not
@@ -399,7 +424,7 @@ PLUS_FORWARD_BN_SCALE = (0.25, 0.75)
 # feature pass, each AAModule and each refinement stage run again in
 # backward, and the hourglass's Conv2x a third time inside its stage). The
 # train steps are compared on phase 7's three seeded batches, each parameter
-# against the plain step's spread and the kernel step's own re-run.
+# against the plain step's spread and the kernel step's own re-runs.
 _PLUS_COUTS = [16, 32, 64, 96, 128]
 PLUS_PRESETS = {
     "aanet+": dict(
@@ -447,15 +472,48 @@ ANCHOR_BF16_EPE = 0.15
 ANCHOR_SHIFT = 6
 ANCHOR_BF16_PYRAMID_PX = (0.3, 0.03)
 ANCHOR_BF16_F32_PX = (0.05, 0.2)
-# H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s, float32 FLOP/s
-# outside the tensor cores (the kernels run float32 FMA on the CUDA cores)
+# Phase 15: bf16 training. Launches per bf16 train step (remat: as the
+# float32 steps', every one in its bf16 form), of ``aanet`` (phases 7 and 8)
+# and ``aanet+`` (phase 13)
+BF16_TRAIN_PRESETS = {
+    "aanet": {"deform_conv_bf16": 42, "deform_conv_backward_data_bf16": 21,
+              "deform_conv_backward_weight_bf16": 21, "correlation_bf16": 3,
+              "correlation_backward_bf16": 3, "soft_argmin_bf16": 3, "soft_argmin_backward_bf16": 3,
+              "disp_warp_bf16": 4, "disp_warp_backward_bf16": 2},
+    "aanet+": {"deform_conv_bf16": 62, "deform_conv_backward_data_bf16": 29,
+               "deform_conv_backward_weight_bf16": 29, "correlation_bf16": 3,
+               "correlation_backward_bf16": 3, "soft_argmin_bf16": 3,
+               "soft_argmin_backward_bf16": 3, "disp_warp_bf16": 4, "disp_warp_backward_bf16": 2},
+}
+# the anchor's bf16 fine-tune through the train entry point: one epoch at
+# the anchor's last learning rate scaled down (it ended at 2.5e-4, and
+# one epoch at that rate moved its EPE from 1.945 to 1.996 px on the CPU,
+# in either dtype), so that EPE < ANCHOR_EPE still tells a working
+# fine-tune from a broken one
+ANCHOR_FINETUNE_LR = 2e-5
+ANCHOR_FINETUNE_BATCH = 4
+# H100 SXM peaks (NVIDIA data sheet, at 700 W, dense): HBM bytes/s, float32
+# FLOP/s outside the tensor cores (the kernels run float32 FMA on the CUDA
+# cores), and bf16 FLOP/s on the tensor cores with float32 accumulation, the
+# least time of a product of two bf16 operands
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
+PEAK_BF16_FLOP_S = 989e12
 
 
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
+
+
+def bound_times(cost):
+    """(bytes ms, operations ms) of a spec's ``cost``: (bytes, FLOPs) or
+    (bytes, FLOPs, the FLOPs of those that multiply two bf16 operands).
+    Those go at the bf16 tensor-core peak, the rest at the float32 peak;
+    the two units run side by side, so the operations take the longer."""
+    nbytes, flops, tensor = (*cost, 0)[:3]
+    ops_s = max((flops - tensor) / PEAK_F32_FLOP_S, tensor / PEAK_BF16_FLOP_S)
+    return nbytes / PEAK_BYTES_S * 1e3, ops_s * 1e3
 
 
 class Timer:
@@ -773,6 +831,12 @@ def kernel_specs():
     return fwd, bwd
 
 
+def bf16_ulp(ref):
+    """One bf16 ulp at the scale of ``ref``'s largest value (0 for zeros)."""
+    top = float(ref.float().abs().max()) if ref.numel() else 0.0
+    return 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else 0.0
+
+
 def bf16_kernel_specs(specs):
     """The bf16 forms of the four forward kernels that serve in bfloat16
     (phase 14), derived from their float32 specs: the same wrapper, twin
@@ -781,15 +845,16 @@ def bf16_kernel_specs(specs):
     rounded by the op from float32, bf16 features, volumes and images,
     float32 offsets, biases and disparities); bytes at 2 a bf16 value and 4
     a float32 one; the float32 kernel timed at the same shapes
-    (``f32_args``). Tolerance: one bf16 ulp of the output's scale (both
+    (``f32_args``). The correlation's FLOPs are products of two bf16
+    values, bounded at the bf16 tensor-core peak (``bound_times``); the
+    deformable conv's contraction takes the float32 sampled column (the
+    bilinear blend times the mask, not rounded), so it stays at the
+    float32 peak. Tolerance: one bf16 ulp of the output's scale (both
     round the same float32 sums, in another order, once), soft-argmin's
     float32 disparity within 1e-4 px."""
     by_name = {s["name"]: s for s in specs}
     bf = torch.bfloat16
-
-    def one_ulp(ref):
-        top = float(ref.float().abs().max())
-        return 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else 0.0
+    one_ulp = bf16_ulp
 
     def deform_cost(sig):
         (b, cin, h, w), (cout, _, kh, kw), has_mask, has_bias, stride, pad, dil, g = sig
@@ -803,7 +868,8 @@ def bf16_kernel_specs(specs):
 
     def corr_cost(sig):
         (b, c, h, w), d = sig
-        return 2 * (2 * b * c * h * w + b * d * h * w), by_name["correlation"]["cost"](sig)[1]
+        flops = by_name["correlation"]["cost"](sig)[1]  # every one a bf16 x bf16 product
+        return 2 * (2 * b * c * h * w + b * d * h * w), flops, flops
 
     def sa_cost(sig):
         (b, d, h, w), _ = sig
@@ -848,6 +914,118 @@ def bf16_kernel_specs(specs):
         spec = dict(by_name[name], name=f"{name}_bf16", counter="launches_bf16", inputs=inputs,
                     cost=cost, tol=tol, tol_text=tol_text, library=library, f32_args=to_f32)
         out.append(spec)
+    return out
+
+
+def bf16_backward_specs(bwd_specs):
+    """The bf16 forms of the five backward kernels (phase 15), derived from
+    their float32 specs as ``bf16_kernel_specs`` derives the forwards': the
+    same wrapper, twin and signature (the bf16 forward spec's name in
+    ``forward``); launches in ``launches_bf16``; inputs as the bf16 path
+    hands them over (bf16 output gradients, x, masks, weights, features,
+    volumes and images; the float32 offsets, disparities and soft-argmin's
+    disparity gradient); bytes at 2 a bf16 value and 4 a float32 one; the
+    products of two bf16 operands (the data gradient's gout.W contraction,
+    the correlation's) at the bf16 tensor-core peak (``bound_times``); the
+    float32 kernel timed at the same shapes. Tolerance: one bf16 ulp of
+    each bf16 gradient's scale (the kernel and the twin sum in float32 in
+    other orders and round once); the float32 form's tolerance for the
+    float32 gradients (the offsets' and the disparity's: the same float32
+    arithmetic on bf16-valued inputs, nothing rounded)."""
+    by_name = {s["name"]: s for s in bwd_specs}
+    bf = torch.bfloat16
+
+    # the backward kernels with a float32 gradient (the offsets', the
+    # disparity's) beside their bf16 ones
+    with_f32_gradient = {"deform_conv_backward_data", "disp_warp_backward"}
+
+    def by_dtype(f32_tol, ref):
+        """One bf16 ulp for a bf16 gradient; the float32 form's tolerance
+        for a float32 one (the offsets' and the disparity's)."""
+        return bf16_ulp(ref) if ref.dtype == bf else f32_tol(ref)
+
+    def to_bf16(keep):
+        """Tensors to bf16 but those at the indices ``keep``."""
+        def convert(args):
+            return tuple(a.to(bf) if isinstance(a, torch.Tensor) and i not in keep else a
+                         for i, a in enumerate(args))
+        return convert
+
+    def inputs_of(name, convert):
+        def make(sig, gen, dev, **kw):
+            args, kwargs = by_name[name]["inputs"](sig, gen, dev, **kw)
+            return convert(args), kwargs
+        return make
+
+    def deform_cost(sig, weight_grad, name):
+        (b, cin, h, w), (cout, _, kh, kw), has_mask, _, stride, pad, dil, g = sig
+        ho = (h + 2 * pad - dil * (kh - 1) - 1) // stride + 1
+        wo = (w + 2 * pad - dil * (kw - 1) - 1) // stride + 1
+        k2, pix = kh * kw, b * ho * wo
+        masks, offsets = (pix * g * k2 if has_mask else 0), pix * g * k2 * 2
+        # gout, x and the masks at 2 bytes, the offsets at 4; the data
+        # gradient also reads the weight and writes dx, d offset and d mask,
+        # the weight gradient writes dW
+        reads = 2 * (pix * cout + b * cin * h * w + masks) + 4 * offsets
+        flops = by_name[name]["cost"](sig)[1]
+        if weight_grad:  # gout times the float32 sampled column: no bf16 pair
+            return reads + 2 * cout * cin * k2, flops
+        # the gout.W contraction multiplies two bf16 operands (the weight is
+        # widened exactly); the sampling and scatter are float32
+        nbytes = reads + 2 * cout * cin * k2 + 2 * (b * cin * h * w + masks) + 4 * offsets
+        return nbytes, flops, pix * cin * k2 * 2 * cout
+
+    def corr_cost(sig):
+        (b, c, h, w), d = sig
+        flops = by_name["correlation_backward"]["cost"](sig)[1]  # bf16 dcost x bf16 features
+        return 2 * (b * d * h * w + 4 * b * c * h * w), flops, flops
+
+    def sa_cost(sig):
+        (b, d, h, w), _ = sig
+        return 4 * b * h * w + 2 * 2 * b * d * h * w, by_name["soft_argmin_backward"]["cost"](sig)[1]
+
+    def warp_cost(sig):
+        ((b, c, h, w),) = sig
+        # the warped image's gradient and the image at 2 bytes; the
+        # disparity and its gradient at 4
+        return 2 * 2 * b * c * h * w + 4 * 2 * b * h * w, by_name["disp_warp_backward"]["cost"](sig)[1]
+
+    def warp_library(grad, img, disp):
+        """F.grid_sample of the bf16 image with a bf16 grid, forward plus its
+        backward for the grid."""
+        b, c, h, w = img.shape
+        xs = torch.arange(w, device=img.device, dtype=torch.float32).view(1, 1, w) - disp
+        ys = torch.arange(h, device=img.device, dtype=torch.float32).view(1, h, 1).expand(b, h, w)
+        grid = torch.stack((2 * xs / (w - 1) - 1, 2 * ys / (h - 1) - 1), dim=-1).to(img.dtype)
+
+        def run():
+            with torch.enable_grad():
+                g = grid.detach().requires_grad_(True)
+                F.grid_sample(img, g, mode="bilinear", padding_mode="border",
+                              align_corners=True).backward(grad)
+        return run
+
+    def to_f32(args):
+        return tuple(a.float() if isinstance(a, torch.Tensor) else a for a in args)
+
+    out = []
+    for name, convert, cost, library in (
+        ("deform_conv_backward_data", to_bf16({2}),
+         lambda sig: deform_cost(sig, False, "deform_conv_backward_data"), None),
+        ("deform_conv_backward_weight", to_bf16({2}),
+         lambda sig: deform_cost(sig, True, "deform_conv_backward_weight"), None),
+        ("correlation_backward", to_bf16(set()), corr_cost, None),
+        ("soft_argmin_backward", to_bf16({0}), sa_cost, None),
+        ("disp_warp_backward", to_bf16({2}), warp_cost, warp_library),
+    ):
+        spec = by_name[name]
+        out.append(dict(spec, name=f"{name}_bf16", forward=f"{spec['forward']}_bf16",
+                        counter="launches_bf16", inputs=inputs_of(name, convert), cost=cost,
+                        tol=functools.partial(by_dtype, spec["tol"]),
+                        tol_text="1 bf16 ulp of each bf16 gradient's max|ref|" + (
+                            f"; the float32 gradient {spec['tol_text']}" if name in with_f32_gradient
+                            else ""),
+                        library=library, f32_args=to_f32))
     return out
 
 
@@ -1056,8 +1234,7 @@ def measure(spec, sig, n, gen, dev, timer, iters=20, timed=True):
     if not timed:
         print(f"{spec['name']} {sig}: err {err:.3g} (tol {tol:.3g})", flush=True)
         return dict(shape=str(sig), max_err=err, tolerance=tol)
-    nbytes, flops = spec["cost"](sig)
-    bytes_ms, ops_ms = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOP_S * 1e3
+    bytes_ms, ops_ms = bound_times(spec["cost"](sig))
     lib = spec["library"](*args) if spec["library"] else None
     row = dict(
         shape=str(sig), launches=n, max_err=err, tolerance=tol,
@@ -1306,60 +1483,97 @@ def baseline_phases(specs, gen, dev, timer, smi, left, right):
     return out
 
 
+def relative_nudge(left, gen):
+    """``left`` times (1 + 1e-6 noise): the float32 steps' input change."""
+    return left * (1 + 1e-6 * torch.randn(left.shape, generator=gen, device=left.device))
+
+
+def one_ulp_nudge(left, gen):
+    """``left`` rounded to bf16, then every value moved by one bf16 ulp of
+    its binade, up or down (a seeded sign each; zeros stay), as float32: a
+    1e-6 change would round away at the model's cast. The result is
+    representable in bf16."""
+    base = left.to(torch.bfloat16).float()
+    ulp = torch.exp2(torch.floor(torch.log2(base.abs())) - 7)  # 0 where base is 0
+    sign = torch.randint(0, 2, base.shape, generator=gen, device=base.device).float() * 2 - 1
+    return base + sign * ulp
+
+
 def compare_train_steps(cfg, specs, small, gen, dev, per_parameter=False, calls=None,
-                        recomputed=None, rerun=False, highest_loss_only=False):
+                        recomputed=None, rerun=False, highest_loss_only=False,
+                        nudge=relative_nudge, guard=None):
     """One train step through the kernels against the same step through
-    the plain twins (same seeded weights, the batch ``small``), and the
-    plain step's own spread: the largest change of its gradients over
-    ``NUDGES`` 1e-6 relative changes of the left image (some gradients are
-    sums that nearly cancel, and move by far more than 1e-6 under it; one
-    change is too few to tell how far); with ``rerun``, also the change of
-    the kernel step's gradients when it runs again on the same inputs (its
-    float atomics add in another order: an error that repeats in both runs
-    still shows). Checks the loss to rtol 1e-5, a
-    non-zero gradient for every parameter but those of ``ZERO_GRADIENT``,
-    all gradients together (and, with ``per_parameter``, each parameter's)
-    within max(1e-3, 2x the spread) and the BatchNorm statistics to 1e-4;
-    every check is made after the record is printed. The plain step
-    records its kernel calls into ``calls`` and ``recomputed``
+    the plain twins ``specs`` (same seeded weights, the batch ``small``),
+    and the plain step's own spread: the largest change of its loss,
+    gradients and BatchNorm statistics over ``NUDGES`` changes of the left
+    image by ``nudge`` (some gradients are sums that nearly cancel, and
+    move by far more than the input under it; one change is too few to
+    tell how far); with ``rerun``, also the change of the kernel step's
+    gradients when it runs again on the same inputs (its float atomics add
+    in another order: an error that repeats in every run still shows).
+    Every parameter but those of ``ZERO_GRADIENT`` must get a non-zero
+    gradient. Without ``guard`` (a float32 step): the loss within rtol
+    1e-5, all gradients together (and, with ``per_parameter``, each
+    parameter's) within max(1e-3, 2x the spread), the BatchNorm statistics
+    within 1e-4. With ``guard``, a (config, plain specs) pair of the
+    float32 step for a bf16 ``cfg``: the loss, all gradients together and
+    the statistics each within 2x the spread and no farther from the plain
+    step than the plain step is from the guard's (its float32 step on the
+    same weights). Every check is made after the record is printed. The
+    plain step records its kernel calls into ``calls`` and ``recomputed``
     (``plain_ops``). With ``highest_loss_only`` the loss takes the final
     map only. Returns the record, the kernel step's model and its step."""
     from aanet_torch.models.layers import set_train_mode
     from aanet_torch.train.optimizer import make_optimizer
     from aanet_torch.train.trainer import make_loss_fn, make_train_step
 
+    last = dict(highest_loss_only=highest_loss_only)
+
+    def train_step(model):
+        return make_train_step(model, make_optimizer(model, 1e-3), cfg.max_disp, **last)
+
     m_kernel = seeded_model(cfg, dev)
     m_plain = copy.deepcopy(m_kernel)
-    last = dict(highest_loss_only=highest_loss_only)
-    step_kernel = make_train_step(m_kernel, make_optimizer(m_kernel, 1e-3), cfg.max_disp, **last)
-    step_plain = make_train_step(m_plain, make_optimizer(m_plain, 1e-3), cfg.max_disp, **last)
+    step_kernel = train_step(m_kernel)
     met_kernel = step_kernel(small)
     with plain_ops(specs, calls, recomputed):
-        met_plain = step_plain(small)
+        met_plain = train_step(m_plain)(small)
+    loss_k, loss_p = float(met_kernel["total_loss"]), float(met_plain["total_loss"])
     plain_params = dict(m_plain.named_parameters())
+    plain_bufs = {n: b for n, b in m_plain.named_buffers() if b.is_floating_point()}
+
+    def stats_from_plain(model):
+        """The BatchNorm statistics' largest |a - plain| / (|plain| + 1)."""
+        return max(float(((b - plain_bufs[n]).abs() / (plain_bufs[n].abs() + 1)).max())
+                   for n, b in model.named_buffers() if b.is_floating_point())
+
+    def moved_from(model, reference):
+        """Per parameter, the squared change of its gradient from ``reference``'s."""
+        return {name: float((p.grad - reference[name].grad).square().sum())
+                for name, p in model.named_parameters()}
+
     # per parameter, the squared change of its gradient under each nudge
-    moved = {name: [] for name in plain_params}
+    # (and re-run); the loss's and statistics' changes under each nudge
+    moved, moved_loss, moved_stats = {name: [] for name in plain_params}, [], []
     with plain_ops(specs):
         for _ in range(NUDGES):
             m_floor = seeded_model(cfg, dev)
             set_train_mode(m_floor)
-            noise = torch.randn(small["left"].shape, generator=gen, device=dev)
-            nudged = dict(small, left=small["left"] * (1 + 1e-6 * noise))
-            make_loss_fn(m_floor, cfg.max_disp, **last)(nudged)[0].backward()
-            for name, p in m_floor.named_parameters():
-                moved[name].append(float((p.grad - plain_params[name].grad).square().sum()))
+            loss = make_loss_fn(m_floor, cfg.max_disp, **last)(dict(small, left=nudge(small["left"], gen)))[0]
+            loss.backward()
+            for name, sq in moved_from(m_floor, plain_params).items():
+                moved[name].append(sq)
+            moved_loss.append(abs(loss.item() - loss_p))
+            moved_stats.append(stats_from_plain(m_floor))
             del m_floor
+    kernel_params = dict(m_kernel.named_parameters())
     if rerun:
         m_again = seeded_model(cfg, dev)
-        make_train_step(m_again, make_optimizer(m_again, 1e-3), cfg.max_disp, **last)(small)
-        kernel_params = dict(m_kernel.named_parameters())
-        for name, p in m_again.named_parameters():
-            moved[name].append(float((p.grad - kernel_params[name].grad).square().sum()))
+        train_step(m_again)(small)
+        for name, sq in moved_from(m_again, kernel_params).items():
+            moved[name].append(sq)
         del m_again
-    loss_k, loss_p = float(met_kernel["total_loss"]), float(met_plain["total_loss"])
     failures = []
-    if abs(loss_k - loss_p) > 1e-5 * abs(loss_p):
-        failures.append(f"train-step loss kernel {loss_k} plain {loss_p}")
     worst, floored, dk2, dp2 = [], [], 0.0, 0.0
     df2 = [0.0] * (NUDGES + rerun)
     for name, p in m_kernel.named_parameters():
@@ -1376,54 +1590,72 @@ def compare_train_steps(cfg, specs, small, gen, dev, per_parameter=False, calls=
         rel_err, spread = float((gk - gp).norm()) / scale, max(moved[name]) ** 0.5 / scale
         if per_parameter and rel_err > max(1e-3, 2 * spread):
             failures.append(f"{name}: gradient relative error {rel_err} (plain spread {spread})")
-        if rel_err > 1e-3:
+        if guard is None and rel_err > 1e-3:  # within the spread only
             floored.append((name, rel_err, spread))
         worst.append((rel_err / max(1e-3, 2 * spread), rel_err, spread, name))
     worst = sorted(worst)[-8:]
     grad_rel, grad_spread = (dk2 / dp2) ** 0.5, (max(df2) / dp2) ** 0.5
+    stats_err = stats_from_plain(m_kernel)
     print(f"gradients: kernel vs plain {grad_rel:.3g}, plain spread {grad_spread:.3g} (largest of "
           f"{len(df2)}: {[round((x / dp2) ** 0.5, 6) for x in df2]}); worst (error / allowed, error, "
           f"spread, parameter): {worst}", flush=True)
-    if grad_rel > max(1e-3, 2 * grad_spread):
-        failures.append(f"all gradients: relative error {grad_rel} (plain spread {grad_spread})")
-    plain_bufs = dict(m_plain.named_buffers())
-    stats_err = max(float(((b - plain_bufs[n]).abs() / (plain_bufs[n].abs() + 1)).max())
-                    for n, b in m_kernel.named_buffers() if b.is_floating_point())
-    if stats_err > 1e-4:
-        failures.append(f"BatchNorm statistics differ by {stats_err}")
     record = dict(batch=small["left"].shape[0], loss_kernel=loss_k, loss_plain=loss_p,
                   grad_rel_err=grad_rel, grad_plain_spread=grad_spread,
                   grad_plain_spread_per_nudge=[(x / dp2) ** 0.5 for x in df2],
                   per_parameter_margin=worst[-1][0], worst_params=worst,
                   params_within_plain_spread_only=floored, bn_stats_rel_err=stats_err,
-                  failures=failures)
+                  loss_plain_spread=max(moved_loss), bn_stats_plain_spread=max(moved_stats))
+    distances = (abs(loss_k - loss_p), grad_rel, stats_err)
+    if guard is None:
+        limits = (1e-5 * abs(loss_p), max(1e-3, 2 * grad_spread), 1e-4)
+    else:
+        cfg_guard, specs_guard = guard
+        m_guard = seeded_model(cfg_guard, dev)
+        with plain_ops(specs_guard):
+            met_guard = make_train_step(m_guard, make_optimizer(m_guard, 1e-3), cfg.max_disp,
+                                        **last)(small)
+        guard_grad = sum(moved_from(m_guard, plain_params).values())
+        record.update(loss_guard=float(met_guard["total_loss"]),
+                      grad_plain_vs_guard=(guard_grad / dp2) ** 0.5,
+                      bn_stats_plain_vs_guard=stats_from_plain(m_guard))
+        own = (abs(record["loss_guard"] - loss_p), record["grad_plain_vs_guard"],
+               record["bn_stats_plain_vs_guard"])
+        spreads = (record["loss_plain_spread"], grad_spread, record["bn_stats_plain_spread"])
+        limits = tuple(min(2 * s, g) for s, g in zip(spreads, own))
+        del m_guard
+    for what, dist, limit in zip(("loss", "all gradients", "BatchNorm statistics"), distances, limits):
+        if dist > limit:
+            failures.append(f"{what}: kernel vs plain {dist} > {limit}")
+    record.update(limits=limits, failures=failures)
     return record, m_kernel, step_kernel
 
 
 def seeded_compares(cfg, specs, dev, seeds, calls=None, recomputed=None, rerun=False,
-                    highest_loss_only=False):
+                    highest_loss_only=False, per_parameter=True, label="train_step_compare",
+                    **kw):
     """Phase 7's protocol: one train step through the kernels against the
     same step through the plain twins (same weights, batch 2) on each of
-    ``seeds``' batches, each with its nudges from a generator of its own,
-    each parameter against the spread (``compare_train_steps`` with
-    ``per_parameter``; with ``rerun`` the spread also takes the kernel
-    step's own re-run), and three kernel steps on the batch must lower the
-    loss. The first plain step records its kernel calls into ``calls`` and
-    ``recomputed``. Every record is printed, and returned, before any is
-    checked: the failures are in each record's ``failures``."""
+    ``seeds``' batches, each with its nudges from a generator of its own
+    (``compare_train_steps``, which takes ``kw``: each parameter against
+    the spread with ``per_parameter``; with ``rerun`` the spread also takes
+    the kernel step's own re-run), and three kernel steps on the batch must
+    lower the loss. The first plain step records its kernel calls into
+    ``calls`` and ``recomputed``. Every record is printed under ``label``,
+    and returned, before any is checked: the failures are in each record's
+    ``failures``."""
     compares = []
     for i, seed in enumerate(seeds):
         seed_gen = torch.Generator(device=dev).manual_seed(seed)
         small = train_batch(seed_gen, dev, COMPARE_BATCH, TRAIN_HW)
         recording = dict(calls=calls, recomputed=recomputed) if i == 0 else {}
         compare, m_kernel, step_kernel = compare_train_steps(
-            cfg, specs, small, seed_gen, dev, per_parameter=True, rerun=rerun,
-            highest_loss_only=highest_loss_only, **recording)
+            cfg, specs, small, seed_gen, dev, per_parameter=per_parameter, rerun=rerun,
+            highest_loss_only=highest_loss_only, **recording, **kw)
         losses = [compare["loss_kernel"]] + [float(step_kernel(small)["total_loss"]) for _ in range(2)]
         if losses[-1] >= losses[0]:
             compare["failures"].append(f"three steps did not lower the loss: {losses}")
         compare.update(seed=seed, losses_three_steps=losses)
-        print(json.dumps({"train_step_compare": compare}), flush=True)
+        print(json.dumps({label: compare}), flush=True)
         compares.append(compare)
         del m_kernel, step_kernel
         torch.cuda.empty_cache()
@@ -1562,8 +1794,7 @@ def same_bits_timed(spec, sig, gen, dev, timer):
     second = second if isinstance(second, tuple) else (second,)
     same = all(torch.equal(x, y) for x, y in zip(first, second))
     check(same, f"{spec['name']} {sig}: two launches on the same inputs differ")
-    nbytes, flops = spec["cost"](sig)
-    bound = max(nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S) * 1e3
+    bound = max(bound_times(spec["cost"](sig)))
     ms = timer.ms(lambda: op(*args, **kwargs), iters=10)
     print(f"{spec['name']} {sig}: two launches bitwise identical: {same}; {ms:.4f} ms, "
           f"bound {bound:.4f} ms", flush=True)
@@ -1784,7 +2015,7 @@ def train_phases(specs, bwd_specs, gen, dev, timer, smi, data, lists):
     # 9. the train entry point on the card, then predict with its weights
     cli = cli_train_and_predict(data, lists, ["--preset", "aanet"], TRAIN_BATCH)
     print(json.dumps({"cli_train": cli}), flush=True)
-    return dict(rows=rows, launches=counts, edge_cases=edges)
+    return dict(rows=rows, launches=counts, edge_cases=edges, step=full)
 
 
 def time_steps(step, batch, metrics, dev, top):
@@ -2058,7 +2289,7 @@ def adaptive_preset_phases(presets, full_step, specs, bwd_specs, gen, dev, timer
             rows.update({sp["name"]: [measure(sp, rebatch(sig, n), k, gen, dev, timer, iters=10)
                                       for sig, k in first[sp["forward"]].items()]
                          for sp in bwd_specs})
-            steps[name] = dict(rows=rows, launches=counts, batch=n)
+            steps[name] = dict(rows=rows, launches=counts, batch=n, step=record)
         print(json.dumps({"aa_train_step": record}), flush=True)
         check(made == expected, f"{name}: plain train step made {made}, expected {expected}")
         check(not failures, f"{name} kernel vs plain train step: {failures}")
@@ -2160,6 +2391,8 @@ def checked_ops(specs, errs):
             want = spec["plain"](*args, **kwargs)
             pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
             for g, w in pairs:
+                if w is None:  # a mask-less conv's mask gradient
+                    continue
                 errs.append((spec["name"], float((g.float() - w.float()).abs().max()), spec["tol"](w)))
             return got
         return run
@@ -2400,8 +2633,7 @@ def anchor_bf16_entry_points(f32_record, smi):
     """Phase 14, continued: the trained anchor through ``evaluate
     --dtype bfloat16`` on phase 12's set (its EPE within
     ``ANCHOR_BF16_EPE`` px of phase 12's float32 EPE) and ``inference
-    --count_time --dtype bfloat16``; then ``train --dtype bfloat16``, which
-    must exit non-zero with the refusal. Returns the record."""
+    --count_time --dtype bfloat16``. Returns the record."""
     root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as tmp:
         data, lists = write_synthetic(tmp)
@@ -2422,20 +2654,253 @@ def anchor_bf16_entry_points(f32_record, smi):
             check(proc.returncode == 0, f"cli {args[0]} --dtype bfloat16 exited {proc.returncode}:\n"
                   f"{proc.stderr[-4000:]}")
             results[args[0]] = json.loads(proc.stdout.strip().splitlines()[-1])
-        refused = run("train", "--preset", "aanet", "--dtype", "bfloat16", "--data_dir", data,
-                      "--filename_root", lists, "--checkpoint_dir", os.path.join(tmp, "train"),
-                      "--device", DEVICE)
     epe16, epe32 = results["evaluate"]["epe"], f32_record["evaluate_kernel"]["epe"]
     record = dict(evaluate_bf16=results["evaluate"], evaluate_float32_epe=epe32,
                   epe_difference=abs(epe16 - epe32),
                   mean_inference_seconds_bf16=results["inference"]["mean_inference_seconds"],
-                  mean_inference_seconds_float32=f32_record["mean_inference_seconds"],
-                  train_refused_exit=refused.returncode, card=smi)
+                  mean_inference_seconds_float32=f32_record["mean_inference_seconds"], card=smi)
     print(json.dumps({"anchor_bf16_entry_points": record}), flush=True)
     check(record["epe_difference"] <= ANCHOR_BF16_EPE,
           f"anchor evaluate --dtype bfloat16: EPE {epe16}, float32 {epe32}")
-    check(refused.returncode != 0 and "NotImplementedError" in refused.stderr,
-          f"train --dtype bfloat16 exited {refused.returncode}:\n{refused.stderr[-2000:]}")
+    return record
+
+
+def bf16_training_phases(specs, bwd_specs, specs16, bwd16, gen, dev, timer, smi, f32_steps):
+    """Phase 15: bf16 training on the card. (a) One plain bf16 train step of
+    ``aanet`` and of ``aanet+`` at batch 2, 288x576, records every bf16
+    kernel call; each bf16 backward kernel is held against its twin at
+    each of those shapes (one bf16 ulp of each gradient's scale), with
+    offsets in (-16, 16) px, at ``ODD_COUTS`` output channels, mask-less
+    and at an odd stride-2 shape; the bf16 deform forward against its twin
+    at the step's shapes; two launches of the deform forward, the weight
+    gradient and the correlation backward give the same bits at every step
+    shape;
+    and one kernel step of each holds every backward kernel call against
+    its twin on the path's own inputs; a bf16 step of each other
+    correlation preset through the kernels (its float32 step's launches in
+    bf16 forms only, a finite loss and gradients). (b) The bf16 kernel
+    step against the plain bf16 step on phase 7's three seeded batches
+    (``seeded_compares`` with ``one_ulp_nudge`` and the float32 step as the
+    guard), three kernel steps lowering the loss.
+    (c) The full-width bf16 steps (batch 16) of ``aanet`` and ``aanet+``
+    with their launch counts (no float32 kernel), timed as phase 8 times
+    them, beside the float32 steps (``f32_steps``), and each bf16 backward
+    kernel against its twin at their shapes, timed. Returns, per step, the
+    bf16 backward kernels' rows and the step's launches."""
+    from aanet_torch.config import preset
+    from aanet_torch.models.layers import set_train_mode
+    from aanet_torch.train.optimizer import make_optimizer
+    from aanet_torch.train.trainer import make_train_step
+
+    torch.set_grad_enabled(True)
+    t0 = time.perf_counter()
+    all16 = specs16 + bwd16
+    by_name = {s["name"]: s for s in bwd16}
+    shapes, edges = {}, []
+    for name, expected in BF16_TRAIN_PRESETS.items():
+        cfg = dataclasses.replace(preset(name), dtype="bfloat16")
+        first = {s["name"]: collections.Counter() for s in specs16}
+        again = {s["name"]: collections.Counter() for s in specs16}
+        model = seeded_model(cfg, dev)
+        small = train_batch(gen, dev, COMPARE_BATCH, TRAIN_HW)
+        with plain_ops(specs16, first, again):
+            make_train_step(model, make_optimizer(model, 1e-3), cfg.max_disp)(small)
+        made = {n: sum(first[n].values()) + sum(again[n].values()) for n in first}
+        made.update({b["name"]: sum(first[b["forward"]].values()) for b in bwd16})
+        check(made == expected, f"{name} bf16: plain train step made {made}, expected {expected}")
+        shapes[name] = first
+        # every backward kernel call of a kernel step on the path's own inputs
+        set_train_mode(model)
+        calls_checked = []
+        with checked_ops(bwd16, calls_checked):
+            make_train_step(model, make_optimizer(model, 1e-3), cfg.max_disp)(small)
+        want = sum(v for k, v in expected.items() if "backward" in k)
+        bad = [e for e in calls_checked if e[1] > e[2]]
+        edges.append(dict(case=f"{name} bf16 step at batch 2: every backward call on its own inputs",
+                          calls=len(calls_checked), worst=max(calls_checked, key=lambda e: e[1] / e[2]
+                                                              if e[2] > 0 else e[1])))
+        check(len(calls_checked) >= want and not bad, f"{name} bf16: backward calls off their twins: {bad}")
+        del model, small
+        torch.cuda.empty_cache()
+    # the other correlation presets' bf16 steps through the kernels: their
+    # float32 steps' launches, each in its bf16 form, and no float32 kernel
+    others = {name: dict(spec, preset=name) for name, spec in (
+        ("stereonet-aa", dict(BASELINES["stereonet-aa"], highest_loss_only=False)),
+        *AA_PRESETS.items(), ("ganet-aa", PLUS_PRESETS["ganet-aa"]))}
+    for name, spec in others.items():
+        cfg = dataclasses.replace(preset(name), dtype="bfloat16")
+        expected = {f"{k}_bf16": v for k, v in spec["train_launches"].items() if v}
+        model = seeded_model(cfg, dev)
+        step = make_train_step(model, make_optimizer(model, 1e-3), cfg.max_disp,
+                               highest_loss_only=spec["highest_loss_only"])
+        small = train_batch(gen, dev, COMPARE_BATCH, TRAIN_HW)
+        reset_launches(specs + bwd_specs + all16)
+        loss = float(step(small)["total_loss"])
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in launches(all16).items() if v}
+        f32_counts = {k: v for k, v in launches(specs + bwd_specs).items() if v}
+        finite = all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+        print(f"{name} bf16 step at batch {COMPARE_BATCH}: loss {loss}, launches {counts}", flush=True)
+        edges.append(dict(case=f"{name} bf16 step at batch {COMPARE_BATCH}", loss=loss, launches=counts))
+        check(counts == expected and not f32_counts and np.isfinite(loss) and finite,
+              f"{name} bf16 step: launches {counts} (float32 kernels {f32_counts}), expected "
+              f"{expected}; loss {loss}, finite gradients {finite}")
+        del model, step, small
+        torch.cuda.empty_cache()
+    # each bf16 backward kernel at the aanet and aanet+ steps' shapes, with
+    # the path's offsets and wide ones; two launches bitwise for the weight
+    # gradient, the correlation backward and the deform forward (its split
+    # plans sum float32 slabs in a fixed order)
+    def two_launches_bitwise(spec, sig):
+        args, kwargs = spec["inputs"](sig, gen, dev)
+        op = getattr(spec["module"], spec["attr"])
+        one, two = op(*args, **kwargs), op(*args, **kwargs)
+        torch.cuda.synchronize()
+        one = one if isinstance(one, tuple) else (one,)
+        two = two if isinstance(two, tuple) else (two,)
+        same = all(torch.equal(x, y) for x, y in zip(one, two))
+        check(same, f"{spec['name']} {sig}: two launches on the same inputs differ")
+        edges.append(dict(kernel=spec["name"], case="two launches, bitwise", shape=str(sig),
+                          identical=same))
+
+    fwd16 = next(s for s in specs16 if s["name"] == "deform_conv_bf16")
+    for name, first in shapes.items():
+        for sig in first[fwd16["name"]]:
+            edges.append(dict(measure(fwd16, sig, 1, gen, dev, timer, timed=False),
+                              kernel=fwd16["name"], case=f"{name} step shape"))
+            two_launches_bitwise(fwd16, sig)
+        for spec in bwd16:
+            for sig in first[spec["forward"]]:
+                edges.append(dict(measure(spec, sig, 1, gen, dev, timer, timed=False),
+                                  kernel=spec["name"], case=f"{name} step shape"))
+                if spec["name"].startswith("deform"):
+                    wide = dict(spec, inputs=functools.partial(spec["inputs"], offsets="wide"))
+                    edges.append(dict(measure(wide, sig, 1, gen, dev, timer, timed=False),
+                                      kernel=spec["name"], case=f"{name} step shape, wide offsets"))
+                if spec["name"] in ("deform_conv_backward_weight_bf16", "correlation_backward_bf16"):
+                    two_launches_bitwise(spec, sig)
+    # phase 6b's edges: ODD_COUTS channels, mask-less with one group, an odd
+    # stride-2 shape, with narrow, wide and integer offsets
+    odd = ((2, 24, 37, 53), (24, 24, 3, 3), True, False, 2, 2, 2, 2)
+    cases = [(((2, c, 96, 192), (c, c, 3, 3), True, True, 1, 2, 2, 2 if c % 2 == 0 else 1), f"cout {c}")
+             for c in ODD_COUTS]
+    cases += [(odd, "stride 2, odd sizes"),
+              (odd[:2] + (False, False) + odd[4:7] + (1,), "stride 2, odd sizes, mask-less, G=1")]
+    for sig, case in cases:
+        for kernel in ("deform_conv_backward_data_bf16", "deform_conv_backward_weight_bf16"):
+            for offsets in ("narrow", "wide", "integer"):
+                spec = dict(by_name[kernel], inputs=functools.partial(by_name[kernel]["inputs"],
+                                                                      offsets=offsets))
+                edges.append(dict(measure(spec, sig, 1, gen, dev, timer, timed=False), kernel=kernel,
+                                  case=f"{case}, {offsets} offsets"))
+    print(json.dumps({"bf16_backward_edge_cases": edges}), flush=True)
+    t_a = time.perf_counter()
+
+    # (b) the kernel bf16 step against the plain bf16 step, the float32
+    # step the guard
+    cfg32 = preset("aanet")
+    compares = seeded_compares(dataclasses.replace(cfg32, dtype="bfloat16"), specs16, dev,
+                               COMPARE_SEEDS, per_parameter=False, label="bf16_train_step_compare",
+                               nudge=one_ulp_nudge, guard=(cfg32, specs))
+    failures = [f"seed {c['seed']}: {f}" for c in compares for f in c["failures"]]
+    check(not failures, "bf16 kernel vs plain train step: " + "; ".join(failures))
+    t_b = time.perf_counter()
+
+    # (c) the full-width bf16 steps, then each bf16 backward kernel at their shapes
+    out = {}
+    for name, expected in BF16_TRAIN_PRESETS.items():
+        cfg = dataclasses.replace(preset(name), dtype="bfloat16")
+        model = seeded_model(cfg, dev)
+        step = make_train_step(model, make_optimizer(model, 1e-3), cfg.max_disp)
+        batch = train_batch(gen, dev, TRAIN_BATCH, TRAIN_HW)
+        reset_launches(specs + bwd_specs + all16)
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        counts = launches(all16)
+        f32_counts = {k: v for k, v in launches(specs + bwd_specs).items() if v}
+        print(f"{name} bf16 train-step launches: {counts}", flush=True)
+        check(counts == expected and not f32_counts,
+              f"{name} bf16: train-step launches {counts} (float32 kernels {f32_counts}), "
+              f"expected {expected}")
+        timed = time_steps(step, batch, metrics, dev, top=15)
+        f32 = f32_steps[name]
+        record = dict(preset=name, batch=TRAIN_BATCH, height=TRAIN_HW[0], width=TRAIN_HW[1],
+                      dtype="bfloat16", remat=cfg.remat, launches=counts, card=smi, **timed,
+                      float32={k: f32[k] for k in ("batch", "step_ms", "samples_per_s",
+                                                   "peak_memory_bytes", "device_idle_share",
+                                                   "device_ms")})
+        print(f"{name} bf16 step {record['step_ms']:.4f} ms (float32 {f32['step_ms']:.4f} ms), "
+              f"peak {record['peak_memory_bytes']} B (float32 {f32['peak_memory_bytes']} B), idle "
+              f"{record['device_idle_share']:.4f} (float32 {f32['device_idle_share']:.4f}) on {smi}",
+              flush=True)
+        print(json.dumps({"bf16_train_step": record}), flush=True)
+        del model, step, batch
+        torch.cuda.empty_cache()
+        rows = {sp["name"]: [measure(sp, rebatch(sig, TRAIN_BATCH), k, gen, dev, timer, iters=10)
+                             for sig, k in shapes[name][sp["forward"]].items()] for sp in bwd16}
+        out[f"{name} bf16"] = dict(rows=rows, launches=counts, step=record)
+    print(f"phase 15: (a) {t_a - t0:.1f} s, (b) {t_b - t_a:.1f} s, (c) "
+          f"{time.perf_counter() - t_b:.1f} s", flush=True)
+    return out
+
+
+def anchor_bf16_finetune(smi):
+    """Phase 15(d): ``python -m aanet_torch.cli train --dtype bfloat16``
+    from the trained anchor on phase 12's 16 pairs for one epoch, as a user
+    runs it, beside the same epoch in float32 (in this process); then
+    ``evaluate`` of the bf16 run's checkpoint in float32 (EPE below
+    ``ANCHOR_EPE``) and with ``--dtype bfloat16``. Returns the record."""
+    from aanet_torch import cli
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        data, lists = write_synthetic(tmp)
+        model = ["--preset", "aanet", "--max_disp", str(ANCHOR_MAX_DISP), "--data_dir", data,
+                 "--filename_root", lists, "--device", DEVICE]
+        train = [*model, "--pretrained", os.path.join(root, ANCHOR), "--strict", "--img_height", "96",
+                 "--img_width", "192", "--batch_size", str(ANCHOR_FINETUNE_BATCH), "--max_epoch", "1",
+                 "--learning_rate", str(ANCHOR_FINETUNE_LR), "--milestones", "10", "--print_freq", "1",
+                 "--num_workers", "4", "--no_validate"]
+        losses, seconds = {}, {}
+        for dtype in ("bfloat16", "float32"):
+            ckpt = os.path.join(tmp, dtype)
+            args = ["train", *train, "--dtype", dtype, "--checkpoint_dir", ckpt]
+            t0 = time.perf_counter()
+            if dtype == "bfloat16":
+                proc = subprocess.run([sys.executable, "-m", "aanet_torch.cli", *args], cwd=root,
+                                      capture_output=True, text=True, timeout=600)
+                check(proc.returncode == 0,
+                      f"cli train --dtype bfloat16 exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+            else:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    cli.main(args)
+            seconds[dtype] = time.perf_counter() - t0
+            records = [json.loads(line) for line in open(os.path.join(ckpt, "metrics.jsonl"))]
+            losses[dtype] = [r["total_loss"] for r in records if r["kind"] == "train"]
+        saved = torch.load(os.path.join(tmp, "bfloat16", "aanet_latest.pt"), map_location="cpu",
+                           weights_only=True)
+        float32_state = all(t.dtype in (torch.float32, torch.int64) for t in saved["model"].values())
+        epe = {}
+        for dtype in ("float32", "bfloat16"):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                cli.main(["evaluate", *model, "--pretrained",
+                          os.path.join(tmp, "bfloat16", "aanet_latest.pt"), "--dtype", dtype,
+                          "--val_img_height", "96", "--val_img_width", "192",
+                          "--val_batch_size", "4", "--num_workers", "4",
+                          "--checkpoint_dir", os.path.join(tmp, f"eval_{dtype}")])
+            epe[dtype] = json.loads(out.getvalue().strip().splitlines()[-1])["epe"]
+    record = dict(learning_rate=ANCHOR_FINETUNE_LR, batch=ANCHOR_FINETUNE_BATCH, losses=losses,
+                  seconds=seconds, float32_checkpoint=float32_state, epe_after=epe, card=smi)
+    print(f"anchor bf16 fine-tune losses {losses['bfloat16']} (float32 {losses['float32']}); "
+          f"EPE after, evaluated in float32 {epe['float32']}, in bf16 {epe['bfloat16']}", flush=True)
+    print(json.dumps({"anchor_bf16_finetune": record}), flush=True)
+    steps = 16 // ANCHOR_FINETUNE_BATCH
+    check(len(losses["bfloat16"]) == len(losses["float32"]) == steps
+          and all(np.isfinite(losses["bfloat16"])), f"anchor bf16 fine-tune losses {losses}")
+    check(float32_state, "the bf16 run's checkpoint holds tensors that are not float32")
+    check(epe["float32"] < ANCHOR_EPE and np.isfinite(epe["bfloat16"]),
+          f"anchor after one bf16 epoch: EPE {epe}")
     return record
 
 
@@ -2610,10 +3075,21 @@ def main() -> int:
     anchor_bf16_entry_points(anchor, smi)
     print(f"phase 14 took {time.perf_counter() - t14:.1f} s", flush=True)
 
-    # 15. the record
+    # 15. bf16 training: the bf16 backward kernels, the kernel step against
+    # the plain one, the full-width steps, the train entry point from the anchor
+    t15 = time.perf_counter()
+    bwd16 = bf16_backward_specs(bwd_specs)
+    trained16 = bf16_training_phases(
+        specs, bwd_specs, specs16, bwd16, gen, dev, timer, smi,
+        {"aanet": train["step"], PLUS_FULL_STEP: plus_train[PLUS_FULL_STEP]["step"]})
+    torch.cuda.empty_cache()
+    anchor_bf16_finetune(smi)
+    print(f"phase 15 took {time.perf_counter() - t15:.1f} s", flush=True)
+
+    # 16. the record
     kernels = kernels_record(specs + bwd_specs, report, counts_main, train,
                              {**baselines, **aa, **plus}, {**baseline_train, **aa_train, **plus_train})
-    kernels += kernels_record(specs16, [], {}, None, served, {})
+    kernels += kernels_record(specs16 + bwd16, [], {}, None, served, trained16)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

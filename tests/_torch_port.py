@@ -200,3 +200,16 @@ def check_psmnet_train_step(aggregation, maps):
         metrics = compare_train_step(JaxModelConfig(**flags), ModelConfig(**flags), (256, 256), 1)
     assert len(spy.call_args.args[0]) == maps
     assert float(metrics["total_loss"]) > 0
+
+
+def output_rounding_hooks(model):
+    """Forward hooks that round each conv's, BatchNorm's and deformable
+    conv's output to bf16 values (the offset heads' excepted): with no
+    compute dtype installed, the rounding control of the bf16 tests,
+    layers that compute in float32 and round only their outputs."""
+    from aanet_torch.models.layers import ConvTranspose, DeformConv2dLayer, Norm
+
+    names = {m: n for n, m in model.named_modules()}
+    kinds = (torch.nn.Conv2d, ConvTranspose, Norm, DeformConv2dLayer)
+    return [m.register_forward_hook(lambda mod, inputs, out: out.to(torch.bfloat16).float())
+            for m in model.modules() if isinstance(m, kinds) and "offset" not in names[m]]

@@ -65,7 +65,7 @@ from aanet_torch.ops import cost_volume, deform, softargmin, warp
 from aanet_torch.ops.precision import canonical_dtype, compute_dtype, precision
 from aanet_torch.train.trainer import Trainer
 
-from _torch_port import calibrate_bn_, load_flax, nchw, random_variables
+from _torch_port import calibrate_bn_, load_flax, nchw, output_rounding_hooks, random_variables
 
 BF16 = torch.bfloat16
 CUT = dict(max_disp=48, num_fusions=2, num_deform_blocks=1)
@@ -331,15 +331,28 @@ def test_bf16_policy_dtypes(name, hw, overrides, maps):
     assert all(op.launches == op.launches_bf16 == 0 for op in ops.KERNEL_OPS[:4])
 
 
-def _output_rounding_hooks(model):
-    """Forward hooks that round each conv's, BatchNorm's and deformable
-    conv's output to bf16 values (the offset heads' excepted): with no
-    compute dtype installed, the stage-level rounding control, layers that
-    compute in float32 and round only their outputs."""
-    names = {m: n for n, m in model.named_modules()}
-    kinds = (torch.nn.Conv2d, ConvTranspose, Norm, DeformConv2dLayer)
-    return [m.register_forward_hook(lambda mod, inputs, out: out.to(BF16).float())
-            for m in model.modules() if isinstance(m, kinds) and "offset" not in names[m]]
+@pytest.mark.parametrize("name,hw,overrides,maps", POLICY_CASES, ids=[c[0] for c in POLICY_CASES])
+def test_bf16_train_step_of_each_preset(name, hw, overrides, maps):
+    """One bf16 train step of each preset (``gcnet-aa`` with the final map's
+    loss only, as it trains in float32 too): a finite float32 loss, float32
+    parameters, gradients and statistics, and an update that moves the
+    parameters; the CPU launches no kernel."""
+    from aanet_torch.train.optimizer import make_optimizer
+    from aanet_torch.train.trainer import make_train_step
+
+    model = dataclasses.replace(preset(name), dtype="bfloat16", **overrides).build()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    left, right = (nchw(x) for x in _pair(hw=hw))
+    batch = dict(left=left, right=right,
+                 disp=torch.from_numpy(np.random.RandomState(1).uniform(1, 20, (1, *hw)).astype(np.float32)))
+    step = make_train_step(model, make_optimizer(model, 1e-3), model.max_disp,
+                           highest_loss_only=name == "gcnet-aa")
+    loss = step(batch)["total_loss"]
+    assert loss.dtype == torch.float32 and bool(torch.isfinite(loss)) and float(loss) > 0
+    assert all(p.dtype == p.grad.dtype == torch.float32 for p in model.parameters())
+    assert all(t.dtype in (torch.float32, torch.int64) for t in model.buffers())
+    assert any(not torch.equal(p, before[n]) for n, p in model.named_parameters())
+    assert all(op.launches == op.launches_bf16 == 0 for op in ops.KERNEL_OPS[:4] + ops.BACKWARD_OPS[:5])
 
 
 @pytest.fixture(scope="module", params=["aanet", "aanet+"])
@@ -348,7 +361,7 @@ def stages(request):
     pair (``_torch_port.calibrate_bn_``). Per stage (features, aggregation,
     refinement): the port's bf16 output, the JAX stage's bf16 output, the
     port's float32 output on the same (bf16-valued) input, and the rounding
-    control's (``_output_rounding_hooks``)."""
+    control's (``_torch_port.output_rounding_hooks``)."""
     name = request.param
     left, right = _pair()
     jmodel = dataclasses.replace(jax_preset(name), **CUT).build()
@@ -380,7 +393,7 @@ def stages(request):
     runs = {}
     for run, model, dt in (("bf16", p16, BF16), ("float32", port, None), ("control", port, None)):
         cast = (lambda x: t(x).to(dt)) if dt else t  # noqa: E731
-        handles = _output_rounding_hooks(model) if run == "control" else []
+        handles = output_rounding_hooks(model) if run == "control" else []
         with torch.no_grad(), precision(dt):
             runs[run] = (model._features(cast(images)), model.aggregation([cast(v) for v in vols]),
                          model._refine(cast(images[:1]), cast(images[1:]), low))
@@ -465,25 +478,38 @@ def test_trained_anchor_in_bf16_matches_jax():
 
 
 # ---------------------------------------------------------------------------
-# What bf16 does not run yet: training, the 4-D volumes, the backwards
+# bf16 training (its step against JAX's: tests/test_torch_bf16_train.py), the
+# backwards' dtypes, and what bf16 does not run yet: the 4-D volumes
 # ---------------------------------------------------------------------------
 
 
 def test_bf16_training_is_refused(tmp_path):
+    """bf16 trains now (the name is the refusal's it replaced): the cut
+    model's forward in training mode gives a float32 pyramid whose loss
+    reaches every parameter with a float32 gradient, ``Trainer`` takes a
+    bf16 config, and ``train --dtype bfloat16`` takes its step and writes
+    a float32 checkpoint."""
     cfg = dataclasses.replace(preset("aanet"), dtype="bfloat16", **CUT)
     model = cfg.build()  # training mode, as modules start
-    left, right = (nchw(x) for x in _pair())
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        model(left, right)
+    left, right = (nchw(x) for x in _pair(hw=(48, 96)))
+    pyramid = model(left, right)
+    assert all(p.dtype == torch.float32 and bool(torch.isfinite(p).all()) for p in pyramid)
+    sum(p.mean() for p in pyramid).backward()
+    assert all(p.grad is not None and p.grad.dtype == torch.float32 for p in model.parameters())
     train_cfg = Config(model=cfg)
     train_cfg.train.checkpoint_dir = str(tmp_path / "run")
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        Trainer(train_cfg, steps_per_epoch=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        cli.main(["train", "--dtype", "bfloat16", "--data_dir", str(tmp_path / "none"),
-                  "--checkpoint_dir", str(tmp_path / "cli"), *map(str, _cut_flags()),
-                  "--device", "cpu"])
-    assert not os.path.exists(tmp_path / "cli")  # refused before anything was written
+    assert Trainer(train_cfg, steps_per_epoch=1, device="cpu").model.dtype == BF16
+    data, lists = chip_smoke.write_synthetic(str(tmp_path / "set"), pairs=2, hw=(48, 96))
+    ckpt = tmp_path / "cli"
+    cli.main(["train", "--dtype", "bfloat16", "--data_dir", data, "--filename_root", lists,
+              "--checkpoint_dir", str(ckpt), "--img_height", "48", "--img_width", "96",
+              "--batch_size", "2", "--max_epoch", "1", "--num_workers", "0", "--milestones", "10",
+              "--print_freq", "1", "--no_validate", *map(str, _cut_flags()), "--device", "cpu"])
+    records = [json.loads(line) for line in open(ckpt / "metrics.jsonl")]
+    assert [r["step"] for r in records] == [1] and np.isfinite(records[0]["total_loss"])
+    saved = torch.load(ckpt / "aanet_latest.pt", weights_only=True)
+    assert saved["model"] and all(t.dtype in (torch.float32, torch.int64) for t in saved["model"].values())
+    assert json.loads(open(ckpt / "args.json").read())["model"]["dtype"] == "bfloat16"
 
 
 def _cut_flags():
@@ -504,25 +530,39 @@ def test_bf16_with_a_4d_volume_is_refused(flags):
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
 def test_backward_wrappers_refuse_bf16(device):
-    """Each backward wrapper refuses bf16 before it looks at the device
-    (the meta device stands for the card: no kernel and no twin runs)."""
+    """Each backward wrapper takes bf16 now (the name is the refusal's it
+    replaced). On the CPU (the plain twins) each gradient comes in its
+    primal's dtype: the deformable conv's x, mask and weight gradients
+    bf16 and its offsets' float32, the correlation's bf16, soft-argmin's
+    volume gradient bf16, the warp's disparity gradient float32. On a
+    device that is neither the CPU nor CUDA (the meta device) each raises
+    before any kernel launches."""
     t = lambda *s: torch.zeros(s, dtype=BF16, device=device)  # noqa: E731
     f32 = lambda *s: torch.zeros(s, device=device)  # noqa: E731
     kw = dict(padding=2, dilation=2, deformable_groups=2)
     calls = [
-        lambda: deform.modulated_deform_conv2d_backward_data(
+        (lambda: deform.modulated_deform_conv2d_backward_data(
             t(1, 3, 5, 6), t(1, 4, 5, 6), f32(1, 36, 5, 6), t(1, 18, 5, 6), t(3, 4, 3, 3), **kw),
-        lambda: deform.modulated_deform_conv2d_backward_weight(
+         (BF16, torch.float32, BF16)),
+        (lambda: deform.modulated_deform_conv2d_backward_weight(
             t(1, 3, 5, 6), t(1, 4, 5, 6), f32(1, 36, 5, 6), t(1, 18, 5, 6), t(3, 4, 3, 3), **kw),
-        lambda: cost_volume.correlation_cost_volume_backward(t(1, 4, 4, 9), t(1, 3, 4, 9),
-                                                             t(1, 3, 4, 9)),
-        lambda: softargmin.soft_argmin_backward(f32(1, 2, 3), t(1, 5, 2, 3)),
-        lambda: warp.disp_warp_backward(t(1, 2, 3, 8), t(1, 2, 3, 8), f32(1, 3, 8)),
+         (BF16,)),
+        (lambda: cost_volume.correlation_cost_volume_backward(t(1, 4, 4, 9), t(1, 3, 4, 9),
+                                                              t(1, 3, 4, 9)), (BF16, BF16)),
+        (lambda: softargmin.soft_argmin_backward(f32(1, 2, 3), t(1, 5, 2, 3)), (BF16,)),
+        (lambda: warp.disp_warp_backward(t(1, 2, 3, 8), t(1, 2, 3, 8), f32(1, 3, 8)),
+         (torch.float32,)),
     ]
     assert len(calls) == len(ops.BACKWARD_OPS) - 2  # all but the float32-only 4-D volumes'
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="bfloat16 has no backward"):
-            call()
+    for call, dtypes in calls:
+        if device == "cpu":
+            out = call()
+            out = out if isinstance(out, tuple) else (out,)
+            assert tuple(g.dtype for g in out) == dtypes
+        else:
+            with pytest.raises(ValueError, match="the kernel takes CUDA tensors"):
+                call()
+    assert all(op.launches == op.launches_bf16 == 0 for op in ops.BACKWARD_OPS[:5])
     assert all(op.launches == 0 for op in ops.BACKWARD_OPS)
 
 

@@ -396,9 +396,9 @@ def test_backward_weight_constants_are_the_kernels(name):
     found = re.findall(rf"constexpr int {name} = (\d+);", source)
     assert found == [str(getattr(deform, name))]
     if name == "WG_MAX_THREADS":
-        assert ("template <int STEP_H, int BLOCKS>\n__global__ void __launch_bounds__("
+        assert ("template <int STEP_H, int BLOCKS, typename T>\n__global__ void __launch_bounds__("
                 "WG_MAX_THREADS, BLOCKS)\ndeform_wgrad_kernel") in source
-        built = set(re.findall(r"deform_wgrad_kernel<(\d+), (\d+)>", source))
+        built = set(re.findall(r"deform_wgrad_kernel<(\d+), (\d+), T>", source))
         assert built == {(str(s), str(b)) for s in deform.WG_STEP_H for b in deform.WG_BUILDS}
 
 
