@@ -125,8 +125,7 @@ def launch(name: str, symbol: str, argtypes, *args) -> None:
 
 # The value types the kernels take, each the suffix of its C entry points
 # (``aanet_deform_conv_f32``, ``aanet_deform_conv_bf16``,
-# ``aanet_softargmin_backward_bf16``, ...); the 4-D volumes take float32
-# only
+# ``aanet_softargmin_backward_bf16``, ...)
 FORMS = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 

@@ -62,11 +62,10 @@ class ModelConfig:
         as ``nn.Module``s start; call ``.eval()`` for inference).
 
         Raises ``NotImplementedError`` for what the port does not run: a
-        dtype other than float32 and bfloat16, bfloat16 with a difference
-        or concat volume (their bf16 forms are not ported yet), unknown
-        stage types, and the combinations of flags whose cost volume and
-        aggregation do not fit each other (the JAX composer fails on them
-        too). A bfloat16 model serves and trains."""
+        dtype other than float32 and bfloat16, unknown stage types, and the
+        combinations of flags whose cost volume and aggregation do not fit
+        each other (the JAX composer fails on them too). A bfloat16 model
+        serves and trains, with any cost volume."""
         refused = [
             (self.feature_type not in ("aanet", "stereonet", "psmnet", "ganet", "gcnet"),
              f"feature_type={self.feature_type!r}: unknown extractor"),
@@ -85,10 +84,6 @@ class ModelConfig:
                        or self.feature_pyramid_network)
         volume_4d = self.feature_similarity in ("difference", "concat")
         refused += [
-            (self.dtype == "bfloat16" and volume_4d,
-             f"dtype='bfloat16' with feature_similarity={self.feature_similarity!r}: the "
-             "difference and concat volumes' bf16 forms are not ported yet (a later "
-             "slice); run the 3-D networks in float32"),
             (self.feature_similarity not in ("correlation", "difference", "concat"),
              f"feature_similarity={self.feature_similarity!r}: unknown cost volume"),
             ((self.feature_type == "aanet") != bool(self.feature_pyramid_network),

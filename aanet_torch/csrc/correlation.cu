@@ -32,7 +32,9 @@ namespace {
 // volume (75 MB): 0.113 ms at 3.35 TB/s; the 2.0 G FMAs of the band take
 // 0.060 ms at 67 TFLOP/s. The step's three scales: 0.113, 0.025 and 0.006
 // ms; the inference forward's ([1, 128, 128, 416], D = 64, and its halves):
-// 0.020, 0.005 and 0.001 ms.
+// 0.020, 0.005 and 0.001 ms. (The float32 form does its FMAs in float64,
+// at half that rate: 0.120 ms at the largest shape, past the bytes; the
+// bound is the function's, in float32.)
 //
 // Design: a block owns a row tile of `tw` columns of one (b, h) and all D
 // disparities, so no FMA is spent on d >= D beyond the last disparity
@@ -56,12 +58,27 @@ namespace {
 // forward_plan; the kernel refuses a plan whose shared memory is not its
 // layout's.
 //
+// The float32 form sums in float64: a product of two floats is exact in
+// float64, and C of them (C < 2^20) add with a relative error below
+// C * 2^-53, so the mean, C's float64 sum times 1 / C (both float64),
+// rounds to float32 once and is the correctly rounded mean wherever it
+// lies farther than that error from a tie between two floats. The plain
+// version with `exact` (ops/cost_volume.py correlation_cost_volume_plain)
+// computes the same float64 mean, so the two agree to the bit but at such
+// ties and a kernel train step's forward equals the plain step's here:
+// float32 sums in either order differ by an ulp or two, enough for some
+// gradients of the step to change branch. The float64 tile takes twice
+// the registers: the float32 form's blocks run one an SM
+// (CORR_F32_MIN_BLOCKS), its FMAs at half the float32 rate, and its ksplit
+// groups pass their float64 tiles through the partial space in two
+// halves.
+//
 // The bf16 form (T = bf16: L, R and the volume in bfloat16) is the same
 // kernel: L and R are widened to float32 where they are staged (a load and
 // a store, four values at a time where the width allows it: cp.async
-// copies bytes and cannot widen them), so the plan, the shared-memory
-// layout, the float32 products and the float32 sums of the ksplit groups
-// are the float32 form's; the mean over C is rounded to bf16 once, where
+// copies bytes and cannot widen them), so the plan and the shared-memory
+// layout are the float32 form's; it sums in float32 (products and the
+// ksplit groups' sums), and the mean over C is rounded to bf16 once, where
 // it is stored. Its global traffic is half the float32 form's.
 // ---------------------------------------------------------------------------
 
@@ -90,6 +107,14 @@ constexpr int FWD_CW = 4;             // columns of a thread's register tile
 constexpr int FWD_LX = 8;             // neighbouring column groups of a warp
 constexpr int FWD_MAX_THREADS = 256;  // __launch_bounds__: the largest block,
 constexpr int FWD_MIN_BLOCKS = 2;     // and the blocks of that size an SM holds
+constexpr int CORR_F32_MIN_BLOCKS = 1;  // the float32 form's: its float64 tile
+
+// The forward's sums: float64 for float32 values, float32 for bf16.
+template <typename T>
+using corr_acc_t = typename std::conditional<is_bf16<T>, float, double>::type;
+
+__device__ __forceinline__ float acc_fma(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double acc_fma(double a, double b, double c) { return fma(a, b, c); }
 
 // Words of the forward's shared memory: two buffers of a chunk's left tile
 // [chunk][tw] and right window [chunk][tw + dtot]; the ksplit - 1 partial
@@ -101,7 +126,7 @@ inline int fwd_smem_words(int tw, int dtot, int chunk, int ksplit) {
 }
 
 template <int DD, typename T>
-__global__ void __launch_bounds__(FWD_MAX_THREADS, FWD_MIN_BLOCKS)
+__global__ void __launch_bounds__(FWD_MAX_THREADS, is_bf16<T> ? FWD_MIN_BLOCKS : CORR_F32_MIN_BLOCKS)
 corr_fwd_kernel(const T* __restrict__ left, const T* __restrict__ right,
                 T* __restrict__ out, int channels, int height, int width, int max_disp,
                 int tw, int ny, int ksplit, int chunk, bool vec) {
@@ -158,11 +183,12 @@ corr_fwd_kernel(const T* __restrict__ left, const T* __restrict__ right,
     }
   };
 
-  float acc[FWD_CW][DD];
+  using Acc = corr_acc_t<T>;
+  Acc acc[FWD_CW][DD];
 #pragma unroll
   for (int i = 0; i < FWD_CW; ++i) {
 #pragma unroll
-    for (int j = 0; j < DD; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < DD; ++j) acc[i][j] = 0;
   }
 
   const int nchunks = (channels + chunk - 1) / chunk;
@@ -200,48 +226,65 @@ corr_fwd_kernel(const T* __restrict__ left, const T* __restrict__ right,
 #pragma unroll
       for (int i = 0; i < FWD_CW; ++i) {
 #pragma unroll
-        for (int j = 0; j < DD; ++j) acc[i][j] = fmaf(l[i], r[i - j + DD], acc[i][j]);
+        for (int j = 0; j < DD; ++j) {
+          acc[i][j] = acc_fma(static_cast<Acc>(l[i]), static_cast<Acc>(r[i - j + DD]), acc[i][j]);
+        }
       }
     }
     __syncthreads();
   }
 
   if (ksplit > 1) {  // the buffers are free: every thread passed the last barrier
-    float* part = smem + t;
-    if (k > 0) {
+    // the groups' tiles pass through the partial space in PASSES parts of
+    // CPP columns each (float64 tiles take two words a value)
+    constexpr int PASSES = sizeof(Acc) / sizeof(float), CPP = FWD_CW / PASSES;
+    Acc* part = reinterpret_cast<Acc*>(smem) + t;
 #pragma unroll
-      for (int i = 0; i < FWD_CW; ++i) {
+    for (int pass = 0; pass < PASSES; ++pass) {
+      if (pass > 0) __syncthreads();  // group 0 has read the last part
+      if (k > 0) {
 #pragma unroll
-        for (int j = 0; j < DD; ++j) part[((k - 1) * FWD_CW * DD + i * DD + j) * group] = acc[i][j];
+        for (int i = 0; i < CPP; ++i) {
+#pragma unroll
+          for (int j = 0; j < DD; ++j) {
+            part[((k - 1) * CPP * DD + i * DD + j) * group] = acc[pass * CPP + i][j];
+          }
+        }
+      }
+      __syncthreads();
+      if (k == 0) {
+        for (int kk = 1; kk < ksplit; ++kk) {
+#pragma unroll
+          for (int i = 0; i < CPP; ++i) {
+#pragma unroll
+            for (int j = 0; j < DD; ++j) {
+              acc[pass * CPP + i][j] += part[((kk - 1) * CPP * DD + i * DD + j) * group];
+            }
+          }
+        }
       }
     }
-    __syncthreads();
     if (k > 0) return;
-    for (int kk = 1; kk < ksplit; ++kk) {
-#pragma unroll
-      for (int i = 0; i < FWD_CW; ++i) {
-#pragma unroll
-        for (int j = 0; j < DD; ++j) acc[i][j] += part[((kk - 1) * FWD_CW * DD + i * DD + j) * group];
-      }
-    }
   }
 
   const int w = w0 + FWD_CW * x;
   if (w >= width) return;
   T* ob = out + b * max_disp * plane + static_cast<long long>(h) * width + w;
-  const float inv_c = 1.f / static_cast<float>(channels);
+  const Acc inv_c = Acc(1) / static_cast<Acc>(channels);
 #pragma unroll
   for (int j = 0; j < DD; ++j) {
     const int d = y * DD + j;
     if (d < max_disp) {
       T* o = ob + d * plane;
+      float m[FWD_CW];  // the means, each rounded to float32 once
+#pragma unroll
+      for (int i = 0; i < FWD_CW; ++i) m[i] = static_cast<float>(acc[i][j] * inv_c);
       if (vec) {
-        store4_f32(o, make_float4(acc[0][j] * inv_c, acc[1][j] * inv_c, acc[2][j] * inv_c,
-                                  acc[3][j] * inv_c));
+        store4_f32(o, make_float4(m[0], m[1], m[2], m[3]));
       } else {
 #pragma unroll
         for (int i = 0; i < FWD_CW; ++i) {
-          if (w + i < width) store_f32(o + i, acc[i][j] * inv_c);
+          if (w + i < width) store_f32(o + i, m[i]);
         }
       }
     }

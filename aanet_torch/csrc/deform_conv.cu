@@ -211,12 +211,10 @@ __device__ __forceinline__ void sample_quad(float* col, int rs, float4 te, const
 //   at the end.
 // - Where the tiles are short of two waves of resident blocks, the plan
 //   splits the chunks over `splits` blocks (whole groups each, a few
-//   chunks at least); they add their sums into the zeroed output with
-//   16-byte atomicAdd, and split 0 adds the bias. The order of those adds
-//   varies from launch to launch, so wherever the plan splits, the output
-//   is not bit-reproducible (a recomputed forward under checkpointing may
-//   differ in its last bits); where splits == 1 it is. (The bf16 form
-//   stores each split's sums in a slab of its own instead: below.)
+//   chunks at least). Each split stores its float32 sums in a slab of its
+//   own ([splits, B, cout, Ho, Wo]; split 0 adds the bias), and
+//   slab_sum_kernel adds the slabs in a fixed order into the output: no
+//   atomics, so every launch gives the same bits, split or not.
 // Designs that lost on the card (PERF.md section 6): chunks of 8 (less
 // occupancy), and the next chunk sampled while this one is contracted
 // from a second column tile (more shared memory, fewer resident blocks).
@@ -231,12 +229,9 @@ __device__ __forceinline__ void sample_quad(float* col, int rs, float4 te, const
 // loads of those values halve. Staged by a load and a store (cp.async
 // copies bytes, it cannot widen them), the next chunk's window and weights
 // are not in flight behind the current chunk's work as the float32
-// form's are. The output (TO) is rounded to bf16 once, where it is
-// stored; where the plan splits the chunks over blocks, each split stores
-// its float32 partial sums (TO = float) in a slab of its own, and
-// slab_sum_kernel sums the slabs in a fixed order and rounds the sum into
-// the output: no partial sum is rounded, and the output is
-// bit-reproducible.
+// form's are. The output is rounded to bf16 once, where it is stored, or,
+// where the plan splits, where slab_sum_kernel stores the slabs' float32
+// sum: no partial sum is rounded.
 // ---------------------------------------------------------------------------
 namespace {
 
@@ -457,17 +452,6 @@ deform_fwd_kernel(const T* __restrict__ x, const float* __restrict__ offset,
       TO* o = oc + ho * out_w + wo;
       const float v[4] = {acc[4 * h][j] + bv, acc[4 * h + 1][j] + bv, acc[4 * h + 2][j] + bv,
                           acc[4 * h + 3][j] + bv};
-      if constexpr (!is_bf16<TO>) {  // split plans add into a float32 output
-        if (splits > 1 && slab == 0 && out_vec && wo + 3 < out_w) {
-          atomicAdd(reinterpret_cast<float4*>(o), make_float4(v[0], v[1], v[2], v[3]));
-          continue;
-        } else if (splits > 1 && slab == 0) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            if (wo + i < out_w) atomicAdd(o + i, v[i]);
-          continue;
-        }
-      }
       if (out_vec && wo + 3 < out_w) {
         store4_f32(o, make_float4(v[0], v[1], v[2], v[3]));
       } else {
@@ -479,32 +463,12 @@ deform_fwd_kernel(const T* __restrict__ x, const float* __restrict__ offset,
   }
 }
 
-// float32 sums rounded to bfloat16 once: the bf16 forms' epilogue where
-// blocks add their partial sums into a float32 scratch (a split forward
-// plan, the backward-data kernel's scatter).
-__global__ void round_to_bf16_kernel(const float* __restrict__ in, bf16* __restrict__ out,
-                                     long long n) {
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    out[i] = __float2bfloat16_rn(in[i]);
-  }
-}
-
-// float32 sums rounded into n bfloat16 values once (no-op for n == 0).
-int round_into_bf16(const float* sums, bf16* out, long long n, cudaStream_t s) {
-  if (n == 0) return 0;
-  const int threads = 256;
-  const long long blocks = (n + threads - 1) / threads;
-  round_to_bf16_kernel<<<static_cast<unsigned int>(blocks < 65535 * 8 ? blocks : 65535 * 8),
-                         threads, 0, s>>>(sums, out, n);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // out[e] = the sum of the slabs' entries e in a fixed order, rounded once
 // where TO is bf16: thread (x, y) of a block sums slabs y, y + blockDim.y,
 // ... of entry 32 b + x in slab order, then row 0 adds the blockDim.y
-// partial sums in row order. The epilogue of the weight gradient and of a
-// bf16 split forward: bit-reproducible, where atomic adds are not.
+// partial sums in row order. The epilogue of the weight gradient, of a
+// split forward, and of the backward-data kernel's offset and mask slabs:
+// bit-reproducible, where atomic adds are not.
 template <typename TO>
 __global__ void __launch_bounds__(1024)
 slab_sum_kernel(const float* __restrict__ ws, TO* __restrict__ out, int slabs, long long n) {
@@ -549,7 +513,7 @@ int launch_deform_fwd(const T* x, const float* offset, long long offset_bstride,
       threads % 32 != 0 || threads > FWD_MAX_THREADS) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (is_bf16<TO> && splits > 1) return static_cast<int>(cudaErrorInvalidValue);  // adds need float32
+  if (splits > 1 && slab == 0) return static_cast<int>(cudaErrorInvalidValue);  // a split needs its slab
   const int co_tiles = (cout + co_tile - 1) / co_tile;
   if (wt_stride % 4 != 0 || wt_stride < co_tiles * co_tile) {
     return static_cast<int>(cudaErrorInvalidValue);  // the weight's rows are not the tiles'
@@ -581,50 +545,16 @@ int launch_deform_fwd(const T* x, const float* offset, long long offset_bstride,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// x: [batch, cin, height, width]; offset: [batch, groups*kh*kw*2, out_h,
-// out_w] with batch stride offset_bstride (elements), the rest contiguous;
-// mask: [batch, groups*kh*kw, out_h, out_w] likewise, or null; wt: the
-// weight laid out [kh*kw, cin, cout] (wt[k, c, co] = weight[co, c, k / kw,
-// k % kw], rows of wt_stride channels: the output channels padded with
-// zeros to a whole number of tiles); bias: [cout] or null; out: [batch,
-// cout, out_h, out_w], zeroed by the caller when splits > 1 (blocks add
-// into it); wt and out 16-byte aligned. All float32; groups divides cin.
-// The plan (ops/deform.py forward_plan): tile_h (output rows of a tile of
-// 16 columns, even), co_tile (output channels of a block: a multiple of 8,
-// at most 128; the grid takes ceil(cout / co_tile) tiles, and the last
-// one's channels at or above cout are idle), wt_stride (a multiple of 4, at
-// least the tiles' channels), ksplit (thread groups that split a chunk's rows), splits
-// (blocks that split a tile's chunks, at most their number), and
-// smem_bytes, the block's shared memory, which must be what this layout
-// takes. Anything else is cudaErrorInvalidValue.
-extern "C" int aanet_deform_conv_f32(
-    const float* x, const float* offset, long long offset_bstride, const float* mask,
-    long long mask_bstride, const float* wt, const float* bias, float* out, int batch, int cin,
-    int height, int width, int cout, int out_h, int out_w, int kh, int kw, int stride, int pad,
-    int dil, int groups, int tile_h, int co_tile, int wt_stride, int ksplit, int splits,
-    int smem_bytes, int device, void* stream) {
-  cudaSetDevice(device);
-  return launch_deform_fwd(x, offset, offset_bstride, mask, mask_bstride, wt, bias, out, batch,
-                           cin, height, width, cout, out_h, out_w, kh, kw, stride, pad, dil,
-                           groups, tile_h, co_tile, wt_stride, ksplit, splits, 0LL, smem_bytes,
-                           static_cast<cudaStream_t>(stream));
-}
-
-// The bf16 form: x, mask, wt and out bfloat16 (wt and out 16-byte aligned),
-// offset and bias float32, the rest as aanet_deform_conv_f32's. Where
-// splits > 1 each split stores its partial sums in its slab of sums
-// (float32 [splits, batch, cout, out_h, out_w], 16-byte aligned, every
-// entry written: no zeroing), and a second kernel sums the slabs in a
-// fixed order and rounds the sum into out once: bit-reproducible. Else
-// sums is not used (may be null).
-extern "C" int aanet_deform_conv_bf16(
-    const bf16* x, const float* offset, long long offset_bstride, const bf16* mask,
-    long long mask_bstride, const bf16* wt, const float* bias, bf16* out, float* sums, int batch,
-    int cin, int height, int width, int cout, int out_h, int out_w, int kh, int kw, int stride,
-    int pad, int dil, int groups, int tile_h, int co_tile, int wt_stride, int ksplit,
-    int splits, int smem_bytes, int device, void* stream) {
+// Both forms' entry: where splits > 1 each split stores its partial sums
+// in its slab of sums, and sum_slabs adds the slabs into out in a fixed
+// order (rounding once where T is bf16).
+template <typename T>
+int deform_fwd_entry(const T* x, const float* offset, long long offset_bstride, const T* mask,
+                     long long mask_bstride, const T* wt, const float* bias, T* out, float* sums,
+                     int batch, int cin, int height, int width, int cout, int out_h, int out_w,
+                     int kh, int kw, int stride, int pad, int dil, int groups, int tile_h,
+                     int co_tile, int wt_stride, int ksplit, int splits, int smem_bytes,
+                     int device, void* stream) {
   cudaSetDevice(device);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (splits <= 1) {
@@ -641,6 +571,52 @@ extern "C" int aanet_deform_conv_bf16(
                                     n, smem_bytes, st);
   if (err != 0) return err;
   return sum_slabs(sums, out, splits, n, st);
+}
+
+}  // namespace
+
+// x: [batch, cin, height, width]; offset: [batch, groups*kh*kw*2, out_h,
+// out_w] with batch stride offset_bstride (elements), the rest contiguous;
+// mask: [batch, groups*kh*kw, out_h, out_w] likewise, or null; wt: the
+// weight laid out [kh*kw, cin, cout] (wt[k, c, co] = weight[co, c, k / kw,
+// k % kw], rows of wt_stride channels: the output channels padded with
+// zeros to a whole number of tiles); bias: [cout] or null; out: [batch,
+// cout, out_h, out_w]; sums: where splits > 1, [splits, batch, cout,
+// out_h, out_w], every entry written (no zeroing), else unused (may be
+// null); wt, out and sums 16-byte aligned. All float32; groups divides
+// cin. The plan (ops/deform.py forward_plan): tile_h (output rows of a
+// tile of 16 columns, even), co_tile (output channels of a block: a
+// multiple of 8, at most 128; the grid takes ceil(cout / co_tile) tiles,
+// and the last one's channels at or above cout are idle), wt_stride (a
+// multiple of 4, at least the tiles' channels), ksplit (thread groups that
+// split a chunk's rows), splits (blocks that split a tile's chunks, at
+// most their number), and smem_bytes, the block's shared memory, which
+// must be what this layout takes. Anything else is cudaErrorInvalidValue.
+extern "C" int aanet_deform_conv_f32(
+    const float* x, const float* offset, long long offset_bstride, const float* mask,
+    long long mask_bstride, const float* wt, const float* bias, float* out, float* sums,
+    int batch, int cin, int height, int width, int cout, int out_h, int out_w, int kh, int kw,
+    int stride, int pad, int dil, int groups, int tile_h, int co_tile, int wt_stride, int ksplit,
+    int splits, int smem_bytes, int device, void* stream) {
+  return deform_fwd_entry(x, offset, offset_bstride, mask, mask_bstride, wt, bias, out, sums,
+                          batch, cin, height, width, cout, out_h, out_w, kh, kw, stride, pad,
+                          dil, groups, tile_h, co_tile, wt_stride, ksplit, splits, smem_bytes,
+                          device, stream);
+}
+
+// The bf16 form: x, mask, wt and out bfloat16 (wt and out 16-byte aligned),
+// offset, bias and sums float32 (the slabs' sum is rounded into out once),
+// the rest as aanet_deform_conv_f32's.
+extern "C" int aanet_deform_conv_bf16(
+    const bf16* x, const float* offset, long long offset_bstride, const bf16* mask,
+    long long mask_bstride, const bf16* wt, const float* bias, bf16* out, float* sums, int batch,
+    int cin, int height, int width, int cout, int out_h, int out_w, int kh, int kw, int stride,
+    int pad, int dil, int groups, int tile_h, int co_tile, int wt_stride, int ksplit,
+    int splits, int smem_bytes, int device, void* stream) {
+  return deform_fwd_entry(x, offset, offset_bstride, mask, mask_bstride, wt, bias, out, sums,
+                          batch, cin, height, width, cout, out_h, out_w, kh, kw, stride, pad,
+                          dil, groups, tile_h, co_tile, wt_stride, ksplit, splits, smem_bytes,
+                          device, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -660,14 +636,52 @@ extern "C" int aanet_deform_conv_bf16(
 // Bound: operations (the gcol contraction has the forward's FLOP count,
 // plus the sampling work of every (channel, tap, pixel)). What costs is
 // the scatter, 4 adds per (channel, tap, pixel), 36 per input element at
-// stride 1, and latency: a float atomicAdd to device memory is a reduction
-// in L2 at about 0.15 T adds/s on the H100; one to shared memory compiles
-// to a compare-and-swap loop (ATOMS.CAST.SPIN) that runs at about 2.1 T
-// adds/s when many warps hide its latency. Even so the window's adds are
-// about 40 % of this kernel's time (1.7 of 4.2 ms at the 64-channel
-// 96x192 shape at two blocks per SM; PERF.md section 6 has the
-// measurements); issuing a quad's four compare-and-swaps together, by
-// hand, was slower. Design:
+// stride 1, and latency.
+//
+// Determinism: grad_x is summed in 64-bit fixed point. Integer addition is
+// associative, so the order in which blocks and threads add no longer
+// matters, and every launch gives the same bits (float atomics add in an
+// order that changes from launch to launch). The rule:
+// - A first kernel (fixed_bound_kernel) takes, over the finite values,
+//   G = max |gout|, W = max over (c, k) of sum_co |weight[co, c, k]| and
+//   M = max |mask| (1 without a mask). Every finite scattered term
+//   gcol * m * w_corner (w_corner <= 1) is at most T = G * W * M in size.
+// - With T < 2^E and `bits` (below), the scale is 2^e, e = bits - 1 - E,
+//   clamped to [-126, 127] (a float; a finite term is below 2^128, so the
+//   lower clamp cannot overflow, and the upper one only coarsens terms
+//   below 2^-88 of the bound). Each term v enters as q = rint(v * 2^e), an
+//   integer below 2^bits in size. The exponent is computed on the device,
+//   by every block from the same three maxima: no host synchronisation.
+// - bits = min(62 - 2 L, 62 - ceil(log2(taps * Ho * Wo))), L = ceil(log2(
+//   taps * P)) for a tile of P pixels. An element receives at most taps *
+//   Ho * Wo terms, so its int64 sum stays below 2^62; a window element at
+//   most taps * P = 2^L from one block (below).
+// - The window's adds are shared-memory atomics, and on the H100 a 64-bit
+//   shared atomicAdd compiles to a compare-and-swap loop (ATOMS.CAST.SPIN.64,
+//   as a float one does: ATOMS.CAST.SPIN), a 32-bit integer one to a native
+//   ATOMS.ADD (cuobjdump -sass). So the window holds each element as two
+//   32-bit words: q = hi * 2^s + lo with lo = q mod 2^s in [0, 2^s), s =
+//   32 - L, added to an unsigned word, and hi = floor(q / 2^s) to a signed
+//   one. The lo words sum below 2^L * 2^s = 2^32, the hi words below 2^(L +
+//   bits - s) <= 2^30 in size: neither wraps. The flush adds hi * 2^s + lo
+//   to the int64 scratch exactly; far corners add q there directly
+//   (REDG.E.ADD.64, native).
+// - fixed_to_value_kernel converts: a float32 grad_x is the integer sum
+//   rounded to float once (I2F.S64) and scaled by 2^-e exactly; a bf16 one
+//   rounded to bf16 once (I2F.BF16.S64) and scaled likewise (results in
+//   the subnormal range round a second time).
+// - Error: each term rounds by at most 2^-(e + 1) <= 2^(1 - bits) T; an
+//   element reached by n terms is within n 2^(1 - bits) T of the exact sum
+//   of its float terms before its one rounding to the output's type. At
+//   the train steps' shapes bits is 40 or 42: 2^-39 T a term (float32's own
+//   rounding of one add is 2^-24 of the running sum).
+// - A non-finite term (gcol * m is NaN or infinite: a non-finite gout,
+//   weight or mask, or an overflowed gcol) adds no integer. It sets the
+//   element's two bits in a flag array instead (x_flags, 16 elements a
+//   word: 1 for +inf, 2 for -inf, both for NaN), and the element reads
+//   +inf, -inf or NaN, as it would under float adds.
+//
+// Design:
 // - A block owns a tile of TH = 4 or 8 rows x 16 columns of output pixels
 //   of one batch entry and a chunk of CC = 8 input channels (or 16, with
 //   4 rows) of one deformable group (the wrapper picks both per shape:
@@ -678,13 +692,14 @@ extern "C" int aanet_deform_conv_bf16(
 //   the wrapper's plan holds the same constant, and the kernel refuses a
 //   plan whose shared-memory size is not this layout's), is
 //   staged for the chunk with cp.async (zero-filled outside the image: the
-//   op's zero padding), beside a grad_x accumulator of the same window. A
-//   bilinear quad inside the window is read and scattered there, with
-//   shared-memory atomicAdd; a quad that reaches beyond it (an offset
-//   beyond the halo) reads x and adds to grad_x in device memory, in the
-//   same pass. At the end the window is added to grad_x with one device
-//   atomic per non-zero element inside the image: windows of neighbouring
-//   tiles overlap by the halo.
+//   op's zero padding), beside a fixed-point grad_x accumulator of the
+//   same window (two 32-bit words an element, above). A bilinear quad
+//   inside the window is read and scattered there with integer
+//   shared-memory atomics; a quad that reaches beyond it (an offset beyond
+//   the halo) reads x and adds to the int64 scratch in device memory, in
+//   the same pass. At the end the window is added to the scratch with one
+//   device atomic per non-zero element inside the image: windows of
+//   neighbouring tiles overlap by the halo.
 // - One thread layout for the contraction and the sampling: a thread owns
 //   PPT = TH / 2 neighbouring pixels of a row x CC / 8 channels, and a
 //   warp's lanes span 8 pixel groups x 4 channel sets. The contraction
@@ -703,15 +718,16 @@ extern "C" int aanet_deform_conv_bf16(
 //   shape timed.)
 // - The offset and mask gradients are summed over the thread's channels in
 //   registers, over the warp's four channel sets with shuffles and over the
-//   block's two halves through shared memory, and written once per (group,
-//   tap, pixel); added (grad_offset and grad_mask zeroed by the wrapper)
-//   when the group's channels are split over several chunks.
+//   block's two halves through shared memory, in a fixed order, and
+//   written once per (group, tap, pixel) and chunk: where the group's
+//   channels span several chunks, each chunk writes a slab of its own
+//   ([chunks, ...]) and slab_sum_kernel adds the slabs in a fixed order.
 // - Latency: the next tap's weights (cp.async into a second buffer) and
 //   offsets (registers) are in flight during a tap, one __syncthreads per
 //   tap, and the plan keeps a block at 75 KB where it can, so that three
 //   blocks (24 warps) share an SM: the kernel is built for three blocks
-//   (80 registers a thread, a few spilled) as well as for two (128), and
-//   the plan names the build.
+//   (80 registers a thread) as well as for two (128), and the plan names
+//   the build.
 // gcol never reaches device memory.
 //
 // The bf16 form (T = bf16: gout, x and the mask in bfloat16; the offsets
@@ -719,15 +735,118 @@ extern "C" int aanet_deform_conv_bf16(
 // are staged (a load and a store: cp.async cannot widen), the mask where it
 // is loaded, far corners where they are read; the wrapper hands over the
 // weight widened to float32 as it lays it out (exact, and its copies stay
-// cp.async). The scatter still adds float32 into the window and into a
-// float32 scratch of x's shape, never bf16 atomics; the mask's gradient
-// goes to a float32 scratch too, and round_to_bf16_kernel rounds both into
-// the bf16 gradients once, after the kernel. The offsets' gradient stays
-// float32 (its primal's dtype).
+// cp.async). The scatter is the same fixed-point sum, converted to bf16
+// once; the mask's gradient goes to float32 slabs that slab_sum_kernel
+// sums and rounds once. The offsets' gradient stays float32 (its primal's
+// dtype).
 // ---------------------------------------------------------------------------
 namespace {
 
 constexpr int BD_THREADS = 256;  // 8 warps: 2 halves x 4 pixel quarters
+
+// The least L with 2^L >= n (n >= 1).
+inline int ceil_log2(long long n) {
+  int l = 0;
+  while ((1LL << l) < n) ++l;
+  return l;
+}
+
+// The fixed-point scale's exponent e (above) from the three maxima that
+// fixed_bound_kernel wrote (bound[2] unused without a mask).
+__device__ __forceinline__ int fixed_exponent(const double* bound, bool has_mask, int bits) {
+  const double t = bound[0] * bound[1] * (has_mask ? bound[2] : 1.0);
+  int ex;
+  frexp(t, &ex);  // t < 2^ex (ex = 0 for t = 0)
+  return max(-126, min(127, bits - 1 - ex));
+}
+
+// The maxima over the finite values of |gout|, of the weight's column sums
+// sum_co |wt[k, co, c]| (wt laid out [taps, cout, cin]) and of |mask|
+// (mask: [batch, mask_n] with batch stride mask_bstride, or null) into
+// bound[0..2] (zeroed by the caller; non-negative doubles order as their
+// bits, so atomicMax on the bits is exact and order-free).
+template <typename T>
+__global__ void __launch_bounds__(256)
+fixed_bound_kernel(const T* __restrict__ gout, long long n_gout, const float* __restrict__ wt,
+                   int taps, int cout, int cin, const T* __restrict__ mask,
+                   long long mask_bstride, long long mask_n, int batch, double* bound) {
+  const long long t0 = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  double v[3] = {0.0, 0.0, 0.0};
+  for (long long i = t0; i < n_gout; i += step) {
+    const float a = fabsf(load_f32(gout + i));
+    if (isfinite(a)) v[0] = fmax(v[0], static_cast<double>(a));
+  }
+  for (long long i = t0; i < static_cast<long long>(taps) * cin; i += step) {
+    const float* col = wt + (i / cin) * cout * static_cast<long long>(cin) + i % cin;
+    double s = 0.0;
+    for (int co = 0; co < cout; ++co) {
+      const float a = fabsf(__ldg(col + static_cast<long long>(co) * cin));
+      if (isfinite(a)) s += a;
+    }
+    v[1] = fmax(v[1], s);
+  }
+  if (mask != nullptr) {
+    for (long long i = t0; i < batch * mask_n; i += step) {
+      const float a = fabsf(load_f32(mask + (i / mask_n) * mask_bstride + i % mask_n));
+      if (isfinite(a)) v[2] = fmax(v[2], static_cast<double>(a));
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v[q] = fmax(v[q], __shfl_xor_sync(0xffffffffu, v[q], o));
+    if ((threadIdx.x & 31) == 0 && v[q] > 0.0) {
+      atomicMax(reinterpret_cast<unsigned long long*>(bound + q),
+                static_cast<unsigned long long>(__double_as_longlong(v[q])));
+    }
+  }
+}
+
+// One scaled term t (t = v * 2^e) into a window element: its integer's low
+// `split` bits into the unsigned word lo, the rest into the signed word hi
+// (native 32-bit shared atomics; a zero part adds nothing).
+__device__ __forceinline__ void window_add(unsigned* lo, int* hi, float t, int split,
+                                           unsigned lo_mask) {
+  const long long q = __float2ll_rn(t);
+  const unsigned l = static_cast<unsigned>(q) & lo_mask;
+  const int h = static_cast<int>(q >> split);
+  if (l) atomicAdd(lo, l);
+  if (h) atomicAdd(hi, h);
+}
+
+// One scaled term into the int64 scratch (a far corner).
+__device__ __forceinline__ void scratch_add(long long* acc, float t) {
+  const long long q = __float2ll_rn(t);
+  if (q) atomicAdd(reinterpret_cast<unsigned long long*>(acc), static_cast<unsigned long long>(q));
+}
+
+// A non-finite term t at element i: its bits in the flags (1 +inf, 2 -inf,
+// 3 NaN), 16 elements a word.
+__device__ __forceinline__ void flag_add(unsigned* flags, long long i, float t) {
+  const unsigned bits = isnan(t) ? 3u : (t > 0.f ? 1u : 2u);
+  atomicOr(flags + (i >> 4), bits << (2 * (i & 15)));
+}
+
+// The scratch's fixed-point sums (and flags) as values of T.
+template <typename T>
+__global__ void __launch_bounds__(256)
+fixed_to_value_kernel(const long long* __restrict__ acc, const unsigned* __restrict__ flags,
+                      T* __restrict__ out, long long n, const double* __restrict__ bound,
+                      bool has_mask, int bits) {
+  const int e = fixed_exponent(bound, has_mask, bits);
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const unsigned f = (flags[i >> 4] >> (2 * (i & 15))) & 3u;
+    if (f) {
+      store_f32(out + i, f == 1u ? INFINITY : f == 2u ? -INFINITY : NAN);
+    } else if constexpr (is_bf16<T>) {  // rounded to bf16 once; the scaling is exact
+      out[i] = __float2bfloat16_rn(ldexpf(__bfloat162float(__ll2bfloat16_rn(acc[i])), -e));
+    } else {  // rounded to float once; the scaling is exact
+      out[i] = ldexpf(__ll2float_rn(acc[i]), -e);
+    }
+  }
+}
 
 // With 2 pixels a thread, the four lanes of a pixel group read 2-float
 // runs of four gout rows 64 words apart at once: row co of the gout tile
@@ -758,14 +877,20 @@ __device__ __forceinline__ void load_run(float (&v)[N], const float* p) {
 // (tile P = 32 * PPT pixels: TH = 2 * PPT rows of TILE_W columns);
 // the builds are 8 x 4, 8 x 8 and 16 x 4 (chunk x rows), CPT * PPT <= 4;
 // BLOCKS: blocks per SM the registers are budgeted for (128 or 80 a
-// thread for 2 or 3), as the plan's shared memory allows.
+// thread for 2 or 3), as the plan's shared memory allows. x_acc: the int64
+// fixed-point scratch of grad_x (zeroed), x_flags its non-finite flags
+// (zeroed); bound, bits, split: the fixed point's (above). grad_offset and
+// grad_mask: the chunk's slab at blockIdx.y % chunks times off_slab and
+// mask_slab (0 where the group is one chunk).
 template <int CPT, int PPT, int BLOCKS, typename T>
 __global__ void __launch_bounds__(BD_THREADS, BLOCKS)
 deform_bwd_data_kernel(const T* __restrict__ gout, const T* __restrict__ x,
                        const float* __restrict__ offset, long long offset_bstride,
                        const T* __restrict__ mask, long long mask_bstride,
-                       const float* __restrict__ wt, float* __restrict__ grad_x,
-                       float* __restrict__ grad_offset, float* __restrict__ grad_mask,
+                       const float* __restrict__ wt, long long* __restrict__ x_acc,
+                       unsigned* __restrict__ x_flags, const double* __restrict__ bound,
+                       int bits, int split, float* __restrict__ grad_offset,
+                       long long off_slab, float* __restrict__ grad_mask, long long mask_slab,
                        int cin, int height, int width, int cout, int out_h, int out_w, int kh,
                        int kw, int stride, int pad, int dil, int groups, int win_h,
                        int win_w, int win_stride, int tiles_x, bool gout_vec, bool w_vec) {
@@ -776,8 +901,9 @@ deform_bwd_data_kernel(const T* __restrict__ gout, const T* __restrict__ x,
   float* s_gout = reinterpret_cast<float*>(s_raw);  // [cout][P], rows rotated: bd_gout_col
   float* s_w = s_gout + cout * P;                     // [2][cout][CC]: taps k and k + 1
   float* s_x = s_w + 2 * cout * CC;                   // [CC][win_stride]
-  float* s_gx = s_x + CC * win_stride;                // [CC][win_stride]
-  float* s_part = s_gx + CC * win_stride;             // [tap parity][half][dy, dx, m][P]
+  unsigned* s_lo = reinterpret_cast<unsigned*>(s_x + CC * win_stride);  // [CC][win_stride]
+  int* s_hi = reinterpret_cast<int*>(s_lo + CC * win_stride);           // [CC][win_stride]
+  float* s_part = reinterpret_cast<float*>(s_hi + CC * win_stride);  // [tap parity][half][dy, dx, m][P]
 
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   const int ho0 = static_cast<int>(blockIdx.x / tiles_x) * TH;
@@ -793,12 +919,18 @@ deform_bwd_data_kernel(const T* __restrict__ gout, const T* __restrict__ x,
   const long long hw = static_cast<long long>(height) * width;
   const int win_y = ho0 * stride - pad - HALO, win_x = wo0 * stride - pad - HALO;
   const T* xb = x + (b * cin + c0) * hw;
-  float* gxb = grad_x + (b * cin + c0) * hw;
+  const long long xe0 = (b * cin + c0) * hw;  // grad_x's element of the chunk's first channel
   const T* gb = gout + b * cout * static_cast<long long>(npix);
   const float* ob = offset + b * offset_bstride;
   const T* mb = mask ? mask + b * mask_bstride : nullptr;
-  float* gob = grad_offset + b * groups * taps * 2 * static_cast<long long>(npix);
-  float* gmb = grad_mask ? grad_mask + b * groups * taps * static_cast<long long>(npix) : nullptr;
+  const long long chunk_i = blockIdx.y % chunks;
+  float* gob = grad_offset + chunk_i * off_slab + b * groups * taps * 2 * static_cast<long long>(npix);
+  float* gmb = grad_mask ? grad_mask + chunk_i * mask_slab +
+                               b * groups * taps * static_cast<long long>(npix)
+                         : nullptr;
+  // the fixed point: terms are scaled by 2^e, the window's words split at bit `split`
+  const float scale = ldexpf(1.f, fixed_exponent(bound, mask != nullptr, bits));
+  const unsigned lo_mask = (1u << split) - 1u;
 
   // The thread's channels cset * CPT + j and pixels pl0 + i (one row).
   const int half = warp >> 2;
@@ -836,25 +968,32 @@ deform_bwd_data_kernel(const T* __restrict__ gout, const T* __restrict__ x,
       }
     }
   };
-  // Tap kk's offset and mask gradients of pixel t of the tile (t < P).
+  // Tap kk's offset and mask gradients of pixel t of the tile (t < P), in
+  // the chunk's slab.
   auto write_tap = [&](int kk) {
     const int oh = ho0 + t / TILE_W, ow = wo0 + t % TILE_W;
     if (t >= P || oh >= out_h || ow >= out_w) return;
     const float* part = s_part + (kk & 1) * 6 * P + t;
-    const float sdy = part[0] + part[3 * P], sdx = part[P] + part[4 * P];
-    const float sm = part[2 * P] + part[5 * P];
     const int p = oh * out_w + ow;
     const long long oc = static_cast<long long>((g * taps + kk) * 2) * npix + p;
-    const long long mc = static_cast<long long>(g * taps + kk) * npix + p;
-    if (chunks == 1) {
-      gob[oc] = sdy;
-      gob[oc + npix] = sdx;
-      if (gmb) gmb[mc] = sm;
-    } else {
-      atomicAdd(gob + oc, sdy);
-      atomicAdd(gob + oc + npix, sdx);
-      if (gmb) atomicAdd(gmb + mc, sm);
-    }
+    gob[oc] = part[0] + part[3 * P];
+    gob[oc + npix] = part[P] + part[4 * P];
+    if (gmb) gmb[static_cast<long long>(g * taps + kk) * npix + p] = part[2 * P] + part[5 * P];
+  };
+  // The four corners of a non-finite term gm at (y0, x0) with weights
+  // (wy0, ly) x (wx0, lx), channel cl: flagged where they lie in the image.
+  auto flag_corners = [&](int cl, int y0, int x0, float gm, float wy0, float ly, float wx0,
+                          float lx) {
+#pragma unroll
+    for (int cy = 0; cy < 2; ++cy)
+#pragma unroll
+      for (int cx = 0; cx < 2; ++cx) {
+        const int yy = y0 + cy, xx = x0 + cx;
+        if (yy >= 0 && yy < height && xx >= 0 && xx < width) {
+          flag_add(x_flags, xe0 + cl * hw + static_cast<long long>(yy) * width + xx,
+                   gm * (cy ? ly : wy0) * (cx ? lx : wx0));
+        }
+      }
   };
 
   // The x window of the chunk, the gout tile and tap 0's weights in flight;
@@ -885,7 +1024,7 @@ deform_bwd_data_kernel(const T* __restrict__ gout, const T* __restrict__ x,
     }
   }
   stage_w(0);
-  for (int e = t; e < CC * win_stride; e += BD_THREADS) s_gx[e] = 0.f;
+  for (int e = t; e < 2 * CC * win_stride; e += BD_THREADS) s_lo[e] = 0u;  // and s_hi
   float dy[PPT], dx[PPT], mv[PPT];
   load_tap(0, dy, dx, mv);
   cp_async_wait_all();
@@ -974,17 +1113,22 @@ deform_bwd_data_kernel(const T* __restrict__ gout, const T* __restrict__ x,
         for (int j = 0; j < CPT; ++j) {
           const int cl = cset * CPT + j;
           const float* xs = s_x + cl * win_stride + wi;
-          float* gs = s_gx + cl * win_stride + wi;
           const float v00 = xs[0], v01 = xs[1], v10 = xs[win_w], v11 = xs[win_w + 1];
           const float gc = acc[j][i], gm = gc * m;
           const float top = wx0 * v00 + lx * v01, bot = wx0 * v10 + lx * v11;
           sums[0][i] = fmaf(gm, sy * (bot - top), sums[0][i]);
           sums[1][i] = fmaf(gm, sx * (wy0 * (v01 - v00) + ly * (v11 - v10)), sums[1][i]);
           sums[2][i] = fmaf(gc, wy0 * top + ly * bot, sums[2][i]);
-          atomicAdd(gs, gm * wy0 * wx0);
-          atomicAdd(gs + 1, gm * wy0 * lx);
-          atomicAdd(gs + win_w, gm * ly * wx0);
-          atomicAdd(gs + win_w + 1, gm * ly * lx);
+          if (isfinite(gm)) {
+            const int o = cl * win_stride + wi;
+            const float gs = gm * scale;  // exact: a power of two
+            window_add(s_lo + o, s_hi + o, gs * wy0 * wx0, split, lo_mask);
+            window_add(s_lo + o + 1, s_hi + o + 1, gs * wy0 * lx, split, lo_mask);
+            window_add(s_lo + o + win_w, s_hi + o + win_w, gs * ly * wx0, split, lo_mask);
+            window_add(s_lo + o + win_w + 1, s_hi + o + win_w + 1, gs * ly * lx, split, lo_mask);
+          } else if (cl < nc) {
+            flag_corners(cl, y0, x0, gm, wy0, ly, wx0, lx);
+          }
         }
       } else {
         // beyond the window: the corners inside the image, in device memory
@@ -996,7 +1140,7 @@ deform_bwd_data_kernel(const T* __restrict__ gout, const T* __restrict__ x,
           const int cl = cset * CPT + j;
           if (cl >= nc) break;
           const T* xc = xb + cl * hw + i00;
-          float* gc_ptr = gxb + cl * hw + i00;
+          long long* ac = x_acc + xe0 + cl * hw + i00;
           const float v00 = y0_in && x0_in ? load_f32(xc) : 0.f;
           const float v01 = y0_in && x1_in ? load_f32(xc + 1) : 0.f;
           const float v10 = y1_in && x0_in ? load_f32(xc + width) : 0.f;
@@ -1006,10 +1150,15 @@ deform_bwd_data_kernel(const T* __restrict__ gout, const T* __restrict__ x,
           sums[0][i] = fmaf(gm, sy * (bot - top), sums[0][i]);
           sums[1][i] = fmaf(gm, sx * (wy0 * (v01 - v00) + ly * (v11 - v10)), sums[1][i]);
           sums[2][i] = fmaf(gc, wy0 * top + ly * bot, sums[2][i]);
-          if (y0_in && x0_in) atomicAdd(gc_ptr, gm * wy0 * wx0);
-          if (y0_in && x1_in) atomicAdd(gc_ptr + 1, gm * wy0 * lx);
-          if (y1_in && x0_in) atomicAdd(gc_ptr + width, gm * ly * wx0);
-          if (y1_in && x1_in) atomicAdd(gc_ptr + width + 1, gm * ly * lx);
+          if (isfinite(gm)) {
+            const float gs = gm * scale;
+            if (y0_in && x0_in) scratch_add(ac, gs * wy0 * wx0);
+            if (y0_in && x1_in) scratch_add(ac + 1, gs * wy0 * lx);
+            if (y1_in && x0_in) scratch_add(ac + width, gs * ly * wx0);
+            if (y1_in && x1_in) scratch_add(ac + width + 1, gs * ly * lx);
+          } else {
+            flag_corners(cl, y0, x0, gm, wy0, ly, wx0, lx);
+          }
         }
       }
     }
@@ -1041,14 +1190,17 @@ deform_bwd_data_kernel(const T* __restrict__ gout, const T* __restrict__ x,
   }
 
   write_tap(taps - 1);
-  // the grad_x window into grad_x: inside the image, non-zero entries only
+  // the grad_x window into the scratch: inside the image, non-zero entries only
   for (int row = warp; row < nc * win_h; row += BD_THREADS / 32) {
     const int cl = row / win_h, r = row - cl * win_h, yy = win_y + r;
     if (yy < 0 || yy >= height) continue;
     for (int col = lane; col < win_w; col += 32) {
-      const int xx = win_x + col;
-      const float v = s_gx[cl * win_stride + r * win_w + col];
-      if (xx >= 0 && xx < width && v != 0.f) atomicAdd(gxb + cl * hw + yy * width + xx, v);
+      const int xx = win_x + col, wi = cl * win_stride + r * win_w + col;
+      const long long v = static_cast<long long>(s_hi[wi]) * (1LL << split) + s_lo[wi];
+      if (xx >= 0 && xx < width && v != 0) {
+        atomicAdd(reinterpret_cast<unsigned long long*>(x_acc + xe0 + cl * hw + yy * width + xx),
+                  static_cast<unsigned long long>(v));
+      }
     }
   }
 }
@@ -1057,24 +1209,26 @@ template <int CPT, int PPT, int BLOCKS, typename T>
 cudaError_t launch_bwd_data_blocks(dim3 grid, int smem, cudaStream_t stream, const T* gout,
                                    const T* x, const float* offset, long long offset_bstride,
                                    const T* mask, long long mask_bstride, const float* wt,
-                                   float* grad_x, float* grad_offset, float* grad_mask, int cin,
-                                   int height, int width, int cout, int out_h, int out_w, int kh,
-                                   int kw, int stride, int pad, int dil, int groups, int win_h,
-                                   int win_w, int win_stride, int tiles_x, bool gout_vec,
-                                   bool w_vec) {
-  // words: the gout tile, two taps' weights, the x and grad_x windows, the
-  // offset and mask sums of two taps and two halves
+                                   long long* x_acc, unsigned* x_flags, const double* bound,
+                                   int bits, int split, float* grad_offset, long long off_slab,
+                                   float* grad_mask, long long mask_slab, int cin, int height,
+                                   int width, int cout, int out_h, int out_w, int kh, int kw,
+                                   int stride, int pad, int dil, int groups, int win_h, int win_w,
+                                   int win_stride, int tiles_x, bool gout_vec, bool w_vec) {
+  // words: the gout tile, two taps' weights, the x window and the grad_x
+  // window's two words an element, the offset and mask sums of two taps
+  // and two halves
   constexpr int P = 32 * PPT;
   const long long words = static_cast<long long>(cout) * P +
-                          2LL * cout * 8 * CPT + 2LL * 8 * CPT * win_stride + 12LL * P;
+                          2LL * cout * 8 * CPT + 3LL * 8 * CPT * win_stride + 12LL * P;
   if (words * 4 != smem) return cudaErrorInvalidValue;  // the wrapper's plan has another layout
   auto kernel = deform_bwd_data_kernel<CPT, PPT, BLOCKS, T>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, BD_THREADS, smem, stream>>>(
-      gout, x, offset, offset_bstride, mask, mask_bstride, wt, grad_x, grad_offset, grad_mask, cin,
-      height, width, cout, out_h, out_w, kh, kw, stride, pad, dil, groups, win_h, win_w,
-      win_stride, tiles_x, gout_vec, w_vec);
+      gout, x, offset, offset_bstride, mask, mask_bstride, wt, x_acc, x_flags, bound, bits,
+      split, grad_offset, off_slab, grad_mask, mask_slab, cin, height, width, cout, out_h, out_w,
+      kh, kw, stride, pad, dil, groups, win_h, win_w, win_stride, tiles_x, gout_vec, w_vec);
   return cudaGetLastError();
 }
 
@@ -1088,99 +1242,138 @@ cudaError_t launch_bwd_data(int blocks, Args... args) {
   }
 }
 
-// The checks and the launch of both backward-data forms' kernel (T: the
-// values' type; grad_x and grad_mask float32 either way).
+// Both forms' entry (T: the values' type): the checks, then the bound, the
+// kernel, the conversion of grad_x and the offset and mask slabs' sums.
 template <typename T>
-int launch_bwd_data_entry(const T* gout, const T* x, const float* offset,
-                          long long offset_bstride, const T* mask, long long mask_bstride,
-                          const float* wt, float* grad_x, float* grad_offset, float* grad_mask,
-                          int batch, int cin, int height, int width, int cout, int out_h,
-                          int out_w, int kh, int kw, int stride, int pad, int dil, int groups,
-                          int chunk, int tile_h, int blocks, int smem_bytes, cudaStream_t s) {
+int bwd_data_entry(const T* gout, const T* x, const float* offset, long long offset_bstride,
+                   const T* mask, long long mask_bstride, const float* wt, double* bound,
+                   long long* x_acc, unsigned* x_flags, T* grad_x, float* offset_sums,
+                   float* grad_offset, float* mask_sums, T* grad_mask, int batch, int cin,
+                   int height, int width, int cout, int out_h, int out_w, int kh, int kw,
+                   int stride, int pad, int dil, int groups, int chunk, int tile_h, int blocks,
+                   int smem_bytes, int device, void* stream) {
+  cudaSetDevice(device);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool built = (chunk == 8 && (tile_h == 4 || tile_h == 8)) || (chunk == 16 && tile_h == 4);
   if (groups < 1 || cin % groups != 0 || !built) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int cg = cin / groups;
+  const int chunks = (cg + chunk - 1) / chunk;
+  // slabs where a group spans several chunks; the bf16 mask gradient
+  // always goes through its float32 slab, rounded once by the slabs' sum
+  const bool off_slabs = chunks > 1, mask_slabs = mask && (chunks > 1 || is_bf16<T>);
+  if ((mask == nullptr) != (grad_mask == nullptr) || off_slabs != (offset_sums != nullptr) ||
+      mask_slabs != (mask_sums != nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const long long npix = static_cast<long long>(out_h) * out_w;
-  if (batch == 0 || npix == 0) return 0;
+  const long long n_x = static_cast<long long>(batch) * cin * height * width;
+  if (batch == 0 || n_x == 0) return 0;
+  if (npix == 0) {  // no output pixel reaches x: zero gradients
+    const cudaError_t err = cudaMemsetAsync(grad_x, 0, n_x * sizeof(T), s);
+    return static_cast<int>(err);
+  }
+  const int taps = kh * kw;
   const int win_h = (tile_h - 1) * stride + (kh - 1) * dil + 2 * HALO + 2;
   const int win_w = (TILE_W - 1) * stride + (kw - 1) * dil + 2 * HALO + 2;
   // odd: the four channel sets of a warp at one window position hit four banks
   const int win_stride = win_h * win_w | 1;
   const int tiles_x = (out_w + TILE_W - 1) / TILE_W;
   const int tiles_y = (out_h + tile_h - 1) / tile_h;
-  const int cg = cin / groups;
-  dim3 grid(tiles_x * tiles_y, groups * ((cg + chunk - 1) / chunk), batch);
+  // the fixed point: terms below 2^bits, the window's words split at bit `split`
+  const int l = ceil_log2(static_cast<long long>(taps) * tile_h * TILE_W);
+  const int split = 32 - l;
+  const int bits = min(62 - 2 * l, 62 - ceil_log2(taps * npix));
+  if (bits < 8) return static_cast<int>(cudaErrorInvalidValue);  // too many terms an element
+  const long long mask_n = static_cast<long long>(groups) * taps * npix;
+  const long long n_gout = static_cast<long long>(batch) * cout * npix;
+  const long long bound_blocks = (n_gout + 255) / 256;  // at least 1: x has an element
+  fixed_bound_kernel<T><<<static_cast<unsigned int>(bound_blocks < 1 ? 1
+                                                    : bound_blocks < 1024 ? bound_blocks : 1024), 256,
+                          0, s>>>(gout, n_gout, wt, taps, cout, cin, mask, mask_bstride, mask_n,
+                                  batch, bound);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(tiles_x * tiles_y, groups * chunks, batch);
   // 16-byte copies (8-byte loads of bf16): gout rows of a multiple of 4
   // values; weight runs of whole chunks starting at a multiple of 4 channels
   const bool gout_vec = out_w % 4 == 0 && aligned16(gout);
   const bool w_vec = cin % 4 == 0 && cg % chunk == 0 && cg % 4 == 0 && aligned16(wt);
+  const long long n_off = static_cast<long long>(batch) * mask_n * 2;
+  float* off_out = off_slabs ? offset_sums : grad_offset;
+  float* mask_out = mask_slabs ? mask_sums : reinterpret_cast<float*>(grad_mask);
 #define AANET_BWD_DATA(CPT, PPT)                                                                 \
   launch_bwd_data<CPT, PPT>(blocks, grid, smem_bytes, s, gout, x, offset, offset_bstride, mask,  \
-                            mask_bstride, wt, grad_x, grad_offset, grad_mask, cin, height,       \
-                            width, cout, out_h, out_w, kh, kw, stride, pad, dil, groups, win_h,  \
-                            win_w, win_stride, tiles_x, gout_vec, w_vec)
-  const cudaError_t err = chunk == 16 ? AANET_BWD_DATA(2, 2)
-                          : tile_h == 8 ? AANET_BWD_DATA(1, 4)
-                                        : AANET_BWD_DATA(1, 2);
+                            mask_bstride, wt, x_acc, x_flags, bound, bits, split, off_out,       \
+                            off_slabs ? n_off : 0LL, mask_out,                                   \
+                            mask_slabs ? batch * mask_n : 0LL, cin, height, width, cout, out_h,  \
+                            out_w, kh, kw, stride, pad, dil, groups, win_h, win_w, win_stride,   \
+                            tiles_x, gout_vec, w_vec)
+  err = chunk == 16 ? AANET_BWD_DATA(2, 2) : tile_h == 8 ? AANET_BWD_DATA(1, 4) : AANET_BWD_DATA(1, 2);
 #undef AANET_BWD_DATA
-  return static_cast<int>(err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long conv_blocks = (n_x + 255) / 256;
+  fixed_to_value_kernel<T><<<static_cast<unsigned int>(conv_blocks < 65535 * 8 ? conv_blocks
+                                                                              : 65535 * 8),
+                             256, 0, s>>>(x_acc, x_flags, grad_x, n_x, bound, mask != nullptr,
+                                          bits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int e = off_slabs ? sum_slabs(offset_sums, grad_offset, chunks, n_off, s) : 0;
+  if (e != 0 || !mask_slabs) return e;
+  return sum_slabs(mask_sums, grad_mask, chunks, batch * mask_n, s);
 }
 
 }  // namespace
 
 // gout: [batch, cout, out_h, out_w]; x, offset, mask as for the forward;
 // wt: the weight laid out [kh*kw, cout, cin] (wt[k, co, c] = weight[co, c,
-// k / kw, k % kw]); grad_x: [batch, cin, height, width], zeroed by the caller
-// (the kernel adds into it); grad_offset: [batch, groups*kh*kw*2, out_h,
-// out_w] and grad_mask: [batch, groups*kh*kw, out_h, out_w] (or null), both
-// contiguous: written in full when chunk >= cin / groups, else added into
-// (zeroed by the caller). The plan (ops/deform.py backward_data_plan):
-// chunk (input channels per block) and tile_h (output rows per tile, of 16
-// columns): 8 and 4, 8 and 8, or 16 and 4; blocks (per SM, 2 or 3: the register
-// budget of the kernel's build), and smem_bytes, the block's shared memory,
-// which must be what this layout takes (else cudaErrorInvalidValue). All
-// float32.
+// k / kw, k % kw]); bound: 3 doubles, zeroed by the caller; x_acc: int64
+// [batch, cin, height, width] and x_flags: ceil(its size / 16) 32-bit
+// words, both zeroed by the caller (the fixed-point scratch and its
+// non-finite flags); grad_x: x's shape, written in full; grad_offset:
+// [batch, groups*kh*kw*2, out_h, out_w] and grad_mask: [batch,
+// groups*kh*kw, out_h, out_w] (or null without a mask), contiguous,
+// written in full; offset_sums: where a group's channels span several
+// chunks (chunk < cin / groups), [chunks, grad_offset's shape], else null;
+// mask_sums likewise for grad_mask (null without a mask). Every entry of
+// the slabs is written (no zeroing). The plan (ops/deform.py
+// backward_data_plan): chunk (input channels per block) and tile_h (output
+// rows per tile, of 16 columns): 8 and 4, 8 and 8, or 16 and 4; blocks (per
+// SM, 2 or 3: the register budget of the kernel's build), and smem_bytes,
+// the block's shared memory, which must be what this layout takes (else
+// cudaErrorInvalidValue). All float32 but x_acc and x_flags.
 extern "C" int aanet_deform_conv_backward_data_f32(
     const float* gout, const float* x, const float* offset, long long offset_bstride,
-    const float* mask, long long mask_bstride, const float* wt, float* grad_x,
-    float* grad_offset, float* grad_mask, int batch, int cin, int height, int width,
-    int cout, int out_h, int out_w, int kh, int kw, int stride, int pad, int dil,
-    int groups, int chunk, int tile_h, int blocks, int smem_bytes, int device, void* stream) {
-  cudaSetDevice(device);
-  return launch_bwd_data_entry(gout, x, offset, offset_bstride, mask, mask_bstride, wt, grad_x,
-                               grad_offset, grad_mask, batch, cin, height, width, cout, out_h,
-                               out_w, kh, kw, stride, pad, dil, groups, chunk, tile_h, blocks,
-                               smem_bytes, static_cast<cudaStream_t>(stream));
+    const float* mask, long long mask_bstride, const float* wt, double* bound, long long* x_acc,
+    unsigned* x_flags, float* grad_x, float* offset_sums, float* grad_offset, float* mask_sums,
+    float* grad_mask, int batch, int cin, int height, int width, int cout, int out_h, int out_w,
+    int kh, int kw, int stride, int pad, int dil, int groups, int chunk, int tile_h, int blocks,
+    int smem_bytes, int device, void* stream) {
+  return bwd_data_entry(gout, x, offset, offset_bstride, mask, mask_bstride, wt, bound, x_acc,
+                        x_flags, grad_x, offset_sums, grad_offset, mask_sums, grad_mask, batch,
+                        cin, height, width, cout, out_h, out_w, kh, kw, stride, pad, dil, groups,
+                        chunk, tile_h, blocks, smem_bytes, device, stream);
 }
 
-// The bf16 form: gout, x and mask bfloat16, offset float32, wt float32 (the
-// bf16 weight widened as it is laid out); the kernel adds into x_sums
-// (float32 [batch, cin, height, width], zeroed by the caller) and writes or
-// adds mask_sums (float32, the mask's shape, zeroed by the caller where the
-// kernel adds; null without a mask), then a second kernel rounds them into
-// grad_x and grad_mask (bfloat16); grad_offset float32 as in the float32
-// form. The rest as aanet_deform_conv_backward_data_f32's (the same plan).
+// The bf16 form: gout, x, mask, grad_x and grad_mask bfloat16; offset,
+// grad_offset and the slabs float32; wt float32 (the bf16 weight widened
+// as it is laid out); mask_sums, with a mask, always (one slab where the
+// group is one chunk: the mask gradient is rounded to bf16 once, by the
+// slabs' sum). The rest as aanet_deform_conv_backward_data_f32's (the same
+// plan).
 extern "C" int aanet_deform_conv_backward_data_bf16(
     const bf16* gout, const bf16* x, const float* offset, long long offset_bstride,
-    const bf16* mask, long long mask_bstride, const float* wt, float* x_sums, bf16* grad_x,
-    float* grad_offset, float* mask_sums, bf16* grad_mask, int batch, int cin, int height,
-    int width, int cout, int out_h, int out_w, int kh, int kw, int stride, int pad, int dil,
-    int groups, int chunk, int tile_h, int blocks, int smem_bytes, int device, void* stream) {
-  cudaSetDevice(device);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((mask == nullptr) != (mask_sums == nullptr) || (mask == nullptr) != (grad_mask == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  int err = launch_bwd_data_entry(gout, x, offset, offset_bstride, mask, mask_bstride, wt, x_sums,
-                                  grad_offset, mask_sums, batch, cin, height, width, cout, out_h,
-                                  out_w, kh, kw, stride, pad, dil, groups, chunk, tile_h, blocks,
-                                  smem_bytes, s);
-  if (err != 0) return err;
-  err = round_into_bf16(x_sums, grad_x, static_cast<long long>(batch) * cin * height * width, s);
-  if (err != 0 || mask == nullptr) return err;
-  const long long masks = static_cast<long long>(batch) * groups * kh * kw * out_h * out_w;
-  return round_into_bf16(mask_sums, grad_mask, masks, s);
+    const bf16* mask, long long mask_bstride, const float* wt, double* bound, long long* x_acc,
+    unsigned* x_flags, bf16* grad_x, float* offset_sums, float* grad_offset, float* mask_sums,
+    bf16* grad_mask, int batch, int cin, int height, int width, int cout, int out_h, int out_w,
+    int kh, int kw, int stride, int pad, int dil, int groups, int chunk, int tile_h, int blocks,
+    int smem_bytes, int device, void* stream) {
+  return bwd_data_entry(gout, x, offset, offset_bstride, mask, mask_bstride, wt, bound, x_acc,
+                        x_flags, grad_x, offset_sums, grad_offset, mask_sums, grad_mask, batch,
+                        cin, height, width, cout, out_h, out_w, kh, kw, stride, pad, dil, groups,
+                        chunk, tile_h, blocks, smem_bytes, device, stream);
 }
 
 // ---------------------------------------------------------------------------

@@ -49,6 +49,21 @@
 // their slices, so the result equals them bit for bit.
 //
 // Both kernels take every shape: any B, C, H, W and D >= 0.
+//
+// Each has a float32 and a bfloat16 form (the JAX ops under a bf16 compute
+// dtype: the volumes in the features' dtype), with the same plans; the
+// bound of the bf16 forms is bytes at 2 a value, half the float32 bound.
+// Forward: bf16 L and R, a bf16 volume. A thread widens its quads as it
+// loads them (8-byte loads) and rounds once where it stores (8-byte
+// streaming stores): concat's values come back as they were (a NaN stays
+// a NaN), difference's L - R(w - d) is the float32 difference rounded to
+// bf16 once, which is what XLA computes for a bf16 subtraction. Backward:
+// a bf16 grad, staged as it is (8-byte cp.async copies into the float32
+// form's ring, which it half fills) and widened where it is read; dL and dR
+// summed in float32 in ascending d as the float32 form sums, and rounded
+// to bf16 once. (XLA's own transpose on the CPU adds the D slices in
+// descending d and rounds every partial sum to bf16:
+// tests/test_torch_bf16_volumes.py holds the two apart.)
 #include "common.cuh"
 
 namespace {
@@ -62,26 +77,33 @@ constexpr int BWD_MAX_THREADS = 512;
 constexpr int BWD_MIN_BLOCKS = 2;
 constexpr int BWD_CHUNK = 4;  // d % 4 is the plane's index in its stage
 
-// Quad j (columns 4 j .. 4 j + 3) of a row of `width` floats, zero outside
-// [0, width); 16-byte aligned loads where kVec.
-template <bool kVec>
-__device__ __forceinline__ void load_quad(float (&v)[4], const float* row, long long j,
+// A quad of 4 values is one aligned load or store where kVec: 16 bytes of
+// float32, 8 of bf16.
+template <typename T>
+__host__ __device__ inline bool quad_aligned(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & (4 * sizeof(T) - 1)) == 0;
+}
+
+// Quad j (columns 4 j .. 4 j + 3) of a row of `width` values, widened to
+// float32, zero outside [0, width); one aligned load where kVec.
+template <bool kVec, typename T>
+__device__ __forceinline__ void load_quad(float (&v)[4], const T* row, long long j,
                                           int width) {
   if (kVec) {
     float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (j >= 0 && 4 * j < width) q = __ldg(reinterpret_cast<const float4*>(row) + j);
+    if (j >= 0 && 4 * j < width) q = load4_f32(row + 4 * j);
     v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
   } else {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const long long i = 4 * j + e;
-      v[e] = i >= 0 && i < width ? __ldg(row + i) : 0.f;
+      v[e] = i >= 0 && i < width ? load_f32(row + i) : 0.f;
     }
   }
 }
 
-// v into p, p .. p + 3 (those below `valid` where !kVec); streaming stores
-// where kStream.
+// v into p, p .. p + 3 (those below `valid` where !kVec), rounded once
+// where T is bf16; streaming stores where kStream.
 template <bool kVec, bool kStream>
 __device__ __forceinline__ void store_quad(float* p, const float (&v)[4], int valid) {
   if (kVec) {
@@ -105,10 +127,38 @@ __device__ __forceinline__ void store_quad(float* p, const float (&v)[4], int va
   }
 }
 
-template <bool kConcat, bool kVec>
+template <bool kVec, bool kStream>
+__device__ __forceinline__ void store_quad(bf16* p, const float (&v)[4], int valid) {
+  if (kVec) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 q;
+    q.x = *reinterpret_cast<const unsigned int*>(&lo);
+    q.y = *reinterpret_cast<const unsigned int*>(&hi);
+    if (kStream) {
+      __stcs(reinterpret_cast<uint2*>(p), q);
+    } else {
+      *reinterpret_cast<uint2*>(p) = q;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (e < valid) {
+        const bf16 b = __float2bfloat16_rn(v[e]);
+        if (kStream) {
+          __stcs(reinterpret_cast<unsigned short*>(p + e), __bfloat16_as_ushort(b));
+        } else {
+          p[e] = b;
+        }
+      }
+    }
+  }
+}
+
+template <bool kConcat, bool kVec, typename T>
 __global__ void __launch_bounds__(FWD_THREADS)
-volume4d_fwd_kernel(const float* __restrict__ left, const float* __restrict__ right,
-                    float* __restrict__ out, long long quads, int channels, int height,
+volume4d_fwd_kernel(const T* __restrict__ left, const T* __restrict__ right,
+                    T* __restrict__ out, long long quads, int channels, int height,
                     int width, int max_disp, int nq, int dchunk) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= quads) return;
@@ -120,10 +170,10 @@ volume4d_fwd_kernel(const float* __restrict__ left, const float* __restrict__ ri
   const long long hw = static_cast<long long>(height) * width;  // one (channel, d) plane
   // (b, c, d = 0, h, w); concat: out channel b * 2C + c, and C + that for R
   const long long oc = kConcat ? bc + (bc / channels) * channels : bc;
-  float* dst = out + oc * max_disp * hw + static_cast<long long>(h) * width + w;
-  float* dst_r = dst + static_cast<long long>(channels) * max_disp * hw;
-  const float* lrow = left + row * width;
-  const float* rrow = right + row * width;
+  T* dst = out + oc * max_disp * hw + static_cast<long long>(h) * width + w;
+  T* dst_r = dst + static_cast<long long>(channels) * max_disp * hw;
+  const T* lrow = left + row * width;
+  const T* rrow = right + row * width;
   const int valid = min(4, width - w);
 
   float l[4], cur[4], prev[4];
@@ -165,9 +215,9 @@ volume4d_fwd_kernel(const float* __restrict__ left, const float* __restrict__ ri
   }
 }
 
-template <bool kConcat>
-int launch(const float* left, const float* right, float* out, int batch, int channels,
-           int height, int width, int max_disp, int dchunk, int device, void* stream) {
+template <bool kConcat, typename T>
+int launch(const T* left, const T* right, T* out, int batch, int channels, int height,
+           int width, int max_disp, int dchunk, int device, void* stream) {
   cudaSetDevice(device);
   if (dchunk < 4 || dchunk % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || channels == 0 || height == 0 || width == 0 || max_disp == 0) return 0;
@@ -177,8 +227,9 @@ int launch(const float* left, const float* right, float* out, int batch, int cha
   const long long blocks_y = (static_cast<long long>(max_disp) + dchunk - 1) / dchunk;
   if (blocks_x > 0x7fffffff || blocks_y > 65535) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(static_cast<unsigned int>(blocks_x), static_cast<unsigned int>(blocks_y));
-  const bool vec = width % 4 == 0 && aligned16(left) && aligned16(right) && aligned16(out);
-  auto kernel = vec ? volume4d_fwd_kernel<kConcat, true> : volume4d_fwd_kernel<kConcat, false>;
+  const bool vec = width % 4 == 0 && quad_aligned<T>(left) && quad_aligned<T>(right) &&
+                   quad_aligned<T>(out);
+  auto kernel = vec ? volume4d_fwd_kernel<kConcat, true, T> : volume4d_fwd_kernel<kConcat, false, T>;
   kernel<<<grid, FWD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       left, right, out, quads, channels, height, width, max_disp, nq, dchunk);
   return static_cast<int>(cudaGetLastError());
@@ -215,13 +266,41 @@ __device__ __forceinline__ void stage_quad(float* dst, const float* src, int col
   }
 }
 
-template <bool kConcat, bool kVec>
+// The bf16 form's: the quad's bf16 values as they are, 8 bytes where kVec
+// (cp.async copies 4, 8 or 16 bytes), else each 2-byte value by a load and
+// a store; widened where they are read (load_staged).
+template <bool kVec>
+__device__ __forceinline__ void stage_quad(bf16* dst, const bf16* src, int col, int d, int width) {
+  if (kVec) {
+    if (col < width && col + 3 >= d) {
+      const unsigned int s = static_cast<unsigned int>(__cvta_generic_to_shared(dst));
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src + col));
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = col + e;
+      if (c >= d && c < width) dst[e] = src[c];
+    }
+  }
+}
+
+// Four staged values (at a multiple of 4) as float32.
+__device__ __forceinline__ float4 load_staged(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 load_staged(const bf16* p) {
+  return widen4(*reinterpret_cast<const uint2*>(p));
+}
+
+template <bool kConcat, bool kVec, typename T>
 __global__ void __launch_bounds__(BWD_MAX_THREADS, BWD_MIN_BLOCKS)
-volume4d_bwd_kernel(const float* __restrict__ grad, float* __restrict__ grad_left,
-                    float* __restrict__ grad_right, long long nrows, int channels, int height,
+volume4d_bwd_kernel(const T* __restrict__ grad, T* __restrict__ grad_left,
+                    T* __restrict__ grad_right, long long nrows, int channels, int height,
                     int width, int max_disp, int depth, int rows, int tile, int tiles_x) {
   extern __shared__ float4 s_raw[];
-  float* smem = reinterpret_cast<float*>(s_raw);
+  T* smem = reinterpret_cast<T*>(s_raw);  // the plan's size is the float32 form's
   const bool whole = tiles_x == 1;  // each row in one tile: tile >= width
   const int nq = tile / 4;
   const int b_w = bwd_piece_words(tile, whole, kConcat);
@@ -239,8 +318,8 @@ volume4d_bwd_kernel(const float* __restrict__ grad, float* __restrict__ grad_lef
   const long long bc = row / height;
   const long long h = row - bc * height;
   const long long gc = kConcat ? bc + (bc / channels) * channels : bc;
-  const float* ga = grad + gc * max_disp * hw + h * width;
-  const float* gb = kConcat ? ga + static_cast<long long>(channels) * max_disp * hw : ga;
+  const T* ga = grad + gc * max_disp * hw + h * width;
+  const T* gb = kConcat ? ga + static_cast<long long>(channels) * max_disp * hw : ga;
   // where the thread reads its dR quads of plane j of a stage: the dL
   // pieces (difference, whole rows; 4 floor(d / 4) further) or the dR
   // pieces (4 floor(d / 4) further where whole)
@@ -249,14 +328,14 @@ volume4d_bwd_kernel(const float* __restrict__ grad, float* __restrict__ grad_lef
 
   // chunk k's planes into stage k & 1: each thread its own quads
   auto stage = [&](int k) {
-    float* sa = smem + (k & 1) * stage_words;
+    T* sa = smem + (k & 1) * stage_words;
 #pragma unroll 1  // unrolled, the 4-byte copies' variant spilled at 64 registers
     for (int j = 0; j < BWD_CHUNK; ++j) {
       const int d = k * BWD_CHUNK + j;
       if (d >= depth || !active) break;
       stage_quad<kVec>(sa + (j * rows + r) * tile + 4 * q, ga + d * hw, w, d, width);
       if (b_w) {
-        float* sb = sa + a_words + (j * rows + r) * b_w;
+        T* sb = sa + a_words + (j * rows + r) * b_w;
         const int b0 = whole ? 0 : w0 + (d & ~3);  // the dR piece's first column
         stage_quad<kVec>(sb + 4 * q, gb + d * hw, b0 + 4 * q, d, width);
         if (!whole && q == 0) stage_quad<kVec>(sb + tile, gb + d * hw, b0 + tile, d, width);
@@ -274,14 +353,14 @@ volume4d_bwd_kernel(const float* __restrict__ grad, float* __restrict__ grad_lef
     cp_async_wait_group<1>();
     __syncthreads();  // chunk k has landed
     if (active) {
-      const float* sa = smem + (k & 1) * stage_words + r * tile + 4 * q;
-      const float* sr = smem + (k & 1) * stage_words + dr_base;
+      const T* sa = smem + (k & 1) * stage_words + r * tile + 4 * q;
+      const T* sr = smem + (k & 1) * stage_words + dr_base;
 #pragma unroll
       for (int s = 0; s < BWD_CHUNK; ++s) {  // d % 4 == s
         const int d = k * BWD_CHUNK + s;
         if (d >= depth) break;
         if (w + 3 >= d) {  // dL: the band's values of the thread's columns
-          const float4 g = *reinterpret_cast<const float4*>(sa + s * rows * tile);
+          const float4 g = load_staged(sa + s * rows * tile);
           const float v[4] = {g.x, g.y, g.z, g.w};
 #pragma unroll
           for (int e = 0; e < 4; ++e)
@@ -289,9 +368,9 @@ volume4d_bwd_kernel(const float* __restrict__ grad, float* __restrict__ grad_lef
         }
         if (w + d < width) {  // dR: columns w + d .. w + d + 3, where below width
           const int off = s * dr_stride + (whole ? d - s : 0);
-          const float4 lo = *reinterpret_cast<const float4*>(sr + off);
+          const float4 lo = load_staged(sr + off);
           float4 hi = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (s > 0 && w + d - s + 4 < width) hi = *reinterpret_cast<const float4*>(sr + off + 4);
+          if (s > 0 && w + d - s + 4 < width) hi = load_staged(sr + off + 4);
           const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
@@ -314,10 +393,10 @@ volume4d_bwd_kernel(const float* __restrict__ grad, float* __restrict__ grad_lef
   store_quad<kVec, false>(grad_right + row * width + w, acc_r, valid);
 }
 
-template <bool kConcat>
-int launch_backward(const float* grad, float* grad_left, float* grad_right, int batch,
-                    int channels, int height, int width, int max_disp, int rows, int tile,
-                    int smem_bytes, int device, void* stream) {
+template <bool kConcat, typename T>
+int launch_backward(const T* grad, T* grad_left, T* grad_right, int batch, int channels,
+                    int height, int width, int max_disp, int rows, int tile, int smem_bytes,
+                    int device, void* stream) {
   cudaSetDevice(device);
   const long long nrows = static_cast<long long>(batch) * channels * height;
   if (nrows == 0 || width == 0) return 0;
@@ -334,9 +413,9 @@ int launch_backward(const float* grad, float* grad_left, float* grad_right, int 
   const long long blocks = (nrows + rows - 1) / rows * tiles_x;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   const int depth = min(max_disp, width);  // planes d >= W hold no band value
-  const bool vec = width % 4 == 0 && aligned16(grad) && aligned16(grad_left) &&
-                   aligned16(grad_right);
-  auto kernel = vec ? volume4d_bwd_kernel<kConcat, true> : volume4d_bwd_kernel<kConcat, false>;
+  const bool vec = width % 4 == 0 && quad_aligned<T>(grad) && quad_aligned<T>(grad_left) &&
+                   quad_aligned<T>(grad_right);
+  auto kernel = vec ? volume4d_bwd_kernel<kConcat, true, T> : volume4d_bwd_kernel<kConcat, false, T>;
   if (smem_bytes > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
@@ -370,6 +449,22 @@ extern "C" int aanet_concat_volume_f32(const float* left, const float* right, fl
                       stream);
 }
 
+// The bf16 forms: left, right and out bfloat16, the rest as the float32
+// forms' (the same plan).
+extern "C" int aanet_difference_volume_bf16(const bf16* left, const bf16* right, bf16* out,
+                                            int batch, int channels, int height, int width,
+                                            int max_disp, int dchunk, int device, void* stream) {
+  return launch<false>(left, right, out, batch, channels, height, width, max_disp, dchunk,
+                       device, stream);
+}
+
+extern "C" int aanet_concat_volume_bf16(const bf16* left, const bf16* right, bf16* out,
+                                        int batch, int channels, int height, int width,
+                                        int max_disp, int dchunk, int device, void* stream) {
+  return launch<true>(left, right, out, batch, channels, height, width, max_disp, dchunk, device,
+                      stream);
+}
+
 // grad: [batch, channels, max_disp, height, width] float32; grad_left,
 // grad_right: [batch, channels, height, width] float32, written in full
 // (zeros where max_disp is 0). The plan (ops/cost_volume.py
@@ -392,6 +487,27 @@ extern "C" int aanet_concat_volume_backward_f32(const float* grad, float* grad_l
                                                 int height, int width, int max_disp, int rows,
                                                 int tile, int smem_bytes, int device,
                                                 void* stream) {
+  return launch_backward<true>(grad, grad_left, grad_right, batch, channels, height, width,
+                               max_disp, rows, tile, smem_bytes, device, stream);
+}
+
+// The bf16 forms: grad, grad_left and grad_right bfloat16, the rest as the
+// float32 forms' (the same plan and shared-memory layout: the stages hold
+// float32).
+extern "C" int aanet_difference_volume_backward_bf16(const bf16* grad, bf16* grad_left,
+                                                     bf16* grad_right, int batch, int channels,
+                                                     int height, int width, int max_disp,
+                                                     int rows, int tile, int smem_bytes,
+                                                     int device, void* stream) {
+  return launch_backward<false>(grad, grad_left, grad_right, batch, channels, height, width,
+                                max_disp, rows, tile, smem_bytes, device, stream);
+}
+
+extern "C" int aanet_concat_volume_backward_bf16(const bf16* grad, bf16* grad_left,
+                                                 bf16* grad_right, int batch, int channels,
+                                                 int height, int width, int max_disp, int rows,
+                                                 int tile, int smem_bytes, int device,
+                                                 void* stream) {
   return launch_backward<true>(grad, grad_left, grad_right, batch, channels, height, width,
                                max_disp, rows, tile, smem_bytes, device, stream);
 }

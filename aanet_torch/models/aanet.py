@@ -203,8 +203,8 @@ class AANet(nn.Module):
 
     def forward(self, left_img: torch.Tensor, right_img: torch.Tensor):
         """left_img, right_img: [B, 3, H, W] normalised images -> the
-        disparity pyramid, coarse to fine, in float32, under the model's
-        compute dtype."""
+        disparity pyramid, coarse to fine, in float32 (float64 for a
+        float64 model), under the model's compute dtype."""
         with precision(self.dtype):
             if self.dtype is not None:
                 left_img, right_img = left_img.to(self.dtype), right_img.to(self.dtype)
@@ -233,4 +233,4 @@ class AANet(nn.Module):
                 pyramid += remat(self._refine, left_img, right_img, pyramid[-1])
             else:
                 pyramid += self._refine(left_img, right_img, pyramid[-1])
-        return [d.float() for d in pyramid]
+        return [d.to(torch.promote_types(d.dtype, torch.float32)) for d in pyramid]

@@ -95,8 +95,17 @@ def set_train_mode(model: nn.Module, freeze_bn: bool = False) -> nn.Module:
     return model
 
 
+_SLOPE = 0.2  # the leaky ReLU's negative slope (aanet_tpu/models/layers.py:209)
+# the slope in each value type: XLA multiplies a bf16 x by the slope rounded
+# to bf16 (flax's ``nn.leaky_relu`` with a weak-typed 0.2), and the product
+# of two bf16 values is exact in float32, so F.leaky_relu with the rounded
+# slope rounds the product once, as XLA's bf16 multiply does
+_SLOPES = {dt: float(torch.tensor(_SLOPE, dtype=dt))
+           for dt in (torch.float32, torch.bfloat16, torch.float64)}
+
+
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
-    return F.leaky_relu(x, negative_slope=0.2)
+    return F.leaky_relu(x, negative_slope=_SLOPES[x.dtype])
 
 
 def in_compute_dtype(*tensors):

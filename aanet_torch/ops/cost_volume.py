@@ -21,7 +21,15 @@ bf16 compute dtype, ``cost_volume.py:108,113``, and its transpose): bf16
 features and volume (and volume gradient), float32 products, sums and
 the division by C, each output rounded to bf16 once
 (``aanet_correlation_bf16``, ``aanet_correlation_backward_bf16``, the
-float32 forms' plans). The 4-D volumes take float32 only.
+float32 forms' plans). So do the 4-D volumes' (the JAX ops in the features'
+dtype, ``cost_volume.py:127,144``): bf16 features and volume, the
+difference L - R(w - d) in float32 rounded once (concat copies), and in
+the backward a bf16 volume gradient whose sums over d run in float32, in
+ascending d, each gradient rounded to bf16 once
+(``aanet_{difference,concat}_volume_bf16`` and their ``_backward_bf16``,
+the float32 forms' plans). XLA's transpose on the CPU instead adds the D
+slices in descending d and rounds each partial sum to bf16; the two agree
+to within that rounding (``tests/test_torch_bf16_volumes.py``).
 """
 from __future__ import annotations
 
@@ -69,13 +77,19 @@ FWD_SM_THREADS = 256
 
 
 def correlation_cost_volume_plain(
-    left: torch.Tensor, right: torch.Tensor, max_disp: int
+    left: torch.Tensor, right: torch.Tensor, max_disp: int, exact: bool = False
 ) -> torch.Tensor:
     """Plain PyTorch correlation volume: the reference's shift-multiply
-    loop over d (nets/cost.py:40-48). For bf16 features, the bf16 form:
+    loop over d (nets/cost.py:40-48), summed in the features' dtype as the
+    JAX op sums. With ``exact``, float32 features are summed in float64
+    and the volume rounded to float32 once: what the kernel's float32 form
+    computes (the correctly rounded mean but at the rarest ties), and what
+    chip_smoke.py holds it against. For bf16 features, the bf16 form:
     computed in float32, the volume rounded to bf16 once."""
     if left.dtype == torch.bfloat16:
         return correlation_cost_volume_plain(left.float(), right.float(), max_disp).to(left.dtype)
+    if exact and left.dtype == torch.float32:
+        return correlation_cost_volume_plain(left.double(), right.double(), max_disp).float()
     b, c, h, w = left.shape
     cost = left.new_zeros((b, max_disp, h, w))
     for d in range(max_disp):
@@ -480,7 +494,10 @@ def difference_cost_volume_plain(
     left: torch.Tensor, right: torch.Tensor, max_disp: int
 ) -> torch.Tensor:
     """Plain PyTorch difference volume [B, C, D, H, W]: the reference's
-    loop over d (nets/cost.py:22-29)."""
+    loop over d (nets/cost.py:22-29). For bf16 features, the bf16 form:
+    the differences in float32, rounded to bf16 once."""
+    if left.dtype == torch.bfloat16:
+        return difference_cost_volume_plain(left.float(), right.float(), max_disp).to(left.dtype)
     b, c, h, w = left.shape
     cost = left.new_zeros((b, c, max_disp, h, w))
     for d in range(min(max_disp, w)):
@@ -492,7 +509,8 @@ def concat_cost_volume_plain(
     left: torch.Tensor, right: torch.Tensor, max_disp: int
 ) -> torch.Tensor:
     """Plain PyTorch concat volume [B, 2C, D, H, W] (nets/cost.py:31-38),
-    both halves zero where w < d as in the JAX package."""
+    both halves zero where w < d as in the JAX package; in the features'
+    dtype (a copy)."""
     b, c, h, w = left.shape
     cost = left.new_zeros((b, 2 * c, max_disp, h, w))
     for d in range(min(max_disp, w)):
@@ -503,7 +521,10 @@ def concat_cost_volume_plain(
 
 def difference_cost_volume_backward_plain(grad, left, right):
     """dL[w] = sum_d g[d, w] and dR[w'] = -sum_d g[d, w' + d], over the
-    pairs with w >= d."""
+    pairs with w >= d, added in ascending d. For bf16 features, the bf16
+    form: summed in float32, each gradient rounded to bf16 once."""
+    if left.dtype == torch.bfloat16:
+        return _bf16_backward(difference_cost_volume_backward_plain, grad, left, right)
     w = left.shape[3]
     grad_left = torch.zeros_like(left)
     grad_right = torch.zeros_like(right)
@@ -516,7 +537,9 @@ def difference_cost_volume_backward_plain(grad, left, right):
 
 def concat_cost_volume_backward_plain(grad, left, right):
     """The same sums as the difference volume's, from the two channel
-    halves of ``grad`` and with a plus for R."""
+    halves of ``grad`` and with a plus for R (the bf16 form likewise)."""
+    if left.dtype == torch.bfloat16:
+        return _bf16_backward(concat_cost_volume_backward_plain, grad, left, right)
     c, w = left.shape[1], left.shape[3]
     grad_left = torch.zeros_like(left)
     grad_right = torch.zeros_like(right)
@@ -526,16 +549,23 @@ def concat_cost_volume_backward_plain(grad, left, right):
     return grad_left, grad_right
 
 
+def _bf16_backward(plain, grad, left, right):
+    """A volume backward's bf16 form: ``plain`` on float32 copies, each
+    gradient rounded to bf16 once."""
+    return tuple(g.to(left.dtype) for g in plain(grad.float(), left.float(), right.float()))
+
+
 def difference_cost_volume_backward(grad, left, right):
     """Gradients (d left, d right) given the volume's gradient ``grad``
-    [B, C, D, H, W]. A CPU tensor takes the plain version; a CUDA tensor
-    launches ``aanet_difference_volume_backward_f32``."""
+    [B, C, D, H, W], in the features' dtype. A CPU tensor takes the plain
+    version; a CUDA tensor launches ``aanet_difference_volume_backward_f32``
+    or, for bf16 features, ``aanet_difference_volume_backward_bf16``."""
     return _volume_backward("difference", difference_cost_volume_backward_plain, grad, left, right)
 
 
 def concat_cost_volume_backward(grad, left, right):
     """As ``difference_cost_volume_backward``, for the concat volume's
-    ``grad`` [B, 2C, D, H, W] and ``aanet_concat_volume_backward_f32``."""
+    ``grad`` [B, 2C, D, H, W] and ``aanet_concat_volume_backward_{f32,bf16}``."""
     return _volume_backward("concat", concat_cost_volume_backward_plain, grad, left, right)
 
 
@@ -543,9 +573,9 @@ def _volume_backward(kind, plain, grad, left, right):
     _check(left, right, f"{kind} volume backward")
     if left.device.type == "cpu":
         return plain(grad, left, right)
-    f32 = torch.float32
-    _build.check_cuda(f"{kind} volume backward", grad=(grad, f32), left=(left, f32),
-                      right=(right, f32))
+    form = _build.form(f"{kind} volume backward", left.dtype)
+    dt = left.dtype
+    _build.check_cuda(f"{kind} volume backward", grad=(grad, dt), left=(left, dt), right=(right, dt))
     b, c, h, w = left.shape
     channels = 2 * c if kind == "concat" else c
     if grad.ndim != 5 or grad.shape[:2] != (b, channels) or grad.shape[3:] != (h, w):
@@ -559,13 +589,13 @@ def _volume_backward(kind, plain, grad, left, right):
         p = volume_backward_plan(b, c, h, w, kind == "concat", _sms(left))
         plan = (p.rows, p.tile, p.smem_bytes)
     _build.launch(
-        "volume4d", f"aanet_{kind}_volume_backward_f32", _VOL_BWD_ARGTYPES,
+        "volume4d", f"aanet_{kind}_volume_backward_{form}", _VOL_BWD_ARGTYPES,
         _build.ptr(grad), _build.ptr(grad_left), _build.ptr(grad_right),
         b, c, h, w, grad.shape[2], *plan, left.device.index, _build.stream(left),
     )
     wrapper = {"difference": difference_cost_volume_backward,
                "concat": concat_cost_volume_backward}[kind]
-    wrapper.launches += 1
+    _build.count_launch(wrapper, form)
     return grad_left, grad_right
 
 
@@ -582,18 +612,19 @@ class _Volume(torch.autograd.Function):
         }[kind]
         if left.device.type == "cpu":
             return plain(left, right, max_disp)
-        _build.check_cuda(f"{kind} volume", left=(left, torch.float32), right=(right, torch.float32))
+        form = _build.form(f"{kind} volume", left.dtype)
+        _build.check_cuda(f"{kind} volume", left=(left, left.dtype), right=(right, left.dtype))
         b, c, h, w = left.shape
-        cost = torch.empty((b, channels * c, max_disp, h, w), dtype=torch.float32, device=left.device)
+        cost = torch.empty((b, channels * c, max_disp, h, w), dtype=left.dtype, device=left.device)
         dchunk = 4  # an empty volume: nothing to write
         if cost.numel():
             dchunk = volume_forward_plan(b, c, h, w, max_disp, _sms(left)).dchunk
         _build.launch(
-            "volume4d", f"aanet_{kind}_volume_f32", _VOL_ARGTYPES,
+            "volume4d", f"aanet_{kind}_volume_{form}", _VOL_ARGTYPES,
             _build.ptr(left), _build.ptr(right), _build.ptr(cost),
             b, c, h, w, max_disp, dchunk, left.device.index, _build.stream(left),
         )
-        op.launches += 1
+        _build.count_launch(op, form)
         return cost
 
     @staticmethod
@@ -608,8 +639,9 @@ def difference_cost_volume(
     left: torch.Tensor, right: torch.Tensor, max_disp: int
 ) -> torch.Tensor:
     """Difference volume of left/right features [B, C, H, W] ->
-    [B, C, D, H, W]. A CPU tensor takes the plain version; a CUDA tensor
-    launches ``aanet_difference_volume_f32``."""
+    [B, C, D, H, W] in their dtype (float32 or bfloat16). A CPU tensor
+    takes the plain version; a CUDA tensor launches
+    ``aanet_difference_volume_f32`` or ``aanet_difference_volume_bf16``."""
     _check(left, right, "difference volume")
     return _Volume.apply(left, right, max_disp, "difference")
 
@@ -618,8 +650,9 @@ def concat_cost_volume(
     left: torch.Tensor, right: torch.Tensor, max_disp: int
 ) -> torch.Tensor:
     """Concat volume of left/right features [B, C, H, W] ->
-    [B, 2C, D, H, W]. A CPU tensor takes the plain version; a CUDA tensor
-    launches ``aanet_concat_volume_f32``."""
+    [B, 2C, D, H, W] in their dtype (float32 or bfloat16). A CPU tensor
+    takes the plain version; a CUDA tensor launches
+    ``aanet_concat_volume_f32`` or ``aanet_concat_volume_bf16``."""
     _check(left, right, "concat volume")
     return _Volume.apply(left, right, max_disp, "concat")
 
@@ -637,6 +670,10 @@ def cost_volume(left, right, max_disp: int, feature_similarity: str = "correlati
 
 
 difference_cost_volume.launches = 0
+difference_cost_volume.launches_bf16 = 0
 concat_cost_volume.launches = 0
+concat_cost_volume.launches_bf16 = 0
 difference_cost_volume_backward.launches = 0
+difference_cost_volume_backward.launches_bf16 = 0
 concat_cost_volume_backward.launches = 0
+concat_cost_volume_backward.launches_bf16 = 0

@@ -26,23 +26,25 @@ mask gradient's per shape (``backward_data_plan``), with its weight laid
 out tap-major (``weight_taps_major``); the weight gradient's per conv,
 batch, output size and SM count (``backward_weight_plan``), with a
 workspace of one slab per split that the kernel sums in a fixed order.
+Every kernel returns the same bits from launch to launch: the forward's
+split plans and the weight gradient sum float32 slabs in a fixed order,
+and the input gradient's scatter adds 64-bit fixed-point integers
+(``aanet_deform_conv_backward_data_f32``: a scale chosen on the device
+from the largest term any element can receive, then one conversion; its
+scratch is ``backward_data_scratch``).
 
 Each kernel also has a bfloat16 form (the JAX op under a bf16 compute
 dtype, ``deform.py:146-162,203,220-225``, and the gradients ``jax.vjp``
-derives for it): x, the mask and the weight in bf16, the offsets and the
-bias float32; the samples, their blend, the contractions and the scatter
-in float32, each output rounded once to its primal's dtype (the output,
-the x, mask and weight gradients to bf16, the offsets' gradient kept
-float32). The entry points are ``aanet_deform_conv_bf16``,
-``aanet_deform_conv_backward_data_bf16`` (the scatter adds into a float32
-scratch of x's shape, rounded once afterwards; the weight laid out in
-float32) and ``aanet_deform_conv_backward_weight_bf16`` (the float32 slabs
-summed in the same fixed order, the sum rounded once), with the float32
-forms' plans. Where the forward's plan splits the chunks over blocks,
-the bf16 form's splits store float32 slabs that a second kernel sums in a
-fixed order and rounds (bit-reproducible; the float32 form adds with
-atomics). The JAX op also rounds each blended, modulated sample to
-bf16 before the contraction; neither the kernels nor the twins do.
+derives for it): x, the mask and the weight in bf16, the offsets and
+the bias float32; the samples, their blend, the contractions and the scatter
+in float32 (the scatter's sum in fixed point), each output rounded once to
+its primal's dtype (the output, the x, mask and weight gradients to bf16,
+the offsets' gradient kept float32). The entry points are
+``aanet_deform_conv_bf16``, ``aanet_deform_conv_backward_data_bf16`` (the
+weight laid out in float32) and ``aanet_deform_conv_backward_weight_bf16``,
+with the float32 forms' plans and slabs. The JAX op also rounds each
+blended, modulated sample to bf16 before the contraction; neither the
+kernels nor the twins do.
 """
 from __future__ import annotations
 
@@ -84,21 +86,21 @@ WG_CHUNKS = tuple(range(4, 65, 4))  # input channels of a block it considers
 WG_WARPS = 8  # resident warps an SM needs, beyond which the plan looks at other things
 WG_WAVES = 1  # waves of resident blocks the plan's splits fill
 
+# x, offset, its batch stride, mask, its batch stride, wt, bias, out, the
+# split plans' slabs; batch .. groups (13), the plan's five and wt_stride,
+# device; stream
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-] + [ctypes.c_int] * 20 + [ctypes.c_void_p]  # batch .. groups, the plan's five and wt_stride, device, stream
-# the bf16 form: the same, with the float32 scratch of split plans after out
-_BF16_ARGTYPES = _ARGTYPES[:8] + [ctypes.c_void_p] + _ARGTYPES[8:]
+    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+] + [ctypes.c_int] * 20 + [ctypes.c_void_p]
+# gout, x, offset, its batch stride, mask, its batch stride, wt; the fixed
+# point's bound, scratch and flags; grad_x, the offset slabs, grad_offset,
+# the mask slabs, grad_mask; batch .. groups (13), chunk, tile_h, blocks,
+# smem, device; stream
 _BWD_DATA_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p,
-] + [ctypes.c_int] * 17 + [ctypes.c_void_p]  # batch .. groups, chunk, tile_h, blocks, smem, device, stream
-# the bf16 form: float32 scratches for the x and mask gradients before each
-# bf16 gradient
-_BWD_DATA_BF16_ARGTYPES = (_BWD_DATA_ARGTYPES[:8] + [ctypes.c_void_p] + _BWD_DATA_ARGTYPES[8:10]
-                           + [ctypes.c_void_p] + _BWD_DATA_ARGTYPES[10:])
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 18 + [ctypes.c_void_p]
 _BWD_WEIGHT_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
@@ -302,13 +304,13 @@ def _ceil_div(a, b):
 
 def _bwd_data_smem(cout, chunk, tile_h, win_h, win_w):
     """Bytes of the kernel's shared memory: the gout tile, two taps'
-    weights, the x and grad_x windows (each channel's window padded to an
-    odd number of words) and the offset and mask sums of two taps and two
-    halves of the block. The kernel refuses a plan whose ``smem_bytes``
-    differ."""
+    weights, the x window and the grad_x window's two 32-bit fixed-point
+    words an element (each channel's window padded to an odd number of
+    words) and the offset and mask sums of two taps and two halves of the
+    block. The kernel refuses a plan whose ``smem_bytes`` differ."""
     pixels = tile_h * TILE_W
     win_stride = win_h * win_w | 1
-    return 4 * (cout * pixels + 2 * cout * chunk + 2 * chunk * win_stride + 12 * pixels)
+    return 4 * (cout * pixels + 2 * cout * chunk + 3 * chunk * win_stride + 12 * pixels)
 
 
 @functools.lru_cache(maxsize=None)
@@ -363,7 +365,8 @@ class ForwardPlan(NamedTuple):
     """How ``aanet_deform_conv_f32`` cuts one conv: blocks of ``tile_h`` x
     ``TILE_W`` output pixels by ``co_tile`` output channels, each walking
     the chunks of ``FWD_CHUNK`` input channels (``splits`` blocks share a
-    tile's chunks and add into the output) with ``threads`` threads
+    tile's chunks, each storing a slab of sums that a second kernel adds in
+    a fixed order) with ``threads`` threads
     (``ksplit`` groups of them split a chunk's rows), staging a window of
     ``win_h`` x ``win_w`` per channel in ``smem_bytes`` of shared memory;
     ``resident`` blocks fit one SM and the grid holds ``blocks``."""
@@ -434,7 +437,7 @@ def forward_plan(batch: int, cin: int, cout: int, out_h: int, out_w: int, kh: in
       (a block then tabulates one group only); the fewest that give two
       waves of resident blocks (``2 * sms * resident``), with at least
       min(8, chunks / 2) chunks a block: each block pays for its group's
-      table and its atomic adds.
+      table and its slab.
     On an H100 this was within 6 % of the fastest plan timed at every
     shape of the ``aanet`` train step. Raises if nothing fits."""
     if cin % groups:
@@ -683,7 +686,8 @@ def _shape_args(x, weight, ho, wo, stride, padding, dilation, g):
 def _forward(x, offset, mask, weight, bias, *, stride, padding, dilation, deformable_groups):
     """The forward: the plain version for a CPU tensor; for a CUDA tensor
     ``aanet_deform_conv_f32`` or, for bf16 x, ``aanet_deform_conv_bf16``,
-    with ``forward_plan``'s tiling."""
+    with ``forward_plan``'s tiling (a split plan's float32 slabs summed in
+    a fixed order)."""
     g = deformable_groups
     ho, wo = _check_shapes(x, offset, mask, weight, stride, padding, dilation, g)
     if x.device.type == "cpu":
@@ -697,26 +701,43 @@ def _forward(x, offset, mask, weight, bias, *, stride, padding, dilation, deform
     cout, _, kh, kw = weight.shape
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     plan = forward_plan(b, cin, cout, ho, wo, kh, kw, stride, dilation, g, sms)
-    if form == "f32":  # split chunks add into the zeroed output
-        out = (torch.zeros if plan.splits > 1 else torch.empty)(
-            (b, cout, ho, wo), dtype=torch.float32, device=x.device)
-    else:  # each split its float32 slab, which the epilogue sums in order and rounds
-        out = torch.empty((b, cout, ho, wo), dtype=x.dtype, device=x.device)
-        sums = (torch.empty((plan.splits, b, cout, ho, wo), dtype=torch.float32, device=x.device)
-                if plan.splits > 1 else None)
+    out = torch.empty((b, cout, ho, wo), dtype=x.dtype, device=x.device)
+    # each split its float32 slab, which a second kernel sums in order (and rounds, bf16)
+    sums = (torch.empty((plan.splits, b, cout, ho, wo), dtype=torch.float32, device=x.device)
+            if plan.splits > 1 else None)
     cout_pad = _ceil_div(cout, plan.co_tile) * plan.co_tile  # zero channels up to whole tiles
     wt = weight_taps_cin_major(weight, cout_pad)
     *shape, device, stream = _shape_args(x, weight, ho, wo, stride, padding, dilation, g)
-    outs = (_build.ptr(out),) if form == "f32" else (_build.ptr(out), _build.ptr(sums))
     _build.launch(
-        "deform_conv", f"aanet_deform_conv_{form}", _ARGTYPES if form == "f32" else _BF16_ARGTYPES,
+        "deform_conv", f"aanet_deform_conv_{form}", _ARGTYPES,
         _build.ptr(x), _build.ptr(offset), offset.stride(0),
         _build.ptr(mask), 0 if mask is None else mask.stride(0),
-        _build.ptr(wt), _build.ptr(bias), *outs, *shape, plan.tile_h, plan.co_tile,
-        cout_pad, plan.ksplit, plan.splits, plan.smem_bytes, device, stream,
+        _build.ptr(wt), _build.ptr(bias), _build.ptr(out), _build.ptr(sums), *shape, plan.tile_h,
+        plan.co_tile, cout_pad, plan.ksplit, plan.splits, plan.smem_bytes, device, stream,
     )
     _build.count_launch(modulated_deform_conv2d, form)
     return out
+
+
+def backward_data_scratch(x, offset, mask, chunks):
+    """The backward-data kernel's scratch, as its C entry point takes it:
+    ``bound`` (3 float64: the largest |gout|, weight column sum and |mask|,
+    zeroed), ``x_acc`` (int64 of x's shape: grad_x in fixed point, zeroed),
+    ``x_flags`` (int32, 2 bits an element of x: its non-finite terms,
+    zeroed), ``offset_sums`` (float32 [chunks, offset's shape] where a
+    group spans several chunks, else None) and ``mask_sums`` (float32
+    [chunks, mask's shape] where it does or the mask is bf16; None without
+    a mask). The kernel writes the slabs in full."""
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    slabs = mask is not None and (chunks > 1 or mask.dtype == torch.bfloat16)
+    return dict(
+        bound=torch.zeros(3, dtype=torch.float64, device=dev),
+        x_acc=torch.zeros(x.shape, dtype=torch.int64, device=dev),
+        x_flags=torch.zeros(_ceil_div(x.numel(), 16), dtype=torch.int32, device=dev),
+        offset_sums=torch.empty((chunks, *offset.shape), **f32) if chunks > 1 else None,
+        mask_sums=torch.empty((chunks, *mask.shape), **f32) if slabs else None,
+    )
 
 
 def modulated_deform_conv2d_backward_data(
@@ -726,7 +747,9 @@ def modulated_deform_conv2d_backward_data(
     output gradient ``gout``, each in its primal's dtype. A CPU tensor
     takes the plain version; a CUDA tensor launches
     ``aanet_deform_conv_backward_data_f32`` or, for a bf16 x,
-    ``aanet_deform_conv_backward_data_bf16``."""
+    ``aanet_deform_conv_backward_data_bf16`` (the same bits every launch:
+    the x gradient summed in fixed point, a group's chunks' offset and
+    mask gradients in slabs summed in a fixed order)."""
     g = deformable_groups
     ho, wo = _check_shapes(x, offset, mask, weight, stride, padding, dilation, g)
     if x.device.type == "cpu":
@@ -738,30 +761,19 @@ def modulated_deform_conv2d_backward_data(
     _check_kernel_inputs("deform conv backward", x, offset, mask, gout=gout, weight=weight)
     cout, cin, kh, kw = weight.shape
     plan = backward_data_plan(cin, cout, kh, kw, stride, dilation, g)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    # the kernel adds its windows into the x gradient with atomics (bf16:
-    # into a float32 scratch that its epilogue rounds once)
-    x_sums = torch.zeros(x.shape, **f32)
-    # a group split over several chunks: each block adds its part
-    new = torch.zeros if plan.chunks > 1 else torch.empty
-    grad_off = new(offset.shape, **f32)
-    mask_sums = None if mask is None else new(mask.shape, **f32)
+    scratch = backward_data_scratch(x, offset, mask, plan.chunks)
+    grad_x = torch.empty_like(x)
+    grad_off = torch.empty(offset.shape, dtype=torch.float32, device=x.device)
+    grad_mask = None if mask is None else torch.empty(mask.shape, dtype=mask.dtype, device=x.device)
     wt = weight_taps_major(weight)
     *shape, device, stream = _shape_args(x, weight, ho, wo, stride, padding, dilation, g)
-    if form == "f32":
-        grad_x, grad_mask = x_sums, mask_sums
-        outs = (grad_x, grad_off, grad_mask)
-    else:
-        grad_x = torch.empty_like(x)
-        grad_mask = None if mask is None else torch.empty(mask.shape, dtype=mask.dtype, device=x.device)
-        outs = (x_sums, grad_x, grad_off, mask_sums, grad_mask)
     _build.launch(
-        "deform_conv", f"aanet_deform_conv_backward_data_{form}",
-        _BWD_DATA_ARGTYPES if form == "f32" else _BWD_DATA_BF16_ARGTYPES,
+        "deform_conv", f"aanet_deform_conv_backward_data_{form}", _BWD_DATA_ARGTYPES,
         _build.ptr(gout), _build.ptr(x), _build.ptr(offset), offset.stride(0),
         _build.ptr(mask), 0 if mask is None else mask.stride(0), _build.ptr(wt),
-        *map(_build.ptr, outs), *shape, plan.chunk, plan.tile_h, plan.blocks, plan.smem_bytes,
-        device, stream,
+        *map(_build.ptr, (scratch["bound"], scratch["x_acc"], scratch["x_flags"], grad_x,
+                          scratch["offset_sums"], grad_off, scratch["mask_sums"], grad_mask)),
+        *shape, plan.chunk, plan.tile_h, plan.blocks, plan.smem_bytes, device, stream,
     )
     _build.count_launch(modulated_deform_conv2d_backward_data, form)
     return grad_x, grad_off, grad_mask

@@ -31,8 +31,11 @@ def smooth_l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 
 def masked_mean(value: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    m = mask.to(torch.float32)
-    return (value.to(torch.float32) * m).sum() / m.sum().clamp_min(1.0)
+    """The mean of ``value`` over ``mask``, in float32 (float64 for a
+    float64 value)."""
+    dt = torch.promote_types(value.dtype, torch.float32)
+    m = mask.to(dt)
+    return (value.to(dt) * m).sum() / m.sum().clamp_min(1.0)
 
 
 def pyramid_loss(

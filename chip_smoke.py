@@ -83,9 +83,9 @@
    twin at those shapes at the full step's batch (the two volume
    backwards bit for bit); then the full-width step at batch 16, halved
    until a step fits the card, with its launch counts per step, the
-   median step time over 10 steps after 3 warm-ups, samples/s, peak
-   memory, idle share and top device kernels; then ``python -m
-   aanet_torch.cli train`` with the PSMNet baseline's flags for 6 steps
+   median step time over 5 steps after 3 warm-ups, samples/s, peak
+   memory, idle share and top device kernels (one profiled step); then
+   ``python -m aanet_torch.cli train`` with the PSMNet baseline's flags for 6 steps
    at batch 8 on phase 9's dataset, and ``predict`` with the weights it
    wrote;
 10b. the 4-D volume kernels (difference and concat, forward and
@@ -185,8 +185,27 @@
    aanet_torch.cli train --dtype bfloat16`` from the trained anchor for one
    epoch on phase 12's set (its losses beside the same epoch in float32)
    and ``evaluate`` of its float32 checkpoint, in float32 (EPE < 2.0 px)
-   and in bf16;
-16. prints the kernels' JSON line (the bf16 forms too) and, last,
+   and in bf16; then two launches of the deformable conv's float32 and bf16
+   forwards at every path shape whose plan splits (slabs summed in a fixed
+   order), and of its backward-data kernel in both forms at every path
+   shape with narrow and wide offsets (a fixed-point scatter), bit for bit
+   (``deform_same_bits``); phases 9b and 13 also read the kernel step's
+   re-run change at exactly 0 (both sides under ``deterministic``) and
+   record each parameter's distance to the plain step in float64 from the
+   kernel step and from the plain float32 step;
+16. the 4-D volumes in bf16 (``bf16_volume_phases``): each bf16 volume
+   kernel (difference and concat, forward and backward) against its twin
+   bit for bit at ``VOL_PATHS`` (two launches bitwise, timed beside its
+   bound and its float32 form) and ``VOL_EDGE_SHAPES``; PSMNet (either
+   aggregation), StereoNet and GC-Net in ``dtype="bfloat16"`` with phase
+   5b's weights: the forward at 384x1248 through the plain bf16 twins,
+   each bf16 kernel at its shapes, through the kernels with its launches
+   (bf16 forms only), every path call against its twin, the map against
+   the plain bf16 and the float32 one, its latency beside phase 5b's
+   float32 forward; a bf16 kernel step against the plain one at batch 2
+   under phase 15's guard; the full-width bf16 step (batch 16 halved until
+   it fits) beside phase 10's float32 step with its top device kernels;
+17. prints the kernels' JSON line (the bf16 forms too) and, last,
    {"ok": true, "device": ...}.
 
 Any failure raises, so the exit code is non-zero and the last line is not
@@ -195,6 +214,7 @@ script exits non-zero before printing anything.
 """
 from __future__ import annotations
 
+import ast
 import collections
 import contextlib
 import copy
@@ -203,6 +223,7 @@ import functools
 import gc
 import io
 import json
+import math
 import os
 import shutil
 import statistics
@@ -465,8 +486,8 @@ ANCHOR_BF16_EPE = 0.15
 # ANCHOR_SHIFT px). Its bf16 pyramid through the kernels against the plain
 # bf16 one, (max, mean) px per level: an H100 read at most 0.129 and 0.0167
 # (the final level), and the kernel path 0.096 and 0.0073 from itself when
-# run again (the split deform plans add with float atomics, and one flipped
-# bf16 rounding moves the maps as far as bf16 itself does: the plain bf16
+# run again (the split deform plans then added with float atomics, and one
+# flipped bf16 rounding moves the maps as far as bf16 itself does: the plain bf16
 # path sat 0.147 and 0.0176 from float32). Its final map against its
 # float32 forward's, (mean, 99th percentile) px: read 0.0176 and 0.0587
 ANCHOR_SHIFT = 6
@@ -677,7 +698,9 @@ def kernel_specs():
              tol=rel(2e-4), tol_text="2e-4 * max|ref|",
              source="aanet_torch/csrc/deform_conv.cu", replaces="aanet_tpu/ops/deform.py:112"),
         dict(name="correlation", module=cost_volume, attr="correlation_cost_volume",
-             plain=cost_volume.correlation_cost_volume_plain,
+             # the float32 form's own function: the mean summed in float64,
+             # rounded once (the kernel agrees to the bit but at ties)
+             plain=functools.partial(cost_volume.correlation_cost_volume_plain, exact=True),
              sig=lambda left, right, d: (tuple(left.shape), d),
              inputs=corr_inputs, cost=corr_cost, library=None,
              tol=lambda ref: 1e-4, tol_text="1e-4",
@@ -1408,8 +1431,8 @@ def compare_pyramids(pyramid, plain_pyramid, shapes, what):
 def pyramid_spread(model, specs, left, right, plain_pyramid, pyramid):
     """What moves the pyramid besides the kernels, per level (max, mean)
     px: the plain path's own change under a 1e-6 relative change of the
-    left image, and the kernel path's change when it runs again (the
-    deform forward's split plans add with float atomics)."""
+    left image, and the kernel path's change when it runs again (cuDNN's
+    algorithms may add in another order; the port's kernels do not)."""
     def diff(a, b):
         return [(float((x - y).abs().max()), float((x - y).abs().mean())) for x, y in zip(a, b)]
 
@@ -1459,7 +1482,7 @@ def baseline_phases(specs, gen, dev, timer, smi, left, right):
         errs = compare_pyramids(pyramid, plain_pyramid, spec["shapes"], name)
         record = forward_record(name, model, left, right, plain_ms, errs, timer, smi)
         print(json.dumps({"baseline_forward": record}), flush=True)
-        out[name] = dict(rows=rows, launches=counts)
+        out[name] = dict(rows=rows, launches=counts, record=record)
         if name == "psmnet":  # the predict entry point with the baseline's flags
             with tempfile.TemporaryDirectory() as tmp:
                 weights = os.path.join(tmp, "weights.pt")
@@ -1499,9 +1522,34 @@ def one_ulp_nudge(left, gen):
     return base + sign * ulp
 
 
-def compare_train_steps(cfg, specs, small, gen, dev, per_parameter=False, calls=None,
-                        recomputed=None, rerun=False, highest_loss_only=False,
-                        nudge=relative_nudge, guard=None):
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's and PyTorch's deterministic algorithms for the duration
+    (``CUBLAS_WORKSPACE_CONFIG`` set before the first cuBLAS call: ``main``
+    sets it): with them the port's train steps repeat to the bit wherever
+    its own kernels do."""
+    saved = torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled()
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.use_deterministic_algorithms(saved[1])
+
+
+def compare_train_steps(cfg, specs, small, gen, dev, rerun=False, **kw):
+    """``_compare_train_steps``; with ``rerun`` every step of it (the kernel
+    step and its re-run, the plain step, its nudges and the float64 step)
+    runs under ``deterministic``, so that both sides take the same cuDNN
+    and PyTorch algorithms."""
+    with deterministic() if rerun else contextlib.nullcontext():
+        return _compare_train_steps(cfg, specs, small, gen, dev, rerun=rerun, **kw)
+
+
+def _compare_train_steps(cfg, specs, small, gen, dev, per_parameter=False, calls=None,
+                         recomputed=None, rerun=False, highest_loss_only=False,
+                         nudge=relative_nudge, guard=None):
     """One train step through the kernels against the same step through
     the plain twins ``specs`` (same seeded weights, the batch ``small``),
     and the plain step's own spread: the largest change of its loss,
@@ -1509,8 +1557,12 @@ def compare_train_steps(cfg, specs, small, gen, dev, per_parameter=False, calls=
     image by ``nudge`` (some gradients are sums that nearly cancel, and
     move by far more than the input under it; one change is too few to
     tell how far); with ``rerun``, also the change of the kernel step's
-    gradients when it runs again on the same inputs (its float atomics add
-    in another order: an error that repeats in every run still shows).
+    gradients when it runs again on the same inputs, which must be exactly
+    0 (the port's kernels add in a fixed order, cuDNN's and PyTorch's
+    deterministic algorithms do the rest), and the float64 record: the
+    same step's plain path in float64, each parameter's gradient distance
+    to it from the kernel step and from the plain float32 step (it says
+    whose error a parameter's miss is; it is recorded, not checked).
     Every parameter but those of ``ZERO_GRADIENT`` must get a non-zero
     gradient. Without ``guard`` (a float32 step): the loss within rtol
     1e-5, all gradients together (and, with ``per_parameter``, each
@@ -1573,6 +1625,12 @@ def compare_train_steps(cfg, specs, small, gen, dev, per_parameter=False, calls=
         for name, sq in moved_from(m_again, kernel_params).items():
             moved[name].append(sq)
         del m_again
+        # the plain path in float64: whose error is a parameter's distance
+        m64 = seeded_model(cfg, dev).double()
+        with plain_ops(specs):
+            train_step(m64)({k: v.double() if v.is_floating_point() else v for k, v in small.items()})
+        ref64 = dict(m64.named_parameters())
+        del m64
     failures = []
     worst, floored, dk2, dp2 = [], [], 0.0, 0.0
     df2 = [0.0] * (NUDGES + rerun)
@@ -1605,6 +1663,37 @@ def compare_train_steps(cfg, specs, small, gen, dev, per_parameter=False, calls=
                   per_parameter_margin=worst[-1][0], worst_params=worst,
                   params_within_plain_spread_only=floored, bn_stats_rel_err=stats_err,
                   loss_plain_spread=max(moved_loss), bn_stats_plain_spread=max(moved_stats))
+    if rerun:
+        # the kernel step's own change when it runs again: exactly 0
+        record["rerun_sq_change"] = df2[-1]
+        print(f"kernel step re-run: squared gradient change {df2[-1]!r} (must be 0)", flush=True)
+        if df2[-1] != 0:
+            failures.append(f"the kernel step's gradients changed when it ran again: {df2[-1]}")
+
+        def off64(g, name):
+            ref = ref64[name].grad
+            return float((g.double() - ref).norm() / ref.norm()) if float(ref.norm()) else None
+
+        per = {name: (off64(p.grad, name), off64(plain_params[name].grad, name))
+               for name, p in m_kernel.named_parameters()}
+
+        def total(params):
+            """All gradients' distance to the float64 step's, relative."""
+            off = sum(float((params[n].grad.double() - r.grad).square().sum()) for n, r in ref64.items())
+            return (off / sum(float(r.grad.square().sum()) for r in ref64.values())) ** 0.5
+
+        record["float64"] = dict(
+            all_gradients=dict(kernel=total(kernel_params), plain32=total(plain_params)),
+            worst_params={name: dict(kernel=per[name][0], plain32=per[name][1])
+                          for *_, name in worst},
+            kernel_farther=sorted(((n, k, p) for n, (k, p) in per.items()
+                                   if k is not None and p is not None and k > p),
+                                  key=lambda e: e[2] - e[1])[:8],
+            kernel_farther_count=sum(1 for k, p in per.values()
+                                     if k is not None and p is not None and k > p))
+        print(f"float64 record: all gradients kernel {record['float64']['all_gradients']['kernel']:.4g}, "
+              f"plain float32 {record['float64']['all_gradients']['plain32']:.4g}; the worst margins' "
+              f"parameters {record['float64']['worst_params']}", flush=True)
     distances = (abs(loss_k - loss_p), grad_rel, stats_err)
     if guard is None:
         limits = (1e-5 * abs(loss_p), max(1e-3, 2 * grad_spread), 1e-4)
@@ -1671,7 +1760,7 @@ def edge_cases(specs, bwd_specs, deform_sigs, corr_sigs, sa_sigs, rows, gen, dev
     and with integer offsets (jnp.clip's half gradient), the mask-less
     single-group case, and a stride-2 shape of odd sizes; the forward also
     at a shape whose plan splits the input channels over blocks
-    (inference's layer 3, which adds into the output with atomics); each
+    (inference's layer 3, whose splits sum slabs in a fixed order); each
     timed with the wide offsets at the step's largest shape, beside that
     shape's time with the path's narrow offsets (``rows``). The weight
     gradient sums its splits in a fixed order: two launches on the same
@@ -1786,20 +1875,112 @@ def same_bits_timed(spec, sig, gen, dev, timer):
     """Two launches of ``spec``'s kernel on the same seeded inputs of
     signature ``sig`` must give the same bits; the kernel is timed beside
     its bound."""
+    same = same_bits(spec, sig, gen, dev)
+    check(same, f"{spec['name']} {sig}: two launches on the same inputs differ")
     args, kwargs = spec["inputs"](sig, gen, dev)
     op = getattr(spec["module"], spec["attr"])
-    first, second = op(*args, **kwargs), op(*args, **kwargs)
-    torch.cuda.synchronize()
-    first = first if isinstance(first, tuple) else (first,)
-    second = second if isinstance(second, tuple) else (second,)
-    same = all(torch.equal(x, y) for x, y in zip(first, second))
-    check(same, f"{spec['name']} {sig}: two launches on the same inputs differ")
     bound = max(bound_times(spec["cost"](sig)))
     ms = timer.ms(lambda: op(*args, **kwargs), iters=10)
     print(f"{spec['name']} {sig}: two launches bitwise identical: {same}; {ms:.4f} ms, "
           f"bound {bound:.4f} ms", flush=True)
     return dict(kernel=spec["name"], case="path shape: two launches, bitwise; timed",
                 shape=str(sig), identical=same, kernel_ms=ms, bound_ms=bound)
+
+
+def same_bits(spec, sig, gen, dev, **inputs):
+    """Whether two launches of ``spec``'s kernel on the same seeded inputs of
+    signature ``sig`` (``inputs``: the spec's input options, e.g. offsets)
+    give the same bits."""
+    args, kwargs = spec["inputs"](sig, gen, dev, **inputs)
+    op = getattr(spec["module"], spec["attr"])
+    first, second = op(*args, **kwargs), op(*args, **kwargs)
+    torch.cuda.synchronize()
+    first = first if isinstance(first, tuple) else (first,)
+    second = second if isinstance(second, tuple) else (second,)
+    return all(torch.equal(x, y) for x, y in zip(first, second) if x is not None)
+
+
+def deform_same_bits(by_name, paths, gen, dev):
+    """The deformable conv's kernels give the same bits on every launch:
+    two launches on the same inputs compared bit for bit, of the float32
+    forward at every path shape whose plan splits the chunks over blocks
+    (slabs summed in a fixed order; its bf16 form likewise), and of the
+    backward-data kernel, in
+    its float32 and bf16 forms, at every path shape with the path's
+    offsets in (-3, 3) px and with wide ones in (-16, 16) px (its scatter
+    sums in fixed point). ``paths``: label -> a run's rows (kernel name ->
+    rows with their ``shape``). Returns the records; raises on a
+    difference."""
+    from aanet_torch.ops import deform
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shapes = collections.defaultdict(dict)  # kernel -> signature -> the first path that has it
+    for label, rows in paths.items():
+        for name in ("deform_conv", "deform_conv_bf16", "deform_conv_backward_data",
+                     "deform_conv_backward_data_bf16"):
+            for row in rows.get(name, []):
+                shapes[name].setdefault(ast.literal_eval(row["shape"]), label)
+    records, differ = [], []
+    for name, sigs in shapes.items():
+        for sig, label in sigs.items():
+            (b, cin, h, w), (cout, _, kh, kw), _, _, stride, pad, dil, g = sig
+            if name.startswith("deform_conv") and "backward" not in name:
+                ho = (h + 2 * pad - dil * (kh - 1) - 1) // stride + 1
+                wo = (w + 2 * pad - dil * (kw - 1) - 1) // stride + 1
+                plan = deform.forward_plan(b, cin, cout, ho, wo, kh, kw, stride, dil, g, sms)
+                if plan.splits == 1:
+                    continue
+                cases = {f"{plan.splits} splits": {}}
+            else:
+                cases = {"narrow offsets": {}, "wide offsets": dict(offsets="wide")}
+            for case, inputs in cases.items():
+                same = same_bits(by_name[name], sig, gen, dev, **inputs)
+                records.append(dict(kernel=name, path=label, shape=str(sig), case=case, identical=same))
+                if not same:
+                    differ.append((name, sig, case))
+            torch.cuda.empty_cache()
+    print(f"deform kernels, two launches bitwise at {len(records)} path shapes and cases: "
+          f"{len(records) - len(differ)} identical", flush=True)
+    check(not differ, f"deform kernels: two launches on the same inputs differ: {differ}")
+    return records
+
+
+def fixed_point_precision(spec, rows, gen, dev):
+    """A reading, not a check: the backward-data kernel's x gradient
+    (summed in fixed point, one exponent for the whole tensor) element by
+    element against the plain version in float64 on the same inputs,
+    beside the plain version's in float32, at the largest shape of
+    ``rows`` (the float32 step's): with the path's inputs, and with the
+    output gradient scaled by 10^(-4 b / (B - 1)) in batch entry b, so that
+    the last entry's gradients lie four decades below the largest term.
+    Per case and side: the relative error |g - r| / |r| over the elements
+    with r != 0, its median, 99.9th percentile and largest, and the share
+    of elements beyond 2^-20 (16 float32 ulps)."""
+    sig = max((ast.literal_eval(r["shape"]) for r in rows), key=lambda s: math.prod(s[0]))
+    (gout, *rest), kwargs = spec["inputs"](sig, gen, dev)
+    b = gout.shape[0]
+    decades = torch.tensor([4.0 * i / max(b - 1, 1) for i in range(b)], device=dev)
+    record = dict(shape=str(sig), cases={})
+    for case, g in (("path inputs", gout), ("four decades over the batch",
+                                              gout * torch.pow(10.0, -decades).view(-1, 1, 1, 1))):
+        args = (g, *rest)
+        kernel = getattr(spec["module"], spec["attr"])(*args, **kwargs)[0]
+        plain = spec["plain"](*args, **kwargs)[0]
+        ref = spec["plain"](*(a.double() if a is not None else None for a in args), **kwargs)[0]
+        torch.cuda.synchronize()
+        nonzero = ref != 0
+        sides = {}
+        for side, grad in (("kernel", kernel), ("plain float32", plain)):
+            rel = ((grad.double() - ref).abs() / ref.abs())[nonzero].sort().values
+            n = rel.numel()
+            sides[side] = dict(median=float(rel[n // 2]), p999=float(rel[min(n - 1, int(n * 0.999))]),
+                               max=float(rel[-1]), beyond_2e_20=float((rel > 2.0 ** -20).sum()) / n)
+            del rel
+        record["cases"][case] = dict(elements=int(nonzero.sum()), **sides)
+        del kernel, plain, ref
+        torch.cuda.empty_cache()
+    print(f"fixed-point x gradient at {sig}: {record['cases']}", flush=True)
+    return record
 
 
 def correlation_edge_cases(by_name, corr_sigs, gen, dev, timer):
@@ -1935,10 +2116,8 @@ def anchor_phase(specs, gen, dev, left, right):
     torch.set_grad_enabled(True)
     seed_gen = torch.Generator(device=dev).manual_seed(COMPARE_SEEDS[0])
     small = train_batch(seed_gen, dev, COMPARE_BATCH, TRAIN_HW)
-    # each parameter against the plain step's spread and the kernel step's
-    # own change from run to run: at max_disp 48 the float atomics alone
-    # moved single leaves (a BatchNorm bias of the last fusion's H/12
-    # branch) by as much as the kernel path differs from the plain one
+    # each parameter against the plain step's spread; the kernel step's own
+    # change from run to run must be 0
     compare, m_kernel, step_kernel = compare_train_steps(cfg, specs, small, seed_gen, dev,
                                                          per_parameter=True, rerun=True)
     del m_kernel, step_kernel
@@ -2018,15 +2197,15 @@ def train_phases(specs, bwd_specs, gen, dev, timer, smi, data, lists):
     return dict(rows=rows, launches=counts, edge_cases=edges, step=full)
 
 
-def time_steps(step, batch, metrics, dev, top):
+def time_steps(step, batch, metrics, dev, top, timed=10, profiled=2):
     """After ``step``'s first run on ``batch`` (its ``metrics``): two more
-    warm-ups, the median step time over 10 steps (CUDA events), samples/s,
-    the losses (all finite), the peak memory of one step and the device
-    breakdown of two."""
+    warm-ups, the median step time over ``timed`` steps (CUDA events),
+    samples/s, the losses (all finite), the peak memory of one step and the
+    device breakdown of ``profiled``."""
     n = batch["left"].shape[0]
     step_losses = [metrics["total_loss"]] + [step(batch)["total_loss"] for _ in range(2)]
     times = []
-    for _ in range(10):
+    for _ in range(timed):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         metrics = step(batch)
@@ -2041,7 +2220,7 @@ def time_steps(step, batch, metrics, dev, top):
     step(batch)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(dev)
-    device = device_breakdown(lambda: step(batch), iters=2, top=top)
+    device = device_breakdown(lambda: step(batch), iters=profiled, top=top)
     return dict(step_ms=step_ms, samples_per_s=n / step_ms * 1e3,
                 step_ms_all=[s.elapsed_time(e) for s, e in times], peak_memory_bytes=peak,
                 device_ms=device["busy_ms"], profiled_window_ms=device["window_ms"],
@@ -2153,7 +2332,9 @@ def baseline_train_phases(specs, bwd_specs, gen, dev, timer, smi, data, lists):
         n = batch["left"].shape[0]
         print(f"{name} train-step launches at batch {n}: {counts}", flush=True)
         check(counts == expected, f"{name}: train-step launches {counts}, expected {expected}")
-        timed = time_steps(step, batch, metrics, dev, top=15)
+        # five timed steps and one profiled: these device-bound steps
+        # repeat within 1 %
+        timed = time_steps(step, batch, metrics, dev, top=15, timed=5, profiled=1)
         del model, step, batch
         torch.cuda.empty_cache()
 
@@ -2173,7 +2354,7 @@ def baseline_train_phases(specs, bwd_specs, gen, dev, timer, smi, data, lists):
                       card=smi, **timed)
         print(json.dumps({"baseline_train_step": record}), flush=True)
         check(not compare["failures"], f"{name} kernel vs plain train step: {compare['failures']}")
-        out[name] = dict(rows=rows, launches=counts)
+        out[name] = dict(rows=rows, launches=counts, step=record)
         torch.cuda.empty_cache()
 
     # the train entry point with the PSMNet baseline's flags, then predict
@@ -2278,8 +2459,9 @@ def adaptive_preset_phases(presets, full_step, specs, bwd_specs, gen, dev, timer
             n = batch["left"].shape[0]
             print(f"{name} train-step launches at batch {n}: {counts}", flush=True)
             check(counts == expected, f"{name}: train-step launches {counts}, expected {expected}")
+            # five timed steps and one profiled, as phase 10's
             record.update(batch=n, batches_out_of_memory=refused, launches=counts,
-                          **time_steps(step, batch, metrics, dev, top=15))
+                          **time_steps(step, batch, metrics, dev, top=15, timed=5, profiled=1))
             del model, step, batch
             torch.cuda.empty_cache()
             # each kernel against its twin at the full step's shapes
@@ -2683,8 +2865,8 @@ def bf16_training_phases(specs, bwd_specs, specs16, bwd16, gen, dev, timer, smi,
     (``seeded_compares`` with ``one_ulp_nudge`` and the float32 step as the
     guard), three kernel steps lowering the loss.
     (c) The full-width bf16 steps (batch 16) of ``aanet`` and ``aanet+``
-    with their launch counts (no float32 kernel), timed as phase 8 times
-    them, beside the float32 steps (``f32_steps``), and each bf16 backward
+    with their launch counts (no float32 kernel), timed over 5 steps (phase
+    8 times 10), beside the float32 steps (``f32_steps``), and each bf16 backward
     kernel against its twin at their shapes, timed. Returns, per step, the
     bf16 backward kernels' rows and the step's launches."""
     from aanet_torch.config import preset
@@ -2752,13 +2934,7 @@ def bf16_training_phases(specs, bwd_specs, specs16, bwd16, gen, dev, timer, smi,
     # gradient, the correlation backward and the deform forward (its split
     # plans sum float32 slabs in a fixed order)
     def two_launches_bitwise(spec, sig):
-        args, kwargs = spec["inputs"](sig, gen, dev)
-        op = getattr(spec["module"], spec["attr"])
-        one, two = op(*args, **kwargs), op(*args, **kwargs)
-        torch.cuda.synchronize()
-        one = one if isinstance(one, tuple) else (one,)
-        two = two if isinstance(two, tuple) else (two,)
-        same = all(torch.equal(x, y) for x, y in zip(one, two))
+        same = same_bits(spec, sig, gen, dev)
         check(same, f"{spec['name']} {sig}: two launches on the same inputs differ")
         edges.append(dict(kernel=spec["name"], case="two launches, bitwise", shape=str(sig),
                           identical=same))
@@ -2822,7 +2998,7 @@ def bf16_training_phases(specs, bwd_specs, specs16, bwd16, gen, dev, timer, smi,
         check(counts == expected and not f32_counts,
               f"{name} bf16: train-step launches {counts} (float32 kernels {f32_counts}), "
               f"expected {expected}")
-        timed = time_steps(step, batch, metrics, dev, top=15)
+        timed = time_steps(step, batch, metrics, dev, top=15, timed=5, profiled=1)
         f32 = f32_steps[name]
         record = dict(preset=name, batch=TRAIN_BATCH, height=TRAIN_HW[0], width=TRAIN_HW[1],
                       dtype="bfloat16", remat=cfg.remat, launches=counts, card=smi, **timed,
@@ -2842,6 +3018,262 @@ def bf16_training_phases(specs, bwd_specs, specs16, bwd16, gen, dev, timer, smi,
     print(f"phase 15: (a) {t_a - t0:.1f} s, (b) {t_b - t_a:.1f} s, (c) "
           f"{time.perf_counter() - t_b:.1f} s", flush=True)
     return out
+
+
+def bf16_volume_specs(specs, bwd_specs):
+    """The bf16 forms of the 4-D volume kernels (phase 16), forward and
+    backward, derived from their float32 specs as ``bf16_kernel_specs``
+    derives the others': the same wrapper, twin and signature; launches in
+    ``launches_bf16``; bf16 features and volume gradients; bytes at 2 a
+    value, half the float32 forms' bound (their FLOPs are float32
+    subtractions and sums); the float32 kernel timed at the same shapes.
+    Tolerance: bit for bit (the twin computes in float32 and rounds where
+    the kernel does)."""
+    by_name = {s["name"]: s for s in specs + bwd_specs}
+    bf = torch.bfloat16
+
+    def inputs_of(name):
+        def make(sig, gen, dev):
+            args, kwargs = by_name[name]["inputs"](sig, gen, dev)
+            return tuple(a.to(bf) if isinstance(a, torch.Tensor) else a for a in args), kwargs
+        return make
+
+    def half_bytes(name):
+        def cost(sig):
+            nbytes, flops = by_name[name]["cost"](sig)
+            return nbytes // 2, flops
+        return cost
+
+    def to_f32(args):
+        return tuple(a.float() if isinstance(a, torch.Tensor) else a for a in args)
+
+    out = []
+    for name in ("difference_volume", "concat_volume", "difference_volume_backward",
+                 "concat_volume_backward"):
+        spec = by_name[name]
+        extra = dict(forward=f"{spec['forward']}_bf16") if "forward" in spec else {}
+        out.append(dict(spec, name=f"{name}_bf16", counter="launches_bf16", inputs=inputs_of(name),
+                        cost=half_bytes(name), f32_args=to_f32, **extra))
+    return out
+
+
+def bf16_volume_phases(specs, bwd_specs, specs16, vol16, gen, dev, timer, smi, left, right,
+                       f32_forwards, f32_steps):
+    """Phase 16: the 4-D volumes in bf16, and PSMNet (either aggregation),
+    StereoNet and GC-Net serving and training in bfloat16. (a) Each bf16
+    volume kernel against its twin bit for bit at ``VOL_PATHS`` (two
+    launches bitwise, timed beside its bound and its float32 form) and at
+    ``VOL_EDGE_SHAPES`` (the backward also at D = 0). (b) Each network's
+    forward at 384x1248, batch 1, seeded and calibrated (phase 5b's
+    weights) in ``dtype="bfloat16"``: through the plain bf16 twins with
+    every kernel call's shape, each bf16 kernel against its twin at those
+    shapes, then through the kernels with its launches (bf16 forms only),
+    every kernel call of the path against its twin on the path's own
+    inputs, the map against the plain bf16 one and float32's (phase 14's
+    guard), its latency beside phase 5b's float32 forward (``f32_forwards``)
+    and its device breakdown. (c) A bf16 kernel step against the plain bf16
+    step at batch 2 on phase 7's first seeded batch, under phase 15's guard
+    (``seeded_compares`` with ``one_ulp_nudge`` and the float32 step as the
+    guard). (d) The full-width bf16 step at batch 16, halved until it fits,
+    with its launches, step time (median of 5), samples/s, peak memory and
+    device breakdown beside phase 10's float32 step (``f32_steps``), and
+    each bf16 volume and soft-argmin kernel against its twin at its
+    shapes, timed. Returns, per path, each bf16 kernel's rows and the
+    path's launches."""
+    t0 = time.perf_counter()
+    by_name = {s["name"]: s for s in vol16}
+    # soft-argmin's bf16 form over these networks' 96-192 candidates, with
+    # its float32 form's tolerance: the same float32 sums, relative to
+    # disparities beyond 50 px (phase 14's 1e-4 px is for D <= 64)
+    sa32 = next(s for s in specs if s["name"] == "soft_argmin")
+    sa16 = dict(next(s for s in specs16 if s["name"] == "soft_argmin_bf16"), tol=sa32["tol"],
+                tol_text=sa32["tol_text"])
+    fwd16 = [sa16] + [s for s in vol16 if "backward" not in s["name"]]
+    bwd16 = [s for s in vol16 if "backward" in s["name"]]
+    sa_bwd16 = next(s for s in bf16_backward_specs(bwd_specs) if s["name"] == "soft_argmin_backward_bf16")
+    all16 = fwd16 + bwd16 + [sa_bwd16]
+    # (a) the kernels at the paths' shapes and beyond them
+    edges = []
+    for sig, concat in VOL_PATHS.values():
+        kind = "concat_volume_bf16" if concat else "difference_volume_bf16"
+        for name in (kind, kind.replace("_bf16", "_backward_bf16")):
+            row = measure(by_name[name], sig, 1, gen, dev, timer, iters=10)
+            same = same_bits(by_name[name], sig, gen, dev)
+            check(same, f"{name} {sig}: two launches on the same inputs differ")
+            edges.append(dict(row, kernel=name, case="path shape: two launches bitwise", identical=same))
+            torch.cuda.empty_cache()
+    for sig in VOL_EDGE_SHAPES + [(VOL_EDGE_SHAPES[0][0], 0)]:
+        for kind in ("difference_volume", "concat_volume"):
+            names = (kind, f"{kind}_backward") if sig[1] else (f"{kind}_backward",)
+            for name in names:
+                edges.append(dict(measure(by_name[f"{name}_bf16"], sig, 1, gen, dev, timer, timed=False),
+                                  kernel=f"{name}_bf16", case="beyond the path" if sig[1] else "D = 0"))
+    print(json.dumps({"bf16_volume_edge_cases": edges}), flush=True)
+    t_a = time.perf_counter()
+
+    forwards, steps = {}, {}
+    for name in ("psmnet", "psmnet_basic", "stereonet", "gcnet"):
+        cfg = baseline_config(name)
+        cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+        fwd_expected = {f"{k}_bf16": v for k, v in BASELINES[name]["launches"].items()}
+        expected = {s["name"]: fwd_expected.get(s["name"], 0) for s in fwd16}
+        # (b) the forward at 384x1248
+        with torch.no_grad():
+            model32 = seeded_model(cfg, dev).eval()
+            calibrate_bn_(model32, specs, left, right)
+            model = cfg16.build()
+            model.load_state_dict(model32.state_dict())
+            model = model.to(dev).eval()
+            with plain_ops(specs):
+                plain32 = model32(left, right)
+            del model32
+            calls = {s["name"]: collections.Counter() for s in fwd16}
+            with plain_ops(fwd16, calls):
+                plain = model(left, right)
+            with plain_ops(fwd16):
+                plain_ms = timer.ms(lambda: model(left, right), warmup=1, iters=5)
+            made = {n: sum(c.values()) for n, c in calls.items()}
+            check(made == expected, f"{name} bf16: plain forward made {made}, expected {expected}")
+            rows = {s["name"]: [measure(s, sig, k, gen, dev, timer) for sig, k in calls[s["name"]].items()]
+                    for s in fwd16}
+            reset_launches(specs + all16)
+            pyramid = model(left, right)
+            torch.cuda.synchronize()
+            counts = launches(fwd16)
+            f32_counts = {k: v for k, v in launches(specs).items() if v}
+            print(f"{name} bf16 launches: {counts}", flush=True)
+            check(counts == expected and not f32_counts,
+                  f"{name} bf16: launches {counts} (float32 kernels {f32_counts}), expected {expected}")
+            calls_checked = []
+            with checked_ops(fwd16, calls_checked):
+                model(left, right)
+            check(len(calls_checked) == sum(expected.values())
+                  and all(err <= tol for _, err, tol in calls_checked),
+                  f"{name} bf16: a path call off its twin: {calls_checked}")
+            shapes = BASELINES[name]["shapes"]
+            check([tuple(p.shape) for p in pyramid] == shapes
+                  and all(p.dtype == torch.float32 and bool(torch.isfinite(p).all()) for p in pyramid),
+                  f"{name} bf16: pyramid {[(tuple(p.shape), p.dtype) for p in pyramid]}")
+            kernel_plain = pyramid_errors(pyramid, plain)
+            plain_f32 = pyramid_errors(plain, plain32)
+            # phase 14's guard: the kernel path no farther (mean) from the
+            # plain bf16 path than the plain bf16 path is from float32
+            check(all(kp[1] <= pf[1] for kp, pf in zip(kernel_plain, plain_f32)),
+                  f"{name} bf16: (max, mean) px, kernel vs plain bf16 {kernel_plain}, plain bf16 vs "
+                  f"float32 {plain_f32}")
+            record = forward_record(f"{name} bf16", model, left, right, plain_ms, kernel_plain, timer,
+                                    smi, dtype="bfloat16")
+        f32 = f32_forwards[name]["record"]
+        record.update(launches=counts, path_calls_checked=len(calls_checked),
+                      plain_bf16_vs_float32_px=plain_f32,
+                      float32=dict(latency_ms=f32["latency_ms"], device_ms=f32["device_ms"],
+                                   peak_memory_bytes=f32["peak_memory_bytes"],
+                                   device_idle_share=f32["device_idle_share"]))
+        print(f"{name} bf16 forward {record['latency_ms']:.4f} ms (float32 {f32['latency_ms']:.4f} ms), "
+              f"device {record['device_ms']:.4f} ms (float32 {f32['device_ms']:.4f}), peak "
+              f"{record['peak_memory_bytes']} B (float32 {f32['peak_memory_bytes']} B) on {smi}",
+              flush=True)
+        print(json.dumps({"bf16_3d_forward": record}), flush=True)
+        forwards[f"{name} bf16"] = dict(rows=rows, launches=counts, record=record)
+        del model, plain, plain32, pyramid
+        torch.cuda.empty_cache()
+
+        # (c) the kernel step against the plain step at batch 2
+        torch.set_grad_enabled(True)
+        first = {s["name"]: collections.Counter() for s in fwd16}
+        again = {s["name"]: collections.Counter() for s in fwd16}
+        (compare,) = seeded_compares(cfg16, fwd16, dev, COMPARE_SEEDS[:1], calls=first, recomputed=again,
+                                     per_parameter=False, label="bf16_3d_train_step_compare",
+                                     nudge=one_ulp_nudge, guard=(cfg, specs))
+        check(not compare["failures"], f"{name} bf16 kernel vs plain train step: {compare['failures']}")
+        # (d) the full-width step
+        train_expected = {f"{k}_bf16": v for k, v in BASELINES[name]["train_launches"].items()}
+        expected = {s["name"]: train_expected.get(s["name"], 0) for s in all16}
+        model, step, batch, metrics, counts, refused = fit_batch(cfg16, gen, dev, specs + bwd_specs + all16)
+        n = batch["left"].shape[0]
+        counts = launches(all16)
+        f32_counts = {k: v for k, v in launches(specs + bwd_specs).items() if v}
+        print(f"{name} bf16 train-step launches at batch {n}: {counts}", flush=True)
+        check(counts == expected and not f32_counts,
+              f"{name} bf16: train-step launches {counts} (float32 kernels {f32_counts}), expected {expected}")
+        timed = time_steps(step, batch, metrics, dev, top=12, timed=5, profiled=1)
+        del model, step, batch
+        torch.cuda.empty_cache()
+        f32 = f32_steps[name]["step"]
+        record = dict(network=name, batch=n, batches_out_of_memory=refused, height=TRAIN_HW[0],
+                      width=TRAIN_HW[1], max_disp=cfg.max_disp, dtype="bfloat16", remat=cfg.remat,
+                      launches=counts, compare=compare, card=smi, **timed,
+                      float32={k: f32[k] for k in ("batch", "step_ms", "samples_per_s",
+                                                   "peak_memory_bytes", "device_idle_share",
+                                                   "device_ms", "top_kernels")})
+        print(f"{name} bf16 step {record['step_ms']:.4f} ms at batch {n} (float32 {f32['step_ms']:.4f} ms "
+              f"at {f32['batch']}), peak {record['peak_memory_bytes']} B (float32 "
+              f"{f32['peak_memory_bytes']} B) on {smi}", flush=True)
+        print(json.dumps({"bf16_3d_train_step": record}), flush=True)
+        rows = {sp["name"]: [measure(sp, rebatch(sig, n), k + again[sp["name"]][sig], gen, dev, timer,
+                                     iters=10) for sig, k in first[sp["name"]].items()] for sp in fwd16}
+        rows.update({sp["name"]: [measure(sp, rebatch(sig, n), k, gen, dev, timer, iters=10)
+                                  for sig, k in first[sp["forward"]].items()] for sp in bwd16 + [sa_bwd16]})
+        steps[f"{name} bf16 step"] = dict(rows=rows, launches=counts, step=record)
+        torch.set_grad_enabled(False)
+        torch.cuda.empty_cache()
+    t_d = time.perf_counter()
+    entry = bf16_baseline_entry_points(smi)
+    print(f"phase 16: (a) {t_a - t0:.1f} s, (b-d) {t_d - t_a:.1f} s, (e) "
+          f"{time.perf_counter() - t_d:.1f} s", flush=True)
+    return forwards, steps, dict(edge_cases=edges, entry_points=entry)
+
+
+def bf16_baseline_entry_points(smi):
+    """Phase 16(e): the entry points with a baseline's model flags and
+    ``--dtype bfloat16``, in this process: ``predict`` with PSMNet's on two
+    375x1242 pairs (pad to 384x1248, crop back); ``train`` with StereoNet's
+    for one epoch on ``write_synthetic``'s 16 pairs, then ``evaluate`` and
+    ``inference --count_time`` of its float32 checkpoint in bf16. Returns
+    the record."""
+    from aanet_torch import cli
+
+    def flags(name):
+        return [f"--{k}={v}" for k, v in BASELINES[name]["flags"].items()]
+
+    bf16 = ["--dtype", "bfloat16", "--device", DEVICE]
+    record = dict(card=smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        pairs = os.path.join(tmp, "pairs")
+        write_pngs(pairs, 2, PREDICT_HW, SEED)
+        cli.main(["predict", *flags("psmnet"), *bf16, "--data_dir", pairs, "--save_type", "npy"])
+        preds = [np.load(os.path.join(pairs, "pred", f"{i:06d}.npy")) for i in range(2)]
+        check(all(p.shape == PREDICT_HW and np.isfinite(p).all() for p in preds),
+              f"predict --dtype bfloat16 with PSMNet's flags: {[p.shape for p in preds]}")
+        data, lists = write_synthetic(tmp)
+        stereonet = [*flags("stereonet"), *bf16, "--data_dir", data, "--filename_root", lists,
+                     "--num_workers", "4"]
+        ckpt = os.path.join(tmp, "run")
+        with contextlib.redirect_stdout(io.StringIO()), torch.enable_grad():
+            cli.main(["train", *stereonet, "--checkpoint_dir", ckpt, "--img_height", "96",
+                      "--img_width", "192", "--batch_size", "4", "--max_epoch", "1",
+                      "--milestones", "10", "--print_freq", "1", "--no_validate"])
+        losses = [json.loads(line)["total_loss"] for line in open(os.path.join(ckpt, "metrics.jsonl"))]
+        weights = os.path.join(ckpt, "aanet_latest.pt")
+        saved = torch.load(weights, map_location="cpu", weights_only=True)
+        float32_state = all(t.dtype in (torch.float32, torch.int64) for t in saved["model"].values())
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(["evaluate", *stereonet, "--pretrained", weights, "--checkpoint_dir",
+                      os.path.join(tmp, "eval"), "--val_img_height", "96", "--val_img_width", "192",
+                      "--val_batch_size", "4"])
+            epe = json.loads(out.getvalue().strip().splitlines()[-1])["epe"]
+            cli.main(["inference", *stereonet, "--pretrained", weights, "--img_height", "96",
+                      "--img_width", "192", "--batch_size", "1", "--count_time",
+                      "--output_dir", os.path.join(tmp, "inference")])
+        seconds = json.loads(out.getvalue().strip().splitlines()[-1])["mean_inference_seconds"]
+    record.update(psmnet_predict_shapes=[list(p.shape) for p in preds], stereonet_losses=losses,
+                  float32_checkpoint=float32_state, stereonet_epe=epe,
+                  stereonet_mean_inference_seconds=seconds)
+    print(json.dumps({"bf16_baseline_entry_points": record}), flush=True)
+    check(len(losses) == 4 and all(np.isfinite(losses)) and float32_state and np.isfinite(epe)
+          and seconds > 0, f"the entry points with StereoNet's flags in bf16: {record}")
+    return record
 
 
 def anchor_bf16_finetune(smi):
@@ -2946,6 +3378,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
+    # deterministic cuBLAS for ``deterministic``, set before any cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from aanet_torch import _build, cli
     from aanet_torch.config import preset
 
@@ -3068,7 +3502,6 @@ def main() -> int:
     specs16 = bf16_kernel_specs(specs)
     served = bf16_serving_phases(specs, specs16, gen, dev, timer, smi, left, right,
                                  {"aanet": forward, "aanet+": plus["aanet+"]["record"]})
-    del left, right
     torch.cuda.empty_cache()
     anchor_bf16_pyramid(specs, specs16, dev, smi)
     torch.cuda.empty_cache()
@@ -3084,12 +3517,35 @@ def main() -> int:
         {"aanet": train["step"], PLUS_FULL_STEP: plus_train[PLUS_FULL_STEP]["step"]})
     torch.cuda.empty_cache()
     anchor_bf16_finetune(smi)
+    # the deformable conv's kernels give the same bits every launch, at
+    # every path shape of phases 3-15
+    by_name = {s["name"]: s for s in specs + bwd_specs + specs16 + bwd16}
+    paths = {"aanet inference": {sp["name"]: rows for sp, rows in report},
+             "aanet train step": train["rows"],
+             **{f"{k} forward": v["rows"] for k, v in {**baselines, **aa, **plus, **served}.items()},
+             **{f"{k} train step": v["rows"]
+                for k, v in {**baseline_train, **aa_train, **plus_train, **trained16}.items()}}
+    print(json.dumps({"deform_same_bits": deform_same_bits(by_name, paths, gen, dev)}), flush=True)
+    print(json.dumps({"fixed_point_precision": fixed_point_precision(
+        by_name["deform_conv_backward_data"], train["rows"]["deform_conv_backward_data"], gen,
+        dev)}), flush=True)
     print(f"phase 15 took {time.perf_counter() - t15:.1f} s", flush=True)
 
-    # 16. the record
+    # 16. the 4-D volumes in bf16: PSMNet (both aggregations), StereoNet and
+    # GC-Net serve and train in bfloat16
+    t16 = time.perf_counter()
+    vol16 = bf16_volume_specs(specs, bwd_specs)
+    forwards16, steps16, _ = bf16_volume_phases(specs, bwd_specs, specs16, vol16, gen, dev, timer, smi,
+                                                left, right, baselines, baseline_train)
+    del left, right
+    torch.cuda.empty_cache()
+    print(f"phase 16 took {time.perf_counter() - t16:.1f} s", flush=True)
+
+    # 17. the record
     kernels = kernels_record(specs + bwd_specs, report, counts_main, train,
                              {**baselines, **aa, **plus}, {**baseline_train, **aa_train, **plus_train})
     kernels += kernels_record(specs16 + bwd16, [], {}, None, served, trained16)
+    kernels += kernels_record(vol16, [], {}, None, forwards16, steps16)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -479,7 +479,8 @@ def test_trained_anchor_in_bf16_matches_jax():
 
 # ---------------------------------------------------------------------------
 # bf16 training (its step against JAX's: tests/test_torch_bf16_train.py), the
-# backwards' dtypes, and what bf16 does not run yet: the 4-D volumes
+# backwards' dtypes, and the 4-D volumes in bf16 (against JAX's:
+# tests/test_torch_bf16_volumes.py)
 # ---------------------------------------------------------------------------
 
 
@@ -518,13 +519,29 @@ def _cut_flags():
 
 @pytest.mark.parametrize("flags", [
     dict(feature_type="stereonet", feature_similarity="difference", aggregation_type="stereonet",
-         refinement_type="stereonet"),
-    dict(feature_type="psmnet", feature_similarity="concat", aggregation_type="psmnet_hourglass",
-         refinement_type="None"),
+         refinement_type="stereonet", max_disp=16),
+    dict(feature_type="gcnet", feature_similarity="concat", aggregation_type="gcnet",
+         num_downsample=1, refinement_type="None", max_disp=32),
 ], ids=["difference", "concat"])
 def test_bf16_with_a_4d_volume_is_refused(flags):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ModelConfig(dtype="bfloat16", **flags).build()
+    """A bf16 model with a 4-D volume builds and runs now (the name is
+    the refusal's it replaced): StereoNet's difference volume and GC-Net's
+    concat volume (PSMNet's extractor needs 256x256) are built in bf16 and
+    the pyramid comes back float32 and finite; float32 builds as before."""
+    model = ModelConfig(dtype="bfloat16", **flags).build().eval()
+    seen = []
+
+    def record(left, right, max_disp, kind):
+        out = real(left, right, max_disp, kind)
+        seen.append(out.dtype)
+        return out
+
+    real = cost_volume._Volume.apply
+    left, right = (nchw(x) for x in _pair(hw=(32, 64)))
+    with mock.patch.object(cost_volume._Volume, "apply", record), torch.no_grad():
+        pyramid = model(left, right)
+    assert seen == [BF16]
+    assert all(p.dtype == torch.float32 and bool(torch.isfinite(p).all()) for p in pyramid)
     ModelConfig(**flags).build()  # float32 builds
 
 
@@ -552,8 +569,12 @@ def test_backward_wrappers_refuse_bf16(device):
         (lambda: softargmin.soft_argmin_backward(f32(1, 2, 3), t(1, 5, 2, 3)), (BF16,)),
         (lambda: warp.disp_warp_backward(t(1, 2, 3, 8), t(1, 2, 3, 8), f32(1, 3, 8)),
          (torch.float32,)),
+        (lambda: cost_volume.difference_cost_volume_backward(t(1, 3, 4, 4, 9), t(1, 3, 4, 9),
+                                                             t(1, 3, 4, 9)), (BF16, BF16)),
+        (lambda: cost_volume.concat_cost_volume_backward(t(1, 6, 4, 4, 9), t(1, 3, 4, 9),
+                                                         t(1, 3, 4, 9)), (BF16, BF16)),
     ]
-    assert len(calls) == len(ops.BACKWARD_OPS) - 2  # all but the float32-only 4-D volumes'
+    assert len(calls) == len(ops.BACKWARD_OPS)
     for call, dtypes in calls:
         if device == "cpu":
             out = call()
@@ -562,8 +583,7 @@ def test_backward_wrappers_refuse_bf16(device):
         else:
             with pytest.raises(ValueError, match="the kernel takes CUDA tensors"):
                 call()
-    assert all(op.launches == op.launches_bf16 == 0 for op in ops.BACKWARD_OPS[:5])
-    assert all(op.launches == 0 for op in ops.BACKWARD_OPS)
+    assert all(op.launches == op.launches_bf16 == 0 for op in ops.BACKWARD_OPS)
 
 
 # ---------------------------------------------------------------------------

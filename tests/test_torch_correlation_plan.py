@@ -232,8 +232,10 @@ def test_constants_are_the_kernels(name):
     step and the launch bounds (which cap a thread's registers)."""
     found = re.findall(rf"constexpr int {name} = (\d+);", SOURCE)
     assert found == [str(getattr(cv, name))]
-    if name == "FWD_MIN_BLOCKS":
-        assert "__launch_bounds__(FWD_MAX_THREADS, FWD_MIN_BLOCKS)\ncorr_fwd_kernel" in SOURCE
+    if name == "FWD_MIN_BLOCKS":  # the bf16 form's; the float32 form's float64 tile takes one
+        assert ("__launch_bounds__(FWD_MAX_THREADS, is_bf16<T> ? FWD_MIN_BLOCKS : "
+                "CORR_F32_MIN_BLOCKS)\ncorr_fwd_kernel") in SOURCE
+        assert "constexpr int CORR_F32_MIN_BLOCKS = 1;" in SOURCE
     if name == "BWD_MIN_BLOCKS":
         assert "__launch_bounds__(BWD_MAX_THREADS, BWD_MIN_BLOCKS)\ncorr_bwd_kernel" in SOURCE
 

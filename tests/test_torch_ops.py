@@ -41,6 +41,21 @@ def test_correlation_matches_jax(w, d):
     np.testing.assert_allclose(got.numpy().transpose(0, 2, 3, 1), want, atol=1e-5)
 
 
+def test_correlation_float32_is_the_correctly_rounded_mean():
+    """The plain correlation with ``exact`` (what the kernel's float32 form
+    computes: float64 sums) is the exact mean rounded once, within half an
+    ulp of its float64 value, where the float32 sums over 96 channels (the
+    CPU path, as the JAX op sums) are not."""
+    left = torch.from_numpy(rng(2, 96, 5, 40, seed=3))
+    right = torch.from_numpy(rng(2, 96, 5, 40, seed=4))
+    got = cost_volume.correlation_cost_volume_plain(left, right, 12, exact=True)
+    exact = cost_volume.correlation_cost_volume_plain(left.double(), right.double(), 12)
+    half_ulp = (torch.nextafter(got, torch.full_like(got, np.inf)) - got).double() / 2
+    assert ((got.double() - exact).abs() <= half_ulp).all()
+    summed32 = cost_volume.correlation_cost_volume(left, right, 12)
+    assert ((summed32.double() - exact).abs() > half_ulp).any()
+
+
 # volumes [B, H, W, D] (the JAX layout) with each sign: the first case, then
 # the edges of the kernels' tiling: D = 0 (zeros), D = 1, an odd D, and an
 # H*W that is not a multiple of 4

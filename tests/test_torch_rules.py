@@ -157,11 +157,10 @@ def test_every_launch_counter_is_listed():
     assert all("backward" in op.__name__ for op in ops.BACKWARD_OPS)
     names = {op.__name__ for op in ops.BACKWARD_OPS}
     assert {"difference_cost_volume_backward", "concat_cost_volume_backward"} <= names
-    # every op but the 4-D volumes' has a bf16 form, forward and backward,
-    # each counted apart in ``launches_bf16``
+    # every op has a bf16 form, forward and backward, each counted apart in
+    # ``launches_bf16``
     bf16 = {op.__name__ for op in KERNEL_OPS + ops.BACKWARD_OPS if hasattr(op, "launches_bf16")}
-    assert bf16 == {op.__name__ for op in KERNEL_OPS + ops.BACKWARD_OPS
-                    if not op.__name__.startswith(("difference", "concat"))}
+    assert bf16 == {op.__name__ for op in KERNEL_OPS + ops.BACKWARD_OPS}
 
 
 def _write_pairs(root, h, w, n=2):
