@@ -15,7 +15,9 @@
 //
 // Each of the three has a float32 and a bfloat16 form (aanet_deform_conv_f32
 // and aanet_deform_conv_bf16, and the same suffixes on the backward's entry
-// points).
+// points). The weight gradient's bf16 form is the float32 kernel's template
+// on bf16 values; the bf16 forward and input/offset/mask gradient are
+// kernels of their own, on the tensor cores (the last section).
 #include "common.cuh"
 
 #include <math.h>
@@ -221,17 +223,9 @@ __device__ __forceinline__ void sample_quad(float* col, int rs, float4 te, const
 // The columns (490 MB at the largest shape if written out) never reach
 // device memory.
 //
-// The bf16 form (T = bf16: x, the mask and the weight in bfloat16; the
-// offsets and the bias float32) is the same kernel: x and the weight taps
-// are widened to float32 where they are staged in shared memory and the
-// mask where it is tabulated, so the plan, the shared-memory layout and
-// the float32 contraction are the float32 form's, and only the global
-// loads of those values halve. Staged by a load and a store (cp.async
-// copies bytes, it cannot widen them), the next chunk's window and weights
-// are not in flight behind the current chunk's work as the float32
-// form's are. The output is rounded to bf16 once, where it is stored, or,
-// where the plan splits, where slab_sum_kernel stores the slabs' float32
-// sum: no partial sum is rounded.
+// This kernel serves float32 values (T = TO = float). The bf16 forward is
+// deform_fwd_mma_kernel (the last section): its products run on the tensor
+// cores, with its own plan.
 // ---------------------------------------------------------------------------
 namespace {
 
@@ -604,21 +598,6 @@ extern "C" int aanet_deform_conv_f32(
                           device, stream);
 }
 
-// The bf16 form: x, mask, wt and out bfloat16 (wt and out 16-byte aligned),
-// offset, bias and sums float32 (the slabs' sum is rounded into out once),
-// the rest as aanet_deform_conv_f32's.
-extern "C" int aanet_deform_conv_bf16(
-    const bf16* x, const float* offset, long long offset_bstride, const bf16* mask,
-    long long mask_bstride, const bf16* wt, const float* bias, bf16* out, float* sums, int batch,
-    int cin, int height, int width, int cout, int out_h, int out_w, int kh, int kw, int stride,
-    int pad, int dil, int groups, int tile_h, int co_tile, int wt_stride, int ksplit,
-    int splits, int smem_bytes, int device, void* stream) {
-  return deform_fwd_entry(x, offset, offset_bstride, mask, mask_bstride, wt, bias, out, sums,
-                          batch, cin, height, width, cout, out_h, out_w, kh, kw, stride, pad,
-                          dil, groups, tile_h, co_tile, wt_stride, ksplit, splits, smem_bytes,
-                          device, stream);
-}
-
 // ---------------------------------------------------------------------------
 // Backward (a): the gradients for x, offset and mask.
 //
@@ -730,15 +709,9 @@ extern "C" int aanet_deform_conv_bf16(
 //   the build.
 // gcol never reaches device memory.
 //
-// The bf16 form (T = bf16: gout, x and the mask in bfloat16; the offsets
-// float32) is the same kernel. gout and the x window are widened where they
-// are staged (a load and a store: cp.async cannot widen), the mask where it
-// is loaded, far corners where they are read; the wrapper hands over the
-// weight widened to float32 as it lays it out (exact, and its copies stay
-// cp.async). The scatter is the same fixed-point sum, converted to bf16
-// once; the mask's gradient goes to float32 slabs that slab_sum_kernel
-// sums and rounds once. The offsets' gradient stays float32 (its primal's
-// dtype).
+// This kernel serves float32 values (T = float). The bf16 gradient is
+// deform_bwd_data_mma_kernel (the last section): the same fixed-point
+// scatter, its column gradient on the tensor cores, with its own plan.
 // ---------------------------------------------------------------------------
 namespace {
 
@@ -1357,25 +1330,6 @@ extern "C" int aanet_deform_conv_backward_data_f32(
                         chunk, tile_h, blocks, smem_bytes, device, stream);
 }
 
-// The bf16 form: gout, x, mask, grad_x and grad_mask bfloat16; offset,
-// grad_offset and the slabs float32; wt float32 (the bf16 weight widened
-// as it is laid out); mask_sums, with a mask, always (one slab where the
-// group is one chunk: the mask gradient is rounded to bf16 once, by the
-// slabs' sum). The rest as aanet_deform_conv_backward_data_f32's (the same
-// plan).
-extern "C" int aanet_deform_conv_backward_data_bf16(
-    const bf16* gout, const bf16* x, const float* offset, long long offset_bstride,
-    const bf16* mask, long long mask_bstride, const float* wt, double* bound, long long* x_acc,
-    unsigned* x_flags, bf16* grad_x, float* offset_sums, float* grad_offset, float* mask_sums,
-    bf16* grad_mask, int batch, int cin, int height, int width, int cout, int out_h, int out_w,
-    int kh, int kw, int stride, int pad, int dil, int groups, int chunk, int tile_h, int blocks,
-    int smem_bytes, int device, void* stream) {
-  return bwd_data_entry(gout, x, offset, offset_bstride, mask, mask_bstride, wt, bound, x_acc,
-                        x_flags, grad_x, offset_sums, grad_offset, mask_sums, grad_mask, batch,
-                        cin, height, width, cout, out_h, out_w, kh, kw, stride, pad, dil, groups,
-                        chunk, tile_h, blocks, smem_bytes, device, stream);
-}
-
 // ---------------------------------------------------------------------------
 // Backward (b): the weight gradient,
 //   grad_w[co, c, k] = sum_{b, p} gout[b, co, p] * col[b, c, k, p],
@@ -1823,4 +1777,932 @@ extern "C" int aanet_deform_conv_backward_weight_bf16(
                       height, width, cout, out_h, out_w, kh, kw, stride, pad, dil, groups, tile_h,
                       step_h, co_tile, chunk, ksplit, splits, blocks, smem_bytes,
                       static_cast<cudaStream_t>(stream));
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 forward and input/offset/mask gradient on the tensor cores.
+//
+// Both replace the bf16 form of aanet_tpu/ops/deform.py:modulated_deform_conv2d
+// (its bf16 handling at :181-224: x, the mask and the weight in bfloat16, the
+// offsets float32) and the transposes jax.vjp derives from it. They compute
+// what the float32 kernels above compute on the widened values (the
+// samples, their blend, the scatter and the offset and mask gradients in
+// float32, each output rounded once), but their products run as
+// mma.sync.aligned.m16n8k16 bf16 x bf16 with float32 accumulators on the
+// tensor cores, and x, gout and the window are staged raw, in bfloat16,
+// with cp.async. A bf16 x bf16 product is exact in float32, so only the
+// order of the float32 sums differs from the twins'.
+//
+// Shared by both: the raw x window. A chunk's channels are staged
+// channel-major, as bf16, each row a whole number of 16-byte pieces that
+// start at a multiple of 8 columns (x's rows are 16-byte aligned where its
+// width is a multiple of 8: x_vec; else the pieces are copied value by
+// value): column win_x - xoff of the image is the row's first, xoff =
+// (win_x mod 8) the same for every tile of a launch (win_x = wo0 * stride -
+// pad - HALO, wo0 a multiple of 16). A channel's rows are win_wa values
+// apart and channels xcs values apart (xcs: a multiple of 8, padded so that
+// the channels the lanes of a warp read at once fall in different banks).
+// ---------------------------------------------------------------------------
+namespace {
+
+constexpr int MMA_FWD_TH = 4;           // forward: output rows of a tile
+constexpr int MMA_FWD_THREADS = 256;    // forward: 8 warps, 8 pixels (half a row) each
+constexpr int MMA_FWD_CHUNK = 16;       // forward: input channels of a chunk (one k-step a tap)
+constexpr int MMA_BD_CHUNK = 8;         // backward-data: input channels of a block (one n-tile)
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Four 8 x 8 bf16 matrices; lanes 8 i .. 8 i + 7 give the rows of matrix i.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x2(unsigned& r0, unsigned& r1, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// 16 bytes from src, of which the first `bytes` are read and the rest zero
+// (bytes = 0: nothing is read; src must still be a valid address).
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes));
+}
+
+__device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
+
+// The raw window's row: win_w columns after xoff, rounded up to whole
+// 16-byte pieces.
+__host__ __device__ inline int raw_row(int win_w, int xoff) { return (xoff + win_w + 7) / 8 * 8; }
+
+// A channel's values in the raw window: win_h rows of win_wa, rounded up
+// to an odd multiple of `unit` (8 or 16 values), so that the channels the
+// lanes of a warp read at once start 8 x odd words (8 banks, modulo 32)
+// apart: unit 8 for channels two apart (the backward-data kernel's lanes),
+// unit 16 for neighbouring channels (the forward's).
+__host__ __device__ inline int raw_channel(int win_h, int win_wa, int unit) {
+  int n = (win_h * win_wa + unit - 1) / unit;
+  if (n % 2 == 0) ++n;
+  return n * unit;
+}
+
+// The fixed-point window's words a channel: at least win_h x win_w, 4
+// modulo 16, so that the four channel pairs of a warp (two channels apart)
+// start 8 banks apart.
+__host__ __device__ inline int fixed_channel(int win_h, int win_w) {
+  int n = win_h * win_w;
+  while (n % 16 != 4) ++n;
+  return n;
+}
+
+// The raw x window of CC channels (nc of them exist: the rest zero) of x
+// at channel xc into sx: rows win_y.., columns win_x0.. (a multiple of 8).
+__device__ __forceinline__ void stage_raw_window(bf16* sx, const bf16* xc, int cc, int nc,
+                                                 long long hw, int win_y, int win_x0, int win_h,
+                                                 int win_wa, int xcs, int height, int width,
+                                                 bool x_vec, int t, int nthreads,
+                                                 const bf16* any) {
+  const int pieces = win_wa / 8;
+  const int n = cc * win_h * pieces;
+  for (int e = t; e < n; e += nthreads) {
+    const int q = e % pieces, rest = e / pieces;
+    const int r = rest % win_h, cl = rest / win_h;
+    const int yy = win_y + r, xx = win_x0 + 8 * q;
+    bf16* dst = sx + cl * xcs + r * win_wa + 8 * q;
+    // a piece left of the image lies wholly outside it (win_x0 and 0 are multiples of 8)
+    const bool in = cl < nc && yy >= 0 && yy < height && xx >= 0 && xx < width;
+    const bf16* src = in ? xc + cl * hw + static_cast<long long>(yy) * width + xx : any;
+    if (x_vec) {
+      cp_async_16(dst, src, in ? 2 * min(8, width - xx) : 0);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) dst[i] = in && xx + i < width ? src[i] : __ushort_as_bfloat16(0);
+    }
+  }
+}
+
+// A float32 value as three bf16 planes: hi, the next 8 significand bits
+// times 2^8 and the last 8 times 2^16, so that v = hi + 2^-8 mid + 2^-16 lo
+// exactly for every finite float32 (subnormals included: the scaling keeps
+// the low planes above bf16's least subnormal) and each plane is exactly a
+// bf16 (ops/deform.py split_planes is the same split in PyTorch). A
+// non-finite v is hi, the others zero.
+__device__ __forceinline__ void split_planes(float v, unsigned short& hi, unsigned short& mid,
+                                             unsigned short& lo) {
+  if (!isfinite(v)) {
+    hi = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+    mid = lo = 0;
+    return;
+  }
+  const float h = __uint_as_float(__float_as_uint(v) & 0xffff0000u);  // truncated: exact
+  const float r1 = __fmul_rn(__fsub_rn(v, h), 256.f);                  // exact
+  const float m = __uint_as_float(__float_as_uint(r1) & 0xffff0000u);
+  const float r2 = __fmul_rn(__fsub_rn(r1, m), 256.f);  // exact, at most 8 significant bits
+  hi = static_cast<unsigned short>(__float_as_uint(h) >> 16);
+  mid = static_cast<unsigned short>(__float_as_uint(m) >> 16);
+  lo = static_cast<unsigned short>(__float_as_uint(r2) >> 16);
+}
+
+// ---------------------------------------------------------------------------
+// Kernel B: the bf16 forward, out = W . col + bias, on the tensor cores.
+//
+// Bound (H100 SXM at 700 W; chip_smoke.py's bf16_kernel_specs): the
+// contraction is three bf16 x bf16 products of the column's planes at 989
+// TFLOP/s, the sampling (the bilinear blend, 8 operations a sample) at the
+// float32 peak of 67 TFLOP/s. The products bound the 64- and 128-channel
+// convs (0.0660 ms at the aanet step's [16, 64, 96, 192]), the bytes the
+// narrower ones: 0.4201 ms over the step's 21 first-pass launches, 0.0759
+// at aanet inference. The float32 design above (kept for float32) spent
+// most of its time outside its products and samples (PERF.md, a profile
+// of its bf16 form): a staging by a load and a store with nothing in
+// flight, two barriers a chunk of 4 channels, and an 8 x 8 FMA tile.
+// Design:
+// - A block owns a tile of MMA_FWD_TH = 4 rows x TILE_W columns of one batch
+//   entry and co_tile = 16 MT output channels (all up to 128; the plan
+//   pads co_tile with zero weights), and walks chunks of 16 input channels
+//   of one group (channels past the group's end are zero). Each of its 8
+//   warps owns 8 pixels, half a tile row.
+// - The next chunk's raw x window is in flight (cp.async, double-buffered)
+//   behind the current chunk's work: one __syncthreads a chunk.
+// - Each warp tabulates its own pixels' bilinear quads (corner) once per
+//   group, and then, tap by tap, samples its 8 pixels x 16 channels (a lane:
+//   one pixel, channels cq + 4 i), splits each float32 sample into three
+//   bf16 planes (split_planes) into a tile of its own, and multiplies it by
+//   the tap's weights: A = W (16 output channels x 16 input channels, read
+//   from device memory in fragment order, ops/deform.py
+//   weight_fwd_fragments: one 16-byte load a lane), B = a plane (16 input
+//   channels x 8 pixels, ldmatrix), three mma.sync a 16-channel tile of
+//   co_tile into three float32 accumulators, one a plane. No barrier
+//   between warps inside a chunk: sampling and products of different
+//   warps overlap.
+// - The output is hi + 2^-8 (mid + 2^-8 lo) (+ bias), rounded to bf16 once;
+//   a split plan stores each split's float32 sum in its slab and
+//   slab_sum_kernel adds the slabs in a fixed order and rounds once. Every
+//   launch gives the same bits.
+// The JAX op rounds each sample to bf16 before its contraction; this
+// kernel, as its twin, keeps the sample's float32 value (its exact planes).
+// ---------------------------------------------------------------------------
+
+template <int MT, int BLOCKS>
+__global__ void __launch_bounds__(MMA_FWD_THREADS, BLOCKS)
+deform_fwd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ offset,
+                      long long offset_bstride, const bf16* __restrict__ mask,
+                      long long mask_bstride, const uint4* __restrict__ wf,
+                      const float* __restrict__ bias, bf16* __restrict__ out,
+                      float* __restrict__ slabs, int cin, int height, int width, int cout,
+                      int out_h, int out_w, int kh, int kw, int stride, int pad, int dil,
+                      int groups, int m_tiles, int splits, int win_h, int win_w, int win_wa,
+                      int xoff, int xcs, int tiles_x, bool x_vec, bool out_vec) {
+  constexpr int P = MMA_FWD_TH * TILE_W;
+  constexpr int CC = MMA_FWD_CHUNK;
+  extern __shared__ float4 s_raw[];
+  const int taps = kh * kw;
+  float4* s_tab = s_raw;                                        // [warp][taps][8]
+  bf16* s_x = reinterpret_cast<bf16*>(s_raw + taps * P);        // [2][CC][xcs]
+  bf16* s_col = s_x + 2 * CC * xcs;                             // [warp][3][8][16]
+
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31, g8 = lane >> 2, t4 = lane & 3;
+  const int ho0 = static_cast<int>(blockIdx.x / tiles_x) * MMA_FWD_TH;
+  const int wo0 = static_cast<int>(blockIdx.x % tiles_x) * TILE_W;
+  const int co0 = static_cast<int>(blockIdx.y / splits) * 16 * MT;
+  const int split = static_cast<int>(blockIdx.y % splits);
+  const long long b = blockIdx.z;
+  const int cg = cin / groups;
+  const int per_group = (cg + CC - 1) / CC;
+  const int nchunks = groups * per_group;
+  const int q_beg = split * nchunks / splits, q_end = (split + 1) * nchunks / splits;
+  const int npix = out_h * out_w;
+  const long long hw = static_cast<long long>(height) * width;
+  const int win_y = ho0 * stride - pad - HALO, win_x = wo0 * stride - pad - HALO;
+  const bf16* xb = x + b * cin * hw;
+  const float* ob = offset + b * offset_bstride;
+  const bf16* mb = mask ? mask + b * mask_bstride : nullptr;
+  // the warp's pixels: row prow of the tile, columns pcol .. pcol + 7
+  const int prow = warp >> 1, pcol = (warp & 1) * 8;
+  float4* tab = s_tab + warp * taps * 8;  // [taps][8]
+  bf16* colw = s_col + warp * 3 * 8 * CC;  // [plane][pixel][16 channels], halves swizzled
+
+  auto chunk_c0 = [&](int q) { return (q / per_group) * cg + (q % per_group) * CC; };
+  auto chunk_nc = [&](int q) { return min(CC, (q / per_group + 1) * cg - chunk_c0(q)); };
+  auto stage_x = [&](int q) {
+    stage_raw_window(s_x + (q & 1) * CC * xcs, xb + chunk_c0(q) * hw, CC, chunk_nc(q), hw, win_y,
+                     win_x - xoff, win_h, win_wa, xcs, height, width, x_vec, t, MMA_FWD_THREADS,
+                     x);
+  };
+  // the warp's (tap, pixel) quads of group g
+  auto tabulate_warp = [&](int g) {
+    for (int e = lane; e < taps * 8; e += 32) {
+      const int k = e >> 3, j = e & 7;
+      const int ho = ho0 + prow, wo = wo0 + pcol + j;
+      float4 te = make_float4(0.f, 0.f, 0.f, 0.f);  // off the map: a zero sample
+      if (ho < out_h && wo < out_w) {
+        const int p = ho * out_w + wo, ki = k / kw, kj = k - ki * kw;
+        const long long oc = static_cast<long long>((g * taps + k) * 2) * npix + p;
+        const float dy = __ldg(ob + oc), dx = __ldg(ob + oc + npix);
+        const float m = mb ? load_f32(mb + static_cast<long long>(g * taps + k) * npix + p) : 1.f;
+        te = corner(ho, wo, ki, kj, dy, dx, m, stride, pad, dil, height, width, win_y, win_x,
+                    win_h, win_w);
+        const int quad = __float_as_int(te.x);  // inside the window: its index in the raw one
+        if (quad >= 0) te.x = __int_as_float(quad / win_w * win_wa + quad % win_w + xoff);
+      }
+      tab[e] = te;
+    }
+  };
+
+  float acc[MT][3][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int pl = 0; pl < 3; ++pl)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][pl][j] = 0.f;
+
+  // the sampling lane: pixel sj, channels cq + 4 i of the chunk, stored at
+  // positions 4 cq + i of the tile's 16 (the weight fragments take the
+  // chunk's channels in the same order)
+  const int sj = lane & 7, cq = lane >> 3;
+  bf16* mine = colw + sj * CC + 8 * ((cq >> 1) ^ ((sj >> 2) & 1)) + 4 * (cq & 1);
+  // ldmatrix rows: planes 0 and 1 (x4), plane 2 (x2); pixel l & 7, half (l >> 3) & 1
+  const int lr = lane & 7, lh = (lane >> 3) & 1;
+  const bf16* b01 = colw + (lane >> 4) * 8 * CC + lr * CC + 8 * (lh ^ ((lr >> 2) & 1));
+  const bf16* b2 = colw + 2 * 8 * CC + lr * CC + 8 * (lh ^ ((lr >> 2) & 1));
+  const int m_tile0 = co0 / 16;
+
+  stage_x(q_beg);
+  cp_async_commit();
+  tabulate_warp(q_beg / per_group);
+  for (int q = q_beg; q < q_end; ++q) {
+    cp_async_wait_all();
+    __syncthreads();  // chunk q's window has landed; every warp is done with chunk q - 1's
+    if (q + 1 < q_end) {
+      stage_x(q + 1);
+      cp_async_commit();
+    }
+    const int g = q / per_group;
+    if (q > q_beg && g != (q - 1) / per_group) tabulate_warp(g);
+    __syncwarp();
+    const bf16* xs = s_x + (q & 1) * CC * xcs + cq * xcs;
+    const bf16* xq = xb + (chunk_c0(q) + cq) * hw;
+    const int nq = chunk_nc(q) > cq ? (chunk_nc(q) - cq + 3) / 4 : 0;  // the lane's channels that exist
+    const uint4* wq = wf + (static_cast<long long>(q) * taps * m_tiles + m_tile0) * 32 + lane;
+    for (int k = 0; k < taps; ++k) {
+      uint4 a[MT];  // the tap's weights, in flight while the warp samples
+#pragma unroll
+      for (int i = 0; i < MT; ++i) a[i] = __ldg(wq + (k * m_tiles + i) * 32);
+      {
+        const float4 te = tab[k * 8 + sj];
+        const int quad = __float_as_int(te.x);
+        const float ly = te.y, lx = te.z, m = te.w;
+        const float w00 = (1.f - ly) * (1.f - lx) * m, w01 = (1.f - ly) * lx * m;
+        const float w10 = ly * (1.f - lx) * m, w11 = ly * lx * m;
+        float v[4];
+        if (quad >= 0) {  // channels past the end are zero in the window
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const bf16* p = xs + 4 * i * xcs + quad;
+            v[i] = w00 * bf(p[0]) + w01 * bf(p[1]) + w10 * bf(p[win_wa]) + w11 * bf(p[win_wa + 1]);
+          }
+        } else {
+          sample_far(v, 1, quad, w00, w01, w10, w11, xq, 4 * hw, nq, height, width);
+        }
+        unsigned short h[4], md[4], lo[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_planes(v[i], h[i], md[i], lo[i]);
+        *reinterpret_cast<uint2*>(mine) =
+            make_uint2(h[0] | (static_cast<unsigned>(h[1]) << 16), h[2] | (static_cast<unsigned>(h[3]) << 16));
+        *reinterpret_cast<uint2*>(mine + 8 * CC) = make_uint2(
+            md[0] | (static_cast<unsigned>(md[1]) << 16), md[2] | (static_cast<unsigned>(md[3]) << 16));
+        *reinterpret_cast<uint2*>(mine + 16 * CC) = make_uint2(
+            lo[0] | (static_cast<unsigned>(lo[1]) << 16), lo[2] | (static_cast<unsigned>(lo[3]) << 16));
+      }
+      __syncwarp();
+      unsigned bp[4], b2r0, b2r1;
+      ldmatrix_x4(bp, b01);  // plane 0: bp[0], bp[1]; plane 1: bp[2], bp[3]
+      ldmatrix_x2(b2r0, b2r1, b2);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const unsigned av[4] = {a[i].x, a[i].y, a[i].z, a[i].w};
+        mma_bf16(acc[i][0], av, bp[0], bp[1]);
+        mma_bf16(acc[i][1], av, bp[2], bp[3]);
+        mma_bf16(acc[i][2], av, b2r0, b2r1);
+      }
+      __syncwarp();  // the tile is read before the next tap's samples overwrite it
+    }
+  }
+
+  // out[co, pixel]: the accumulators' rows co0 + 16 i + g8 (+ 8), columns
+  // (pixels) 2 t4, 2 t4 + 1 of the warp's 8
+  const int oh = ho0 + prow, ow = wo0 + pcol + 2 * t4;
+  if (oh >= out_h) return;
+  const long long ob0 = b * cout * static_cast<long long>(npix) + static_cast<long long>(oh) * out_w + ow;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int co = co0 + 16 * i + g8 + 8 * rr;
+      if (co >= cout) continue;  // an idle channel of the last tile
+      const float bv = bias && split == 0 ? bias[co] : 0.f;
+      float v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 2 * rr + e;
+        v[e] = (acc[i][2][c] * 0x1p-8f + acc[i][1][c]) * 0x1p-8f + acc[i][0][c] + bv;
+      }
+      const long long o = ob0 + static_cast<long long>(co) * npix;
+      if (slabs) {  // a split's float32 sums, into its slab
+        float* d = slabs + split * (static_cast<long long>(cout) * npix * gridDim.z) + o;
+        if (out_vec && ow + 1 < out_w) {
+          *reinterpret_cast<float2*>(d) = make_float2(v[0], v[1]);
+        } else {
+          for (int e = 0; e < 2; ++e)
+            if (ow + e < out_w) d[e] = v[e];
+        }
+      } else if (out_vec && ow + 1 < out_w) {
+        *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(v[0], v[1]);
+      } else {
+        for (int e = 0; e < 2; ++e)
+          if (ow + e < out_w) out[o + e] = __float2bfloat16_rn(v[e]);
+      }
+    }
+  }
+}
+
+// Bytes of the forward's shared memory: the warps' quad tables, two raw x
+// windows of a chunk and the warps' plane tiles (ops/deform.py
+// _fwd_mma_smem; the kernel refuses a plan whose smem_bytes differ).
+__host__ __device__ inline long long fwd_mma_smem_bytes(int taps, int xcs) {
+  return 16LL * taps * MMA_FWD_TH * TILE_W + 2LL * 2 * MMA_FWD_CHUNK * xcs +
+         2LL * (MMA_FWD_THREADS / 32) * 3 * 8 * MMA_FWD_CHUNK;
+}
+
+template <int MT, int BLOCKS>
+cudaError_t launch_fwd_mma(dim3 grid, int smem, cudaStream_t s, const bf16* x, const float* offset,
+                           long long offset_bstride, const bf16* mask, long long mask_bstride,
+                           const uint4* wf, const float* bias, bf16* out, float* slabs, int cin,
+                           int height, int width, int cout, int out_h, int out_w, int kh, int kw,
+                           int stride, int pad, int dil, int groups, int m_tiles, int splits,
+                           int win_h, int win_w, int win_wa, int xoff, int xcs, int tiles_x,
+                           bool x_vec, bool out_vec) {
+  auto kernel = deform_fwd_mma_kernel<MT, BLOCKS>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  kernel<<<grid, MMA_FWD_THREADS, smem, s>>>(
+      x, offset, offset_bstride, mask, mask_bstride, wf, bias, out, slabs, cin, height, width,
+      cout, out_h, out_w, kh, kw, stride, pad, dil, groups, m_tiles, splits, win_h, win_w, win_wa,
+      xoff, xcs, tiles_x, x_vec, out_vec);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Kernel B's entry, the bf16 forward: x, mask and out bfloat16; offset,
+// bias and sums float32; wf: the weight in fragment order
+// (ops/deform.py weight_fwd_fragments: [chunks of 16 channels of each
+// group][taps][co_pad / 16][32 lanes][8 bf16], co_pad = the tiles'
+// channels, zero beyond cout and beyond each group's channels, the chunk's
+// channels in the kernel's order), 16-byte aligned. The plan
+// (ops/deform.py forward_plan_bf16): co_tile (16, 32, 64 or 128: the
+// kernel's builds; the grid takes ceil(cout / co_tile) tiles), splits
+// (blocks that split a tile's chunks, at most their number; each stores
+// its float32 sums in its slab of sums [splits, batch, cout, out_h,
+// out_w], which slab_sum_kernel adds in a fixed order and rounds into out
+// once) and smem_bytes, which must be what this layout takes. Anything
+// else is cudaErrorInvalidValue.
+extern "C" int aanet_deform_conv_bf16(
+    const bf16* x, const float* offset, long long offset_bstride, const bf16* mask,
+    long long mask_bstride, const bf16* wf, const float* bias, bf16* out, float* sums, int batch,
+    int cin, int height, int width, int cout, int out_h, int out_w, int kh, int kw, int stride,
+    int pad, int dil, int groups, int co_tile, int splits, int smem_bytes, int device,
+    void* stream) {
+  cudaSetDevice(device);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int mt = co_tile / 16;
+  if (groups < 1 || cin % groups != 0 || co_tile % 16 != 0 ||
+      (mt != 1 && mt != 2 && mt != 4 && mt != 8) || splits < 1 || (splits > 1 && sums == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int nchunks = groups * ((cin / groups + MMA_FWD_CHUNK - 1) / MMA_FWD_CHUNK);
+  if (splits > nchunks) return static_cast<int>(cudaErrorInvalidValue);  // a block without work
+  if (!aligned16(wf)) return static_cast<int>(cudaErrorInvalidValue);
+  const long long npix = static_cast<long long>(out_h) * out_w;
+  if (batch == 0 || npix == 0 || cout == 0) return 0;
+  const int win_h = (MMA_FWD_TH - 1) * stride + (kh - 1) * dil + 2 * HALO + 2;
+  const int win_w = (TILE_W - 1) * stride + (kw - 1) * dil + 2 * HALO + 2;
+  const int xoff = (((-pad - HALO) % 8) + 8) % 8;
+  const int win_wa = raw_row(win_w, xoff);
+  const int xcs = raw_channel(win_h, win_wa, 16);
+  if (fwd_mma_smem_bytes(kh * kw, xcs) != smem_bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);  // the wrapper's plan has another layout
+  }
+  const int co_tiles = (cout + co_tile - 1) / co_tile;
+  const int tiles_x = (out_w + TILE_W - 1) / TILE_W;
+  const int tiles_y = (out_h + MMA_FWD_TH - 1) / MMA_FWD_TH;
+  dim3 grid(tiles_x * tiles_y, co_tiles * splits, batch);
+  const bool x_vec = width % 8 == 0 && aligned16(x);
+  const bool out_vec = out_w % 2 == 0 && aligned16(splits > 1 ? static_cast<const void*>(sums)
+                                                              : static_cast<const void*>(out));
+  float* slabs = splits > 1 ? sums : nullptr;
+#define AANET_FWD_MMA(MT, B)                                                                      \
+  launch_fwd_mma<MT, B>(grid, smem_bytes, st, x, offset, offset_bstride, mask, mask_bstride,      \
+                        reinterpret_cast<const uint4*>(wf), bias, out, slabs, cin, height, width,  \
+                        cout, out_h, out_w, kh, kw, stride, pad, dil, groups, co_tiles * mt,       \
+                        splits, win_h, win_w, win_wa, xoff, xcs, tiles_x, x_vec, out_vec)
+  // the builds: 128 output channels for one block an SM (255 registers), the rest for two
+  const cudaError_t err = mt == 8   ? AANET_FWD_MMA(8, 1)
+                          : mt == 4 ? AANET_FWD_MMA(4, 2)
+                          : mt == 2 ? AANET_FWD_MMA(2, 2)
+                                    : AANET_FWD_MMA(1, 2);
+#undef AANET_FWD_MMA
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (splits <= 1) return 0;
+  return sum_slabs(sums, out, splits, static_cast<long long>(batch) * cout * npix, st);
+}
+
+// ---------------------------------------------------------------------------
+// Kernel A: the bf16 input/offset/mask gradient, its column gradient
+// gcol = W^T . gout on the tensor cores.
+//
+// Bound (H100 SXM at 700 W; chip_smoke.py's bf16_backward_specs): the
+// gout . W products at 989 TFLOP/s, the sampling and the scatter (28
+// operations a sample) at 67; bytes at some path shapes, the float32
+// operations at others: 0.3752 ms over the aanet step's 21 launches. What
+// the float32 design above spent beyond its products (PERF.md, a profile
+// of it in bf16: without its contraction 22.2 of 25.7 ms a step,
+// without its sampling and scatter 20.1) was its skeleton: a
+// load-and-store staging with nothing in flight and a barrier after every
+// tap of every block, with 2 or 4 samples a thread between them. Design:
+// - A block owns a tile of TH = 8 or 4 rows x TILE_W columns of one batch
+//   entry and a chunk of MMA_BD_CHUNK = 8 input channels of one group
+//   (the plan: backward_data_plan_bf16), one warp a row. It stages, with
+//   16-byte cp.async, the raw bf16 gout tile [cout rounded up to 16][TH x
+//   16 pixels] (16-byte pieces swizzled by the row's channel, so that
+//   ldmatrix.trans reads without bank conflicts) and the raw x window, and
+//   keeps the fixed-point grad_x window of the float32 kernel (two 32-bit
+//   words an element), all at once: one barrier before the taps and one
+//   after.
+// - Tap by tap, each warp computes its row's column gradient with
+//   mma.sync m16n8k16: A = gout^T (16 pixels x 16 output channels,
+//   ldmatrix.trans), B = the tap's weights (16 output channels x 8 input
+//   channels, read from device memory in fragment order, one 8-byte load a
+//   lane: ops/deform.py weight_bwd_fragments), float32 accumulators. A
+//   lane's accumulators are 2 pixels (columns g, g + 8 of the row) x 2
+//   channels (2 t, 2 t + 1): it samples, scatters and sums exactly those,
+//   as the float32 kernel does per element (the same arithmetic, the same
+//   fixed-point rule, far corners into the int64 scratch), with no barrier
+//   between taps: warps drift apart and overlap.
+// - The offset and mask gradients are summed over the lane's two channels,
+//   then over the four lanes of a pixel pair by two shuffle steps, in a
+//   fixed order, and stored by the warp once per (tap, pixel) and chunk:
+//   where the group spans several chunks, each chunk stores a slab of its
+//   own, summed in a fixed order by slab_sum_kernel (the bf16 mask
+//   gradient always: its float32 slab is rounded once).
+// - fixed_bound_fragments_kernel takes the bound from gout, the weight's
+//   fragments and the mask; fixed_to_value_kernel rounds grad_x to bf16
+//   once. Every launch gives the same bits.
+// gcol never reaches device memory.
+// ---------------------------------------------------------------------------
+namespace {
+
+// fixed_bound_kernel's maxima, the weight's column sums read from its
+// fragments (wf: [columns / 8][ksteps][8][16] bf16: for column i, its 8
+// tiles' lane group i % 8, the 16 values of 4 lanes; zeros where padded).
+template <typename T>
+__global__ void __launch_bounds__(256)
+fixed_bound_fragments_kernel(const T* __restrict__ gout, long long n_gout,
+                             const bf16* __restrict__ wf, long long columns, int ksteps,
+                             const T* __restrict__ mask, long long mask_bstride, long long mask_n,
+                             int batch, double* bound) {
+  const long long t0 = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  double v[3] = {0.0, 0.0, 0.0};
+  for (long long i = t0; i < n_gout; i += step) {
+    const float a = fabsf(load_f32(gout + i));
+    if (isfinite(a)) v[0] = fmax(v[0], static_cast<double>(a));
+  }
+  for (long long i = t0; i < columns; i += step) {
+    const bf16* col = wf + (i / 8) * ksteps * 128 + (i % 8) * 16;
+    double s = 0.0;
+    for (int kk = 0; kk < ksteps; ++kk)
+      for (int j = 0; j < 16; ++j) {
+        const float a = fabsf(load_f32(col + kk * 128 + j));
+        if (isfinite(a)) s += a;
+      }
+    v[1] = fmax(v[1], s);
+  }
+  if (mask != nullptr) {
+    for (long long i = t0; i < batch * mask_n; i += step) {
+      const float a = fabsf(load_f32(mask + (i / mask_n) * mask_bstride + i % mask_n));
+      if (isfinite(a)) v[2] = fmax(v[2], static_cast<double>(a));
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v[q] = fmax(v[q], __shfl_xor_sync(0xffffffffu, v[q], o));
+    if ((threadIdx.x & 31) == 0 && v[q] > 0.0) {
+      atomicMax(reinterpret_cast<unsigned long long*>(bound + q),
+                static_cast<unsigned long long>(__double_as_longlong(v[q])));
+    }
+  }
+}
+
+template <int TH, int BLOCKS>
+__global__ void __launch_bounds__(32 * TH, BLOCKS)
+deform_bwd_data_mma_kernel(const bf16* __restrict__ gout, const bf16* __restrict__ x,
+                           const float* __restrict__ offset, long long offset_bstride,
+                           const bf16* __restrict__ mask, long long mask_bstride,
+                           const uint2* __restrict__ wf, long long* __restrict__ x_acc,
+                           unsigned* __restrict__ x_flags, const double* __restrict__ bound,
+                           int bits, int split, float* __restrict__ grad_offset, long long off_slab,
+                           float* __restrict__ grad_mask, long long mask_slab, int cin,
+                           int height, int width, int cout, int cout16, int out_h, int out_w,
+                           int kh, int kw, int stride, int pad, int dil, int groups, int win_h,
+                           int win_w, int win_wa, int xoff, int xcs, int ws, int tiles_x,
+                           bool gout_vec, bool x_vec) {
+  constexpr int CC = MMA_BD_CHUNK, P = TH * TILE_W, NTHREADS = 32 * TH;
+  extern __shared__ float4 s_raw[];
+  bf16* s_gout = reinterpret_cast<bf16*>(s_raw);                 // [cout16][P], pieces swizzled
+  bf16* s_x = s_gout + cout16 * P;                               // [CC][xcs]
+  unsigned* s_lo = reinterpret_cast<unsigned*>(s_x + CC * xcs);  // [CC][ws]
+  int* s_hi = reinterpret_cast<int*>(s_lo + CC * ws);            // [CC][ws]
+
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31, g8 = lane >> 2, t4 = lane & 3;
+  const int ho0 = static_cast<int>(blockIdx.x / tiles_x) * TH;
+  const int wo0 = static_cast<int>(blockIdx.x % tiles_x) * TILE_W;
+  const int cg = cin / groups;
+  const int chunks = (cg + CC - 1) / CC;
+  const int g = blockIdx.y / chunks;
+  const int chunk_i = blockIdx.y % chunks;
+  const int c0 = g * cg + chunk_i * CC;
+  const int nc = min(CC, (g + 1) * cg - c0);  // the group's last chunk may be short
+  const long long b = blockIdx.z;
+  const int taps = kh * kw;
+  const int npix = out_h * out_w;
+  const long long hw = static_cast<long long>(height) * width;
+  const int win_y = ho0 * stride - pad - HALO, win_x = wo0 * stride - pad - HALO;
+  const bf16* xb = x + (b * cin + c0) * hw;
+  const long long xe0 = (b * cin + c0) * hw;  // grad_x's element of the chunk's first channel
+  const bf16* gb = gout + b * cout * static_cast<long long>(npix);
+  const float* ob = offset + b * offset_bstride;
+  const bf16* mb = mask ? mask + b * mask_bstride : nullptr;
+  float* gob = grad_offset + chunk_i * off_slab + b * groups * taps * 2 * static_cast<long long>(npix);
+  float* gmb = grad_mask ? grad_mask + chunk_i * mask_slab +
+                               b * groups * taps * static_cast<long long>(npix)
+                         : nullptr;
+  const float scale = ldexpf(1.f, fixed_exponent(bound, mask != nullptr, bits));
+  const unsigned lo_mask = (1u << split) - 1u;
+
+  // the gout tile: 16-byte pieces of 8 pixels, piece j of row co at j ^ (co & 7)
+  for (int e = t; e < cout16 * 2 * TH; e += NTHREADS) {
+    const int co = e / (2 * TH), piece = e % (2 * TH);
+    const int oh = ho0 + (piece >> 1), ow = wo0 + 8 * (piece & 1);
+    bf16* dst = s_gout + co * P + 8 * (piece ^ (co & 7));
+    const bool in = co < cout && oh < out_h && ow < out_w;
+    const bf16* src = in ? gb + static_cast<long long>(co) * npix + oh * out_w + ow : gout;
+    if (gout_vec) {
+      cp_async_16(dst, src, in ? 2 * min(8, out_w - ow) : 0);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) dst[i] = in && ow + i < out_w ? src[i] : __ushort_as_bfloat16(0);
+    }
+  }
+  stage_raw_window(s_x, xb, CC, nc, hw, win_y, win_x - xoff, win_h, win_wa, xcs, height, width,
+                   x_vec, t, NTHREADS, x);
+  cp_async_commit();
+  for (int e = t; e < 2 * CC * ws; e += NTHREADS) s_lo[e] = 0u;  // and s_hi
+  cp_async_wait_all();
+  __syncthreads();
+
+  // the lane's pixels: row `warp` of the tile, columns g8 and g8 + 8; its
+  // channels 2 t4 and 2 t4 + 1 of the chunk
+  const int ho = ho0 + warp;
+  const int ksteps = cout16 / 16;
+  // ldmatrix.trans rows: output channel 16 kk + (lane & 7) + 8 (lane >> 4),
+  // pixels 16 warp + 8 ((lane >> 3) & 1) ..
+  const int piece = 2 * warp + ((lane >> 3) & 1);
+  const bf16* arow = s_gout + ((lane & 7) + 8 * (lane >> 4)) * P + 8 * (piece ^ (lane & 7));
+  // the chunk's weight fragments: [taps][groups][chunks][ksteps][32]
+  const uint2* wg = wf + (static_cast<long long>(g) * chunks + chunk_i) * ksteps * 32 + lane;
+  const long long wtap = static_cast<long long>(groups) * chunks * ksteps * 32;
+
+  auto load_tap = [&](int k, float (&dy)[2], float (&dx)[2], float (&mv)[2]) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      dy[i] = dx[i] = mv[i] = 0.f;
+      const int wo = wo0 + g8 + 8 * i;
+      if (ho < out_h && wo < out_w) {
+        const int p = ho * out_w + wo;
+        const long long oc = static_cast<long long>((g * taps + k) * 2) * npix + p;
+        dy[i] = __ldg(ob + oc);
+        dx[i] = __ldg(ob + oc + npix);
+        mv[i] = mb ? load_f32(mb + static_cast<long long>(g * taps + k) * npix + p) : 1.f;
+      }
+    }
+  };
+  auto flag_corners = [&](int cl, int y0, int x0, float gm, float wy0, float ly, float wx0,
+                          float lx) {
+#pragma unroll
+    for (int cy = 0; cy < 2; ++cy)
+#pragma unroll
+      for (int cx = 0; cx < 2; ++cx) {
+        const int yy = y0 + cy, xx = x0 + cx;
+        if (yy >= 0 && yy < height && xx >= 0 && xx < width) {
+          flag_add(x_flags, xe0 + cl * hw + static_cast<long long>(yy) * width + xx,
+                   gm * (cy ? ly : wy0) * (cx ? lx : wx0));
+        }
+      }
+  };
+
+  float dy[2], dx[2], mv[2];
+  load_tap(0, dy, dx, mv);
+  for (int k = 0; k < taps; ++k) {
+    // gcol of tap k: acc[0] (pixel g8, channel 2 t4), acc[1] (g8, 2 t4 + 1),
+    // acc[2] (g8 + 8, 2 t4), acc[3] (g8 + 8, 2 t4 + 1)
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    {
+      const uint2* wk = wg + k * wtap;
+#pragma unroll 4
+      for (int kk = 0; kk < ksteps; ++kk) {
+        unsigned a[4];
+        ldmatrix_x4_trans(a, arow + 16 * kk * P);
+        const uint2 bw = __ldg(wk + kk * 32);
+        mma_bf16(acc, a, bw.x, bw.y);
+      }
+    }
+    float ndy[2], ndx[2], nmv[2];
+    if (k + 1 < taps) load_tap(k + 1, ndy, ndx, nmv);
+
+    const int ki = k / kw, kj = k - ki * kw;
+    float sums[3][2];  // d/dy, d/dx, d/dm of the lane's pixels over its channels
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sums[0][i] = sums[1][i] = sums[2][i] = 0.f;
+      const int wo = wo0 + g8 + 8 * i;
+      if (ho >= out_h || wo >= out_w) continue;
+      float py = static_cast<float>(ho * stride - pad + ki * dil) + dy[i];
+      float px = static_cast<float>(wo * stride - pad + kj * dil) + dx[i];
+      // as in the forward: outside (-1, H) x (-1, W) every corner is padding
+      py = fminf(fmaxf(py, -2.f), static_cast<float>(height) + 1.f);
+      px = fminf(fmaxf(px, -2.f), static_cast<float>(width) + 1.f);
+      const float fy = floorf(py), fx = floorf(px);
+      const int y0 = static_cast<int>(fy), x0 = static_cast<int>(fx);
+      const float ly = py - fy, lx = px - fx;
+      const float sy = ly == 0.f ? 0.5f : 1.f, sx = lx == 0.f ? 0.5f : 1.f;
+      const float wy0 = 1.f - ly, wx0 = 1.f - lx, m = mv[i];
+      const int ry = y0 - win_y, rx = x0 - win_x;
+      if (ry >= 0 && ry + 1 < win_h && rx >= 0 && rx + 1 < win_w) {
+        const int wi = ry * win_w + rx, xi = ry * win_wa + rx + xoff;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int cl = 2 * t4 + e;
+          const bf16* xs = s_x + cl * xcs + xi;
+          const float v00 = bf(xs[0]), v01 = bf(xs[1]), v10 = bf(xs[win_wa]),
+                      v11 = bf(xs[win_wa + 1]);
+          const float gc = acc[2 * i + e], gm = gc * m;
+          const float top = wx0 * v00 + lx * v01, bot = wx0 * v10 + lx * v11;
+          sums[0][i] = fmaf(gm, sy * (bot - top), sums[0][i]);
+          sums[1][i] = fmaf(gm, sx * (wy0 * (v01 - v00) + ly * (v11 - v10)), sums[1][i]);
+          sums[2][i] = fmaf(gc, wy0 * top + ly * bot, sums[2][i]);
+          if (isfinite(gm)) {
+            const int o = cl * ws + wi;
+            const float gs = gm * scale;  // exact: a power of two
+            window_add(s_lo + o, s_hi + o, gs * wy0 * wx0, split, lo_mask);
+            window_add(s_lo + o + 1, s_hi + o + 1, gs * wy0 * lx, split, lo_mask);
+            window_add(s_lo + o + win_w, s_hi + o + win_w, gs * ly * wx0, split, lo_mask);
+            window_add(s_lo + o + win_w + 1, s_hi + o + win_w + 1, gs * ly * lx, split, lo_mask);
+          } else if (cl < nc) {
+            flag_corners(cl, y0, x0, gm, wy0, ly, wx0, lx);
+          }
+        }
+      } else {
+        // beyond the window: the corners inside the image, in device memory
+        const bool y0_in = y0 >= 0 && y0 < height, y1_in = y0 + 1 >= 0 && y0 + 1 < height;
+        const bool x0_in = x0 >= 0 && x0 < width, x1_in = x0 + 1 >= 0 && x0 + 1 < width;
+        const long long i00 = static_cast<long long>(y0) * width + x0;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int cl = 2 * t4 + e;
+          if (cl >= nc) continue;
+          const bf16* xc = xb + cl * hw + i00;
+          long long* ac = x_acc + xe0 + cl * hw + i00;
+          const float v00 = y0_in && x0_in ? load_f32(xc) : 0.f;
+          const float v01 = y0_in && x1_in ? load_f32(xc + 1) : 0.f;
+          const float v10 = y1_in && x0_in ? load_f32(xc + width) : 0.f;
+          const float v11 = y1_in && x1_in ? load_f32(xc + width + 1) : 0.f;
+          const float gc = acc[2 * i + e], gm = gc * m;
+          const float top = wx0 * v00 + lx * v01, bot = wx0 * v10 + lx * v11;
+          sums[0][i] = fmaf(gm, sy * (bot - top), sums[0][i]);
+          sums[1][i] = fmaf(gm, sx * (wy0 * (v01 - v00) + ly * (v11 - v10)), sums[1][i]);
+          sums[2][i] = fmaf(gc, wy0 * top + ly * bot, sums[2][i]);
+          if (isfinite(gm)) {
+            const float gs = gm * scale;
+            if (y0_in && x0_in) scratch_add(ac, gs * wy0 * wx0);
+            if (y0_in && x1_in) scratch_add(ac + 1, gs * wy0 * lx);
+            if (y1_in && x0_in) scratch_add(ac + width, gs * ly * wx0);
+            if (y1_in && x1_in) scratch_add(ac + width + 1, gs * ly * lx);
+          } else {
+            flag_corners(cl, y0, x0, gm, wy0, ly, wx0, lx);
+          }
+        }
+      }
+    }
+    // over the four lanes of the pixel pair (channel pairs 0..3), then lane
+    // t4 stores d/dy (0), d/dx (1), d/dm (2) of both pixels
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        sums[q][i] += __shfl_xor_sync(0xffffffffu, sums[q][i], 1);
+        sums[q][i] += __shfl_xor_sync(0xffffffffu, sums[q][i], 2);
+      }
+    if (t4 < 2 || (t4 == 2 && gmb)) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int wo = wo0 + g8 + 8 * i;
+        if (ho >= out_h || wo >= out_w) continue;
+        const int p = ho * out_w + wo;
+        const float s = t4 == 0 ? sums[0][i] : t4 == 1 ? sums[1][i] : sums[2][i];
+        if (t4 < 2) {
+          gob[static_cast<long long>((g * taps + k) * 2 + t4) * npix + p] = s;
+        } else {
+          gmb[static_cast<long long>(g * taps + k) * npix + p] = s;
+        }
+      }
+    }
+    if (k + 1 < taps) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        dy[i] = ndy[i];
+        dx[i] = ndx[i];
+        mv[i] = nmv[i];
+      }
+    }
+  }
+
+  __syncthreads();
+  // the grad_x window into the scratch: inside the image, non-zero entries only
+  for (int row = warp; row < nc * win_h; row += TH) {
+    const int cl = row / win_h, r = row - cl * win_h, yy = win_y + r;
+    if (yy < 0 || yy >= height) continue;
+    for (int col = lane; col < win_w; col += 32) {
+      const int xx = win_x + col, wi = cl * ws + r * win_w + col;
+      const long long v = static_cast<long long>(s_hi[wi]) * (1LL << split) + s_lo[wi];
+      if (xx >= 0 && xx < width && v != 0) {
+        atomicAdd(reinterpret_cast<unsigned long long*>(x_acc + xe0 + cl * hw + yy * width + xx),
+                  static_cast<unsigned long long>(v));
+      }
+    }
+  }
+}
+
+// Bytes of kernel A's shared memory (ops/deform.py _bwd_data_mma_smem; the
+// kernel refuses a plan whose smem_bytes differ).
+__host__ __device__ inline long long bwd_data_mma_smem_bytes(int cout16, int tile_h, int xcs,
+                                                             int ws) {
+  return 2LL * cout16 * tile_h * TILE_W + 2LL * MMA_BD_CHUNK * xcs + 8LL * MMA_BD_CHUNK * ws;
+}
+
+template <int TH, int BLOCKS>
+cudaError_t launch_bwd_data_mma(dim3 grid, int smem, cudaStream_t s, const bf16* gout,
+                                const bf16* x, const float* offset, long long offset_bstride,
+                                const bf16* mask, long long mask_bstride, const uint2* wf,
+                                long long* x_acc, unsigned* x_flags, const double* bound,
+                                int bits, int split, float* grad_offset, long long off_slab,
+                                float* grad_mask, long long mask_slab, int cin, int height,
+                                int width, int cout, int cout16, int out_h, int out_w, int kh,
+                                int kw, int stride, int pad, int dil, int groups, int win_h,
+                                int win_w, int win_wa, int xoff, int xcs, int ws, int tiles_x,
+                                bool gout_vec, bool x_vec) {
+  auto kernel = deform_bwd_data_mma_kernel<TH, BLOCKS>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  kernel<<<grid, 32 * TH, smem, s>>>(gout, x, offset, offset_bstride, mask, mask_bstride, wf, x_acc,
+                                     x_flags, bound, bits, split, grad_offset, off_slab, grad_mask,
+                                     mask_slab, cin, height, width, cout, cout16, out_h, out_w, kh,
+                                     kw, stride, pad, dil, groups, win_h, win_w, win_wa, xoff, xcs,
+                                     ws, tiles_x, gout_vec, x_vec);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Kernel A's entry, the bf16 input/offset/mask gradient: gout, x, mask,
+// grad_x and grad_mask bfloat16; offset, grad_offset and the slabs
+// float32; wf: the weight in fragment order (ops/deform.py
+// weight_bwd_fragments: [taps][groups][chunks][cout16 / 16][32 lanes][4
+// bf16], cout16 = cout rounded up to 16, zero beyond cout and beyond each
+// group's channels), 8-byte aligned; bound, x_acc and x_flags as for
+// aanet_deform_conv_backward_data_f32 (zeroed by the caller); mask_sums,
+// with a mask, always ([chunks, grad_mask's shape]: the mask gradient is
+// rounded to bf16 once, by the slabs' sum); offset_sums where a group spans
+// several chunks. The plan (ops/deform.py backward_data_plan_bf16): chunk
+// (8), tile_h (8 or 4), blocks (per SM: 2 or 3 for 8 rows, 4 or 6 for 4:
+// the register budget of the kernel's build) and smem_bytes, which must be
+// what this layout takes. Anything else is cudaErrorInvalidValue.
+extern "C" int aanet_deform_conv_backward_data_bf16(
+    const bf16* gout, const bf16* x, const float* offset, long long offset_bstride,
+    const bf16* mask, long long mask_bstride, const bf16* wf, double* bound, long long* x_acc,
+    unsigned* x_flags, bf16* grad_x, float* offset_sums, float* grad_offset, float* mask_sums,
+    bf16* grad_mask, int batch, int cin, int height, int width, int cout, int out_h, int out_w,
+    int kh, int kw, int stride, int pad, int dil, int groups, int chunk, int tile_h, int blocks,
+    int smem_bytes, int device, void* stream) {
+  cudaSetDevice(device);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool built = chunk == MMA_BD_CHUNK &&
+                     ((tile_h == 8 && (blocks == 2 || blocks == 3)) ||
+                      (tile_h == 4 && (blocks == 4 || blocks == 6)));
+  if (groups < 1 || cin % groups != 0 || !built) return static_cast<int>(cudaErrorInvalidValue);
+  const int cg = cin / groups;
+  const int chunks = (cg + chunk - 1) / chunk;
+  const bool off_slabs = chunks > 1, mask_slabs = mask != nullptr;
+  if ((mask == nullptr) != (grad_mask == nullptr) || off_slabs != (offset_sums != nullptr) ||
+      mask_slabs != (mask_sums != nullptr) || (reinterpret_cast<unsigned long long>(wf) & 7)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long npix = static_cast<long long>(out_h) * out_w;
+  const long long n_x = static_cast<long long>(batch) * cin * height * width;
+  if (batch == 0 || n_x == 0) return 0;
+  if (npix == 0) {  // no output pixel reaches x: zero gradients
+    return static_cast<int>(cudaMemsetAsync(grad_x, 0, n_x * sizeof(bf16), s));
+  }
+  const int taps = kh * kw;
+  const int cout16 = (cout + 15) / 16 * 16;
+  const int win_h = (tile_h - 1) * stride + (kh - 1) * dil + 2 * HALO + 2;
+  const int win_w = (TILE_W - 1) * stride + (kw - 1) * dil + 2 * HALO + 2;
+  const int xoff = (((-pad - HALO) % 8) + 8) % 8;
+  const int win_wa = raw_row(win_w, xoff);
+  const int xcs = raw_channel(win_h, win_wa, 8);
+  const int ws = fixed_channel(win_h, win_w);
+  if (bwd_data_mma_smem_bytes(cout16, tile_h, xcs, ws) != smem_bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);  // the wrapper's plan has another layout
+  }
+  const int tiles_x = (out_w + TILE_W - 1) / TILE_W;
+  const int tiles_y = (out_h + tile_h - 1) / tile_h;
+  // the fixed point: terms below 2^bits, the window's words split at bit `split`
+  const int l = ceil_log2(static_cast<long long>(taps) * tile_h * TILE_W);
+  const int split = 32 - l;
+  const int bits = min(62 - 2 * l, 62 - ceil_log2(taps * npix));
+  if (bits < 8) return static_cast<int>(cudaErrorInvalidValue);  // too many terms an element
+  const long long mask_n = static_cast<long long>(groups) * taps * npix;
+  const long long n_gout = static_cast<long long>(batch) * cout * npix;
+  const long long bound_blocks = (n_gout + 255) / 256;
+  fixed_bound_fragments_kernel<bf16><<<static_cast<unsigned int>(
+                                           bound_blocks < 1 ? 1 : bound_blocks < 1024 ? bound_blocks : 1024),
+                                       256, 0, s>>>(
+      gout, n_gout, wf, static_cast<long long>(taps) * groups * chunks * 8, cout16 / 16, mask,
+      mask_bstride, mask_n, batch, bound);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(tiles_x * tiles_y, groups * chunks, batch);
+  // 16-byte copies: gout rows and x rows of a multiple of 8 values, aligned
+  const bool gout_vec = out_w % 8 == 0 && aligned16(gout);
+  const bool x_vec = width % 8 == 0 && aligned16(x);
+  const long long n_off = static_cast<long long>(batch) * mask_n * 2;
+  float* off_out = off_slabs ? offset_sums : grad_offset;
+#define AANET_BWD_DATA_MMA(TH, B)                                                                  \
+  launch_bwd_data_mma<TH, B>(grid, smem_bytes, s, gout, x, offset, offset_bstride, mask,           \
+                             mask_bstride, reinterpret_cast<const uint2*>(wf), x_acc, x_flags,     \
+                             bound, bits, split, off_out, off_slabs ? n_off : 0LL, mask_sums,      \
+                             mask ? batch * mask_n : 0LL, cin, height, width, cout, cout16,        \
+                             out_h, out_w, kh, kw, stride, pad, dil, groups, win_h, win_w, win_wa, \
+                             xoff, xcs, ws, tiles_x, gout_vec, x_vec)
+  err = tile_h == 8 ? (blocks == 3 ? AANET_BWD_DATA_MMA(8, 3) : AANET_BWD_DATA_MMA(8, 2))
+                    : (blocks == 6 ? AANET_BWD_DATA_MMA(4, 6) : AANET_BWD_DATA_MMA(4, 4));
+#undef AANET_BWD_DATA_MMA
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long conv_blocks = (n_x + 255) / 256;
+  fixed_to_value_kernel<bf16><<<static_cast<unsigned int>(conv_blocks < 65535 * 8 ? conv_blocks
+                                                                                : 65535 * 8),
+                                256, 0, s>>>(x_acc, x_flags, grad_x, n_x, bound, mask != nullptr,
+                                             bits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int e = off_slabs ? sum_slabs(offset_sums, grad_offset, chunks, n_off, s) : 0;
+  if (e != 0 || !mask_slabs) return e;
+  return sum_slabs(mask_sums, grad_mask, chunks, batch * mask_n, s);
 }

@@ -36,15 +36,22 @@ scratch is ``backward_data_scratch``).
 Each kernel also has a bfloat16 form (the JAX op under a bf16 compute
 dtype, ``deform.py:146-162,203,220-225``, and the gradients ``jax.vjp``
 derives for it): x, the mask and the weight in bf16, the offsets and
-the bias float32; the samples, their blend, the contractions and the scatter
-in float32 (the scatter's sum in fixed point), each output rounded once to
-its primal's dtype (the output, the x, mask and weight gradients to bf16,
-the offsets' gradient kept float32). The entry points are
-``aanet_deform_conv_bf16``, ``aanet_deform_conv_backward_data_bf16`` (the
-weight laid out in float32) and ``aanet_deform_conv_backward_weight_bf16``,
-with the float32 forms' plans and slabs. The JAX op also rounds each
-blended, modulated sample to bf16 before the contraction; neither the
-kernels nor the twins do.
+the bias float32; the samples, their blend and the scatter in float32 (the
+scatter's sum in fixed point), each output rounded once to its primal's
+dtype (the output, the x, mask and weight gradients to bf16, the offsets'
+gradient kept float32). The weight gradient's bf16 form
+(``aanet_deform_conv_backward_weight_bf16``) is its float32 kernel on bf16
+values, with its plan. The forward (``aanet_deform_conv_bf16``) and the
+input/offset/mask gradient (``aanet_deform_conv_backward_data_bf16``) are
+kernels of their own whose products run on the tensor cores
+(``mma.sync`` bf16 x bf16, float32 sums), with their own plans
+(``forward_plan_bf16``, ``backward_data_plan_bf16``) and the weight laid out
+in the MMA fragments' order (``weight_fwd_fragments``,
+``weight_bwd_fragments``): the forward multiplies the weight by the
+sampled column split exactly into three bf16 planes (``split_planes``).
+Only the order of float32 sums differs from the twins'. The JAX op also
+rounds each blended, modulated sample to bf16 before the contraction;
+neither the kernels nor the twins do.
 """
 from __future__ import annotations
 
@@ -85,6 +92,17 @@ WG_STEP_H = (8, 4, 2)  # and step heights (the kernel's builds)
 WG_CHUNKS = tuple(range(4, 65, 4))  # input channels of a block it considers
 WG_WARPS = 8  # resident warps an SM needs, beyond which the plan looks at other things
 WG_WAVES = 1  # waves of resident blocks the plan's splits fill
+# The bf16 kernels on the tensor cores (MMA_* in the kernel): the forward's
+# tile rows, block and chunk of input channels, its builds (output-channel
+# tile -> blocks an SM its registers are budgeted for); the input/offset/
+# mask gradient's chunk and its builds (tile rows -> blocks an SM)
+MMA_FWD_TH = 4
+MMA_FWD_THREADS = 256
+MMA_FWD_CHUNK = 16
+MMA_FWD_BUILDS = {16: 2, 32: 2, 64: 2, 128: 1}
+MMA_BD_CHUNK = 8
+MMA_BD_BUILDS = {8: (2, 3), 4: (4, 6)}
+MMA_BD_WARPS = 24  # resident warps an SM needs, beyond which the plan looks at other things
 
 # x, offset, its batch stride, mask, its batch stride, wt, bias, out, the
 # split plans' slabs; batch .. groups (13), the plan's five and wt_stride,
@@ -101,6 +119,9 @@ _BWD_DATA_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
 ] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 18 + [ctypes.c_void_p]
+# the bf16 forward: x .. the slabs as _ARGTYPES; batch .. groups (13),
+# co_tile, splits, smem, device; stream
+_FWD_BF16_ARGTYPES = _ARGTYPES[:9] + [ctypes.c_int] * 17 + [ctypes.c_void_p]
 _BWD_WEIGHT_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
@@ -349,6 +370,210 @@ def backward_data_plan(cin: int, cout: int, kh: int, kw: int, stride: int, dilat
             f"deform conv backward: no tiling of {cin} -> {cout} channels (stride {stride}, "
             f"dilation {dilation}, {groups} groups) fits {SMEM_BYTES} bytes of shared memory")
     return best[1]
+
+
+def _raw_geometry(win_h, win_w, padding, unit):
+    """The raw bf16 x window of the tensor-core kernels (``raw_row`` and
+    ``raw_channel`` in the kernel): the offset of the window's first
+    column past the multiple of 8 its row starts at, the row's values (whole
+    16-byte pieces) and a channel's values (an odd multiple of ``unit``)."""
+    xoff = (-padding - HALO) % 8
+    win_wa = _ceil_div(xoff + win_w, 8) * 8
+    n = _ceil_div(win_h * win_wa, unit)
+    return xoff, win_wa, (n + 1 - n % 2) * unit
+
+
+def _fixed_channel(win_h, win_w):
+    """The fixed-point window's words a channel (``fixed_channel``): at
+    least win_h x win_w, 4 modulo 16."""
+    n = win_h * win_w
+    return n + (4 - n) % 16
+
+
+def _bwd_data_mma_smem(cout, tile_h, win_h, win_w, padding):
+    """Bytes of the tensor-core input/offset/mask gradient's shared memory
+    (``bwd_data_mma_smem_bytes``): the raw bf16 gout tile [cout rounded up
+    to 16][tile pixels], the raw bf16 x window of the chunk and its
+    fixed-point grad_x window (two 32-bit words an element). The kernel
+    refuses a plan whose ``smem_bytes`` differ."""
+    _, _, xcs = _raw_geometry(win_h, win_w, padding, 8)
+    ws = _fixed_channel(win_h, win_w)
+    return (2 * _ceil_div(cout, 16) * 16 * tile_h * TILE_W + 2 * MMA_BD_CHUNK * xcs
+            + 8 * MMA_BD_CHUNK * ws)
+
+
+@functools.lru_cache(maxsize=None)
+def backward_data_plan_bf16(cin: int, cout: int, kh: int, kw: int, stride: int, padding: int,
+                            dilation: int, groups: int) -> BackwardDataPlan:
+    """The tiling of ``aanet_deform_conv_backward_data_bf16`` (the
+    tensor-core kernel) for a conv of these channels and geometry: chunks
+    of ``MMA_BD_CHUNK`` input channels (a group's last may be short), a
+    tile of 8 or 4 rows (a warp a row), built for ``blocks`` blocks an SM
+    (``MMA_BD_BUILDS``: the largest build whose blocks fit the SM's shared
+    memory, else the smallest). The plan takes the most resident warps up
+    to ``MMA_BD_WARPS``, then the taller tile. Raises if nothing fits."""
+    if cin % groups:
+        raise ValueError(f"deform conv backward: {groups} groups do not divide {cin} channels")
+    chunks = _ceil_div(cin // groups, MMA_BD_CHUNK)
+    best = None
+    for tile_h, builds in MMA_BD_BUILDS.items():
+        win_h = (tile_h - 1) * stride + (kh - 1) * dilation + 2 * HALO + 2
+        win_w = (TILE_W - 1) * stride + (kw - 1) * dilation + 2 * HALO + 2
+        smem = _bwd_data_mma_smem(cout, tile_h, win_h, win_w, padding)
+        if smem > SMEM_BYTES:
+            continue
+        fit = SM_SMEM_BYTES // (smem + 1024)
+        build = max([b for b in builds if b <= fit] or [min(builds)])
+        warps = min(build, fit) * tile_h
+        key = (-min(warps, MMA_BD_WARPS), -tile_h)
+        plan = BackwardDataPlan(MMA_BD_CHUNK, chunks, tile_h, build, win_h, win_w, smem)
+        if best is None or key < best[0]:
+            best = (key, plan)
+    if best is None:
+        raise ValueError(
+            f"deform conv backward: no bf16 tiling of {cin} -> {cout} channels (stride {stride}, "
+            f"dilation {dilation}, {groups} groups) fits {SMEM_BYTES} bytes of shared memory")
+    return best[1]
+
+
+def weight_bwd_fragments(weight: torch.Tensor, groups: int) -> torch.Tensor:
+    """The weight [cout, cin, kh, kw] as ``aanet_deform_conv_backward_data_bf16``
+    reads it: the B operand of ``mma.sync.m16n8k16`` (16 output channels by
+    8 input channels) of each tap, group, chunk of ``MMA_BD_CHUNK`` of the
+    group's channels and step of 16 output channels, in register order:
+    [taps, groups, chunks, ceil(cout / 16), 8 (g), 4 (t), 4] bf16, lane 4 g
+    + t holding ``weight[co, c]`` for c = the chunk's channel g and co = 16
+    step + 2 t + (0, 1, 8, 9). Zeros beyond cout and beyond each group's
+    channels."""
+    cout, cin, kh, kw = weight.shape
+    cg = cin // groups
+    chunks = _ceil_div(cg, MMA_BD_CHUNK)
+    steps = _ceil_div(cout, 16)
+    w = weight.to(torch.bfloat16).reshape(cout, groups, cg, kh * kw)
+    w = torch.nn.functional.pad(w, (0, 0, 0, chunks * MMA_BD_CHUNK - cg, 0, 0, 0, steps * 16 - cout))
+    # co = 16 step + 8 vh + 2 t + vl; c = 8 chunk + g
+    w = w.reshape(steps, 2, 4, 2, groups, chunks, 8, kh * kw)
+    return w.permute(7, 4, 5, 0, 6, 2, 1, 3).contiguous()
+
+
+def split_planes(col: torch.Tensor):
+    """The forward kernel's exact split of a float32 value into three bf16
+    planes (``split_planes`` in the kernel): hi, the value truncated to
+    bf16; mid, the rest times 2^8 truncated to bf16; lo, what remains
+    times 2^16, which fits bf16 exactly. col = hi + 2^-8 mid + 2^-16 lo
+    exactly for every finite value (the scaling keeps mid and lo above
+    bf16's least subnormal); a non-finite value is hi, mid and lo zero.
+    Each plane times a bf16 weight is exact in float32, so the kernel's
+    three products of each plane, added in float32, change only the order
+    of the sum. Returns the three planes as bf16 tensors."""
+    col = col.float()
+    top = torch.tensor(-65536, dtype=torch.int32)  # 0xffff0000: the bf16 bits of a float32
+    h = (col.view(torch.int32) & top).view(torch.float32)
+    r1 = (col - h) * 256.0
+    m = (r1.view(torch.int32) & top).view(torch.float32)
+    r2 = (r1 - m) * 256.0
+    finite = torch.isfinite(col)
+    zero = torch.zeros_like(col)
+    hi = torch.where(finite, h, col).to(torch.bfloat16)
+    return (hi, torch.where(finite, m, zero).to(torch.bfloat16),
+            torch.where(finite, r2, zero).to(torch.bfloat16))
+
+
+def _fwd_mma_smem(kh, kw, win_h, win_w, padding):
+    """Bytes of the tensor-core forward's shared memory
+    (``fwd_mma_smem_bytes``): the warps' (tap, pixel) quad tables, a float4
+    each; two raw bf16 x windows of a chunk; each warp's three plane tiles
+    [8 pixels][16 channels]. The kernel refuses a plan whose
+    ``smem_bytes`` differ."""
+    _, _, xcs = _raw_geometry(win_h, win_w, padding, 16)
+    pixels = MMA_FWD_TH * TILE_W
+    return (16 * kh * kw * pixels + 2 * 2 * MMA_FWD_CHUNK * xcs
+            + 2 * (MMA_FWD_THREADS // 32) * 3 * 8 * MMA_FWD_CHUNK)
+
+
+class ForwardPlanBf16(NamedTuple):
+    """How ``aanet_deform_conv_bf16`` (the tensor-core forward) cuts one
+    conv: blocks of ``MMA_FWD_TH`` x ``TILE_W`` output pixels by
+    ``co_tile`` output channels, each walking chunks of ``MMA_FWD_CHUNK``
+    input channels (``splits`` blocks share a tile's chunks, each storing
+    a float32 slab that a second kernel adds in a fixed order), built for
+    ``build`` blocks an SM (its registers: the kernel's build for
+    ``co_tile``, ``MMA_FWD_BUILDS``), staging a window of ``win_h``
+    x ``win_w`` a channel in ``smem_bytes`` of shared memory; ``resident``
+    blocks fit one SM and the grid holds ``blocks``."""
+
+    co_tile: int
+    splits: int
+    build: int
+    win_h: int
+    win_w: int
+    smem_bytes: int
+    resident: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=None)
+def forward_plan_bf16(batch: int, cin: int, cout: int, out_h: int, out_w: int, kh: int, kw: int,
+                      stride: int, padding: int, dilation: int, groups: int,
+                      sms: int) -> ForwardPlanBf16:
+    """The tensor-core forward's tiling for a conv of these shapes on a card
+    of ``sms`` SMs.
+
+    - The channel tile: the least of ``MMA_FWD_BUILDS``' tiles that holds
+      ``cout``, up to 128 (every sampled column serves all of them; the
+      weight's fragments are zero beyond cout), else tiles of 128.
+    - ``resident``: the blocks one SM holds by shared memory and the tile's
+      build (its registers: 128 output channels take one block of 255
+      registers a thread).
+    - ``splits``: as ``forward_plan``'s, 1 or a multiple of ``groups`` that
+      divides the chunks, the fewest that give two waves of resident
+      blocks, each block keeping at least min(8, chunks / 2) chunks.
+    Raises if nothing fits."""
+    if cin % groups:
+        raise ValueError(f"deform conv: {groups} groups do not divide {cin} channels")
+    if cout < 1:
+        raise ValueError(f"deform conv: {cout} output channels")
+    co_tile = next((c for c in sorted(MMA_FWD_BUILDS) if c >= cout), max(MMA_FWD_BUILDS))
+    win_h = (MMA_FWD_TH - 1) * stride + (kh - 1) * dilation + 2 * HALO + 2
+    win_w = (TILE_W - 1) * stride + (kw - 1) * dilation + 2 * HALO + 2
+    smem = _fwd_mma_smem(kh, kw, win_h, win_w, padding)
+    if smem > SMEM_BYTES:
+        raise ValueError(
+            f"deform conv: no bf16 forward tiling of {cin} -> {cout} channels (stride {stride}, "
+            f"dilation {dilation}, {groups} groups) fits {SMEM_BYTES} bytes of shared memory")
+    build = MMA_FWD_BUILDS[co_tile]
+    resident = max(1, min(build, SM_SMEM_BYTES // (smem + 1024)))
+    nchunks = groups * _ceil_div(cin // groups, MMA_FWD_CHUNK)
+    tiles = (_ceil_div(out_h, MMA_FWD_TH) * _ceil_div(out_w, TILE_W) * _ceil_div(cout, co_tile)
+             * batch)
+    most = max(1, nchunks // min(8, max(1, nchunks // 2)))
+    options = [s for s in range(1, most + 1) if s == 1 or (s % groups == 0 and nchunks % s == 0)]
+    splits = next((s for s in options if tiles * s >= 2 * sms * resident), options[-1])
+    return ForwardPlanBf16(co_tile, splits, build, win_h, win_w, smem, resident, tiles * splits)
+
+
+def weight_fwd_fragments(weight: torch.Tensor, groups: int, cout_pad: int) -> torch.Tensor:
+    """The weight [cout, cin, kh, kw] as ``aanet_deform_conv_bf16`` reads
+    it: the A operand of ``mma.sync.m16n8k16`` (16 output channels by a
+    tap's 16 input channels of a chunk) of each chunk of ``MMA_FWD_CHUNK``
+    of a group's channels, tap and tile of 16 of ``cout_pad`` output
+    channels, in register order: [groups x chunks, taps, cout_pad / 16, 8
+    (g), 4 (t), 8] bf16, lane 4 g + t holding ``weight[co, c]`` at co = 16
+    tile + g + 8 (0, 1, 0, 1) and chunk positions r = 2 t + (0, 1) + 8 (0,
+    0, 1, 1) (values in the order (r half, co half, r parity)); position r
+    holds the chunk's channel (r // 4) + 4 (r % 4), the order in which the
+    kernel's lanes store their samples. Zeros beyond cout and beyond each
+    group's channels."""
+    cout, cin, kh, kw = weight.shape
+    cg = cin // groups
+    chunks = _ceil_div(cg, MMA_FWD_CHUNK)
+    w = weight.to(torch.bfloat16).reshape(cout, groups, cg, kh * kw)
+    w = torch.nn.functional.pad(w, (0, 0, 0, chunks * MMA_FWD_CHUNK - cg, 0, 0, 0, cout_pad - cout))
+    # the chunk's channel c = cq + 4 i at position r = 4 cq + i
+    w = w.reshape(cout_pad, groups, chunks, 4, 4, kh * kw).transpose(3, 4)
+    # co = 16 tile + 8 rm + g; r = 8 rh + 2 t + e
+    w = w.reshape(cout_pad // 16, 2, 8, groups, chunks, 2, 4, 2, kh * kw)
+    return w.permute(3, 4, 8, 0, 2, 6, 5, 1, 7).contiguous()
 
 
 def weight_taps_major(weight: torch.Tensor) -> torch.Tensor:
@@ -685,9 +910,9 @@ def _shape_args(x, weight, ho, wo, stride, padding, dilation, g):
 
 def _forward(x, offset, mask, weight, bias, *, stride, padding, dilation, deformable_groups):
     """The forward: the plain version for a CPU tensor; for a CUDA tensor
-    ``aanet_deform_conv_f32`` or, for bf16 x, ``aanet_deform_conv_bf16``,
-    with ``forward_plan``'s tiling (a split plan's float32 slabs summed in
-    a fixed order)."""
+    ``aanet_deform_conv_f32`` with ``forward_plan``'s tiling or, for bf16 x,
+    ``aanet_deform_conv_bf16`` with ``forward_plan_bf16``'s (a split plan's
+    float32 slabs summed in a fixed order)."""
     g = deformable_groups
     ho, wo = _check_shapes(x, offset, mask, weight, stride, padding, dilation, g)
     if x.device.type == "cpu":
@@ -700,6 +925,9 @@ def _forward(x, offset, mask, weight, bias, *, stride, padding, dilation, deform
     b, cin, _, _ = x.shape
     cout, _, kh, kw = weight.shape
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    if form == "bf16":
+        return _forward_bf16(x, offset, mask, weight, bias, ho, wo, sms, stride=stride,
+                             padding=padding, dilation=dilation, deformable_groups=g)
     plan = forward_plan(b, cin, cout, ho, wo, kh, kw, stride, dilation, g, sms)
     out = torch.empty((b, cout, ho, wo), dtype=x.dtype, device=x.device)
     # each split its float32 slab, which a second kernel sums in order (and rounds, bf16)
@@ -716,6 +944,30 @@ def _forward(x, offset, mask, weight, bias, *, stride, padding, dilation, deform
         plan.co_tile, cout_pad, plan.ksplit, plan.splits, plan.smem_bytes, device, stream,
     )
     _build.count_launch(modulated_deform_conv2d, form)
+    return out
+
+
+def _forward_bf16(x, offset, mask, weight, bias, ho, wo, sms, *, stride, padding, dilation,
+                  deformable_groups):
+    """``aanet_deform_conv_bf16``, the tensor-core forward, with
+    ``forward_plan_bf16``'s tiling and the weight in fragment order."""
+    g = deformable_groups
+    b, cin, _, _ = x.shape
+    cout, _, kh, kw = weight.shape
+    plan = forward_plan_bf16(b, cin, cout, ho, wo, kh, kw, stride, padding, dilation, g, sms)
+    out = torch.empty((b, cout, ho, wo), dtype=x.dtype, device=x.device)
+    sums = (torch.empty((plan.splits, b, cout, ho, wo), dtype=torch.float32, device=x.device)
+            if plan.splits > 1 else None)
+    wf = weight_fwd_fragments(weight, g, _ceil_div(cout, plan.co_tile) * plan.co_tile)
+    *shape, device, stream = _shape_args(x, weight, ho, wo, stride, padding, dilation, g)
+    _build.launch(
+        "deform_conv", "aanet_deform_conv_bf16", _FWD_BF16_ARGTYPES,
+        _build.ptr(x), _build.ptr(offset), offset.stride(0),
+        _build.ptr(mask), 0 if mask is None else mask.stride(0),
+        _build.ptr(wf), _build.ptr(bias), _build.ptr(out), _build.ptr(sums), *shape, plan.co_tile,
+        plan.splits, plan.smem_bytes, device, stream,
+    )
+    _build.count_launch(modulated_deform_conv2d, "bf16")
     return out
 
 
@@ -746,10 +998,12 @@ def modulated_deform_conv2d_backward_data(
     """Gradients for x, offset and mask (None for a unit mask) given the
     output gradient ``gout``, each in its primal's dtype. A CPU tensor
     takes the plain version; a CUDA tensor launches
-    ``aanet_deform_conv_backward_data_f32`` or, for a bf16 x,
-    ``aanet_deform_conv_backward_data_bf16`` (the same bits every launch:
-    the x gradient summed in fixed point, a group's chunks' offset and
-    mask gradients in slabs summed in a fixed order)."""
+    ``aanet_deform_conv_backward_data_f32`` (``backward_data_plan``, the
+    weight ``weight_taps_major``) or, for a bf16 x,
+    ``aanet_deform_conv_backward_data_bf16`` (``backward_data_plan_bf16``,
+    the weight ``weight_bwd_fragments``); the same bits every launch: the x
+    gradient summed in fixed point, a group's chunks' offset and mask
+    gradients in slabs summed in a fixed order."""
     g = deformable_groups
     ho, wo = _check_shapes(x, offset, mask, weight, stride, padding, dilation, g)
     if x.device.type == "cpu":
@@ -760,12 +1014,16 @@ def modulated_deform_conv2d_backward_data(
     form = _build.form("deform conv backward", x.dtype)
     _check_kernel_inputs("deform conv backward", x, offset, mask, gout=gout, weight=weight)
     cout, cin, kh, kw = weight.shape
-    plan = backward_data_plan(cin, cout, kh, kw, stride, dilation, g)
+    if form == "bf16":
+        plan = backward_data_plan_bf16(cin, cout, kh, kw, stride, padding, dilation, g)
+        wt = weight_bwd_fragments(weight, g)
+    else:
+        plan = backward_data_plan(cin, cout, kh, kw, stride, dilation, g)
+        wt = weight_taps_major(weight)
     scratch = backward_data_scratch(x, offset, mask, plan.chunks)
     grad_x = torch.empty_like(x)
     grad_off = torch.empty(offset.shape, dtype=torch.float32, device=x.device)
     grad_mask = None if mask is None else torch.empty(mask.shape, dtype=mask.dtype, device=x.device)
-    wt = weight_taps_major(weight)
     *shape, device, stream = _shape_args(x, weight, ho, wo, stride, padding, dilation, g)
     _build.launch(
         "deform_conv", f"aanet_deform_conv_backward_data_{form}", _BWD_DATA_ARGTYPES,

@@ -520,6 +520,7 @@ ANCHOR_FINETUNE_BATCH = 4
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
 PEAK_BF16_FLOP_S = 989e12
+PLAIN_ITERS = 5  # timed runs of a plain twin (a yardstick, many times slower than its kernel)
 
 
 def check(cond, msg):
@@ -869,12 +870,16 @@ def bf16_kernel_specs(specs):
     float32 offsets, biases and disparities); bytes at 2 a bf16 value and 4
     a float32 one; the float32 kernel timed at the same shapes
     (``f32_args``). The correlation's FLOPs are products of two bf16
-    values, bounded at the bf16 tensor-core peak (``bound_times``); the
-    deformable conv's contraction takes the float32 sampled column (the
-    bilinear blend times the mask, not rounded), so it stays at the
-    float32 peak. Tolerance: one bf16 ulp of the output's scale (both
-    round the same float32 sums, in another order, once), soft-argmin's
-    float32 disparity within 1e-4 px."""
+    values, bounded at the bf16 tensor-core peak (``bound_times``). The
+    deformable conv's kernel splits the float32 sampled column (the
+    bilinear blend times the mask, not rounded) exactly into three bf16
+    planes and multiplies each by the bf16 weight on the tensor cores: its
+    contraction is three bf16 x bf16 products at that peak, its sampling
+    stays at the float32 peak; ``cost_before`` is the bound with the one
+    contraction at the float32 peak, as it stood before the kernel moved to
+    the tensor cores (kept in each row for comparison). Tolerance: one bf16
+    ulp of the output's scale (both round the same float32 sums, in
+    another order, once), soft-argmin's float32 disparity within 1e-4 px."""
     by_name = {s["name"]: s for s in specs}
     bf = torch.bfloat16
     one_ulp = bf16_ulp
@@ -887,7 +892,13 @@ def bf16_kernel_specs(specs):
         # x, mask, weight and the output at 2 bytes; offsets and bias at 4
         nbytes = (2 * (b * cin * h * w + (pix * g * k2 if has_mask else 0) + cout * cin * k2
                        + pix * cout) + 4 * (pix * g * k2 * 2 + (cout if has_bias else 0)))
-        return nbytes, by_name["deform_conv"]["cost"](sig)[1]
+        flops = by_name["deform_conv"]["cost"](sig)[1]  # the contraction and the sampling
+        contraction = 2 * pix * cout * cin * k2
+        # three planes' bf16 x bf16 products at the tensor-core peak, the sampling at float32's
+        return nbytes, flops + 2 * contraction, 3 * contraction
+
+    def deform_cost_before(sig):  # the one float32 contraction at the float32 peak
+        return deform_cost(sig)[0], by_name["deform_conv"]["cost"](sig)[1]
 
     def corr_cost(sig):
         (b, c, h, w), d = sig
@@ -936,6 +947,8 @@ def bf16_kernel_specs(specs):
     ):
         spec = dict(by_name[name], name=f"{name}_bf16", counter="launches_bf16", inputs=inputs,
                     cost=cost, tol=tol, tol_text=tol_text, library=library, f32_args=to_f32)
+        if name == "deform_conv":
+            spec["cost_before"] = deform_cost_before
         out.append(spec)
     return out
 
@@ -993,8 +1006,8 @@ def bf16_backward_specs(bwd_specs):
         flops = by_name[name]["cost"](sig)[1]
         if weight_grad:  # gout times the float32 sampled column: no bf16 pair
             return reads + 2 * cout * cin * k2, flops
-        # the gout.W contraction multiplies two bf16 operands (the weight is
-        # widened exactly); the sampling and scatter are float32
+        # the gout.W contraction multiplies two bf16 operands on the tensor
+        # cores; the sampling and scatter are float32
         nbytes = reads + 2 * cout * cin * k2 + 2 * (b * cin * h * w + masks) + 4 * offsets
         return nbytes, flops, pix * cin * k2 * 2 * cout
 
@@ -1262,11 +1275,14 @@ def measure(spec, sig, n, gen, dev, timer, iters=20, timed=True):
     row = dict(
         shape=str(sig), launches=n, max_err=err, tolerance=tol,
         kernel_ms=timer.ms(lambda: op(*args, **kwargs), iters=iters),
-        plain_ms=timer.ms(lambda: spec["plain"](*args, **kwargs), iters=iters),
+        # the twin only as a yardstick: a few repetitions
+        plain_ms=timer.ms(lambda: spec["plain"](*args, **kwargs), warmup=1, iters=PLAIN_ITERS),
         library_ms=timer.ms(lib, iters=iters) if lib else None,
         bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms,
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
     )
+    if "cost_before" in spec:  # the bound as it stood before the kernel's redesign
+        row["bound_before_ms"] = max(bound_times(spec["cost_before"](sig)))
     if "f32_args" in spec:  # a bf16 form: its float32 kernel at the same shape
         f32 = spec["f32_args"](args)
         row["f32_kernel_ms"] = timer.ms(lambda: op(*f32, **kwargs), iters=iters)
@@ -1288,8 +1304,9 @@ def totals(rows, has_library):
         library_ms=total("library_ms") if has_library else None,
         max_abs_err=max(r["max_err"] for r in rows),
     )
-    if all("f32_kernel_ms" in r for r in rows):
-        out["f32_kernel_ms"] = total("f32_kernel_ms")
+    for key in ("f32_kernel_ms", "bound_before_ms"):
+        if all(key in r for r in rows):
+            out[key] = total(key)
     return out
 
 
@@ -2867,8 +2884,9 @@ def bf16_training_phases(specs, bwd_specs, specs16, bwd16, gen, dev, timer, smi,
     (c) The full-width bf16 steps (batch 16) of ``aanet`` and ``aanet+``
     with their launch counts (no float32 kernel), timed over 5 steps (phase
     8 times 10), beside the float32 steps (``f32_steps``), and each bf16 backward
-    kernel against its twin at their shapes, timed. Returns, per step, the
-    bf16 backward kernels' rows and the step's launches."""
+    kernel and the bf16 deform forward (42 and 62 launches a step with
+    remat's recompute) against its twin at their shapes, timed. Returns,
+    per step, those kernels' rows and the step's launches."""
     from aanet_torch.config import preset
     from aanet_torch.models.layers import set_train_mode
     from aanet_torch.train.optimizer import make_optimizer
@@ -2878,7 +2896,7 @@ def bf16_training_phases(specs, bwd_specs, specs16, bwd16, gen, dev, timer, smi,
     t0 = time.perf_counter()
     all16 = specs16 + bwd16
     by_name = {s["name"]: s for s in bwd16}
-    shapes, edges = {}, []
+    shapes, recomputed, edges = {}, {}, []
     for name, expected in BF16_TRAIN_PRESETS.items():
         cfg = dataclasses.replace(preset(name), dtype="bfloat16")
         first = {s["name"]: collections.Counter() for s in specs16}
@@ -2890,7 +2908,7 @@ def bf16_training_phases(specs, bwd_specs, specs16, bwd16, gen, dev, timer, smi,
         made = {n: sum(first[n].values()) + sum(again[n].values()) for n in first}
         made.update({b["name"]: sum(first[b["forward"]].values()) for b in bwd16})
         check(made == expected, f"{name} bf16: plain train step made {made}, expected {expected}")
-        shapes[name] = first
+        shapes[name], recomputed[name] = first, again
         # every backward kernel call of a kernel step on the path's own inputs
         set_train_mode(model)
         calls_checked = []
@@ -3014,6 +3032,10 @@ def bf16_training_phases(specs, bwd_specs, specs16, bwd16, gen, dev, timer, smi,
         torch.cuda.empty_cache()
         rows = {sp["name"]: [measure(sp, rebatch(sig, TRAIN_BATCH), k, gen, dev, timer, iters=10)
                              for sig, k in shapes[name][sp["forward"]].items()] for sp in bwd16}
+        # the bf16 forward at the step's shapes: its first pass and remat's recompute
+        calls = shapes[name][fwd16["name"]] + recomputed[name][fwd16["name"]]
+        rows[fwd16["name"]] = [measure(fwd16, rebatch(sig, TRAIN_BATCH), k, gen, dev, timer, iters=10)
+                               for sig, k in calls.items()]
         out[f"{name} bf16"] = dict(rows=rows, launches=counts, step=record)
     print(f"phase 15: (a) {t_a - t0:.1f} s, (b) {t_b - t_a:.1f} s, (c) "
           f"{time.perf_counter() - t_b:.1f} s", flush=True)
