@@ -79,7 +79,8 @@ namespace {
 // copies bytes and cannot widen them), so the plan and the shared-memory
 // layout are the float32 form's; it sums in float32 (products and the
 // ksplit groups' sums), and the mean over C is rounded to bf16 once, where
-// it is stored. Its global traffic is half the float32 form's.
+// it is stored. Its global traffic is half the float32 form's. (The
+// backward's bf16 form stages raw bf16 instead: see its note.)
 // ---------------------------------------------------------------------------
 
 // Calls f(r, q) for the units t, t + blockDim.x, ... of a rows x cols grid
@@ -101,6 +102,11 @@ __device__ __forceinline__ void for_each_unit(int rows, int cols, F f) {
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
+}
+
+// Four raw bf16 values of shared memory (8-byte aligned), widened.
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+  return widen4(*reinterpret_cast<const uint2*>(p));
 }
 
 constexpr int FWD_CW = 4;             // columns of a thread's register tile
@@ -380,11 +386,17 @@ extern "C" int aanet_correlation_bf16(const bf16* left, const bf16* right, bf16*
 // backward_plan; the kernel refuses a plan whose shared memory is not its
 // layout's.
 //
-// The bf16 form (T = bf16: g, L, R, dL and dR in bfloat16) is the same
-// kernel, as the forward's is: g, L and R are widened where they are staged
-// (a load and a store), the sums run in float32 in the same order, and dL
-// and dR are rounded to bf16 once, where they are stored. Without atomics
-// it gives the same bits every launch, as the float32 form does.
+// The bf16 form (T = bf16: g, L, R, dL and dR in bfloat16) stages g, L and
+// R raw, in bfloat16, with cp.async (8-byte quads where the width allows;
+// a pair, or a value by a load and a store, where the skewed gradient
+// tile's row is not quad-aligned), double-buffered as the float32 form, and
+// widens each quad where a thread loads it from shared memory: half the
+// shared memory and half the bytes a load of the float32 form, with the
+// next chunk's copy in flight (the float32 form's staging, widened through
+// registers, was not). Its plan (ops/cost_volume.py backward_plan_bf16)
+// takes the halved layout. The sums run in float32 in the same order, and
+// dL and dR are rounded to bf16 once, where they are stored. Without
+// atomics it gives the same bits every launch, as the float32 form does.
 // ---------------------------------------------------------------------------
 namespace {
 
@@ -395,16 +407,48 @@ constexpr int BWD_DSTEP = 8;          // disparities of one trip of the slide (t
 constexpr int BWD_MAX_THREADS = 256;  // __launch_bounds__: the largest block,
 constexpr int BWD_MIN_BLOCKS = 2;     // and the blocks of that size an SM holds
 
-// Words of the backward's shared memory: the two gradient tiles [dtot][bw]
-// and two buffers of a chunk's right and left windows [chunk][bw + dtot].
+// Values of the backward's shared memory (float32 words, or raw bf16): the
+// two gradient tiles [dtot][bw] and two buffers of a chunk's right and left
+// windows [chunk][bw + dtot].
 inline int bwd_smem_words(int bw, int dtot, int chunk) {
   return 2 * dtot * bw + 2 * 2 * chunk * (bw + dtot);
 }
 
+// 4- and 8-byte copies of raw bf16 into shared memory: `bytes` of src, the
+// rest zero (bytes = 0: nothing is read; src must still be a valid address).
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_8(void* dst, const void* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
+}
+
+// The bf16 backward's staging of a quad of columns, raw: by one 8-byte
+// cp.async (`quad`: the source is 8-byte aligned and wholly inside the row
+// or outside), by two 4-byte ones (`pair`: 4-byte aligned, each pair inside
+// or outside) or value by value (a load and a store); in[i]: whether
+// column i is inside (src is read only where it is; any: a valid address).
+__device__ __forceinline__ void stage_quad(bf16* dst, const bf16* src, const bf16* any,
+                                           const bool (&in)[4], bool quad, bool pair) {
+  if (quad) {
+    cp_async_8(dst, in[0] ? src : any, in[0] ? 8 : 0);
+  } else if (pair) {
+    cp_async_4(dst, in[0] ? src : any, in[0] ? 4 : 0);
+    cp_async_4(dst + 2, in[2] ? src + 2 : any, in[2] ? 4 : 0);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dst[i] = in[i] ? src[i] : __ushort_as_bfloat16(0);
+  }
+}
+
 // Four disparities d0 .. d0 + 3 of dL for BWD_CC channels: the right
 // window [rn, ro] is columns w - d0 - 4 .. w - d0 + 3 of the thread's first
-// column w; g quads at g + d * bw.
-__device__ __forceinline__ void turn_left(float (&acc)[BWD_CC][BWD_CW], const float* g, int bw,
+// column w; g quads at g + d * bw (float32, or raw bf16 widened).
+template <typename S>
+__device__ __forceinline__ void turn_left(float (&acc)[BWD_CC][BWD_CW], const S* g, int bw,
                                           int d0, const float4 (&rn)[BWD_CC],
                                           const float4 (&ro)[BWD_CC]) {
 #pragma unroll
@@ -422,7 +466,8 @@ __device__ __forceinline__ void turn_left(float (&acc)[BWD_CC][BWD_CW], const fl
 
 // The same for dR: the left window [lc, ln] is columns w + d0 .. w + d0 + 7;
 // g quads (the skewed copy) at g + d * bw.
-__device__ __forceinline__ void turn_right(float (&acc)[BWD_CC][BWD_CW], const float* g, int bw,
+template <typename S>
+__device__ __forceinline__ void turn_right(float (&acc)[BWD_CC][BWD_CW], const S* g, int bw,
                                            int d0, const float4 (&lc)[BWD_CC],
                                            const float4 (&ln)[BWD_CC]) {
 #pragma unroll
@@ -445,12 +490,12 @@ corr_bwd_kernel(const T* __restrict__ grad, const T* __restrict__ left,
                 T* __restrict__ grad_right, int channels, int height, int width,
                 int max_disp, int bw, int dtot, int chunk, bool vec) {
   extern __shared__ float4 corr_smem[];
-  float* smem = reinterpret_cast<float*>(corr_smem);
+  T* smem = reinterpret_cast<T*>(corr_smem);  // float32, or raw bf16 widened where read
   const int ncg = chunk / BWD_CC;  // channel groups
   const int ww = bw + dtot;        // window width
-  float* s_gl = smem;                   // [dtot][bw]: g[d][w0 + j]
-  float* s_gr = smem + dtot * bw;       // [dtot][bw]: g[d][w0 + j + d]
-  float* s_win = smem + 2 * dtot * bw;  // two buffers of {R [chunk][ww], L [chunk][ww]}
+  T* s_gl = smem;                   // [dtot][bw]: g[d][w0 + j]
+  T* s_gr = smem + dtot * bw;       // [dtot][bw]: g[d][w0 + j + d]
+  T* s_win = smem + 2 * dtot * bw;  // two buffers of {R [chunk][ww], L [chunk][ww]}
   const int stage_words = 2 * chunk * ww;
 
   // thread -> gradient (0: dL, 1: dR; whole warps), channel group cg,
@@ -472,39 +517,66 @@ corr_bwd_kernel(const T* __restrict__ grad, const T* __restrict__ left,
   const T* rb = right + b * channels * plane + row;
 
   // the gradient tiles, once
-  for_each_unit(dtot, bw / 4, [&](int d, int q) {
-    const int j = 4 * q, w = w0 + j;
-    float* dst_l = s_gl + d * bw + j;
-    float* dst_r = s_gr + d * bw + j;
-    if (vec) {
-      const bool in = d < max_disp && w < width;
-      stage4(dst_l, in ? gb + d * plane + w : grad, in);
-    } else {
+  if constexpr (is_bf16<T>) {
+    for_each_unit(dtot, bw / 4, [&](int d, int q) {
+      const int j = 4 * q, w = w0 + j;
+      bool in_l[4], in_r[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const bool in = d < max_disp && w + i < width;
-        stage1(dst_l + i, in ? gb + d * plane + w + i : grad, in);
+        in_l[i] = d < max_disp && w + i < width;
+        in_r[i] = d < max_disp && w + d + i < width;
       }
-    }
-    if (vec && d % 4 == 0) {
-      const bool in = d < max_disp && w + d < width;
-      stage4(dst_r, in ? gb + d * plane + w + d : grad, in);
-    } else {
+      stage_quad(s_gl + d * bw + j, gb + d * plane + w, grad, in_l, vec, false);
+      stage_quad(s_gr + d * bw + j, gb + d * plane + w + d, grad, in_r, vec && d % 4 == 0,
+                 vec && d % 2 == 0);
+    });
+  } else {
+    for_each_unit(dtot, bw / 4, [&](int d, int q) {
+      const int j = 4 * q, w = w0 + j;
+      float* dst_l = s_gl + d * bw + j;
+      float* dst_r = s_gr + d * bw + j;
+      if (vec) {
+        const bool in = d < max_disp && w < width;
+        stage4(dst_l, in ? gb + d * plane + w : grad, in);
+      } else {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const bool in = d < max_disp && w + d + i < width;
-        stage1(dst_r + i, in ? gb + d * plane + w + d + i : grad, in);
+        for (int i = 0; i < 4; ++i) {
+          const bool in = d < max_disp && w + i < width;
+          stage1(dst_l + i, in ? gb + d * plane + w + i : grad, in);
+        }
       }
-    }
-  });
+      if (vec && d % 4 == 0) {
+        const bool in = d < max_disp && w + d < width;
+        stage4(dst_r, in ? gb + d * plane + w + d : grad, in);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const bool in = d < max_disp && w + d + i < width;
+          stage1(dst_r + i, in ? gb + d * plane + w + d + i : grad, in);
+        }
+      }
+    });
+  }
 
   // chunk n's windows into buffer n % 2: R slot s is column w0 - dtot + s,
   // L slot s column w0 + s; zero outside the image and beyond the channels
   auto stage = [&](int n) {
-    float* sr = s_win + (n & 1) * stage_words;
-    float* sl = sr + chunk * ww;
+    T* sr = s_win + (n & 1) * stage_words;
+    T* sl = sr + chunk * ww;
     const int c0 = n * chunk;
-    if (vec) {  // a quad of columns lies wholly inside the row or outside
+    if constexpr (is_bf16<T>) {  // quads: raw bf16 by 8-byte cp.async where vec
+      for_each_unit(chunk, ww / 4, [&](int cc, int q) {
+        const int s = 4 * q, c = c0 + cc, wr = w0 - dtot + s, wl = w0 + s;
+        bool rin[4], lin[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          rin[i] = c < channels && wr + i >= 0 && wr + i < width;
+          lin[i] = c < channels && wl + i < width;
+        }
+        stage_quad(sr + cc * ww + s, rb + c * plane + wr, right, rin, vec, false);
+        stage_quad(sl + cc * ww + s, lb + c * plane + wl, left, lin, vec, false);
+      });
+    } else if (vec) {  // a quad of columns lies wholly inside the row or outside
       for_each_unit(chunk, ww / 4, [&](int cc, int q) {
         const int s = 4 * q, c = c0 + cc, wr = w0 - dtot + s, wl = w0 + s;
         const bool rin = c < channels && wr >= 0 && wr < width;
@@ -527,7 +599,7 @@ corr_bwd_kernel(const T* __restrict__ grad, const T* __restrict__ left,
   stage(0);
   cp_async_commit();  // with the gradient tiles
   const float inv_c = 1.f / static_cast<float>(channels);
-  const float* g = (side == 0 ? s_gl : s_gr) + BWD_CW * x;
+  const T* g = (side == 0 ? s_gl : s_gr) + BWD_CW * x;
   T* out = (side == 0 ? grad_left : grad_right) + b * channels * plane + row;
   for (int n = 0; n < nchunks; ++n) {
     if (n + 1 < nchunks) {
@@ -539,7 +611,7 @@ corr_bwd_kernel(const T* __restrict__ grad, const T* __restrict__ left,
     }
     __syncthreads();
     // the thread's window rows: R for dL, L for dR
-    const float* win = s_win + (n & 1) * stage_words + (side * chunk + cg * BWD_CC) * ww + BWD_CW * x;
+    const T* win = s_win + (n & 1) * stage_words + (side * chunk + cg * BWD_CC) * ww + BWD_CW * x;
     float acc[BWD_CC][BWD_CW];
     float4 a[BWD_CC], z[BWD_CC];
 #pragma unroll
@@ -612,7 +684,7 @@ int launch_corr_bwd(const T* grad, const T* left, const T* right, T* grad_left, 
   const int threads = 2 * (bw / BWD_CW) * (chunk / BWD_CC);
   if (threads > BWD_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
   const int dtot = (max_disp + BWD_DSTEP - 1) / BWD_DSTEP * BWD_DSTEP;
-  if (bwd_smem_words(bw, dtot, chunk) * 4 != smem_bytes) {
+  if (bwd_smem_words(bw, dtot, chunk) * static_cast<int>(sizeof(T)) != smem_bytes) {
     return static_cast<int>(cudaErrorInvalidValue);  // the wrapper's plan has another layout
   }
   auto kernel = corr_bwd_kernel<T>;
@@ -648,7 +720,9 @@ extern "C" int aanet_correlation_backward_f32(const float* grad, const float* le
 }
 
 // The bf16 form: every tensor bfloat16, the rest as
-// aanet_correlation_backward_f32's (the same plan).
+// aanet_correlation_backward_f32's; its plan is ops/cost_volume.py
+// backward_plan_bf16's, smem_bytes that of the bf16 layout (2 bytes a
+// staged value).
 extern "C" int aanet_correlation_backward_bf16(const bf16* grad, const bf16* left,
                                                const bf16* right, bf16* grad_left,
                                                bf16* grad_right, int batch, int channels,

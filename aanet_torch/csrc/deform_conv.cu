@@ -15,9 +15,8 @@
 //
 // Each of the three has a float32 and a bfloat16 form (aanet_deform_conv_f32
 // and aanet_deform_conv_bf16, and the same suffixes on the backward's entry
-// points). The weight gradient's bf16 form is the float32 kernel's template
-// on bf16 values; the bf16 forward and input/offset/mask gradient are
-// kernels of their own, on the tensor cores (the last section).
+// points). The bf16 forms are kernels of their own, on the tensor cores
+// (the last sections).
 #include "common.cuh"
 
 #include <math.h>
@@ -31,9 +30,7 @@ constexpr int HALO = 3;     // pixels of a staged window beyond the zero-offset 
 // input window, its (tap, pixel) corner table and the sampling of one
 // channel quad from both.
 
-// The x windows of nq channel quads, staged as float32 (stage1: a bf16 x is
-// converted where it is staged, so that the window, the table and the
-// contraction are the float32 form's): quad
+// The x windows of nq channel quads, staged as float32 (stage1): quad
 // j's window at sx + 4 j win_size, position i of its channel cl at word 4 i
 // + cl, so that a corner's four channels are one 16-byte load. xc: x at the
 // first channel; nc: the channels that exist (the rest, and positions
@@ -1382,13 +1379,9 @@ extern "C" int aanet_deform_conv_backward_data_f32(
 // registers a thread (one 256-thread block an SM) beat 128 where the plan
 // keeps 8 warps an SM; the plan picks the build.
 //
-// The bf16 form (T = bf16: gout, x and the mask in bfloat16; the offsets
-// float32) is the same kernel with the same plan: gout, the mask and the x
-// window are widened where they are staged (a load and a store), far
-// corners where they are read; the slabs stay float32, summed in the same
-// fixed order, and the sum kernel rounds each entry of grad_w to bf16 once
-// (the weight's primal is bf16). It is bit-reproducible as the float32
-// form is.
+// This kernel serves float32 values (T = float). The bf16 weight gradient
+// is deform_wgrad_mma_kernel (the last section): its products run on the
+// tensor cores, with its own plan.
 // ---------------------------------------------------------------------------
 namespace {
 
@@ -1676,7 +1669,7 @@ deform_wgrad_kernel(const T* __restrict__ gout, const T* __restrict__ x,
   }
 }
 
-// The checks and the two launches of both weight-gradient forms (T: the
+// The checks and the two launches of the float32 weight gradient (T: the
 // values' type and grad_w's).
 template <typename T>
 int launch_wgrad(const T* gout, const T* x, const float* offset, long long offset_bstride,
@@ -1754,21 +1747,6 @@ int launch_wgrad(const T* gout, const T* x, const float* offset, long long offse
 extern "C" int aanet_deform_conv_backward_weight_f32(
     const float* gout, const float* x, const float* offset, long long offset_bstride,
     const float* mask, long long mask_bstride, float* ws, float* grad_w, int batch, int cin,
-    int height, int width, int cout, int out_h, int out_w, int kh, int kw, int stride, int pad,
-    int dil, int groups, int tile_h, int step_h, int co_tile, int chunk, int ksplit, int splits,
-    int blocks, int smem_bytes, int device, void* stream) {
-  cudaSetDevice(device);
-  return launch_wgrad(gout, x, offset, offset_bstride, mask, mask_bstride, ws, grad_w, batch, cin,
-                      height, width, cout, out_h, out_w, kh, kw, stride, pad, dil, groups, tile_h,
-                      step_h, co_tile, chunk, ksplit, splits, blocks, smem_bytes,
-                      static_cast<cudaStream_t>(stream));
-}
-
-// The bf16 form: gout, x, mask and grad_w bfloat16, offset and ws float32,
-// the rest as aanet_deform_conv_backward_weight_f32's (the same plan).
-extern "C" int aanet_deform_conv_backward_weight_bf16(
-    const bf16* gout, const bf16* x, const float* offset, long long offset_bstride,
-    const bf16* mask, long long mask_bstride, float* ws, bf16* grad_w, int batch, int cin,
     int height, int width, int cout, int out_h, int out_w, int kh, int kw, int stride, int pad,
     int dil, int groups, int tile_h, int step_h, int co_tile, int chunk, int ksplit, int splits,
     int blocks, int smem_bytes, int device, void* stream) {
@@ -2705,4 +2683,496 @@ extern "C" int aanet_deform_conv_backward_data_bf16(
   int e = off_slabs ? sum_slabs(offset_sums, grad_offset, chunks, n_off, s) : 0;
   if (e != 0 || !mask_slabs) return e;
   return sum_slabs(mask_sums, grad_mask, chunks, batch * mask_n, s);
+}
+
+// ---------------------------------------------------------------------------
+// Kernel C: the bf16 weight gradient on the tensor cores,
+//   grad_w[co, c, k] = sum_{b, p} gout[b, co, p] * col[b, c, k, p].
+//
+// Replaces the bf16 form of the weight half of the transpose jax.vjp
+// derives from aanet_tpu/ops/deform.py:modulated_deform_conv2d (its bf16
+// handling at :181-224: gout, x and the mask in bfloat16, the offsets
+// float32, the weight gradient rounded to the weight's bf16 once).
+//
+// Bound (H100 SXM at 700 W; chip_smoke.py's bf16_backward_specs): the
+// contraction as three bf16 x bf16 products (the column's planes) at 989
+// TFLOP/s, the sampling at the float32 peak of 67 TFLOP/s. The float32
+// kernel above (which served bf16 too, its operands widened through
+// registers where they were staged) ran its products as float32 FMAs from
+// register tiles, and its bf16 staging, with nothing in flight, took 4 of
+// its 9.9 ms an aanet step (PERF.md section 6). Design:
+// - It is a split-K product: M = a block's co_tile = 16 MT output channels
+//   (zero gout rows past cout), N = a chunk of MMA_WG_CHUNK = 8 input
+//   channels of one group by the taps, K = the pixels of the block's run of
+//   tiles (tile_h x TILE_W output pixels of one batch entry, contiguous in
+//   (batch, tile) order: its split's share), walked in steps of
+//   MMA_WG_STEP_H = 4 rows (4 k-steps of a row's 16 pixels).
+// - gout's tile [co_tile][64 pixels], the step's offsets and raw mask
+//   [taps][64 pixels] and the chunk's raw x window (the forward's
+//   channel-major layout, with the HALO) are staged raw by 16-byte cp.async
+//   (4-byte copies, or values, where rows are not whole pieces), all
+//   double-buffered and in flight a step ahead. Once a tile, the block
+//   turns the landed raw window channel-minor (a position's 8 channels in
+//   16 bytes) in shared memory, a step before it is sampled.
+// - Warp w owns tap w (MMA_WG_WARPS = 9 warps; warps past a smaller
+//   conv's taps only stage): it samples the tap's 8 channels at the step's
+//   64 pixels (a lane: a pair of pixels of one row, each corner's 8
+//   channels one 16-byte load) into a float32 column tile of its own [8
+//   channels][64 pixels], and multiplies: A = gout (16 output channels x 16
+//   pixels, ldmatrix), B = the column's 16 pixels x 8 channels, each value
+//   split where the fragment is built into three bf16 planes (split_planes,
+//   as the forward), three mma.sync m16n8k16 an m-tile into three float32
+//   accumulators. The column never leaves the warp: no barrier between the
+//   taps' sampling and their products. While step s is multiplied, step s +
+//   1 is sampled into the warp's second column tile; one __syncthreads a
+//   step.
+// - A lane's accumulators hold grad_w[co0 + 16 i + g (+ 8), c0 + 2 t (+ 1),
+//   w]: each entry is one lane's, summed over the block's pixels in step
+//   order (no warp splits the pixels). A block stores hi + 2^-8 (mid +
+//   2^-8 lo) once into its split's float32 slab ([splits][cout][cin *
+//   taps]) and slab_sum_kernel adds the slabs in a fixed order, rounding
+//   each entry to bf16 once. Every launch gives the same bits.
+// What sets its pace on an H100 (PERF.md section 6, variants with a part
+// removed): the products (about 40 % of an aanet step's time), the staging
+// and the sampling (about a fifth each). Integer divisions a step (the
+// tile of a unit), a division a sample and 2-byte loads a channel from a
+// channel-major window cost more than the products did; the steps walk
+// the tiles by counters. The JAX op rounds each sample to bf16 before its
+// contraction; this kernel, as its twin, keeps the sample's float32 value
+// (its exact planes).
+// ---------------------------------------------------------------------------
+namespace {
+
+constexpr int MMA_WG_WARPS = 9;    // weight gradient: a warp a tap (at most 9 taps)
+constexpr int MMA_WG_CHUNK = 8;    // weight gradient: input channels of a block (one n-tile)
+constexpr int MMA_WG_STEP_H = 4;   // weight gradient: output rows of a step
+constexpr int MMA_WG_RS = 72;      // weight gradient: bf16 a row of its gout tile (a step's 64
+                                   // pixels and 16 bytes: ldmatrix reads 8 rows in 8 bank groups)
+constexpr int MMA_WG_CS = 72;      // weight gradient: floats a row of its column tiles (8 words
+                                   // past a multiple of 32: a fragment's rows in distinct banks)
+
+// Bytes of kernel C's shared memory: the warps' two float32 column tiles,
+// two gout tiles, two raw x windows of the chunk and two channel-minor ones
+// (win_h x win_wa positions of 16 bytes), and two steps' offsets (float32)
+// and raw masks, a row of the step's pixels a tap (ops/deform.py
+// _wgrad_mma_smem; the kernel refuses a plan whose smem_bytes differ).
+__host__ __device__ inline long long wgrad_mma_smem_bytes(int co_tile, int xcs, int win_h,
+                                                          int win_wa) {
+  return 4LL * MMA_WG_WARPS * 2 * MMA_WG_CHUNK * MMA_WG_CS + 2LL * 2 * co_tile * MMA_WG_RS +
+         2LL * 2 * MMA_WG_CHUNK * xcs + 2LL * 16 * win_h * win_wa +
+         2LL * MMA_WG_WARPS * MMA_WG_STEP_H * TILE_W * (2 * 4 + 2);
+}
+
+// Channel c of 8 raw bf16 values in 16 bytes, widened.
+__device__ __forceinline__ float channel_of(const uint4& q, int c) {
+  const unsigned w = c < 2 ? q.x : c < 4 ? q.y : c < 6 ? q.z : q.w;
+  return __uint_as_float(c % 2 ? w & 0xffff0000u : w << 16);
+}
+
+// Two bf16 bit patterns as one 32-bit fragment register (a first).
+__device__ __forceinline__ unsigned pack2(unsigned short a, unsigned short b) {
+  return a | (static_cast<unsigned>(b) << 16);
+}
+
+template <int MT, int BLOCKS>
+__global__ void __launch_bounds__(32 * MMA_WG_WARPS, BLOCKS)
+deform_wgrad_mma_kernel(const bf16* __restrict__ gout, const bf16* __restrict__ x,
+                        const float* __restrict__ offset, long long offset_bstride,
+                        const bf16* __restrict__ mask, long long mask_bstride,
+                        float* __restrict__ ws, int cin, int height, int width, int cout,
+                        int out_h, int out_w, int kh, int kw, int stride, int pad, int dil,
+                        int groups, int tile_h, int splits, int win_h, int win_w, int win_wa,
+                        int xoff, int xcs, int tiles_x, int tiles, int units, bool gout_vec,
+                        bool x_vec, bool off_vec, bool mask_vec) {
+  constexpr int CC = MMA_WG_CHUNK, SH = MMA_WG_STEP_H, RS = MMA_WG_RS, CS = MMA_WG_CS;
+  constexpr int CO = 16 * MT, NTHREADS = 32 * MMA_WG_WARPS, P = SH * TILE_W;
+  extern __shared__ float4 s_raw[];
+  float* s_col = reinterpret_cast<float*>(s_raw);                  // [warp][2][CC][CS]
+  bf16* s_g = reinterpret_cast<bf16*>(s_col + MMA_WG_WARPS * 2 * CC * CS);  // [2][CO][RS]
+  bf16* s_x = s_g + 2 * CO * RS;                                   // [2][CC][xcs], raw
+  uint4* s_xt = reinterpret_cast<uint4*>(s_x + 2 * CC * xcs);      // [2][win_h * win_wa]
+  float* s_off = reinterpret_cast<float*>(s_xt + 2 * win_h * win_wa);  // [2][2 * WARPS][P]
+  bf16* s_m = reinterpret_cast<bf16*>(s_off + 2 * 2 * MMA_WG_WARPS * P);  // [2][WARPS][P]
+
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31, g8 = lane >> 2, t4 = lane & 3;
+  const int taps = kh * kw;
+  const bool tap_warp = warp < taps;  // warp w samples and multiplies tap w
+  const int ki = warp / kw, kj = warp - ki * kw;
+  const int cg = cin / groups, per_group = (cg + CC - 1) / CC;
+  const int g = blockIdx.x / per_group;
+  const int c0 = g * cg + (blockIdx.x % per_group) * CC;
+  const int nc = min(CC, (g + 1) * cg - c0);  // the group's last chunk may be short
+  const int split = blockIdx.y;
+  const int co0 = blockIdx.z * CO;
+  const int u_beg = static_cast<int>(static_cast<long long>(split) * units / splits);
+  const int u_end = static_cast<int>(static_cast<long long>(split + 1) * units / splits);
+  const int npix = out_h * out_w;
+  const long long hw = static_cast<long long>(height) * width;
+  const int xt_size = win_h * win_wa;
+  // the lane's pixels in a step: row pr, columns pc and pc + 1
+  const int pr = lane >> 3, pc = 2 * (lane & 7);
+
+  // A step of the block's run: step i of unit u, the tile (ty, tx) of
+  // tile_h x TILE_W output pixels of batch entry b (units in (b, ty, tx)
+  // order), walked in steps of SH rows; u = u_end: past the run. Advanced
+  // without a division.
+  struct Step {
+    int u, i, b, ty, tx;
+  };
+  const int tiles_y = tiles / tiles_x;
+  auto step_at = [&](int u) {
+    Step c;
+    c.u = u;
+    c.i = 0;
+    c.b = u / tiles;
+    const int r = u - c.b * tiles;
+    c.ty = r / tiles_x;
+    c.tx = r - c.ty * tiles_x;
+    return c;
+  };
+  auto advance = [&](Step& c) {
+    if (c.u >= u_end) return;
+    if (++c.i * SH < min(tile_h, out_h - c.ty * tile_h)) return;
+    c.i = 0;
+    ++c.u;
+    if (++c.tx == tiles_x) {
+      c.tx = 0;
+      if (++c.ty == tiles_y) {
+        c.ty = 0;
+        ++c.b;
+      }
+    }
+  };
+  auto win_y_of = [&](const Step& c) { return c.ty * tile_h * stride - pad - HALO; };
+  auto win_x_of = [&](const Step& c) { return c.tx * TILE_W * stride - pad - HALO; };
+  // the raw window of c's unit into raw buffer (u - u_beg) & 1
+  auto stage_window = [&](const Step& c) {
+    stage_raw_window(s_x + ((c.u - u_beg) & 1) * CC * xcs,
+                     x + (static_cast<long long>(c.b) * cin + c0) * hw, CC, nc, hw, win_y_of(c),
+                     win_x_of(c) - xoff, win_h, win_wa, xcs, height, width, x_vec, t, NTHREADS, x);
+  };
+  // unit u's landed raw window, channel-minor: position e (row e / win_wa,
+  // column e % win_wa of the raw row) holds its 8 channels in 16 bytes
+  auto transpose_window = [&](int u) {
+    const int buf = (u - u_beg) & 1;
+    const unsigned short* sr = reinterpret_cast<const unsigned short*>(s_x + buf * CC * xcs);
+    uint4* dst = s_xt + buf * xt_size;
+    for (int e = t; e < xt_size; e += NTHREADS) {
+      unsigned short v[CC];
+#pragma unroll
+      for (int c = 0; c < CC; ++c) v[c] = sr[c * xcs + e];
+      dst[e] = make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]), pack2(v[4], v[5]),
+                          pack2(v[6], v[7]));
+    }
+  };
+  // step c's gout rows into gout buffer buf: 16-byte pieces of 8 pixels,
+  // piece 2 r + h of a row holding pixels 16 r + 8 h ..
+  auto stage_gout = [&](const Step& c, int buf) {
+    const int ho0 = c.ty * tile_h + c.i * SH, wo0 = c.tx * TILE_W;
+    const bf16* gb = gout + (static_cast<long long>(c.b) * cout + co0) * npix;
+    bf16* sg = s_g + buf * CO * RS;
+    for (int e = t; e < CO * 2 * SH; e += NTHREADS) {
+      const int co = e / (2 * SH), piece = e % (2 * SH);
+      const int oh = ho0 + (piece >> 1), ow = wo0 + 8 * (piece & 1);
+      bf16* dst = sg + co * RS + 8 * piece;
+      const bool in = co0 + co < cout && oh < out_h && ow < out_w;
+      const bf16* src = in ? gb + static_cast<long long>(co) * npix + oh * out_w + ow : gout;
+      if (gout_vec) {
+        cp_async_16(dst, src, in ? 2 * min(8, out_w - ow) : 0);
+      } else {
+#pragma unroll
+        for (int v = 0; v < 8; ++v) {
+          dst[v] = in && ow + v < out_w ? src[v] : __ushort_as_bfloat16(0);
+        }
+      }
+    }
+  };
+  // step c's offsets (rows (dy, dx) of each tap, float32) and raw mask (a
+  // row a tap) into offset buffer buf, zero off the map: 16-byte pieces
+  // where the rows allow, else 4-byte copies (offsets) or values (mask)
+  auto stage_offsets = [&](const Step& c, int buf) {
+    const int ho0 = c.ty * tile_h + c.i * SH, wo0 = c.tx * TILE_W;
+    const long long p0 = static_cast<long long>(ho0) * out_w + wo0;
+    const float* ob = offset + c.b * offset_bstride + static_cast<long long>(g * taps * 2) * npix + p0;
+    float* so = s_off + buf * 2 * MMA_WG_WARPS * P;
+    for (int e = t; e < 2 * taps * (P / 4); e += NTHREADS) {
+      const int row = e / (P / 4), q = e - row * (P / 4);
+      const int oh = ho0 + q / (TILE_W / 4), ow = wo0 + 4 * (q % (TILE_W / 4));
+      const float* src = ob + row * static_cast<long long>(npix) + (oh - ho0) * out_w + ow - wo0;
+      float* d = so + row * P + 4 * q;
+      const bool row_in = oh < out_h;
+      if (off_vec && (!row_in || ow + 3 < out_w)) {
+        stage4(d, row_in ? src : offset, row_in);
+      } else {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const bool in = row_in && ow + v < out_w;
+          stage1(d + v, in ? src + v : offset, in);
+        }
+      }
+    }
+    if (!mask) return;
+    const bf16* mb = mask + c.b * mask_bstride + static_cast<long long>(g * taps) * npix + p0;
+    bf16* sm = s_m + buf * MMA_WG_WARPS * P;
+    for (int e = t; e < taps * (P / 8); e += NTHREADS) {
+      const int k = e / (P / 8), q = e - k * (P / 8);
+      const int oh = ho0 + q / (TILE_W / 8), ow = wo0 + 8 * (q % (TILE_W / 8));
+      const bf16* src = mb + k * static_cast<long long>(npix) + (oh - ho0) * out_w + ow - wo0;
+      bf16* d = sm + k * P + 8 * q;
+      const bool in = oh < out_h && ow < out_w;
+      if (mask_vec) {
+        cp_async_16(d, in ? src : mask, in ? 2 * min(8, out_w - ow) : 0);
+      } else {
+#pragma unroll
+        for (int v = 0; v < 8; ++v) d[v] = in && ow + v < out_w ? src[v] : __ushort_as_bfloat16(0);
+      }
+    }
+  };
+  // step c of the warp's tap into its column tile buf (the step's offsets
+  // and mask in offset buffer buf): the lane's two pixels, one after the
+  // other, by the chunk's 8 channels, float32 (zero off the map and for
+  // channels past the chunk's)
+  auto sample = [&](const Step& st, int buf) {
+    const uint4* sx = s_xt + ((st.u - u_beg) & 1) * xt_size;
+    const bf16* xc = x + (static_cast<long long>(st.b) * cin + c0) * hw;
+    const int ho = st.ty * tile_h + st.i * SH + pr, wo0 = st.tx * TILE_W + pc;
+    const int win_y = win_y_of(st), win_x = win_x_of(st);
+    const float* so = s_off + (buf * 2 * MMA_WG_WARPS + 2 * warp) * P + 16 * pr + pc;
+    const bf16* sm = s_m + (buf * MMA_WG_WARPS + warp) * P + 16 * pr + pc;
+    float* col = s_col + (warp * 2 + buf) * CC * CS + 16 * pr + pc;
+    const float ys = static_cast<float>(ho * stride - pad + ki * dil);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v[CC];
+#pragma unroll
+      for (int c = 0; c < CC; ++c) v[c] = 0.f;
+      const int wo = wo0 + e;
+      if (ho < out_h && wo < out_w) {
+        // corner() with the window's own index (no division)
+        float py = ys + so[e];
+        float px = static_cast<float>(wo * stride - pad + kj * dil) + so[P + e];
+        py = fminf(fmaxf(py, -2.f), static_cast<float>(height) + 1.f);
+        px = fminf(fmaxf(px, -2.f), static_cast<float>(width) + 1.f);
+        const float fy = floorf(py), fx = floorf(px);
+        const int y0 = static_cast<int>(fy), x0 = static_cast<int>(fx);
+        const int ry = y0 - win_y, rx = x0 - win_x;
+        const float ly = py - fy, lx = px - fx, m = mask ? bf(sm[e]) : 1.f;
+        const float w00 = (1.f - ly) * (1.f - lx) * m, w01 = (1.f - ly) * lx * m;
+        const float w10 = ly * (1.f - lx) * m, w11 = ly * lx * m;
+        if (ry >= 0 && ry + 1 < win_h && rx >= 0 && rx + 1 < win_w) {
+          // channels past the end are zero in the window
+          const uint4* q = sx + ry * win_wa + rx + xoff;
+          const uint4 q00 = q[0], q01 = q[1], q10 = q[win_wa], q11 = q[win_wa + 1];
+#pragma unroll
+          for (int c = 0; c < CC; ++c) {
+            v[c] = w00 * channel_of(q00, c) + w01 * channel_of(q01, c) +
+                   w10 * channel_of(q10, c) + w11 * channel_of(q11, c);
+          }
+        } else {
+          const int quad = -1 - ((y0 + 2) * (width + 4) + x0 + 2);
+          sample_far(v, 1, quad, w00, w01, w10, w11, xc, hw, nc, height, width);
+          sample_far(v + 4, 1, quad, w00, w01, w10, w11, xc + 4 * hw, hw, nc - 4, height, width);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < CC; ++c) col[c * CS + e] = v[c];
+    }
+  };
+
+  float acc[MT][3][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int pl = 0; pl < 3; ++pl)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][pl][j] = 0.f;
+  // ldmatrix rows of A (gout): output channel (lane & 7) + 8 ((lane >> 3) &
+  // 1), pixels 8 (lane >> 4) ..; B: the lane's channel g, pixels 2 t, 2 t +
+  // 1 (b0) and 2 t + 8, 2 t + 9 (b1) of a k-step, split into the planes
+  const int arow = ((lane & 7) + 8 * ((lane >> 3) & 1)) * RS + 8 * (lane >> 4);
+  auto multiply = [&](int buf) {
+    const bf16* ga = s_g + buf * CO * RS + arow;
+    const float* cw = s_col + (warp * 2 + buf) * CC * CS + g8 * CS + 2 * t4;
+#pragma unroll
+    for (int ks = 0; ks < SH; ++ks) {
+      const float2 lo = *reinterpret_cast<const float2*>(cw + 16 * ks);
+      const float2 hi = *reinterpret_cast<const float2*>(cw + 16 * ks + 8);
+      unsigned short h[4], md[4], l[4];
+      split_planes(lo.x, h[0], md[0], l[0]);
+      split_planes(lo.y, h[1], md[1], l[1]);
+      split_planes(hi.x, h[2], md[2], l[2]);
+      split_planes(hi.y, h[3], md[3], l[3]);
+      const unsigned b[3][2] = {{pack2(h[0], h[1]), pack2(h[2], h[3])},
+                                {pack2(md[0], md[1]), pack2(md[2], md[3])},
+                                {pack2(l[0], l[1]), pack2(l[2], l[3])}};
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        unsigned a[4];
+        ldmatrix_x4(a, ga + 16 * i * RS + 16 * ks);
+#pragma unroll
+        for (int pl = 0; pl < 3; ++pl) mma_bf16(acc[i][pl], a, b[pl][0], b[pl][1]);
+      }
+    }
+  };
+
+  // Steps s .. s + 3 of the block's run. Iteration s multiplies step s and samples step s + 1
+  // (its window turned channel-minor in iteration s - 1; its offsets and
+  // mask landed); it turns the raw window of step s + 2's unit channel-minor
+  // where that unit is new (landed: staged in iteration s - 1), and has
+  // step s + 1's gout, step s + 2's offsets and mask and the raw window of
+  // step s + 3's unit in flight.
+  int u0 = u_beg;  // step s: only whether it exists
+  Step s0 = step_at(u_beg), s1 = s0;
+  advance(s1);
+  Step s2 = s1;
+  advance(s2);
+  Step s3 = s2;
+  advance(s3);
+  stage_window(s0);
+  if (s1.u < u_end && s1.u != s0.u) stage_window(s1);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  transpose_window(s0.u);
+  if (s1.u < u_end && s1.u != s0.u) transpose_window(s1.u);
+  __syncthreads();  // the raw buffers are free
+  if (s2.u < u_end && s2.u != s1.u) stage_window(s2);
+  stage_gout(s0, 0);
+  stage_offsets(s0, 0);
+  if (s1.u < u_end) stage_offsets(s1, 1);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  if (tap_warp) sample(s0, 0);
+  for (int buf = 0; u0 < u_end; buf ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();  // step s's gout and column tiles are in; s + 1's offsets, s + 2's raw window have landed
+    if (s1.u < u_end) stage_gout(s1, buf ^ 1);
+    if (s2.u < u_end) stage_offsets(s2, buf);
+    if (s3.u < u_end && s3.u != s2.u) stage_window(s3);
+    cp_async_commit();
+    if (s2.u < u_end && s2.u != s1.u) transpose_window(s2.u);
+    if (tap_warp) {
+      if (s1.u < u_end) sample(s1, buf ^ 1);
+      __syncwarp();
+      multiply(buf);
+    }
+    u0 = s1.u;
+    s1 = s2;
+    s2 = s3;
+    advance(s3);
+  }
+  cp_async_wait_all();
+
+  // the sums into this split's slab, once, in grad_w's [cout][cin][taps]
+  // order: the real output channels and the chunk's channels only
+  if (!tap_warp) return;
+  const long long row = static_cast<long long>(cin) * taps;
+  float* w = ws + static_cast<long long>(split) * cout * row + static_cast<long long>(c0) * taps +
+             warp;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int co = co0 + 16 * i + g8 + 8 * rr;
+      if (co >= cout) continue;  // an idle channel of the last tile
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 2 * t4 + e, j = 2 * rr + e;
+        if (c < nc) {
+          w[co * row + c * taps] = (acc[i][2][j] * 0x1p-8f + acc[i][1][j]) * 0x1p-8f + acc[i][0][j];
+        }
+      }
+    }
+}
+
+template <int MT, int BLOCKS>
+cudaError_t launch_wgrad_mma(dim3 grid, int smem, cudaStream_t s, const bf16* gout, const bf16* x,
+                             const float* offset, long long offset_bstride, const bf16* mask,
+                             long long mask_bstride, float* ws, int cin, int height, int width,
+                             int cout, int out_h, int out_w, int kh, int kw, int stride, int pad,
+                             int dil, int groups, int tile_h, int splits, int win_h, int win_w,
+                             int win_wa, int xoff, int xcs, int tiles_x, int tiles, int units,
+                             bool gout_vec, bool x_vec, bool off_vec, bool mask_vec) {
+  auto kernel = deform_wgrad_mma_kernel<MT, BLOCKS>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  kernel<<<grid, 32 * MMA_WG_WARPS, smem, s>>>(
+      gout, x, offset, offset_bstride, mask, mask_bstride, ws, cin, height, width, cout, out_h,
+      out_w, kh, kw, stride, pad, dil, groups, tile_h, splits, win_h, win_w, win_wa, xoff, xcs,
+      tiles_x, tiles, units, gout_vec, x_vec, off_vec, mask_vec);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Kernel C's entry, the bf16 weight gradient: gout, x, mask and grad_w
+// bfloat16, offset and ws float32; ws: the workspace, splits slabs of cout
+// * cin * kh * kw floats (every entry written: no zeroing); grad_w: [cout,
+// cin, kh, kw], written (zeros for an empty batch or map); at most
+// MMA_WG_WARPS taps. The plan (ops/deform.py backward_weight_plan_bf16):
+// tile_h (output rows of a tile of 16 columns, the window's: a multiple of
+// MMA_WG_STEP_H), co_tile (16, 32, 64 or 128: the kernel's builds; the grid
+// takes ceil(cout / co_tile) tiles), splits (blocks that split the batch's
+// tiles, at most their number), blocks (per SM: the build's register
+// budget, 1 for 128 channels, else 2) and smem_bytes, which must be what
+// this layout takes. Anything else is cudaErrorInvalidValue. Two launches:
+// the products into the slabs, then their sum, rounded to bf16 once.
+extern "C" int aanet_deform_conv_backward_weight_bf16(
+    const bf16* gout, const bf16* x, const float* offset, long long offset_bstride,
+    const bf16* mask, long long mask_bstride, float* ws, bf16* grad_w, int batch, int cin,
+    int height, int width, int cout, int out_h, int out_w, int kh, int kw, int stride, int pad,
+    int dil, int groups, int tile_h, int co_tile, int splits, int blocks, int smem_bytes,
+    int device, void* stream) {
+  cudaSetDevice(device);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int taps = kh * kw, mt = co_tile / 16;
+  const bool built = co_tile % 16 == 0 && ((mt == 8 && blocks == 1) ||
+                                           ((mt == 1 || mt == 2 || mt == 4) && blocks == 2));
+  if (groups < 1 || cin % groups != 0 || taps < 1 || taps > MMA_WG_WARPS || !built ||
+      tile_h < MMA_WG_STEP_H || tile_h % MMA_WG_STEP_H != 0 || splits < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long n = static_cast<long long>(cout) * cin * taps;
+  if (n == 0) return 0;
+  const int tiles_x = (out_w + TILE_W - 1) / TILE_W;
+  const int tiles = ((out_h + tile_h - 1) / tile_h) * tiles_x;
+  const long long units = static_cast<long long>(batch) * tiles;
+  if (units == 0) {
+    return static_cast<int>(cudaMemsetAsync(grad_w, 0, n * sizeof(bf16), s));
+  }
+  if (splits > units || splits > 65535 || units > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int win_h = (tile_h - 1) * stride + (kh - 1) * dil + 2 * HALO + 2;
+  const int win_w = (TILE_W - 1) * stride + (kw - 1) * dil + 2 * HALO + 2;
+  const int xoff = (((-pad - HALO) % 8) + 8) % 8;
+  const int win_wa = raw_row(win_w, xoff);
+  const int xcs = raw_channel(win_h, win_wa, 8);
+  if (wgrad_mma_smem_bytes(co_tile, xcs, win_h, win_wa) != smem_bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);  // the wrapper's plan has another layout
+  }
+  const int cg = cin / groups;
+  dim3 grid(groups * ((cg + MMA_WG_CHUNK - 1) / MMA_WG_CHUNK), splits, (cout + co_tile - 1) / co_tile);
+  // 16-byte copies: gout, x and mask rows of a multiple of 8 values and
+  // offset rows of a multiple of 4, aligned
+  const bool gout_vec = out_w % 8 == 0 && aligned16(gout);
+  const bool x_vec = width % 8 == 0 && aligned16(x);
+  const bool off_vec = out_w % 4 == 0 && aligned16(offset) && offset_bstride % 4 == 0;
+  const bool mask_vec = out_w % 8 == 0 && aligned16(mask) && mask_bstride % 8 == 0;
+#define AANET_WGRAD_MMA(MT, B)                                                                     \
+  launch_wgrad_mma<MT, B>(grid, smem_bytes, s, gout, x, offset, offset_bstride, mask,              \
+                          mask_bstride, ws, cin, height, width, cout, out_h, out_w, kh, kw, stride, \
+                          pad, dil, groups, tile_h, splits, win_h, win_w, win_wa, xoff, xcs,       \
+                          tiles_x, tiles, static_cast<int>(units), gout_vec, x_vec, off_vec,      \
+                          mask_vec)
+  // the builds: 128 output channels for one block an SM, the rest for two
+  const cudaError_t err = mt == 8   ? AANET_WGRAD_MMA(8, 1)
+                          : mt == 4 ? AANET_WGRAD_MMA(4, 2)
+                          : mt == 2 ? AANET_WGRAD_MMA(2, 2)
+                                    : AANET_WGRAD_MMA(1, 2);
+#undef AANET_WGRAD_MMA
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return sum_slabs(ws, grad_w, splits, n, s);
 }

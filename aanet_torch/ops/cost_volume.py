@@ -20,8 +20,9 @@ The correlation's kernels also have a bfloat16 form (the JAX op under a
 bf16 compute dtype, ``cost_volume.py:108,113``, and its transpose): bf16
 features and volume (and volume gradient), float32 products, sums and
 the division by C, each output rounded to bf16 once
-(``aanet_correlation_bf16``, ``aanet_correlation_backward_bf16``, the
-float32 forms' plans). So do the 4-D volumes' (the JAX ops in the features'
+(``aanet_correlation_bf16`` with the float32 form's plan;
+``aanet_correlation_backward_bf16``, which stages raw bf16 and has a plan of
+its own, ``backward_plan_bf16``). So do the 4-D volumes' (the JAX ops in the features'
 dtype, ``cost_volume.py:127,144``): bf16 features and volume, the
 difference L - R(w - d) in float32 rounded once (concat copies), and in
 the backward a bf16 volume gradient whose sums over d run in float32, in
@@ -68,6 +69,7 @@ BWD_LX = 8
 BWD_DSTEP = 8
 BWD_MAX_THREADS = 256
 BWD_MIN_BLOCKS = 2
+BWD_CHUNK_BF16 = 32  # channels the bf16 backward's plan stages at a time
 TILE_WS = (32, 64, 128, 256)  # columns of a block the plans consider
 CHUNKS = (8, 16, 32, 64)  # channels staged at a time the plans consider
 # The forward's plan: blocks of at least FWD_MIN_THREADS threads, and the
@@ -173,12 +175,13 @@ def _fwd_smem(tile_w: int, dtot: int, chunk: int, ksplit: int) -> int:
     return 4 * max(2 * chunk * (2 * tile_w + dtot), (ksplit - 1) * tile_w * dtot)
 
 
-def _bwd_smem(tile_w: int, dtot: int, chunk: int) -> int:
-    """Bytes of the backward's shared memory (``bwd_smem_words``): the two
-    gradient tiles [dtot][tile_w] and two buffers of a chunk's right and left
-    windows [chunk][tile_w + dtot]. The kernel refuses a plan whose
-    ``smem_bytes`` differ."""
-    return 4 * (2 * dtot * tile_w + 4 * chunk * (tile_w + dtot))
+def _bwd_smem(tile_w: int, dtot: int, chunk: int, value_bytes: int = 4) -> int:
+    """Bytes of the backward's shared memory (``bwd_smem_words`` values of
+    ``value_bytes``: 4 for the float32 form, 2 for the bf16 form's raw
+    values): the two gradient tiles [dtot][tile_w] and two buffers of a
+    chunk's right and left windows [chunk][tile_w + dtot]. The kernel
+    refuses a plan whose ``smem_bytes`` differ."""
+    return value_bytes * (2 * dtot * tile_w + 4 * chunk * (tile_w + dtot))
 
 
 def forward_plans(batch: int, channels: int, height: int, width: int,
@@ -203,16 +206,17 @@ def forward_plans(batch: int, channels: int, height: int, width: int,
 
 
 def backward_plans(batch: int, channels: int, height: int, width: int,
-                   max_disp: int) -> list[BackwardPlan]:
+                   max_disp: int, value_bytes: int = 4) -> list[BackwardPlan]:
     """Every tiling the backward kernel takes at this shape (``max_disp``
     > 0): whole warps for each gradient within its launch bounds and a
-    block's shared memory."""
+    block's shared memory (staged values of ``value_bytes``: 2 for the bf16
+    form)."""
     dtot = _ceil_div(max_disp, BWD_DSTEP) * BWD_DSTEP
     plans = []
     for tile_w in TILE_WS:
         for chunk in CHUNKS:
             per_side = tile_w // BWD_CW * (chunk // BWD_CC)
-            smem = _bwd_smem(tile_w, dtot, chunk)
+            smem = _bwd_smem(tile_w, dtot, chunk, value_bytes)
             if chunk % BWD_CC or per_side % 32 or 2 * per_side > BWD_MAX_THREADS or smem > SMEM_BYTES:
                 continue
             plans.append(BackwardPlan(tile_w, chunk, dtot, 2 * per_side, smem,
@@ -274,6 +278,30 @@ def backward_plan(batch: int, channels: int, height: int, width: int, max_disp: 
     return min(plans, key=lambda p: (p.tile_w != tile_w, p.chunk != chunk, p.tile_w, p.chunk))
 
 
+@functools.lru_cache(maxsize=None)
+def backward_plan_bf16(batch: int, channels: int, height: int, width: int, max_disp: int,
+                       sms: int) -> BackwardPlan:
+    """The bf16 backward's tiling (``aanet_correlation_backward_bf16``, which
+    stages raw bf16: 2 bytes a value) for ``max_disp`` > 0, of
+    ``backward_plans(..., value_bytes=2)``: the float32 plan's tile width and
+    chunks of ``BWD_CHUNK_BF16`` channels where that tile takes them, else
+    the nearest chunk, the smaller on a tie. The halved layout holds more
+    resident blocks than the float32 form's (at the aanet step's largest
+    shape four blocks of 128 threads an SM, where the float32 form's shared
+    memory holds two). On an H100 this was within 4 % of the fastest bf16
+    plan at every train step's shape (``tools/torch_correlation_sweep.py
+    --dtype bfloat16``). Raises if nothing fits."""
+    plans = backward_plans(batch, channels, height, width, max_disp, value_bytes=2)
+    if not plans:
+        raise ValueError(
+            f"correlation backward: no bf16 tiling of {max_disp} disparities fits a block of "
+            f"{BWD_MAX_THREADS} threads and {SMEM_BYTES} bytes of shared memory")
+    tile_w = backward_plan(batch, channels, height, width, max_disp, sms).tile_w
+    octave = BWD_CHUNK_BF16.bit_length()
+    return min(plans, key=lambda p: (p.tile_w != tile_w, abs(p.chunk.bit_length() - octave),
+                                     p.chunk))
+
+
 def _sms(t: torch.Tensor) -> int:
     return torch.cuda.get_device_properties(t.device).multi_processor_count
 
@@ -301,9 +329,9 @@ def _forward(left, right, max_disp):
 def correlation_cost_volume_backward(grad, left, right):
     """Gradients (d left, d right) given the volume's gradient ``grad``
     [B, D, H, W], all of the features' dtype. A CPU tensor takes the plain
-    version; a CUDA tensor launches ``aanet_correlation_backward_f32`` or,
-    for bf16 features, ``aanet_correlation_backward_bf16``, with
-    ``backward_plan``'s tiling."""
+    version; a CUDA tensor launches ``aanet_correlation_backward_f32`` with
+    ``backward_plan``'s tiling or, for bf16 features,
+    ``aanet_correlation_backward_bf16`` with ``backward_plan_bf16``'s."""
     _check(left, right)
     if left.device.type == "cpu":
         return correlation_cost_volume_backward_plain(grad, left, right)
@@ -317,7 +345,8 @@ def correlation_cost_volume_backward(grad, left, right):
     grad_right = torch.empty_like(right)
     plan = (0,) * 3  # no disparities: the kernel zeroes the gradients
     if grad.shape[1] and left.numel():
-        p = backward_plan(b, c, h, w, grad.shape[1], _sms(left))
+        planner = backward_plan_bf16 if form == "bf16" else backward_plan
+        p = planner(b, c, h, w, grad.shape[1], _sms(left))
         plan = (p.tile_w, p.chunk, p.smem_bytes)
     _build.launch(
         "correlation", f"aanet_correlation_backward_{form}", _CORR_BWD_ARGTYPES,

@@ -39,19 +39,19 @@ derives for it): x, the mask and the weight in bf16, the offsets and
 the bias float32; the samples, their blend and the scatter in float32 (the
 scatter's sum in fixed point), each output rounded once to its primal's
 dtype (the output, the x, mask and weight gradients to bf16, the offsets'
-gradient kept float32). The weight gradient's bf16 form
-(``aanet_deform_conv_backward_weight_bf16``) is its float32 kernel on bf16
-values, with its plan. The forward (``aanet_deform_conv_bf16``) and the
-input/offset/mask gradient (``aanet_deform_conv_backward_data_bf16``) are
-kernels of their own whose products run on the tensor cores
-(``mma.sync`` bf16 x bf16, float32 sums), with their own plans
-(``forward_plan_bf16``, ``backward_data_plan_bf16``) and the weight laid out
-in the MMA fragments' order (``weight_fwd_fragments``,
-``weight_bwd_fragments``): the forward multiplies the weight by the
-sampled column split exactly into three bf16 planes (``split_planes``).
-Only the order of float32 sums differs from the twins'. The JAX op also
-rounds each blended, modulated sample to bf16 before the contraction;
-neither the kernels nor the twins do.
+gradient kept float32). The bf16 forms are kernels of their own whose
+products run on the tensor cores (``mma.sync`` bf16 x bf16, float32 sums),
+with their own plans: the forward (``aanet_deform_conv_bf16``,
+``forward_plan_bf16``) and the input/offset/mask gradient
+(``aanet_deform_conv_backward_data_bf16``, ``backward_data_plan_bf16``) with
+the weight laid out in the MMA fragments' order (``weight_fwd_fragments``,
+``weight_bwd_fragments``), and the weight gradient
+(``aanet_deform_conv_backward_weight_bf16``, ``backward_weight_plan_bf16``)
+with gout as the A operand. The forward and the weight gradient multiply by
+the sampled column split exactly into three bf16 planes
+(``split_planes``). Only the order of float32 sums differs from the twins'.
+The JAX op also rounds each blended, modulated sample to bf16 before the
+contraction; neither the kernels nor the twins do.
 """
 from __future__ import annotations
 
@@ -103,6 +103,18 @@ MMA_FWD_BUILDS = {16: 2, 32: 2, 64: 2, 128: 1}
 MMA_BD_CHUNK = 8
 MMA_BD_BUILDS = {8: (2, 3), 4: (4, 6)}
 MMA_BD_WARPS = 24  # resident warps an SM needs, beyond which the plan looks at other things
+# The bf16 weight gradient on the tensor cores (MMA_WG_* in the kernel): a
+# warp a tap, a chunk of input channels (one n-tile of a tap), a step's
+# output rows, the bf16 values of a row of its gout tile and the floats of
+# a row of its column tiles; its builds (output-channel tile -> blocks an
+# SM its registers are budgeted for) and the tile heights its plan considers
+MMA_WG_WARPS = 9
+MMA_WG_CHUNK = 8
+MMA_WG_STEP_H = 4
+MMA_WG_RS = 72
+MMA_WG_CS = 72
+MMA_WG_BUILDS = {16: 2, 32: 2, 64: 2, 128: 1}
+MMA_WG_TILE_H = (16, 8, 4)
 
 # x, offset, its batch stride, mask, its batch stride, wt, bias, out, the
 # split plans' slabs; batch .. groups (13), the plan's five and wt_stride,
@@ -126,6 +138,9 @@ _BWD_WEIGHT_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
 ] + [ctypes.c_int] * 22 + [ctypes.c_void_p]  # batch .. groups, the plan's eight, device, stream
+# the bf16 weight gradient: gout .. grad_w as _BWD_WEIGHT_ARGTYPES; batch ..
+# groups (13), tile_h, co_tile, splits, blocks, smem, device; stream
+_BWD_WEIGHT_BF16_ARGTYPES = _BWD_WEIGHT_ARGTYPES[:8] + [ctypes.c_int] * 19 + [ctypes.c_void_p]
 
 
 def _out_size(size: int, k: int, stride: int, pad: int, dil: int) -> int:
@@ -550,6 +565,94 @@ def forward_plan_bf16(batch: int, cin: int, cout: int, out_h: int, out_w: int, k
     options = [s for s in range(1, most + 1) if s == 1 or (s % groups == 0 and nchunks % s == 0)]
     splits = next((s for s in options if tiles * s >= 2 * sms * resident), options[-1])
     return ForwardPlanBf16(co_tile, splits, build, win_h, win_w, smem, resident, tiles * splits)
+
+
+def _wgrad_mma_smem(co_tile, win_h, win_w, padding):
+    """Bytes of the tensor-core weight gradient's shared memory
+    (``wgrad_mma_smem_bytes``): each warp's two float32 column tiles
+    [``MMA_WG_CHUNK``][``MMA_WG_CS``], two raw bf16 gout tiles
+    [co_tile][``MMA_WG_RS``], two raw bf16 x windows of the chunk and two
+    channel-minor ones (win_h x win_wa positions of 16 bytes), and two
+    steps' offsets (float32 dy, dx) and raw bf16 masks, a row of the step's
+    pixels a tap. The kernel refuses a plan whose ``smem_bytes`` differ."""
+    _, win_wa, xcs = _raw_geometry(win_h, win_w, padding, 8)
+    return (4 * MMA_WG_WARPS * 2 * MMA_WG_CHUNK * MMA_WG_CS + 2 * 2 * co_tile * MMA_WG_RS
+            + 2 * 2 * MMA_WG_CHUNK * xcs + 2 * 16 * win_h * win_wa
+            + 2 * MMA_WG_WARPS * MMA_WG_STEP_H * TILE_W * (2 * 4 + 2))
+
+
+class BackwardWeightPlanBf16(NamedTuple):
+    """How ``aanet_deform_conv_backward_weight_bf16`` (the tensor-core
+    weight gradient) cuts one conv: blocks of ``co_tile`` output channels by
+    a chunk of ``MMA_WG_CHUNK`` input channels of one group (with all taps,
+    a warp each), each summing over a run of the batch's tiles of ``tile_h``
+    x ``TILE_W`` output pixels (``splits`` runs, contiguous in (batch, tile)
+    order) in steps of ``MMA_WG_STEP_H`` rows, staging a tile's window of
+    ``win_h`` x ``win_w`` a channel; ``smem_bytes`` of shared memory; the
+    kernel's ``build`` for ``co_tile`` (blocks an SM its registers allow);
+    ``resident`` blocks fit one SM and the grid holds ``blocks``. Each split
+    writes its slab of the workspace (``workspace`` floats: ``splits``
+    slabs of cout x cin x taps), which the kernel's second launch sums in a
+    fixed order and rounds to bf16 once."""
+
+    tile_h: int
+    co_tile: int
+    splits: int
+    build: int
+    win_h: int
+    win_w: int
+    smem_bytes: int
+    resident: int
+    blocks: int
+    workspace: int
+
+
+@functools.lru_cache(maxsize=None)
+def backward_weight_plan_bf16(batch: int, cin: int, cout: int, out_h: int, out_w: int, kh: int,
+                              kw: int, stride: int, padding: int, dilation: int, groups: int,
+                              sms: int) -> BackwardWeightPlanBf16:
+    """The tensor-core weight gradient's tiling for a conv of these shapes
+    on a card of ``sms`` SMs.
+
+    - The channel tile: the least of ``MMA_WG_BUILDS``' tiles that holds
+      ``cout``, up to 128 (each sampled column serves all of them; gout's
+      rows past cout are staged as zeros), else tiles of 128; its build.
+    - The tile height, of ``MMA_WG_TILE_H``: the most resident blocks up to
+      the build's, then the tallest tile (the least halo a step).
+    - ``splits``: the most that keep the grid within one wave of resident
+      blocks, at most one a tile of the batch.
+    Raises if the conv has more than ``MMA_WG_WARPS`` taps or nothing fits."""
+    if cin % groups:
+        raise ValueError(f"deform conv weight gradient: {groups} groups do not divide {cin} channels")
+    if cout < 1:
+        raise ValueError(f"deform conv weight gradient: {cout} output channels")
+    taps = kh * kw
+    if taps > MMA_WG_WARPS:
+        raise ValueError(f"deform conv weight gradient: {taps} taps, the bf16 kernel takes at most "
+                         f"{MMA_WG_WARPS}")
+    co_tile = next((c for c in sorted(MMA_WG_BUILDS) if c >= cout), max(MMA_WG_BUILDS))
+    build = MMA_WG_BUILDS[co_tile]
+    best = None
+    for tile_h in MMA_WG_TILE_H:
+        win_h = (tile_h - 1) * stride + (kh - 1) * dilation + 2 * HALO + 2
+        win_w = (TILE_W - 1) * stride + (kw - 1) * dilation + 2 * HALO + 2
+        smem = _wgrad_mma_smem(co_tile, win_h, win_w, padding)
+        if smem > SMEM_BYTES:
+            continue
+        resident = min(build, SM_SMEM_BYTES // (smem + 1024))
+        if best is None or resident > best[3]:
+            best = (tile_h, win_h, win_w, resident, smem)
+    if best is None:
+        raise ValueError(
+            f"deform conv weight gradient: no bf16 tiling of {cin} -> {cout} channels (stride "
+            f"{stride}, dilation {dilation}, {groups} groups) fits {SMEM_BYTES} bytes of shared "
+            "memory")
+    tile_h, win_h, win_w, resident, smem = best
+    units = batch * _ceil_div(out_h, tile_h) * _ceil_div(out_w, TILE_W)
+    base = groups * _ceil_div(cin // groups, MMA_WG_CHUNK) * _ceil_div(cout, co_tile)
+    splits = max(1, min(units, sms * resident // base, 65535))
+    return BackwardWeightPlanBf16(tile_h, co_tile, splits, build, win_h, win_w, smem, resident,
+                                  base * splits, splits * cout * cin * taps)
 
 
 def weight_fwd_fragments(weight: torch.Tensor, groups: int, cout_pad: int) -> torch.Tensor:
@@ -1042,10 +1145,10 @@ def modulated_deform_conv2d_backward_weight(
 ):
     """Gradient for the weight, in its dtype, given the output gradient
     ``gout``. A CPU tensor takes the plain version; a CUDA tensor launches
-    ``aanet_deform_conv_backward_weight_f32`` or, for a bf16 x,
-    ``aanet_deform_conv_backward_weight_bf16``, with
-    ``backward_weight_plan``'s tiling (its partial sums added in a fixed
-    order: the result is bit-reproducible)."""
+    ``aanet_deform_conv_backward_weight_f32`` with ``backward_weight_plan``'s
+    tiling or, for a bf16 x, ``aanet_deform_conv_backward_weight_bf16`` (the
+    tensor-core kernel) with ``backward_weight_plan_bf16``'s; each split's
+    partial sums added in a fixed order: the result is bit-reproducible."""
     g = deformable_groups
     ho, wo = _check_shapes(x, offset, mask, weight, stride, padding, dilation, g)
     if x.device.type == "cpu":
@@ -1058,18 +1161,24 @@ def modulated_deform_conv2d_backward_weight(
     b, cin, _, _ = x.shape
     cout, _, kh, kw = weight.shape
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    plan = backward_weight_plan(b, cin, cout, ho, wo, kh, kw, stride, dilation, g, sms)
+    if form == "bf16":
+        plan = backward_weight_plan_bf16(b, cin, cout, ho, wo, kh, kw, stride, padding, dilation,
+                                         g, sms)
+        argtypes, tiling = _BWD_WEIGHT_BF16_ARGTYPES, (plan.tile_h, plan.co_tile, plan.splits)
+    else:
+        plan = backward_weight_plan(b, cin, cout, ho, wo, kh, kw, stride, dilation, g, sms)
+        argtypes, tiling = _BWD_WEIGHT_ARGTYPES, (plan.tile_h, plan.step_h, plan.co_tile,
+                                                  plan.chunk, plan.ksplit, plan.splits)
     # each split writes its slab; the kernel's second launch sums them in
     # a fixed order
     ws = torch.empty(plan.workspace, dtype=torch.float32, device=x.device)
     grad_w = torch.empty_like(weight)
     *shape, device, stream = _shape_args(x, weight, ho, wo, stride, padding, dilation, g)
     _build.launch(
-        "deform_conv", f"aanet_deform_conv_backward_weight_{form}", _BWD_WEIGHT_ARGTYPES,
+        "deform_conv", f"aanet_deform_conv_backward_weight_{form}", argtypes,
         _build.ptr(gout), _build.ptr(x), _build.ptr(offset), offset.stride(0),
         _build.ptr(mask), 0 if mask is None else mask.stride(0), _build.ptr(ws),
-        _build.ptr(grad_w), *shape, plan.tile_h, plan.step_h, plan.co_tile, plan.chunk, plan.ksplit,
-        plan.splits, plan.build, plan.smem_bytes, device, stream,
+        _build.ptr(grad_w), *shape, *tiling, plan.build, plan.smem_bytes, device, stream,
     )
     _build.count_launch(modulated_deform_conv2d_backward_weight, form)
     return grad_w

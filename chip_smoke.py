@@ -963,7 +963,14 @@ def bf16_backward_specs(bwd_specs):
     disparity gradient); bytes at 2 a bf16 value and 4 a float32 one; the
     products of two bf16 operands (the data gradient's gout.W contraction,
     the correlation's) at the bf16 tensor-core peak (``bound_times``); the
-    float32 kernel timed at the same shapes. Tolerance: one bf16 ulp of
+    weight gradient's kernel splits the float32 sampled column exactly into
+    three bf16 planes and multiplies each by the bf16 gout on the tensor
+    cores, so its contraction is three bf16 x bf16 products at that peak and
+    its sampling stays at the float32 peak (``cost_before``: the one
+    contraction at the float32 peak, gout times the float32 column, as the
+    bound stood before the kernel moved to the tensor cores; kept in each
+    row as ``bound_before_ms``); the float32 kernel timed at the same
+    shapes. Tolerance: one bf16 ulp of
     each bf16 gradient's scale (the kernel and the twin sum in float32 in
     other orders and round once); the float32 form's tolerance for the
     float32 gradients (the offsets' and the disparity's: the same float32
@@ -1004,8 +1011,9 @@ def bf16_backward_specs(bwd_specs):
         # the weight gradient writes dW
         reads = 2 * (pix * cout + b * cin * h * w + masks) + 4 * offsets
         flops = by_name[name]["cost"](sig)[1]
-        if weight_grad:  # gout times the float32 sampled column: no bf16 pair
-            return reads + 2 * cout * cin * k2, flops
+        if weight_grad:  # the column's three planes times gout on the tensor cores
+            contraction = 2 * pix * cout * cin * k2
+            return reads + 2 * cout * cin * k2, flops + 2 * contraction, 3 * contraction
         # the gout.W contraction multiplies two bf16 operands on the tensor
         # cores; the sampling and scatter are float32
         nbytes = reads + 2 * cout * cin * k2 + 2 * (b * cin * h * w + masks) + 4 * offsets
@@ -1044,6 +1052,10 @@ def bf16_backward_specs(bwd_specs):
     def to_f32(args):
         return tuple(a.float() if isinstance(a, torch.Tensor) else a for a in args)
 
+    def wgrad_cost_before(sig):  # gout times the float32 column at the float32 peak
+        return deform_cost(sig, True, "deform_conv_backward_weight")[0], by_name[
+            "deform_conv_backward_weight"]["cost"](sig)[1]
+
     out = []
     for name, convert, cost, library in (
         ("deform_conv_backward_data", to_bf16({2}),
@@ -1062,6 +1074,8 @@ def bf16_backward_specs(bwd_specs):
                             f"; the float32 gradient {spec['tol_text']}" if name in with_f32_gradient
                             else ""),
                         library=library, f32_args=to_f32))
+        if name == "deform_conv_backward_weight":
+            out[-1]["cost_before"] = wgrad_cost_before
     return out
 
 
@@ -2870,7 +2884,8 @@ def bf16_training_phases(specs, bwd_specs, specs16, bwd16, gen, dev, timer, smi,
     kernel call; each bf16 backward kernel is held against its twin at
     each of those shapes (one bf16 ulp of each gradient's scale), with
     offsets in (-16, 16) px, at ``ODD_COUTS`` output channels, mask-less
-    and at an odd stride-2 shape; the bf16 deform forward against its twin
+    and at an odd stride-2 shape, and the correlation backward at
+    ``CORR_EDGE_SHAPES`` and D = 0; the bf16 deform forward against its twin
     at the step's shapes; two launches of the deform forward, the weight
     gradient and the correlation backward give the same bits at every step
     shape;
@@ -2987,6 +3002,13 @@ def bf16_training_phases(specs, bwd_specs, specs16, bwd16, gen, dev, timer, smi,
                                                                       offsets=offsets))
                 edges.append(dict(measure(spec, sig, 1, gen, dev, timer, timed=False), kernel=kernel,
                                   case=f"{case}, {offsets} offsets"))
+    # the bf16 correlation backward beyond the path (phase 6b's shapes: widths
+    # off the 8-byte quads, channels off the chunks, D > W, D = 1, 24, 40, and
+    # D = 0)
+    corr16 = by_name["correlation_backward_bf16"]
+    for sig in CORR_EDGE_SHAPES + [(CORR_EDGE_SHAPES[-1][0], 0)]:
+        edges.append(dict(measure(corr16, sig, 1, gen, dev, timer, timed=False),
+                          kernel=corr16["name"], case="beyond the path" if sig[1] else "D = 0"))
     print(json.dumps({"bf16_backward_edge_cases": edges}), flush=True)
     t_a = time.perf_counter()
 

@@ -247,3 +247,94 @@ def test_builds_and_layouts_are_the_kernels():
     assert "const int stage = 2 * chunk * (2 * tw + dtot);" in SOURCE
     assert "const int partial = (ksplit - 1) * tw * dtot;" in SOURCE
     assert "return 2 * dtot * bw + 2 * 2 * chunk * (bw + dtot);" in SOURCE
+
+
+# --- the bf16 backward (``backward_plan_bf16``): raw bf16 staged by cp.async
+
+
+def _bwd_resident_warps(plan):
+    """Resident warps an SM of a backward plan: by shared memory, threads and
+    the launch bounds' registers."""
+    blocks = min(SM_SMEM_BYTES // (plan.smem_bytes + 1024), 2048 // plan.threads,
+                 65536 // (_registers(cv.BWD_MAX_THREADS, cv.BWD_MIN_BLOCKS) * plan.threads))
+    return blocks * plan.threads // 32
+
+
+@pytest.mark.parametrize("shape,max_disp", PATH_SHAPES + EDGE_SHAPES)
+def test_backward_plan_bf16_fits_and_covers(shape, max_disp):
+    """The bf16 backward's plan: the kernel's bf16 layout (2 bytes a staged
+    value), a block's and an SM's shared memory, the launch bounds' registers,
+    every (channel, column) of dL and dR stored once; the float32 plan's tile
+    width, chunks of 32 where that tile takes them, and at least the float32
+    plan's resident warps (its halved layout holds more blocks)."""
+    b, c, h, w = shape
+    plan = cv.backward_plan_bf16(b, c, h, w, max_disp, SMS)
+    f32 = cv.backward_plan(b, c, h, w, max_disp, SMS)
+    assert plan.dtot == f32.dtot and plan.tile_w == f32.tile_w
+    per_side = plan.tile_w // cv.BWD_CW * (plan.chunk // cv.BWD_CC)
+    assert plan.chunk % cv.BWD_CC == 0 and per_side % 32 == 0
+    assert plan.threads == 2 * per_side <= cv.BWD_MAX_THREADS
+    assert plan.smem_bytes == 2 * (2 * plan.dtot * plan.tile_w
+                                   + 4 * plan.chunk * (plan.tile_w + plan.dtot))
+    assert plan.smem_bytes <= cv.SMEM_BYTES and plan.smem_bytes + 1024 <= SM_SMEM_BYTES
+    assert plan.threads * _registers(cv.BWD_MAX_THREADS, cv.BWD_MIN_BLOCKS) <= 65536
+    assert plan.blocks == b * h * -(-w // plan.tile_w)
+    assert (_backward_cover(plan, w, c) == 1).all()
+    takes_32 = any(p.chunk == cv.BWD_CHUNK_BF16 and p.tile_w == plan.tile_w
+                   for p in cv.backward_plans(b, c, h, w, max_disp, value_bytes=2))
+    assert plan.chunk == cv.BWD_CHUNK_BF16 or not takes_32
+    if plan.chunk == f32.chunk:
+        assert _bwd_resident_warps(plan) >= _bwd_resident_warps(f32)
+
+
+def test_backward_plan_bf16_layout_is_the_kernels():
+    """The kernel checks the plan's shared memory against its layout at the
+    size of its staged values (float32 words, raw bf16), and its bf16 form
+    stages by cp.async of 8 bytes (quads), 4 (pairs) or values."""
+    assert ("bwd_smem_words(bw, dtot, chunk) * static_cast<int>(sizeof(T)) != smem_bytes"
+            in SOURCE)
+    assert 'cp.async.ca.shared.global [%0], [%1], 8, %2;' in SOURCE
+    assert 'cp.async.ca.shared.global [%0], [%1], 4, %2;' in SOURCE
+    assert "stage_quad(s_gr + d * bw + j, gb + d * plane + w + d, grad, in_r, vec && d % 4 == 0,\n" \
+           "                 vec && d % 2 == 0);" in SOURCE
+
+
+@pytest.mark.parametrize("width,tile_w,dtot", [(192, 64, 64), (96, 32, 32), (48, 64, 16),
+                                               (64, 32, 40), (24, 32, 64)])
+def test_bf16_staging_copies_whole_pieces(width, tile_w, dtot):
+    """Where the width is a multiple of 4 (``vec``), every copy the bf16
+    backward makes by cp.async is of a piece wholly inside the row or wholly
+    outside it, from a source aligned to its size: the windows' and the
+    unskewed gradient tile's 8-byte quads, the skewed tile's quads at d % 4 ==
+    0 and its 4-byte pairs at d % 4 == 2 (odd d: values)."""
+    for w0 in range(0, width, tile_w):
+        for d in range(dtot):
+            for j in range(0, tile_w, 4):
+                for start, size in ((w0 + j, 4), (w0 + j + d, 4 if d % 4 == 0 else 2)):
+                    if d % 2 and start == w0 + j + d:
+                        continue
+                    for p in range(start, start + 4, size):
+                        assert (2 * p) % (2 * size) == 0  # bytes aligned to the copy's size
+                        inside = [p + i < width for i in range(size)]
+                        assert all(inside) or not any(inside)
+        for s in range(0, tile_w + dtot, 4):
+            for col in (w0 - dtot + s, w0 + s):
+                inside = [0 <= col + i < width for i in range(4)]
+                assert all(inside) or not any(inside)
+                assert (2 * col) % 8 == 0
+
+
+def test_bf16_quad_widening_is_exact():
+    """``widen4``: four bf16 values in 8 bytes (the first in the low half of
+    the first word) become their float32 values exactly, subnormals, inf and
+    NaN included."""
+    rng = np.random.RandomState(3)
+    bits = rng.randint(0, 2**16, size=4 * 4096, dtype=np.int64).astype(np.uint16)
+    bits[:8] = [0x0000, 0x8000, 0x7F80, 0xFF80, 0x7FC0, 0x0001, 0x807F, 0x3F80]
+    words = bits.reshape(-1, 2).astype(np.uint32)
+    packed = words[:, 0] | (words[:, 1] << 16)  # the 8-byte quad as two little-endian words
+    lo = (packed << 16).view(np.float32)
+    hi = (packed & 0xFFFF0000).view(np.float32)
+    widened = np.stack([lo, hi], 1).ravel()
+    want = torch.from_numpy(bits.astype(np.int16)).view(torch.bfloat16).float().numpy()
+    assert np.array_equal(widened.view(np.uint32), want.view(np.uint32))
