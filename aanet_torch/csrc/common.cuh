@@ -61,6 +61,72 @@ static __device__ __forceinline__ void cp_async_wait_group() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+static __device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 4, 8 and 16 bytes from src into shared memory, of which the first `bytes`
+// are read and the rest zero (bytes = 0: nothing is read; src must still be
+// a valid address); both ends aligned to the copy's size. The raw bf16
+// copies of the bf16 forms.
+static __device__ __forceinline__ void cp_async_4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes));
+}
+
+static __device__ __forceinline__ void cp_async_8(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes));
+}
+
+static __device__ __forceinline__ void cp_async_16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes));
+}
+
+// The tensor cores: mma.sync.aligned.m16n8k16 bf16 x bf16 with float32
+// accumulators (d += a . b: a the 16 x 16 A fragment, b0 and b1 the 16 x 8
+// B fragment's, as PTX lays them out), and ldmatrix of 8 x 8 bf16 matrices
+// from shared memory: lanes 8 i .. 8 i + 7 give the rows of matrix i, each
+// 16 bytes at a 16-byte aligned address (.x2: lanes 0 .. 15); .trans gives
+// each lane the transposed matrix's elements.
+static __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                                unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+static __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+static __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+static __device__ __forceinline__ void ldmatrix_x2(unsigned& r0, unsigned& r1, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+static __device__ __forceinline__ void ldmatrix_x2_trans(unsigned& r0, unsigned& r1, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
 // The kernels' two forms: float32 values, and bfloat16 values that are
 // widened to float32 where they are loaded (exactly), computed on in
 // float32 and rounded to bfloat16 once, where they are stored (to nearest,

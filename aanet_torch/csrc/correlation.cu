@@ -1,4 +1,5 @@
-// Correlation cost volume, forward and backward, float32 on the CUDA cores:
+// Correlation cost volume, forward and backward, on the CUDA cores (the
+// bf16 forward on the tensor cores):
 //   cost[b, d, h, w] = (1/C) sum_c L[b, c, h, w] * R[b, c, h, w - d],
 //   and 0 where w < d; the backward gives dL and dR from g = d loss / d cost.
 //
@@ -71,16 +72,8 @@ namespace {
 // the registers: the float32 form's blocks run one an SM
 // (CORR_F32_MIN_BLOCKS), its FMAs at half the float32 rate, and its ksplit
 // groups pass their float64 tiles through the partial space in two
-// halves.
-//
-// The bf16 form (T = bf16: L, R and the volume in bfloat16) is the same
-// kernel: L and R are widened to float32 where they are staged (a load and
-// a store, four values at a time where the width allows it: cp.async
-// copies bytes and cannot widen them), so the plan and the shared-memory
-// layout are the float32 form's; it sums in float32 (products and the
-// ksplit groups' sums), and the mean over C is rounded to bf16 once, where
-// it is stored. Its global traffic is half the float32 form's. (The
-// backward's bf16 form stages raw bf16 instead: see its note.)
+// halves. The bf16 form is a kernel of its own, on the tensor cores
+// (corr_fwd_mma_kernel, below).
 // ---------------------------------------------------------------------------
 
 // Calls f(r, q) for the units t, t + blockDim.x, ... of a rows x cols grid
@@ -112,15 +105,7 @@ __device__ __forceinline__ float4 ld4(const bf16* p) {
 constexpr int FWD_CW = 4;             // columns of a thread's register tile
 constexpr int FWD_LX = 8;             // neighbouring column groups of a warp
 constexpr int FWD_MAX_THREADS = 256;  // __launch_bounds__: the largest block,
-constexpr int FWD_MIN_BLOCKS = 2;     // and the blocks of that size an SM holds
-constexpr int CORR_F32_MIN_BLOCKS = 1;  // the float32 form's: its float64 tile
-
-// The forward's sums: float64 for float32 values, float32 for bf16.
-template <typename T>
-using corr_acc_t = typename std::conditional<is_bf16<T>, float, double>::type;
-
-__device__ __forceinline__ float acc_fma(float a, float b, float c) { return fmaf(a, b, c); }
-__device__ __forceinline__ double acc_fma(double a, double b, double c) { return fma(a, b, c); }
+constexpr int FWD_MIN_BLOCKS = 1;     // and the blocks of that size an SM holds (float64 tiles)
 
 // Words of the forward's shared memory: two buffers of a chunk's left tile
 // [chunk][tw] and right window [chunk][tw + dtot]; the ksplit - 1 partial
@@ -131,10 +116,10 @@ inline int fwd_smem_words(int tw, int dtot, int chunk, int ksplit) {
   return stage > partial ? stage : partial;
 }
 
-template <int DD, typename T>
-__global__ void __launch_bounds__(FWD_MAX_THREADS, is_bf16<T> ? FWD_MIN_BLOCKS : CORR_F32_MIN_BLOCKS)
-corr_fwd_kernel(const T* __restrict__ left, const T* __restrict__ right,
-                T* __restrict__ out, int channels, int height, int width, int max_disp,
+template <int DD>
+__global__ void __launch_bounds__(FWD_MAX_THREADS, FWD_MIN_BLOCKS)
+corr_fwd_kernel(const float* __restrict__ left, const float* __restrict__ right,
+                float* __restrict__ out, int channels, int height, int width, int max_disp,
                 int tw, int ny, int ksplit, int chunk, bool vec) {
   extern __shared__ float4 corr_smem[];
   float* smem = reinterpret_cast<float*>(corr_smem);
@@ -154,8 +139,8 @@ corr_fwd_kernel(const T* __restrict__ left, const T* __restrict__ right,
   const int h = blockIdx.y;
   const long long b = blockIdx.z;
   const long long plane = static_cast<long long>(height) * width;
-  const T* lrow = left + b * channels * plane + static_cast<long long>(h) * width;
-  const T* rrow = right + b * channels * plane + static_cast<long long>(h) * width;
+  const float* lrow = left + b * channels * plane + static_cast<long long>(h) * width;
+  const float* rrow = right + b * channels * plane + static_cast<long long>(h) * width;
   const int r0 = w0 - dtot;  // image column of right-window slot 0
 
   // chunk n's left tile and right window into buffer n % 2, zero outside
@@ -189,7 +174,7 @@ corr_fwd_kernel(const T* __restrict__ left, const T* __restrict__ right,
     }
   };
 
-  using Acc = corr_acc_t<T>;
+  using Acc = double;
   Acc acc[FWD_CW][DD];
 #pragma unroll
   for (int i = 0; i < FWD_CW; ++i) {
@@ -233,7 +218,7 @@ corr_fwd_kernel(const T* __restrict__ left, const T* __restrict__ right,
       for (int i = 0; i < FWD_CW; ++i) {
 #pragma unroll
         for (int j = 0; j < DD; ++j) {
-          acc[i][j] = acc_fma(static_cast<Acc>(l[i]), static_cast<Acc>(r[i - j + DD]), acc[i][j]);
+          acc[i][j] = fma(static_cast<Acc>(l[i]), static_cast<Acc>(r[i - j + DD]), acc[i][j]);
         }
       }
     }
@@ -275,13 +260,13 @@ corr_fwd_kernel(const T* __restrict__ left, const T* __restrict__ right,
 
   const int w = w0 + FWD_CW * x;
   if (w >= width) return;
-  T* ob = out + b * max_disp * plane + static_cast<long long>(h) * width + w;
+  float* ob = out + b * max_disp * plane + static_cast<long long>(h) * width + w;
   const Acc inv_c = Acc(1) / static_cast<Acc>(channels);
 #pragma unroll
   for (int j = 0; j < DD; ++j) {
     const int d = y * DD + j;
     if (d < max_disp) {
-      T* o = ob + d * plane;
+      float* o = ob + d * plane;
       float m[FWD_CW];  // the means, each rounded to float32 once
 #pragma unroll
       for (int i = 0; i < FWD_CW; ++i) m[i] = static_cast<float>(acc[i][j] * inv_c);
@@ -297,10 +282,8 @@ corr_fwd_kernel(const T* __restrict__ left, const T* __restrict__ right,
   }
 }
 
-// The checks and the launch of both forms' entry points.
-template <typename T>
-int launch_corr_fwd(const T* left, const T* right, T* out, int batch, int channels, int height,
-                    int width, int max_disp, int tw, int dd, int ksplit, int chunk,
+int launch_corr_fwd(const float* left, const float* right, float* out, int batch, int channels,
+                    int height, int width, int max_disp, int tw, int dd, int ksplit, int chunk,
                     int smem_bytes, cudaStream_t stream) {
   if (batch == 0 || height == 0 || width == 0 || max_disp == 0) return 0;
   if ((dd != 8 && dd != 16) || tw < FWD_CW * FWD_LX || tw % (FWD_CW * FWD_LX) != 0 ||
@@ -313,7 +296,7 @@ int launch_corr_fwd(const T* left, const T* right, T* out, int batch, int channe
   if (fwd_smem_words(tw, ny * dd, chunk, ksplit) * 4 != smem_bytes) {
     return static_cast<int>(cudaErrorInvalidValue);  // the wrapper's plan has another layout
   }
-  auto kernel = dd == 8 ? corr_fwd_kernel<8, T> : corr_fwd_kernel<16, T>;
+  auto kernel = dd == 8 ? corr_fwd_kernel<8> : corr_fwd_kernel<16>;
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
@@ -342,15 +325,284 @@ extern "C" int aanet_correlation_f32(const float* left, const float* right, floa
                          ksplit, chunk, smem_bytes, static_cast<cudaStream_t>(stream));
 }
 
-// The bf16 form: left, right and out bfloat16, the rest as
-// aanet_correlation_f32's (the same plan).
+// ---------------------------------------------------------------------------
+// Forward, bf16, on the tensor cores.
+//
+// Replaces aanet_tpu/ops/cost_volume.py:72 correlation_cost_volume under a
+// bf16 compute dtype: L, R and the volume in bfloat16, the products and
+// sums in float32, the mean rounded to bf16 once. For one image row the
+// volume is the band 0 <= w - w' < D of the product L^T . R over the
+// channels (w a column of L and of the volume, w' a column of R).
+//
+// Bound: bytes. At the aanet bf16 step's three scales it reads L and R once
+// and writes the volume: 0.072 ms at 3.35 TB/s. Its 5.5 GFLOP of products
+// take 0.082 ms at the CUDA cores' 67 TFLOP/s, so no design on the CUDA
+// cores reaches the bound; every product is bf16 x bf16, which the tensor
+// cores take raw, and at the 220-300 TFLOP/s that mma.sync reached in the
+// deform kernels they take about 0.02 ms. The form this replaces widened L
+// and R to float32 through registers as it staged them (a load and a
+// store, nothing in flight): 0.30 of its 0.48 ms at the aanet step.
+//
+// Design: a block owns a tile of tw output columns (a multiple of 16) of
+// one (b, h) row and all D. Channels are walked in chunks (a multiple of
+// 16): the next chunk's left tile [chunk][tw] and right window [chunk][tw +
+// dtot] (columns w0 - dtot .. w0 + tw - 1, dtot = D rounded up to 8; zeros
+// outside the image and beyond C, so w < d and a C off the chunks come out
+// exact) are copied raw with cp.async into a second buffer while the
+// current one is contracted (a ring of three or four buffers measured no
+// faster): 16-byte copies where W is a multiple of 8, 8-byte ones where it
+// is a multiple of 4, 4-byte ones where it is even (78, on psmnet-aa's
+// path), a load and a store a value otherwise (only the edge shapes). A
+// staged row is an odd number of 16-byte pieces (mma_row), so the 8
+// channels an ldmatrix reads fall in different banks. Each warp owns 16
+// output columns (the m16 of
+// mma.sync.m16n8k16 bf16, float32 accumulators) and multiplies them only by
+// the 8-column n-tiles of the window that meet its band: nt = ceil((D + 15)
+// / 8) tiles (10 at D = 64: 80 % of the products are kept), split over ny
+// warps of at most NTG tiles each (NTG: the build). A and B both come by
+// ldmatrix.trans from the [channel][column] layout. The epilogue writes
+// the band through shared memory: accumulator (m, n) of the n-tile at
+// window slot s is disparity d = (wl + m) - (s + n - dtot) at column wl + m
+// of the tile; it is scaled by 1/C in float32 and rounded to bf16 once;
+// then the rows of [B, D, H, W] are written coalesced, each once. No
+// channel split and no atomics: two launches give the same bits.
+//
+// mma.sync and not wgmma: the products are a fifth of the bytes' time even
+// at mma.sync's rate, and wgmma's 64-row tiles would waste more of a banded
+// 16 x (D + 16) contraction. The tiling is ops/cost_volume.py
+// forward_plan_bf16; the kernel refuses a plan whose shared memory is not
+// its layout's.
+// ---------------------------------------------------------------------------
+namespace {
+
+constexpr int MMA_CW = 16;              // output columns of a warp (mma.sync's m16)
+constexpr int MMA_K = 16;               // channels of a k-step
+constexpr int MMA_MAX_THREADS = 256;    // __launch_bounds__: the largest block,
+constexpr int MMA_MIN_BLOCKS = 2;       // and the blocks of that size an SM holds
+
+// bf16 values of a staged row of n: an odd number of 16-byte pieces.
+inline int mma_row(int n) {
+  int pieces = (n + 7) / 8;
+  if (pieces % 2 == 0) ++pieces;
+  return 8 * pieces;
+}
+
+// Bytes of the bf16 forward's shared memory: two buffers of a chunk's left
+// tile [chunk][mma_row(tw)] and right window [chunk][mma_row(tw + dtot)],
+// raw bf16; the epilogue's band [max_disp][mma_row(tw)] reuses them.
+inline int fwd_mma_smem_bytes(int tw, int max_disp, int chunk) {
+  const int dtot = (max_disp + 7) / 8 * 8;
+  const int stage = 2 * chunk * (mma_row(tw) + mma_row(tw + dtot));
+  const int band = max_disp * mma_row(tw);
+  return 2 * (stage > band ? stage : band);
+}
+
+template <int NTG>
+__global__ void __launch_bounds__(MMA_MAX_THREADS, MMA_MIN_BLOCKS)
+corr_fwd_mma_kernel(const bf16* __restrict__ left, const bf16* __restrict__ right,
+                    bf16* __restrict__ out, int channels, int height, int width, int max_disp,
+                    int tw, int chunk, int ls, int rs, int piece) {
+  extern __shared__ float4 corr_smem[];
+  bf16* smem = reinterpret_cast<bf16*>(corr_smem);
+  const int dtot = (max_disp + 7) / 8 * 8;
+  const int nt = (max_disp + 15 + 7) / 8;  // n-tiles of a warp's band
+  const int stage_elems = chunk * (ls + rs);
+
+  // warp -> its 16 columns wl .. wl + 15 of the tile (x) and its n-tiles
+  // j0 .. j0 + ntw - 1 (y); window slot s0 is n-tile 0's first column
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nx = tw / MMA_CW;
+  const int wl = MMA_CW * (warp % nx);
+  const int j0 = NTG * (warp / nx);
+  const int ntw = min(NTG, nt - j0);
+  const int s0 = wl + dtot + MMA_CW - 8 * nt;
+
+  const int w0 = blockIdx.x * tw;
+  const int h = blockIdx.y;
+  const long long b = blockIdx.z;
+  const long long plane = static_cast<long long>(height) * width;
+  const bf16* lrow = left + b * channels * plane + static_cast<long long>(h) * width;
+  const bf16* rrow = right + b * channels * plane + static_cast<long long>(h) * width;
+
+  // chunk n's left tile and right window into buffer n % 2, raw, zero
+  // outside the image and beyond the channels: `cols` columns from image
+  // column `first` into rows of `stride`, `piece` values a copy
+  auto stage = [&](int n) {
+    bf16* sl = smem + (n & 1) * stage_elems;
+    const int c0 = n * chunk;
+    auto rows = [&](bf16* dst0, int stride, const bf16* row, const bf16* any, int first,
+                    int cols) {
+      for_each_unit(chunk, cols / piece, [&](int cc, int q) {
+        const int w = first + piece * q;
+        const bool in = c0 + cc < channels && w >= 0 && w < width;
+        bf16* dst = dst0 + cc * stride + piece * q;
+        const bf16* src = in ? row + (c0 + cc) * plane + w : any;
+        if (piece == 8) {
+          cp_async_16(dst, src, in ? 16 : 0);
+        } else if (piece == 4) {
+          cp_async_8(dst, src, in ? 8 : 0);
+        } else if (piece == 2) {
+          cp_async_4(dst, src, in ? 4 : 0);
+        } else {
+          *dst = in ? *src : __ushort_as_bfloat16(0);
+        }
+      });
+    };
+    rows(sl, ls, lrow, left, w0, tw);
+    rows(sl + chunk * ls, rs, rrow, right, w0 - dtot, tw + dtot);
+  };
+
+  // the lane's ldmatrix rows: A's four matrices are channels 0-7 and 8-15
+  // by columns wl .. wl + 7 and wl + 8 .. wl + 15 (a0 .. a3); B's are, for
+  // two n-tiles, channels 0-7 and 8-15 of the first (b0, b1), then of the
+  // second (.x2: lanes 0 .. 15, the first only)
+  const int lr = lane & 7, li = lane >> 3;
+  const int a_off = ((li >> 1) * 8 + lr) * ls + wl + 8 * (li & 1);
+  const int b_off = ((li & 1) * 8 + lr) * rs + s0 + 8 * j0 + 8 * (li >> 1);
+
+  float acc[NTG][4];
+#pragma unroll
+  for (int j = 0; j < NTG; ++j) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[j][r] = 0.f;
+  }
+
+  const int nchunks = (channels + chunk - 1) / chunk;
+  if (nchunks > 0) {
+    stage(0);
+    cp_async_commit();
+  }
+  for (int n = 0; n < nchunks; ++n) {
+    if (n + 1 < nchunks) {
+      stage(n + 1);
+      cp_async_commit();
+      cp_async_wait_group<1>();
+    } else {
+      cp_async_wait_group<0>();
+    }
+    __syncthreads();
+    const bf16* sa = smem + (n & 1) * stage_elems + a_off;
+    const bf16* sb = smem + (n & 1) * stage_elems + chunk * ls + b_off;
+    for (int k = 0; k < chunk; k += MMA_K) {
+      unsigned a[4];
+      ldmatrix_x4_trans(a, sa + k * ls);
+#pragma unroll
+      for (int j = 0; j < NTG; j += 2) {
+        if (j + 1 < ntw) {
+          unsigned bq[4];
+          ldmatrix_x4_trans(bq, sb + k * rs + 8 * j);
+          mma_bf16(acc[j], a, bq[0], bq[1]);
+          mma_bf16(acc[j + 1], a, bq[2], bq[3]);
+        } else if (j < ntw) {
+          unsigned b0, b1;
+          ldmatrix_x2_trans(b0, b1, sb + k * rs + 8 * j);
+          mma_bf16(acc[j], a, b0, b1);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // the band [max_disp][ls] in the buffers' space (every warp has passed
+  // the last barrier): lane (g, t) holds columns wl + g and wl + g + 8 by
+  // window slots 2t, 2t + 1 of each n-tile
+  bf16* band = smem;
+  const float inv_c = 1.f / static_cast<float>(channels);
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NTG; ++j) {
+    if (j < ntw) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int m = g + 8 * (r >> 1);
+        const int d = wl + m + dtot - (s0 + 8 * (j0 + j) + 2 * t + (r & 1));
+        if (d >= 0 && d < max_disp) band[d * ls + wl + m] = __float2bfloat16_rn(acc[j][r] * inv_c);
+      }
+    }
+  }
+  __syncthreads();
+  bf16* ob = out + b * max_disp * plane + static_cast<long long>(h) * width + w0;
+  const int ncol = min(tw, width - w0);
+  for_each_unit(max_disp, tw / piece, [&](int d, int q) {
+    const int j = piece * q;
+    if (j >= ncol) return;
+    bf16* o = ob + d * plane + j;
+    const bf16* v = band + d * ls + j;
+    if (piece == 8) {
+      *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(v);
+    } else if (piece == 4) {
+      *reinterpret_cast<uint2*>(o) = *reinterpret_cast<const uint2*>(v);
+    } else if (piece == 2) {
+      *reinterpret_cast<unsigned*>(o) = *reinterpret_cast<const unsigned*>(v);
+    } else {
+      *o = *v;
+    }
+  });
+}
+
+using CorrMmaKernel = void (*)(const bf16*, const bf16*, bf16*, int, int, int, int, int, int,
+                               int, int, int);
+
+// The builds, by NTG (n-tiles of a warp at most): 2, 4, .., 16
+constexpr int MMA_NTG_MAX = 16;
+const CorrMmaKernel corr_fwd_mma_builds[] = {
+    corr_fwd_mma_kernel<2>,  corr_fwd_mma_kernel<4>,  corr_fwd_mma_kernel<6>,
+    corr_fwd_mma_kernel<8>,  corr_fwd_mma_kernel<10>, corr_fwd_mma_kernel<12>,
+    corr_fwd_mma_kernel<14>, corr_fwd_mma_kernel<16>,
+};
+
+int launch_corr_fwd_mma(const bf16* left, const bf16* right, bf16* out, int batch, int channels,
+                        int height, int width, int max_disp, int tw, int chunk, int ntg,
+                        int smem_bytes, cudaStream_t stream) {
+  if (batch == 0 || height == 0 || width == 0 || max_disp == 0) return 0;
+  if (tw < MMA_CW || tw % MMA_CW != 0 || chunk < MMA_K || chunk % MMA_K != 0 || ntg < 2 ||
+      ntg > MMA_NTG_MAX || ntg % 2 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int nt = (max_disp + 15 + 7) / 8;
+  const int threads = 32 * (tw / MMA_CW) * ((nt + ntg - 1) / ntg);
+  if (threads > MMA_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
+  if (fwd_mma_smem_bytes(tw, max_disp, chunk) != smem_bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);  // the wrapper's plan has another layout
+  }
+  const CorrMmaKernel kernel = corr_fwd_mma_builds[ntg / 2 - 1];
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  // values a copy: 8 where every 8-column piece of a row is 16-byte
+  // aligned, 4 where every quad is 8-byte aligned, 2 where every pair is
+  // 4-byte aligned, else 1
+  const auto aligned = [&](unsigned long long bytes) {
+    return (reinterpret_cast<unsigned long long>(left) % bytes == 0 &&
+            reinterpret_cast<unsigned long long>(right) % bytes == 0 &&
+            reinterpret_cast<unsigned long long>(out) % bytes == 0);
+  };
+  const int piece = width % 8 == 0 && aligned(16)  ? 8
+                    : width % 4 == 0 && aligned(8) ? 4
+                    : width % 2 == 0 && aligned(4) ? 2
+                                                   : 1;
+  const int dtot = (max_disp + 7) / 8 * 8;
+  dim3 grid((width + tw - 1) / tw, height, batch);
+  kernel<<<grid, threads, smem_bytes, stream>>>(left, right, out, channels, height, width, max_disp,
+                                                tw, chunk, mma_row(tw), mma_row(tw + dtot), piece);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The bf16 form, on the tensor cores: left, right and out bfloat16, the
+// rest as aanet_correlation_f32's but the plan (ops/cost_volume.py
+// forward_plan_bf16): tw (columns of a block, a multiple of 16), chunk
+// (channels staged at a time, a multiple of 16), ntg (the build: n-tiles of
+// a warp at most, even, 2 .. 16) and smem_bytes, which must be this
+// layout's. Anything else is cudaErrorInvalidValue.
 extern "C" int aanet_correlation_bf16(const bf16* left, const bf16* right, bf16* out,
                                       int batch, int channels, int height, int width,
-                                      int max_disp, int tw, int dd, int ksplit, int chunk,
-                                      int smem_bytes, int device, void* stream) {
+                                      int max_disp, int tw, int chunk, int ntg, int smem_bytes,
+                                      int device, void* stream) {
   cudaSetDevice(device);
-  return launch_corr_fwd(left, right, out, batch, channels, height, width, max_disp, tw, dd,
-                         ksplit, chunk, smem_bytes, static_cast<cudaStream_t>(stream));
+  return launch_corr_fwd_mma(left, right, out, batch, channels, height, width, max_disp, tw,
+                             chunk, ntg, smem_bytes, static_cast<cudaStream_t>(stream));
 }
 
 // ---------------------------------------------------------------------------
@@ -412,18 +664,6 @@ constexpr int BWD_MIN_BLOCKS = 2;     // and the blocks of that size an SM holds
 // windows [chunk][bw + dtot].
 inline int bwd_smem_words(int bw, int dtot, int chunk) {
   return 2 * dtot * bw + 2 * 2 * chunk * (bw + dtot);
-}
-
-// 4- and 8-byte copies of raw bf16 into shared memory: `bytes` of src, the
-// rest zero (bytes = 0: nothing is read; src must still be a valid address).
-__device__ __forceinline__ void cp_async_4(void* dst, const void* src, int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_8(void* dst, const void* src, int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
 }
 
 // The bf16 backward's staging of a quad of columns, raw: by one 8-byte

@@ -1788,48 +1788,6 @@ constexpr int MMA_FWD_THREADS = 256;    // forward: 8 warps, 8 pixels (half a ro
 constexpr int MMA_FWD_CHUNK = 16;       // forward: input channels of a chunk (one k-step a tap)
 constexpr int MMA_BD_CHUNK = 8;         // backward-data: input channels of a block (one n-tile)
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Four 8 x 8 bf16 matrices; lanes 8 i .. 8 i + 7 give the rows of matrix i.
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x2(unsigned& r0, unsigned& r1, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// 16 bytes from src, of which the first `bytes` are read and the rest zero
-// (bytes = 0: nothing is read; src must still be a valid address).
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(bytes));
-}
-
 __device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
 
 // The raw window's row: win_w columns after xoff, rounded up to whole

@@ -56,11 +56,21 @@
 // values of 8 bytes there, not 16: the quads and the plan stay the float32
 // form's, and a warp still reads 256 neighbouring bytes of a row at once.
 // Its bytes are half the float32 form's and the rest unchanged. The
-// backward has a bf16 form too (aanet_softargmin_backward_bf16, the same
-// plan and slab): the bf16 volume is widened as it is staged (a load and a
-// store, 8 bytes a quad: cp.async cannot widen), the softmax and its
-// backward run in float32 from the float32 g, and the volume's gradient is
-// rounded to bf16 once, where it is stored.
+// backward has a bf16 form too (aanet_softargmin_backward_bf16, with a plan
+// of its own, ops/softargmin.py backward_plan_bf16): its slab holds the
+// bf16 volume raw, 2 bytes a value, staged by 8-byte cp.async a quad where
+// the plane is a multiple of 4 (while the quad's g loads are in flight);
+// each quad is widened to float32 where the statistics pass and the
+// gradient pass read it from the slab. The merge slots stay float32, so the
+// merge and the sums are the float32 form's, in the same order; the softmax
+// and its backward run in float32 from the float32 g, and the volume's
+// gradient is rounded to bf16 once, where it is stored. Where the plane is
+// odd (GC-Net's 383 x 1247 at D = 191) a quad's pixels lie a quarter tile
+// apart, and a 2-byte value cannot be copied by cp.async: those values are
+// staged raw by a load and a store. (The form this replaced widened the
+// slab to float32 through registers as it staged it, a load and a store
+// with nothing in flight, and took the float32 form's time on half its
+// bytes.)
 #include "common.cuh"
 
 #include <math.h>
@@ -83,6 +93,11 @@ inline int fwd_smem_bytes(int slices) { return slices > 1 ? 4 * 2 * FWD_TILE * s
 // slices' merge slots [slices][2][tile].
 inline int bwd_smem_bytes(int tile, int depth, int slices) {
   return 4 * tile * (depth + 2 * slices);
+}
+
+// The bf16 form's: the slab raw, 2 bytes a value; the merge slots float32.
+inline int bwd_smem_bytes_bf16(int tile, int depth, int slices) {
+  return 2 * tile * (depth + 4 * slices);
 }
 
 // Evict-first loads of the volume (each value is read once), widened to
@@ -109,7 +124,8 @@ __device__ __forceinline__ int pixel(int q, int i) {
   return VEC ? 4 * q + i : q + (TP / 4) * i;
 }
 
-// The four values of quad q in one row of a tile (in shared or device memory).
+// The four values of quad q in one row of a tile (in shared or device
+// memory): float32, or raw bf16 widened.
 template <int TP, bool VEC>
 __device__ __forceinline__ void load_quad(float (&v)[4], const float* row, int q) {
   if (VEC) {
@@ -121,6 +137,20 @@ __device__ __forceinline__ void load_quad(float (&v)[4], const float* row, int q
   } else {
 #pragma unroll
     for (int i = 0; i < 4; ++i) v[i] = row[pixel<TP, VEC>(q, i)];
+  }
+}
+
+template <int TP, bool VEC>
+__device__ __forceinline__ void load_quad(float (&v)[4], const bf16* row, int q) {
+  if (VEC) {
+    const float4 x = widen4(*reinterpret_cast<const uint2*>(row + 4 * q));
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = __bfloat162float(row[pixel<TP, VEC>(q, i)]);
   }
 }
 
@@ -270,9 +300,10 @@ softargmin_fwd_kernel(const T* __restrict__ cost, float* __restrict__ out, int d
 }
 
 // ---------------------------------------------------------------------------
-// Backward. A block: TP pixels x all D, the slab staged once; thread (quad
-// q, slice s) takes its slice's statistics, then, after the merge, writes
-// its slice's rows of the gradient.
+// Backward. A block: TP pixels x all D, the slab staged once (float32, or
+// the bf16 form's raw bf16: T); thread (quad q, slice s) takes its slice's
+// statistics, then, after the merge, writes its slice's rows of the
+// gradient.
 // ---------------------------------------------------------------------------
 template <int TP, bool VEC, typename T>
 __global__ void __launch_bounds__(BWD_MAX_THREADS, BWD_MIN_BLOCKS)
@@ -281,8 +312,8 @@ softargmin_bwd_kernel(const float* __restrict__ grad_out, const T* __restrict__ 
                       float sign) {
   constexpr int NQ = TP / 4;
   extern __shared__ float4 sa_smem[];
-  float* slab = reinterpret_cast<float*>(sa_smem);  // [depth][TP]
-  float4* part = sa_smem + depth * NQ;              // [slices][2][NQ] float4: merge slots
+  T* slab = reinterpret_cast<T*>(sa_smem);                      // [depth][TP]
+  float4* part = reinterpret_cast<float4*>(slab + depth * TP);  // [slices][2][NQ]: merge slots
   const int q = threadIdx.x % NQ, s = threadIdx.x / NQ;
   const long long p0 = static_cast<long long>(blockIdx.x) * TP;
   const long long b = blockIdx.y;
@@ -296,8 +327,18 @@ softargmin_bwd_kernel(const float* __restrict__ grad_out, const T* __restrict__ 
   const T* c = cost + base;
   for (int d = s; d < depth; d += slices) {
     const T* src = c + d * plane;
-    float* dst = slab + d * TP;
-    if (VEC) {
+    T* dst = slab + d * TP;
+    if constexpr (is_bf16<T>) {  // raw: 8-byte copies of a quad, else a load and a store a value
+      if (VEC) {
+        cp_async_8(dst + 4 * q, in[0] ? src + 4 * q : cost, in[0] ? 8 : 0);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = pixel<TP, VEC>(q, i);
+          dst[j] = in[i] ? src[j] : __ushort_as_bfloat16(0);
+        }
+      }
+    } else if (VEC) {
       stage4(dst + 4 * q, in[0] ? src + 4 * q : cost, in[0]);
     } else {
 #pragma unroll
@@ -396,7 +437,9 @@ int launch_bwd_entry(const float* grad_out, const T* cost, T* grad_cost, int bat
       (plane + tile - 1) / tile > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (static_cast<long long>(bwd_smem_bytes(tile, depth, slices)) != smem_bytes) {
+  const int layout = is_bf16<T> ? bwd_smem_bytes_bf16(tile, depth, slices)
+                                 : bwd_smem_bytes(tile, depth, slices);
+  if (layout != smem_bytes) {
     return static_cast<int>(cudaErrorInvalidValue);  // the wrapper's plan has another layout
   }
   const bool vec = plane % 4 == 0 && aligned16(cost) && aligned16(grad_cost);
@@ -483,7 +526,9 @@ extern "C" int aanet_softargmin_backward_f32(const float* grad_out, const float*
 }
 
 // The bf16 form: cost and grad_cost bfloat16, grad_out float32, the rest as
-// aanet_softargmin_backward_f32's (the same plan).
+// aanet_softargmin_backward_f32's but the plan (ops/softargmin.py
+// backward_plan_bf16), whose smem_bytes is the raw slab's layout
+// (bwd_smem_bytes_bf16).
 extern "C" int aanet_softargmin_backward_bf16(const float* grad_out, const bf16* cost,
                                               bf16* grad_cost, int batch, int depth,
                                               long long plane, int negate, int tile, int slices,

@@ -20,9 +20,10 @@ The correlation's kernels also have a bfloat16 form (the JAX op under a
 bf16 compute dtype, ``cost_volume.py:108,113``, and its transpose): bf16
 features and volume (and volume gradient), float32 products, sums and
 the division by C, each output rounded to bf16 once
-(``aanet_correlation_bf16`` with the float32 form's plan;
-``aanet_correlation_backward_bf16``, which stages raw bf16 and has a plan of
-its own, ``backward_plan_bf16``). So do the 4-D volumes' (the JAX ops in the features'
+(``aanet_correlation_bf16``, a kernel of its own on the tensor cores with
+its own plan, ``forward_plan_bf16``; ``aanet_correlation_backward_bf16``,
+which stages raw bf16 and has a plan of its own, ``backward_plan_bf16``).
+So do the 4-D volumes' (the JAX ops in the features'
 dtype, ``cost_volume.py:127,144``): bf16 features and volume, the
 difference L - R(w - d) in float32 rounded once (concat copies), and in
 the backward a bf16 volume gradient whose sums over d run in float32, in
@@ -47,8 +48,10 @@ from aanet_torch._build import SM_SMEM_BYTES, SMEM_BYTES
 # (forward) or three (backward), device, stream
 _VOL_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _VOL_BWD_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-# left, right, out, batch .. max_disp, the plan's five, device, stream
+# left, right, out, batch .. max_disp, the plan's five (the bf16 forward's
+# four), device, stream
 _CORR_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+_CORR_MMA_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 # grad, left, right, grad_left, grad_right, batch .. max_disp, the plan's three, device, stream
 _CORR_BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
@@ -62,7 +65,7 @@ FWD_CW = 4
 FWD_LX = 8
 FWD_DD = (8, 16)
 FWD_MAX_THREADS = 256
-FWD_MIN_BLOCKS = 2
+FWD_MIN_BLOCKS = 1
 BWD_CW = 4
 BWD_CC = 8
 BWD_LX = 8
@@ -76,6 +79,24 @@ CHUNKS = (8, 16, 32, 64)  # channels staged at a time the plans consider
 # least ksplit that gives the grid FWD_SM_THREADS threads an SM
 FWD_MIN_THREADS = 64
 FWD_SM_THREADS = 256
+# The bf16 forward on the tensor cores (corr_fwd_mma_kernel): a warp's 16
+# output columns (MMA_CW, mma.sync's m16), k-steps of MMA_K channels, its
+# launch bounds, its builds (MMA_NTGS: the n-tiles of 8 window columns a
+# warp takes at most), and the tile widths and chunks its plans consider;
+# the plan's picks (tools/torch_correlation_sweep.py on an H100): a row of
+# up to MMA_WHOLE_W columns in one tile, a wider one in tiles of at most
+# MMA_TILE_W, chunks of 64 channels where the grid holds fewer than
+# MMA_SM_BLOCKS blocks an SM
+MMA_CW = 16
+MMA_K = 16
+MMA_MAX_THREADS = 256
+MMA_MIN_BLOCKS = 2
+MMA_NTGS = (2, 4, 6, 8, 10, 12, 14, 16)
+MMA_TILE_WS = tuple(range(MMA_CW, 8 * MMA_CW + 1, MMA_CW))
+MMA_CHUNKS = (16, 32, 64)
+MMA_WHOLE_W = 96
+MMA_TILE_W = 64
+MMA_SM_BLOCKS = 4
 
 
 def correlation_cost_volume_plain(
@@ -167,6 +188,52 @@ class BackwardPlan(NamedTuple):
     blocks: int
 
 
+class ForwardPlanBf16(NamedTuple):
+    """How ``aanet_correlation_bf16`` cuts one volume on the tensor cores: a
+    block takes ``tile_w`` columns of one (b, h) row and all disparities; a
+    warp 16 of those columns by at most ``ntg`` n-tiles of 8 window columns
+    (``ny`` warps split a 16-column group's ceil((D + 15) / 8) n-tiles);
+    channels are staged ``chunk`` at a time. ``threads`` a block,
+    ``smem_bytes`` of shared memory, ``blocks`` in the grid."""
+
+    tile_w: int
+    chunk: int
+    ntg: int
+    ny: int
+    threads: int
+    smem_bytes: int
+    blocks: int
+
+
+def _mma_row(n: int) -> int:
+    """bf16 values of a row of n staged by the bf16 forward (``mma_row``):
+    an odd number of 16-byte pieces, so the 8 channels an ldmatrix reads
+    fall in different banks."""
+    pieces = _ceil_div(n, 8)
+    return 8 * (pieces + 1 - pieces % 2)
+
+
+def _fwd_mma_smem(tile_w: int, max_disp: int, chunk: int) -> int:
+    """Bytes of the bf16 forward's shared memory (``fwd_mma_smem_bytes``):
+    two buffers of a chunk's left tile [chunk][_mma_row(tile_w)] and right
+    window [chunk][_mma_row(tile_w + dtot)], raw bf16 (dtot: D rounded up to
+    8); the epilogue's band [D][_mma_row(tile_w)] reuses them. The kernel
+    refuses a plan whose ``smem_bytes`` differ."""
+    dtot = 8 * _ceil_div(max_disp, 8)
+    stage = 2 * chunk * (_mma_row(tile_w) + _mma_row(tile_w + dtot))
+    return 2 * max(stage, max_disp * _mma_row(tile_w))
+
+
+def mma_tiles(max_disp: int) -> tuple[int, int, int]:
+    """(nt, ny, ntg): the n-tiles of a 16-column group's band, ceil((D +
+    15) / 8); the warps that split them, as few as the largest build
+    allows; and the build, the least even count that holds a warp's
+    share."""
+    nt = _ceil_div(max_disp + 15, 8)
+    ny = _ceil_div(nt, MMA_NTGS[-1])
+    return nt, ny, 2 * _ceil_div(_ceil_div(nt, ny), 2)
+
+
 def _fwd_smem(tile_w: int, dtot: int, chunk: int, ksplit: int) -> int:
     """Bytes of the forward's shared memory (``fwd_smem_words`` in the
     kernel): two buffers of a chunk's left tile [chunk][tile_w] and right
@@ -224,6 +291,23 @@ def backward_plans(batch: int, channels: int, height: int, width: int,
     return plans
 
 
+def forward_plans_bf16(batch: int, channels: int, height: int, width: int,
+                       max_disp: int) -> list[ForwardPlanBf16]:
+    """Every tiling the bf16 forward takes at this shape (``max_disp`` >
+    0): tiles of whole 16-column groups and chunks of whole k-steps within
+    its launch bounds and a block's shared memory."""
+    _, ny, ntg = mma_tiles(max_disp)
+    plans = []
+    for tile_w in MMA_TILE_WS:
+        threads = 32 * tile_w // MMA_CW * ny
+        for chunk in MMA_CHUNKS:
+            smem = _fwd_mma_smem(tile_w, max_disp, chunk)
+            if threads <= MMA_MAX_THREADS and smem <= SMEM_BYTES:
+                plans.append(ForwardPlanBf16(tile_w, chunk, ntg, ny, threads, smem,
+                                             batch * height * _ceil_div(width, tile_w)))
+    return plans
+
+
 @functools.lru_cache(maxsize=None)
 def forward_plan(batch: int, channels: int, height: int, width: int, max_disp: int,
                  sms: int) -> ForwardPlan:
@@ -257,6 +341,31 @@ def forward_plan(batch: int, channels: int, height: int, width: int, max_disp: i
         return (p.dd != dd, p.tile_w != tile_w, p.chunk != (32 if p.ksplit >= 4 else 16),
                 p.threads < FWD_MIN_THREADS, -supply, p.ksplit, p.tile_w, p.chunk)
     return min(plans, key=key)
+
+
+@functools.lru_cache(maxsize=None)
+def forward_plan_bf16(batch: int, channels: int, height: int, width: int, max_disp: int,
+                      sms: int) -> ForwardPlanBf16:
+    """The bf16 forward's tiling for ``max_disp`` > 0 on a card of ``sms``
+    SMs, of ``forward_plans_bf16``: a row of up to MMA_WHOLE_W columns in
+    one tile, a wider row in the fewest tiles of at most MMA_TILE_W
+    columns, each ``16 * ceil(W / 16 / tiles)`` wide; chunks of 16
+    channels where C <= 32, of 32 where C <= 64, else of 64 where the grid
+    holds fewer than MMA_SM_BLOCKS blocks an SM and 32 where it holds more;
+    then the nearest tile that fits. On an H100 this was within 7.3 % of
+    the fastest plan at every path shape and 2.9 % over all of them
+    (``tools/torch_correlation_sweep.py --dtype bfloat16``). Raises if
+    nothing fits."""
+    plans = forward_plans_bf16(batch, channels, height, width, max_disp)
+    if not plans:
+        raise ValueError(
+            f"correlation: no bf16 forward tiling of {max_disp} disparities fits a block of "
+            f"{MMA_MAX_THREADS} threads and {SMEM_BYTES} bytes of shared memory")
+    tiles = 1 if width <= MMA_WHOLE_W else _ceil_div(width, MMA_TILE_W)
+    tile_w = MMA_CW * _ceil_div(_ceil_div(width, MMA_CW), tiles)
+    short = batch * height * _ceil_div(width, tile_w) < MMA_SM_BLOCKS * sms
+    chunk = 16 if channels <= 32 else 32 if channels <= 64 or not short else 64
+    return min(plans, key=lambda p: (abs(p.tile_w - tile_w), p.chunk != chunk, p.tile_w, p.chunk))
 
 
 @functools.lru_cache(maxsize=None)
@@ -313,12 +422,16 @@ def _forward(left, right, max_disp):
     _build.check_cuda("correlation", left=(left, left.dtype), right=(right, left.dtype))
     b, c, h, w = left.shape
     cost = torch.empty((b, max_disp, h, w), dtype=left.dtype, device=left.device)
-    plan = (0,) * 5
-    if cost.numel():
+    bf16 = form == "bf16"
+    plan = (0,) * (4 if bf16 else 5)  # an empty volume: nothing to write
+    if cost.numel() and bf16:
+        p = forward_plan_bf16(b, c, h, w, max_disp, _sms(left))
+        plan = (p.tile_w, p.chunk, p.ntg, p.smem_bytes)
+    elif cost.numel():
         p = forward_plan(b, c, h, w, max_disp, _sms(left))
         plan = (p.tile_w, p.dd, p.ksplit, p.chunk, p.smem_bytes)
     _build.launch(
-        "correlation", f"aanet_correlation_{form}", _CORR_ARGTYPES,
+        "correlation", f"aanet_correlation_{form}", _CORR_MMA_ARGTYPES if bf16 else _CORR_ARGTYPES,
         _build.ptr(left), _build.ptr(right), _build.ptr(cost),
         b, c, h, w, max_disp, *plan, left.device.index, _build.stream(left),
     )

@@ -170,8 +170,12 @@
    20 output channels, mask-less and at an odd stride-2 shape (one bf16 ulp
    of each bf16 gradient's scale, the float32 form's tolerance for the
    float32 offset and disparity gradients), and the bf16 deform forward at
-   those shapes; two launches of the deform forward, the weight gradient
-   and the correlation backward bitwise; every backward kernel call of a kernel
+   those shapes; the bf16 correlation forward (on the tensor cores) and
+   backward at ``CORR_EDGE_SHAPES`` and D = 0, the bf16 soft-argmin
+   backward (its slab raw) at ``SA_EDGE_SHAPES`` with both signs; two
+   launches of the deform forward, the weight gradient and the correlation
+   backward bitwise, and of the correlation forward and the soft-argmin
+   backward at every step shape, each timed beside its bound; every backward kernel call of a kernel
    step against its twin on the path's own inputs; the ``aanet`` bf16
    kernel step against the plain bf16 step on phase 7's three seeded
    batches (loss, all gradients and the BatchNorm statistics within 2 times
@@ -180,8 +184,9 @@
    a non-zero gradient; three steps lowering the loss); the full-width
    bf16 steps of ``aanet`` and ``aanet+`` (batch 16) with their launches
    (no float32 kernel), step time, samples/s, peak memory and idle share
-   beside phases 8's and 13's float32 steps, and each bf16 backward kernel
-   at their shapes, timed beside its float32 form; then ``python -m
+   beside phases 8's and 13's float32 steps, and each bf16 kernel, forward
+   and backward, at their shapes, timed beside its bound and its float32
+   form; then ``python -m
    aanet_torch.cli train --dtype bfloat16`` from the trained anchor for one
    epoch on phase 12's set (its losses beside the same epoch in float32)
    and ``evaluate`` of its float32 checkpoint, in float32 (EPE < 2.0 px)
@@ -2884,11 +2889,13 @@ def bf16_training_phases(specs, bwd_specs, specs16, bwd16, gen, dev, timer, smi,
     kernel call; each bf16 backward kernel is held against its twin at
     each of those shapes (one bf16 ulp of each gradient's scale), with
     offsets in (-16, 16) px, at ``ODD_COUTS`` output channels, mask-less
-    and at an odd stride-2 shape, and the correlation backward at
-    ``CORR_EDGE_SHAPES`` and D = 0; the bf16 deform forward against its twin
+    and at an odd stride-2 shape, the correlation forward and backward at
+    ``CORR_EDGE_SHAPES`` and D = 0 and the soft-argmin backward at
+    ``SA_EDGE_SHAPES`` (both signs); the bf16 deform forward against its twin
     at the step's shapes; two launches of the deform forward, the weight
     gradient and the correlation backward give the same bits at every step
-    shape;
+    shape, and of the correlation forward and the soft-argmin backward too,
+    each timed beside its bound (``same_bits_timed``);
     and one kernel step of each holds every backward kernel call against
     its twin on the path's own inputs; a bf16 step of each other
     correlation preset through the kernels (its float32 step's launches in
@@ -2899,8 +2906,9 @@ def bf16_training_phases(specs, bwd_specs, specs16, bwd16, gen, dev, timer, smi,
     (c) The full-width bf16 steps (batch 16) of ``aanet`` and ``aanet+``
     with their launch counts (no float32 kernel), timed over 5 steps (phase
     8 times 10), beside the float32 steps (``f32_steps``), and each bf16 backward
-    kernel and the bf16 deform forward (42 and 62 launches a step with
-    remat's recompute) against its twin at their shapes, timed. Returns,
+    kernel and each bf16 forward kernel (the deform forward's 42 and 62
+    launches a step with remat's recompute; the correlation's, soft-argmin's
+    and warp's 3, 3 and 4) against its twin at their shapes, timed. Returns,
     per step, those kernels' rows and the step's launches."""
     from aanet_torch.config import preset
     from aanet_torch.models.layers import set_train_mode
@@ -2973,11 +2981,15 @@ def bf16_training_phases(specs, bwd_specs, specs16, bwd16, gen, dev, timer, smi,
                           identical=same))
 
     fwd16 = next(s for s in specs16 if s["name"] == "deform_conv_bf16")
+    corr_fwd16 = next(s for s in specs16 if s["name"] == "correlation_bf16")
     for name, first in shapes.items():
         for sig in first[fwd16["name"]]:
             edges.append(dict(measure(fwd16, sig, 1, gen, dev, timer, timed=False),
                               kernel=fwd16["name"], case=f"{name} step shape"))
             two_launches_bitwise(fwd16, sig)
+        for sig in first[corr_fwd16["name"]]:
+            edges.append(dict(same_bits_timed(corr_fwd16, sig, gen, dev, timer),
+                              case=f"{name} step shape: two launches, bitwise; timed"))
         for spec in bwd16:
             for sig in first[spec["forward"]]:
                 edges.append(dict(measure(spec, sig, 1, gen, dev, timer, timed=False),
@@ -2988,6 +3000,9 @@ def bf16_training_phases(specs, bwd_specs, specs16, bwd16, gen, dev, timer, smi,
                                       kernel=spec["name"], case=f"{name} step shape, wide offsets"))
                 if spec["name"] in ("deform_conv_backward_weight_bf16", "correlation_backward_bf16"):
                     two_launches_bitwise(spec, sig)
+                if spec["name"] == "soft_argmin_backward_bf16":
+                    edges.append(dict(same_bits_timed(spec, sig, gen, dev, timer),
+                                      case=f"{name} step shape: two launches, bitwise; timed"))
     # phase 6b's edges: ODD_COUTS channels, mask-less with one group, an odd
     # stride-2 shape, with narrow, wide and integer offsets
     odd = ((2, 24, 37, 53), (24, 24, 3, 3), True, False, 2, 2, 2, 2)
@@ -3002,13 +3017,30 @@ def bf16_training_phases(specs, bwd_specs, specs16, bwd16, gen, dev, timer, smi,
                                                                       offsets=offsets))
                 edges.append(dict(measure(spec, sig, 1, gen, dev, timer, timed=False), kernel=kernel,
                                   case=f"{case}, {offsets} offsets"))
-    # the bf16 correlation backward beyond the path (phase 6b's shapes: widths
-    # off the 8-byte quads, channels off the chunks, D > W, D = 1, 24, 40, and
-    # D = 0)
+    # the bf16 correlation forward and backward beyond the path (phase 6b's
+    # shapes: widths off the 16- and 8-byte pieces, channels off the chunks,
+    # D > W, D = 1, 24, 40, and D = 0: an empty volume, no gradient), and the
+    # bf16 soft-argmin backward (odd planes: values staged by a load and a
+    # store; planes smaller than a tile, D = 1, 37 and 191, both signs)
     corr16 = by_name["correlation_backward_bf16"]
-    for sig in CORR_EDGE_SHAPES + [(CORR_EDGE_SHAPES[-1][0], 0)]:
+    for sig in CORR_EDGE_SHAPES:
+        edges.append(dict(measure(corr_fwd16, sig, 1, gen, dev, timer, timed=False),
+                          kernel=corr_fwd16["name"], case="beyond the path"))
+    zero = (CORR_EDGE_SHAPES[-1][0], 0)
+    (left, right, _), _ = corr_fwd16["inputs"](zero, gen, dev)
+    empty = getattr(corr_fwd16["module"], corr_fwd16["attr"])(left, right, 0)
+    torch.cuda.synchronize()
+    check(empty.shape == (left.shape[0], 0, *left.shape[2:]) and empty.dtype == torch.bfloat16,
+          f"correlation_bf16 at D = 0: {tuple(empty.shape)} {empty.dtype}")
+    edges.append(dict(kernel=corr_fwd16["name"], case="D = 0: an empty volume", shape=str(zero),
+                      max_err=0.0, tolerance=0.0))
+    for sig in CORR_EDGE_SHAPES + [zero]:
         edges.append(dict(measure(corr16, sig, 1, gen, dev, timer, timed=False),
                           kernel=corr16["name"], case="beyond the path" if sig[1] else "D = 0"))
+    sa16 = by_name["soft_argmin_backward_bf16"]
+    for sig in SA_EDGE_SHAPES:
+        edges.append(dict(measure(sa16, sig, 1, gen, dev, timer, timed=False), kernel=sa16["name"],
+                          case="beyond the path"))
     print(json.dumps({"bf16_backward_edge_cases": edges}), flush=True)
     t_a = time.perf_counter()
 
@@ -3054,10 +3086,11 @@ def bf16_training_phases(specs, bwd_specs, specs16, bwd16, gen, dev, timer, smi,
         torch.cuda.empty_cache()
         rows = {sp["name"]: [measure(sp, rebatch(sig, TRAIN_BATCH), k, gen, dev, timer, iters=10)
                              for sig, k in shapes[name][sp["forward"]].items()] for sp in bwd16}
-        # the bf16 forward at the step's shapes: its first pass and remat's recompute
-        calls = shapes[name][fwd16["name"]] + recomputed[name][fwd16["name"]]
-        rows[fwd16["name"]] = [measure(fwd16, rebatch(sig, TRAIN_BATCH), k, gen, dev, timer, iters=10)
-                               for sig, k in calls.items()]
+        # each bf16 forward at the step's shapes: its first pass and remat's recompute
+        for sp in specs16:
+            calls = shapes[name][sp["name"]] + recomputed[name][sp["name"]]
+            rows[sp["name"]] = [measure(sp, rebatch(sig, TRAIN_BATCH), k, gen, dev, timer, iters=10)
+                                for sig, k in calls.items()]
         out[f"{name} bf16"] = dict(rows=rows, launches=counts, step=record)
     print(f"phase 15: (a) {t_a - t0:.1f} s, (b) {t_b - t_a:.1f} s, (c) "
           f"{time.perf_counter() - t_b:.1f} s", flush=True)

@@ -41,6 +41,7 @@ INPUTS = {"aanet": [(288, 576), (384, 1248)], "stereonet-aa": [(288, 576), (384,
 SMALL = {"aanet": (48, 96), "stereonet-aa": (48, 96), "psmnet-aa": (256, 256),
          "gcnet-aa": (48, 96), "aanet+": (96, 192), "ganet-aa": (48, 96)}
 SOURCE = (pathlib.Path(cv.__file__).parents[1] / "csrc" / "correlation.cu").read_text()
+COMMON = (pathlib.Path(cv.__file__).parents[1] / "csrc" / "common.cuh").read_text()
 
 
 def _recorded_volumes(name, hw):
@@ -232,10 +233,9 @@ def test_constants_are_the_kernels(name):
     step and the launch bounds (which cap a thread's registers)."""
     found = re.findall(rf"constexpr int {name} = (\d+);", SOURCE)
     assert found == [str(getattr(cv, name))]
-    if name == "FWD_MIN_BLOCKS":  # the bf16 form's; the float32 form's float64 tile takes one
-        assert ("__launch_bounds__(FWD_MAX_THREADS, is_bf16<T> ? FWD_MIN_BLOCKS : "
-                "CORR_F32_MIN_BLOCKS)\ncorr_fwd_kernel") in SOURCE
-        assert "constexpr int CORR_F32_MIN_BLOCKS = 1;" in SOURCE
+    if name == "FWD_MIN_BLOCKS":  # the float32 form's float64 tile takes one block an SM
+        assert "__launch_bounds__(FWD_MAX_THREADS, FWD_MIN_BLOCKS)\ncorr_fwd_kernel" in SOURCE
+        assert "constexpr int FWD_MIN_BLOCKS = 1;" in SOURCE
     if name == "BWD_MIN_BLOCKS":
         assert "__launch_bounds__(BWD_MAX_THREADS, BWD_MIN_BLOCKS)\ncorr_bwd_kernel" in SOURCE
 
@@ -243,7 +243,7 @@ def test_constants_are_the_kernels(name):
 def test_builds_and_layouts_are_the_kernels():
     """The forward is built for each disparity tile the plans name, and both
     kernels' shared-memory layouts are the plans' formulas."""
-    assert set(re.findall(r"corr_fwd_kernel<(\d+), T>", SOURCE)) == {str(d) for d in cv.FWD_DD}
+    assert set(re.findall(r"corr_fwd_kernel<(\d+)>", SOURCE)) == {str(d) for d in cv.FWD_DD}
     assert "const int stage = 2 * chunk * (2 * tw + dtot);" in SOURCE
     assert "const int partial = (ksplit - 1) * tw * dtot;" in SOURCE
     assert "return 2 * dtot * bw + 2 * 2 * chunk * (bw + dtot);" in SOURCE
@@ -290,11 +290,13 @@ def test_backward_plan_bf16_fits_and_covers(shape, max_disp):
 def test_backward_plan_bf16_layout_is_the_kernels():
     """The kernel checks the plan's shared memory against its layout at the
     size of its staged values (float32 words, raw bf16), and its bf16 form
-    stages by cp.async of 8 bytes (quads), 4 (pairs) or values."""
+    stages by cp.async of 8 bytes (quads), 4 (pairs) or values (the copies
+    are common.cuh's)."""
     assert ("bwd_smem_words(bw, dtot, chunk) * static_cast<int>(sizeof(T)) != smem_bytes"
             in SOURCE)
-    assert 'cp.async.ca.shared.global [%0], [%1], 8, %2;' in SOURCE
-    assert 'cp.async.ca.shared.global [%0], [%1], 4, %2;' in SOURCE
+    assert 'cp.async.ca.shared.global [%0], [%1], 8, %2;' in COMMON
+    assert 'cp.async.ca.shared.global [%0], [%1], 4, %2;' in COMMON
+    assert "cp_async_8(dst, in[0] ? src : any, in[0] ? 8 : 0);" in SOURCE
     assert "stage_quad(s_gr + d * bw + j, gb + d * plane + w + d, grad, in_r, vec && d % 4 == 0,\n" \
            "                 vec && d % 2 == 0);" in SOURCE
 

@@ -17,8 +17,9 @@ times them with ``chip_smoke.Timer`` (L2 flushed, median over CUDA events)
 beside the bound; then times every other plan of ``forward_plans`` /
 ``backward_plans``, each launched through the C entry point and held
 against the twin. With ``--dtype bfloat16`` the same for the bf16 forms
-(one bf16 ulp of max|ref|): the forward under the float32 form's plans,
-the backward under its own, ``backward_plan_bf16`` picked from
+(one bf16 ulp of max|ref|): the forward on the tensor cores under its own
+plans, ``forward_plan_bf16`` picked from ``forward_plans_bf16``, the
+backward under its own, ``backward_plan_bf16`` picked from
 ``backward_plans(..., value_bytes=2)``. ``--quick`` times the picked plans
 only; ``--package DIR`` times the kernels of the ``aanet_torch`` package in
 DIR (an older checkout unpacked under ``_archive/``) through its wrappers
@@ -57,10 +58,13 @@ def launch_forward(_build, cost_volume, plan, left, right, d):
     b, c, h, w = left.shape
     out = torch.empty((b, d, h, w), device=left.device, dtype=left.dtype)
     P = _build.ptr
+    if left.dtype == torch.bfloat16:  # the tensor-core kernel's plan
+        args, tiling = cost_volume._CORR_MMA_ARGTYPES, (plan.tile_w, plan.chunk, plan.ntg)
+    else:
+        args, tiling = cost_volume._CORR_ARGTYPES, (plan.tile_w, plan.dd, plan.ksplit, plan.chunk)
     _build.launch("correlation", f"aanet_correlation_{_build.form('correlation', left.dtype)}",
-                  cost_volume._CORR_ARGTYPES,
-                  P(left), P(right), P(out), b, c, h, w, d, plan.tile_w, plan.dd, plan.ksplit,
-                  plan.chunk, plan.smem_bytes, left.device.index, _build.stream(left))
+                  args, P(left), P(right), P(out), b, c, h, w, d, *tiling, plan.smem_bytes,
+                  left.device.index, _build.stream(left))
     return (out,)
 
 
@@ -139,7 +143,11 @@ def main() -> int:
                 same = all(torch.equal(x, y) for x, y in zip(got, again))
                 chip_smoke.check(same, f"{kind} {sig}: two launches differ")
                 bound = max(chip_smoke.bound_times(spec["cost"](sig)))
-                if kind == "forward":
+                if kind == "forward" and bf16 and hasattr(cost_volume, "forward_plan_bf16"):
+                    picked = cost_volume.forward_plan_bf16(b, c, h, w, d, sms)
+                    plans = cost_volume.forward_plans_bf16(b, c, h, w, d)
+                    launch = launch_forward
+                elif kind == "forward":
                     picked = cost_volume.forward_plan(b, c, h, w, d, sms)
                     plans, launch = cost_volume.forward_plans(b, c, h, w, d), launch_forward
                 elif bf16 and hasattr(cost_volume, "backward_plan_bf16"):

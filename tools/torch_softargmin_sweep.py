@@ -2,7 +2,8 @@
 """Time the soft-argmin kernels (``csrc/softargmin.cu``) under every plan
 they take, at the shapes of the port's paths, on one NVIDIA GPU.
 
-    python3 tools/torch_softargmin_sweep.py [--out FILE] [--package DIR]
+    python3 tools/torch_softargmin_sweep.py [--quick] [--dtype bfloat16] [--out FILE]
+        [--package DIR]
 
 Builds ``csrc/softargmin.cu`` and prints nvcc's register and spill counts
 for it (``-Xptxas -v``). For each soft-argmin of the paths
@@ -19,7 +20,12 @@ bound, and again after a flush that leaves the L2 clean
 against the twin; last, each kernel at a volume of one tile and one
 candidate (the timer's floor for one launch). A line per shape and kernel
 goes to standard output and, with ``--out``, its JSON record (with every
-plan's time) to a file.
+plan's time) to a file. With ``--dtype bfloat16`` the same for the bf16
+forms (a bf16 volume; the forward within the float32 form's tolerance, the
+backward within one bf16 ulp of max|ref|): the forward under the float32 form's plans, the
+backward under its own, ``backward_plan_bf16`` picked from
+``backward_plans(..., value_bytes=2)`` (the raw bf16 slab). ``--quick``
+times the picked plans only.
 
 With ``--package DIR`` the kernels timed are those of the ``aanet_torch``
 package in DIR (an older checkout, e.g. a ``git archive`` of the parent
@@ -40,7 +46,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def errors(got, want, tol):
-    err, bound = float((got - want).abs().max()), tol(want)
+    err, bound = float((got.float() - want.float()).abs().max()), tol(want)
     if err > bound:
         raise RuntimeError(f"error {err} > {bound}")
     return err, bound
@@ -48,6 +54,8 @@ def errors(got, want, tol):
 
 def main() -> int:
     parser = argparse.ArgumentParser()
+    parser.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
+    parser.add_argument("--quick", action="store_true", help="time the picked plans only")
     parser.add_argument("--out", help="also write the JSON lines to this file")
     parser.add_argument("--package", help="time the kernels of the aanet_torch package in this "
                         "directory instead (no plan sweep)")
@@ -68,7 +76,8 @@ def main() -> int:
     print(smi, flush=True)
     print(f"kernels of {os.path.dirname(os.path.dirname(softargmin.__file__))}", flush=True)
     _build.build(("softargmin",))
-    sweep = not args.package
+    bf16 = args.dtype == "bfloat16"
+    sweep = not (args.package or args.quick)
     if sweep:
         ptxas = subprocess.run(
             [_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", os.devnull,
@@ -82,24 +91,32 @@ def main() -> int:
     clean = chip_smoke.Timer(dev, clean=True)
     gen = torch.Generator(device=dev).manual_seed(0)
     fwd, bwd = chip_smoke.kernel_specs()
-    specs = {"forward": next(s for s in fwd if s["name"] == "soft_argmin"),
-             "backward": next(s for s in bwd if s["name"] == "soft_argmin_backward")}
+    sa32 = next(s for s in fwd if s["name"] == "soft_argmin")
+    if bf16:
+        fwd, bwd = chip_smoke.bf16_kernel_specs(fwd), chip_smoke.bf16_backward_specs(bwd)
+    suffix, form = ("_bf16", "bf16") if bf16 else ("", "f32")
+    specs = {"forward": next(s for s in fwd if s["name"] == "soft_argmin" + suffix),
+             "backward": next(s for s in bwd if s["name"] == "soft_argmin_backward" + suffix)}
+    # the bf16 forward over the baselines' 96-192 candidates with the float32
+    # form's tolerance, as chip_smoke.py's phase 16 holds it
+    specs["forward"] = dict(specs["forward"], tol=sa32["tol"])
     P = _build.ptr
 
     def launch_forward(plan, cost, match):
         b, d, h, w = cost.shape
         out = torch.empty((b, h, w), device=cost.device)
-        _build.launch("softargmin", "aanet_softargmin_f32", softargmin._ARGTYPES, P(cost), P(out),
-                      b, d, h * w, int(not match), plan.tile, plan.slices, plan.smem_bytes,
-                      cost.device.index, _build.stream(cost))
+        _build.launch("softargmin", f"aanet_softargmin_{form}", softargmin._ARGTYPES, P(cost),
+                      P(out), b, d, h * w, int(not match), plan.tile, plan.slices,
+                      plan.smem_bytes, cost.device.index, _build.stream(cost))
         return out
 
     def launch_backward(plan, grad, cost, match):
         b, d, h, w = cost.shape
         out = torch.empty_like(cost)
-        _build.launch("softargmin", "aanet_softargmin_backward_f32", softargmin._BWD_ARGTYPES,
-                      P(grad), P(cost), P(out), b, d, h * w, int(not match), plan.tile,
-                      plan.slices, plan.smem_bytes, cost.device.index, _build.stream(cost))
+        _build.launch("softargmin", f"aanet_softargmin_backward_{form}",
+                      softargmin._BWD_ARGTYPES, P(grad), P(cost), P(out), b, d, h * w,
+                      int(not match), plan.tile, plan.slices, plan.smem_bytes, cost.device.index,
+                      _build.stream(cost))
         return out
 
     if args.out:
@@ -118,9 +135,7 @@ def main() -> int:
                 same = torch.equal(got, again)
                 chip_smoke.check(same, f"{kind} {sig}: two launches differ")
                 del got, again
-                nbytes, flops = spec["cost"](sig)
-                bound = max(nbytes / chip_smoke.PEAK_BYTES_S,
-                            flops / chip_smoke.PEAK_F32_FLOP_S) * 1e3
+                bound = max(chip_smoke.bound_times(spec["cost"](sig)))
                 ms = timer.ms(lambda: op(*ins), iters=10)
                 ms_clean = clean.ms(lambda: op(*ins), iters=10)
                 row = dict(kernel=kind, shape=[b, d, h, w], match_similarity=match, path=path,
@@ -132,6 +147,10 @@ def main() -> int:
                     if kind == "forward":
                         picked = softargmin.forward_plan(b, d, h * w, sms)
                         plans, launch = softargmin.forward_plans(b, d, h * w), launch_forward
+                    elif bf16:
+                        picked = softargmin.backward_plan_bf16(b, d, h * w, sms)
+                        plans = softargmin.backward_plans(b, d, h * w, value_bytes=2)
+                        launch = launch_backward
                     else:
                         picked = softargmin.backward_plan(b, d, h * w, sms)
                         plans, launch = softargmin.backward_plans(b, d, h * w), launch_backward
