@@ -12,7 +12,10 @@
 // Bound: bytes, in both. The forward reads the volume once and writes one
 // value a pixel; the backward reads the volume and g once and writes the
 // volume's gradient once. Each value takes a handful of operations (an
-// expf, a max, two sums), far below the card's 20 operations per byte.
+// expf, a max, two sums), far below the card's 20 operations per byte; but
+// an accurate expf is about ten instructions, and at 2 bytes a value (the
+// bf16 forward) they took as long as the bytes on an H100 (PERF.md section
+// 6), so the bf16 forward takes 2^x from the SFU instead.
 //
 // What holds a soft-argmin back on this card is latency, not bytes: the
 // layout is [B, D, H, W], so one pixel's D values lie a plane apart, and a
@@ -49,14 +52,17 @@
 // each kernel refuses a plan whose shared memory is not its layout's.
 // PERF.md section 6 has the times on an H100 and what holds each.
 //
-// The forward has a bfloat16 form (aanet_softargmin_bf16, the same plan): a
-// bf16 volume, widened to float32 as it is loaded, the softmax and the
-// expectation in float32 and a float32 disparity, as the JAX op computes
-// under a bf16 compute dtype (softargmin.py:28). A thread's quad is four
-// values of 8 bytes there, not 16: the quads and the plan stay the float32
-// form's, and a warp still reads 256 neighbouring bytes of a row at once.
-// Its bytes are half the float32 form's and the rest unchanged. The
-// backward has a bf16 form too (aanet_softargmin_backward_bf16, with a plan
+// The forward has a bfloat16 form, a kernel and a plan of its own
+// (aanet_softargmin_bf16, softargmin_fwd_bf16_kernel, ops/softargmin.py
+// forward_plan_bf16): a bf16 volume, widened to float32 where each value is
+// used, the softmax and the expectation in float32 and a float32 disparity,
+// as the JAX op computes under a bf16 compute dtype (softargmin.py:28). A
+// thread owns 8 pixels and reads a row of them 16 bytes wide, UNROLL rows
+// in flight before their exponentials; the online softmax
+// runs in the log2 domain (an fma and an ex2 a value); the slices merge
+// after one barrier. (The form this replaced was the float32 kernel
+// with 8-byte quads: as many instructions a value on half the bytes, it
+// took longer than the float32 form.) The backward has a bf16 form too (aanet_softargmin_backward_bf16, with a plan
 // of its own, ops/softargmin.py backward_plan_bf16): its slab holds the
 // bf16 volume raw, 2 bytes a value, staged by 8-byte cp.async a quad where
 // the plane is a multiple of 4 (while the quad's g loads are in flight);
@@ -77,17 +83,25 @@
 
 namespace {
 
-constexpr int UNROLL = 8;             // candidates of a slice loaded before the first expf
+constexpr int UNROLL = 8;             // candidates of a slice loaded before the first exp
 constexpr int SLAB_UNROLL = 4;        // the same for the backward, from its slab in shared memory
 constexpr int FWD_TILE = 128;         // pixels of a forward block: 32 quads
 constexpr int FWD_MAX_THREADS = 256;  // __launch_bounds__: the largest block,
 constexpr int FWD_MIN_BLOCKS = 4;     // and the blocks of that size an SM holds
 constexpr int BWD_MAX_THREADS = 256;
 constexpr int BWD_MIN_BLOCKS = 4;
+constexpr int BF16_TILE = 256;         // pixels of a bf16 forward tile: 32 octets
+constexpr int BF16_MAX_THREADS = 256;  // its __launch_bounds__: 8 slices, and such
+constexpr int BF16_MIN_BLOCKS = 3;     // blocks an SM where rows are read 16 bytes wide,
+constexpr int BF16_ODD_MIN_BLOCKS = 2; // and where a value a load (more registers)
 
 // Bytes of the forward's shared memory: the slices' merge slots
 // [slices][2][FWD_TILE] (none for one slice).
 inline int fwd_smem_bytes(int slices) { return slices > 1 ? 4 * 2 * FWD_TILE * slices : 0; }
+
+// Bytes of the bf16 forward's shared memory: the slices' merge slots
+// [slices][3][BF16_TILE] (none for one slice).
+inline int fwd_bf16_smem_bytes(int slices) { return slices > 1 ? 4 * 3 * BF16_TILE * slices : 0; }
 
 // Bytes of the backward's shared memory: the slab [depth][tile] and the
 // slices' merge slots [slices][2][tile].
@@ -100,21 +114,12 @@ inline int bwd_smem_bytes_bf16(int tile, int depth, int slices) {
   return 2 * tile * (depth + 4 * slices);
 }
 
-// Evict-first loads of the volume (each value is read once), widened to
-// float32: one value, and four neighbours (16-byte aligned float32, 8-byte
-// aligned bfloat16).
+// Evict-first loads of the volume (each value is read once): one float32
+// value, and four neighbours (16-byte aligned).
 __device__ __forceinline__ float load_first(const float* p) { return __ldcs(p); }
-
-__device__ __forceinline__ float load_first(const bf16* p) {
-  return __bfloat162float(__ushort_as_bfloat16(__ldcs(reinterpret_cast<const unsigned short*>(p))));
-}
 
 __device__ __forceinline__ float4 load4_first(const float* p) {
   return __ldcs(reinterpret_cast<const float4*>(p));
-}
-
-__device__ __forceinline__ float4 load4_first(const bf16* p) {
-  return widen4(__ldcs(reinterpret_cast<const uint2*>(p)));
 }
 
 // Pixel i of quad q in a tile of TP pixels: 4 neighbours where rows are read
@@ -240,16 +245,16 @@ __device__ __forceinline__ void slice_range(int depth, int slices, int s, int& b
 // Forward. A block: FWD_TILE pixels x all D; thread (quad q, slice s), 32
 // quads a warp, so one warp a slice.
 // ---------------------------------------------------------------------------
-template <bool VEC, typename T>
+template <bool VEC>
 __global__ void __launch_bounds__(FWD_MAX_THREADS, FWD_MIN_BLOCKS)
-softargmin_fwd_kernel(const T* __restrict__ cost, float* __restrict__ out, int depth,
+softargmin_fwd_kernel(const float* __restrict__ cost, float* __restrict__ out, int depth,
                       long long plane, int slices, float sign) {
   extern __shared__ float4 sa_smem[];  // [slices][2][NQ] float4: the merge slots
   constexpr int NQ = FWD_TILE / 4;
   const int q = threadIdx.x % NQ, s = threadIdx.x / NQ;
   const long long p0 = static_cast<long long>(blockIdx.x) * FWD_TILE;
   const long long b = blockIdx.y;
-  const T* c = cost + b * depth * plane + p0;
+  const float* c = cost + b * depth * plane + p0;
   bool in[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) in[i] = p0 + pixel<FWD_TILE, VEC>(q, i) < plane;
@@ -261,7 +266,7 @@ softargmin_fwd_kernel(const T* __restrict__ cost, float* __restrict__ out, int d
     float v[UNROLL][4];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
-      const T* row = c + static_cast<long long>(d0 + u) * plane;
+      const float* row = c + static_cast<long long>(d0 + u) * plane;
       const bool live = d0 + u < end;
       if (VEC) {
         float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -296,6 +301,233 @@ softargmin_fwd_kernel(const T* __restrict__ cost, float* __restrict__ out, int d
     for (int i = 0; i < 4; ++i) {
       if (in[i]) o[pixel<FWD_TILE, VEC>(q, i)] = r[i];
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 forward, a kernel of its own. A block: BF16_TILE pixels of one
+// batch element's plane by all D; thread (octet o, slice s): a warp's 32
+// octets cover the tile, one warp a slice. A thread loads UNROLL rows of its
+// slice at once, 16 bytes a row (8 neighbouring bf16 where the plane is a
+// multiple of 8 and the pointers 16-byte aligned: VEC), else 8 values a row
+// BF16_TILE / 8 pixels apart (a warp's load reads 64 neighbouring bytes),
+// raw into registers, and widens each value exactly where it is used. The
+// online softmax runs in the log2 domain: the running max m of a = v *
+// log2(e) (of -v for a matching cost: NEG, the max taken from the min of v),
+// each value's 2^(a - m) one fma and one ex2, the chunk's max first and the
+// sums rescaled by 2^(m_old - m) once a chunk, from the same rounded maxima,
+// so the rescales and the values agree. The slices publish their (max, sum,
+// weighted sum) triples in shared memory; after one barrier warp s merges
+// the slices of its 1/slices of the tile's pixels in slice order and
+// stores them (no atomics: the same bits every launch).
+// ---------------------------------------------------------------------------
+
+// 2^x by the SFU (ex2.approx: relative error about 2^-22; 0 below 2^-126).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Evict-first loads of raw bf16: 16 bytes (8 values), and one value's bits.
+__device__ __forceinline__ uint4 ldcs16(const bf16* p) {
+  return __ldcs(reinterpret_cast<const uint4*>(p));
+}
+
+__device__ __forceinline__ unsigned ldcs2(const bf16* p) {
+  return __ldcs(reinterpret_cast<const unsigned short*>(p));
+}
+
+// Value i of the 8 bf16 in r (value 0 in the low half of r.x), widened
+// exactly; i a constant once unrolled.
+__device__ __forceinline__ float bf16_at(const uint4& r, int i) {
+  const unsigned w = i < 2 ? r.x : i < 4 ? r.y : i < 6 ? r.z : r.w;
+  return __uint_as_float(i & 1 ? w & 0xffff0000u : w << 16);
+}
+
+// Pixel i of octet o of a tile where rows are not read 16 bytes wide: a
+// warp's loads of one i read 32 neighbouring values.
+__device__ __forceinline__ int pixel_of(int o, int i) { return o + (BF16_TILE / 8) * i; }
+
+// Rows d0 .. d0 + UNROLL - 1 (zeros from `end` on) of octet o of the tile at
+// `c` (the volume at the tile's first pixel of row 0; `left` pixels of the
+// plane from there on), raw.
+template <bool VEC>
+__device__ __forceinline__ void load_rows(uint4 (&raw)[UNROLL], const bf16* c, long long plane,
+                                          long long left, int o, int d0, int end) {
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) {
+    const bf16* row = c + static_cast<long long>(d0 + u) * plane;
+    const bool live = d0 + u < end;
+    if (VEC) {
+      const bool in = 8 * o < left;  // an octet lies wholly inside the plane or beyond it
+      raw[u] = live && in ? ldcs16(row + 8 * o) : make_uint4(0u, 0u, 0u, 0u);
+    } else {
+      unsigned w[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const bool in_i = live && pixel_of(o, i) < left;
+        w[i] = in_i ? ldcs2(row + pixel_of(o, i)) : 0u;
+      }
+      raw[u] = make_uint4(w[0] | w[1] << 16, w[2] | w[3] << 16, w[4] | w[5] << 16, w[6] | w[7] << 16);
+    }
+  }
+}
+
+// The online softmax of an octet in the log2 domain (NEG: of -v).
+template <bool NEG>
+struct Octet {
+  float m[8], sum[8], wsum[8];
+  __device__ __forceinline__ Octet() {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      m[i] = -INFINITY;
+      sum[i] = 0.f;
+      wsum[i] = 0.f;
+    }
+  }
+
+  // Adds candidates d0 .. d0 + UNROLL - 1 from raw; TAIL: only the first n
+  // (>= 1).
+  template <bool TAIL>
+  __device__ __forceinline__ void add(const uint4 (&raw)[UNROLL], int d0, int n) {
+    constexpr float L = NEG ? -1.4426950408889634f : 1.4426950408889634f;  // s * log2(e)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float ext = NEG ? INFINITY : -INFINITY;  // the chunk's min (NEG) or max of v
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        if (!TAIL || u < n) ext = NEG ? fminf(ext, bf16_at(raw[u], i)) : fmaxf(ext, bf16_at(raw[u], i));
+      }
+      const float mx = fmaxf(m[i], ext * L);
+      const float r = ex2(m[i] - mx);  // 0 on the first chunk
+      float s = 0.f, w = 0.f;
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        float e = ex2(fmaf(bf16_at(raw[u], i), L, -mx));
+        if (TAIL) e = u < n ? e : 0.f;
+        s += e;
+        w = fmaf(e, static_cast<float>(d0 + u), w);
+      }
+      sum[i] = fmaf(sum[i], r, s);
+      wsum[i] = fmaf(wsum[i], r, w);
+      m[i] = mx;
+    }
+  }
+
+  // This slice's triples into its slots (slot: [slices][3][BF16_TILE]).
+  __device__ __forceinline__ void publish(float* slot, int s, int o, bool vec) const {
+    auto put = [&](int f, const float (&x)[8]) {
+      float* dst = slot + (s * 3 + f) * BF16_TILE;
+      if (vec) {
+        reinterpret_cast<float4*>(dst + 8 * o)[0] = make_float4(x[0], x[1], x[2], x[3]);
+        reinterpret_cast<float4*>(dst + 8 * o)[1] = make_float4(x[4], x[5], x[6], x[7]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) dst[pixel_of(o, i)] = x[i];
+      }
+    };
+    put(0, m);
+    put(1, sum);
+    put(2, wsum);
+  }
+
+  // One slice: the octet's disparities (0 where the sum is empty, D = 0)
+  // stored straight from the thread.
+  __device__ __forceinline__ void store(float* out, long long left, int o, bool vec) const {
+    float r[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) r[i] = sum[i] > 0.f ? wsum[i] / sum[i] : 0.f;
+    if (vec) {
+      if (8 * o < left) {
+        reinterpret_cast<float4*>(out + 8 * o)[0] = make_float4(r[0], r[1], r[2], r[3]);
+        reinterpret_cast<float4*>(out + 8 * o)[1] = make_float4(r[4], r[5], r[6], r[7]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (pixel_of(o, i) < left) out[pixel_of(o, i)] = r[i];
+      }
+    }
+  }
+};
+
+// The merge of S slices: warp s takes pixels s * BF16_TILE / S .. of the
+// tile, PL = 8 / S neighbours a lane; the largest of the slices' maxima,
+// then each slice's sums rescaled to it (an empty slice's to 0) and added
+// in slice order; the disparities stored (`left`: pixels of the plane from
+// the tile's first on).
+template <int S>
+__device__ __forceinline__ void merge_store(const float* slot, float* out, long long left, int s,
+                                            int lane, bool vec) {
+  constexpr int PL = 8 / S;
+  const int p = s * (BF16_TILE / S) + lane * PL;
+  float r[PL];
+#pragma unroll
+  for (int k = 0; k < PL; ++k) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < S; ++j) mx = fmaxf(mx, slot[j * 3 * BF16_TILE + p + k]);
+    float sum = 0.f, wsum = 0.f;
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      const float* x = slot + j * 3 * BF16_TILE + p + k;
+      const float f = x[0] == -INFINITY ? 0.f : ex2(x[0] - mx);
+      sum = fmaf(x[BF16_TILE], f, sum);
+      wsum = fmaf(x[2 * BF16_TILE], f, wsum);
+    }
+    r[k] = sum > 0.f ? wsum / sum : 0.f;
+  }
+  if (vec && p + PL <= left) {
+    if constexpr (PL == 4) {
+      *reinterpret_cast<float4*>(out + p) = make_float4(r[0], r[1], r[2], r[3]);
+    } else if constexpr (PL == 2) {
+      *reinterpret_cast<float2*>(out + p) = make_float2(r[0], r[1]);
+    } else {
+      out[p] = r[0];
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < PL; ++k) {
+      if (p + k < left) out[p + k] = r[k];
+    }
+  }
+}
+
+template <bool VEC, bool NEG>
+__global__ void __launch_bounds__(BF16_MAX_THREADS, VEC ? BF16_MIN_BLOCKS : BF16_ODD_MIN_BLOCKS)
+softargmin_fwd_bf16_kernel(const bf16* __restrict__ cost, float* __restrict__ out, int depth,
+                           long long plane, int slices) {
+  extern __shared__ float sa_part[];  // [slices][3][BF16_TILE]: the merge slots
+  const int lane = threadIdx.x % 32, s = threadIdx.x / 32;
+  const long long p0 = static_cast<long long>(blockIdx.x) * BF16_TILE, left = plane - p0;
+  const long long b = blockIdx.y;
+  const bf16* c = cost + b * depth * plane + p0;
+  int begin, end;
+  slice_range(depth, slices, s, begin, end);
+  Octet<NEG> st;
+  for (int d0 = begin; d0 < end; d0 += UNROLL) {
+    uint4 raw[UNROLL];
+    load_rows<VEC>(raw, c, plane, left, lane, d0, end);
+    if (d0 + UNROLL <= end) {
+      st.template add<false>(raw, d0, UNROLL);
+    } else {
+      st.template add<true>(raw, d0, end - d0);
+    }
+  }
+  float* o = out + b * plane + p0;
+  if (slices > 1) {
+    st.publish(sa_part, s, lane, VEC);
+    __syncthreads();
+    if (slices == 2) {
+      merge_store<2>(sa_part, o, left, s, lane, VEC);
+    } else if (slices == 4) {
+      merge_store<4>(sa_part, o, left, s, lane, VEC);
+    } else {
+      merge_store<8>(sa_part, o, left, s, lane, VEC);
+    }
+  } else {
+    st.store(o, left, lane, VEC);
   }
 }
 
@@ -466,9 +698,8 @@ int launch_bwd_entry(const float* grad_out, const T* cost, T* grad_cost, int bat
   return static_cast<int>(err);
 }
 
-// The checks and the launch of both forms' entry points (T: the volume's type).
-template <typename T>
-int launch_fwd(const T* cost, float* out, int batch, int depth, long long plane, int negate,
+// The checks and the launch of the float32 forward's entry point.
+int launch_fwd(const float* cost, float* out, int batch, int depth, long long plane, int negate,
                int tile, int slices, int smem_bytes, cudaStream_t stream) {
   if (batch == 0 || plane == 0) return 0;
   const long long tiles = (plane + FWD_TILE - 1) / FWD_TILE;
@@ -480,10 +711,32 @@ int launch_fwd(const T* cost, float* out, int batch, int depth, long long plane,
     return static_cast<int>(cudaErrorInvalidValue);  // the wrapper's plan has another layout
   }
   const bool vec = plane % 4 == 0 && aligned16(cost) && aligned16(out);
-  auto kernel = vec ? softargmin_fwd_kernel<true, T> : softargmin_fwd_kernel<false, T>;
+  auto kernel = vec ? softargmin_fwd_kernel<true> : softargmin_fwd_kernel<false>;
   dim3 grid(static_cast<unsigned int>(tiles), batch);
   kernel<<<grid, (FWD_TILE / 4) * slices, smem_bytes, stream>>>(cost, out, depth, plane, slices,
                                                                  negate ? -1.f : 1.f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The checks and the launch of the bf16 forward's entry point.
+int launch_fwd_bf16(const bf16* cost, float* out, int batch, int depth, long long plane,
+                    int negate, int tile, int slices, int smem_bytes, cudaStream_t stream) {
+  if (batch == 0 || plane == 0) return 0;
+  const long long tiles = (plane + BF16_TILE - 1) / BF16_TILE;
+  if (tile != BF16_TILE || (slices != 1 && slices != 2 && slices != 4 && slices != 8) ||
+      depth < 0 || batch > 65535 || tiles > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (fwd_bf16_smem_bytes(slices) != smem_bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);  // the wrapper's plan has another layout
+  }
+  const bool vec = plane % 8 == 0 && aligned16(cost) && aligned16(out);
+  auto kernel = vec ? (negate ? softargmin_fwd_bf16_kernel<true, true>
+                              : softargmin_fwd_bf16_kernel<true, false>)
+                    : (negate ? softargmin_fwd_bf16_kernel<false, true>
+                              : softargmin_fwd_bf16_kernel<false, false>);
+  dim3 grid(static_cast<unsigned int>(tiles), batch);
+  kernel<<<grid, 32 * slices, smem_bytes, stream>>>(cost, out, depth, plane, slices);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -501,14 +754,17 @@ extern "C" int aanet_softargmin_f32(const float* cost, float* out, int batch, in
                     static_cast<cudaStream_t>(stream));
 }
 
-// The bf16 form: cost bfloat16, out float32, the rest as
-// aanet_softargmin_f32's (the same plan).
+// The bf16 form: cost bfloat16, out float32, the arguments as
+// aanet_softargmin_f32's; a kernel and a plan of its own (ops/softargmin.py
+// forward_plan_bf16): tile (BF16_TILE pixels a block), slices (1, 2, 4 or 8
+// warps a block) and smem_bytes, which must be this layout's. Anything else
+// is cudaErrorInvalidValue.
 extern "C" int aanet_softargmin_bf16(const bf16* cost, float* out, int batch, int depth,
                                      long long plane, int negate, int tile, int slices,
                                      int smem_bytes, int device, void* stream) {
   cudaSetDevice(device);
-  return launch_fwd(cost, out, batch, depth, plane, negate, tile, slices, smem_bytes,
-                    static_cast<cudaStream_t>(stream));
+  return launch_fwd_bf16(cost, out, batch, depth, plane, negate, tile, slices, smem_bytes,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // grad_out: [batch, plane]; cost, grad_cost: [batch, depth, plane]; float32.

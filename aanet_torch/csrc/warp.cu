@@ -13,11 +13,12 @@
 // arithmetic and memory latency are what a thread can lose them on.
 // Design: a 2-D grid, one (b, h) row per (blockIdx.z, blockIdx.y), with
 // 32-bit index arithmetic inside the row (no 64-bit divisions). Each
-// thread takes 4 neighbouring pixels: one float4 load of disp, then the
-// two gathers of every channel for all 4 pixels in flight before the
-// first store (the channel count is a template parameter for C = 3, the
-// image on every path that warps), then float4 stores of each channel's
-// warped run and of the mask. The image row (at most a few KB a channel)
+// thread takes 4 neighbouring pixels: one float4 load of disp (evict-first:
+// each value is read once, and its lines should not displace the image
+// row's), then the two gathers of every channel for all 4 pixels in flight
+// before the first store (the channel count is a template parameter for
+// C = 3, the image on every path that warps), then float4 stores of each
+// channel's warped run and of the mask. The image row (at most a few KB a channel)
 // is served from L1. A row whose width is not a multiple of 4 (rows then
 // start unaligned) and the last partial quad take scalar loads and stores.
 //
@@ -26,6 +27,10 @@
 // positions float32, the blend in float32 from the widened taps, each
 // output rounded to bf16 once, as the JAX op computes under a bf16 compute
 // dtype (warp.py:30,60,66). Its quads are 8 bytes of each channel's row.
+// A bf16 kernel of its own (the block's image rows staged in shared memory
+// by cp.async, runs of 8 pixels, 16-byte stores) was no faster on an H100
+// at the paths' shapes, where a launch costs about as much as the bytes
+// (PERF.md section 6).
 // The backward has a bf16 form too (aanet_warp_backward_bf16): the bf16
 // warped image's gradient and the bf16 image widened as they are loaded,
 // the float32 disparity, the sum over channels in float32, and a float32
@@ -59,12 +64,12 @@ warp_kernel(const T* __restrict__ img, const float* __restrict__ disp,
 
   float d[4] = {0.f, 0.f, 0.f, 0.f};
   if (vec) {
-    const float4 q = *reinterpret_cast<const float4*>(drow + w0);
+    const float4 q = __ldcs(reinterpret_cast<const float4*>(drow + w0));
     d[0] = q.x; d[1] = q.y; d[2] = q.z; d[3] = q.w;
   } else {
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      if (i < n) d[i] = drow[w0 + i];
+      if (i < n) d[i] = __ldcs(drow + w0 + i);
   }
   int x0[4];
   float t[4], ok[4];

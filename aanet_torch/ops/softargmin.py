@@ -10,10 +10,10 @@ Both kernels also have a bfloat16 form (the JAX op under a bf16 compute
 dtype, ``softargmin.py:28``, and the gradient ``jax.vjp`` derives for it):
 a bf16 volume, the softmax, the expectation and their backward in
 float32, a float32 disparity and its float32 gradient, the volume's
-gradient rounded to bf16 once (``aanet_softargmin_bf16``, the float32
-form's plan; ``aanet_softargmin_backward_bf16``, whose slab holds the
-volume raw, 2 bytes a value, and has a plan of its own,
-``backward_plan_bf16``).
+gradient rounded to bf16 once (``aanet_softargmin_bf16``, a kernel of its
+own with its plan, ``forward_plan_bf16``; ``aanet_softargmin_backward_bf16``,
+whose slab holds the volume raw, 2 bytes a value, and has a plan of its
+own, ``backward_plan_bf16``).
 """
 from __future__ import annotations
 
@@ -58,6 +58,22 @@ BWD_ODD_TILE = 128
 BWD_SLICES = (4, 8)
 BWD_DEEP = 96
 BWD_SM_BLOCKS = 8
+# The bf16 forward's (softargmin_fwd_bf16_kernel): a tile of BF16_TILE pixels
+# (32 octets of 8, one warp a slice), 1 to 8 slices, its __launch_bounds__
+# (BF16_MIN_BLOCKS an SM where rows are read 16 bytes wide, else
+# BF16_ODD_MIN_BLOCKS: the builds that take a value a load need more
+# registers);
+# its plan's pick (tools/torch_softargmin_sweep.py --dtype bfloat16 on an
+# H100): slices of at most BF16_SHORT candidates where the grid has fewer
+# than BF16_SM_TILES tiles an SM, else at most BF16_LONG; where the plane is
+# not a multiple of 8 (a value a load), BF16_ODD_SLICES
+BF16_TILE = 256
+BF16_SLICES = (1, 2, 4, 8)
+BF16_MAX_THREADS = 256
+BF16_MIN_BLOCKS, BF16_ODD_MIN_BLOCKS = 3, 2
+BF16_SHORT, BF16_LONG = 8, 24
+BF16_SM_TILES = 3
+BF16_ODD_SLICES = 2
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -65,9 +81,10 @@ def _ceil_div(a: int, b: int) -> int:
 
 
 class ForwardPlan(NamedTuple):
-    """How ``aanet_softargmin_f32`` cuts one volume: a block takes ``tile``
-    pixels of one batch element's plane and all D, split into ``slices``
-    ranges of ceil(D / slices) candidates, one warp each. ``threads`` a
+    """How ``aanet_softargmin_f32`` (and ``aanet_softargmin_bf16``, with its
+    own tile) cuts one volume: a block takes ``tile`` pixels of one batch
+    element's plane and all D, split into ``slices`` ranges of
+    ceil(D / slices) candidates, one warp each. ``threads`` a
     block, ``smem_bytes`` of shared memory, ``blocks`` in the grid."""
 
     tile: int
@@ -96,6 +113,13 @@ def _fwd_smem(slices: int) -> int:
     kernel): the slices' merge slots [slices][2][tile], none for one slice.
     The kernel refuses a plan whose ``smem_bytes`` differ."""
     return 4 * 2 * FWD_TILE * slices if slices > 1 else 0
+
+
+def _fwd_bf16_smem(slices: int) -> int:
+    """Bytes of the bf16 forward's shared memory (``fwd_bf16_smem_bytes``):
+    the slices' float32 merge slots [slices][3][BF16_TILE], none for one
+    slice. The kernel refuses a plan whose ``smem_bytes`` differ."""
+    return 4 * 3 * BF16_TILE * slices if slices > 1 else 0
 
 
 def _bwd_smem(tile: int, depth: int, slices: int, value_bytes: int = 4) -> int:
@@ -143,6 +167,32 @@ def forward_plan(batch: int, depth: int, plane: int, sms: int) -> ForwardPlan:
     plans = forward_plans(batch, depth, plane)[:FWD_SLICES]
     whole = [p for p in plans if _ceil_div(depth, p.slices) % UNROLL == 0]
     return whole[-1] if whole else plans[min(len(plans), max(1, _ceil_div(depth, UNROLL))) - 1]
+
+
+def forward_plans_bf16(batch: int, depth: int, plane: int) -> list[ForwardPlan]:
+    """Every tiling the bf16 forward takes: a tile of BF16_TILE pixels a
+    block, each of BF16_SLICES up to D's candidates (one at D = 0)."""
+    blocks = batch * _ceil_div(plane, BF16_TILE)
+    return [ForwardPlan(BF16_TILE, s, 32 * s, _fwd_bf16_smem(s), blocks)
+            for s in BF16_SLICES if s <= max(depth, 1)]
+
+
+@functools.lru_cache(maxsize=None)
+def forward_plan_bf16(batch: int, depth: int, plane: int, sms: int) -> ForwardPlan:
+    """The bf16 forward's tiling for a volume [batch, depth, plane] on a
+    card of ``sms`` SMs, of ``forward_plans_bf16``: where the plane is a
+    multiple of 8 (rows read 16 bytes wide), the fewest slices whose ranges
+    hold at most BF16_SHORT candidates where the grid has fewer than
+    BF16_SM_TILES tiles an SM (more warps for a short grid), else at most
+    BF16_LONG (fewer merges); the most, 8, where none do. Where it is not,
+    BF16_ODD_SLICES (a warp's loads of a row are 32 values of 2 bytes, and
+    more slices only add merges). ``tools/torch_softargmin_sweep.py --dtype
+    bfloat16`` times it against every other plan."""
+    plans = forward_plans_bf16(batch, depth, plane)
+    if plane % 8:
+        return plans[min(BF16_SLICES.index(BF16_ODD_SLICES), len(plans) - 1)]
+    most = BF16_SHORT if plans[0].blocks < BF16_SM_TILES * sms else BF16_LONG
+    return next((p for p in plans if _ceil_div(depth, p.slices) <= most), plans[-1])
 
 
 @functools.lru_cache(maxsize=None)
@@ -231,7 +281,8 @@ def _forward(cost, match_similarity):
     _build.check_cuda("soft_argmin", cost=(cost, cost.dtype))
     b, d, h, w = cost.shape
     out = torch.empty((b, h, w), dtype=torch.float32, device=cost.device)
-    p = forward_plan(b, d, h * w, _sms(cost))
+    planner = forward_plan_bf16 if form == "bf16" else forward_plan
+    p = planner(b, d, h * w, _sms(cost))
     _build.launch(
         "softargmin", f"aanet_softargmin_{form}", _ARGTYPES,
         _build.ptr(cost), _build.ptr(out), b, d, h * w, int(not match_similarity),

@@ -64,9 +64,9 @@
    non-zero gradient, and three steps on the batch must lower the loss;
 8. the full-width train step: batch 16, 288x576, float32, remat on; the
    launch counts of one step, then the median step time over 10 steps
-   after 3 warm-ups, samples/s, peak memory and the device idle share;
-9. runs ``python -m aanet_torch.cli train`` for 3 steps at batch 16 on a
-   synthetic SceneFlow-layout dataset that it writes itself (48 pairs of
+   after 2 warm-ups, samples/s, peak memory and the device idle share;
+9. runs ``python -m aanet_torch.cli train`` for 2 steps at batch 16 on a
+   synthetic SceneFlow-layout dataset that it writes itself (32 pairs of
    540x960 PNGs with PFM disparities and filename lists), checks the
    losses and the checkpoint, and predicts with the written weights;
 9b. the trained anchor's setting: the ``aanet`` preset at max_disp 48 (ISA
@@ -83,9 +83,9 @@
    twin at those shapes at the full step's batch (the two volume
    backwards bit for bit); then the full-width step at batch 16, halved
    until a step fits the card, with its launch counts per step, the
-   median step time over 5 steps after 3 warm-ups, samples/s, peak
+   median step time over 3 steps after 2 warm-ups, samples/s, peak
    memory, idle share and top device kernels (one profiled step); then
-   ``python -m aanet_torch.cli train`` with the PSMNet baseline's flags for 6 steps
+   ``python -m aanet_torch.cli train`` with the PSMNet baseline's flags for 4 steps
    at batch 8 on phase 9's dataset, and ``predict`` with the weights it
    wrote;
 10b. the 4-D volume kernels (difference and concat, forward and
@@ -172,10 +172,13 @@
    float32 offset and disparity gradients), and the bf16 deform forward at
    those shapes; the bf16 correlation forward (on the tensor cores) and
    backward at ``CORR_EDGE_SHAPES`` and D = 0, the bf16 soft-argmin
-   backward (its slab raw) at ``SA_EDGE_SHAPES`` with both signs; two
+   backward (its slab raw) at ``SA_EDGE_SHAPES`` with both signs, the bf16
+   soft-argmin forward (a kernel of its own) there too and at D = 0, the
+   bf16 warp forward at ``WARP_EDGE_SHAPES``; two
    launches of the deform forward, the weight gradient and the correlation
-   backward bitwise, and of the correlation forward and the soft-argmin
-   backward at every step shape, each timed beside its bound; every backward kernel call of a kernel
+   backward bitwise, and of the correlation forward, the soft-argmin
+   backward and the soft-argmin and warp forwards at every step shape, each
+   timed beside its bound; every backward kernel call of a kernel
    step against its twin on the path's own inputs; the ``aanet`` bf16
    kernel step against the plain bf16 step on phase 7's three seeded
    batches (loss, all gradients and the BatchNorm statistics within 2 times
@@ -209,7 +212,9 @@
    the plain bf16 and the float32 one, its latency beside phase 5b's
    float32 forward; a bf16 kernel step against the plain one at batch 2
    under phase 15's guard; the full-width bf16 step (batch 16 halved until
-   it fits) beside phase 10's float32 step with its top device kernels;
+   it fits) beside phase 10's float32 step with its top device kernels,
+   each bf16 kernel at its shapes (the soft-argmin forward's two launches
+   bitwise);
 17. prints the kernels' JSON line (the bf16 forms too) and, last,
    {"ok": true, "device": ...}.
 
@@ -310,7 +315,7 @@ BASELINES = {
 # both paths): the bias of StereoNet's last 3-D conv adds one constant to
 # every candidate of the volume, and soft-argmin is invariant to that
 ZERO_GRADIENT = {"aggregation.Conv_4.Conv_0.bias"}
-CLI_PAIRS, CLI_HW = 48, (540, 960)  # SceneFlow's image size
+CLI_PAIRS, CLI_HW = 32, (540, 960)  # SceneFlow's image size
 CLI_BASELINE, CLI_BASELINE_BATCH = "psmnet", 8  # phase 10's train entry point
 VAL_HW = (576, 960)  # the SceneFlow recipe's validation crop (pads 540 to 576)
 # The correlation volumes of the paths ((L and R shape), max_disp), by path:
@@ -380,6 +385,18 @@ SA_EDGE_SHAPES = [
                                  (1, 24, 3, 5), (2, 191, 16, 100))
     for match in (True, False)
 ]
+# The warps of the paths (the right image [B, 3, H, W] at each refinement's
+# scale), by path: the aanet train step's two (each launched twice, remat
+# recomputing its refinement) and inference's two; aanet+, psmnet-aa and
+# ganet-aa warp at the same shapes, gcnet-aa at the second only
+WARP_PATHS = {
+    "aanet step": ((16, 3, 288, 576), (16, 3, 144, 288)),
+    "aanet inference": ((1, 3, 384, 1248), (1, 3, 192, 624)),
+}
+# and the widths beyond them, none a multiple of 8 (all but 1244 not of 4:
+# rows unaligned, a last partial quad; 2: the narrowest image the warp
+# takes), at batch 2
+WARP_EDGE_SHAPES = [(2, 3, 5, w) for w in (2, 9, 63, 575, 1244)] + [(2, 3, 37, 61)]
 # The 4-D volumes of the paths (([B, C, H, W] of L and R, D), concat), by
 # path: the baselines' at inference (384x1248: PSMNet, either aggregation,
 # and GC-Net concat, StereoNet difference) and in their train steps
@@ -2234,12 +2251,14 @@ def train_phases(specs, bwd_specs, gen, dev, timer, smi, data, lists):
 
 
 def time_steps(step, batch, metrics, dev, top, timed=10, profiled=2):
-    """After ``step``'s first run on ``batch`` (its ``metrics``): two more
-    warm-ups, the median step time over ``timed`` steps (CUDA events),
-    samples/s, the losses (all finite), the peak memory of one step and the
-    device breakdown of ``profiled``."""
+    """After ``step``'s first run on ``batch`` (its ``metrics``): one more
+    warm-up, the median step time over ``timed`` steps (CUDA events),
+    samples/s, the losses (all finite), the peak memory of those steps and
+    the device breakdown of ``profiled``."""
     n = batch["left"].shape[0]
-    step_losses = [metrics["total_loss"]] + [step(batch)["total_loss"] for _ in range(2)]
+    step_losses = [metrics["total_loss"], step(batch)["total_loss"]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     times = []
     for _ in range(timed):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2252,9 +2271,6 @@ def time_steps(step, batch, metrics, dev, top, timed=10, profiled=2):
     step_ms = statistics.median(s.elapsed_time(e) for s, e in times)
     step_losses = [float(x) for x in step_losses]
     check(all(np.isfinite(step_losses)), f"non-finite losses {step_losses}")
-    torch.cuda.reset_peak_memory_stats(dev)
-    step(batch)
-    torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(dev)
     device = device_breakdown(lambda: step(batch), iters=profiled, top=top)
     return dict(step_ms=step_ms, samples_per_s=n / step_ms * 1e3,
@@ -2368,9 +2384,9 @@ def baseline_train_phases(specs, bwd_specs, gen, dev, timer, smi, data, lists):
         n = batch["left"].shape[0]
         print(f"{name} train-step launches at batch {n}: {counts}", flush=True)
         check(counts == expected, f"{name}: train-step launches {counts}, expected {expected}")
-        # five timed steps and one profiled: these device-bound steps
+        # three timed steps and one profiled: these device-bound steps
         # repeat within 1 %
-        timed = time_steps(step, batch, metrics, dev, top=15, timed=5, profiled=1)
+        timed = time_steps(step, batch, metrics, dev, top=15, timed=3, profiled=1)
         del model, step, batch
         torch.cuda.empty_cache()
 
@@ -2495,9 +2511,9 @@ def adaptive_preset_phases(presets, full_step, specs, bwd_specs, gen, dev, timer
             n = batch["left"].shape[0]
             print(f"{name} train-step launches at batch {n}: {counts}", flush=True)
             check(counts == expected, f"{name}: train-step launches {counts}, expected {expected}")
-            # five timed steps and one profiled, as phase 10's
+            # three timed steps and one profiled, as phase 10's
             record.update(batch=n, batches_out_of_memory=refused, launches=counts,
-                          **time_steps(step, batch, metrics, dev, top=15, timed=5, profiled=1))
+                          **time_steps(step, batch, metrics, dev, top=15, timed=3, profiled=1))
             del model, step, batch
             torch.cuda.empty_cache()
             # each kernel against its twin at the full step's shapes
@@ -3041,6 +3057,7 @@ def bf16_training_phases(specs, bwd_specs, specs16, bwd16, gen, dev, timer, smi,
     for sig in SA_EDGE_SHAPES:
         edges.append(dict(measure(sa16, sig, 1, gen, dev, timer, timed=False), kernel=sa16["name"],
                           case="beyond the path"))
+    edges += bf16_forward_edge_cases(specs, specs16, shapes, gen, dev, timer)
     print(json.dumps({"bf16_backward_edge_cases": edges}), flush=True)
     t_a = time.perf_counter()
 
@@ -3095,6 +3112,40 @@ def bf16_training_phases(specs, bwd_specs, specs16, bwd16, gen, dev, timer, smi,
     print(f"phase 15: (a) {t_a - t0:.1f} s, (b) {t_b - t_a:.1f} s, (c) "
           f"{time.perf_counter() - t_b:.1f} s", flush=True)
     return out
+
+
+def bf16_forward_edge_cases(specs, specs16, shapes, gen, dev, timer):
+    """Phase 15(a) for the bf16 soft-argmin and warp forwards: at every
+    shape of the steps ``shapes`` recorded, at the full step's batch, two
+    launches give the same bits (timed beside the bound); the soft-argmin
+    against its twin at ``SA_EDGE_SHAPES`` (both signs; planes not a
+    multiple of 8 take a value a load) with its float32 form's tolerance,
+    and zeros at D = 0; the warp at ``WARP_EDGE_SHAPES``."""
+    sa32 = next(s for s in specs if s["name"] == "soft_argmin")
+    sa_fwd = dict(next(s for s in specs16 if s["name"] == "soft_argmin_bf16"), tol=sa32["tol"],
+                  tol_text=sa32["tol_text"])
+    warp16 = next(s for s in specs16 if s["name"] == "disp_warp_bf16")
+    edges = []
+    for spec in (sa_fwd, warp16):
+        sigs = {rebatch(sig, TRAIN_BATCH) for first in shapes.values() for sig in first[spec["name"]]}
+        for sig in sorted(sigs, key=str):
+            edges.append(dict(same_bits_timed(spec, sig, gen, dev, timer),
+                              case="step shape: two launches, bitwise; timed"))
+    for sig in SA_EDGE_SHAPES:
+        edges.append(dict(measure(sa_fwd, sig, 1, gen, dev, timer, timed=False), kernel=sa_fwd["name"],
+                          case="beyond the path"))
+    op = getattr(sa_fwd["module"], sa_fwd["attr"])
+    for match in (True, False):
+        disp = op(torch.randn((2, 0, 6, 10), generator=gen, device=dev).to(torch.bfloat16), match)
+        torch.cuda.synchronize()
+        check(disp.shape == (2, 6, 10) and torch.equal(disp, torch.zeros_like(disp)),
+              f"soft_argmin_bf16 at D = 0: {disp}, expected zeros")
+        edges.append(dict(kernel=sa_fwd["name"], case="D = 0: zeros", shape=str(((2, 0, 6, 10), match)),
+                          max_err=float(disp.abs().max()), tolerance=0.0))
+    for shape in WARP_EDGE_SHAPES:
+        edges.append(dict(measure(warp16, (shape,), 1, gen, dev, timer, timed=False),
+                          kernel=warp16["name"], case="width not a multiple of 8"))
+    return edges
 
 
 def bf16_volume_specs(specs, bwd_specs):
@@ -3291,6 +3342,9 @@ def bf16_volume_phases(specs, bwd_specs, specs16, vol16, gen, dev, timer, smi, l
                                      iters=10) for sig, k in first[sp["name"]].items()] for sp in fwd16}
         rows.update({sp["name"]: [measure(sp, rebatch(sig, n), k, gen, dev, timer, iters=10)
                                   for sig, k in first[sp["forward"]].items()] for sp in bwd16 + [sa_bwd16]})
+        for sig in first[sa16["name"]]:  # the bf16 soft-argmin forward: two launches bitwise
+            check(same_bits(sa16, rebatch(sig, n), gen, dev),
+                  f"soft_argmin_bf16 {rebatch(sig, n)}: two launches on the same inputs differ")
         steps[f"{name} bf16 step"] = dict(rows=rows, launches=counts, step=record)
         torch.set_grad_enabled(False)
         torch.cuda.empty_cache()
@@ -3472,9 +3526,12 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
 
     # 2. build
-    t0 = time.perf_counter()
+    start = time.perf_counter()
     _build.build()
-    print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"kernels built in {time.perf_counter() - start:.1f} s", flush=True)
+
+    def elapsed(done):
+        print(f"{done} at {time.perf_counter() - start:.1f} s", flush=True)
 
     specs, bwd_specs = kernel_specs()
     timer = Timer(dev)
@@ -3537,6 +3594,7 @@ def main() -> int:
 
     # 5b. the 3-D-aggregation baselines and stereonet-aa
     baselines = baseline_phases(specs, gen, dev, timer, smi, left, right)
+    elapsed("phases 1-5b done")
     del model
     torch.cuda.empty_cache()
 
@@ -3545,8 +3603,10 @@ def main() -> int:
         train = train_phases(specs, bwd_specs, gen, dev, timer, smi, data, lists)
         torch.cuda.empty_cache()
         anchor_phase(specs, gen, dev, left, right)
+        elapsed("phases 6-9b done")
         baseline_train = baseline_train_phases(specs, bwd_specs, gen, dev, timer, smi, data, lists)
         torch.cuda.empty_cache()
+        elapsed("phase 10 done")
 
         # 10b. the 4-D volume kernels beyond the paths
         by_name = {s["name"]: s for s in specs + bwd_specs}
@@ -3561,9 +3621,11 @@ def main() -> int:
         aa, aa_train = adaptive_preset_phases(AA_PRESETS, AA_FULL_STEP, specs, bwd_specs, gen, dev,
                                               timer, smi, left, right)
         torch.cuda.empty_cache()
+        elapsed("phases 10b-11 done")
 
         # 12. the trained anchor through the evaluate and inference entry points
         anchor = anchor_entry_points(specs, smi)
+        elapsed("phase 12 done")
 
         # 13. aanet+ and ganet-aa, then aanet+'s train entry point and its resume
         plus, plus_train = adaptive_preset_phases(PLUS_PRESETS, PLUS_FULL_STEP, specs, bwd_specs,
@@ -3572,6 +3634,7 @@ def main() -> int:
         plus_cli = cli_train_and_resume(data, lists, PLUS_FULL_STEP,
                                         plus_train[PLUS_FULL_STEP]["batch"])
         print(json.dumps({"plus_cli_train": plus_cli}), flush=True)
+        elapsed("phase 13 done")
 
     # 14. bf16 serving: aanet and aanet+ in bfloat16, the anchor's evaluate
     # and inference in bf16, and bf16 training refused
@@ -3584,6 +3647,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     anchor_bf16_entry_points(anchor, smi)
     print(f"phase 14 took {time.perf_counter() - t14:.1f} s", flush=True)
+    elapsed("phase 14 done")
 
     # 15. bf16 training: the bf16 backward kernels, the kernel step against
     # the plain one, the full-width steps, the train entry point from the anchor
@@ -3607,6 +3671,7 @@ def main() -> int:
         by_name["deform_conv_backward_data"], train["rows"]["deform_conv_backward_data"], gen,
         dev)}), flush=True)
     print(f"phase 15 took {time.perf_counter() - t15:.1f} s", flush=True)
+    elapsed("phase 15 done")
 
     # 16. the 4-D volumes in bf16: PSMNet (both aggregations), StereoNet and
     # GC-Net serve and train in bfloat16
@@ -3617,6 +3682,7 @@ def main() -> int:
     del left, right
     torch.cuda.empty_cache()
     print(f"phase 16 took {time.perf_counter() - t16:.1f} s", flush=True)
+    elapsed("phase 16 done")
 
     # 17. the record
     kernels = kernels_record(specs + bwd_specs, report, counts_main, train,

@@ -22,23 +22,30 @@ candidate (the timer's floor for one launch). A line per shape and kernel
 goes to standard output and, with ``--out``, its JSON record (with every
 plan's time) to a file. With ``--dtype bfloat16`` the same for the bf16
 forms (a bf16 volume; the forward within the float32 form's tolerance, the
-backward within one bf16 ulp of max|ref|): the forward under the float32 form's plans, the
-backward under its own, ``backward_plan_bf16`` picked from
-``backward_plans(..., value_bytes=2)`` (the raw bf16 slab). ``--quick``
-times the picked plans only.
+backward within one bf16 ulp of max|ref|): the forward, a kernel of its
+own, under ``forward_plan_bf16`` picked from ``forward_plans_bf16``
+(tiles of 256 pixels, 1 to 8 slices), the backward under ``backward_plan_bf16``
+picked from ``backward_plans(..., value_bytes=2)`` (the raw bf16 slab).
+``--quick`` times the picked plans only.
 
 With ``--package DIR`` the kernels timed are those of the ``aanet_torch``
 package in DIR (an older checkout, e.g. a ``git archive`` of the parent
 commit unpacked under ``_archive/``), through its wrappers at its own
 tilings, at the same shapes and held against its twins: no plans are swept.
+For the float32 forms this tree's ``softargmin.cu`` is built too and its
+kernels, launched at the package's plans, must give the package's bits; they
+are timed beside the package's in the same process, on the same inputs, in
+turns (package, this, this, package).
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import subprocess
 import sys
+import tempfile
 
 import torch
 
@@ -119,6 +126,33 @@ def main() -> int:
                       _build.stream(cost))
         return out
 
+    # this tree's float32 kernels, to be held bit for bit against an older package's
+    this, tmp = None, tempfile.TemporaryDirectory()
+    if args.package and not bf16:
+        lib = os.path.join(tmp.name, "libsoftargmin_this.so")
+        subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", lib,
+                        os.path.join(ROOT, "aanet_torch", "csrc", "softargmin.cu")], check=True)
+        this = ctypes.CDLL(lib)
+        this.aanet_softargmin_f32.argtypes = softargmin._ARGTYPES
+        this.aanet_softargmin_backward_f32.argtypes = softargmin._BWD_ARGTYPES
+
+    def this_tree(kind, ins):
+        """This tree's float32 kernel at the package's plan."""
+        if kind == "forward":
+            cost, match = ins
+            b, d, h, w = cost.shape
+            plan, fn, args_ = softargmin.forward_plan(b, d, h * w, sms), this.aanet_softargmin_f32, ()
+            out_ = torch.empty((b, h, w), device=cost.device)
+        else:
+            grad, cost, match = ins
+            b, d, h, w = cost.shape
+            plan, fn = softargmin.backward_plan(b, d, h * w, sms), this.aanet_softargmin_backward_f32
+            out_, args_ = torch.empty_like(cost), (P(grad),)
+        err = fn(*args_, P(cost), P(out_), b, d, h * w, int(not match), plan.tile, plan.slices,
+                 plan.smem_bytes, cost.device.index, _build.stream(cost))
+        chip_smoke.check(err == 0, f"this tree's {kind}: CUDA error {err}")
+        return out_
+
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     totals = {}
@@ -134,17 +168,28 @@ def main() -> int:
                 err, tol = errors(got, want, spec["tol"])
                 same = torch.equal(got, again)
                 chip_smoke.check(same, f"{kind} {sig}: two launches differ")
+                if this is not None:
+                    chip_smoke.check(torch.equal(this_tree(kind, ins), got),
+                                     f"{kind} {sig}: this tree's float32 kernel gives other bits")
                 del got, again
                 bound = max(chip_smoke.bound_times(spec["cost"](sig)))
                 ms = timer.ms(lambda: op(*ins), iters=10)
                 ms_clean = clean.ms(lambda: op(*ins), iters=10)
                 row = dict(kernel=kind, shape=[b, d, h, w], match_similarity=match, path=path,
                            err=err, tol=tol, identical=same, ms=ms, ms_clean_l2=ms_clean,
-                           bound_ms=bound, card=smi)
+                           bound_ms=bound, card=smi, this_tree_bits_equal=this is not None or None)
+                if this is not None:
+                    row["in_turns"] = [timer.ms(fn, iters=10) for fn in (
+                        lambda: op(*ins), lambda: this_tree(kind, ins), lambda: this_tree(kind, ins),
+                        lambda: op(*ins))]
                 totals[(path, kind)] = totals.get((path, kind), 0.0) + ms
                 best = ""
                 if sweep:
-                    if kind == "forward":
+                    if kind == "forward" and bf16:
+                        picked = softargmin.forward_plan_bf16(b, d, h * w, sms)
+                        plans = softargmin.forward_plans_bf16(b, d, h * w)
+                        launch = launch_forward
+                    elif kind == "forward":
                         picked = softargmin.forward_plan(b, d, h * w, sms)
                         plans, launch = softargmin.forward_plans(b, d, h * w), launch_forward
                     elif bf16:
@@ -163,8 +208,11 @@ def main() -> int:
                     row.update(picked=picked._asdict(), plans=rows)
                     best = f" ({picked.tile}/{picked.slices}); best {rows[0]}"
                 out.write(json.dumps(row) + "\n")
+                turns = (", in turns with this tree's (package, this, this, package) "
+                         + ", ".join(f"{t:.4f}" for t in row["in_turns"])) if this is not None else ""
                 print(f"{kind} {sig} ({path}): err {err:.3g} (tol {tol:.3g}) {ms:.4f} ms "
-                      f"({ms_clean:.4f} after a clean flush), bound {bound:.4f}{best}", flush=True)
+                      f"({ms_clean:.4f} after a clean flush), bound {bound:.4f}{best}{turns}",
+                      flush=True)
                 del ins, want
                 torch.cuda.empty_cache()
     # the timer's floor for one launch: a volume of one candidate and one tile
@@ -175,6 +223,9 @@ def main() -> int:
               f"({clean.ms(lambda: op(*ins), iters=10):.4f} after a clean flush)", flush=True)
     print("per path, one launch of each listed shape, ms: "
           + json.dumps({" / ".join(k): v for k, v in totals.items()}), flush=True)
+    if this is not None:
+        print("this tree's float32 kernels gave the package's bits at every shape", flush=True)
+    tmp.cleanup()
     return 0
 
 
