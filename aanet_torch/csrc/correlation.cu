@@ -1,5 +1,5 @@
 // Correlation cost volume, forward and backward, on the CUDA cores (the
-// bf16 forward on the tensor cores):
+// bf16 forms on the tensor cores):
 //   cost[b, d, h, w] = (1/C) sum_c L[b, c, h, w] * R[b, c, h, w - d],
 //   and 0 where w < d; the backward gives dL and dR from g = d loss / d cost.
 //
@@ -95,11 +95,6 @@ __device__ __forceinline__ void for_each_unit(int rows, int cols, F f) {
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-
-// Four raw bf16 values of shared memory (8-byte aligned), widened.
-__device__ __forceinline__ float4 ld4(const bf16* p) {
-  return widen4(*reinterpret_cast<const uint2*>(p));
 }
 
 constexpr int FWD_CW = 4;             // columns of a thread's register tile
@@ -381,7 +376,7 @@ constexpr int MMA_MAX_THREADS = 256;    // __launch_bounds__: the largest block,
 constexpr int MMA_MIN_BLOCKS = 2;       // and the blocks of that size an SM holds
 
 // bf16 values of a staged row of n: an odd number of 16-byte pieces.
-inline int mma_row(int n) {
+__host__ __device__ inline int mma_row(int n) {
   int pieces = (n + 7) / 8;
   if (pieces % 2 == 0) ++pieces;
   return 8 * pieces;
@@ -395,6 +390,51 @@ inline int fwd_mma_smem_bytes(int tw, int max_disp, int chunk) {
   const int stage = 2 * chunk * (mma_row(tw) + mma_row(tw + dtot));
   const int band = max_disp * mma_row(tw);
   return 2 * (stage > band ? stage : band);
+}
+
+// `piece` raw bf16 values (8, 4, 2 or 1) from src into shared memory, zeros
+// where !in (src is then not read but must be a valid address): by one
+// cp.async of 16, 8 or 4 bytes (both ends aligned to its size), or a load
+// and a store.
+__device__ __forceinline__ void stage_piece(bf16* dst, const bf16* src, bool in, int piece) {
+  if (piece == 8) {
+    cp_async_16(dst, src, in ? 16 : 0);
+  } else if (piece == 4) {
+    cp_async_8(dst, src, in ? 8 : 0);
+  } else if (piece == 2) {
+    cp_async_4(dst, src, in ? 4 : 0);
+  } else {
+    *dst = in ? *src : __ushort_as_bfloat16(0);
+  }
+}
+
+// `piece` bf16 values from shared memory to dst, one store, both ends
+// aligned to its size.
+__device__ __forceinline__ void copy_piece(bf16* dst, const bf16* src, int piece) {
+  if (piece == 8) {
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+  } else if (piece == 4) {
+    *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+  } else if (piece == 2) {
+    *reinterpret_cast<unsigned*>(dst) = *reinterpret_cast<const unsigned*>(src);
+  } else {
+    *dst = *src;
+  }
+}
+
+// The values a copy of a bf16 kernel's rows: 8 where W is a multiple of 8
+// and every pointer 16-byte aligned, 4 where W is a multiple of 4 and every
+// pointer 8-byte aligned, 2 where W is even and every pointer 4-byte
+// aligned, else 1 (rows of W values start at a multiple of W).
+template <typename... P>
+int mma_piece(int width, const P*... ptrs) {
+  const auto aligned = [&](unsigned long long bytes) {
+    return ((reinterpret_cast<unsigned long long>(ptrs) % bytes == 0) && ...);
+  };
+  return width % 8 == 0 && aligned(16)  ? 8
+         : width % 4 == 0 && aligned(8) ? 4
+         : width % 2 == 0 && aligned(4) ? 2
+                                        : 1;
 }
 
 template <int NTG>
@@ -435,17 +475,8 @@ corr_fwd_mma_kernel(const bf16* __restrict__ left, const bf16* __restrict__ righ
       for_each_unit(chunk, cols / piece, [&](int cc, int q) {
         const int w = first + piece * q;
         const bool in = c0 + cc < channels && w >= 0 && w < width;
-        bf16* dst = dst0 + cc * stride + piece * q;
-        const bf16* src = in ? row + (c0 + cc) * plane + w : any;
-        if (piece == 8) {
-          cp_async_16(dst, src, in ? 16 : 0);
-        } else if (piece == 4) {
-          cp_async_8(dst, src, in ? 8 : 0);
-        } else if (piece == 2) {
-          cp_async_4(dst, src, in ? 4 : 0);
-        } else {
-          *dst = in ? *src : __ushort_as_bfloat16(0);
-        }
+        stage_piece(dst0 + cc * stride + piece * q, in ? row + (c0 + cc) * plane + w : any, in,
+                    piece);
       });
     };
     rows(sl, ls, lrow, left, w0, tw);
@@ -526,17 +557,7 @@ corr_fwd_mma_kernel(const bf16* __restrict__ left, const bf16* __restrict__ righ
   for_each_unit(max_disp, tw / piece, [&](int d, int q) {
     const int j = piece * q;
     if (j >= ncol) return;
-    bf16* o = ob + d * plane + j;
-    const bf16* v = band + d * ls + j;
-    if (piece == 8) {
-      *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(v);
-    } else if (piece == 4) {
-      *reinterpret_cast<uint2*>(o) = *reinterpret_cast<const uint2*>(v);
-    } else if (piece == 2) {
-      *reinterpret_cast<unsigned*>(o) = *reinterpret_cast<const unsigned*>(v);
-    } else {
-      *o = *v;
-    }
+    copy_piece(ob + d * plane + j, band + d * ls + j, piece);
   });
 }
 
@@ -569,18 +590,7 @@ int launch_corr_fwd_mma(const bf16* left, const bf16* right, bf16* out, int batc
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  // values a copy: 8 where every 8-column piece of a row is 16-byte
-  // aligned, 4 where every quad is 8-byte aligned, 2 where every pair is
-  // 4-byte aligned, else 1
-  const auto aligned = [&](unsigned long long bytes) {
-    return (reinterpret_cast<unsigned long long>(left) % bytes == 0 &&
-            reinterpret_cast<unsigned long long>(right) % bytes == 0 &&
-            reinterpret_cast<unsigned long long>(out) % bytes == 0);
-  };
-  const int piece = width % 8 == 0 && aligned(16)  ? 8
-                    : width % 4 == 0 && aligned(8) ? 4
-                    : width % 2 == 0 && aligned(4) ? 2
-                                                   : 1;
+  const int piece = mma_piece(width, left, right, out);
   const int dtot = (max_disp + 7) / 8 * 8;
   dim3 grid((width + tw - 1) / tw, height, batch);
   kernel<<<grid, threads, smem_bytes, stream>>>(left, right, out, channels, height, width, max_disp,
@@ -636,19 +646,8 @@ extern "C" int aanet_correlation_bf16(const bf16* left, const bf16* right, bf16*
 // both gradients (4 x 4 each, the same 32 sums) loads 64. Then dL and dR
 // are written once, coalesced. The tiling is the plan of ops/cost_volume.py
 // backward_plan; the kernel refuses a plan whose shared memory is not its
-// layout's.
-//
-// The bf16 form (T = bf16: g, L, R, dL and dR in bfloat16) stages g, L and
-// R raw, in bfloat16, with cp.async (8-byte quads where the width allows;
-// a pair, or a value by a load and a store, where the skewed gradient
-// tile's row is not quad-aligned), double-buffered as the float32 form, and
-// widens each quad where a thread loads it from shared memory: half the
-// shared memory and half the bytes a load of the float32 form, with the
-// next chunk's copy in flight (the float32 form's staging, widened through
-// registers, was not). Its plan (ops/cost_volume.py backward_plan_bf16)
-// takes the halved layout. The sums run in float32 in the same order, and
-// dL and dR are rounded to bf16 once, where they are stored. Without
-// atomics it gives the same bits every launch, as the float32 form does.
+// layout's. The bf16 form is a kernel of its own, on the tensor cores
+// (corr_bwd_mma_kernel, below).
 // ---------------------------------------------------------------------------
 namespace {
 
@@ -659,36 +658,16 @@ constexpr int BWD_DSTEP = 8;          // disparities of one trip of the slide (t
 constexpr int BWD_MAX_THREADS = 256;  // __launch_bounds__: the largest block,
 constexpr int BWD_MIN_BLOCKS = 2;     // and the blocks of that size an SM holds
 
-// Values of the backward's shared memory (float32 words, or raw bf16): the
-// two gradient tiles [dtot][bw] and two buffers of a chunk's right and left
-// windows [chunk][bw + dtot].
+// Words of the backward's shared memory: the two gradient tiles [dtot][bw]
+// and two buffers of a chunk's right and left windows [chunk][bw + dtot].
 inline int bwd_smem_words(int bw, int dtot, int chunk) {
   return 2 * dtot * bw + 2 * 2 * chunk * (bw + dtot);
 }
 
-// The bf16 backward's staging of a quad of columns, raw: by one 8-byte
-// cp.async (`quad`: the source is 8-byte aligned and wholly inside the row
-// or outside), by two 4-byte ones (`pair`: 4-byte aligned, each pair inside
-// or outside) or value by value (a load and a store); in[i]: whether
-// column i is inside (src is read only where it is; any: a valid address).
-__device__ __forceinline__ void stage_quad(bf16* dst, const bf16* src, const bf16* any,
-                                           const bool (&in)[4], bool quad, bool pair) {
-  if (quad) {
-    cp_async_8(dst, in[0] ? src : any, in[0] ? 8 : 0);
-  } else if (pair) {
-    cp_async_4(dst, in[0] ? src : any, in[0] ? 4 : 0);
-    cp_async_4(dst + 2, in[2] ? src + 2 : any, in[2] ? 4 : 0);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dst[i] = in[i] ? src[i] : __ushort_as_bfloat16(0);
-  }
-}
-
 // Four disparities d0 .. d0 + 3 of dL for BWD_CC channels: the right
 // window [rn, ro] is columns w - d0 - 4 .. w - d0 + 3 of the thread's first
-// column w; g quads at g + d * bw (float32, or raw bf16 widened).
-template <typename S>
-__device__ __forceinline__ void turn_left(float (&acc)[BWD_CC][BWD_CW], const S* g, int bw,
+// column w; g quads at g + d * bw.
+__device__ __forceinline__ void turn_left(float (&acc)[BWD_CC][BWD_CW], const float* g, int bw,
                                           int d0, const float4 (&rn)[BWD_CC],
                                           const float4 (&ro)[BWD_CC]) {
 #pragma unroll
@@ -706,8 +685,7 @@ __device__ __forceinline__ void turn_left(float (&acc)[BWD_CC][BWD_CW], const S*
 
 // The same for dR: the left window [lc, ln] is columns w + d0 .. w + d0 + 7;
 // g quads (the skewed copy) at g + d * bw.
-template <typename S>
-__device__ __forceinline__ void turn_right(float (&acc)[BWD_CC][BWD_CW], const S* g, int bw,
+__device__ __forceinline__ void turn_right(float (&acc)[BWD_CC][BWD_CW], const float* g, int bw,
                                            int d0, const float4 (&lc)[BWD_CC],
                                            const float4 (&ln)[BWD_CC]) {
 #pragma unroll
@@ -723,19 +701,18 @@ __device__ __forceinline__ void turn_right(float (&acc)[BWD_CC][BWD_CW], const S
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(BWD_MAX_THREADS, BWD_MIN_BLOCKS)
-corr_bwd_kernel(const T* __restrict__ grad, const T* __restrict__ left,
-                const T* __restrict__ right, T* __restrict__ grad_left,
-                T* __restrict__ grad_right, int channels, int height, int width,
+corr_bwd_kernel(const float* __restrict__ grad, const float* __restrict__ left,
+                const float* __restrict__ right, float* __restrict__ grad_left,
+                float* __restrict__ grad_right, int channels, int height, int width,
                 int max_disp, int bw, int dtot, int chunk, bool vec) {
   extern __shared__ float4 corr_smem[];
-  T* smem = reinterpret_cast<T*>(corr_smem);  // float32, or raw bf16 widened where read
+  float* smem = reinterpret_cast<float*>(corr_smem);
   const int ncg = chunk / BWD_CC;  // channel groups
   const int ww = bw + dtot;        // window width
-  T* s_gl = smem;                   // [dtot][bw]: g[d][w0 + j]
-  T* s_gr = smem + dtot * bw;       // [dtot][bw]: g[d][w0 + j + d]
-  T* s_win = smem + 2 * dtot * bw;  // two buffers of {R [chunk][ww], L [chunk][ww]}
+  float* s_gl = smem;                   // [dtot][bw]: g[d][w0 + j]
+  float* s_gr = smem + dtot * bw;       // [dtot][bw]: g[d][w0 + j + d]
+  float* s_win = smem + 2 * dtot * bw;  // two buffers of {R [chunk][ww], L [chunk][ww]}
   const int stage_words = 2 * chunk * ww;
 
   // thread -> gradient (0: dL, 1: dR; whole warps), channel group cg,
@@ -752,71 +729,44 @@ corr_bwd_kernel(const T* __restrict__ grad, const T* __restrict__ left,
   const long long b = blockIdx.z;
   const long long plane = static_cast<long long>(height) * width;
   const long long row = static_cast<long long>(h) * width;
-  const T* gb = grad + b * max_disp * plane + row;
-  const T* lb = left + b * channels * plane + row;
-  const T* rb = right + b * channels * plane + row;
+  const float* gb = grad + b * max_disp * plane + row;
+  const float* lb = left + b * channels * plane + row;
+  const float* rb = right + b * channels * plane + row;
 
   // the gradient tiles, once
-  if constexpr (is_bf16<T>) {
-    for_each_unit(dtot, bw / 4, [&](int d, int q) {
-      const int j = 4 * q, w = w0 + j;
-      bool in_l[4], in_r[4];
+  for_each_unit(dtot, bw / 4, [&](int d, int q) {
+    const int j = 4 * q, w = w0 + j;
+    float* dst_l = s_gl + d * bw + j;
+    float* dst_r = s_gr + d * bw + j;
+    if (vec) {
+      const bool in = d < max_disp && w < width;
+      stage4(dst_l, in ? gb + d * plane + w : grad, in);
+    } else {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        in_l[i] = d < max_disp && w + i < width;
-        in_r[i] = d < max_disp && w + d + i < width;
+        const bool in = d < max_disp && w + i < width;
+        stage1(dst_l + i, in ? gb + d * plane + w + i : grad, in);
       }
-      stage_quad(s_gl + d * bw + j, gb + d * plane + w, grad, in_l, vec, false);
-      stage_quad(s_gr + d * bw + j, gb + d * plane + w + d, grad, in_r, vec && d % 4 == 0,
-                 vec && d % 2 == 0);
-    });
-  } else {
-    for_each_unit(dtot, bw / 4, [&](int d, int q) {
-      const int j = 4 * q, w = w0 + j;
-      float* dst_l = s_gl + d * bw + j;
-      float* dst_r = s_gr + d * bw + j;
-      if (vec) {
-        const bool in = d < max_disp && w < width;
-        stage4(dst_l, in ? gb + d * plane + w : grad, in);
-      } else {
+    }
+    if (vec && d % 4 == 0) {
+      const bool in = d < max_disp && w + d < width;
+      stage4(dst_r, in ? gb + d * plane + w + d : grad, in);
+    } else {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const bool in = d < max_disp && w + i < width;
-          stage1(dst_l + i, in ? gb + d * plane + w + i : grad, in);
-        }
+      for (int i = 0; i < 4; ++i) {
+        const bool in = d < max_disp && w + d + i < width;
+        stage1(dst_r + i, in ? gb + d * plane + w + d + i : grad, in);
       }
-      if (vec && d % 4 == 0) {
-        const bool in = d < max_disp && w + d < width;
-        stage4(dst_r, in ? gb + d * plane + w + d : grad, in);
-      } else {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const bool in = d < max_disp && w + d + i < width;
-          stage1(dst_r + i, in ? gb + d * plane + w + d + i : grad, in);
-        }
-      }
-    });
-  }
+    }
+  });
 
   // chunk n's windows into buffer n % 2: R slot s is column w0 - dtot + s,
   // L slot s column w0 + s; zero outside the image and beyond the channels
   auto stage = [&](int n) {
-    T* sr = s_win + (n & 1) * stage_words;
-    T* sl = sr + chunk * ww;
+    float* sr = s_win + (n & 1) * stage_words;
+    float* sl = sr + chunk * ww;
     const int c0 = n * chunk;
-    if constexpr (is_bf16<T>) {  // quads: raw bf16 by 8-byte cp.async where vec
-      for_each_unit(chunk, ww / 4, [&](int cc, int q) {
-        const int s = 4 * q, c = c0 + cc, wr = w0 - dtot + s, wl = w0 + s;
-        bool rin[4], lin[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          rin[i] = c < channels && wr + i >= 0 && wr + i < width;
-          lin[i] = c < channels && wl + i < width;
-        }
-        stage_quad(sr + cc * ww + s, rb + c * plane + wr, right, rin, vec, false);
-        stage_quad(sl + cc * ww + s, lb + c * plane + wl, left, lin, vec, false);
-      });
-    } else if (vec) {  // a quad of columns lies wholly inside the row or outside
+    if (vec) {  // a quad of columns lies wholly inside the row or outside
       for_each_unit(chunk, ww / 4, [&](int cc, int q) {
         const int s = 4 * q, c = c0 + cc, wr = w0 - dtot + s, wl = w0 + s;
         const bool rin = c < channels && wr >= 0 && wr < width;
@@ -839,8 +789,8 @@ corr_bwd_kernel(const T* __restrict__ grad, const T* __restrict__ left,
   stage(0);
   cp_async_commit();  // with the gradient tiles
   const float inv_c = 1.f / static_cast<float>(channels);
-  const T* g = (side == 0 ? s_gl : s_gr) + BWD_CW * x;
-  T* out = (side == 0 ? grad_left : grad_right) + b * channels * plane + row;
+  const float* g = (side == 0 ? s_gl : s_gr) + BWD_CW * x;
+  float* out = (side == 0 ? grad_left : grad_right) + b * channels * plane + row;
   for (int n = 0; n < nchunks; ++n) {
     if (n + 1 < nchunks) {
       stage(n + 1);
@@ -851,7 +801,7 @@ corr_bwd_kernel(const T* __restrict__ grad, const T* __restrict__ left,
     }
     __syncthreads();
     // the thread's window rows: R for dL, L for dR
-    const T* win = s_win + (n & 1) * stage_words + (side * chunk + cg * BWD_CC) * ww + BWD_CW * x;
+    const float* win = s_win + (n & 1) * stage_words + (side * chunk + cg * BWD_CC) * ww + BWD_CW * x;
     float acc[BWD_CC][BWD_CW];
     float4 a[BWD_CC], z[BWD_CC];
 #pragma unroll
@@ -889,7 +839,7 @@ corr_bwd_kernel(const T* __restrict__ grad, const T* __restrict__ left,
       for (int q = 0; q < BWD_CC; ++q) {
         const int c = n * chunk + cg * BWD_CC + q;
         if (c >= channels) continue;
-        T* o = out + c * plane + w;
+        float* o = out + c * plane + w;
         if (vec) {
           store4_f32(o, make_float4(acc[q][0] * inv_c, acc[q][1] * inv_c, acc[q][2] * inv_c,
                                     acc[q][3] * inv_c));
@@ -905,18 +855,21 @@ corr_bwd_kernel(const T* __restrict__ grad, const T* __restrict__ left,
   }
 }
 
-// The checks and the launch of both backward forms' entry points.
+// D = 0: a volume of no disparities passes no gradient.
 template <typename T>
-int launch_corr_bwd(const T* grad, const T* left, const T* right, T* grad_left, T* grad_right,
-                    int batch, int channels, int height, int width, int max_disp, int bw,
-                    int chunk, int smem_bytes, cudaStream_t stream) {
+int zero_gradients(T* grad_left, T* grad_right, int batch, int channels, int height, int width,
+                   cudaStream_t stream) {
+  const size_t bytes = sizeof(T) * batch * channels * height * static_cast<size_t>(width);
+  cudaMemsetAsync(grad_left, 0, bytes, stream);
+  cudaMemsetAsync(grad_right, 0, bytes, stream);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_corr_bwd(const float* grad, const float* left, const float* right, float* grad_left,
+                    float* grad_right, int batch, int channels, int height, int width,
+                    int max_disp, int bw, int chunk, int smem_bytes, cudaStream_t stream) {
   if (batch == 0 || height == 0 || width == 0 || channels == 0) return 0;
-  if (max_disp == 0) {  // a volume of no disparities passes no gradient
-    const size_t bytes = sizeof(T) * batch * channels * height * static_cast<size_t>(width);
-    cudaMemsetAsync(grad_left, 0, bytes, stream);
-    cudaMemsetAsync(grad_right, 0, bytes, stream);
-    return static_cast<int>(cudaGetLastError());
-  }
+  if (max_disp == 0) return zero_gradients(grad_left, grad_right, batch, channels, height, width, stream);
   if (bw < BWD_CW * BWD_LX || bw % (BWD_CW * BWD_LX) != 0 || chunk < BWD_CC ||
       chunk % BWD_CC != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -924,18 +877,18 @@ int launch_corr_bwd(const T* grad, const T* left, const T* right, T* grad_left, 
   const int threads = 2 * (bw / BWD_CW) * (chunk / BWD_CC);
   if (threads > BWD_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
   const int dtot = (max_disp + BWD_DSTEP - 1) / BWD_DSTEP * BWD_DSTEP;
-  if (bwd_smem_words(bw, dtot, chunk) * static_cast<int>(sizeof(T)) != smem_bytes) {
+  if (bwd_smem_words(bw, dtot, chunk) * static_cast<int>(sizeof(float)) != smem_bytes) {
     return static_cast<int>(cudaErrorInvalidValue);  // the wrapper's plan has another layout
   }
-  auto kernel = corr_bwd_kernel<T>;
   const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      cudaFuncSetAttribute(corr_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const bool vec = width % 4 == 0 && aligned16(grad) && aligned16(left) && aligned16(right) &&
                    aligned16(grad_left) && aligned16(grad_right);
   dim3 grid((width + bw - 1) / bw, height, batch);
-  kernel<<<grid, threads, smem_bytes, stream>>>(grad, left, right, grad_left, grad_right, channels,
-                                                height, width, max_disp, bw, dtot, chunk, vec);
+  corr_bwd_kernel<<<grid, threads, smem_bytes, stream>>>(grad, left, right, grad_left, grad_right,
+                                                         channels, height, width, max_disp, bw,
+                                                         dtot, chunk, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -959,17 +912,280 @@ extern "C" int aanet_correlation_backward_f32(const float* grad, const float* le
                          width, max_disp, bw, chunk, smem_bytes, static_cast<cudaStream_t>(stream));
 }
 
-// The bf16 form: every tensor bfloat16, the rest as
-// aanet_correlation_backward_f32's; its plan is ops/cost_volume.py
-// backward_plan_bf16's, smem_bytes that of the bf16 layout (2 bytes a
-// staged value).
+// ---------------------------------------------------------------------------
+// Backward, bf16, on the tensor cores.
+//
+// Replaces XLA's transpose of aanet_tpu/ops/cost_volume.py:72 under a bf16
+// compute dtype: g, L, R, dL and dR in bfloat16, the products and sums in
+// float32, each gradient scaled by 1/C and rounded to bf16 once. For one
+// (b, h) row both gradients are products of one banded matrix,
+// G[w, w'] = g[w - w', w] for 0 <= w - w' < D (0 elsewhere), with the
+// feature rows:
+//   dL^T[w, c]  = (1/C) sum_w' G[w, w'] R^T[w', c]
+//   dR^T[w', c] = (1/C) sum_w  G[w, w'] L^T[w, c]
+// the forward's band, transposed.
+//
+// Bound: bytes. At the aanet bf16 step's three scales it reads g, L and R
+// once and writes dL and dR: 0.131 ms at 3.35 TB/s. Its 11 GFLOP of
+// products, all bf16 x bf16, take 0.16 ms at the CUDA cores' 67 TFLOP/s
+// (the form this replaces, the float32 design's FMAs on widened values,
+// read 0.51 ms) and about 0.04 ms at the 220-300 TFLOP/s that mma.sync
+// reached in the deform kernels.
+//
+// Design: a block owns a tile of tw output columns (a multiple of 16) of
+// one (b, h) row, all channels and all D, for both gradients; the first
+// half of its warps computes dL, the second dR, each warp 16 output
+// columns (the m16 of mma.sync.m16n8k16 bf16, float32 accumulators) by a
+// chunk's channels (n). The contraction runs over window columns (k) in
+// nk = ceil((D + 15) / 16) k-steps of 16, the band's reach from the
+// warp's columns, rounded: the right window for dL holds columns w0 - dtot
+// .. w0 + tw - 1 and the left window for dR columns w0 .. w0 + tw + dtot -
+// 1, dtot = 16 (nk - 1) >= D - 1, so warp j's k-steps start at window slot
+// j in both. The block first builds the band once in shared memory, as two
+// matrices in the layout an ldmatrix reads: row j of GL (dL's A) holds
+// column u of warp j / 16's k-steps, g[jj + dtot - u][w0 + j], and row j
+// of GR (dR's A, the skewed form) g[u - jj][w0 + j - jj + u] (jj = j %
+// 16); zero off the band and beyond the row. Each entry comes from one
+// coalesced 2-byte load of g (the unskewed tile g[d][w0 + j] and the
+// skewed one g[d][w0 + j + d]), a thread's loads of 8 disparities in
+// flight at once, and is stored once. Channels are walked in chunks; the
+// windows are copied raw with cp.async into two buffers, chunks 0 and 1
+// while the band is built, chunk n + 2 as soon as chunk n is contracted
+// (16-, 8- or 4-byte copies as W allows, a load and a store a value for
+// odd W). Every staged
+// row is an odd number of 16-byte pieces (mma_row), so the 8 rows an
+// ldmatrix reads fall in different banks. A comes from the band by
+// ldmatrix, B from the window's [channel][column] rows by ldmatrix (no
+// transpose: the window columns are the contraction). The epilogue scales
+// by 1/C in float32, rounds to bf16 once and writes the chunk's dL and dR
+// tiles through shared memory, then as coalesced rows of [B, C, H, W],
+// each value once. No channel split and no atomics: two launches give the
+// same bits.
+//
+// mma.sync and not wgmma, for the forward's reason: a banded 16 x (D + 16)
+// contraction wastes wgmma's 64-row tiles. The tiling is
+// ops/cost_volume.py backward_plan_bf16; the kernel refuses a plan whose
+// shared memory is not its layout's.
+// ---------------------------------------------------------------------------
+namespace {
+
+constexpr int BMMA_CW = 16;            // output columns of a warp (mma.sync's m16)
+constexpr int BMMA_K = 16;             // window columns of a k-step
+constexpr int BMMA_MAX_THREADS = 512;  // __launch_bounds__: the largest block,
+constexpr int BMMA_MIN_BLOCKS = 1;     // and the blocks of that size an SM holds
+constexpr int BAND_BATCH = 8;          // disparities of a thread's band loads in flight
+
+// k-steps of a warp's band: ceil((D + 15) / 16).
+__host__ __device__ inline int bwd_mma_steps(int max_disp) { return (max_disp + 30) / BMMA_K; }
+
+// Bytes of the bf16 backward's shared memory: two buffers of a chunk's
+// right and left windows [chunk][mma_row(tw + dtot)], the two band
+// matrices [tw][mma_row(16 nk)] and the chunk's dL and dR tiles
+// [chunk][mma_row(tw)], raw bf16.
+inline int bwd_mma_smem_bytes(int tw, int max_disp, int chunk) {
+  const int nk = bwd_mma_steps(max_disp), dtot = BMMA_K * (nk - 1);
+  return 2 * (2 * 2 * chunk * mma_row(tw + dtot) + 2 * tw * mma_row(BMMA_K * nk) +
+              2 * chunk * mma_row(tw));
+}
+
+template <int CHUNK>
+__global__ void __launch_bounds__(BMMA_MAX_THREADS, BMMA_MIN_BLOCKS)
+corr_bwd_mma_kernel(const bf16* __restrict__ grad, const bf16* __restrict__ left,
+                    const bf16* __restrict__ right, bf16* __restrict__ grad_left,
+                    bf16* __restrict__ grad_right, int channels, int height, int width,
+                    int max_disp, int tw, int piece) {
+  extern __shared__ float4 corr_smem[];
+  bf16* smem = reinterpret_cast<bf16*>(corr_smem);
+  const int nk = bwd_mma_steps(max_disp), span = BMMA_K * nk, dtot = span - BMMA_K;
+  const int lw = mma_row(tw + dtot), lg = mma_row(span), lo = mma_row(tw);
+  const int stage_elems = 2 * CHUNK * lw;  // a buffer: R [CHUNK][lw], then L
+  bf16* s_band = smem + 2 * stage_elems;   // GL [tw][lg], then GR
+  bf16* s_out = s_band + 2 * tw * lg;      // dL [CHUNK][lo], then dR
+
+  // warp -> its gradient (0: dL, 1: dR) and its 16 columns jw .. jw + 15
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nx = tw / BMMA_CW;
+  const int side = warp / nx;
+  const int jw = BMMA_CW * (warp % nx);
+
+  const int w0 = blockIdx.x * tw;
+  const int h = blockIdx.y;
+  const long long b = blockIdx.z;
+  const long long plane = static_cast<long long>(height) * width;
+  const long long row = static_cast<long long>(h) * width;
+  const bf16* gb = grad + b * max_disp * plane + row;
+  const bf16* lb = left + b * channels * plane + row;
+  const bf16* rb = right + b * channels * plane + row;
+
+  // chunk n's right window (slot s: column w0 - dtot + s) and left window
+  // (slot s: column w0 + s) into buffer n % 2, raw, zero outside the image
+  // and beyond the channels, `piece` values a copy
+  auto stage = [&](int n) {
+    bf16* buf = smem + (n & 1) * stage_elems;
+    const int c0 = n * CHUNK;
+    auto rows = [&](bf16* dst0, const bf16* base, const bf16* any, int first) {
+      for_each_unit(CHUNK, (tw + dtot) / piece, [&](int cc, int q) {
+        const int w = first + piece * q;
+        const bool in = c0 + cc < channels && w >= 0 && w < width;
+        stage_piece(dst0 + cc * lw + piece * q, in ? base + (c0 + cc) * plane + w : any, in, piece);
+      });
+    };
+    rows(buf, rb, right, w0 - dtot);
+    rows(buf + CHUNK * lw, lb, left, w0);
+  };
+
+  // chunks 0 and 1 in flight while the band is built
+  const int nchunks = (channels + CHUNK - 1) / CHUNK;
+  stage(0);
+  cp_async_commit();
+  if (nchunks > 1) {
+    stage(1);
+    cp_async_commit();
+  }
+
+  // the band, once: row j of GL holds d = jj + dtot - u at column u, row j
+  // of GR d = u - jj (jj = j % 16); over a row's span of 16 nk columns
+  // that is -15 <= d < span. Thread (q, j) loads column j's gradient at d
+  // = q, q + nq, ... < D of both tiles, the unskewed g[d][w0 + j] and the
+  // skewed g[d][w0 + j + d] (coalesced 2-byte loads, zero beyond the row),
+  // BAND_BATCH of each in flight before it stores them; then the entries
+  // of d off the band are zeroed. Every (j, u < span) is written once.
+  unsigned short* band = reinterpret_cast<unsigned short*>(s_band);
+  const unsigned short* graw = reinterpret_cast<const unsigned short*>(gb);
+  {
+    const int nq = blockDim.x / tw, j = threadIdx.x % tw, jj = j & (BMMA_CW - 1);
+    for (int d0 = threadIdx.x / tw; d0 < max_disp; d0 += nq * BAND_BATCH) {
+      unsigned short vl[BAND_BATCH], vr[BAND_BATCH];
+#pragma unroll
+      for (int i = 0; i < BAND_BATCH; ++i) {
+        const int d = d0 + nq * i;
+        const long long at = d * plane + w0 + j;
+        vl[i] = d < max_disp && w0 + j < width ? __ldg(graw + at) : 0;
+        vr[i] = d < max_disp && w0 + j + d < width ? __ldg(graw + at + d) : 0;
+      }
+#pragma unroll
+      for (int i = 0; i < BAND_BATCH; ++i) {
+        const int d = d0 + nq * i;
+        if (d < max_disp) {
+          band[j * lg + jj + dtot - d] = vl[i];
+          band[(tw + j) * lg + jj + d] = vr[i];
+        }
+      }
+    }
+  }
+  for_each_unit(span - max_disp + 15, tw, [&](int r, int j) {
+    const int d = r < 15 ? r - 15 : max_disp + r - 15, jj = j & (BMMA_CW - 1);
+    if (jj + dtot - d >= 0 && jj + dtot - d < span) band[j * lg + jj + dtot - d] = 0;
+    if (jj + d >= 0 && jj + d < span) band[(tw + j) * lg + jj + d] = 0;
+  });
+
+  // the lane's ldmatrix rows: A's four matrices are the warp's columns 0-7
+  // and 8-15 by band columns 0-7 (a0, a1), then 8-15 (a2, a3); B's are, for
+  // two n-tiles, channels 0-7 by window columns 0-7 and 8-15 (b0, b1 of the
+  // first), then channels 8-15
+  const int lr = lane & 7, li = lane >> 3;
+  const bf16* sa = s_band + (side * tw + jw + lr + 8 * (li & 1)) * lg + 8 * (li >> 1);
+  const int b_off = (side * CHUNK + lr + 8 * (li >> 1)) * lw + jw + 8 * (li & 1);
+  // the lane's accumulators: (g, t) holds columns jw + g and jw + g + 8 by
+  // channels 2t, 2t + 1 of each n-tile
+  const int g = lane >> 2, t = lane & 3;
+  const float inv_c = 1.f / static_cast<float>(channels);
+  bf16* so = s_out + side * CHUNK * lo + jw + g;
+
+  for (int n = 0; n < nchunks; ++n) {
+    if (n + 1 < nchunks) {
+      cp_async_wait_group<1>();
+    } else {
+      cp_async_wait_group<0>();
+    }
+    __syncthreads();  // chunk n landed, the band built, the last tiles written out
+    float acc[CHUNK / 8][4];
+#pragma unroll
+    for (int j = 0; j < CHUNK / 8; ++j) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[j][r] = 0.f;
+    }
+    const bf16* sb = smem + (n & 1) * stage_elems + b_off;
+    for (int k = 0; k < nk; ++k) {
+      unsigned a[4];
+      ldmatrix_x4(a, sa + BMMA_K * k);
+#pragma unroll
+      for (int p = 0; p < CHUNK / 16; ++p) {
+        unsigned bq[4];
+        ldmatrix_x4(bq, sb + 16 * p * lw + BMMA_K * k);
+        mma_bf16(acc[2 * p], a, bq[0], bq[1]);
+        mma_bf16(acc[2 * p + 1], a, bq[2], bq[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < CHUNK / 8; ++j) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        so[(8 * j + 2 * t + (r & 1)) * lo + 8 * (r >> 1)] = __float2bfloat16_rn(acc[j][r] * inv_c);
+      }
+    }
+    __syncthreads();  // the tiles written, the buffer read
+    if (n + 2 < nchunks) {  // into the buffer just read, while the tiles go out
+      stage(n + 2);
+      cp_async_commit();
+    }
+    const int c0 = n * CHUNK;
+    for_each_unit(2 * CHUNK, tw / piece, [&](int sc, int q) {
+      const int c = c0 + sc % CHUNK, j = piece * q;
+      if (c >= channels || w0 + j >= width) return;
+      bf16* out = (sc < CHUNK ? grad_left : grad_right) + (b * channels + c) * plane + row + w0;
+      copy_piece(out + j, s_out + sc * lo + j, piece);
+    });
+  }
+}
+
+using CorrBwdMmaKernel = void (*)(const bf16*, const bf16*, const bf16*, bf16*, bf16*, int, int,
+                                  int, int, int, int);
+
+// The builds, by the channels of a chunk: 16, 32, 64
+const CorrBwdMmaKernel corr_bwd_mma_builds[] = {
+    corr_bwd_mma_kernel<16>, corr_bwd_mma_kernel<32>, corr_bwd_mma_kernel<64>};
+
+int launch_corr_bwd_mma(const bf16* grad, const bf16* left, const bf16* right, bf16* grad_left,
+                        bf16* grad_right, int batch, int channels, int height, int width,
+                        int max_disp, int tw, int chunk, int smem_bytes, cudaStream_t stream) {
+  if (batch == 0 || height == 0 || width == 0 || channels == 0) return 0;
+  if (max_disp == 0) return zero_gradients(grad_left, grad_right, batch, channels, height, width, stream);
+  if (tw < BMMA_CW || tw % BMMA_CW != 0 || (chunk != 16 && chunk != 32 && chunk != 64)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int threads = 2 * 32 * (tw / BMMA_CW);
+  if (threads > BMMA_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
+  if (bwd_mma_smem_bytes(tw, max_disp, chunk) != smem_bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);  // the wrapper's plan has another layout
+  }
+  const CorrBwdMmaKernel kernel = corr_bwd_mma_builds[chunk / 32];
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int piece = mma_piece(width, grad, left, right, grad_left, grad_right);
+  dim3 grid((width + tw - 1) / tw, height, batch);
+  kernel<<<grid, threads, smem_bytes, stream>>>(grad, left, right, grad_left, grad_right, channels,
+                                                height, width, max_disp, tw, piece);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The bf16 form, on the tensor cores: every tensor bfloat16, the rest as
+// aanet_correlation_backward_f32's but the plan (ops/cost_volume.py
+// backward_plan_bf16): tw (columns of a block, a multiple of 16, at most
+// 128), chunk (channels staged at a time: 16, 32 or 64, the build) and
+// smem_bytes, which must be this layout's. Anything else is
+// cudaErrorInvalidValue. With max_disp == 0 the plan is not read.
 extern "C" int aanet_correlation_backward_bf16(const bf16* grad, const bf16* left,
                                                const bf16* right, bf16* grad_left,
                                                bf16* grad_right, int batch, int channels,
-                                               int height, int width, int max_disp, int bw,
+                                               int height, int width, int max_disp, int tw,
                                                int chunk, int smem_bytes, int device,
                                                void* stream) {
   cudaSetDevice(device);
-  return launch_corr_bwd(grad, left, right, grad_left, grad_right, batch, channels, height,
-                         width, max_disp, bw, chunk, smem_bytes, static_cast<cudaStream_t>(stream));
+  return launch_corr_bwd_mma(grad, left, right, grad_left, grad_right, batch, channels, height,
+                             width, max_disp, tw, chunk, smem_bytes,
+                             static_cast<cudaStream_t>(stream));
 }

@@ -20,9 +20,9 @@ The correlation's kernels also have a bfloat16 form (the JAX op under a
 bf16 compute dtype, ``cost_volume.py:108,113``, and its transpose): bf16
 features and volume (and volume gradient), float32 products, sums and
 the division by C, each output rounded to bf16 once
-(``aanet_correlation_bf16``, a kernel of its own on the tensor cores with
-its own plan, ``forward_plan_bf16``; ``aanet_correlation_backward_bf16``,
-which stages raw bf16 and has a plan of its own, ``backward_plan_bf16``).
+(``aanet_correlation_bf16`` and ``aanet_correlation_backward_bf16``,
+kernels of their own on the tensor cores with plans of their own,
+``forward_plan_bf16`` and ``backward_plan_bf16``).
 So do the 4-D volumes' (the JAX ops in the features'
 dtype, ``cost_volume.py:127,144``): bf16 features and volume, the
 difference L - R(w - d) in float32 rounded once (concat copies), and in
@@ -72,7 +72,6 @@ BWD_LX = 8
 BWD_DSTEP = 8
 BWD_MAX_THREADS = 256
 BWD_MIN_BLOCKS = 2
-BWD_CHUNK_BF16 = 32  # channels the bf16 backward's plan stages at a time
 TILE_WS = (32, 64, 128, 256)  # columns of a block the plans consider
 CHUNKS = (8, 16, 32, 64)  # channels staged at a time the plans consider
 # The forward's plan: blocks of at least FWD_MIN_THREADS threads, and the
@@ -97,6 +96,20 @@ MMA_CHUNKS = (16, 32, 64)
 MMA_WHOLE_W = 96
 MMA_TILE_W = 64
 MMA_SM_BLOCKS = 4
+# The bf16 backward on the tensor cores (corr_bwd_mma_kernel): a warp's 16
+# output columns of one gradient (BMMA_CW), k-steps of BMMA_K window
+# columns, its launch bounds, and the tile widths and chunks (its builds)
+# its plans consider; the plan's picks (tools/torch_correlation_sweep.py on
+# an H100): tiles of BMMA_PICK_WS columns, chunks of 64 channels where the
+# grid holds fewer than BMMA_SM_BLOCKS blocks an SM
+BMMA_CW = 16
+BMMA_K = 16
+BMMA_MAX_THREADS = 512
+BMMA_MIN_BLOCKS = 1
+BMMA_TILE_WS = tuple(range(BMMA_CW, 8 * BMMA_CW + 1, BMMA_CW))
+BMMA_CHUNKS = (16, 32, 64)
+BMMA_PICK_WS = (32, 48, 64)
+BMMA_SM_BLOCKS = 2
 
 
 def correlation_cost_volume_plain(
@@ -188,6 +201,24 @@ class BackwardPlan(NamedTuple):
     blocks: int
 
 
+class BackwardPlanBf16(NamedTuple):
+    """How ``aanet_correlation_backward_bf16`` cuts one gradient on the
+    tensor cores: a block takes ``tile_w`` columns of one (b, h) row, all
+    channels and all disparities, for both gradients; a warp 16 of those
+    columns of one gradient by ``chunk`` channels, contracted in ``nk``
+    k-steps of 16 window columns (the windows reach ``dtot`` columns past
+    the tile); channels are staged ``chunk`` at a time. ``threads`` a
+    block, ``smem_bytes`` of shared memory, ``blocks`` in the grid."""
+
+    tile_w: int
+    chunk: int
+    nk: int
+    dtot: int
+    threads: int
+    smem_bytes: int
+    blocks: int
+
+
 class ForwardPlanBf16(NamedTuple):
     """How ``aanet_correlation_bf16`` cuts one volume on the tensor cores: a
     block takes ``tile_w`` columns of one (b, h) row and all disparities; a
@@ -242,13 +273,32 @@ def _fwd_smem(tile_w: int, dtot: int, chunk: int, ksplit: int) -> int:
     return 4 * max(2 * chunk * (2 * tile_w + dtot), (ksplit - 1) * tile_w * dtot)
 
 
-def _bwd_smem(tile_w: int, dtot: int, chunk: int, value_bytes: int = 4) -> int:
-    """Bytes of the backward's shared memory (``bwd_smem_words`` values of
-    ``value_bytes``: 4 for the float32 form, 2 for the bf16 form's raw
-    values): the two gradient tiles [dtot][tile_w] and two buffers of a
+def _bwd_smem(tile_w: int, dtot: int, chunk: int) -> int:
+    """Bytes of the backward's shared memory (``bwd_smem_words`` in the
+    kernel): the two gradient tiles [dtot][tile_w] and two buffers of a
     chunk's right and left windows [chunk][tile_w + dtot]. The kernel
     refuses a plan whose ``smem_bytes`` differ."""
-    return value_bytes * (2 * dtot * tile_w + 4 * chunk * (tile_w + dtot))
+    return 4 * (2 * dtot * tile_w + 4 * chunk * (tile_w + dtot))
+
+
+def bwd_mma_steps(max_disp: int) -> tuple[int, int]:
+    """(nk, dtot) of the bf16 backward (``bwd_mma_steps``): the k-steps of
+    16 window columns that cover a warp's band, ceil((D + 15) / 16), and
+    the columns its windows reach past the tile, 16 (nk - 1) >= D - 1."""
+    nk = _ceil_div(max_disp + 15, BMMA_K)
+    return nk, BMMA_K * (nk - 1)
+
+
+def _bwd_mma_smem(tile_w: int, max_disp: int, chunk: int) -> int:
+    """Bytes of the bf16 backward's shared memory (``bwd_mma_smem_bytes``):
+    two buffers of a chunk's right and left windows
+    [chunk][_mma_row(tile_w + dtot)], the two band matrices
+    [tile_w][_mma_row(16 nk)] and the chunk's dL and dR tiles
+    [chunk][_mma_row(tile_w)], raw bf16. The kernel refuses a plan whose
+    ``smem_bytes`` differ."""
+    nk, dtot = bwd_mma_steps(max_disp)
+    return 2 * (4 * chunk * _mma_row(tile_w + dtot) + 2 * tile_w * _mma_row(BMMA_K * nk)
+                + 2 * chunk * _mma_row(tile_w))
 
 
 def forward_plans(batch: int, channels: int, height: int, width: int,
@@ -273,21 +323,37 @@ def forward_plans(batch: int, channels: int, height: int, width: int,
 
 
 def backward_plans(batch: int, channels: int, height: int, width: int,
-                   max_disp: int, value_bytes: int = 4) -> list[BackwardPlan]:
+                   max_disp: int) -> list[BackwardPlan]:
     """Every tiling the backward kernel takes at this shape (``max_disp``
     > 0): whole warps for each gradient within its launch bounds and a
-    block's shared memory (staged values of ``value_bytes``: 2 for the bf16
-    form)."""
+    block's shared memory."""
     dtot = _ceil_div(max_disp, BWD_DSTEP) * BWD_DSTEP
     plans = []
     for tile_w in TILE_WS:
         for chunk in CHUNKS:
             per_side = tile_w // BWD_CW * (chunk // BWD_CC)
-            smem = _bwd_smem(tile_w, dtot, chunk, value_bytes)
+            smem = _bwd_smem(tile_w, dtot, chunk)
             if chunk % BWD_CC or per_side % 32 or 2 * per_side > BWD_MAX_THREADS or smem > SMEM_BYTES:
                 continue
             plans.append(BackwardPlan(tile_w, chunk, dtot, 2 * per_side, smem,
                                       batch * height * _ceil_div(width, tile_w)))
+    return plans
+
+
+def backward_plans_bf16(batch: int, channels: int, height: int, width: int,
+                        max_disp: int) -> list[BackwardPlanBf16]:
+    """Every tiling the bf16 backward takes at this shape (``max_disp`` >
+    0): tiles of whole 16-column groups and the built chunks within its
+    launch bounds and a block's shared memory."""
+    nk, dtot = bwd_mma_steps(max_disp)
+    plans = []
+    for tile_w in BMMA_TILE_WS:
+        threads = 2 * 32 * tile_w // BMMA_CW
+        for chunk in BMMA_CHUNKS:
+            smem = _bwd_mma_smem(tile_w, max_disp, chunk)
+            if threads <= BMMA_MAX_THREADS and smem <= SMEM_BYTES:
+                plans.append(BackwardPlanBf16(tile_w, chunk, nk, dtot, threads, smem,
+                                              batch * height * _ceil_div(width, tile_w)))
     return plans
 
 
@@ -389,25 +455,29 @@ def backward_plan(batch: int, channels: int, height: int, width: int, max_disp: 
 
 @functools.lru_cache(maxsize=None)
 def backward_plan_bf16(batch: int, channels: int, height: int, width: int, max_disp: int,
-                       sms: int) -> BackwardPlan:
-    """The bf16 backward's tiling (``aanet_correlation_backward_bf16``, which
-    stages raw bf16: 2 bytes a value) for ``max_disp`` > 0, of
-    ``backward_plans(..., value_bytes=2)``: the float32 plan's tile width and
-    chunks of ``BWD_CHUNK_BF16`` channels where that tile takes them, else
-    the nearest chunk, the smaller on a tie. The halved layout holds more
-    resident blocks than the float32 form's (at the aanet step's largest
-    shape four blocks of 128 threads an SM, where the float32 form's shared
-    memory holds two). On an H100 this was within 4 % of the fastest bf16
-    plan at every train step's shape (``tools/torch_correlation_sweep.py
-    --dtype bfloat16``). Raises if nothing fits."""
-    plans = backward_plans(batch, channels, height, width, max_disp, value_bytes=2)
+                       sms: int) -> BackwardPlanBf16:
+    """The bf16 backward's tiling (``aanet_correlation_backward_bf16``, on
+    the tensor cores) for ``max_disp`` > 0 on a card of ``sms`` SMs, of
+    ``backward_plans_bf16``: tiles of 32, 48 or 64 columns, the one that
+    pads the row least, the narrowest on a tie; chunks of 64 channels where
+    the grid holds fewer than BMMA_SM_BLOCKS blocks an SM, else of 32 where
+    C > 64 and of 16 where C <= 64, and never more than the least build
+    that holds C; then the nearest tile and chunk that fit. On an H100 this
+    was the fastest plan or within 3.8 % of it at every train step's shape
+    (at the inference shapes, where no backward runs, within 22.3 %;
+    ``tools/torch_correlation_sweep.py --dtype bfloat16``). Raises if
+    nothing fits."""
+    plans = backward_plans_bf16(batch, channels, height, width, max_disp)
     if not plans:
         raise ValueError(
             f"correlation backward: no bf16 tiling of {max_disp} disparities fits a block of "
-            f"{BWD_MAX_THREADS} threads and {SMEM_BYTES} bytes of shared memory")
-    tile_w = backward_plan(batch, channels, height, width, max_disp, sms).tile_w
-    octave = BWD_CHUNK_BF16.bit_length()
-    return min(plans, key=lambda p: (p.tile_w != tile_w, abs(p.chunk.bit_length() - octave),
+            f"{BMMA_MAX_THREADS} threads and {SMEM_BYTES} bytes of shared memory")
+    pad = lambda tw: _ceil_div(width, tw) * tw - width  # noqa: E731
+    tile_w = min(BMMA_PICK_WS, key=lambda tw: (pad(tw), tw))
+    short = batch * height * _ceil_div(width, tile_w) < BMMA_SM_BLOCKS * sms
+    chunk = min(64 if short else 32 if channels > 64 else 16,
+                next((n for n in BMMA_CHUNKS if n >= channels), BMMA_CHUNKS[-1]))
+    return min(plans, key=lambda p: (abs(p.tile_w - tile_w), abs(p.chunk - chunk), p.tile_w,
                                      p.chunk))
 
 

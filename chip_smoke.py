@@ -41,7 +41,9 @@
    splits the input channels over blocks) and times each with the wide
    offsets at the step's largest shape; checks that two launches of the
    weight gradient give the same bits at every step shape; the warp
-   forward at widths that are not a multiple of 4; the correlation's
+   forward at widths that are not a multiple of 4; the warp backward: two
+   launches give the same bits at the step's shapes, each timed beside its
+   bound, and against its twin at ``WARP_EDGE_SHAPES``; the correlation's
    forward and backward: two launches give the same bits at every path
    shape (the aanet step's and inference's, stereonet-aa's), each timed
    beside its bound, and both against their twins at widths 37 and 53,
@@ -171,10 +173,12 @@
    of each bf16 gradient's scale, the float32 form's tolerance for the
    float32 offset and disparity gradients), and the bf16 deform forward at
    those shapes; the bf16 correlation forward (on the tensor cores) and
-   backward at ``CORR_EDGE_SHAPES`` and D = 0, the bf16 soft-argmin
-   backward (its slab raw) at ``SA_EDGE_SHAPES`` with both signs, the bf16
-   soft-argmin forward (a kernel of its own) there too and at D = 0, the
-   bf16 warp forward at ``WARP_EDGE_SHAPES``; two
+   backward (both on the tensor cores) at ``CORR_EDGE_SHAPES`` and D = 0,
+   the backward also at every ``CORR_PATH_SHAPES`` shape, the bf16
+   soft-argmin backward (its slab raw) at ``SA_EDGE_SHAPES`` with both
+   signs, the bf16 soft-argmin forward (a kernel of its own) there too and
+   at D = 0, the bf16 warp forward and backward at ``WARP_EDGE_SHAPES``
+   (the backward's two launches bitwise at the step's shapes, timed); two
    launches of the deform forward, the weight gradient and the correlation
    backward bitwise, and of the correlation forward, the soft-argmin
    backward and the soft-argmin and warp forwards at every step shape, each
@@ -1804,7 +1808,7 @@ def seeded_compares(cfg, specs, dev, seeds, calls=None, recomputed=None, rerun=F
     return compares
 
 
-def edge_cases(specs, bwd_specs, deform_sigs, corr_sigs, sa_sigs, rows, gen, dev, timer):
+def edge_cases(specs, bwd_specs, deform_sigs, corr_sigs, sa_sigs, warp_sigs, rows, gen, dev, timer):
     """Phase 6b: the redesigned kernels against their twins where the main
     path's inputs do not reach, with the path's tolerances. The deformable
     conv's forward, its input/offset/mask gradient and its weight gradient
@@ -1818,9 +1822,11 @@ def edge_cases(specs, bwd_specs, deform_sigs, corr_sigs, sa_sigs, rows, gen, dev
     shape's time with the path's narrow offsets (``rows``). The weight
     gradient sums its splits in a fixed order: two launches on the same
     inputs must give the same bits at every step shape. The warp forward
-    at widths that are not a multiple of 4, timed beside F.grid_sample. The
-    correlation kernels (``correlation_edge_cases``) and the soft-argmin
-    kernels (``softargmin_edge_cases``)."""
+    at widths that are not a multiple of 4, timed beside F.grid_sample; the
+    warp backward at the step's shapes ``warp_sigs`` and beyond them
+    (``warp_backward_edge_cases``). The correlation kernels
+    (``correlation_edge_cases``) and the soft-argmin kernels
+    (``softargmin_edge_cases``)."""
     from aanet_torch.ops import deform
 
     by_name = {s["name"]: s for s in specs + bwd_specs}
@@ -1876,8 +1882,23 @@ def edge_cases(specs, bwd_specs, deform_sigs, corr_sigs, sa_sigs, rows, gen, dev
         records.append(dict(measure(by_name["disp_warp"], (shape,), 1, gen, dev, timer),
                             kernel="disp_warp", case="width not a multiple of 4"))
     return (records + odd_cout_cases(by_name, with_offsets, gen, dev, timer)
+            + warp_backward_edge_cases(by_name["disp_warp_backward"], warp_sigs, gen, dev, timer)
             + correlation_edge_cases(by_name, corr_sigs, gen, dev, timer)
             + softargmin_edge_cases(by_name, sa_sigs, gen, dev, timer))
+
+
+def warp_backward_edge_cases(spec, step_sigs, gen, dev, timer):
+    """The warp backward (``spec``: its float32 or bf16 form): at every shape
+    of the step ``step_sigs`` two launches give the same bits, timed beside
+    the bound; against its twin at ``WARP_EDGE_SHAPES`` (widths off the
+    quads, a last partial quad, the narrowest image)."""
+    records = [dict(same_bits_timed(spec, sig, gen, dev, timer),
+                    case="step shape: two launches, bitwise; timed")
+               for sig in sorted(set(step_sigs), key=str)]
+    for shape in WARP_EDGE_SHAPES:
+        records.append(dict(measure(spec, (shape,), 1, gen, dev, timer, timed=False),
+                            kernel=spec["name"], case="beyond the path"))
+    return records
 
 
 def odd_cout_cases(by_name, with_offsets, gen, dev, timer):
@@ -2220,7 +2241,7 @@ def train_phases(specs, bwd_specs, gen, dev, timer, smi, data, lists):
                               for sig, n in first[spec["forward"]].items()]
     # 6b. the redesigned kernels beyond the path's inputs
     edges = edge_cases(specs, bwd_specs, list(first["deform_conv"]), list(first["correlation"]),
-                       list(first["soft_argmin"]), rows, gen, dev, timer)
+                       list(first["soft_argmin"]), list(first["disp_warp"]), rows, gen, dev, timer)
     print(json.dumps({"edge_cases": edges}), flush=True)
 
     # 7. one train step through the kernels against the same step through
@@ -2906,8 +2927,11 @@ def bf16_training_phases(specs, bwd_specs, specs16, bwd16, gen, dev, timer, smi,
     each of those shapes (one bf16 ulp of each gradient's scale), with
     offsets in (-16, 16) px, at ``ODD_COUTS`` output channels, mask-less
     and at an odd stride-2 shape, the correlation forward and backward at
-    ``CORR_EDGE_SHAPES`` and D = 0 and the soft-argmin backward at
-    ``SA_EDGE_SHAPES`` (both signs); the bf16 deform forward against its twin
+    ``CORR_EDGE_SHAPES`` and D = 0 (the backward also at every
+    ``CORR_PATH_SHAPES`` shape, two launches bitwise), the soft-argmin
+    backward at ``SA_EDGE_SHAPES`` (both signs) and the warp backward at
+    ``WARP_EDGE_SHAPES``, two launches of it bitwise at the full step's
+    shapes, timed (``warp_backward_edge_cases``); the bf16 deform forward against its twin
     at the step's shapes; two launches of the deform forward, the weight
     gradient and the correlation backward give the same bits at every step
     shape, and of the correlation forward and the soft-argmin backward too,
@@ -3053,6 +3077,13 @@ def bf16_training_phases(specs, bwd_specs, specs16, bwd16, gen, dev, timer, smi,
     for sig in CORR_EDGE_SHAPES + [zero]:
         edges.append(dict(measure(corr16, sig, 1, gen, dev, timer, timed=False),
                           kernel=corr16["name"], case="beyond the path" if sig[1] else "D = 0"))
+    for sig in CORR_PATH_SHAPES:  # every path's gradient, also those no bf16 step here runs
+        edges.append(dict(measure(corr16, sig, 1, gen, dev, timer, timed=False),
+                          kernel=corr16["name"], case="path shape"))
+        two_launches_bitwise(corr16, sig)
+    warp_sigs = [rebatch(sig, TRAIN_BATCH) for first in shapes.values()
+                 for sig in first["disp_warp_bf16"]]
+    edges += warp_backward_edge_cases(by_name["disp_warp_backward_bf16"], warp_sigs, gen, dev, timer)
     sa16 = by_name["soft_argmin_backward_bf16"]
     for sig in SA_EDGE_SHAPES:
         edges.append(dict(measure(sa16, sig, 1, gen, dev, timer, timed=False), kernel=sa16["name"],

@@ -41,7 +41,6 @@ INPUTS = {"aanet": [(288, 576), (384, 1248)], "stereonet-aa": [(288, 576), (384,
 SMALL = {"aanet": (48, 96), "stereonet-aa": (48, 96), "psmnet-aa": (256, 256),
          "gcnet-aa": (48, 96), "aanet+": (96, 192), "ganet-aa": (48, 96)}
 SOURCE = (pathlib.Path(cv.__file__).parents[1] / "csrc" / "correlation.cu").read_text()
-COMMON = (pathlib.Path(cv.__file__).parents[1] / "csrc" / "common.cuh").read_text()
 
 
 def _recorded_volumes(name, hw):
@@ -247,83 +246,10 @@ def test_builds_and_layouts_are_the_kernels():
     assert "const int stage = 2 * chunk * (2 * tw + dtot);" in SOURCE
     assert "const int partial = (ksplit - 1) * tw * dtot;" in SOURCE
     assert "return 2 * dtot * bw + 2 * 2 * chunk * (bw + dtot);" in SOURCE
+    assert "bwd_smem_words(bw, dtot, chunk) * static_cast<int>(sizeof(float)) != smem_bytes" in SOURCE
 
 
-# --- the bf16 backward (``backward_plan_bf16``): raw bf16 staged by cp.async
-
-
-def _bwd_resident_warps(plan):
-    """Resident warps an SM of a backward plan: by shared memory, threads and
-    the launch bounds' registers."""
-    blocks = min(SM_SMEM_BYTES // (plan.smem_bytes + 1024), 2048 // plan.threads,
-                 65536 // (_registers(cv.BWD_MAX_THREADS, cv.BWD_MIN_BLOCKS) * plan.threads))
-    return blocks * plan.threads // 32
-
-
-@pytest.mark.parametrize("shape,max_disp", PATH_SHAPES + EDGE_SHAPES)
-def test_backward_plan_bf16_fits_and_covers(shape, max_disp):
-    """The bf16 backward's plan: the kernel's bf16 layout (2 bytes a staged
-    value), a block's and an SM's shared memory, the launch bounds' registers,
-    every (channel, column) of dL and dR stored once; the float32 plan's tile
-    width, chunks of 32 where that tile takes them, and at least the float32
-    plan's resident warps (its halved layout holds more blocks)."""
-    b, c, h, w = shape
-    plan = cv.backward_plan_bf16(b, c, h, w, max_disp, SMS)
-    f32 = cv.backward_plan(b, c, h, w, max_disp, SMS)
-    assert plan.dtot == f32.dtot and plan.tile_w == f32.tile_w
-    per_side = plan.tile_w // cv.BWD_CW * (plan.chunk // cv.BWD_CC)
-    assert plan.chunk % cv.BWD_CC == 0 and per_side % 32 == 0
-    assert plan.threads == 2 * per_side <= cv.BWD_MAX_THREADS
-    assert plan.smem_bytes == 2 * (2 * plan.dtot * plan.tile_w
-                                   + 4 * plan.chunk * (plan.tile_w + plan.dtot))
-    assert plan.smem_bytes <= cv.SMEM_BYTES and plan.smem_bytes + 1024 <= SM_SMEM_BYTES
-    assert plan.threads * _registers(cv.BWD_MAX_THREADS, cv.BWD_MIN_BLOCKS) <= 65536
-    assert plan.blocks == b * h * -(-w // plan.tile_w)
-    assert (_backward_cover(plan, w, c) == 1).all()
-    takes_32 = any(p.chunk == cv.BWD_CHUNK_BF16 and p.tile_w == plan.tile_w
-                   for p in cv.backward_plans(b, c, h, w, max_disp, value_bytes=2))
-    assert plan.chunk == cv.BWD_CHUNK_BF16 or not takes_32
-    if plan.chunk == f32.chunk:
-        assert _bwd_resident_warps(plan) >= _bwd_resident_warps(f32)
-
-
-def test_backward_plan_bf16_layout_is_the_kernels():
-    """The kernel checks the plan's shared memory against its layout at the
-    size of its staged values (float32 words, raw bf16), and its bf16 form
-    stages by cp.async of 8 bytes (quads), 4 (pairs) or values (the copies
-    are common.cuh's)."""
-    assert ("bwd_smem_words(bw, dtot, chunk) * static_cast<int>(sizeof(T)) != smem_bytes"
-            in SOURCE)
-    assert 'cp.async.ca.shared.global [%0], [%1], 8, %2;' in COMMON
-    assert 'cp.async.ca.shared.global [%0], [%1], 4, %2;' in COMMON
-    assert "cp_async_8(dst, in[0] ? src : any, in[0] ? 8 : 0);" in SOURCE
-    assert "stage_quad(s_gr + d * bw + j, gb + d * plane + w + d, grad, in_r, vec && d % 4 == 0,\n" \
-           "                 vec && d % 2 == 0);" in SOURCE
-
-
-@pytest.mark.parametrize("width,tile_w,dtot", [(192, 64, 64), (96, 32, 32), (48, 64, 16),
-                                               (64, 32, 40), (24, 32, 64)])
-def test_bf16_staging_copies_whole_pieces(width, tile_w, dtot):
-    """Where the width is a multiple of 4 (``vec``), every copy the bf16
-    backward makes by cp.async is of a piece wholly inside the row or wholly
-    outside it, from a source aligned to its size: the windows' and the
-    unskewed gradient tile's 8-byte quads, the skewed tile's quads at d % 4 ==
-    0 and its 4-byte pairs at d % 4 == 2 (odd d: values)."""
-    for w0 in range(0, width, tile_w):
-        for d in range(dtot):
-            for j in range(0, tile_w, 4):
-                for start, size in ((w0 + j, 4), (w0 + j + d, 4 if d % 4 == 0 else 2)):
-                    if d % 2 and start == w0 + j + d:
-                        continue
-                    for p in range(start, start + 4, size):
-                        assert (2 * p) % (2 * size) == 0  # bytes aligned to the copy's size
-                        inside = [p + i < width for i in range(size)]
-                        assert all(inside) or not any(inside)
-        for s in range(0, tile_w + dtot, 4):
-            for col in (w0 - dtot + s, w0 + s):
-                inside = [0 <= col + i < width for i in range(4)]
-                assert all(inside) or not any(inside)
-                assert (2 * col) % 8 == 0
+# --- ``widen4`` (common.cuh), which the bf16 kernels' loads of raw quads use
 
 
 def test_bf16_quad_widening_is_exact():

@@ -1,27 +1,30 @@
 #!/usr/bin/env python3
-"""Profile a kernel by taking parts out of it: time the bf16 soft-argmin
-forward or the bf16 warp forward whole and again with its loads, its
-arithmetic, its merge or its stores removed, at the shapes of the port's
-paths, on one NVIDIA GPU.
+"""Profile a kernel by taking parts out of it: time a kernel whole and again
+with its loads, its arithmetic, its merge or its stores removed, at the
+shapes of the port's paths, on one NVIDIA GPU.
 
-    python3 tools/torch_kernel_parts.py --kernel {softargmin,warp} [--out FILE]
+    python3 tools/torch_kernel_parts.py --kernel {softargmin,warp,corrbwd,warpbwd,warpbwd32}
+        [--out FILE]
 
-For each variant (``full``: the source as it is; then one part removed at a
-time; ``skeleton``: every part removed) the tool copies ``csrc/``, rewrites
-the kernel's source by the variant's text edits, builds every variant with
-nvcc in parallel, and times the package's own bf16 wrapper with the
-variant's library loaded in place of the built one (``chip_smoke.Timer``: L2
-flushed, median over CUDA events). A removed part leaves the work around it
-in place: removed loads are replaced by values made from the indices, a
-removed arithmetic by a sum that keeps every load alive, removed stores by a
-store under a condition on the sum of every value stored that never holds.
-Each shape is timed once a launch and summed over the path
-(``chip_smoke.SA_PATHS`` and ``chip_smoke.WARP_PATHS``: one launch of each
-listed shape). The ``full`` variant is held against the plain twin.
+Kernels: the bf16 soft-argmin forward, the bf16 warp forward, the bf16
+correlation backward, and the warp backward in bf16 and float32. For each
+variant (``full``: the source as it is; then one part removed at a time;
+``skeleton``: every part removed) the tool copies ``csrc/``, rewrites the
+kernel's source by the variant's text edits, builds every variant with nvcc
+in parallel, and times the package's own wrapper with the variant's library
+loaded in place of the built one (``chip_smoke.Timer``: L2 flushed, median
+over CUDA events). A removed part leaves the work around it in place:
+removed loads (and ``cp.async`` copies) are replaced by values made from
+the indices, stored where the loads would have put them, a removed
+arithmetic by a sum that keeps every load alive or a loop that runs no
+trip, removed stores by a store under a condition on the values stored that
+never holds. Each shape is timed once a launch and summed over the path
+(``chip_smoke.SA_PATHS``, ``WARP_PATHS`` and ``CORR_PATHS``: one launch of
+each listed shape; the backward kernels at the train steps' shapes). The
+``full`` variant is held against the plain twin.
 
-The edits are text written for the kernels' source
-(``softargmin_fwd_bf16_kernel``, ``warp_kernel``); the tool fails if one of
-them does not occur exactly once there.
+The edits are text written for the kernels' source; the tool fails if one
+of them does not occur exactly once there.
 """
 from __future__ import annotations
 
@@ -42,12 +45,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _WARP = {
     "disparity": [
         ("const float4 q = __ldcs(reinterpret_cast<const float4*>(drow + w0));",
-         "const float4 q = make_float4(0.37f * w0, 0.11f * h, 0.37f * w0 + 1.f, 0.13f * h);"),
+         "const float4 q = make_float4(0.37f * w0, 0.11f * n, 0.37f * w0 + 1.f, 0.13f * n);"),
         ("if (i < n) d[i] = __ldcs(drow + w0 + i);", "if (i < n) d[i] = 0.37f * (w0 + i);"),
     ],
     "gathers": [
-        ("        lo[c][i] = load_f32(irow + c * plane + x0[i]);\n"
+        ("    for (int c = 0; c < C; ++c)\n#pragma unroll\n      for (int i = 0; i < 4; ++i) {\n"
+         "        lo[c][i] = load_f32(irow + c * plane + x0[i]);\n"
          "        hi[c][i] = load_f32(irow + c * plane + x0[i] + 1);",
+         "    for (int c = 0; c < C; ++c)\n#pragma unroll\n      for (int i = 0; i < 4; ++i) {\n"
          "        lo[c][i] = 0.01f * (x0[i] + c);\n        hi[c][i] = 0.02f * x0[i];"),
     ],
     "stores": [
@@ -86,7 +91,65 @@ _SA_BF16 = {
          "    if (vec) {\n      if (8 * o < left) {"),
     ],
 }
-KERNELS = {"softargmin": ("softargmin.cu", _SA_BF16), "warp": ("warp.cu", _WARP)}
+_CORR_BWD = {
+    "staging": [
+        ("        stage_piece(dst0 + cc * lw + piece * q, in ? base + (c0 + cc) * plane + w : any, in, piece);",
+         "        bf16* dst = dst0 + cc * lw + piece * q;\n"
+         "        if (piece == 8) {\n"
+         "          *reinterpret_cast<uint4*>(dst) = make_uint4(in ? cc : 0u, q, 0u, 0u);\n"
+         "        } else {\n"
+         "          for (int i = 0; i < piece; ++i) dst[i] = __ushort_as_bfloat16(in ? cc + i : 0);\n"
+         "        }"),
+    ],
+    "band": [
+        ("        vl[i] = d < max_disp && w0 + j < width ? __ldg(graw + at) : 0;\n"
+         "        vr[i] = d < max_disp && w0 + j + d < width ? __ldg(graw + at + d) : 0;",
+         "        vl[i] = d < max_disp ? 0x3c00 + d : 0;\n        vr[i] = d < max_disp ? 0x3c00 + j : 0;"),
+    ],
+    "contraction": [
+        ("    for (int k = 0; k < nk; ++k) {\n      unsigned a[4];",
+         "    for (int k = 0; k < nk * (inv_c == 1234.5f); ++k) {\n      unsigned a[4];"),
+    ],
+    "stores": [
+        ("      copy_piece(out + j, s_out + sc * lo + j, piece);",
+         "      if (__bfloat162float(s_out[sc * lo + j]) == 1234.5f) copy_piece(out + j, s_out + sc * lo + j, piece);"),
+    ],
+}
+_WARP_BWD = {
+    "disparity": _WARP["disparity"],
+    "gathers": [
+        ("      gradient(grow + c * plane, g[c]);\n#pragma unroll\n      for (int i = 0; i < 4; ++i) {\n"
+         "        lo[c][i] = load_f32(irow + c * plane + x0[i]);\n"
+         "        hi[c][i] = load_f32(irow + c * plane + x0[i] + 1);",
+         "      gradient(grow + c * plane, g[c]);\n#pragma unroll\n      for (int i = 0; i < 4; ++i) {\n"
+         "        lo[c][i] = 0.01f * (x0[i] + c);\n        hi[c][i] = 0.02f * x0[i];"),
+    ],
+    "gradient": [
+        ("      const float4 q = ldcs4_f32(src + w0);",
+         "      const float4 q = make_float4(0.1f * w0, 0.2f, 0.3f, 0.4f);"),
+        ("      for (int i = 0; i < 4; ++i) g[i] = i < n ? ldcs_f32(src + w0 + i) : 0.f;",
+         "      for (int i = 0; i < 4; ++i) g[i] = 0.1f * (w0 + i);"),
+    ],
+    "stores": [
+        ("  if (vec) {\n    *reinterpret_cast<float4*>(orow + w0) = make_float4(v[0], v[1], v[2], v[3]);",
+         "  if (v[0] + v[1] + v[2] + v[3] != 1234.5f) return;\n"
+         "  if (vec) {\n    *reinterpret_cast<float4*>(orow + w0) = make_float4(v[0], v[1], v[2], v[3]);"),
+    ],
+}
+_STEPS = ("aanet step", "aanet+ step")
+# by kernel: (source file, edits, the chip_smoke spec timed, the path shapes)
+KERNELS = {
+    "softargmin": ("softargmin.cu", _SA_BF16, "soft_argmin_bf16",
+                   lambda cs: [(p, sig) for p, ss in cs.SA_PATHS.items() for sig in ss]),
+    "warp": ("warp.cu", _WARP, "disp_warp_bf16",
+             lambda cs: [(p, (s,)) for p, ss in cs.WARP_PATHS.items() for s in ss]),
+    "corrbwd": ("correlation.cu", _CORR_BWD, "correlation_backward_bf16",
+                lambda cs: [(p, sig) for p in _STEPS for sig in cs.CORR_PATHS[p]]),
+    "warpbwd": ("warp.cu", _WARP_BWD, "disp_warp_backward_bf16",
+                lambda cs: [("aanet step", (s,)) for s in cs.WARP_PATHS["aanet step"]]),
+    "warpbwd32": ("warp.cu", _WARP_BWD, "disp_warp_backward",
+                  lambda cs: [("aanet step", (s,)) for s in cs.WARP_PATHS["aanet step"]]),
+}
 
 
 def variants(source, parts):
@@ -137,7 +200,6 @@ def main() -> int:
     import chip_smoke  # this tree's shapes, inputs, tolerances and timer
 
     from aanet_torch import _build
-    from aanet_torch.ops import softargmin, warp
 
     if not torch.cuda.is_available():
         print("torch.cuda.is_available() is False", file=sys.stderr)
@@ -145,23 +207,22 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    filename, parts = KERNELS[args.kernel]
+    filename, parts, spec_name, shapes = KERNELS[args.kernel]
     with open(_build.CSRC / filename) as f:
         sources = variants(f.read(), parts)
     print(f"{_build.CSRC / filename}: variants {list(sources)}", flush=True)
 
     dev = torch.device("cuda")
     timer = chip_smoke.Timer(dev)
-    fwd, _ = chip_smoke.kernel_specs()
-    spec = next(s for s in chip_smoke.bf16_kernel_specs(fwd)
-                if s["name"] == {"softargmin": "soft_argmin_bf16", "warp": "disp_warp_bf16"}[args.kernel])
+    fwd, bwd = chip_smoke.kernel_specs()
+    by_name = {s["name"]: s for s in (fwd + bwd + chip_smoke.bf16_kernel_specs(fwd)
+                                      + chip_smoke.bf16_backward_specs(bwd))}
+    spec = by_name[spec_name]
     if args.kernel == "softargmin":  # over the baselines' 96-192 candidates: the float32 form's
-        spec = dict(spec, tol=next(s for s in fwd if s["name"] == "soft_argmin")["tol"])
-    op = {"softargmin": softargmin.soft_argmin, "warp": warp.disp_warp}[args.kernel]
-    if args.kernel == "softargmin":
-        sigs = [(p, sig) for p, ss in chip_smoke.SA_PATHS.items() for sig in ss]
-    else:
-        sigs = [(p, (shape,)) for p, ss in chip_smoke.WARP_PATHS.items() for shape in ss]
+        spec = dict(spec, tol=by_name["soft_argmin"]["tol"])
+    op = getattr(spec["module"], spec["attr"])
+    sigs = shapes(chip_smoke)
+    lib_name = filename[: -len(".cu")]
     record = dict(kernel=args.kernel, card=smi, shapes={}, paths={})
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_variants(_build, _build.CSRC, filename, sources, tmp)
@@ -173,7 +234,7 @@ def main() -> int:
                 lib = ctypes.CDLL(lib_path)
                 lib.aanet_cuda_error_string.argtypes = [ctypes.c_int]
                 lib.aanet_cuda_error_string.restype = ctypes.c_char_p
-                _build._libraries[args.kernel] = lib
+                _build._libraries[lib_name] = lib
                 if name == "full":
                     got, want = op(*ins), spec["plain"](*ins)
                     got = got if isinstance(got, tuple) else (got,)

@@ -1,25 +1,29 @@
 #!/usr/bin/env python3
-"""Time the warp forward (``csrc/warp.cu``: ``warp_kernel``, bf16 and
-float32) at the shapes of the port's paths, on one NVIDIA GPU.
+"""Time the warp's kernels (``csrc/warp.cu``: ``warp_kernel`` and
+``warp_bwd_kernel``, bf16 and float32) at the shapes of the port's paths, on
+one NVIDIA GPU.
 
     python3 tools/torch_warp_sweep.py [--out FILE] [--package DIR]
 
 Builds ``csrc/warp.cu`` and prints nvcc's register and spill counts for it
 (``-Xptxas -v``). For each warp of the paths (``chip_smoke.WARP_PATHS``: the
 ``aanet`` train step's two and inference's two) and the widths beyond them
-(``chip_smoke.WARP_EDGE_SHAPES``): holds the bf16 kernel against the plain
-twin (one bf16 ulp of max|ref|, the mask exactly), checks that two launches
-give the same bits, and at the path shapes times it with ``chip_smoke.Timer``
-(L2 flushed, median over CUDA events) beside the bound
-(``chip_smoke.bf16_kernel_specs``' bytes), the float32 kernel and
-``F.grid_sample`` in bf16. A line per shape goes to standard output and,
-with ``--out``, its JSON record to a file.
+(``chip_smoke.WARP_EDGE_SHAPES``): holds the bf16 forward against the plain
+twin (one bf16 ulp of max|ref|, the mask exactly) and the backward for the
+disparity in both dtypes against theirs (1e-5 of max|ref|), checks that two
+launches give the same bits, and at the path shapes times each with
+``chip_smoke.Timer`` (L2 flushed, median over CUDA events) beside the bound
+(``chip_smoke``'s bytes), its float32 form and ``F.grid_sample`` (in bf16;
+for the backward, its forward and backward for the grid); the backward only
+at the train step's shapes. A line per shape and kernel goes to standard
+output and, with ``--out``, its JSON record to a file.
 
 With ``--package DIR`` the warp library of the ``aanet_torch`` package in
 DIR (an older checkout, e.g. a ``git archive`` of the parent commit unpacked
 under ``_archive/``) is built too, and at the path shapes its kernels and
-this tree's are timed in turns in this process (parent, this, this, parent),
-bf16 and float32, and their outputs compared bit for bit.
+this tree's are timed in turns in this process (parent, this, this,
+parent), bf16 and float32, each through its C entry point, and their
+outputs compared bit for bit.
 """
 from __future__ import annotations
 
@@ -68,38 +72,44 @@ def main() -> int:
                         os.path.join(os.path.abspath(args.package), "aanet_torch", "csrc", "warp.cu")],
                        check=True)
         parent = ctypes.CDLL(lib)
-        for fn in (parent.aanet_warp_bf16, parent.aanet_warp_f32):
-            fn.argtypes = warp._ARGTYPES
-            fn.restype = ctypes.c_int
     dev = torch.device("cuda")
     timer = chip_smoke.Timer(dev)
-    fwd, _ = chip_smoke.kernel_specs()
-    spec = next(s for s in chip_smoke.bf16_kernel_specs(fwd) if s["name"] == "disp_warp_bf16")
+    fwd, bwd = chip_smoke.kernel_specs()
+    specs = {"forward": next(s for s in chip_smoke.bf16_kernel_specs(fwd)
+                             if s["name"] == "disp_warp_bf16"),
+             "backward": next(s for s in chip_smoke.bf16_backward_specs(bwd)
+                              if s["name"] == "disp_warp_backward_bf16")}
     P = _build.ptr
 
-    def outputs(img):
-        b, c, h, w = img.shape
-        return torch.empty_like(img), torch.empty((b, 1, h, w), dtype=img.dtype, device=img.device)
-
-    def launch(img, disp, lib=None):
+    def launch(kind, ins, lib=None):
         """One launch of this tree's entry point, or of ``lib``'s: the same
         arguments through ctypes, so the two are timed alike."""
-        warped, valid = outputs(img)
-        form = "bf16" if img.dtype == torch.bfloat16 else "f32"
-        args = (P(img), P(disp), P(warped), P(valid), *img.shape, img.device.index,
-                _build.stream(img))
-        if lib is None:
-            _build.launch("warp", f"aanet_warp_{form}", warp._ARGTYPES, *args)
+        if kind == "forward":
+            img, disp = ins
+            b, c, h, w = img.shape
+            outs = (torch.empty_like(img), torch.empty((b, 1, h, w), dtype=img.dtype, device=dev))
+            ptrs, symbol = (P(img), P(disp), *map(P, outs)), "aanet_warp"
         else:
-            err = getattr(lib, f"aanet_warp_{form}")(*args)
-            chip_smoke.check(err == 0, f"the package's warp: CUDA error {err}")
-        return warped, valid
+            grad, img, disp = ins
+            outs = (torch.empty_like(disp),)
+            ptrs, symbol = (P(grad), P(img), P(disp), P(outs[0])), "aanet_warp_backward"
+        symbol += "_bf16" if img.dtype == torch.bfloat16 else "_f32"
+        args = (*ptrs, *img.shape, img.device.index, _build.stream(img))
+        if lib is None:
+            _build.launch("warp", symbol, warp._ARGTYPES, *args)
+        else:
+            fn = getattr(lib, symbol)
+            fn.argtypes, fn.restype = warp._ARGTYPES, ctypes.c_int
+            err = fn(*args)
+            chip_smoke.check(err == 0, f"the package's {symbol}: CUDA error {err}")
+        return outs
 
-    def errors(got, want):
-        (gw, gv), (ww, wv) = got, want
-        err, tol = float((gw.float() - ww.float()).abs().max()), spec["tol"](ww)
-        chip_smoke.check(err <= tol and torch.equal(gv, wv), f"error {err} > {tol}, or the mask differs")
-        return err, tol
+    def errors(spec, got, want):
+        errs = [(float((g.float() - w.float()).abs().max()), spec["tol"](w)) for g, w in zip(got, want)]
+        chip_smoke.check(all(e <= t for e, t in errs), f"errors {errs}")
+        if len(got) == 2:  # the forward's mask: exactly
+            chip_smoke.check(torch.equal(got[1], want[1]), "the mask differs")
+        return max(errs)
 
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
@@ -108,45 +118,51 @@ def main() -> int:
     shapes += [("beyond the paths", s) for s in chip_smoke.WARP_EDGE_SHAPES]
     with open(args.out or os.devnull, "w") as out:
         for path, shape in shapes:
-            gen = torch.Generator(device=dev).manual_seed(0)
-            ins, _ = spec["inputs"]((shape,), gen, dev)
-            want = spec["plain"](*ins)
-            got, again = warp.disp_warp(*ins), warp.disp_warp(*ins)
-            torch.cuda.synchronize()
-            err, tol = errors(got, want)
-            same = all(torch.equal(x, y) for x, y in zip(got, again))
-            chip_smoke.check(same, f"{shape}: two launches differ")
-            row = dict(shape=list(shape), path=path, err=err, tol=tol, identical=same, card=smi)
-            line = f"{shape} ({path}): err {err:.3g} (tol {tol:.3g})"
-            if path != "beyond the paths":
-                row.update(ms=timer.ms(lambda: warp.disp_warp(*ins), iters=20),
-                           bound_ms=max(chip_smoke.bound_times(spec["cost"]((shape,)))),
-                           f32_kernel_ms=timer.ms(lambda: warp.disp_warp(*spec["f32_args"](ins)),
-                                                  iters=20),
-                           library_ms=timer.ms(spec["library"](*ins), iters=20))
-                totals[path] = totals.get(path, 0.0) + row["ms"]
-                line += (f" {row['ms']:.4f} ms, bound {row['bound_ms']:.4f}, float32 "
-                         f"{row['f32_kernel_ms']:.4f}, F.grid_sample {row['library_ms']:.4f}")
-                if parent is not None:
-                    f32 = spec["f32_args"](ins)
-                    for xs in (ins, f32):
-                        chip_smoke.check(all(torch.equal(x, y) for x, y in
-                                             zip(launch(*xs, parent), launch(*xs))),
-                                         f"{shape} {xs[0].dtype}: the package's outputs differ "
-                                         "from this tree's")
-                    turns, turns32 = ([timer.ms(lambda: launch(*xs, lib), iters=20)
-                                       for lib in (parent, None, None, parent)] for xs in (ins, f32))
-                    row.update(in_turns=dict(parent=[turns[0], turns[3]], this=turns[1:3]),
-                               f32_in_turns=dict(parent=[turns32[0], turns32[3]], this=turns32[1:3]),
-                               parent_bits_equal=True)
-                    line += (f"; in turns parent {turns[0]:.4f}, this {turns[1]:.4f}, "
-                             f"{turns[2]:.4f}, parent {turns[3]:.4f} (the same bits); float32 "
-                             f"in turns {', '.join(f'{t:.4f}' for t in turns32)} (the same bits)")
-            out.write(json.dumps(row) + "\n")
-            print(line, flush=True)
-            del ins, want, got, again
-            torch.cuda.empty_cache()
-    print("per path, one launch of each listed shape, ms: " + json.dumps(totals), flush=True)
+            for kind, spec in specs.items():
+                if kind == "backward" and path not in ("aanet step", "beyond the paths"):
+                    continue  # the backward runs in training only
+                gen = torch.Generator(device=dev).manual_seed(0)
+                ins, _ = spec["inputs"]((shape,), gen, dev)
+                op = getattr(spec["module"], spec["attr"])
+                spec32 = next(s for s in fwd + bwd if s["name"] == spec["name"][: -len("_bf16")])
+                for sp, xs in ((spec, ins), (spec32, spec["f32_args"](ins))):  # bf16, then float32
+                    dtype = "bfloat16" if xs[0].dtype == torch.bfloat16 else "float32"
+                    want, got, again = sp["plain"](*xs), op(*xs), op(*xs)
+                    want, got, again = (v if isinstance(v, tuple) else (v,) for v in (want, got, again))
+                    torch.cuda.synchronize()
+                    err, tol = errors(sp, got, want)
+                    same = all(torch.equal(x, y) for x, y in zip(got, again))
+                    chip_smoke.check(same, f"{kind} {dtype} {shape}: two launches differ")
+                    row = dict(kernel=kind, dtype=dtype, shape=list(shape), path=path, err=err,
+                               tol=tol, identical=same, card=smi)
+                    line = f"{kind} {dtype} {shape} ({path}): err {err:.3g} (tol {tol:.3g})"
+                    if path != "beyond the paths":
+                        row.update(ms=timer.ms(lambda: op(*xs), iters=20),
+                                   bound_ms=max(chip_smoke.bound_times(sp["cost"]((shape,)))),
+                                   library_ms=timer.ms(sp["library"](*xs), iters=20))
+                        totals[(path, kind, dtype)] = totals.get((path, kind, dtype), 0.0) + row["ms"]
+                        line += (f" {row['ms']:.4f} ms, bound {row['bound_ms']:.4f}, F.grid_sample "
+                                 f"{row['library_ms']:.4f}")
+                        if parent is not None:
+                            chip_smoke.check(all(torch.equal(x, y) for x, y in
+                                                 zip(launch(kind, xs, parent), launch(kind, xs))),
+                                             f"{kind} {dtype} {shape}: the package's outputs differ "
+                                             "from this tree's")
+                            turns = [timer.ms(lambda: launch(kind, xs, lib), iters=20)
+                                     for lib in (parent, None, None, parent)]
+                            row.update(in_turns=dict(parent=[turns[0], turns[3]], this=turns[1:3]),
+                                       parent_bits_equal=True)
+                            for who, ts in (("parent", turns[::3]), ("this", turns[1:3])):
+                                key = (path, kind, dtype, f"{who} in turns")
+                                totals[key] = totals.get(key, 0.0) + sum(ts) / 2
+                            line += (f"; in turns parent {turns[0]:.4f}, this {turns[1]:.4f}, "
+                                     f"{turns[2]:.4f}, parent {turns[3]:.4f} (the same bits)")
+                    out.write(json.dumps(row) + "\n")
+                    print(line, flush=True)
+                del ins
+                torch.cuda.empty_cache()
+    print("per path, one launch of each listed shape, ms: "
+          + json.dumps({" / ".join(k): v for k, v in totals.items()}), flush=True)
     tmp.cleanup()
     return 0
 
