@@ -112,12 +112,23 @@ def library(name: str) -> ctypes.CDLL:
 
 def launch(name: str, symbol: str, argtypes, *args) -> None:
     """Call C entry point ``symbol`` of library ``name``; raise if CUDA
-    refused the launch (the entry point returns ``cudaGetLastError()``)."""
+    refused the launch (the entry point returns ``cudaGetLastError()``).
+
+    Every entry point takes the index of its tensors' device and that
+    device's stream as its last two arguments, and sets that device
+    current (``cudaSetDevice``). The call runs under
+    ``torch.cuda.device(index)``, so the launch lands on the tensors' card
+    whatever device the calling thread had current, and that device is
+    current again afterwards."""
+    device = args[-2]
+    if not isinstance(device, int) or device < 0:
+        raise ValueError(f"{symbol}: the device index argument is {device!r}")
     lib = library(name)
     fn = getattr(lib, symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
-    err = fn(*args)
+    with torch.cuda.device(device):
+        err = fn(*args)
     if err != 0:
         msg = lib.aanet_cuda_error_string(err).decode()
         raise RuntimeError(f"{symbol}: CUDA error {err} ({msg})")
@@ -147,10 +158,17 @@ def count_launch(wrapper, form_: str) -> None:
 
 def check_cuda(op: str, **tensors) -> None:
     """Each keyword is ``name=(tensor, dtype)``: raise unless the tensor is
-    a contiguous CUDA tensor of that dtype."""
+    a contiguous CUDA tensor of that dtype, on the same card as the
+    others."""
+    first = None
     for arg, (t, dtype) in tensors.items():
         if t.device.type != "cuda":
             raise ValueError(f"{op}: {arg} lies on {t.device}, the kernel takes CUDA tensors")
+        if first is None:
+            first = (arg, t.device)
+        elif t.device != first[1]:
+            raise ValueError(f"{op}: {arg} lies on {t.device} and {first[0]} on {first[1]}; "
+                             "the kernel takes tensors of one card")
         if t.dtype != dtype:
             raise TypeError(f"{op}: {arg} is {t.dtype}, the kernel takes {dtype}")
         if not t.is_contiguous():

@@ -21,11 +21,23 @@ All take the JAX CLI's model flags (aanet_tpu/cli.py:94-122) on top of
 ``--preset``: the PSMNet (hourglass or basic aggregation), StereoNet and
 GC-Net baselines are reached through them, as in the JAX package, which
 has no preset or recipe for them. ``train`` also takes the data flags and the
-training flags but the summaries' (TensorBoard is not ported), and the
-recipes of both AANet and AANet+ (``--recipe aanet+_sceneflow``). It
-writes ``aanet_latest.pt`` after every epoch, ``models/aanet_epoch_NNN.pt``
-every ``--save_ckpt_freq`` epochs and ``aanet_best.pt`` on the best
-validation; ``--resume`` continues from ``aanet_latest.pt``. ``evaluate``
+training flags, and the recipes of both AANet and AANet+ (``--recipe
+aanet+_sceneflow``). It writes ``aanet_latest.pt`` after every epoch,
+``models/aanet_epoch_NNN.pt`` every ``--save_ckpt_freq`` epochs and
+``aanet_best.pt`` on the best validation, each with the JAX package's
+flax pair beside it (``.msgpack`` and ``.json``, for the JAX package's
+``--pretrained``: they hold no optimizer state), the summaries under
+``tb/`` (scalars every ``--print_freq`` steps, panels every
+``--summary_freq``), ``lossRecord.mat``, ``valLossRecord.mat`` and the
+validation's ``matlab_analysis/``; ``--resume`` continues from
+``aanet_latest.pt``. ``train`` and ``evaluate`` run data-parallel under a
+launcher, one process a card:
+
+  torchrun --nproc_per_node N -m aanet_torch.cli train --preset aanet ...
+
+where ``--device cuda`` is the card ``cuda:LOCAL_RANK``, ``--batch_size``
+the global batch (each process takes its share) and only rank 0 writes
+files. ``evaluate``
 takes the same flags, validates on the ``--mode`` split (``val`` by
 default) and prints the metrics as one JSON line; its weights are
 ``--pretrained``, else ``aanet_best.pt`` and then
@@ -57,6 +69,7 @@ import sys
 import torch
 
 from aanet_torch.config import Config, DataConfig, ModelConfig, TrainConfig, preset, recipe
+from aanet_torch.parallel import mesh
 
 _MODEL_FLAGS = {
     "max_disp": int, "feature_type": str, "feature_similarity": str, "num_downsample": int,
@@ -76,7 +89,8 @@ _DATA_FLAGS = {
 _TRAIN_FLAGS = {
     "checkpoint_dir": str, "seed": int, "learning_rate": float, "weight_decay": float,
     "lr_decay_gamma": float, "milestones": str, "max_epoch": int, "accumulation_steps": int,
-    "val_metric": str, "save_ckpt_freq": int, "print_freq": int, "pretrained": str,
+    "val_metric": str, "save_ckpt_freq": int, "print_freq": int, "summary_freq": int,
+    "pretrained": str,
 }
 _TRAIN_SWITCHES = ("freeze_bn", "highest_loss_only", "no_validate", "load_pseudo_gt", "strict",
                    "resume")
@@ -151,19 +165,33 @@ def build_config(args) -> Config:
     return cfg
 
 
+def _logger(log_file=None):
+    """The training logger, writing also to ``log_file``; on every rank
+    but 0, which alone writes, it logs warnings only."""
+    from aanet_torch.train.trainer import get_logger
+
+    if mesh.rank() == 0:
+        return get_logger(log_file)
+    logger = get_logger()
+    logger.setLevel(logging.WARNING)
+    return logger
+
+
 def cmd_train(args):
     from aanet_torch.data.datasets import StereoDataset
     from aanet_torch.data.pipeline import make_train_loader, make_val_loader
     from aanet_torch.data.transforms import train_transform, val_transform
-    from aanet_torch.train.trainer import Trainer, get_logger
+    from aanet_torch.train.trainer import Trainer
 
     cfg = build_config(args)
-    os.makedirs(cfg.train.checkpoint_dir, exist_ok=True)
-    with open(os.path.join(cfg.train.checkpoint_dir, "args.json"), "w") as f:
-        f.write(cfg.to_json())
-    with open(os.path.join(cfg.train.checkpoint_dir, "command_train.txt"), "a") as f:
-        f.write(" ".join(sys.argv) + "\n")
-    logger = get_logger(os.path.join(cfg.train.checkpoint_dir, "trainLog.txt"))
+    mesh.maybe_init_distributed(args.device)
+    logger = _logger(os.path.join(cfg.train.checkpoint_dir, "trainLog.txt"))
+    if mesh.rank() == 0:
+        os.makedirs(cfg.train.checkpoint_dir, exist_ok=True)
+        with open(os.path.join(cfg.train.checkpoint_dir, "args.json"), "w") as f:
+            f.write(cfg.to_json())
+        with open(os.path.join(cfg.train.checkpoint_dir, "command_train.txt"), "a") as f:
+            f.write(" ".join(sys.argv) + "\n")
     logger.info("config:\n" + cfg.to_json())
 
     d, t = cfg.data, cfg.train
@@ -180,10 +208,13 @@ def cmd_train(args):
             filename_root=d.filename_root, save_filename=False,
             transform=val_transform(d.val_img_height, d.val_img_width),
         )
-    logger.info(f"{len(train_ds)} train / {len(val_ds) if val_ds else 0} val samples")
+    logger.info(f"{len(train_ds)} train / {len(val_ds) if val_ds else 0} val samples, "
+                f"{mesh.world_size()} process(es)")
 
     global_batch = d.batch_size * max(1, t.accumulation_steps)
-    trainer = Trainer(cfg, len(train_ds) // global_batch, logger=logger, device=args.device)
+    mesh.local_batch_size(global_batch)  # the world size must divide the global batch
+    trainer = Trainer(cfg, len(train_ds) // global_batch, logger=logger,
+                      device=mesh.local_device(args.device))
     for epoch in range(trainer.epoch, t.max_epoch):
         means = trainer.train_epoch(
             make_train_loader(train_ds, global_batch, epoch, seed=t.seed, num_workers=d.num_workers)
@@ -192,6 +223,7 @@ def cmd_train(args):
         if val_ds is not None:
             trainer.validate(make_val_loader(val_ds, d.val_batch_size, d.num_workers))
     logger.info("training done")
+    mesh.stop_distributed()
 
 
 def cmd_evaluate(args):
@@ -202,7 +234,7 @@ def cmd_evaluate(args):
     from aanet_torch.data.pipeline import make_val_loader
     from aanet_torch.data.transforms import val_transform
     from aanet_torch.infer import load_weights_into
-    from aanet_torch.train.trainer import Trainer, get_logger
+    from aanet_torch.train.trainer import Trainer
 
     cfg = build_config(args)
     cfg.train.evaluate_only = True
@@ -218,18 +250,21 @@ def cmd_evaluate(args):
                 "and no --pretrained given"
             )
         weights = found[0]
-    logger = get_logger()
+    mesh.maybe_init_distributed(args.device)
+    logger = _logger()
     val_ds = StereoDataset(
         d.data_dir, d.dataset_name, mode=d.mode, split_preset=d.split_preset,
         filename_root=d.filename_root, save_filename=False,
         transform=val_transform(d.val_img_height, d.val_img_width),
     )
-    trainer = Trainer(cfg, steps_per_epoch=1, logger=logger, device=args.device)
+    trainer = Trainer(cfg, steps_per_epoch=1, logger=logger, device=mesh.local_device(args.device))
     if weights:
         load_weights_into(trainer.model, weights, strict=True)
         logger.info(f"loaded {weights}")
     means = trainer.validate(make_val_loader(val_ds, d.val_batch_size, d.num_workers))
-    print(json.dumps(means), flush=True)
+    if mesh.rank() == 0:
+        print(json.dumps(means), flush=True)
+    mesh.stop_distributed()
 
 
 def cmd_inference(args):

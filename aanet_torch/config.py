@@ -202,6 +202,8 @@ class TrainConfig:
     # models/aanet_epoch_NNN.pt, without the optimizer, every this many epochs
     save_ckpt_freq: int = 5
     print_freq: int = 50
+    # image panels and the signed-error histogram every this many steps
+    summary_freq: int = 100
     # continue from aanet_latest.pt under checkpoint_dir, where there is one
     resume: bool = False
     # validation only, as the evaluate entry point runs it: no aanet_best

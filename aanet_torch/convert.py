@@ -16,8 +16,8 @@ The inputs are nested dicts of numpy arrays, as ``jax.device_get`` or the
 port's own flax-checkpoint reader (``aanet_torch/utils/checkpoint.py``,
 which loads a ``.msgpack`` or ``.msgpack.gz`` file through this map) give
 them. ``flax_from_state_dict`` is the inverse map: the reader's template
-of a model's trees, and the port's trained state (writing a flax msgpack
-file from it is not ported yet).
+of a model's trees, and the trees of the port's trained state that
+``utils/checkpoint.save_flax_checkpoint`` writes as a flax file.
 """
 from __future__ import annotations
 

@@ -5,8 +5,11 @@ Text files with ``left right [disp]`` relative paths per line, organised
 per dataset (SceneFlow / KITTI2012 / KITTI2015 / KITTI_mix) and mode
 (train / train_all / val / test), under a split preset's directory
 (debug / overfit / subset-N / full). The lists are read from
-``filename_root`` or, without one, from the working directory; the JAX
-package's vendored lists are not carried over.
+``filename_root`` or, without one, from the working directory and then
+from the port's own copy of the reference's split lists,
+``aanet_torch/filenames/`` (a byte-for-byte copy of the JAX package's
+vendored lists with their ``MANIFEST.json``), so that ``--split_preset
+subset_1200`` resolves out of the box (aanet_tpu/data/datasets.py:21-36).
 """
 from __future__ import annotations
 
@@ -55,9 +58,17 @@ DATASET_FILES = {
 }
 
 
+# the vendored split lists, gzipped (filenames/MANIFEST.json: lines and sha256 of each)
+VENDORED_ROOT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                             "filenames")
+
+
 def _resolve_list(filename_root: Optional[str], split_dir: str, fname: str) -> str:
-    root = filename_root or "."
-    candidates = [os.path.join(root, split_dir, fname), os.path.join(root, split_dir, fname + ".gz")]
+    """The list ``split_dir/fname`` (or its ``.gz``) under ``filename_root``,
+    or without one under the working directory, then ``VENDORED_ROOT``."""
+    candidates = []
+    for root in ([filename_root] if filename_root else [".", VENDORED_ROOT]):
+        candidates += [os.path.join(root, split_dir, fname), os.path.join(root, split_dir, fname + ".gz")]
     for c in candidates:
         if os.path.exists(c):
             return c

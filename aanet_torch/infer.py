@@ -227,7 +227,8 @@ def run_inference(cfg: Config, output_dir: str, save_type: str = "png", visualiz
     logger.info(f"{len(ds)} samples found in the test set")
 
     num_imgs = 0
-    for batch in make_val_loader(ds, d.batch_size, num_workers=d.num_workers):
+    for batch in make_val_loader(ds, d.batch_size, num_workers=d.num_workers, process_index=0,
+                                 process_count=1):
         left, right = batch["left"], batch["right"]
         ori_h, ori_w = left.shape[1:3]
         top, pad_right = max(0, d.img_height - ori_h), max(0, d.img_width - ori_w)

@@ -24,6 +24,17 @@ normalises in float32 and returns the compute dtype (flax's
 a float32 copy of its input, and its op rounds the mask and the weight to
 the input's dtype. Parameters and statistics stay float32.
 
+Under data-parallel training (a process group of more than one rank,
+``aanet_torch.parallel.mesh``) a training ``Norm`` takes its statistics
+over the global batch, as flax's BatchNorm does under the JAX package's
+global-view jit: each rank's per-channel mean, biased variance and count
+are gathered and combined exactly, in float64, into the global mean and
+biased variance, which normalise and move the running statistics
+identically on every rank; the gradient flows back through the gather
+to every rank's share, as SyncBatchNorm's does. A recomputed block (see
+``remat``) gathers again, on every rank alike; eval mode and ``freeze_bn``
+gather nothing.
+
 ``remat`` is the port's activation rematerialisation (flax ``nn.remat``):
 ``torch.utils.checkpoint`` with the BatchNorm statistics updated only on
 the first, saved forward, never again when backward recomputes the block,
@@ -40,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from aanet_torch.ops import deform as deform_ops
 from aanet_torch.ops.precision import compute_dtype, precision
+from aanet_torch.parallel import mesh
 
 BN_MOMENTUM = 0.1  # torch convention; flax's momentum 0.9
 # False while torch.utils.checkpoint recomputes a block in backward: the
@@ -214,6 +226,8 @@ class Norm(nn.Module):
         if not bn.training:
             return bn(x)
         dims = (0,) + tuple(range(2, x.ndim))
+        if mesh.world_size() > 1:
+            return self._normalize_global(x, dims)
         if _UPDATE_STATS:
             with torch.no_grad():
                 var, mean = torch.var_mean(x, dim=dims, correction=0)
@@ -228,6 +242,27 @@ class Norm(nn.Module):
             shape = (1, -1) + (1,) * (x.ndim - 2)
             return (x - mean) * torch.rsqrt(var + bn.eps) * bn.weight.view(shape) + bn.bias.view(shape)
         return F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
+
+    def _normalize_global(self, x, dims):
+        """Training over several ranks: the statistics of the global batch
+        (module docstring). Every rank calls this in the same order."""
+        bn = self.BatchNorm_0
+        var, mean = torch.var_mean(x, dim=dims, correction=0)
+        count = torch.full_like(mean, x.numel() // x.shape[1], dtype=torch.float64)
+        parts = mesh.gather_ranks(torch.stack([mean.double(), var.double(), count]))
+        counts = parts[:, 2]
+        total = counts.sum(0)
+        mean64 = (counts * parts[:, 0]).sum(0) / total
+        var64 = (counts * (parts[:, 1] + (parts[:, 0] - mean64).square())).sum(0) / total
+        mean, var = mean64.float(), var64.float()
+        if _UPDATE_STATS:
+            with torch.no_grad():
+                bn.running_mean.lerp_(mean, BN_MOMENTUM)
+                bn.running_var.lerp_(var, BN_MOMENTUM)
+                bn.num_batches_tracked.add_(1)
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        scale = bn.weight * torch.rsqrt(var + bn.eps)
+        return (x - mean.view(shape)) * scale.view(shape) + bn.bias.view(shape)
 
 
 class DeformConv2dLayer(nn.Module):

@@ -999,9 +999,9 @@ def _check_kernel_inputs(op, x, offset, mask, **dense):
     def arg(name, t):
         return t, x.dtype if name in ("x", "mask", "weight", "gout") else torch.float32
 
-    _build.check_cuda(op, **{k: arg(k, v) for k, v in dict(x=x, **dense).items() if v is not None})
     sliced = dict(offset=offset) if mask is None else dict(offset=offset, mask=mask)
-    _build.check_cuda(op, **{k: arg(k, v[0]) for k, v in sliced.items()})
+    _build.check_cuda(op, **{k: arg(k, v) for k, v in dict(x=x, **dense).items() if v is not None},
+                      **{k: arg(k, v[0]) for k, v in sliced.items()})
 
 
 def _shape_args(x, weight, ho, wo, stride, padding, dilation, g):

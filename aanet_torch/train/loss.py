@@ -7,6 +7,12 @@
 * masked smooth-L1 (beta 1) over the valid pixels;
 * an optional pseudo-GT term on the pixels the ground truth leaves invalid;
 * ``highest_loss_only`` keeps only the final full-resolution output.
+
+Under data-parallel training every masked mean is a rank's share of the
+global batch's (aanet_tpu/train/loss.py:35-37 divides by the valid
+pixels of the whole batch): the rank's sum over its valid pixels divided
+by the global count of valid pixels (``count``, ``pseudo_count``), so that
+the shares of all ranks, and their gradients, add up to the global mean's.
 """
 from __future__ import annotations
 
@@ -30,12 +36,15 @@ def smooth_l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.where(diff < 1.0, 0.5 * diff * diff, diff - 0.5)
 
 
-def masked_mean(value: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def masked_mean(value: torch.Tensor, mask: torch.Tensor,
+                count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The mean of ``value`` over ``mask``, in float32 (float64 for a
-    float64 value)."""
+    float64 value); with ``count``, the sum over ``mask`` divided by that
+    count of valid values instead (this rank's share of a global mean)."""
     dt = torch.promote_types(value.dtype, torch.float32)
     m = mask.to(dt)
-    return (value.to(dt) * m).sum() / m.sum().clamp_min(1.0)
+    total = m.sum() if count is None else count.to(dt)
+    return (value.to(dt) * m).sum() / total.clamp_min(1.0)
 
 
 def pyramid_loss(
@@ -45,6 +54,8 @@ def pyramid_loss(
     pseudo_gt_disp: Optional[torch.Tensor] = None,
     pseudo_mask: Optional[torch.Tensor] = None,
     highest_loss_only: bool = False,
+    count: Optional[torch.Tensor] = None,
+    pseudo_count: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, dict]:
     """Weighted multi-scale smooth-L1 loss.
 
@@ -53,6 +64,8 @@ def pyramid_loss(
       gt_disp: [B, H, W].
       mask: [B, H, W] bool validity.
       pseudo_gt_disp, pseudo_mask: optional pseudo-GT supervision.
+      count, pseudo_count: the global counts of ``mask`` and
+        ``pseudo_mask`` under data-parallel training (``masked_mean``).
     Returns:
       (total_loss, aux) with aux['disp_loss'], aux['pseudo_loss'] and
       aux['pyramid_losses'].
@@ -68,10 +81,11 @@ def pyramid_loss(
     for pred, w in zip(pred_pyramid, PYRAMID_WEIGHTS[n]):
         if tuple(pred.shape[1:]) != gt_hw:
             pred = upsample_disparity(pred, gt_hw)
-        curr = masked_mean(smooth_l1(pred, gt_disp), mask)
+        curr = masked_mean(smooth_l1(pred, gt_disp), mask, count)
         disp_loss = disp_loss + w * curr
         per_scale.append(curr)
         if pseudo_gt_disp is not None:
-            pseudo_loss = pseudo_loss + w * masked_mean(smooth_l1(pred, pseudo_gt_disp), pseudo_mask)
+            pseudo_loss = pseudo_loss + w * masked_mean(smooth_l1(pred, pseudo_gt_disp), pseudo_mask,
+                                                        pseudo_count)
     total = disp_loss + pseudo_loss
     return total, {"disp_loss": disp_loss, "pseudo_loss": pseudo_loss, "pyramid_losses": per_scale}

@@ -1,6 +1,6 @@
-"""Reading the JAX package's checkpoints (the reading half of
-aanet_tpu/utils/checkpoint.py:66-77,93-125), with the standard library
-and numpy only: the port imports neither flax nor ``msgpack``.
+"""Reading and writing the JAX package's checkpoints
+(aanet_tpu/utils/checkpoint.py), with the standard library and numpy
+only: the port imports neither flax nor ``msgpack``.
 
 A checkpoint is the msgpack file ``flax.serialization.to_bytes`` writes
 (optionally gzipped, as ``artifacts/aanet_synthetic_best.msgpack.gz``),
@@ -11,6 +11,15 @@ ndarray, a packed ``(shape, dtype name, bytes)``) and 3 (a numpy scalar,
 packed as a 0-d ndarray), then joins the arrays that flax splits into
 chunks of at most 2^30 bytes (``__msgpack_chunked_array__``). A bfloat16
 array, which numpy cannot hold, is returned as float32 (exact).
+
+The encoder writes the subset a checkpoint needs: maps with string keys
+in their insertion order, arrays as extension type 1 (a torch bf16 tensor
+under the dtype name ``bfloat16``), and arrays over
+``chunk_bytes`` (flax's ``MAX_CHUNK_SIZE``, 2^30) split into flat chunks,
+so its bytes are ``flax.serialization.to_bytes``'s of the same tree.
+``save_flax_checkpoint`` writes a model's ``params`` and ``batch_stats``
+so: the JAX package loads the pair with ``load_pretrained_params``
+(``--pretrained``); it holds no optimizer state, so not with ``--resume``.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ from aanet_torch.convert import flax_from_state_dict, state_dict_from_flax
 FLAX_SUFFIXES = (".msgpack", ".msgpack.gz")
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3  # flax.serialization._MsgpackExtType
 _CHUNKED = "__msgpack_chunked_array__"
+MAX_CHUNK_BYTES = 2 ** 30  # flax.serialization.MAX_CHUNK_SIZE
 
 
 class _Decoder:
@@ -135,6 +145,144 @@ def decode_msgpack(data: bytes):
     if decoder.pos != len(decoder.data):
         raise ValueError(f"{len(decoder.data) - decoder.pos} bytes after the msgpack object")
     return _unchunk(tree)
+
+
+def _pack_int(n: int) -> bytes:
+    if 0 <= n < 0x80:
+        return struct.pack(">B", n)
+    if -32 <= n < 0:
+        return struct.pack(">b", n)
+    if n >= 0:
+        for code, fmt in ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q")):
+            if n < 1 << (8 * struct.calcsize(fmt)):
+                return bytes([code]) + struct.pack(fmt, n)
+    else:
+        for code, fmt in ((0xD0, ">b"), (0xD1, ">h"), (0xD2, ">i"), (0xD3, ">q")):
+            if n >= -(1 << (8 * struct.calcsize(fmt) - 1)):
+                return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"integer {n} does not fit msgpack's 64 bits")
+
+
+def _pack_sized(n: int, fixed, codes) -> bytes:
+    """A header for ``n`` entries or bytes: ``fixed`` = (first code, limit)
+    or None; ``codes`` the 8-, 16- and 32-bit (or 16- and 32-bit) forms."""
+    if fixed is not None and n < fixed[1]:
+        return bytes([fixed[0] | n])
+    fmts = (">B", ">H", ">I")[-len(codes):]
+    for code, fmt in zip(codes, fmts):
+        if n < 1 << (8 * struct.calcsize(fmt)):
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"{n} entries or bytes exceed msgpack's 32-bit sizes")
+
+
+def _pack_ext(code: int, payload: bytes) -> bytes:
+    n = len(payload)
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    head = bytes([fixext[n]]) if n in fixext else _pack_sized(n, None, (0xC7, 0xC8, 0xC9))
+    return head + struct.pack(">b", code) + payload
+
+
+def _array_parts(leaf):
+    """(shape, dtype name, C-order bytes) of a numpy array or a torch
+    tensor (bf16 as its 2-byte words, named as flax names it)."""
+    if hasattr(leaf, "detach"):  # a torch tensor
+        t = leaf.detach().cpu().contiguous()
+        if str(t.dtype) == "torch.bfloat16":  # its bits, the upper half of the float32
+            bits = (t.float().numpy().view(np.uint32) >> 16).astype(np.uint16)
+            return tuple(t.shape), "bfloat16", bits.tobytes()
+        leaf = t.numpy()
+    arr = np.asarray(leaf)
+    return arr.shape, arr.dtype.name, arr.tobytes("C")
+
+
+def _pack_ndarray(leaf) -> bytes:
+    """flax's ``_ndarray_to_bytes`` inside its extension type: the triple
+    (shape, dtype name, bytes) packed as a msgpack array."""
+    shape, name, raw = _array_parts(leaf)
+    inner = (_pack_sized(3, (0x90, 16), (0xDC, 0xDD))
+             + _pack_sized(len(shape), (0x90, 16), (0xDC, 0xDD))
+             + b"".join(_pack_int(int(d)) for d in shape)
+             + _pack_str(name)
+             + _pack_sized(len(raw), None, (0xC4, 0xC5, 0xC6)) + raw)
+    return _pack_ext(_EXT_NDARRAY, inner)
+
+
+def _pack_str(text: str) -> bytes:
+    raw = text.encode("utf-8")
+    return _pack_sized(len(raw), (0xA0, 32), (0xD9, 0xDA, 0xDB)) + raw
+
+
+def _itemsize(leaf) -> int:
+    return leaf.element_size() if hasattr(leaf, "detach") else leaf.dtype.itemsize
+
+
+def _nbytes(leaf) -> int:
+    return (leaf.numel() if hasattr(leaf, "detach") else leaf.size) * _itemsize(leaf)
+
+
+def _chunked(leaf, chunk_bytes: int) -> dict:
+    """flax's ``_chunk``: the flat array in pieces of ``chunk_bytes``."""
+    size = max(1, int(chunk_bytes / _itemsize(leaf)))
+    flat = leaf.reshape(-1)
+    n = flat.shape[0]
+    return {_CHUNKED: True, "shape": {str(i): int(d) for i, d in enumerate(leaf.shape)},
+            "chunks": {str(j): flat[i: i + size] for j, i in enumerate(range(0, n, size))}}
+
+
+def encode_msgpack(tree, chunk_bytes: int = MAX_CHUNK_BYTES) -> bytes:
+    """``tree`` (nested dicts with string keys of numpy arrays and torch
+    tensors) as the msgpack bytes ``flax.serialization.to_bytes`` gives the
+    same dict; arrays of more than ``chunk_bytes`` bytes are chunked as
+    flax chunks them (a map of the shape's ints, a true flag and the
+    pieces)."""
+    out = []
+
+    def put(value):
+        if isinstance(value, dict):
+            out.append(_pack_sized(len(value), (0x80, 16), (0xDE, 0xDF)))
+            for key, item in value.items():
+                if not isinstance(key, str):
+                    raise TypeError(f"msgpack map key {key!r}: flax writes string keys")
+                out.append(_pack_str(key))
+                put(item)
+        elif isinstance(value, np.ndarray) or hasattr(value, "detach"):
+            if _nbytes(value) > chunk_bytes:
+                put(_chunked(value, chunk_bytes))
+            else:
+                out.append(_pack_ndarray(value))
+        elif isinstance(value, bool):
+            out.append(b"\xc3" if value else b"\xc2")
+        elif isinstance(value, int):
+            out.append(_pack_int(value))
+        else:
+            raise TypeError(f"cannot encode {type(value).__name__} as flax does")
+
+    put(tree)
+    return b"".join(out)
+
+
+def save_flax_checkpoint(ckpt_dir: str, name: str, model, *, step: int = 0, epoch: int = 0,
+                         epe: float = -1.0, best_epe: float = 999.0, best_epoch: int = -1) -> str:
+    """``model``'s ``params`` and ``batch_stats`` as ``<ckpt_dir>/<name>.msgpack``,
+    the bytes the JAX package's ``save_checkpoint`` writes for those trees
+    (aanet_tpu/utils/checkpoint.py:29-65: its ``jax.tree.map`` sorts every
+    map's keys; written to a temporary and moved into place), and the
+    sidecar ``<name>.json`` with its keys. Returns the msgpack's path."""
+    def sort(tree):
+        return {k: sort(tree[k]) for k in sorted(tree)} if isinstance(tree, dict) else tree
+
+    params, batch_stats = (sort(t) for t in flax_from_state_dict(model.state_dict()))
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, f"{name}.msgpack")
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(encode_msgpack({"params": params, "batch_stats": batch_stats}))
+    os.replace(tmp, path)
+    meta = {"step": int(step), "epoch": int(epoch), "epe": float(epe),
+            "best_epe": float(best_epe), "best_epoch": int(best_epoch)}
+    with open(os.path.join(ckpt_dir, f"{name}.json"), "w") as f:
+        json.dump(meta, f)
+    return path
 
 
 def read_flax_msgpack(path: str):

@@ -67,10 +67,17 @@
 8. the full-width train step: batch 16, 288x576, float32, remat on; the
    launch counts of one step, then the median step time over 10 steps
    after 2 warm-ups, samples/s, peak memory and the device idle share;
-9. runs ``python -m aanet_torch.cli train`` for 2 steps at batch 16 on a
-   synthetic SceneFlow-layout dataset that it writes itself (32 pairs of
-   540x960 PNGs with PFM disparities and filename lists), checks the
-   losses and the checkpoint, and predicts with the written weights;
+9. runs ``python -m aanet_torch.cli train`` under ``python -m
+   torch.distributed.run --standalone --nproc_per_node 1`` (a process
+   group of one: NCCL comes up on the card) with ``--print_freq 1
+   --summary_freq 1`` for 2 steps at batch 16 on a synthetic
+   SceneFlow-layout dataset that it writes itself (32 pairs of 540x960
+   PNGs with PFM disparities and filename lists), checks the losses, the
+   checkpoint, the ``time ... ETA`` log lines, the summaries under
+   ``tb/``, ``lossRecord.mat`` and ``valLossRecord.mat``, validation
+   sample 0's analysis ``.mat`` and the flax pair (read back strictly into
+   a fresh model whose forward equals the ``.pt`` weights' bit for bit),
+   and predicts with the written weights;
 9b. the trained anchor's setting: the ``aanet`` preset at max_disp 48 (ISA
    deformable convs of 16, 8 and 4 output channels): its forward at
    384x1248 through the kernels against the plain run, one train step at
@@ -219,7 +226,16 @@
    it fits) beside phase 10's float32 step with its top device kernels,
    each bf16 kernel at its shapes (the soft-argmin forward's two launches
    bitwise);
-17. prints the kernels' JSON line (the bf16 forms too) and, last,
+17. data-parallel training on the one card: two processes, a gloo group
+   (NCCL refuses two ranks on one device), run the ``aanet`` kernel train
+   step at 288x576, float32, global batch 4 (2 a rank, half of one
+   sample's disparities beyond max_disp) at accumulation 1 and 2: the
+   ranks' parameters, BatchNorm statistics and gradients equal bit for
+   bit, within phase 7's limits of the single-process kernel step on the
+   same global batch (both under ``deterministic``; the gradients within
+   max(1e-3, 2x that step's spread under three 1e-6 input changes)), and
+   each rank's launches phase 8's per-step counts times the accumulation;
+18. prints the kernels' JSON line (the bf16 forms too) and, last,
    {"ok": true, "device": ...}.
 
 Any failure raises, so the exit code is non-zero and the last line is not
@@ -2266,7 +2282,7 @@ def train_phases(specs, bwd_specs, gen, dev, timer, smi, data, lists):
     del optimizer, step
 
     # 9. the train entry point on the card, then predict with its weights
-    cli = cli_train_and_predict(data, lists, ["--preset", "aanet"], TRAIN_BATCH)
+    cli = cli_train_and_predict(data, lists, ["--preset", "aanet"], TRAIN_BATCH, launcher=True)
     print(json.dumps({"cli_train": cli}), flush=True)
     return dict(rows=rows, launches=counts, edge_cases=edges, step=full)
 
@@ -2301,11 +2317,15 @@ def time_steps(step, batch, metrics, dev, top, timed=10, profiled=2):
                 top_kernels=device["top"])
 
 
-def cli_train_and_predict(data, lists, model_args, batch):
+def cli_train_and_predict(data, lists, model_args, batch, launcher=False):
     """``python -m aanet_torch.cli train`` with ``model_args`` for one epoch
     at ``batch`` on the synthetic dataset (data, lists), as a user runs it;
     checks its losses, its validation and its checkpoint, then predicts
-    the first pair with the weights it wrote."""
+    the first pair with the weights it wrote. With ``launcher`` (phase 9)
+    it runs under ``python -m torch.distributed.run --standalone
+    --nproc_per_node 1``, a process group of one that brings NCCL up on
+    the card, with ``--summary_freq 1``, and checks what rank 0 writes
+    (``launcher_outputs``)."""
     from aanet_torch import cli
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2316,6 +2336,9 @@ def cli_train_and_predict(data, lists, model_args, batch):
                "--val_img_height", str(VAL_HW[0]), "--val_img_width", str(VAL_HW[1]),
                "--batch_size", str(batch), "--val_batch_size", "4", "--max_epoch", "1",
                "--print_freq", "1", "--num_workers", "8", "--milestones", "10", "--device", DEVICE]
+        if launcher:
+            cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                   "--nproc_per_node", "1", *cmd[1:], "--summary_freq", "1"]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
                               capture_output=True, text=True, timeout=600)
@@ -2328,6 +2351,7 @@ def cli_train_and_predict(data, lists, model_args, batch):
         val = [r for r in records if r["kind"] == "val"]
         latest = os.path.join(ckpt, "aanet_latest.pt")
         check(os.path.exists(latest) and len(val) == 1, f"cli train wrote {os.listdir(ckpt)}")
+        outputs = launcher_outputs(ckpt, model_args) if launcher else None
         pairs = os.path.join(tmp, "pairs")
         for sub in ("left", "right"):
             os.makedirs(os.path.join(pairs, sub))
@@ -2337,7 +2361,215 @@ def cli_train_and_predict(data, lists, model_args, batch):
         pred = np.load(os.path.join(pairs, "pred", "0.npy"))
         check(pred.shape == CLI_HW and np.isfinite(pred).all(), f"prediction {pred.shape}")
     return dict(model_args=model_args, batch=batch, seconds=cli_s, losses=cli_losses, val=val[0],
-                predict_shape=list(pred.shape))
+                predict_shape=list(pred.shape), launcher=launcher, outputs=outputs)
+
+
+def launcher_outputs(ckpt, model_args):
+    """What phase 9's ``train`` under the launcher wrote: the ``time ... ETA``
+    log line, the summaries under ``tb/`` (TensorBoard's event file where
+    ``tensorboard`` is installed, else the file writer's JSONL and PNG
+    panels), ``lossRecord.mat`` and ``valLossRecord.mat`` (read with
+    scipy), the analysis bundle of validation sample 0, and the flax pair
+    ``aanet_latest.msgpack``/``.json``, which the port's reader loads
+    strictly into a fresh model whose forward equals the ``.pt`` weights'
+    bit for bit."""
+    import scipy.io
+
+    from aanet_torch.config import preset
+    from aanet_torch.utils.checkpoint import load_pretrained
+
+    with open(os.path.join(ckpt, "trainLog.txt")) as f:
+        eta = [line for line in f if " time " in line and " ETA " in line]
+    check(len(eta) == CLI_PAIRS // TRAIN_BATCH, f"{len(eta)} ETA lines in trainLog.txt")
+    tb = os.listdir(os.path.join(ckpt, "tb"))
+    try:  # the import make_summary_writer tries
+        from torch.utils.tensorboard import SummaryWriter  # noqa: F401
+        events = [n for n in tb if n.startswith("events.out.tfevents.")]
+        check(events, f"no TensorBoard event file under tb/: {tb}")
+    except ImportError:
+        events = [n for n in tb if n == "scalars.jsonl" or n.endswith(".png")]
+        check("scalars.jsonl" in events and any(n.startswith("train_pred_disp") for n in events)
+              and any(n.startswith("val0_") for n in events), f"the file writer wrote {tb}")
+    records = {name: scipy.io.loadmat(os.path.join(ckpt, name))
+               for name in ("lossRecord.mat", "valLossRecord.mat")}
+    for name, rec in records.items():
+        check(rec["epoch"].ravel().tolist() == [1] and np.isfinite(rec["epe"]).all(),
+              f"{name}: {sorted(rec)}")
+    bundle = scipy.io.loadmat(os.path.join(ckpt, "matlab_analysis", "epoch001_sample00000.mat"))
+    check(bundle["pred_scale_4"].shape == VAL_HW and bundle["left"].shape == (*VAL_HW, 3),
+          f"analysis bundle {[(k, v.shape) for k, v in bundle.items() if hasattr(v, 'shape')]}")
+    with open(os.path.join(ckpt, "aanet_latest.json")) as f:
+        meta = json.load(f)
+    check(meta["epoch"] == 1 and meta["step"] == CLI_PAIRS // TRAIN_BATCH, f"flax sidecar {meta}")
+    check(model_args[0] == "--preset", f"model args {model_args}")
+    cfg = preset(model_args[1])
+    dev = torch.device(DEVICE)
+    from_pt = cfg.build()
+    from_pt.load_state_dict(torch.load(os.path.join(ckpt, "aanet_latest.pt"), map_location="cpu",
+                                       weights_only=True)["model"])
+    from_flax = cfg.build()
+    skipped = load_pretrained(from_flax, os.path.join(ckpt, "aanet_latest.msgpack"), strict=True)
+    check(skipped == [], f"flax pair left {skipped}")
+    pair = train_batch(torch.Generator(device=dev).manual_seed(SEED), dev, 1, TRAIN_HW)
+    with torch.no_grad(), deterministic():
+        maps = [m.to(dev).eval()(pair["left"], pair["right"]) for m in (from_pt, from_flax)]
+    check(all(torch.equal(a, b) for a, b in zip(*maps)),
+          "the flax pair's forward differs from the .pt weights'")
+    return dict(eta_lines=len(eta), tb=sorted(events)[:4], records=sorted(records),
+                flax_meta=meta, forward_bitwise=True)
+
+
+# Phase 17: data-parallel training on the one card, as gloo ranks (NCCL
+# refuses two ranks on one device)
+DP_WORLD = 2
+DP_BATCH = 4  # the global batch, DP_BATCH // DP_WORLD a rank
+DP_ACCUMULATIONS = (1, 2)
+
+
+def dp_batch(dev):
+    """Phase 17's global batch: DP_BATCH of phase 7's seeded pairs, sample
+    1's disparity beyond max_disp on half its pixels, so that its rank's
+    valid-pixel count is the smaller."""
+    batch = train_batch(torch.Generator(device=dev).manual_seed(SEED), dev, DP_BATCH, TRAIN_HW)
+    batch["disp"][1, :, : TRAIN_HW[1] // 2] = 250.0  # beyond max_disp 192
+    return batch
+
+
+def dp_step(dev, batch, accumulation, all_specs):
+    """One kernel train step of the seeded ``aanet`` preset on ``batch``
+    (this rank's share under a process group) under ``deterministic``:
+    its metrics, its kernel launches and its model."""
+    from aanet_torch.config import preset
+    from aanet_torch.train.optimizer import make_optimizer
+    from aanet_torch.train.trainer import make_train_step
+
+    cfg = preset("aanet")
+    with deterministic(), torch.enable_grad():
+        model = seeded_model(cfg, dev)
+        step = make_train_step(model, make_optimizer(model, 1e-3), cfg.max_disp,
+                               accumulation_steps=accumulation)
+        reset_launches(all_specs)
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        counts = launches(all_specs)
+    return metrics, counts, model
+
+
+def dp_rank(rank, init_file, batch_path, out_dir):
+    """A rank of phase 17 (spawned): rows ``rank::DP_WORLD`` of the global
+    batch, a step at each of ``DP_ACCUMULATIONS``; saves its losses,
+    launches, state and gradients."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE, 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=DP_WORLD)
+    try:
+        specs, bwd_specs = kernel_specs()
+        batch = {k: v[rank::DP_WORLD].to(dev) for k, v in torch.load(batch_path).items()}
+        out = {}
+        for a in DP_ACCUMULATIONS:
+            metrics, counts, model = dp_step(dev, batch, a, specs + bwd_specs)
+            out[a] = dict(loss=float(metrics["total_loss"]), launches=counts,
+                          state={k: v.cpu() for k, v in model.state_dict().items()},
+                          grads={n: p.grad.cpu() for n, p in model.named_parameters()})
+            del model
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def data_parallel_phase(all_specs, dev, smi):
+    """Phase 17: the ``aanet`` kernel train step at 288x576, float32, over
+    ``DP_WORLD`` gloo ranks on the card (global batch ``DP_BATCH``, half of
+    sample 1's disparities out of range) at each of ``DP_ACCUMULATIONS``,
+    against the single-process kernel step on the same global batch, both
+    sides under ``deterministic``: the ranks' parameters, BatchNorm
+    statistics and gradients equal bit for bit; against one process phase
+    7's limits (the loss within rtol 1e-5, all gradients together within
+    max(1e-3, 2x the one-process step's spread: its gradients' largest
+    change under ``NUDGES`` 1e-6 changes of the left images; a rank's batch
+    of 2 takes other kernel plans and cuDNN algorithms than the batch of
+    4), the statistics within 1e-4 relative to |value| + 1); each rank's
+    launches phase 8's per-step counts, times the accumulation."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    batch = dp_batch(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        batch_path = os.path.join(tmp, "batch.pt")
+        torch.save({k: v.cpu() for k, v in batch.items()}, batch_path)
+        ranks = mp.spawn(dp_rank, args=(os.path.join(tmp, "rendezvous"), batch_path, tmp),
+                         nprocs=DP_WORLD, join=False)
+        try:
+            # the single-process steps while the ranks start, and (phase 7's
+            # spread) their gradients' largest change under NUDGES 1e-6
+            # changes of the left images
+            reference, gen = {}, torch.Generator(device=dev).manual_seed(SEED)
+            for a in DP_ACCUMULATIONS:
+                metrics, _, model = dp_step(dev, batch, a, all_specs)
+                grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+                reference[a] = dict(loss=float(metrics["total_loss"]), grads=grads,
+                                    bufs={n: b.cpu() for n, b in model.named_buffers()
+                                          if b.is_floating_point()}, moved=[])
+                del model
+                for _ in range(NUDGES):
+                    nudged = dict(batch, left=relative_nudge(batch["left"], gen))
+                    _, _, model = dp_step(dev, nudged, a, all_specs)
+                    reference[a]["moved"].append(sum(
+                        float((p.grad.cpu() - grads[n]).square().sum())
+                        for n, p in model.named_parameters()))
+                    del model
+            while not ranks.join():
+                pass
+        finally:  # no rank outlives a failure
+            for proc in ranks.processes:
+                if proc.is_alive():
+                    proc.terminate()
+                    proc.join()
+        results = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(DP_WORLD)]
+    torch.cuda.empty_cache()
+    record, failures = {}, []
+    for a in DP_ACCUMULATIONS:
+        ref, first = reference[a], results[0][a]
+        same = all(torch.equal(v, r[a]["state"][k]) for r in results[1:]
+                   for k, v in first["state"].items())
+        same_grads = all(torch.equal(v, r[a]["grads"][k]) for r in results[1:]
+                         for k, v in first["grads"].items())
+        dk2 = sum(float((g - ref["grads"][n]).square().sum()) for n, g in first["grads"].items())
+        dp2 = sum(float(g.square().sum()) for g in ref["grads"].values())
+        stats = max(float(((first["state"][n] - b).abs() / (b.abs() + 1)).max())
+                    for n, b in ref["bufs"].items())
+        expected = {k: a * v for k, v in EXPECTED_TRAIN_LAUNCHES.items()}
+        spread = (max(ref["moved"]) / dp2) ** 0.5
+        rec = dict(accumulation=a, loss_ranks=[r[a]["loss"] for r in results],
+                   loss_one_process=ref["loss"], grad_rel_err=(dk2 / dp2) ** 0.5,
+                   grad_spread=spread, grad_limit=max(1e-3, 2 * spread),
+                   bn_stats_rel_err=stats, ranks_bitwise=same, grads_bitwise=same_grads,
+                   launches=[r[a]["launches"] for r in results])
+        record[a] = rec
+        for what, ok in (
+                ("ranks' parameters and statistics differ", same),
+                ("ranks' gradients differ", same_grads),
+                (f"loss {first['loss']} vs {ref['loss']}",
+                 abs(first["loss"] - ref["loss"]) <= 1e-5 * abs(ref["loss"])),
+                (f"all gradients {rec['grad_rel_err']} > {rec['grad_limit']}",
+                 rec["grad_rel_err"] <= rec["grad_limit"]),
+                (f"BatchNorm statistics {stats} > 1e-4", stats <= 1e-4),
+                (f"launches {rec['launches']}, expected {expected} each",
+                 all(c == expected for c in rec["launches"]))):
+            if not ok:
+                failures.append(f"accumulation {a}: {what}")
+    seconds = time.perf_counter() - t0
+    print(json.dumps({"data_parallel": dict(world=DP_WORLD, batch=DP_BATCH, hw=TRAIN_HW,
+                                            backend="gloo", card=smi, seconds=seconds,
+                                            steps=record)}), flush=True)
+    check(not failures, "data-parallel step: " + "; ".join(failures))
+    print(f"phase 17 took {seconds:.1f} s", flush=True)
+    return record
 
 
 def rebatch(sig, n):
@@ -2556,7 +2788,7 @@ def cli_train_and_resume(data, lists, name, batch):
     for one epoch at ``batch`` on phase 9's dataset, as a user runs it, then
     the same command with ``--resume`` and ``--max_epoch 2``: the second run
     restores epoch 1 and its step, takes the next epoch's steps from there,
-    and each run writes its epoch's periodic checkpoint."""
+    and each run writes its epoch's periodic checkpoint with its flax pair."""
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "run")
         cmd = [sys.executable, "-m", "aanet_torch.cli", "train", "--preset", name,
@@ -2583,7 +2815,8 @@ def cli_train_and_resume(data, lists, name, batch):
                             weights_only=True)
         saved = sorted(os.listdir(os.path.join(ckpt, "models")))
         check((latest["epoch"], latest["step"]) == (2, 2 * steps)
-              and saved == ["aanet_epoch_001.pt", "aanet_epoch_002.pt"],
+              and saved == [f"aanet_epoch_00{e}.{suffix}" for e in (1, 2)
+                            for suffix in ("json", "msgpack", "pt")],
               f"cli train and resume: latest at epoch {latest['epoch']} step {latest['step']}, "
               f"periodic {saved}")
     return dict(preset=name, batch=batch, seconds=runs, losses=losses, periodic=saved,
@@ -3715,7 +3948,11 @@ def main() -> int:
     print(f"phase 16 took {time.perf_counter() - t16:.1f} s", flush=True)
     elapsed("phase 16 done")
 
-    # 17. the record
+    # 17. data-parallel training: two gloo ranks on the card against one process
+    data_parallel_phase(specs + bwd_specs, dev, smi)
+    elapsed("phase 17 done")
+
+    # 18. the record
     kernels = kernels_record(specs + bwd_specs, report, counts_main, train,
                              {**baselines, **aa, **plus}, {**baseline_train, **aa_train, **plus_train})
     kernels += kernels_record(specs16 + bwd16, [], {}, None, served, trained16)

@@ -194,14 +194,14 @@ def test_preset_pyramid_matches_jax(name):
 
 @pytest.mark.parametrize("name", sorted(jax_config.RUN_RECIPES))
 def test_recipe_equals_jax_recipe(name):
-    """Every field of the port's recipe as the JAX package's, but the
-    pretrained weights' suffix (the port's stages hand on torch files) and
-    the TensorBoard summaries' frequency, which the port has no use for."""
+    """Every field of the port's recipe as the JAX package's, the
+    summaries' frequency included, but the pretrained weights' suffix (the
+    port's stages hand on torch files)."""
     got, want = dataclasses.asdict(config.recipe(name)), dataclasses.asdict(jax_config.recipe(name))
     assert sorted(config.RUN_RECIPES) == sorted(jax_config.RUN_RECIPES)
     if want["train"]["pretrained"]:
         want["train"]["pretrained"] = want["train"]["pretrained"].replace(".msgpack", ".pt")
-    assert want["train"].pop("summary_freq") == 100
+    assert got["train"]["summary_freq"] == want["train"]["summary_freq"] == 100
     got["train"]["milestones"] = tuple(got["train"]["milestones"])
     want["train"]["milestones"] = tuple(want["train"]["milestones"])
     assert got == want

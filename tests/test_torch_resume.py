@@ -1,6 +1,6 @@
 """The port's ``train`` entry point with the ``aanet+_sceneflow`` recipe on
 the CPU: ``--save_ckpt_freq`` writes ``models/aanet_epoch_NNN.pt`` (no
-optimizer), and a run stopped after its first epoch and continued with
+optimizer) with its flax pair (``.msgpack``, ``.json``), and a run stopped after its first epoch and continued with
 ``--resume`` from ``aanet_latest.pt`` takes the same second step as a run
 that never stopped: the same loss, learning rate and weights.
 
@@ -50,7 +50,9 @@ def test_periodic_checkpoints_and_resume_match_an_uninterrupted_run(tmp_path):
     whole, split = str(tmp_path / "whole"), str(tmp_path / "split")
     train(whole, 2)
     train(split, 1)
-    assert sorted(os.listdir(os.path.join(split, "models"))) == ["aanet_epoch_001.pt"]
+    # each torch file with the JAX package's flax pair beside it
+    assert sorted(os.listdir(os.path.join(split, "models"))) == [
+        "aanet_epoch_001.json", "aanet_epoch_001.msgpack", "aanet_epoch_001.pt"]
     train(split, 2, "--resume")
     with open(os.path.join(split, "trainLog.txt")) as f:
         assert "resumed from epoch 1, step 1" in f.read()
@@ -59,8 +61,9 @@ def test_periodic_checkpoints_and_resume_match_an_uninterrupted_run(tmp_path):
     assert records(split)[1]["total_loss"] == records(whole)[1]["total_loss"]
     for ckpt in (whole, split):
         saved = sorted(os.listdir(os.path.join(ckpt, "models")))
-        assert saved == ["aanet_epoch_001.pt", "aanet_epoch_002.pt"]
-        for name in saved:
+        assert saved == [f"aanet_epoch_00{e}.{suffix}" for e in (1, 2)
+                         for suffix in ("json", "msgpack", "pt")]
+        for name in saved[2::3]:
             assert "optimizer" not in torch.load(os.path.join(ckpt, "models", name),
                                                  weights_only=True)
     latest = [torch.load(os.path.join(ckpt, "aanet_latest.pt"), weights_only=True)
